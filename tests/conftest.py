@@ -44,6 +44,10 @@ def pytest_configure(config):
         "markers",
         "slow: excluded from tier-1 (`-m 'not slow'`) — heavier "
         "whole-model runs kept runnable on demand")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA Hopper GPU and nvcc (the port's hand-written "
+        "kernels); skips on hosts without one")
 
 
 @pytest.fixture(autouse=True)
