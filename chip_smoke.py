@@ -10,21 +10,48 @@ Phases (any failure exits non-zero and prints no result):
 
 1. device: the ``nvidia-smi`` name and power limit; compute capability
    must be (9, 0);
-2. build: every kernel of the serving path built by ``nvcc`` from the
-   sources in this checkout (one ``nvcc`` per source, all at once);
-3. kernel vs plain version: the paged-decode kernel against its plain
-   PyTorch version on the card, at the serving shape and a GQA shape;
-4. kernel times (calls captured in a CUDA graph, replayed between CUDA
-   events after warm-up; inputs rotated through enough copies to keep
-   the 50 MB L2 cold, as in a 12-layer decode step):
-   kernel, plain version, the bound of the bytes the live K/V rows need,
-   and ``scaled_dot_product_attention`` over gathered dense K/V as a
-   library yardstick (the port never calls it);
-5. serving: ``ServingEngine`` at GPT-2-small widths (12 layers, random
+2. build: every kernel of the serving and training paths built by
+   ``nvcc`` from the sources in this checkout (one ``nvcc`` per source,
+   all at once), with ``ptxas``'s register and spill lines;
+3. paged decode, kernel vs plain version: the paged-decode kernel against
+   its plain PyTorch version on the card, at the serving shape and a GQA
+   shape;
+4. paged decode, times (calls captured in a CUDA graph, replayed between
+   CUDA events after warm-up; inputs rotated through enough copies to
+   keep the 50 MB L2 cold, as in a 12-layer decode step): kernel, plain
+   version, the bound of the bytes the live K/V rows need, and
+   ``scaled_dot_product_attention`` over gathered dense K/V as a library
+   yardstick (the port never calls it);
+5. flash attention, kernels vs plain versions: the forward (out and lse)
+   and the fused and split backward kernels against the plain forward
+   and autograd of the dense plain version on the same CUDA tensors, at
+   the BERT-base shape (b 44, h 12, s 512, d 64, a padding bias) and a
+   long shape (b 2, h 12, s 2048, d 64, causal and not), with dropout 0
+   and 0.1 (the plain side takes ``flash_dropout_mask``'s mask); the
+   keep rate within 4 sigma of the binomial, and one seed giving the same
+   output bit for bit;
+6. flash attention, times at the two training configurations (padding
+   bias, dropout 0.1, not causal; the BERT shape and s=2048): the
+   kernels and plain versions by CUDA-graph replay, cold L2; the library
+   call between CUDA events, SDPA's forward, and its backward alone (the
+   forward run outside the timed region); against the bound
+   max(bytes / 3.35 TB/s, flops / 67 TFLOP/s);
+7. training: BERT-base (``google-bert/bert-base-uncased`` widths), f32,
+   batch 44 x seq 512 with padding, dropout 0.1, ``AdamOptimizer(1e-4)``
+   through ``jit_train_step``: 2 warm-up and 10 timed steps on one
+   batch; the loss must be finite and fall, and each of the 12 steps
+   must launch the forward and the fused backward kernel once per layer;
+   then 3 steps of the same widths at seq 2048 (2048 positions, batch 2),
+   whose backward must take the split dQ and dK/dV kernels;
+8. card vs CPU: 2 layers at full width, batch 2 x seq 128, dropout off,
+   the same weights; per-step losses of 3 Adam steps on the card
+   (kernels) and on the CPU (plain versions) within rtol 1e-4;
+9. serving: ``ServingEngine`` at GPT-2-small widths (12 layers, random
    weights from seed 0) serves 16 requests; every request must finish,
    the kernel's launch count must equal layers x decode steps, and two
    requests must match the full-recompute greedy reference;
-6. the last line: ``{"ok": true, "device": {...}}``.
+10. the ``kernels`` line, the card's name and power limit, and the last
+    line: ``{"ok": true, "device": {...}}``.
 
 The port is imported only after the device check, so run without the
 rest of the repository, or without a CUDA device, it fails.
@@ -41,6 +68,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # f32 kernel vs plain version: the same sums in another order
 KERNEL_ATOL = 1e-4
+# flash gradients: sums of up to 2048 f32 terms in another order than
+# autograd's, so relative to the gradient's size
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# the whole model on the card (kernels) vs on the CPU (plain versions):
+# per-step losses of f32 runs that differ in every summation order
+LOSS_RTOL = 1e-4
 # a served token may differ from the reference only where the
 # reference's top-2 logit margin is below this (f32 rounding of two
 # different compositions of the same model)
@@ -275,6 +308,370 @@ def serve(torch):
     return launches
 
 
+# ==========================================================================
+# flash attention: kernels vs plain versions, times
+# ==========================================================================
+FLASH_ROWS = (  # (kernel name, TPU kernel it replaces)
+    ("flash_fwd_f32", "paddle_tpu/ops/pallas_kernels.py:203"),
+    ("flash_bwd_fused_f32", "paddle_tpu/ops/pallas_kernels.py:449"),
+    ("flash_bwd_dq_f32", "paddle_tpu/ops/pallas_kernels.py:386"),
+    ("flash_bwd_dkv_f32", "paddle_tpu/ops/pallas_kernels.py:413"),
+)
+# the timing case the training path launches each kernel at: the backward
+# takes the fused kernel at seq 512 and the split pair at seq 2048
+MAIN_PATH_SHAPE = {"flash_fwd_f32": "bert", "flash_bwd_fused_f32": "bert",
+                   "flash_bwd_dq_f32": "long", "flash_bwd_dkv_f32": "long"}
+
+
+def flash_kernels():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {kf.name: kf for kf in (fa.FLASH_FWD, fa.FLASH_BWD_FUSED,
+                                   fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)}
+
+
+def make_flash_case(seed, b, h, s, d, with_bias):
+    """q, k, v, dO (b, h, s, d) and, with_bias, a padding bias from a 0/1
+    mask whose rows keep between half and all of their keys."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                   for _ in range(4))
+    bias = None
+    if with_bias:
+        keep = rng.randint(s // 2, s + 1, size=b)
+        mask = (np.arange(s)[None, :] < keep[:, None]).astype(np.float32)
+        bias = torch.from_numpy((1.0 - mask) * -10000.0).cuda()
+    return q, k, v, do, bias
+
+
+def attended_pairs(b, h, sq, sk, causal):
+    """(query, key) pairs the function needs: all, or those on and below
+    the diagonal when causal."""
+    if not causal:
+        return b * h * sq * sk
+    rows = np.minimum(np.arange(sq) + 1, sk)
+    return b * h * int(rows.sum())
+
+
+def flash_bound(name, case, causal):
+    """(bound_ms, bound_by): each input read once and each output written
+    once over HBM bandwidth, against the f32 flops the function needs
+    (per attended pair and head dim: forward 4, dQ 6 [S, dP, dS K],
+    dK/dV 8 [S, dP, dS^T Q, P^T dO], fused 10) over the f32 peak."""
+    q, k, _, _, bias = case
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qn, kn, rows = q.numel(), k.numel(), b * h * sq
+    bias_n = 0 if bias is None else bias.numel()
+    elems = {   # (elements read, elements written), f32
+        "flash_fwd_f32": (qn + 2 * kn + bias_n, qn + rows),
+        "flash_bwd_fused_f32": (2 * qn + 2 * kn + 2 * rows + bias_n,
+                                qn + 2 * kn),
+        "flash_bwd_dq_f32": (2 * qn + 2 * kn + 2 * rows + bias_n, qn),
+        "flash_bwd_dkv_f32": (2 * qn + 2 * kn + 2 * rows + bias_n, 2 * kn),
+    }[name]
+    per_pair = {"flash_fwd_f32": 4, "flash_bwd_fused_f32": 10,
+                "flash_bwd_dq_f32": 6, "flash_bwd_dkv_f32": 8}[name]
+    flops = per_pair * d * attended_pairs(b, h, sq, sk, causal)
+    t_bytes = 4 * sum(elems) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def grad_err(got, want):
+    """max |got - want|, after checking |got - want| <= atol + rtol|want|."""
+    diff = (got - want).abs()
+    if not bool((diff <= GRAD_ATOL + GRAD_RTOL * want.abs()).all()):
+        return None
+    return float(diff.max())
+
+
+def check_flash(name, case, causal, rate):
+    """The four kernels against the plain versions on one case; returns
+    {kernel: max abs error}."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, bias = case
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    seed = torch.tensor([20260], dtype=torch.int64, device="cuda")
+    keep = fa.flash_dropout_mask(b, h, s, s, rate, seed) if rate else None
+    out, lse = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+    want_out, want_lse = fa.flash_fwd_reference(q, k, v, bias, scale,
+                                                causal, rate, keep)
+    errs = {"flash_fwd_f32": float((out - want_out).abs().max())}
+    lse_err = float((lse - want_lse).abs().max())
+    if not torch.isfinite(out).all() or max(errs["flash_fwd_f32"],
+                                            lse_err) > KERNEL_ATOL:
+        fail(f"flash {name} rate {rate}: forward vs plain max |err| out "
+             f"{errs['flash_fwd_f32']:.3e} lse {lse_err:.3e} > "
+             f"{KERNEL_ATOL}")
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.attention_reference(qa, ka, va, bias, causal, scale, rate,
+                           keep=keep).backward(do)
+    want = (qa.grad, ka.grad, va.grad)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, bias, do, lse, delta, scale, causal, rate, seed)
+    got = {"flash_bwd_fused_f32": fa.bwd_fused(*args),
+           "flash_bwd_dq_f32": (fa.bwd_dq(*args),),
+           "flash_bwd_dkv_f32": fa.bwd_dkv(*args)}
+    torch.cuda.synchronize()
+    for kname, grads in got.items():
+        pairs = {"flash_bwd_fused_f32": zip(grads, want),
+                 "flash_bwd_dq_f32": zip(grads, want[:1]),
+                 "flash_bwd_dkv_f32": zip(grads, want[1:])}[kname]
+        es = [grad_err(g, w) for g, w in pairs]
+        if None in es:
+            fail(f"flash {name} rate {rate}: {kname} gradients outside "
+                 f"rtol {GRAD_RTOL} / atol {GRAD_ATOL} of autograd's")
+        errs[kname] = max(es)
+    if rate:
+        n = keep.numel()
+        kept = float(keep.sum(dtype=torch.float64))
+        sigma = (n * rate * (1 - rate)) ** 0.5
+        if abs(kept - n * (1 - rate)) > 4 * sigma:
+            fail(f"flash {name}: keep rate {kept / n:.6f} is more than 4 "
+                 f"sigma from {1 - rate}")
+        again, _ = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+        if not torch.equal(again, out):
+            fail(f"flash {name}: the same seed gave another output")
+    print("flash_check " + json.dumps({"case": name, "causal": causal,
+                                       "dropout": rate, "lse_err": lse_err,
+                                       **errs}), flush=True)
+    return errs
+
+
+def time_events(fn, args_sets, calls=10) -> float:
+    """Mean milliseconds per call between CUDA events (no graph), for a
+    library call that runs autograd or its own RNG."""
+    import torch
+
+    for args in args_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(*args_sets[i % len(args_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def time_flash(name, cases, causal, rate):
+    """ms, plain_ms, library_ms and the bound of every flash kernel on
+    ``cases`` (copies of one shape, rotated to keep the L2 cold)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q0, k0 = cases[0][0], cases[0][1]
+    b, h, s, d = q0.shape
+    scale = d ** -0.5
+    seed = torch.tensor([7], dtype=torch.int64, device="cuda")
+    sets = []
+    for q, k, v, do, bias in cases:
+        keep = fa.flash_dropout_mask(b, h, s, s, rate, seed) if rate else None
+        out, lse = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+        sets.append((q, k, v, do, bias, keep, out, lse, (do * out).sum(-1)))
+    kern = {
+        "flash_fwd_f32": lambda q, k, v, do, bias, keep, out, lse, delta:
+            fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed),
+        "flash_bwd_fused_f32": lambda q, k, v, do, bias, keep, out, lse,
+            delta: fa.bwd_fused(q, k, v, bias, do, lse, delta, scale,
+                                causal, rate, seed),
+        "flash_bwd_dq_f32": lambda q, k, v, do, bias, keep, out, lse, delta:
+            fa.bwd_dq(q, k, v, bias, do, lse, delta, scale, causal, rate,
+                      seed),
+        "flash_bwd_dkv_f32": lambda q, k, v, do, bias, keep, out, lse,
+            delta: fa.bwd_dkv(q, k, v, bias, do, lse, delta, scale, causal,
+                              rate, seed),
+    }
+
+    def plain_fwd(q, k, v, do, bias, keep, out, lse, delta):
+        return fa.flash_fwd_reference(q, k, v, bias, scale, causal, rate,
+                                      keep)
+
+    def plain_bwd(q, k, v, do, bias, keep, out, lse, delta):
+        return fa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
+                                      causal, rate, keep)
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=rate, is_causal=causal,
+            scale=scale)
+
+    def sdpa_args(q, k, v, do, bias, *_):
+        """q, k, v, the mask, and SDPA's output with its graph: the
+        forward runs here, outside the backward's timed region."""
+        mask = None if bias is None else bias[:, None, None, :]
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        return (*qkv, mask, sdpa(*qkv, mask), do)
+
+    def sdpa_bwd(q, k, v, mask, out, do):
+        return torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+
+    lib_sets = [sdpa_args(*st) for st in sets]
+    with torch.no_grad():
+        lib_fwd = time_events(lambda q, k, v, mask, *_: sdpa(q, k, v, mask),
+                              lib_sets)
+    lib_bwd = time_events(sdpa_bwd, lib_sets)
+    plain = {"fwd": time_ms(plain_fwd, sets, per_graph=5, replays=4),
+             "bwd": time_ms(plain_bwd, sets, per_graph=5, replays=4)}
+    rows = {}
+    for kname, fn in kern.items():
+        bound_ms, bound_by = flash_bound(kname, cases[0], causal)
+        fwd = kname == "flash_fwd_f32"
+        rows[kname] = {"shape": name, "b": b, "h": h, "s": s, "d": d,
+                       "causal": causal, "dropout": rate,
+                       "bias": cases[0][4] is not None,
+                       "ms": time_ms(fn, sets, per_graph=10, replays=5),
+                       "plain_ms": plain["fwd" if fwd else "bwd"],
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": lib_fwd if fwd else lib_bwd}
+        print(f"flash_time {kname} " + json.dumps(rows[kname]), flush=True)
+    return rows
+
+
+def flash_phase():
+    """Checks at both shapes, dropout 0 and 0.1, then times at the two
+    training configurations (padding bias, dropout 0.1, not causal): the
+    BERT shape, whose backward takes the fused kernel, and s=2048, whose
+    backward takes the split pair.  Returns ({kernel: max abs err},
+    {shape: {kernel: timing row}})."""
+    import torch
+
+    errs = {name: 0.0 for name, _ in FLASH_ROWS}
+    bert = make_flash_case(1, 44, 12, 512, 64, True)
+    long_bias = make_flash_case(2, 2, 12, 2048, 64, True)
+    long_causal = make_flash_case(3, 2, 12, 2048, 64, False)
+    for name, case, causal in (("bert", bert, False),
+                               ("long", long_bias, False),
+                               ("long_causal", long_causal, True)):
+        for rate in (0.0, 0.1):
+            for kname, e in check_flash(name, case, causal, rate).items():
+                errs[kname] = max(errs[kname], e)
+    torch.cuda.empty_cache()
+    times = {"bert": time_flash("bert", [bert, make_flash_case(
+                 4, 44, 12, 512, 64, True)], False, 0.1),
+             "long": time_flash("long", [long_bias] + [
+                 make_flash_case(5 + i, 2, 12, 2048, 64, True)
+                 for i in range(2)], False, 0.1)}
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+# ==========================================================================
+# training
+# ==========================================================================
+def reset_counts(kernels):
+    for kf in kernels.values():
+        kf.launches = 0
+
+
+def train_phase(torch):
+    """BERT-base pretraining at seq 512 (fused backward), then at seq
+    2048 (split backward); returns the flash kernels' launches over both
+    runs."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.tools.train_bert import train
+
+    kernels = flash_kernels()
+    layers = BertConfig().num_hidden_layers
+    warmup, steps = 2, 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    run = train(BertConfig(), batch=44, seq=512, steps=steps, lr=1e-4,
+                device="cuda", pad=True, warmup=warmup, log_every=1)
+    torch.cuda.synchronize()
+    base = {n: kf.launches for n, kf in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = run.pop("losses")
+    if not np.all(np.isfinite(losses)):
+        fail(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[warmup]:
+        fail(f"training loss did not fall from timed step 1 "
+             f"({losses[warmup]}) to step {steps} ({losses[-1]})")
+    n = layers * (warmup + steps)
+    if (base["flash_fwd_f32"] != n or base["flash_bwd_fused_f32"] != n
+            or base["flash_bwd_dq_f32"] or base["flash_bwd_dkv_f32"]):
+        fail(f"BERT-base training launches {base}: expected {n} forward "
+             f"and {n} fused backward (layers {layers} x steps "
+             f"{warmup + steps}), no split backward")
+    print("training " + json.dumps({
+        "model": "BERT-base f32", "batch": 44, "seq": 512,
+        "dropout": 0.1, "warmup_steps": warmup, "timed_steps": steps,
+        "losses": losses, "ms_per_step": run["ms_per_step"],
+        "tokens_per_s": run["tokens_per_s"],
+        "max_memory_allocated": peak, "launches": base}), flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    # the same widths at 2048 positions: the split backward kernels
+    reset_counts(kernels)
+    long_run = train(BertConfig(max_position_embeddings=2048), batch=2,
+                     seq=2048, steps=2, lr=1e-4, device="cuda", pad=True,
+                     warmup=1, log_every=1)
+    torch.cuda.synchronize()
+    longl = {n: kf.launches for n, kf in kernels.items()}
+    n = layers * 3
+    if not np.all(np.isfinite(long_run["losses"])) or (
+            longl["flash_fwd_f32"] != n or longl["flash_bwd_dq_f32"] != n
+            or longl["flash_bwd_dkv_f32"] != n
+            or longl["flash_bwd_fused_f32"]):
+        fail(f"seq-2048 training: losses {long_run['losses']}, launches "
+             f"{longl}: expected {n} forward, dQ and dK/dV, no fused")
+    print("training_long " + json.dumps({
+        "batch": 2, "seq": 2048, "losses": long_run["losses"],
+        "ms_per_step": long_run["ms_per_step"], "launches": longl}),
+        flush=True)
+    del long_run
+    torch.cuda.empty_cache()
+    return {n: base[n] + longl[n] for n in kernels}
+
+
+def card_vs_cpu(torch):
+    """The whole model, 2 layers at full width: the port on the card and
+    on the CPU from the same weights, 3 Adam steps."""
+    from paddle_tpu_torch.dygraph import jit_train_step, to_tensor
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamOptimizer
+    from paddle_tpu_torch.tools.train_bert import make_batch
+
+    cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    batch = make_batch(cfg, 2, 128, seed=3, pad=True)
+    cpu = BertForPretraining(cfg, device="cpu", seed=0)
+    card = BertForPretraining(cfg, device="cuda", seed=1)
+    card.set_dict(cpu.state_dict())
+    launched = flash_kernels()["flash_fwd_f32"].launches
+    losses = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = next(iter(model.parameters())).device
+        step = jit_train_step(model, AdamOptimizer(
+            1e-4, parameter_list=model.parameters()),
+            lambda m, i, l, a: m(i, l, attention_mask=a))
+        inputs = [to_tensor(x, dev) for x in batch]
+        losses[name] = [float(step(*inputs)) for _ in range(3)]
+    if flash_kernels()["flash_fwd_f32"].launches != launched + 2 * 3:
+        fail("card vs CPU: the card's run did not launch the flash kernels")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                                  losses["cuda"]))
+    print("card_vs_cpu " + json.dumps({**losses, "max_rel_diff": rel,
+                                       "rtol": LOSS_RTOL}), flush=True)
+    if not rel <= LOSS_RTOL:
+        fail(f"card vs CPU losses differ by {rel:.3e} > {LOSS_RTOL}")
+
+
 def main():
     import torch
 
@@ -299,18 +696,20 @@ def main():
         fail(f"compute capability {cap}, the kernels target sm_90a")
 
     from paddle_tpu_torch import kernel_build
-    from paddle_tpu_torch.ops.paged_attention import PAGED_DECODE
+    from paddle_tpu_torch.ops.flash_attention import FLASH
+    from paddle_tpu_torch.ops.paged_attention import PAGED_ATTENTION
 
     phase("build")
-    kernels = [PAGED_DECODE]
+    kernels = [PAGED_ATTENTION, FLASH]
     kernel_build.build_all(kernels)
     for k in kernels:
         print(f"built {k.source} in {k.build_seconds:.2f} s", flush=True)
         for ln in k.build_log.splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln:
+            if ("registers" in ln or "spill" in ln or "error" in ln
+                    or "Compiling entry" in ln):
                 print("  ptxas: " + ln.strip())
 
-    phase("kernel vs plain version, times")
+    phase("paged decode: kernel vs plain version, times")
     rng = np.random.RandomState(0)
     # the serving shape: GPT-2 small heads, 6 live sequences with ragged
     # lengths (page boundaries among them) and 2 bucket-padding rows
@@ -321,10 +720,19 @@ def main():
         "gqa", rng, hq=32, hkv=8, d=128, ps=16, n_pages=1024,
         ctx_lens=[1, 16, 33, 250, 512, 700, 1000, 1024])
 
+    phase("flash attention: kernels vs plain versions, times")
+    flash_errs, flash_times = flash_phase()
+
+    phase("training: BERT-base f32, then seq 2048")
+    flash_launches = train_phase(torch)
+
+    phase("training: card vs CPU, 2 layers at full width")
+    card_vs_cpu(torch)
+
     phase("serving")
     launches = serve(torch)
 
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "paged_decode_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:845",
@@ -332,7 +740,18 @@ def main():
         "max_abs_err": max(serving["max_abs_err"], gqa["max_abs_err"]),
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"]}]}))
+        "library_ms": serving["library_ms"]}]
+    for name, replaces in FLASH_ROWS:
+        # each kernel at the shape the training path launches it at
+        t = flash_times[MAIN_PATH_SHAPE[name]][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": flash_launches[name],
+            "max_abs_err": flash_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

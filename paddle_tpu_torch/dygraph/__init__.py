@@ -1,0 +1,6 @@
+"""Dygraph (imperative) mode of the port: layers as ``nn.Module``s, torch
+autograd for the tape, and the eager train step."""
+from .jit import jit_train_step, to_tensor  # noqa: F401
+from .layers import (Layer, LayerList, create_parameter,  # noqa: F401
+                     load_state_dict_numpy)
+from .nn import Dropout, Embedding, LayerNorm, Linear  # noqa: F401

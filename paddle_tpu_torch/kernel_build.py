@@ -20,8 +20,8 @@ import tempfile
 import time
 from typing import Dict, Iterable, List, Optional
 
-__all__ = ["CudaKernel", "build_all", "nvcc_path", "BUILD_DIR", "CSRC_DIR",
-           "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "KernelFunction", "build_all", "nvcc_path",
+           "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -54,13 +54,12 @@ class CudaKernel:
 
     ``functions`` maps each exported name to its ctypes ``argtypes``
     (``c_void_p`` for every pointer and the stream); every function
-    returns an ``int`` (the launch's ``cudaError_t``).  ``launches`` is
-    the plain launch count the wrappers bump after each launch."""
+    returns an ``int`` (the launch's ``cudaError_t``).  Wrappers launch
+    through a :class:`KernelFunction` of the library, which counts."""
 
     def __init__(self, source: str, functions: Dict[str, List]):
         self.source = source
         self.functions = dict(functions)
-        self.launches = 0
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib = None
@@ -119,6 +118,28 @@ class CudaKernel:
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+
+class KernelFunction:
+    """One ``__global__`` kernel of a :class:`CudaKernel` library: its C
+    entry point and its own launch count.  Calling it
+    loads the library, runs the entry point, raises if the launch's
+    ``cudaError_t`` is not 0, and only then adds one to ``launches``."""
+
+    def __init__(self, library: CudaKernel, symbol: str, name: str):
+        if symbol not in library.functions:
+            raise ValueError(f"{library.source} exports no {symbol}")
+        self.library = library
+        self.symbol = symbol
+        self.name = name
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        err = getattr(self.library.load(), self.symbol)(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: kernel launch failed with "
+                               f"cudaError_t {err}")
+        self.launches += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

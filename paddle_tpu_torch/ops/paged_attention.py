@@ -24,21 +24,24 @@ import ctypes
 
 import torch
 
-from ..kernel_build import CudaKernel
+from ..kernel_build import CudaKernel, KernelFunction
 
 __all__ = ["DEFAULT_MASK_VALUE", "gqa_group", "paged_attention_reference",
-           "paged_decode", "paged_attention", "PAGED_DECODE"]
+           "paged_decode", "paged_attention", "PAGED_ATTENTION",
+           "PAGED_DECODE"]
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: the hand-written Hopper kernel (csrc/paged_attention.cu); its
-#: ``launches`` counts every launch made by :func:`paged_decode`
-PAGED_DECODE = CudaKernel("paged_attention.cu", {
+#: the hand-written Hopper kernel's library (csrc/paged_attention.cu)
+PAGED_ATTENTION = CudaKernel("paged_attention.cu", {
     "paddle_paged_decode_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, ctypes.c_float, _P],
 })
+#: its kernel; ``launches`` counts every launch made by :func:`paged_decode`
+PAGED_DECODE = KernelFunction(PAGED_ATTENTION, "paddle_paged_decode_f32",
+                              "paged_decode_f32")
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 8
 
@@ -122,18 +125,13 @@ def paged_decode(q, k_pages, v_pages, block_tables, context_lens, scale):
         raise ValueError("paged_decode: no sequences or an empty block "
                          "table")
     out = torch.empty_like(q)
-    lib = PAGED_DECODE.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.paddle_paged_decode_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(),
-            out.data_ptr(), n_seqs, n_heads, n_kv, n_pages, page_size,
-            block_tables.shape[1], d, float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode: kernel launch failed with "
-                           f"cudaError_t {err}")
-    PAGED_DECODE.launches += 1
+        PAGED_DECODE(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     block_tables.data_ptr(), context_lens.data_ptr(),
+                     out.data_ptr(), n_seqs, n_heads, n_kv, n_pages,
+                     page_size, block_tables.shape[1], d, float(scale),
+                     stream)
     return out
 
 

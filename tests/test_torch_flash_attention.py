@@ -1,0 +1,232 @@
+"""PyTorch port, flash attention: ``paddle_tpu_torch.ops.flash_attention``
+and ``fused_ops`` on the CPU against the JAX package on the same numpy
+inputs.
+
+* the port's flash front (its plain forward and plain backward from
+  lse) == JAX ``flash_attention`` running the Pallas kernels in interpret
+  mode, out and q/k/v gradients, causal x bias, single block (s=128) and
+  multi-block (s=256 with ``PT_FLASH_BLOCK=128``); the padding bias gets
+  a zero gradient on both sides;
+* ``fused_multihead_attention`` == JAX ``_mha_forward`` for a padding
+  bias, no bias and a full-matrix bias (which is differentiated);
+* dropout on the CPU: the plain version with an explicit keep mask ==
+  a hand-written masked composition, bit for bit; the flash front's
+  seeded mask is the one ``seeded_keep`` gives, in the forward and the
+  backward; the keep rate is within binomial bounds;
+* dispatch: CPU tensors never launch a kernel, the kernels' wrappers
+  refuse CPU tensors.
+
+Tolerances: forward rtol 1e-4 / atol 1e-5 and gradients rtol 1e-3 /
+atol 1e-5 (f32, the same sums in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops import fused_ops as jfo
+from paddle_tpu.ops.pallas_kernels import flash_attention as jflash
+from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops.fused_ops import fused_multihead_attention
+
+FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def _rand_qkv(b=2, h=3, s=128, d=32, seed=0):
+    rng = np.random.RandomState(seed)
+    mk = lambda: rng.randn(b, h, s, d).astype(np.float32)  # noqa: E731
+    bias = np.where(rng.rand(b, s) > 0.25, 0.0, -10000.0).astype(np.float32)
+    return mk(), mk(), mk(), bias
+
+
+@pytest.fixture
+def interpret_kernel(monkeypatch):
+    monkeypatch.setenv("PT_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PT_FLASH_ATTENTION", "1")
+
+
+def _blocks(monkeypatch, s):
+    if s > 128:      # several kv blocks: JAX's online-softmax kernels
+        monkeypatch.setenv("PT_FLASH_BLOCK", "128")
+
+
+def _t(a, grad=False):
+    return torch.tensor(a, requires_grad=grad)
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_forward_matches_jax_kernel(interpret_kernel, monkeypatch, s,
+                                          causal, with_bias):
+    _blocks(monkeypatch, s)
+    q, k, v, bias = _rand_qkv(s=s, seed=s)
+    bias4 = bias[:, None, None, :] if with_bias else None
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  bias=None if bias4 is None else jnp.asarray(bias4),
+                  causal=causal)
+    got = tfa.flash_attention(_t(q), _t(k), _t(v),
+                              bias=None if bias4 is None else _t(bias4),
+                              causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_grads_match_jax_kernel(interpret_kernel, monkeypatch, s,
+                                      causal, with_bias):
+    _blocks(monkeypatch, s)
+    q, k, v, bias = _rand_qkv(s=s, seed=3 + s)
+    ct = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+    b = bias if with_bias else None
+
+    def jloss(q_, k_, v_, b_):
+        return jnp.sum(jflash(q_, k_, v_, bias=b_, causal=causal) * ct)
+
+    jargs = [jnp.asarray(a) for a in (q, k, v)] + [
+        None if b is None else jnp.asarray(b)]
+    argnums = (0, 1, 2, 3) if with_bias else (0, 1, 2)
+    want = jax.grad(jloss, argnums=argnums)(*jargs)
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    tb = None if b is None else _t(b, True)
+    (tfa.flash_attention(tq, tk, tv, bias=tb, causal=causal)
+     * _t(ct)).sum().backward()
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=name)
+    if with_bias:   # the padding bias is a constant on both sides
+        assert float(np.abs(np.asarray(want[3])).max()) == 0.0
+        assert float(tb.grad.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "padding", "matrix"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_mha_matches_jax(interpret_kernel, bias_kind, causal):
+    q, k, v, pad = _rand_qkv(b=2, h=2, s=128, d=32, seed=11)
+    rng = np.random.RandomState(12)
+    bias = {"none": None, "padding": pad[:, None, :],
+            "matrix": (0.5 * rng.randn(2, 1, 128, 128)).astype(np.float32)
+            }[bias_kind]
+    ct = rng.randn(*q.shape).astype(np.float32)
+    scale = 0.2
+
+    def jloss(q_, k_, v_, b_):
+        out = jfo._mha_forward(q_, k_, v_, b_, scale, causal, 0.0, None)
+        return jnp.sum(out * ct), out
+
+    jargs = [jnp.asarray(a) for a in (q, k, v)] + [
+        None if bias is None else jnp.asarray(bias)]
+    argnums = (0, 1, 2) if bias is None else (0, 1, 2, 3)
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=argnums,
+                                       has_aux=True)(*jargs)
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    tb = None if bias is None else _t(bias, True)
+    out = fused_multihead_attention(tq, tk, tv, bias_qk=tb, scale=scale,
+                                    causal=causal)
+    (out * _t(ct)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    grads = [tq.grad, tk.grad, tv.grad] + ([] if tb is None else [tb.grad])
+    for got, w in zip(grads, jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [64, 200])
+def test_plain_kernels_match_autograd_of_reference(causal, s):
+    """The plain forward and the plain backward from lse (what the CPU
+    path runs, and what the CUDA kernels are held to) == autograd of the
+    dense ``attention_reference``, ragged length included."""
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=s, d=32, seed=s)
+    do = torch.tensor(np.random.RandomState(1).randn(*q.shape),
+                      dtype=torch.float32)
+    tq, tk, tv, tb = _t(q), _t(k), _t(v), _t(bias)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, tb, 0.3, causal)
+    dq, dk, dv = tfa.flash_bwd_reference(tq, tk, tv, tb, out, lse, do, 0.3,
+                                         causal)
+    aq, ak, av = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    ref = tfa.attention_reference(aq, ak, av, tb, causal, 0.3)
+    ref.backward(do)
+    torch.testing.assert_close(out, ref.detach(), **FWD_TOL)
+    for got, want in ((dq, aq.grad), (dk, ak.grad), (dv, av.grad)):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+
+
+def test_dropout_with_keep_mask_is_the_masked_composition():
+    q, k, v, bias = (_t(a) for a in _rand_qkv(b=2, h=2, s=64, d=32, seed=4))
+    rate, scale = 0.25, 0.17
+    keep = torch.rand(2, 2, 64, 64, generator=torch.Generator().manual_seed(
+        5)) >= rate
+    got = tfa.attention_reference(q, k, v, bias, False, scale, rate,
+                                  keep=keep)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + bias[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(keep, p, torch.zeros_like(p)) * (1.0 / (1.0 - rate))
+    want = torch.einsum("bhqk,bhkd->bhqd", p, v)
+    assert torch.equal(got, want)
+
+
+def test_flash_front_dropout_uses_the_seeded_mask():
+    """On the CPU the flash front draws its mask from ``seeded_keep`` of
+    the seed, in the forward and again in the backward: its output and
+    gradients are autograd's of the dense reference with that mask."""
+    q, k, v, bias = _rand_qkv(b=2, h=2, s=96, d=32, seed=6)
+    rate = 0.1
+    seed = torch.tensor([12345], dtype=torch.int64)
+    do = torch.tensor(np.random.RandomState(2).randn(*q.shape),
+                      dtype=torch.float32)
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    out = tfa.flash_attention(tq, tk, tv, bias=_t(bias), dropout_rate=rate,
+                              dropout_seed=seed)
+    out.backward(do)
+    keep = tfa.seeded_keep((2, 2, 96, 96), rate, seed, "cpu")
+    aq, ak, av = _t(q, True), _t(k, True), _t(v, True)
+    ref = tfa.attention_reference(aq, ak, av, _t(bias), False, 32 ** -0.5,
+                                  rate, keep=keep)
+    ref.backward(do)
+    torch.testing.assert_close(out.detach(), ref.detach(), **FWD_TOL)
+    for got, want in ((tq.grad, aq.grad), (tk.grad, ak.grad),
+                      (tv.grad, av.grad)):
+        torch.testing.assert_close(got, want, **GRAD_TOL)
+    again = tfa.flash_attention(_t(q), _t(k), _t(v), bias=_t(bias),
+                                dropout_rate=rate, dropout_seed=seed)
+    assert torch.equal(again, out.detach())
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_seeded_keep_rate_within_binomial_bounds(rate):
+    keep = tfa.seeded_keep((4, 4, 128, 128), rate, 7, "cpu")
+    n = keep.numel()
+    sigma = (n * rate * (1 - rate)) ** 0.5
+    assert abs(float(keep.sum()) - n * (1 - rate)) <= 4 * sigma
+
+
+def test_fused_mha_dropout_draws_from_the_generator():
+    q, k, v, bias = (_t(a) for a in _rand_qkv(b=1, h=2, s=64, d=32, seed=8))
+    outs = [fused_multihead_attention(
+        q, k, v, bias_qk=bias, dropout_rate=0.2,
+        generator=torch.Generator().manual_seed(s)) for s in (1, 1, 2)]
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+
+
+def test_cpu_path_launches_no_kernel_and_wrappers_refuse_cpu():
+    q, k, v, bias = (_t(a, True) for a in _rand_qkv(b=1, h=1, s=64, d=32))
+    kernels = (tfa.FLASH_FWD, tfa.FLASH_BWD_FUSED, tfa.FLASH_BWD_DQ,
+               tfa.FLASH_BWD_DKV, tfa.FLASH_DROPOUT_MASK)
+    before = [kf.launches for kf in kernels]
+    tfa.flash_attention(q, k, v, bias=bias).sum().backward()
+    assert [kf.launches for kf in kernels] == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd(q.detach(), k.detach(), v.detach(), None, 0.1, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd(*(t.detach() for t in (q, k, v)), None, q.detach(),
+                      q.detach()[..., 0], q.detach(), 0.1, False)
+    with pytest.raises(ValueError, match="unsupported attention bias"):
+        tfa.flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 64))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        tfa.flash_attention(q, k, v, dropout_rate=0.1)
