@@ -50,7 +50,30 @@ Phases (any failure exits non-zero and prints no result):
    weights from seed 0) serves 16 requests; every request must finish,
    the kernel's launch count must equal layers x decode steps, and two
    requests must match the full-recompute greedy reference;
-10. the ``kernels`` line, the card's name and power limit, and the last
+10. conv epilogue, kernels vs plain versions, times: ``bn_act_apply_f32``
+    (every act, with and without the residual) and ``bn_act_bwd_f32``
+    (relu and none, with and without g) against their plain versions at
+    the ResNet-50 path's two largest shapes, a ragged shape in both
+    layouts and a channels-last (M, C) case: bit for bit for "" and relu
+    and the backward, within 1e-6 for sigmoid, tanh and gelu; then each
+    kernel held to its plain version (relu, bit for bit) at each of the
+    49 shapes one training step gives it, and both timed over those 49
+    calls (CUDA-graph replay, every call on its own tensors, so the L2 is
+    cold), against the byte bound of those calls;
+11. ResNet-50 static training: ``examples/train_resnet_static.py``'s
+    configuration (vB bottlenecks [3, 4, 6, 3], 224x224, 1000 classes,
+    batch 128, Momentum 0.9, weights from the startup program, one batch
+    from numpy seed 0) in float32, at a tenth of the example's rate
+    (``MomentumOptimizer(0.01, 0.9)``; at 0.1 momentum on one repeated
+    batch overshoots after two steps and where the twelfth step lands
+    varies run to run), through ``fluid`` and ``Executor(CUDAPlace(0))``
+    with the fusion flag at auto: 2 warm-up and 10 timed steps; every
+    loss finite, the last below the first, each epilogue kernel launched
+    exactly 49 times per step, every scope tensor on the card;
+12. ResNet card vs CPU: ResNet-50 at batch 4, 32x32, 100 classes from
+    one startup scope on the card and on the CPU: step-1 losses within
+    1e-4 relative, later steps finite;
+13. the ``kernels`` line, the card's name and power limit, and the last
     line: ``{"ok": true, "device": {...}}``.
 
 The port is imported only after the device check, so run without the
@@ -74,6 +97,18 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 # the whole model on the card (kernels) vs on the CPU (plain versions):
 # per-step losses of f32 runs that differ in every summation order
 LOSS_RTOL = 1e-4
+# the ResNet-50 step-1 loss on the card vs on the CPU (cuDNN vs oneDNN
+# convolutions, each f32; __graft_entry__.py:199-203)
+RESNET_STEP1_RTOL = 1e-4
+# ResNet-50's learning rate on its one repeated batch: the example's 0.1
+# with momentum 0.9 overshoots after two steps and swings back over about
+# ten, so whether step 12 ends below step 1 varies run to run; at 0.01 the
+# loss falls from 7.13 to about 4.8 in every run, near the entropy of the
+# batch's label counts (the net has learnt which labels occur)
+RESNET_LR = 0.01
+# bn_act kernels with sigmoid / tanh / gelu vs the plain versions (the
+# same formula through libdevice and through PyTorch's kernels)
+EPILOGUE_TOL = 1e-6
 # a served token may differ from the reference only where the
 # reference's top-2 logit margin is below this (f32 rounding of two
 # different compositions of the same model)
@@ -316,6 +351,10 @@ FLASH_ROWS = (  # (kernel name, TPU kernel it replaces)
     ("flash_bwd_fused_f32", "paddle_tpu/ops/pallas_kernels.py:449"),
     ("flash_bwd_dq_f32", "paddle_tpu/ops/pallas_kernels.py:386"),
     ("flash_bwd_dkv_f32", "paddle_tpu/ops/pallas_kernels.py:413"),
+)
+EPILOGUE_ROWS = (  # (kernel name, TPU kernel it replaces)
+    ("bn_act_apply_f32", "paddle_tpu/ops/pallas_kernels.py:1039"),
+    ("bn_act_bwd_f32", "paddle_tpu/ops/pallas_kernels.py:1131"),
 )
 # the timing case the training path launches each kernel at: the backward
 # takes the fused kernel at seq 512 and the split pair at seq 2048
@@ -672,6 +711,264 @@ def card_vs_cpu(torch):
         fail(f"card vs CPU losses differ by {rel:.3e} > {LOSS_RTOL}")
 
 
+# ==========================================================================
+# the conv epilogue kernels, and ResNet-50 static training
+# ==========================================================================
+def resnet50_epilogue_shapes():
+    """[(conv-output shape, has z)] of the 49 fused_conv_bn_act ops of the
+    ResNet-50 training program at batch 128, 224x224, in program order."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.tools.train_resnet import build_program
+    from paddle_tpu_torch.utils import flags
+
+    prev = flags.get_flag("FLAGS_cuda_fuse")
+    flags.set_flags({"FLAGS_cuda_fuse": "1"})
+    try:
+        main, _, loss, acc1 = build_program(50, 224, 1000)
+        rew = fluid.Executor("cpu")._apply_ir_passes(main, [loss.name,
+                                                            acc1.name])
+    finally:
+        flags.set_flags({"FLAGS_cuda_fuse": prev})
+    blk = rew.global_block()
+    return [(tuple(128 if d == -1 else d
+                   for d in blk.var(op.output("ConvOut")[0]).shape),
+             bool(op.input("Z")))
+            for op in blk.ops if op.type == "fused_conv_bn_act"]
+
+
+def epilogue_inputs(shape, with_z, seed, c_axis=1):
+    """x (and z) of ``shape`` and four per-channel vectors on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[c_axis]
+    x = torch.randn(shape, device="cuda", generator=gen)
+    z = torch.randn(shape, device="cuda", generator=gen) if with_z else None
+    vecs = [torch.randn(c, device="cuda", generator=gen) for _ in range(4)]
+    return x, z, vecs
+
+
+def epilogue_bytes(shape, with_z, bwd):
+    """Bytes each call must move: every input read once, every output
+    written once (f32): forward x (and z) in, y out; backward y, dy, x in,
+    dx (and g) out; plus the per-channel vectors."""
+    n = int(np.prod(shape))
+    c = shape[1]
+    if bwd:
+        return 4 * (n * (4 + with_z) + 4 * c)
+    return 4 * (n * (2 + with_z) + 2 * c)
+
+
+def check_epilogue():
+    """Kernels 7 and 8 against their plain versions; {kernel: max err}."""
+    import torch
+
+    from paddle_tpu_torch.ops import bn_act as ba
+
+    cases = [("path-112x112", (128, 64, 112, 112), 1, False),
+             ("path-56x56-z", (128, 256, 56, 56), 1, True),
+             ("ragged-nchw", (3, 37, 13, 11), 1, True),
+             ("ragged-nhwc", (3, 13, 11, 37), 3, True),
+             ("channels-last-mc", (4096, 64), 1, True)]
+    errs = {"bn_act_apply_f32": 0.0, "bn_act_bwd_f32": 0.0}
+    for name, shape, c_axis, with_z in cases:
+        x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, 11, c_axis)
+        row = {"case": name, "shape": list(shape), "c_axis": c_axis}
+        for act in ba.ACTS:
+            for zz in ((None, z) if with_z else (None,)):
+                got = ba.bn_act_apply(x, a, b, zz, act, c_axis)
+                want = ba.bn_act_apply_reference(x, a, b, zz, act, c_axis)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                exact = act in ("", "relu")
+                if (exact and not torch.equal(got, want)) or err > \
+                        EPILOGUE_TOL * (1 + float(want.abs().max())):
+                    fail(f"bn_act_apply_f32 {name} act {act!r} z "
+                         f"{zz is not None}: max |err| {err:.3e}")
+                row[f"fwd {act or 'none'}{' z' if zz is not None else ''}"] \
+                    = err
+                errs["bn_act_apply_f32"] = max(errs["bn_act_apply_f32"], err)
+            del got, want
+        y = torch.relu(x)
+        for act in ("", "relu"):
+            for want_g in (False, True):
+                dx, g = ba.bn_act_bwd_apply(y, z if z is not None else x, x,
+                                            a, mean, cx, b, act, c_axis,
+                                            want_g)
+                rdx, rg = ba.bn_act_bwd_reference(
+                    y, z if z is not None else x, x, a, mean, cx, b, act,
+                    c_axis, want_g)
+                torch.cuda.synchronize()
+                if not torch.equal(dx, rdx) or (want_g and
+                                                 not torch.equal(g, rg)):
+                    fail(f"bn_act_bwd_f32 {name} act {act!r} want_g "
+                         f"{want_g}: not equal to the plain version "
+                         f"(max |err| {float((dx - rdx).abs().max()):.3e})")
+                row[f"bwd {act or 'none'}{' g' if want_g else ''}"] = 0.0
+                del dx, g, rdx, rg
+        print("epilogue_check " + json.dumps(row), flush=True)
+        del x, z, y
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_epilogue():
+    """Each kernel against its plain version (bit for bit, relu) at
+    every one of the 49 shapes one ResNet-50 training step gives it, then
+    both timed over those 49 calls (every call on its own tensors) by
+    CUDA-graph replay; with the byte bound of those calls and the two
+    largest shapes' own rows.  Returns {kernel: row}."""
+    import torch
+
+    from paddle_tpu_torch.ops import bn_act as ba
+
+    shapes = resnet50_epilogue_shapes()
+    if len(shapes) != 49:
+        fail(f"the ResNet-50 program has {len(shapes)} fused conv chains, "
+             f"expected 49")
+    fwd_sets, bwd_sets = [], []
+    for i, (shape, with_z) in enumerate(shapes):
+        x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, 100 + i)
+        fwd_sets.append((x, a, b, z))
+        y = torch.relu(x)
+        bwd_sets.append((y, torch.randn_like(x), x, a, mean, cx, b,
+                         with_z))
+    rows = {}
+    for name, sets, kern, plain, bwd in (
+            ("bn_act_apply_f32", fwd_sets,
+             lambda x, a, b, z: ba.bn_act_apply(x, a, b, z, "relu"),
+             lambda x, a, b, z: ba.bn_act_apply_reference(x, a, b, z,
+                                                          "relu"), False),
+            ("bn_act_bwd_f32", bwd_sets,
+             lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_apply(
+                 y, dy, x, cg, m, cx, c0, "relu", 1, wg),
+             lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_reference(
+                 y, dy, x, cg, m, cx, c0, "relu", 1, wg), True)):
+        for (shape, _), args in zip(shapes, sets):   # every path shape
+            got, want = kern(*args), plain(*args)
+            if bwd:
+                same = torch.equal(got[0], want[0]) and (
+                    got[1] is None or torch.equal(got[1], want[1]))
+            else:
+                same = torch.equal(got, want)
+            if not same:
+                fail(f"{name} differs from its plain version at {shape}")
+            del got, want
+        nbytes = sum(epilogue_bytes(s, z, bwd) for s, z in shapes)
+        step_ms = time_ms(kern, sets, per_graph=49, replays=5) * 49
+        plain_ms = time_ms(plain, sets, per_graph=49, replays=2) * 49
+        largest = {}
+        for shape, with_z in {(s, z) for s, z in shapes
+                              if s[1] * s[2] * s[3] == 64 * 112 * 112
+                              or s[1] * s[2] * s[3] == 256 * 56 * 56}:
+            idx = [i for i, (s, z) in enumerate(shapes)
+                   if (s, z) == (shape, with_z)]
+            one = [sets[i] for i in idx]
+            largest[f"{list(shape)}{' z' if with_z else ''}"] = {
+                "calls_per_step": len(idx),
+                "ms": time_ms(kern, one, per_graph=max(len(one), 4),
+                              replays=5),
+                "bound_ms": epilogue_bytes(shape, with_z, bwd)
+                / HBM_BYTES_PER_S * 1e3}
+        rows[name] = {"calls": len(shapes), "ms": step_ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "bytes": nbytes,
+                      "library_ms": None, "largest_shapes": largest}
+        print(f"epilogue_time {name} " + json.dumps(rows[name]), flush=True)
+    del fwd_sets, bwd_sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def resnet_phase(torch):
+    """ResNet-50 training at the example's configuration; returns the
+    epilogue kernels' launches in the run."""
+    from paddle_tpu_torch.ops import bn_act as ba
+    from paddle_tpu_torch.tools.train_resnet import train
+
+    kernels = {"bn_act_apply_f32": ba.BN_ACT_APPLY,
+               "bn_act_bwd_f32": ba.BN_ACT_BWD}
+    warmup, steps, batch = 2, 10, 128
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    run = train(depth=50, batch=batch, image=224, classes=1000, steps=steps,
+                lr=RESNET_LR, device="cuda", warmup=warmup, log_every=1)
+    torch.cuda.synchronize()
+    launches = {n: kf.launches for n, kf in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    if not np.all(np.isfinite(losses)):
+        fail(f"ResNet-50 losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"ResNet-50 loss did not fall: {losses}")
+    n = 49 * (warmup + steps)
+    if launches != {"bn_act_apply_f32": n, "bn_act_bwd_f32": n}:
+        fail(f"ResNet-50 epilogue launches {launches}: expected {n} each "
+             f"(49 chains x {warmup + steps} steps)")
+    off = [name for name, t in run["scope"].items()
+           if not (isinstance(t, torch.Tensor) and t.device.type == "cuda")]
+    if off:
+        fail(f"scope vars not on the card: {off[:5]}")
+    print("resnet_training " + json.dumps({
+        "model": "ResNet-50 f32", "batch": batch, "image": 224,
+        "classes": 1000, "lr": RESNET_LR, "momentum": 0.9,
+        "warmup_steps": warmup, "timed_steps": steps,
+        "losses": losses, "acc1": run["acc1"],
+        "ms_per_step": run["ms_per_step"],
+        "images_per_s": run["images_per_s"],
+        "max_memory_allocated": peak,
+        "launches_per_step": {k: v / (warmup + steps)
+                              for k, v in launches.items()},
+        "scope_tensors_on_card": len(list(run["scope"].items()))}),
+        flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_card_vs_cpu(torch):
+    """ResNet-50 at the oracle size (batch 4, 32x32, 100 classes) from one
+    startup scope, 3 steps on the card (kernels) and on the CPU (plain
+    versions)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.ops import bn_act as ba
+    from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
+
+    main, startup, loss, _ = build_program(50, 32, 100, 0.01)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    start = Scope()
+    cpu_exe.run(startup, scope=start)
+    names = [n for n, _ in start.items()]
+    state = numpy_state(start, names)
+    img, label = make_batch(4, 32, 100)
+    losses = {}
+    launched = ba.BN_ACT_APPLY.launches
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = [float(exe.run(main, feed={"img": img, "label": label},
+                                     fetch_list=[loss], scope=scope)[0])
+                       for _ in range(3)]
+    if ba.BN_ACT_APPLY.launches != launched + 49 * 3:
+        fail("ResNet card vs CPU: the card's run did not launch the "
+             "epilogue kernels")
+    rel = abs(losses["cpu"][0] - losses["cuda"][0]) / abs(losses["cpu"][0])
+    print("resnet_card_vs_cpu " + json.dumps({
+        **losses, "step1_rel_diff": rel, "rtol": RESNET_STEP1_RTOL}),
+        flush=True)
+    if not np.all(np.isfinite(losses["cuda"])):
+        fail(f"ResNet card vs CPU: card losses not finite {losses}")
+    if not rel <= RESNET_STEP1_RTOL:
+        fail(f"ResNet card vs CPU step-1 losses differ by {rel:.3e} > "
+             f"{RESNET_STEP1_RTOL}")
+
+
 def main():
     import torch
 
@@ -696,11 +993,12 @@ def main():
         fail(f"compute capability {cap}, the kernels target sm_90a")
 
     from paddle_tpu_torch import kernel_build
+    from paddle_tpu_torch.ops.bn_act import BN_ACT
     from paddle_tpu_torch.ops.flash_attention import FLASH
     from paddle_tpu_torch.ops.paged_attention import PAGED_ATTENTION
 
     phase("build")
-    kernels = [PAGED_ATTENTION, FLASH]
+    kernels = [PAGED_ATTENTION, FLASH, BN_ACT]
     kernel_build.build_all(kernels)
     for k in kernels:
         print(f"built {k.source} in {k.build_seconds:.2f} s", flush=True)
@@ -732,6 +1030,16 @@ def main():
     phase("serving")
     launches = serve(torch)
 
+    phase("conv epilogue: kernels vs plain versions, times")
+    epi_errs = check_epilogue()
+    epi_times = time_epilogue()
+
+    phase("training: ResNet-50 static, f32, batch 128, 224x224")
+    epi_launches = resnet_phase(torch)
+
+    phase("training: ResNet-50 card vs CPU, batch 4, 32x32")
+    resnet_card_vs_cpu(torch)
+
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -751,6 +1059,15 @@ def main():
             "max_abs_err": flash_errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for name, replaces in EPILOGUE_ROWS:
+        t = epi_times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/bn_act.cu",
+            "replaces": replaces, "launches": epi_launches[name],
+            "max_abs_err": epi_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

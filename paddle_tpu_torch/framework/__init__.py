@@ -1,1 +1,2 @@
-"""Framework pieces of the port (device placement)."""
+"""Framework pieces of the port: the Program IR, scope, places, dtypes,
+unique names and the rewrite passes."""

@@ -1,30 +1,49 @@
 """Parameter initializers (counterpart of ``paddle_tpu/initializer.py``).
 
-Each initializer fills a tensor in place, drawing from an explicit
-``torch.Generator`` on the tensor's device (or, when the initializer was
-given a nonzero ``seed``, from a generator of its own seeded with it, as
-the JAX lowerings key their draw by a nonzero ``seed`` attr).  The values
-are not JAX's: the two packages' random streams differ, so parity tests
-carry weights across instead.
+Two forms, as in the JAX package:
+
+* dygraph: ``init(tensor, generator)`` fills a tensor in place, drawing
+  from an explicit ``torch.Generator`` on the tensor's device (or, when
+  the initializer was given a nonzero ``seed``, from a generator of its
+  own seeded with it, as the JAX lowerings key their draw by a nonzero
+  ``seed`` attr);
+* static: ``init(var, block)`` appends the init op (``fill_constant``,
+  ``uniform_random``, ``gaussian_random``) for a ``Variable`` to a
+  startup block, with the JAX package's attrs, so the startup programs
+  of the two packages are equal.
+
+The values are not JAX's: the two packages' random streams differ, so
+parity tests carry weights across instead.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-__all__ = ["Initializer", "ConstantInitializer",
-           "TruncatedNormalInitializer", "XavierInitializer"]
+from .framework.core import Variable
+
+__all__ = ["Initializer", "ConstantInitializer", "UniformInitializer",
+           "NormalInitializer", "TruncatedNormalInitializer",
+           "XavierInitializer"]
 
 
 class Initializer:
     seed = 0
 
-    def __call__(self, param: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> None:
+    def __call__(self, param, generator=None):
+        """``param`` a tensor: fill it (``generator`` a
+        ``torch.Generator``).  ``param`` a ``Variable``: append its init
+        op to the block passed as the second argument."""
+        if isinstance(param, Variable):
+            return self._append(param, generator)
         with torch.no_grad():
             self._fill(param, self._generator(param, generator))
+
+    def _append(self, var, block):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no static form in the port")
 
     def _generator(self, param, generator):
         if self.seed:
@@ -43,6 +62,42 @@ class ConstantInitializer(Initializer):
 
     def _fill(self, param, generator):
         param.fill_(float(self.value))
+
+    def _append(self, var, block):
+        return block.append_op(
+            "fill_constant", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "value": float(self.value),
+                   "dtype": int(var.dtype)})
+
+
+class UniformInitializer(Initializer):
+    def __init__(self, low=-1.0, high=1.0, seed=0):
+        self.low, self.high, self.seed = low, high, seed
+
+    def _fill(self, param, generator):
+        param.uniform_(self.low, self.high, generator=generator)
+
+    def _append(self, var, block):
+        return block.append_op(
+            "uniform_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "min": float(self.low),
+                   "max": float(self.high), "seed": self.seed,
+                   "dtype": int(var.dtype)})
+
+
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def _fill(self, param, generator):
+        param.normal_(self.loc, self.scale, generator=generator)
+
+    def _append(self, var, block):
+        return block.append_op(
+            "gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "mean": float(self.loc),
+                   "std": float(self.scale), "seed": self.seed,
+                   "dtype": int(var.dtype)})
 
 
 class TruncatedNormalInitializer(Initializer):
@@ -92,3 +147,15 @@ class XavierInitializer(Initializer):
         else:
             param.normal_(0.0, math.sqrt(2.0 / (fi + fo)),
                           generator=generator)
+
+    def _append(self, var, block):
+        fi, fo = fan_in_out(list(var.shape))
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            return UniformInitializer(-limit, limit, self.seed)._append(
+                var, block)
+        return NormalInitializer(0.0, math.sqrt(2.0 / (fi + fo)),
+                                 self.seed)._append(var, block)
+

@@ -1,2 +1,8 @@
 """Op lowerings of the port: plain PyTorch, and the wrappers of the
-hand-written CUDA kernels with their plain versions."""
+hand-written CUDA kernels with their plain versions.
+
+Importing the package registers the static path's op lowerings with
+:mod:`.registry`."""
+from . import registry  # noqa: F401
+from . import (fused_ops, math_ops, nn_ops, optimizer_ops,  # noqa: F401
+               tensor_ops)

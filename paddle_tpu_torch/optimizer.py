@@ -1,10 +1,21 @@
-"""Dygraph optimizers (counterpart of ``paddle_tpu/optimizer.py``).
+"""Optimizers (counterpart of ``paddle_tpu/optimizer.py``), static and
+dygraph.
 
-Ported: :class:`AdamOptimizer` (``optimizer.py:514-643``) with the
-``adam`` op's update (``ops/optimizer_ops.py:126-165``).  It is Paddle's
-Adam, not ``torch.optim.Adam``: the beta-power accumulators start at 1.0
-and are multiplied after each update, and epsilon is added to the
-*uncorrected* ``sqrt(v)``:
+Static (``optimizer.py:108-351``): ``Optimizer.minimize(loss)`` on a
+program ``Variable`` runs ``append_backward`` and appends one update op
+per parameter (``sgd``, ``momentum``; ``ops/optimizer_ops.py``), with
+the learning rate as a persistable ``[1]`` var and the accumulators
+(Momentum's velocity) initialized in the startup program, as in JAX.
+``SGDOptimizer`` and ``MomentumOptimizer`` have this form; the other
+optimizers' static forms are not ported.
+
+Dygraph: ``minimize(loss)`` on a tensor applies one update from each
+parameter's ``.grad``.  Ported: :class:`AdamOptimizer`
+(``optimizer.py:514-643``) with the ``adam`` op's update
+(``ops/optimizer_ops.py:126-165``).  It is Paddle's Adam, not
+``torch.optim.Adam``: the beta-power accumulators start at 1.0 and are
+multiplied after each update, and epsilon is added to the *uncorrected*
+``sqrt(v)``:
 
     lr_t = lr * sqrt(1 - b2p * beta2) / (1 - b1p * beta1)
     m    = beta1 * m + (1 - beta1) * g
@@ -27,24 +38,121 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "AdamOptimizer", "LambOptimizer",
-           "AdamWOptimizer"]
+from .backward import OP_ROLE_KEY, OP_ROLE_VAR_KEY, OpRole, append_backward
+from .framework import unique_name
+from .framework.core import (Variable, default_main_program,
+                             default_startup_program)
+
+__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer", "LambOptimizer", "AdamWOptimizer"]
 
 
 class Optimizer:
     def __init__(self, learning_rate, parameter_list=None,
-                 regularization=None, grad_clip=None):
+                 regularization=None, grad_clip=None, name=None):
         if regularization is not None or grad_clip is not None:
             raise NotImplementedError(
                 "regularization and grad_clip are not ported (ROADMAP.md)")
         self._learning_rate = learning_rate
         self._parameter_list = (list(parameter_list)
                                 if parameter_list is not None else None)
+        self._name = name
+        # static form: accumulator vars by kind and parameter name, and
+        # the learning-rate var of each program
+        self._accumulators: Dict[str, Dict[str, Variable]] = \
+            defaultdict(dict)
+        self._learning_rate_map: Dict[int, Variable] = {}
 
-    def minimize(self, loss, parameter_list=None):
-        """Apply one update from each parameter's ``.grad`` (the caller
-        has run ``loss.backward()``); parameters without a gradient are
-        left alone.  Returns ``(None, [(param, grad), ...])``."""
+    # -- static form ---------------------------------------------------
+    def _create_global_learning_rate(self):
+        program = default_main_program()
+        if program._uid in self._learning_rate_map:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_map[program._uid] = self._learning_rate
+            return
+        from .layers import tensor as tensor_layers
+
+        self._learning_rate_map[program._uid] = \
+            tensor_layers.create_global_var(
+                shape=[1], value=float(self._learning_rate),
+                dtype="float32", persistable=True,
+                name=unique_name.generate("learning_rate"))
+
+    def _global_learning_rate(self):
+        return self._learning_rate_map.get(default_main_program()._uid)
+
+    def _create_param_lr(self, param):
+        lr = self._global_learning_rate()
+        plr = getattr(param, "optimize_attr", {}).get("learning_rate", 1.0)
+        if plr != 1.0:
+            raise NotImplementedError("a per-parameter learning rate (the "
+                                      "scale op) is not ported")
+        return lr
+
+    def _add_accumulator(self, name, param, fill_value=0.0, shape=None,
+                         dtype=None):
+        if param.name in self._accumulators[name]:
+            return self._accumulators[name][param.name]
+        shape = list(shape if shape is not None else param.shape)
+        dtype = dtype or param.dtype
+        var_name = unique_name.generate(f"{param.name}_{name}")
+        var = default_main_program().global_block().create_var(
+            name=var_name, shape=shape, dtype=dtype, persistable=True,
+            stop_gradient=True)
+        startup_block = default_startup_program().global_block()
+        startup_block.create_var(name=var_name, shape=shape, dtype=dtype,
+                                 persistable=True)
+        startup_block.append_op(
+            "fill_constant", outputs={"Out": [var_name]},
+            attrs={"shape": shape, "value": float(fill_value),
+                   "dtype": int(dtype)})
+        self._accumulators[name][param.name] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        return self._accumulators[name][param.name]
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no static form in the port")
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        parameter_list = parameter_list or self._parameter_list
+        return append_backward(loss, parameter_list, no_grad_set, callbacks)
+
+    def apply_gradients(self, params_grads):
+        params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        main_block = default_main_program().global_block()
+        self._create_global_learning_rate()
+        self._create_accumulators(
+            main_block, [p for p, g in params_grads if g is not None])
+        optimize_ops = []
+        for p, g in params_grads:
+            if g is None:
+                continue
+            op = self._append_optimize_op(main_block, (p, g))
+            op.attrs[OP_ROLE_KEY] = OpRole.Optimize
+            op.attrs[OP_ROLE_VAR_KEY] = [p.name, g.name]
+            optimize_ops.append(op)
+        return optimize_ops
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """Static (``loss`` a program ``Variable``): append the backward
+        and the update ops; returns ``(optimize_ops, params_grads)``.
+        Dygraph (``loss`` a tensor, or None): apply one update from each
+        parameter's ``.grad`` (the caller has run ``loss.backward()``);
+        parameters without a gradient are left alone; returns
+        ``(None, [(param, grad), ...])``."""
+        if isinstance(loss, Variable):
+            params_grads = self.backward(loss, startup_program,
+                                         parameter_list, no_grad_set)
+            return self.apply_gradients(params_grads), params_grads
         params = parameter_list or self._parameter_list or []
         params_grads = [(p, p.grad) for p in params if p.grad is not None]
         with torch.no_grad():
@@ -53,6 +161,43 @@ class Optimizer:
 
     def _apply(self, params_grads):
         raise NotImplementedError
+
+
+class SGDOptimizer(Optimizer):
+    """``p -= lr * g`` (static form; ``optimizer.py:307``)."""
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p]})
+
+
+class MomentumOptimizer(Optimizer):
+    """``v = mu * v + g; p -= lr * v`` (static form;
+    ``optimizer.py:330``)."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(p)]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):

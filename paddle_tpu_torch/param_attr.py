@@ -1,5 +1,5 @@
 """``ParamAttr`` (counterpart of ``paddle_tpu/param_attr.py``): how a
-layer creates one parameter."""
+layer (dygraph or static) creates one parameter."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,9 +9,10 @@ __all__ = ["ParamAttr"]
 
 class ParamAttr:
     """``initializer`` fills the parameter; ``trainable=False`` makes it
-    need no gradient.  ``learning_rate`` is kept for the API; the dygraph
-    optimizers use the global rate, as the JAX package's eager path does.
-    A ``regularizer`` is not ported."""
+    need no gradient.  ``learning_rate`` scales the static optimizers'
+    rate for this parameter (the ``optimize_attr`` of the program's
+    Parameter); the dygraph optimizers use the global rate, as the JAX
+    package's eager path does.  A ``regularizer`` is not ported."""
 
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True):

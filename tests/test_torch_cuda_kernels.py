@@ -205,3 +205,121 @@ def test_flash_wrappers_raise_on_unsupported(cuda):
         tfa.flash_fwd(q, k, v, bias, 0.1, False, dropout_rate=0.1)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(q.cpu(), k.cpu(), v.cpu(), None, 0.1, False)
+
+
+# ==========================================================================
+# the conv epilogue (csrc/bn_act.cu): kernels 7 and 8 against their plain
+# versions; "" and relu and the backward bit for bit (both round every
+# step in the same order), sigmoid / tanh / gelu within 1e-6
+# ==========================================================================
+from paddle_tpu_torch.ops import bn_act as tba  # noqa: E402
+
+BN_SHAPES = [((8, 64, 28, 28), 1), ((3, 37, 13, 11), 1), ((3, 13, 11, 37), 3),
+             ((4, 7, 7, 64), 3), ((300, 24), 1), ((2, 6, 3, 5), 1)]
+BN_IDS = ["nchw", "nchw-ragged", "nhwc-ragged", "nhwc", "mc", "nchw-tiny"]
+
+
+def _bn_case(dev, seed, shape, c_axis, offset=0):
+    """x, z (of ``shape``) and four per-channel vectors; ``offset`` > 0
+    makes the big tensors start off 16-byte alignment (the scalar
+    path)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape))
+
+    def big():
+        buf = torch.randn(n + offset, device=dev, generator=gen)
+        return buf[offset:].view(shape)
+
+    c = shape[c_axis]
+    return big(), big(), [torch.randn(c, device=dev, generator=gen)
+                          for _ in range(4)]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("with_z", [False, True], ids=["no-z", "z"])
+@pytest.mark.parametrize("act", ["", "relu", "sigmoid", "tanh", "gelu"])
+@pytest.mark.parametrize("shape,c_axis", BN_SHAPES, ids=BN_IDS)
+def test_bn_act_apply_kernel_matches_plain(cuda, shape, c_axis, act, with_z,
+                                           offset):
+    x, z, (a, b, _, _) = _bn_case(cuda, 0, shape, c_axis, offset)
+    z = z if with_z else None
+    before = tba.BN_ACT_APPLY.launches
+    got = tba.bn_act_apply(x, a, b, z, act=act, c_axis=c_axis)
+    torch.cuda.synchronize()
+    assert tba.BN_ACT_APPLY.launches == before + 1
+    want = tba.bn_act_apply_reference(x, a, b, z, act=act, c_axis=c_axis)
+    if act in ("", "relu"):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("want_g", [False, True], ids=["dx", "dx-and-g"])
+@pytest.mark.parametrize("act", ["", "relu"])
+@pytest.mark.parametrize("shape,c_axis", BN_SHAPES, ids=BN_IDS)
+def test_bn_act_bwd_kernel_matches_plain(cuda, shape, c_axis, act, want_g,
+                                         offset):
+    x, dy, (cg, mean, cx, c0) = _bn_case(cuda, 1, shape, c_axis, offset)
+    y = torch.relu(x + 0.1)
+    before = tba.BN_ACT_BWD.launches
+    dx, g = tba.bn_act_bwd_apply(y, dy, x, cg, mean, cx, c0, act=act,
+                                 c_axis=c_axis, want_g=want_g)
+    torch.cuda.synchronize()
+    assert tba.BN_ACT_BWD.launches == before + 1
+    want_dx, want_gv = tba.bn_act_bwd_reference(y, dy, x, cg, mean, cx, c0,
+                                                act, c_axis, want_g)
+    assert torch.equal(dx, want_dx)
+    if want_g:
+        assert torch.equal(g, want_gv)
+    else:
+        assert g is None
+
+
+def test_bn_act_wrappers_raise_on_unsupported(cuda):
+    x, z, (a, b, _, _) = _bn_case(cuda, 2, (2, 8, 4, 4), 1)
+    with pytest.raises(ValueError, match="float32"):
+        tba.bn_act_apply(x.bfloat16(), a.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tba.bn_act_apply(x.transpose(2, 3), a, b)
+    with pytest.raises(ValueError, match="shape"):
+        tba.bn_act_apply(x, a[:4].contiguous(), b)
+    with pytest.raises(ValueError, match="shape"):
+        tba.bn_act_apply(x, a, b, z=z[:1])
+    with pytest.raises(ValueError, match="float32"):
+        tba.bn_act_bwd_apply(x.bfloat16(), x.bfloat16(), x.bfloat16(), a, a,
+                             a, a)
+    with pytest.raises(NotImplementedError):
+        tba.bn_act_bwd_apply(x, x, x, a, a, a, a, act="gelu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tba.bn_act_apply(x, a.cpu(), b)
+    # a CPU tensor takes the plain version and launches nothing
+    before = tba.BN_ACT_APPLY.launches
+    tba.bn_act_apply(x.cpu(), a.cpu(), b.cpu())
+    assert tba.BN_ACT_APPLY.launches == before
+
+
+def test_resnet18_on_the_card_launches_the_epilogue_kernels(cuda):
+    """Two ResNet-18 steps at 32x32 through fluid.Executor(CUDAPlace(0))
+    with the fusion flag at auto: each of the 17 conv chains launches
+    kernel 7 once per step and kernel 8 once per step."""
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
+    import paddle_tpu_torch.fluid as fluid
+
+    torch.backends.cudnn.allow_tf32 = False
+    main, startup, loss, acc1 = build_program(18, 32, 10, 0.1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    assert exe.fuse_enabled()
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    img, label = make_batch(4, 32, 10)
+    before = (tba.BN_ACT_APPLY.launches, tba.BN_ACT_BWD.launches)
+    losses = [float(exe.run(main, feed={"img": img, "label": label},
+                            fetch_list=[loss], scope=scope)[0])
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all()
+    assert (tba.BN_ACT_APPLY.launches - before[0],
+            tba.BN_ACT_BWD.launches - before[1]) == (34, 34)
+    assert all(t.device.type == "cuda" for _, t in scope.items())
