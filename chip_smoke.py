@@ -73,11 +73,38 @@ Phases (any failure exits non-zero and prints no result):
 12. ResNet card vs CPU: ResNet-50 at batch 4, 32x32, 100 classes from
     one startup scope on the card and on the CPU: step-1 losses within
     1e-4 relative, later steps finite;
-13. the ``kernels`` line, the card's name and power limit, and the last
-    line: ``{"ok": true, "device": {...}}``.
+13. matmul epilogue, kernel vs plain version, times: ``matmul_bias_act_f32``
+    (kernel 9) with every act at LeNet's two fc shapes, word2vec's hidden
+    layer, an all-odd ragged shape and BERT-base's FFN-in shape (gelu)
+    against its plain version within the tolerance of JAX's own kernel
+    test (rtol 2e-5, atol 2e-4); each timed (CUDA-graph replay, inputs
+    rotated through enough copies to keep the L2 cold) against the
+    bound max(bytes / 3.35 TB/s, 2MNK / 67 TFLOP/s) and the library
+    yardstick ``torch.addmm`` followed by the act (the port never calls
+    it), TF32 off; the four calls of one LeNet step timed together;
+14. LeNet static training: ``bench.py:bench_lenet``'s configuration
+    (batch 256, 1x28x28, ``MomentumOptimizer(0.01, 0.9)``, program seed
+    1, one batch from numpy seed 0) through ``fluid`` and
+    ``Executor(CUDAPlace(0))`` with the fusion flag at auto: 5 warm-up and
+    30 timed steps; every loss finite, the last below the first, the
+    program's two fc+relu chains fused (2 ``fused_matmul_bias_act``, 2
+    grads), kernel 9 launched exactly 4 times per step, every scope
+    tensor on the card;
+15. word2vec static training (vocabulary 2,048, embedding 32, hidden 256,
+    batch 256, ``SGDOptimizer(0.1)``, ids from numpy seed 0): the same
+    checks with its one fc+sigmoid chain, 2 launches per step;
+16. LeNet card vs CPU: ``bench.py:_lenet_losses``'s run (batch 64, lr 0.05,
+    12 steps, program seed 5, numpy seed 7) from one startup scope on the
+    card and on the CPU: step 1 within 1e-5 relative, every step within
+    1e-3 absolute;
+17. the ``kernels`` line, one row per TPU kernel of
+    ``paddle_tpu/ops/pallas_kernels.py`` (nine; ``flash_fwd_f32`` replaces
+    two), the card's name and power limit, and the last line:
+    ``{"ok": true, "device": {...}}``.
 
-The port is imported only after the device check, so run without the
-rest of the repository, or without a CUDA device, it fails.
+Each phase's heading carries the seconds since the start.  The port is
+imported only after the device check, so run without the rest of the
+repository, or without a CUDA device, it fails.
 """
 import json
 import subprocess
@@ -109,10 +136,21 @@ RESNET_LR = 0.01
 # bn_act kernels with sigmoid / tanh / gelu vs the plain versions (the
 # same formula through libdevice and through PyTorch's kernels)
 EPILOGUE_TOL = 1e-6
+# kernel 9 vs its plain version: JAX's own kernel test's tolerance
+# (tests/test_fused_epilogue.py:116-117), f32 sums in another order
+MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4
+# LeNet on the card vs on the CPU from one startup scope: step 1, and
+# every step of bench.py:_lenet_losses's 12 (both sides f32)
+LENET_STEP1_RTOL, LENET_LOSS_ATOL = 1e-5, 1e-3
+# the L2 a timing's rotated inputs must overflow to run cold (50 MB)
+COLD_BYTES = 64 << 20
 # a served token may differ from the reference only where the
 # reference's top-2 logit margin is below this (f32 rounding of two
 # different compositions of the same model)
 TIE_MARGIN = 1e-3
+
+
+T0 = time.perf_counter()
 
 
 def fail(msg: str):
@@ -120,7 +158,7 @@ def fail(msg: str):
 
 
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (t={time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def time_ms(fn, args_sets, per_graph=40, replays=10) -> float:
@@ -348,6 +386,8 @@ def serve(torch):
 # ==========================================================================
 FLASH_ROWS = (  # (kernel name, TPU kernel it replaces)
     ("flash_fwd_f32", "paddle_tpu/ops/pallas_kernels.py:203"),
+    # the multi-block forward: the same kernel takes both
+    ("flash_fwd_f32", "paddle_tpu/ops/pallas_kernels.py:150"),
     ("flash_bwd_fused_f32", "paddle_tpu/ops/pallas_kernels.py:449"),
     ("flash_bwd_dq_f32", "paddle_tpu/ops/pallas_kernels.py:386"),
     ("flash_bwd_dkv_f32", "paddle_tpu/ops/pallas_kernels.py:413"),
@@ -969,6 +1009,219 @@ def resnet_card_vs_cpu(torch):
              f"{RESNET_STEP1_RTOL}")
 
 
+# ==========================================================================
+# the fc epilogue (kernel 9), and LeNet / word2vec static training
+# ==========================================================================
+MATMUL_SHAPES = (  # (name, M, K, N, acts checked)
+    ("lenet-fc1", 256, 400, 120, None),
+    ("lenet-fc2", 256, 120, 84, None),
+    ("word2vec", 256, 128, 256, None),
+    ("ragged", 1001, 517, 263, None),
+    ("bert-ffn-in", 22528, 768, 3072, ("gelu",)),
+)
+# the four launches of one LeNet training step: each fc's forward (relu)
+# and its grad's replay of the pre-activation (no act)
+LENET_STEP_CALLS = (("lenet-fc1", "relu"), ("lenet-fc2", "relu"),
+                    ("lenet-fc2", ""), ("lenet-fc1", ""))
+
+
+def matmul_inputs(m, k, n, seed):
+    """x (M, K), w (K, N) scaled as a layer's weights are, bias (N,)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(m, k, device="cuda", generator=gen),
+            torch.randn(k, n, device="cuda", generator=gen) / k ** 0.5,
+            torch.randn(n, device="cuda", generator=gen))
+
+
+def matmul_bound(m, k, n):
+    """(bound_ms, bytes, flops): x, w and bias read once, out written
+    once, f32; 2MNK operations over the f32 rate outside the tensor
+    cores."""
+    nbytes = 4 * (m * k + k * n + n + m * n)
+    flops = 2 * m * n * k
+    return (max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3,
+            nbytes, flops)
+
+
+def matmul_phase():
+    """Kernel 9 against its plain version at every shape and act, then
+    times; returns (max abs err, the LeNet step's row)."""
+    import torch
+
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+    from paddle_tpu_torch.ops.bn_act import ACTS, apply_act
+
+    err = 0.0
+    sets, rows = {}, {}
+    for name, m, k, n, acts in MATMUL_SHAPES:
+        nbytes = 4 * (m * k + k * n + n + m * n)
+        count = max(2, min(200, -(-COLD_BYTES // nbytes)))
+        sets[name] = [matmul_inputs(m, k, n, 100 + i) for i in range(count)]
+        x, w, b = sets[name][0]
+        row = {"shape": name, "M": m, "K": k, "N": n}
+        for act in acts or ACTS:
+            got = me.matmul_bias_act(x, w, b, act)
+            want = me.matmul_bias_act_reference(x, w, b, act)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if not (torch.isfinite(got).all()
+                    and bool((diff <= MATMUL_ATOL
+                              + MATMUL_RTOL * want.abs()).all())):
+                fail(f"matmul_bias_act_f32 {name} act {act!r}: max |err| "
+                     f"{float(diff.max()):.3e} outside rtol {MATMUL_RTOL} "
+                     f"/ atol {MATMUL_ATOL}")
+            row[f"err {act or 'none'}"] = float(diff.max())
+            err = max(err, float(diff.max()))
+            del got, want, diff
+        act = (acts or ("relu",))[0]
+        per_graph = max(len(sets[name]), 4)
+        replays = 3 if m * n * k > 1e9 else 10
+        bound_ms, nbytes, flops = matmul_bound(m, k, n)
+        row.update({
+            "act": act, "input_sets": len(sets[name]),
+            "ms": time_ms(lambda x, w, b: me.matmul_bias_act(x, w, b, act),
+                          sets[name], per_graph, replays),
+            "plain_ms": time_ms(
+                lambda x, w, b: me.matmul_bias_act_reference(x, w, b, act),
+                sets[name], per_graph, replays),
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / F32_FLOP_PER_S else "operations"),
+            "library_ms": time_ms(
+                lambda x, w, b: apply_act(torch.addmm(b, x, w), act),
+                sets[name], per_graph, replays)})
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows[name] = row
+        print("matmul_case " + json.dumps(row), flush=True)
+        if m * n * k > 1e9:
+            del sets[name]
+            torch.cuda.empty_cache()
+
+    # one LeNet step's four launches, 64 steps' worth of inputs in turn
+    # (62 MB: the L2 stays cold, as for the single shapes)
+    args = [(*sets[name][i % len(sets[name])], act)
+            for i in range(64) for name, act in LENET_STEP_CALLS]
+    n_step = len(LENET_STEP_CALLS)
+    step = {"calls_per_step": n_step,
+            "bound_ms": sum(matmul_bound(rows[nm]["M"], rows[nm]["K"],
+                                         rows[nm]["N"])[0]
+                            for nm, _ in LENET_STEP_CALLS)}
+    for key, fn in (
+            ("ms", lambda x, w, b, act: me.matmul_bias_act(x, w, b, act)),
+            ("plain_ms", lambda x, w, b, act:
+                me.matmul_bias_act_reference(x, w, b, act)),
+            ("library_ms", lambda x, w, b, act:
+                apply_act(torch.addmm(b, x, w), act))):
+        step[key] = time_ms(fn, args, per_graph=len(args), replays=5) \
+            * n_step
+    step["bound_by"] = "bytes" if all(
+        rows[nm]["bound_by"] == "bytes" for nm, _ in LENET_STEP_CALLS) \
+        else "operations"
+    print("matmul_lenet_step " + json.dumps(step), flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return err, step
+
+
+def book_phase(torch, model, chains, act):
+    """One book model's static training at its tool defaults; returns
+    kernel 9's launches in the run."""
+    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT_F32
+    from paddle_tpu_torch.tools.train_book import DEFAULTS, train
+
+    warmup, steps = 5, 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    MATMUL_BIAS_ACT_F32.launches = 0
+    run = train(model, DEFAULTS[model], steps=steps, device="cuda",
+                warmup=warmup, log_every=5)
+    torch.cuda.synchronize()
+    launches = MATMUL_BIAS_ACT_F32.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    if not np.all(np.isfinite(losses)):
+        fail(f"{model} losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{model} loss did not fall: {losses}")
+    plan = next(p for key, p in run["executor"]._cache.items()
+                if key[0] == run["program"]._uid)
+    fused = [o for o in plan.ops if o.type == "fused_matmul_bias_act"]
+    grads = [o for o in plan.ops if o.type == "fused_matmul_bias_act_grad"]
+    if (len(fused), len(grads)) != (chains, chains) or any(
+            o.attrs["act_type"] != act for o in fused):
+        fail(f"{model}: the program holds {len(fused)} fused_matmul_bias_act"
+             f" ({[o.attrs['act_type'] for o in fused]}) and {len(grads)} "
+             f"grads, expected {chains} each with act {act!r}")
+    n = 2 * chains * (warmup + steps)
+    if launches != n:
+        fail(f"{model}: matmul_bias_act_f32 launched {launches} times, "
+             f"expected {n} ({2 * chains} per step x {warmup + steps})")
+    off = [name for name, t in run["scope"].items()
+           if not (isinstance(t, torch.Tensor) and t.device.type == "cuda")]
+    if off:
+        fail(f"{model}: scope vars not on the card: {off[:5]}")
+    cfg = DEFAULTS[model]
+    print(f"{model}_training " + json.dumps({
+        "model": f"{model} f32", **cfg, "warmup_steps": warmup,
+        "timed_steps": steps, "losses": losses, "acc": run["acc"],
+        "ms_per_step": run["ms_per_step"],
+        "examples_per_s": run["examples_per_s"],
+        "max_memory_allocated": peak,
+        "launches_per_step": launches / (warmup + steps),
+        "fused_chains": len(fused),
+        "scope_tensors_on_card": len(list(run["scope"].items()))}),
+        flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lenet_card_vs_cpu(torch):
+    """``bench.py:_lenet_losses`` on the card and on the CPU from one
+    startup scope."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT_F32
+    from paddle_tpu_torch.tools.train_book import build_program
+
+    steps = 12
+    main, startup, fetch = build_program("lenet", {"batch": 64, "lr": 0.05},
+                                         seed=5)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    rng = np.random.RandomState(7)
+    feed = {"img": rng.rand(64, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (64, 1)).astype(np.int64)}
+    losses = {}
+    launched = MATMUL_BIAS_ACT_F32.launches
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=fetch[:1],
+                                     scope=scope)[0]) for _ in range(steps)]
+    if MATMUL_BIAS_ACT_F32.launches != launched + 4 * steps:
+        fail("LeNet card vs CPU: the card's run did not launch kernel 9 "
+             "4 times per step")
+    cpu, card = np.asarray(losses["cpu"]), np.asarray(losses["cuda"])
+    rel1 = abs(card[0] - cpu[0]) / abs(cpu[0])
+    worst = float(np.abs(card - cpu).max())
+    print("lenet_card_vs_cpu " + json.dumps({
+        **losses, "step1_rel_diff": rel1, "step1_rtol": LENET_STEP1_RTOL,
+        "max_abs_diff": worst, "atol": LENET_LOSS_ATOL}), flush=True)
+    if not np.all(np.isfinite(card)):
+        fail(f"LeNet card vs CPU: card losses not finite {losses}")
+    if not (rel1 <= LENET_STEP1_RTOL and worst <= LENET_LOSS_ATOL):
+        fail(f"LeNet card vs CPU: step 1 {rel1:.3e} relative (tolerance "
+             f"{LENET_STEP1_RTOL}), worst step {worst:.3e} absolute "
+             f"(tolerance {LENET_LOSS_ATOL})")
+
+
 def main():
     import torch
 
@@ -995,10 +1248,11 @@ def main():
     from paddle_tpu_torch import kernel_build
     from paddle_tpu_torch.ops.bn_act import BN_ACT
     from paddle_tpu_torch.ops.flash_attention import FLASH
+    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT
     from paddle_tpu_torch.ops.paged_attention import PAGED_ATTENTION
 
     phase("build")
-    kernels = [PAGED_ATTENTION, FLASH, BN_ACT]
+    kernels = [PAGED_ATTENTION, FLASH, BN_ACT, MATMUL_BIAS_ACT]
     kernel_build.build_all(kernels)
     for k in kernels:
         print(f"built {k.source} in {k.build_seconds:.2f} s", flush=True)
@@ -1040,6 +1294,18 @@ def main():
     phase("training: ResNet-50 card vs CPU, batch 4, 32x32")
     resnet_card_vs_cpu(torch)
 
+    phase("matmul epilogue: kernel vs plain version, times")
+    mm_err, mm_step = matmul_phase()
+
+    phase("training: LeNet static, f32, batch 256")
+    mm_launches = book_phase(torch, "lenet", 2, "relu")
+
+    phase("training: word2vec static, f32, batch 256")
+    mm_launches += book_phase(torch, "word2vec", 1, "sigmoid")
+
+    phase("training: LeNet card vs CPU, batch 64, 12 steps")
+    lenet_card_vs_cpu(torch)
+
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -1068,6 +1334,16 @@ def main():
             "max_abs_err": epi_errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
+    # kernel 9 per LeNet training step (its four calls)
+    rows.append({
+        "name": "matmul_bias_act_f32", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/matmul_bias_act.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1186",
+        "launches": mm_launches, "max_abs_err": mm_err, "ms": mm_step["ms"],
+        "plain_ms": mm_step["plain_ms"], "bound_ms": mm_step["bound_ms"],
+        "bound_by": mm_step["bound_by"],
+        "library_ms": mm_step["library_ms"]})
+    phase("done")
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

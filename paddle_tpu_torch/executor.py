@@ -202,7 +202,8 @@ class Executor:
         """The training-time fusion pipeline on a clone of ``program``
         (the user's program stays as built): fuse_bn_add_act_pass and
         fuse_bn_act_pass when the program has a batch_norm, then
-        fuse_epilogue_pass when fusion is on and it has a conv2d."""
+        fuse_epilogue_pass when fusion is on and it has a conv2d or a
+        matrix product."""
         from .framework.ir import PassManager, get_pass
 
         fuse = self.fuse_enabled() if fuse is None else fuse
@@ -212,7 +213,8 @@ class Executor:
         if "batch_norm" in types:
             passes += [get_pass("fuse_bn_add_act_pass", protected=protected),
                        get_pass("fuse_bn_act_pass", protected=protected)]
-        if fuse and types & {"conv2d", "depthwise_conv2d"}:
+        if fuse and types & {"conv2d", "depthwise_conv2d", "mul", "matmul",
+                             "matmul_v2"}:
             passes.append(get_pass("fuse_epilogue_pass",
                                    protected=protected))
         if not passes:

@@ -7,16 +7,17 @@ by name), so a pass is a Python function over Blocks.
 Ported: the registry (``Pass``, ``register_pass``, ``get_pass``,
 ``PassManager``, :30-98), the graph helpers (:99-126), the BatchNorm
 fusions ``fuse_bn_act_pass`` (:489) and ``fuse_bn_add_act_pass`` (:570),
-and the conv half of ``fuse_epilogue_pass`` (:711-869), which maps conv
--> BN (-> add) -> relu chains, forward and backward together, onto
-``fused_conv_bn_act`` and its grad, whose epilogues are the hand-written
-kernels of ``ops/bn_act.py``.  The rewrites are the JAX package's, op
-for op, so both packages compile a program to the same op list.
+and ``fuse_epilogue_pass`` (:711-912), which maps conv -> BN (-> add)
+-> relu chains onto ``fused_conv_bn_act`` and mul / matmul -> bias add
+-> act chains onto ``fused_matmul_bias_act``, forward and backward
+together; their epilogues are the hand-written kernels of
+``ops/bn_act.py`` and ``ops/matmul_epilogue.py``.  The rewrites are the
+JAX package's, op for op, so both packages compile a program to the same
+op list.
 
 Not ported (ROADMAP.md): the static verifier that brackets every pass
-under ``FLAGS_verify_passes``, the matmul half of the epilogue pass,
-``layout_transform_pass``, ``fuse_optimizer_ops_pass`` and the other
-passes of the JAX module.
+under ``FLAGS_verify_passes``, ``layout_transform_pass``,
+``fuse_optimizer_ops_pass`` and the other passes of the JAX module.
 """
 from __future__ import annotations
 
@@ -379,14 +380,17 @@ class FuseBNAddActPass(_FuseBNActBase):
 # epilogue fusion: utils/cost_model.find_fusion_chains supplies the
 # structural matches (so ranking and rewrite can never disagree) and
 # rank_fusion_candidates orders them by saved bytes; this pass rewrites
-# them best first onto fused_conv_bn_act (ops/fused_ops.py), forward and
-# the matching grad chain together.  Gated by FLAGS_cuda_fuse in the
-# executor pipeline, after the BatchNorm fusions.
+# them best first onto fused_conv_bn_act / fused_matmul_bias_act
+# (ops/fused_ops.py), forward and the matching grad chain together.
+# Gated by FLAGS_cuda_fuse in the executor pipeline, after the BatchNorm
+# fusions.
 # --------------------------------------------------------------------------
 @register_pass("fuse_epilogue_pass")
 class FuseEpiloguePass(Pass):
     """conv2d -> batch_norm/fused_batch_norm_act/fused_bn_add_activation
-    (+ grads) ==> fused_conv_bn_act (+ fused_conv_bn_act_grad)."""
+    (+ grads) ==> fused_conv_bn_act (+ fused_conv_bn_act_grad); mul /
+    matmul -> elementwise_add (1-D bias) -> act (+ grads) ==>
+    fused_matmul_bias_act (+ fused_matmul_bias_act_grad)."""
 
     #: vars the rewrite must not make unavailable (fetch targets)
     protected: Sequence[str] = ()
@@ -419,7 +423,7 @@ class FuseEpiloguePass(Pass):
             for cand in cmod.rank_fusion_candidates(program):
                 if cand["saved_bytes"] <= 0:
                     continue
-                if self._rewrite_conv(block, cand["chain"], protected):
+                if self._rewrite(block, cand["chain"], protected):
                     fused += 1
                     self.report.append({k: cand[k] for k in
                                         ("kind", "ops", "out",
@@ -446,6 +450,11 @@ class FuseEpiloguePass(Pass):
         if rv:
             out["op_role_var"] = rv
         return out
+
+    def _rewrite(self, block, ch, protected):
+        if ch["kind"] == "conv_bn_act":
+            return self._rewrite_conv(block, ch, protected)
+        return self._rewrite_matmul(block, ch, protected)
 
     def _rewrite_conv(self, block, ch, protected):
         conv, bn = ch["conv"], ch["bn"]
@@ -524,5 +533,48 @@ class FuseEpiloguePass(Pass):
             gidx = block.ops.index(dead_bwd[0])
             remove_ops(block, dead_bwd)
             block._insert_op(gidx, "fused_conv_bn_act_grad",
+                             inputs=ginputs, outputs=goutputs, attrs=gattrs)
+        return True
+
+    def _rewrite_matmul(self, block, ch, protected):
+        mm, add, act_op = ch["mm"], ch["add"], ch["act_op"]
+        mm_grad, add_grad, act_grad = \
+            ch["mm_grad"], ch["add_grad"], ch["act_grad"]
+        gone = {ch["mm_out"], ch["add_out"]}
+        if act_grad is not None:
+            gone |= {ch["add_out"] + "@GRAD", ch["mm_out"] + "@GRAD"}
+        if gone & protected:
+            return False
+        attrs = {
+            "act_type": ch["act"],
+            "x_num_col_dims": ch["xnc"],
+            "axis": add.attrs.get("axis", -1),
+        }
+        if "op_role" in act_op.attrs:
+            attrs["op_role"] = act_op.attrs["op_role"]
+        inputs = {"X": list(mm.inputs["X"]), "Y": list(mm.inputs["Y"]),
+                  "Bias": list(add.inputs["Y"])}
+        idx = block.ops.index(act_op)
+        idx -= sum(1 for o in (mm, add) if block.ops.index(o) < idx)
+        remove_ops(block, [mm, add, act_op])
+        block._insert_op(idx, "fused_matmul_bias_act", inputs=inputs,
+                         outputs={"Out": [ch["out"]]}, attrs=attrs)
+        if act_grad is not None:
+            gattrs = {k: v for k, v in attrs.items() if k != "op_role"}
+            gattrs.update(self._merged_role_attrs(act_grad, add_grad,
+                                                  mm_grad))
+            ginputs = {
+                "X": list(mm.inputs["X"]), "Y": list(mm.inputs["Y"]),
+                "Bias": list(add.inputs["Y"]),
+                "Out@GRAD": list(act_grad.inputs["Out@GRAD"]),
+            }
+            goutputs = {
+                "X@GRAD": list(mm_grad.outputs.get("X@GRAD", [])),
+                "Y@GRAD": list(mm_grad.outputs.get("Y@GRAD", [])),
+                "Bias@GRAD": list(add_grad.outputs.get("Y@GRAD", [])),
+            }
+            gidx = block.ops.index(act_grad)
+            remove_ops(block, [act_grad, add_grad, mm_grad])
+            block._insert_op(gidx, "fused_matmul_bias_act_grad",
                              inputs=ginputs, outputs=goutputs, attrs=gattrs)
         return True

@@ -1,5 +1,6 @@
 """fluid.layers for the static path (counterpart of
-``paddle_tpu/layers/``): the layers a ResNet training program uses.
+``paddle_tpu/layers/``): the layers the ResNet, LeNet and word2vec
+training programs use.
 Each builds vars and ops through ``LayerHelper``; the ops lower to
 PyTorch in ``ops/``."""
 from __future__ import annotations
@@ -7,8 +8,9 @@ from __future__ import annotations
 from ..framework.core import default_main_program
 from ..framework.dtype import VarType, convert_dtype
 from . import nn, tensor
-from .nn import (accuracy, batch_norm, conv2d, elementwise_add,  # noqa: F401
-                 fc, mean, pool2d, relu, softmax_with_cross_entropy, topk)
+from .nn import (accuracy, batch_norm, concat, conv2d,  # noqa: F401
+                 elementwise_add, embedding, fc, mean, pool2d, relu,
+                 reshape, sigmoid, softmax, softmax_with_cross_entropy, topk)
 from .tensor import (create_global_var, create_parameter,  # noqa: F401
                      fill_constant)
 

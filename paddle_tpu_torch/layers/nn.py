@@ -1,10 +1,11 @@
 """fluid.layers NN graph builders (counterpart of
-``paddle_tpu/layers/nn.py``: ``fc`` :22, ``conv2d`` :93, ``pool2d`` :201,
-``batch_norm`` :257, ``relu`` :409, ``elementwise_add`` :522, ``mean``
-:558, ``softmax_with_cross_entropy`` :614, ``topk`` :870, ``accuracy``
-:980).  Each builds vars and ops through ``LayerHelper`` with the JAX
-package's op types, slots and attrs, so both packages build the same
-program."""
+``paddle_tpu/layers/nn.py``: ``fc`` :22, ``embedding`` :60, ``conv2d``
+:93, ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
+``sigmoid`` :409-410, ``elementwise_add`` :522, ``mean`` :558,
+``softmax_with_cross_entropy`` :614, ``reshape`` :718, ``topk`` :870,
+``concat`` :964, ``accuracy`` :980).  Each builds vars and ops through
+``LayerHelper`` with the JAX package's op types, slots and attrs, so both
+packages build the same program."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,8 +15,10 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "conv2d", "pool2d", "batch_norm", "relu", "elementwise_add",
-           "mean", "softmax_with_cross_entropy", "topk", "accuracy"]
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
+           "relu", "sigmoid", "elementwise_add", "mean",
+           "softmax_with_cross_entropy", "reshape", "topk", "concat",
+           "accuracy"]
 
 
 def _single(x, n=2):
@@ -49,6 +52,26 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims,
                                     bias_attr=bias_attr)
     return helper.append_activation(pre_act, act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """reference: layers/nn.py embedding (lookup_table op)."""
+    if is_distributed:
+        raise NotImplementedError("embedding(is_distributed=True): the "
+                                  "parameter-server path is not ported")
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(param_attr, shape=size, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (-1 if padding_idx is None
+                   else padding_idx if padding_idx >= 0
+                   else size[0] + padding_idx)
+    helper.append_op(
+        "lookup_table", inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [out]},
+        attrs={"padding_idx": padding_idx, "is_sparse": is_sparse,
+               "is_distributed": is_distributed})
+    return out
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
@@ -151,11 +174,27 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(y, act)
 
 
-def relu(x, name=None):
-    helper = LayerHelper("relu", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("relu", inputs={"X": [x]}, outputs={"Out": [out]})
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("softmax", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
     return out
+
+
+def _simple_unary(op_type):
+    def fn(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]})
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+relu = _simple_unary("relu")
+sigmoid = _simple_unary("sigmoid")
 
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
@@ -188,6 +227,26 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape2", name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op("reshape2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out, act)
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    xs = input if isinstance(input, (list, tuple)) else [input]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("concat", inputs={"X": xs}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
 
 
 def topk(input, k, name=None):

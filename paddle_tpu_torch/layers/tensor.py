@@ -1,13 +1,14 @@
 """Tensor-creation layers (counterpart of ``paddle_tpu/layers/tensor.py``:
 ``create_parameter`` :18, ``create_global_var`` :30, ``fill_constant``
-:49)."""
+:49, ``concat`` :136)."""
 from __future__ import annotations
 
 from ..framework.dtype import convert_dtype
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["create_parameter", "create_global_var", "fill_constant"]
+__all__ = ["create_parameter", "create_global_var", "fill_constant",
+           "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -48,3 +49,9 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         attrs={"shape": list(shape), "value": float(value),
                "dtype": int(dtype)})
     return out
+
+
+def concat(input, axis=0, name=None):
+    from . import nn
+
+    return nn.concat(input, axis, name)

@@ -23,6 +23,20 @@ kernels of :mod:`.bn_act` on the card: ``bn_act_apply`` forward,
 ``bn_act_bwd_apply`` backward.  The convolution itself is the
 ``conv2d`` op's (``nn_ops.conv_forward`` / ``conv_backward``), so fusion
 changes where the epilogue runs, not the conv.
+
+Last, the fc epilogue (``fused_ops.py:356-376`` and :577-651):
+``fused_matmul_bias_act`` and its grad, the ops ``fuse_epilogue_pass``
+builds from mul / matmul -> bias add -> act chains.  The forward with a
+1-D bias on the trailing axis runs kernel 9
+(:func:`.matmul_epilogue.matmul_bias_act`) on the flattened 2-D
+operands; any other bias takes the plain composition of the unfused ops
+(``_matmul_bias_act_jnp``), as in JAX.  The grad replays the
+pre-activation ``x @ w + b`` (kernel 9 with no act on the card, so the
+act's derivative sees the bits the forward's epilogue saw), then applies
+the unfused act grad (``threshold_backward``, ``sigmoid_backward``, ...,
+the derivatives autograd's replay of the act op takes), and leaves dX,
+dW and dBias to plain products and a sum, as JAX leaves them to XLA.
+On the CPU every term is the unfused chain's, so fusion changes no bit.
 """
 from __future__ import annotations
 
@@ -34,10 +48,12 @@ import torch
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX
 from ..framework.random import default_generator
 from . import bn_act
+from .matmul_epilogue import matmul_bias_act
 from .flash_attention import (attention_reference, flash_attention,
                               is_padding_bias)
 from .nn_ops import (bn_backward, bn_fold, bn_forward_stats, bn_is_test,
                      bn_shapes, conv_attrs, conv_backward, conv_forward)
+from .math_ops import align
 from .registry import grad_maker, op
 
 __all__ = ["fused_multihead_attention"]
@@ -259,3 +275,96 @@ def _fused_conv_bn_act_grad(ctx):
             ctx.set_out("Input" + GRAD_SUFFIX, dxi)
         if need_w:
             ctx.set_out("Filter" + GRAD_SUFFIX, dwf)
+
+
+# ==========================================================================
+# fused matmul + bias + activation (the fc epilogue)
+# ==========================================================================
+@grad_maker("fused_matmul_bias_act")
+def _fused_matmul_bias_act_maker(op_, no_grad_names=frozenset()):
+    inputs = {
+        "X": op_.input("X"),
+        "Y": op_.input("Y"),
+        "Bias": op_.input("Bias"),
+        "Out" + GRAD_SUFFIX: [n + GRAD_SUFFIX for n in op_.output("Out")],
+    }
+    outputs = {
+        "X" + GRAD_SUFFIX: _grad_names(op_.input("X"), no_grad_names),
+        "Y" + GRAD_SUFFIX: _grad_names(op_.input("Y"), no_grad_names),
+        "Bias" + GRAD_SUFFIX: _grad_names(op_.input("Bias"), no_grad_names),
+    }
+    return [dict(type="fused_matmul_bias_act_grad", inputs=inputs,
+                 outputs=outputs, attrs=dict(op_.attrs))]
+
+
+def _mm_attrs(ctx):
+    """(act, x_num_col_dims, axis, trailing): ``trailing`` when the bias
+    is 1-D on the product's last axis, the layout of kernel 9's
+    epilogue."""
+    xnc, axis = ctx.attr("x_num_col_dims", 1), ctx.attr("axis", -1)
+    trailing = ((axis is None or axis < 0 or axis == xnc)
+                and ctx.in_("Bias").dim() == 1)
+    return ctx.attr("act_type", ""), xnc, axis, trailing
+
+
+def _pre_act(x, w, bias, xnc, axis, trailing, act=""):
+    """(x2, act(x @ w + bias)): the flattened X and the product with its
+    bias (and ``act``), as the unfused mul, elementwise_add and act ops
+    compute it.  ``trailing``: kernel 9 on the card, 2-D result; else the
+    paddle-axis broadcast, shape ``x.shape[:xnc] + (N,)``."""
+    x2 = x.reshape(math.prod(x.shape[:xnc]), -1)
+    if trailing:
+        return x2, matmul_bias_act(x2.contiguous(), w.contiguous(), bias,
+                                   act)
+    out = torch.matmul(x2, w).reshape(tuple(x.shape[:xnc]) + (w.shape[-1],))
+    out, b = align(out, bias, axis)
+    return x2, bn_act.apply_act(out + b, act)
+
+
+@op("fused_matmul_bias_act")
+def _fused_matmul_bias_act(ctx):
+    """``act(X @ Y + Bias)`` with X flattened to ``(prod(shape[:xnc]),
+    -1)``; the epilogue is kernel 9 for a trailing 1-D bias."""
+    x, w = ctx.in_("X"), ctx.in_("Y")
+    act, xnc, axis, trailing = _mm_attrs(ctx)
+    _, out = _pre_act(x, w, ctx.in_("Bias"), xnc, axis, trailing, act)
+    ctx.set_out("Out", out.reshape(tuple(x.shape[:xnc]) + (w.shape[-1],)))
+
+
+def _act_backward(pre, dy, act):
+    """``act'(pre) * dy`` as autograd's replay of the unfused act op
+    computes it (derivatives of relu, sigmoid, tanh and exact gelu)."""
+    aten = torch.ops.aten
+    if not act:
+        return dy
+    if act == "relu":
+        return aten.threshold_backward(dy, pre, 0)
+    if act == "sigmoid":
+        return aten.sigmoid_backward(dy, torch.sigmoid(pre))
+    if act == "tanh":
+        return aten.tanh_backward(dy, torch.tanh(pre))
+    if act == "gelu":
+        return aten.gelu_backward(dy, pre)
+    raise NotImplementedError(f"fused matmul epilogue act {act!r}")
+
+
+@op("fused_matmul_bias_act_grad", no_grad=True)
+def _fused_matmul_bias_act_grad(ctx):
+    """Replay of the pre-activation, the act's derivative, then dX = g
+    W^T and dW = X^T g on the flattened views and dBias = the sum of g
+    over every axis but the bias's."""
+    x, w, bias = ctx.in_("X"), ctx.in_("Y"), ctx.in_("Bias")
+    act, xnc, axis, trailing = _mm_attrs(ctx)
+    x2, pre = _pre_act(x, w, bias, xnc, axis, trailing)
+    dy = ctx.in_("Out" + GRAD_SUFFIX).to(pre.dtype).reshape(pre.shape)
+    g = _act_backward(pre, dy, act)
+    if ctx.has_output("Bias" + GRAD_SUFFIX):
+        ax = pre.dim() - 1 if trailing or axis is None or axis < 0 else axis
+        red = [d for d in range(pre.dim()) if d != ax]
+        ctx.set_out("Bias" + GRAD_SUFFIX,
+                    g.sum(dim=red, keepdim=True).reshape(bias.shape))
+    g2 = g.reshape(x2.shape[0], w.shape[1])
+    if ctx.has_output("X" + GRAD_SUFFIX):
+        ctx.set_out("X" + GRAD_SUFFIX, (g2 @ w.t()).reshape(x.shape))
+    if ctx.has_output("Y" + GRAD_SUFFIX):
+        ctx.set_out("Y" + GRAD_SUFFIX, x2.t() @ g2)

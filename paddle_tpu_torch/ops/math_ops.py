@@ -1,7 +1,7 @@
 """Math op lowerings of the static path (counterpart of
 ``paddle_tpu/ops/math_ops.py``: ``elementwise_add`` :50, ``relu`` :72,
-``sum`` (gradient accumulation), ``mean`` :222, ``top_k`` :318 and
-``mul`` :423).
+``sigmoid`` :74, ``sum`` (gradient accumulation), ``mean`` :222,
+``top_k`` :318 and ``mul`` :423).
 
 ``mul`` has an explicit grad lowering (two matrix products); the others
 take the registry's generic vjp replay, whose forward is one cheap pass.
@@ -41,6 +41,11 @@ def _elementwise_add(ctx):
 @op("relu")
 def _relu(ctx):
     ctx.set_out("Out", torch.relu(ctx.in_("X")))
+
+
+@op("sigmoid")
+def _sigmoid(ctx):
+    ctx.set_out("Out", torch.sigmoid(ctx.in_("X")))
 
 
 @op("sum")

@@ -22,7 +22,10 @@ The static path's op lowerings (registered in :mod:`.registry`) follow
 below: ``conv2d`` (``conv_forward`` :45, ``_conv_lower`` :81), ``pool2d``
 (:161), ``batch_norm`` (``bn_shapes`` :296, ``bn_train_stats`` :310,
 :341, its grad maker :374), ``softmax_with_cross_entropy`` (:471, its
-closed-form grad :509) and ``accuracy`` (:858).  conv2d, pool2d and
+closed-form grad :509), ``accuracy`` (:858), ``softmax`` (:460) and
+``lookup_table`` (:692-708: ids with a trailing unit axis squeezed, the
+dense gradient of the default grad maker; ``is_sparse`` raises, its
+SelectedRows gradient is not ported).  conv2d, pool2d and
 batch_norm carry explicit grad lowerings: the convolution's through
 ``aten.convolution_backward``, max pooling's through the indices of a
 recomputed ``max_pool2d_with_indices``, batch_norm's in closed form.
@@ -572,3 +575,27 @@ def _accuracy(ctx):
     ctx.set_out("Accuracy", (num_correct / total).float())
     ctx.set_out("Correct", num_correct.int())
     ctx.set_out("Total", total.long())
+
+
+# -- softmax and the embedding lookup -----------------------------------------
+@op("softmax")
+def _softmax(ctx):
+    ctx.set_out("Out", torch.softmax(ctx.in_("X"), dim=ctx.attr("axis", -1)))
+
+
+@op("lookup_table")
+def _lookup_table(ctx):
+    ids = ctx.in_("Ids")
+    if ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    ctx.set_out("Out", lookup_table_v2(ctx.in_("W"), ids,
+                                       ctx.attr("padding_idx", -1)))
+
+
+@grad_maker("lookup_table")
+def _lookup_table_grad_maker(op_, no_grad_names=frozenset()):
+    if op_.attrs.get("is_sparse", False):
+        raise NotImplementedError("lookup_table with is_sparse=True: the "
+                                  "SelectedRows gradient is not ported "
+                                  "(ROADMAP.md)")
+    return default_grad_maker(op_, no_grad_names)

@@ -5,9 +5,11 @@ static Program path (counterpart of ``paddle_tpu/ops/registry.py``).
   slots as torch tensors and binds its outputs.  The executor
   (``executor.py``) runs a block op by op, eagerly, so a lowering is the
   whole of an op's run-time work.
-* **infer_shape**: defaults to running the lowering itself on ``meta``
-  tensors (the counterpart of the JAX package's ``jax.eval_shape``), so
-  compile-time shapes are exactly what the lowering computes.  ``-1``
+* **infer_shape**: an op's own where it registers one
+  (:func:`infer_for`, as ``reshape2`` does in JAX), else the lowering
+  itself run on ``meta`` tensors (the counterpart of the JAX package's
+  ``jax.eval_shape``), so compile-time shapes are exactly what the
+  lowering computes.  ``-1``
   (dynamic batch) stands in as 97 while it runs, as in JAX; 64-bit result
   types are recorded as 32-bit (``dtype.canonical_dtype``), as JAX's
   default mode records them.
@@ -29,8 +31,8 @@ import torch
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX, Block, Operator
 from ..framework.dtype import canonical_dtype, to_torch_dtype
 
-__all__ = ["OPS", "OpDef", "op", "grad_maker", "resolve", "LowerCtx",
-           "infer_shape", "run_op", "has_grad", "make_grad_ops",
+__all__ = ["OPS", "OpDef", "op", "grad_maker", "infer_for", "resolve",
+           "LowerCtx", "infer_shape", "run_op", "has_grad", "make_grad_ops",
            "default_grad_maker", "generic_grad_lower"]
 
 _SENTINEL_DIM = 97  # stands in for -1 (dynamic batch) during inference
@@ -40,12 +42,14 @@ OPS: Dict[str, "OpDef"] = {}
 
 
 class OpDef:
-    __slots__ = ("type", "lower", "grad_maker", "no_grad", "_generic_grad")
+    __slots__ = ("type", "lower", "grad_maker", "infer_shape", "no_grad",
+                 "_generic_grad")
 
     def __init__(self, type):
         self.type = type
         self.lower: Optional[Callable] = None
         self.grad_maker: Optional[Callable] = None
+        self.infer_shape: Optional[Callable] = None
         self.no_grad = False
         self._generic_grad = False
 
@@ -67,6 +71,18 @@ def grad_maker(type: str):
 
     def deco(fn):
         OPS.setdefault(type, OpDef(type)).grad_maker = fn
+        return fn
+
+    return deco
+
+
+def infer_for(type: str):
+    """Decorator registering a custom compile-time shape inference
+    ``fn(op, block)`` for ``type``, in place of running the lowering on
+    ``meta`` tensors (JAX ``infer_for``)."""
+
+    def deco(fn):
+        OPS.setdefault(type, OpDef(type)).infer_shape = fn
         return fn
 
     return deco
@@ -216,6 +232,9 @@ def infer_shape(op: Operator, block: Block):
         return  # unknown ops carry no inference
     if op.type.endswith("_grad"):
         _infer_grad_shapes(op, block)
+        return
+    if d.infer_shape is not None:
+        d.infer_shape(op, block)
         return
     if d.lower is None:
         return

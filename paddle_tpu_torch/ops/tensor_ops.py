@@ -1,6 +1,8 @@
-"""Creation and random op lowerings of the static path (counterpart of
-``paddle_tpu/ops/tensor_ops.py``: ``fill_constant`` :36,
-``gaussian_random`` :70, ``uniform_random`` :81).
+"""Creation, random and shape op lowerings of the static path
+(counterpart of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant`` :36,
+``gaussian_random`` :70, ``uniform_random`` :81, ``reshape2`` :214 with
+its shape inference :228, ``concat`` :332).  The shape ops' grads are the
+registry's generic vjp replay, as in JAX.
 
 Random ops draw from the executor's ``torch.Generator`` (seeded from the
 program's ``random_seed``), or from a generator of their own when the op
@@ -11,11 +13,13 @@ device, no generator) they allocate nothing.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..framework.dtype import VarType, convert_dtype, to_torch_dtype
 from ..framework.random import default_generator
-from .registry import op
+from .registry import infer_for, op
 
 __all__ = []
 
@@ -77,3 +81,60 @@ def _uniform_random(ctx):
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
     out = _random_f32(ctx, lambda t, g: t.uniform_(lo, hi, generator=g))
     ctx.set_out("Out", out.to(_attr_dtype(ctx)))
+
+
+def _resolve_shape(target, in_shape):
+    """Paddle reshape semantics: 0 copies the input dim, one -1 is
+    inferred."""
+    target = list(target)
+    for i, s in enumerate(target):
+        if s == 0:
+            target[i] = in_shape[i]
+    if -1 in target:
+        known = math.prod(s for s in target if s != -1)
+        total = math.prod(in_shape)
+        target[target.index(-1)] = total // known if known else -1
+    return target
+
+
+@op("reshape2")
+def _reshape2(ctx):
+    x = ctx.in_("X")
+    if ctx.has_input("Shape"):
+        raise NotImplementedError("reshape2 with a Shape tensor input is "
+                                  "not ported")
+    ctx.set_out("Out", x.reshape(_resolve_shape(ctx.attr("shape", []),
+                                                tuple(x.shape))))
+    if ctx.has_output("XShape"):
+        ctx.set_out("XShape", torch.zeros((0,), dtype=x.dtype,
+                                          device=x.device))
+
+
+@infer_for("reshape2")
+def _reshape2_infer(op_, block):
+    """Out's shape from the attr alone, a -1 batch dim kept; XShape keeps
+    its declared shape (JAX :228)."""
+    x = block._find_var_recursive(op_.input("X")[0])
+    out_shape = []
+    for i, s in enumerate(op_.attrs.get("shape", [])):
+        if s == 0:
+            out_shape.append(x.shape[i] if i < len(x.shape) else -1)
+        else:
+            out_shape.append(s)
+    if -1 in out_shape and -1 not in x.shape:
+        known = math.prod(s for s in out_shape if s != -1)
+        total = math.prod(x.shape) if x.shape else 0
+        if known > 0 and total > 0:
+            out_shape[out_shape.index(-1)] = total // known
+    out = block._find_var_recursive(op_.output("Out")[0])
+    out.shape = tuple(out_shape)
+    out.dtype = x.dtype
+
+
+@op("concat")
+def _concat(ctx):
+    if ctx.has_input("AxisTensor"):
+        raise NotImplementedError("concat with an AxisTensor input is not "
+                                  "ported")
+    xs = [v for v in ctx.ins("X") if v is not None]
+    ctx.set_out("Out", torch.cat(xs, dim=ctx.attr("axis", 0)))

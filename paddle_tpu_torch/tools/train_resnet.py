@@ -116,14 +116,23 @@ def _is_conv(name: str) -> bool:
                                 "cudnn", "xmma", "sm90_", "sm80_"))
 
 
-def profile_steps(run: dict, steps: int) -> dict:
+#: ResNet's kernel groups: report key -> test on the kernel's name
+RESNET_GROUPS = {
+    "conv_ms_per_step": lambda k: _is_conv(k) and "bn_act" not in k,
+    "bn_act_apply_ms_per_step": lambda k: "bn_act_fwd" in k,
+    "bn_act_bwd_ms_per_step": lambda k: "bn_act_bwd" in k,
+}
+
+
+def profile_steps(run: dict, steps: int, groups=None) -> dict:
     """Run ``steps`` warm steps of a :func:`train` result, then trace as
     many again with ``torch.profiler``: host wall ms per step without and
     under the profiler, device busy ms per step (one stream: kernels do
-    not overlap), the idle share of the unprofiled step, and device ms per
-    step of the convolutions (cuDNN's kernels, by name; the classifier's
-    two small GEMMs fall in too), of the two epilogue kernels and of
-    everything else."""
+    not overlap), the idle share of the unprofiled step, device ms per
+    step of each of ``groups``' kernels (default: the convolutions,
+    cuDNN's kernels by name, the classifier's two small GEMMs falling in
+    too, and the two epilogue kernels) and of everything else."""
+    groups = RESNET_GROUPS if groups is None else groups
     exe, prog, feed, scope, fetch = (run["executor"], run["program"],
                                      run["feed"], run["scope"], run["fetch"])
 
@@ -147,28 +156,21 @@ def profile_steps(run: dict, steps: int) -> dict:
                and _self_device_us(e) > 0]
     busy_us = sum(_self_device_us(e) for e in kernels)
     if busy_us == 0:
-        raise SystemExit("train_resnet: the trace holds no device time "
+        raise SystemExit("profile_steps: the trace holds no device time "
                          "(device time not measured)")
-
-    def ms(pred):
-        return sum(_self_device_us(e) for e in kernels
-                   if pred(e.key)) / steps / 1e3
-
-    fwd_ms = ms(lambda k: "bn_act_fwd" in k)
-    bwd_ms = ms(lambda k: "bn_act_bwd" in k)
-    conv_ms = ms(lambda k: _is_conv(k) and "bn_act" not in k)
+    busy_ms = busy_us / steps / 1e3
+    by_group = {key: sum(_self_device_us(e) for e in kernels
+                         if pred(e.key)) / steps / 1e3
+                for key, pred in groups.items()}
     top = sorted(kernels, key=_self_device_us, reverse=True)[:15]
     return {"device": torch.cuda.get_device_name(0), "steps": steps,
             "wall_ms_per_step": plain_wall / steps * 1e3,
             "wall_ms_per_step_profiled": wall / steps * 1e3,
-            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_us / 1e6 / plain_wall,
             "kernels_per_step": sum(e.count for e in kernels) / steps,
-            "conv_ms_per_step": conv_ms,
-            "bn_act_apply_ms_per_step": fwd_ms,
-            "bn_act_bwd_ms_per_step": bwd_ms,
-            "other_ms_per_step": busy_us / steps / 1e3 - conv_ms - fwd_ms
-            - bwd_ms,
+            **by_group,
+            "other_ms_per_step": busy_ms - sum(by_group.values()),
             "top_kernels": [{"name": e.key[:90],
                              "ms_per_step": _self_device_us(e) / steps / 1e3,
                              "share": _self_device_us(e) / busy_us,

@@ -1,9 +1,11 @@
 """The structural half of the epilogue-fusion finder (counterpart of
 ``paddle_tpu/utils/cost_model.py:300-606``).
 
-:func:`find_fusion_chains` matches every conv2d -> batch_norm /
-fused_batch_norm_act / fused_bn_add_activation (-> relu) chain with its
-matching grad chain, with the JAX package's exclusivity rules, and
+:func:`find_fusion_chains` matches, with the JAX package's exclusivity
+rules, every conv2d -> batch_norm / fused_batch_norm_act /
+fused_bn_add_activation (-> relu) chain and every mul / matmul ->
+elementwise_add (1-D bias) -> act chain (``FUSABLE_ACTS``; exact-erf gelu
+only), each with its matching grad chain or none of it;
 :func:`rank_fusion_candidates` orders the matches by the bytes fusion
 saves (:func:`chain_saved_traffic`).  ``framework/ir.py``
 ``fuse_epilogue_pass`` rewrites them best first.
@@ -11,20 +13,21 @@ saves (:func:`chain_saved_traffic`).  ``framework/ir.py``
 Not ported: the JAX ``CostModel`` and its measured-profile calibration,
 whose constants are TPU measurements; without a profile the JAX ranking
 is this same order by saved bytes, and the order never changes which
-chains fuse.  The matmul -> bias -> act chains (``_matmul_chain``) come
-with the fused matmul kernel; until then no matmul chain is matched.
+chains fuse.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-__all__ = ["find_fusion_chains", "chain_saved_traffic",
+__all__ = ["FUSABLE_ACTS", "find_fusion_chains", "chain_saved_traffic",
            "rank_fusion_candidates", "set_measured_profile"]
 
 #: bn-shaped ops a conv epilogue can absorb.  Plain ``batch_norm`` is
 #: matched only with a trailing ``relu`` (the raw conv -> BN -> ReLU
 #: triple): a ReLU-less BN keeps its unfused backward.
 _BN_OPS = ("batch_norm", "fused_batch_norm_act", "fused_bn_add_activation")
+#: activations the fused matmul epilogue supports
+FUSABLE_ACTS = ("relu", "sigmoid", "tanh", "gelu")
 
 #: the batch size a dynamic (-1) dim stands for when counting bytes
 ASSUMED_BATCH = 64
@@ -117,17 +120,96 @@ def _conv_chain(conv, cons, block):
     }
 
 
+def _matmul_ok(op_, block):
+    if op_.type == "mul":
+        return int(op_.attrs.get("y_num_col_dims", 1)) == 1
+    if op_.type in ("matmul", "matmul_v2"):
+        if op_.attrs.get("transpose_X") or op_.attrs.get("transpose_Y") or \
+                op_.attrs.get("trans_x") or op_.attrs.get("trans_y"):
+            return False
+        if float(op_.attrs.get("alpha", 1.0) or 1.0) != 1.0:
+            return False
+        xv = block._find_var_recursive(op_.inputs.get("X", [None])[0] or "")
+        return xv is not None and xv.shape is not None and len(xv.shape) == 2
+    return False
+
+
+def _matmul_chain(mm, cons, block):
+    if not _matmul_ok(mm, block):
+        return None
+    y0 = mm.outputs.get("Out", [None])[0]
+    wv = block._find_var_recursive(mm.inputs.get("Y", [None])[0] or "")
+    if not y0 or wv is None or wv.shape is None or len(wv.shape) != 2:
+        return None
+    users = cons.get(y0, [])
+    xnc = int(mm.attrs.get("x_num_col_dims", 1))
+
+    def _bias_add(o):
+        if o.type != "elementwise_add" or o.inputs.get("X", [None])[0] != y0:
+            return False
+        bvar = block._find_var_recursive(o.inputs.get("Y", [None])[0] or "")
+        if bvar is None or bvar.shape is None or len(bvar.shape) != 1:
+            return False
+        return int(o.attrs.get("axis", -1)) in (-1, xnc)
+
+    add = _first(users, _bias_add)
+    if add is None:
+        return None
+    mm_grad = _first(users, lambda o: o.type == mm.type + "_grad")
+    add_grad = _first(users, lambda o: o.type == "elementwise_add_grad"
+                      and o.inputs.get("X", [None])[0] == y0)
+    if not _only(users, (add, add_grad, mm_grad)):
+        return None
+    ya = add.outputs["Out"][0]
+    a_users = cons.get(ya, [])
+    act_op = _first(a_users, lambda o: o.type in FUSABLE_ACTS
+                    and o.inputs.get("X", [None])[0] == ya)
+    if act_op is None:
+        return None
+    if act_op.type == "gelu" and act_op.attrs.get("approximate"):
+        return None  # the kernel and its plain version are exact-erf only
+    act_grad = _first(a_users, lambda o: o.type == act_op.type + "_grad"
+                      and o.inputs.get("X", [None])[0] == ya)
+    if not _only(a_users, (act_op, act_grad, add_grad)):
+        return None
+    grads = (act_grad, add_grad, mm_grad)
+    if any(g is None for g in grads) != all(g is None for g in grads):
+        return None  # part of a backward: leave it alone
+    y1 = act_op.outputs["Out"][0]
+    if act_grad is not None:
+        dya = act_grad.outputs.get("X@GRAD", [None])[0]
+        if (not dya or add_grad.inputs.get("Out@GRAD", [None])[0] != dya
+                or not _only(cons.get(dya, []), (add_grad,))):
+            return None
+        dy0 = add_grad.outputs.get("X@GRAD", [None])[0]
+        if (not dy0 or mm_grad.inputs.get("Out@GRAD", [None])[0] != dy0
+                or not _only(cons.get(dy0, []), (mm_grad,))):
+            return None
+        if act_grad.inputs.get("Out", [None])[0] != y1:
+            return None
+    return {
+        "kind": "matmul_bias_act", "mm": mm, "add": add, "act_op": act_op,
+        "mm_grad": mm_grad, "add_grad": add_grad, "act_grad": act_grad,
+        "act": act_op.type, "mm_out": y0, "add_out": ya, "out": y1,
+        "xnc": xnc,
+    }
+
+
 def find_fusion_chains(block) -> List[dict]:
-    """Structural matches for every conv epilogue chain in ``block`` (fwd
-    + the matching grad chain, or fwd-only in inference programs).  The
-    IR pass adds the protected/fetch and cross-block checks."""
+    """Structural matches for every epilogue chain in ``block`` (fwd +
+    the matching grad chain, or fwd-only in inference programs).  The IR
+    pass adds the protected/fetch and cross-block checks."""
     cons = _consumer_map(block.ops)
     chains = []
     for op_ in block.ops:
         if op_.type in ("conv2d", "depthwise_conv2d"):
             ch = _conv_chain(op_, cons, block)
-            if ch is not None:
-                chains.append(ch)
+        elif op_.type in ("mul", "matmul", "matmul_v2"):
+            ch = _matmul_chain(op_, cons, block)
+        else:
+            ch = None
+        if ch is not None:
+            chains.append(ch)
     return chains
 
 
@@ -147,42 +229,57 @@ def _numel(dims) -> int:
 
 def chain_saved_traffic(chain, block, assumed_batch=ASSUMED_BATCH) -> dict:
     """Modeled device-memory bytes the fused rewrite stops moving, per
-    intermediate, at 4 B per element: the conv output's separate
-    normalize-pass re-read folds into the single epilogue pass (2 passes
-    when frozen statistics let the whole tensor die), a raw triple's
-    pre-relu BN output and its gradient disappear, and the grad chain's
-    dX-of-BN intermediate is never written (write + read)."""
+    intermediate, at 4 B per element.  Conv chains: the conv output's
+    separate normalize-pass re-read folds into the single epilogue pass
+    (2 passes when frozen statistics let the whole tensor die), a raw
+    triple's pre-relu BN output and its gradient disappear, and the grad
+    chain's dX-of-BN intermediate is never written (write + read).
+    Matmul chains: the product and the pre-act sum (and their
+    gradients) are never written (write + read each)."""
 
     def nbytes(name):
         dims = _dims(block, name, assumed_batch)
         return _numel(dims) * 4 if dims else 0
 
     saved = {}
-    frozen = bool(chain["bn"].attrs.get("is_test")
-                  or chain["bn"].attrs.get("use_global_stats"))
-    saved[chain["conv_out"]] = nbytes(chain["conv_out"]) * \
-        (2.0 if frozen else 1.0)
-    if chain.get("bn_y"):
-        saved[chain["bn_y"]] = nbytes(chain["bn_y"]) * 2.0
+    if chain["kind"] == "conv_bn_act":
+        frozen = bool(chain["bn"].attrs.get("is_test")
+                      or chain["bn"].attrs.get("use_global_stats"))
+        saved[chain["conv_out"]] = nbytes(chain["conv_out"]) * \
+            (2.0 if frozen else 1.0)
+        if chain.get("bn_y"):
+            saved[chain["bn_y"]] = nbytes(chain["bn_y"]) * 2.0
+            if chain["act_grad"] is not None:
+                saved[chain["bn_y"] + "@GRAD"] = nbytes(chain["bn_y"]) * 2.0
+        if chain["bn_grad"] is not None:
+            saved[chain["dconv"]] = nbytes(chain["dconv"]) * 2.0
+    else:
+        saved[chain["mm_out"]] = nbytes(chain["mm_out"]) * 2.0
+        saved[chain["add_out"]] = nbytes(chain["add_out"]) * 2.0
         if chain["act_grad"] is not None:
-            saved[chain["bn_y"] + "@GRAD"] = nbytes(chain["bn_y"]) * 2.0
-    if chain["bn_grad"] is not None:
-        saved[chain["dconv"]] = nbytes(chain["dconv"]) * 2.0
+            saved[chain["add_out"] + "@GRAD"] = nbytes(chain["add_out"]) * 2.0
+            saved[chain["mm_out"] + "@GRAD"] = nbytes(chain["mm_out"]) * 2.0
     return {"per_tensor": saved, "total_bytes": float(sum(saved.values()))}
 
 
 def rank_fusion_candidates(program) -> List[dict]:
     """Every fusible chain of ``program``'s global block, most saved
-    bytes first (a stable sort: ties keep program order)."""
+    bytes first (a stable sort: ties keep program order).  ``ops`` names
+    the chain's anchor (the conv or the matmul) and then its epilogue ops,
+    forward and grad, as the JAX ranking lists them."""
     block = program.global_block()
     out = []
     for chain in find_fusion_chains(block):
         traffic = chain_saved_traffic(chain, block)
+        if chain["kind"] == "conv_bn_act":
+            ops = (chain["conv"], chain["bn"], chain["act_op"],
+                   chain["bn_grad"], chain["act_grad"])
+        else:
+            ops = (chain["mm"], chain["add"], chain["act_op"],
+                   chain["add_grad"], chain["act_grad"])
         out.append({
             "kind": chain["kind"],
-            "ops": [o.type for o in (chain["conv"], chain["bn"],
-                                     chain["act_op"], chain["bn_grad"],
-                                     chain["act_grad"]) if o is not None],
+            "ops": [o.type for o in ops if o is not None],
             "out": chain["out"],
             "saved_bytes": int(traffic["total_bytes"]),
             "per_tensor": traffic["per_tensor"],

@@ -323,3 +323,100 @@ def test_resnet18_on_the_card_launches_the_epilogue_kernels(cuda):
     assert (tba.BN_ACT_APPLY.launches - before[0],
             tba.BN_ACT_BWD.launches - before[1]) == (34, 34)
     assert all(t.device.type == "cuda" for _, t in scope.items())
+
+
+# ==========================================================================
+# the fc epilogue (csrc/matmul_bias_act.cu): kernel 9 against its plain
+# version within the tolerance of JAX's own kernel test
+# (tests/test_fused_epilogue.py:116-117): f32 sums in another order
+# ==========================================================================
+from paddle_tpu_torch.ops import matmul_epilogue as tme  # noqa: E402
+
+MM_TOL = dict(rtol=2e-5, atol=2e-4)
+MM_ACTS = ["", "relu", "sigmoid", "tanh", "gelu"]
+# (M, K, N): LeNet's two fc layers, word2vec's hidden layer, all-odd
+# ragged edges, one element, K of a few thousand, several row and column
+# tiles with ragged edges on both
+MM_SHAPES = [(256, 400, 120), (256, 120, 84), (256, 128, 256), (37, 53, 29),
+             (1, 1, 1), (65, 4099, 67), (300, 96, 200)]
+MM_IDS = ["lenet-fc1", "lenet-fc2", "word2vec", "odd", "one", "large-k",
+          "tiles"]
+
+
+def _mm_case(dev, seed, m, k, n):
+    """x (M, K), w (K, N) scaled as a layer's weights are, bias (N,)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
+    return x, w, torch.randn(n, device=dev, generator=gen)
+
+
+@pytest.mark.parametrize("act", MM_ACTS)
+@pytest.mark.parametrize("m,k,n", MM_SHAPES, ids=MM_IDS)
+def test_matmul_bias_act_kernel_matches_plain(cuda, m, k, n, act):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, b = _mm_case(cuda, 0, m, k, n)
+    before = tme.MATMUL_BIAS_ACT_F32.launches
+    got = tme.matmul_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert tme.MATMUL_BIAS_ACT_F32.launches == before + 1
+    want = tme.matmul_bias_act_reference(x, w, b, act)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **MM_TOL)
+
+
+def test_matmul_bias_act_wrapper_raises_on_unsupported(cuda):
+    x, w, b = _mm_case(cuda, 1, 32, 48, 24)
+    before = tme.MATMUL_BIAS_ACT_F32.launches
+    with pytest.raises(NotImplementedError, match="float32"):
+        tme.matmul_bias_act(x.bfloat16(), w.bfloat16(), b.bfloat16(), "relu")
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        tme.matmul_bias_act(x.t().contiguous().t(), w, b, "relu")
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        tme.matmul_bias_act(x, w.t().contiguous().t(), b)
+    with pytest.raises(NotImplementedError, match="act"):
+        tme.matmul_bias_act(x, w, b, "swish")
+    with pytest.raises(ValueError, match="chain"):
+        tme.matmul_bias_act(x, w[:5].contiguous(), b)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tme.matmul_bias_act(x, w.cpu(), b)
+    assert tme.MATMUL_BIAS_ACT_F32.launches == before
+    # a CPU tensor takes the plain version and launches nothing
+    tme.matmul_bias_act(x.cpu(), w.cpu(), b.cpu(), "relu")
+    assert tme.MATMUL_BIAS_ACT_F32.launches == before
+
+
+@pytest.mark.parametrize("model,chains", [("lenet", 2), ("word2vec", 1)])
+def test_book_models_on_the_card_launch_kernel_9(cuda, model, chains):
+    """Three steps of each book model at a small batch through
+    fluid.Executor(CUDAPlace(0)) with the fusion flag at auto: kernel 9
+    launches twice per fc chain per step (the forward and the grad's
+    replay), and the card's losses follow the CPU's from the same
+    startup scope (f32 sums in another order: rtol 1e-4)."""
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools import train_book as tb
+    import paddle_tpu_torch.fluid as fluid
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(tb.DEFAULTS[model], batch=16)
+    main, startup, fetch = tb.build_program(model, cfg)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    feed = tb.make_batch(model, cfg)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        before = tme.MATMUL_BIAS_ACT_F32.launches
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=fetch[:1],
+                                     scope=scope)[0]) for _ in range(3)]
+        torch.cuda.synchronize()
+        launched = tme.MATMUL_BIAS_ACT_F32.launches - before
+        assert launched == (0 if dev == "cpu" else 2 * chains * 3)
+    assert all(t.device.type == "cuda" for _, t in scope.items())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

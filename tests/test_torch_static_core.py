@@ -151,9 +151,9 @@ def test_pass_pipeline_matches_jax(fuse_flags, depth, fuse):
 
 
 def test_fc_relu_chain_stays_unfused(fuse_flags):
-    """The matmul epilogue (fused_matmul_bias_act, kernel 9) is not
-    ported: with the fusion forced on, an fc+relu chain keeps its ops."""
-    tflags.set_flags({"FLAGS_cuda_fuse": "1"})
+    """An fc+relu chain stays unfused only with the fusion off; with it
+    forced on, the executor's pipeline rewrites the chain, forward and
+    grad, onto fused_matmul_bias_act (kernel 9's op) and its grad."""
     with tunique.guard():
         main, startup = tfluid.Program(), tfluid.Program()
         with tfluid.program_guard(main, startup):
@@ -161,12 +161,24 @@ def test_fc_relu_chain_stays_unfused(fuse_flags):
             h = tfluid.layers.fc(x, 16, act="relu")
             loss = tfluid.layers.mean(h)
             tfluid.optimizer.SGDOptimizer(0.1).minimize(loss)
-    rew = tfluid.Executor(tfluid.CPUPlace())._apply_ir_passes(main,
-                                                             [loss.name])
-    types = [o.type for o in rew.global_block().ops]
+    chain = ("mul", "elementwise_add", "relu", "relu_grad",
+             "elementwise_add_grad", "mul_grad")
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    tflags.set_flags({"FLAGS_cuda_fuse": "0"})
+    types = [o.type for o in exe._apply_ir_passes(
+        main, [loss.name]).global_block().ops]
     assert "fused_matmul_bias_act" not in types
-    for t in ("mul", "elementwise_add", "relu", "relu_grad", "mul_grad"):
-        assert t in types
+    assert all(t in types for t in chain)
+    tflags.set_flags({"FLAGS_cuda_fuse": "1"})
+    rew = exe._apply_ir_passes(main, [loss.name])
+    types = [o.type for o in rew.global_block().ops]
+    assert types.count("fused_matmul_bias_act") == 1
+    assert types.count("fused_matmul_bias_act_grad") == 1
+    assert not any(t in types for t in chain)
+    fwd, = [o for o in rew.global_block().ops
+            if o.type == "fused_matmul_bias_act"]
+    assert (fwd.attrs["act_type"], fwd.attrs["x_num_col_dims"]) == ("relu", 1)
+    assert fwd.input("X") == ["x"] and fwd.output("Out") == [h.name]
 
 
 def test_fusion_flag_auto_follows_the_device(fuse_flags):
@@ -277,8 +289,12 @@ def test_cost_model_calibration_raises():
 def test_static_core_imports_no_jax():
     mods = ["paddle_tpu_torch.fluid", "paddle_tpu_torch.executor",
             "paddle_tpu_torch.framework.ir", "paddle_tpu_torch.ops.bn_act",
+            "paddle_tpu_torch.ops.matmul_epilogue",
             "paddle_tpu_torch.models.resnet",
-            "paddle_tpu_torch.tools.train_resnet"]
+            "paddle_tpu_torch.models.lenet",
+            "paddle_tpu_torch.models.word2vec",
+            "paddle_tpu_torch.tools.train_resnet",
+            "paddle_tpu_torch.tools.train_book"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -276,6 +276,65 @@ def _fused_conv(fmt, with_z, stride):
                   tol=SUMS)
 
 
+def _ids(seed, n, vocab, pad=None):
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, 1))
+    if pad is not None:
+        ids[::3] = pad
+    return ids.astype(np.int64)
+
+
+def _random_moments(op_type, attrs, mean, std, n=20000):
+    """Random ops: the two packages' streams differ, so each package's
+    draws are held to the shape, the dtype and the moments of ``n`` draws
+    (5 standard errors), as ``test_random_ops_shapes_and_moments``
+    does for the port alone."""
+    attrs = dict(attrs, shape=[n], dtype=5, seed=0)
+    for draws in (_jax(op_type, {}, {"Out": ["o"]}, attrs, {})["o"],
+                  _port(op_type, {}, {"Out": ["o"]}, attrs, {})["o"]):
+        v = np.asarray(draws)
+        assert v.shape == (n,) and v.dtype == np.float32
+        assert abs(v.mean() - mean) < 5 * std / n ** 0.5
+        assert abs(v.std() - std) < 0.05 * std
+
+
+CASES.update({
+    "gaussian_random": lambda: _random_moments(
+        "gaussian_random", {"mean": 0.5, "std": 2.0}, 0.5, 2.0),
+    "uniform_random": lambda: _random_moments(
+        "uniform_random", {"min": -1.0, "max": 3.0}, 1.0, 4.0 / 12 ** 0.5),
+    "sigmoid": lambda: _check("sigmoid", {"X": [("x", _r(0, 5, 6) * 3)]},
+                              {"Out": ["o"]}, cot_of=["o"]),
+    "softmax": lambda: _check("softmax", {"X": [("x", _r(0, 4, 7) * 2)]},
+                              {"Out": ["o"]}, {"axis": -1}, cot_of=["o"]),
+    "softmax-axis0": lambda: _check("softmax", {"X": [("x", _r(1, 5, 3))]},
+                                    {"Out": ["o"]}, {"axis": 0},
+                                    cot_of=["o"]),
+    "concat": lambda: _check(
+        "concat", {"X": [("a", _r(0, 4, 3)), ("b", _r(1, 4, 5)),
+                         ("c", _r(2, 4, 1))]},
+        {"Out": ["o"]}, {"axis": 1}, cot_of=["o"]),
+    "reshape2": lambda: _check(
+        "reshape2", {"X": [("x", _r(0, 4, 6))]},
+        {"Out": ["o"], "XShape": ["xs"]}, {"shape": [0, -1, 3]},
+        cot_of=["o"]),
+    "lookup_table": lambda: _check(
+        "lookup_table", {"W": [("w", _r(0, 11, 5))],
+                         "Ids": [("ids", _ids(1, 9, 11))]},
+        {"Out": ["o"]}, {"padding_idx": -1, "is_sparse": False},
+        cot_of=["o"], int_slots=("Ids",)),
+    "lookup_table-padding-idx": lambda: _check(
+        "lookup_table", {"W": [("w", _r(0, 11, 5))],
+                         "Ids": [("ids", _ids(2, 9, 11, pad=4))]},
+        {"Out": ["o"]}, {"padding_idx": 4, "is_sparse": False},
+        cot_of=["o"], int_slots=("Ids",)),
+    "fused_matmul_bias_act": lambda: _check(
+        "fused_matmul_bias_act",
+        {"X": [("x", _r(0, 5, 7))], "Y": [("y", _r(1, 7, 3))],
+         "Bias": [("b", _r(2, 3))]},
+        {"Out": ["o"]}, {"act_type": "relu", "x_num_col_dims": 1,
+                         "axis": 1}, cot_of=["o"], tol=SUMS),
+})
+
 for _t in ("fused_batch_norm_act", "fused_bn_add_activation"):
     for _f in ("NCHW", "NHWC"):
         CASES[f"{_t}-{_f.lower()}"] = (
@@ -289,6 +348,37 @@ for _f in ("NCHW", "NHWC"):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_op_matches_jax(case):
     CASES[case]()
+
+
+def test_every_registered_op_has_a_parity_case():
+    """The port's op-coverage meter: no forward op lands in the registry
+    without a case above (a case's name is its op type, then an optional
+    ``-variant``)."""
+    forward = {t for t, d in treg.OPS.items()
+               if d.lower is not None and not t.endswith("_grad")}
+    covered = {case.split("-")[0] for case in CASES}
+    assert sorted(forward - covered) == []
+    assert sorted(covered - forward) == []
+
+
+def test_op_coverage_tool_counts_the_port_against_jax():
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    try:
+        import op_coverage
+    finally:
+        sys.path.pop(0)
+    rep = op_coverage.coverage()
+    port = {t for t, d in treg.OPS.items()
+            if d.lower is not None and not t.endswith("_grad")}
+    # every port op is one of JAX's, and the report adds up
+    assert set(rep["ported"]) == port
+    assert rep["ported_count"] == len(port) and rep["extra"] == []
+    assert rep["ported_count"] + len(rep["missing"]) == rep["jax_count"]
+    assert "fused_matmul_bias_act" in rep["ported"]
+    assert "lookup_table_v2" in rep["missing"]
 
 
 def test_fused_conv_matches_the_jax_pallas_kernels(monkeypatch):
