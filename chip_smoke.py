@@ -45,7 +45,37 @@ Phases (any failure exits non-zero and prints no result):
    whose backward must take the split dQ and dK/dV kernels;
 8. card vs CPU: 2 layers at full width, batch 2 x seq 128, dropout off,
    the same weights; per-step losses of 3 Adam steps on the card
-   (kernels) and on the CPU (plain versions) within rtol 1e-4;
+   (kernels) and on the CPU (plain versions) within rtol 1e-6;
+
+   AMP in bf16 (the example's default), headed a-e:
+
+   a. the bf16 flash kernels (``flash_fwd_bf16``, ``flash_bwd_fused_bf16``,
+      ``flash_bwd_dq_bf16``, ``flash_bwd_dkv_bf16``) against their bf16
+      plain versions on the card, at the BERT-base shape (b 44, h 12,
+      s 512, d 64, padding bias) and the long shape (b 2, h 12, s 2048,
+      d 64), causal and not, dropout 0 and 0.1 (the plain side takes
+      ``flash_dropout_mask``'s mask): every bf16 output within BF16_ULPS
+      bf16 ulps of the largest, lse within KERNEL_ATOL; the keep rate, one
+      seed giving the same output bit for bit, and the bf16 kernels apart
+      from the f32 kernels on the same inputs by about a bf16 rounding;
+   b. their times, as phase 6 (CUDA-graph replay, cold L2), against the
+      plain versions, SDPA in bf16 (forward, and backward alone), and the
+      bound max(bytes at 2 bytes an element / 3.35 TB/s, flops / 989
+      TFLOP/s, the dense bf16 tensor-core peak);
+   c. BERT-base under AMP O1 through ``jit_train_step(amp=True)``: batch
+      44 x seq 512 with padding, dropout 0.1, ``AdamOptimizer(1e-4)``, 2
+      warm-up and 10 timed steps on one batch; the loss finite and
+      falling, each step launching ``flash_fwd_bf16`` and
+      ``flash_bwd_fused_bf16`` 12 times and no f32 flash kernel; tokens/s,
+      ms/step and ``max_memory_allocated``; then 3 steps at seq 2048
+      (batch 2), whose backward launches the split bf16 pair 12 times each;
+   d. the same under AMP O2 over 2 + 5 steps; every parameter bf16, every
+      updated one with an f32 master and f32 moments in the optimizer;
+   e. the 2-layer model of phase 8 under AMP O1 and O2, 3 Adam steps on
+      the card and on the CPU: per-step losses within AMP_LOSS_RTOL, and
+      O1's card losses differ from phase 8's f32 ones by more than
+      LOSS_RTOL (bf16 did run);
+
 9. serving: ``ServingEngine`` at GPT-2-small widths (12 layers, random
    weights from seed 0) serves 16 requests; every request must finish,
    the kernel's launch count must equal layers x decode steps, and two
@@ -98,8 +128,10 @@ Phases (any failure exits non-zero and prints no result):
     card and on the CPU: step 1 within 1e-5 relative, every step within
     1e-3 absolute;
 17. the ``kernels`` line, one row per TPU kernel of
-    ``paddle_tpu/ops/pallas_kernels.py`` (nine; ``flash_fwd_f32`` replaces
-    two), the card's name and power limit, and the last line:
+    ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
+    (``flash_fwd_f32`` replaces two) and the five bf16 rows of kernels 1-5
+    (the bf16 launches from phase c, the AMP O1 main path), the card's
+    name and power limit, and the last line:
     ``{"ok": true, "device": {...}}``.
 
 Each phase's heading carries the seconds since the start.  The port is
@@ -123,7 +155,26 @@ KERNEL_ATOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 # the whole model on the card (kernels) vs on the CPU (plain versions):
 # per-step losses of f32 runs that differ in every summation order
-LOSS_RTOL = 1e-4
+# (measured 1.0e-7 on the H100; 1e-6 keeps a 10x margin and sits
+# below what bf16 changes, so phase e can tell the two apart)
+LOSS_RTOL = 1e-6
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the least time
+# the card could take for the bf16 kernels' products
+BF16_FLOP_PER_S = 989e12
+# bf16 flash kernels vs their bf16 plain versions: both round p, pd and dS
+# to bf16 at the same points; the forward kernel rounds p against the
+# running max of its kv tile (the plain version against the row's final
+# max) and every sum runs in another order, so an output may land a
+# rounding step or two apart: every bf16 output within BF16_ULPS bf16
+# ulps (2^-8 relative) of the tensor's largest magnitude (measured: at
+# most 0.95 here on the H100, 1.5 for the plain versions against JAX's
+# kernels in interpret mode on the CPU)
+BF16_ULPS = 4
+# AMP (bf16) losses on the card (kernels, cuBLAS bf16 GEMMs) vs on the CPU
+# (plain versions, oneDNN bf16 GEMMs), per step of 3 Adam steps: bf16
+# roundings in two summation orders; JAX and the port differ by up to
+# 2.3e-5 at this size on the CPU (2 layers, full width), 10x margin
+AMP_LOSS_RTOL = 3e-4
 # the ResNet-50 step-1 loss on the card vs on the CPU (cuDNN vs oneDNN
 # convolutions, each f32; __graft_entry__.py:199-203)
 RESNET_STEP1_RTOL = 1e-4
@@ -392,21 +443,31 @@ FLASH_ROWS = (  # (kernel name, TPU kernel it replaces)
     ("flash_bwd_dq_f32", "paddle_tpu/ops/pallas_kernels.py:386"),
     ("flash_bwd_dkv_f32", "paddle_tpu/ops/pallas_kernels.py:413"),
 )
+FLASH_BF16_ROWS = tuple((name.replace("_f32", "_bf16"), replaces)
+                        for name, replaces in FLASH_ROWS)
 EPILOGUE_ROWS = (  # (kernel name, TPU kernel it replaces)
     ("bn_act_apply_f32", "paddle_tpu/ops/pallas_kernels.py:1039"),
     ("bn_act_bwd_f32", "paddle_tpu/ops/pallas_kernels.py:1131"),
 )
 # the timing case the training path launches each kernel at: the backward
 # takes the fused kernel at seq 512 and the split pair at seq 2048
-MAIN_PATH_SHAPE = {"flash_fwd_f32": "bert", "flash_bwd_fused_f32": "bert",
-                   "flash_bwd_dq_f32": "long", "flash_bwd_dkv_f32": "long"}
+MAIN_PATH_SHAPE = {f"flash_{k}_{t}": shape
+                   for k, shape in (("fwd", "bert"), ("bwd_fused", "bert"),
+                                    ("bwd_dq", "long"), ("bwd_dkv", "long"))
+                   for t in ("f32", "bf16")}
 
 
-def flash_kernels():
+def flash_kernels(dtype="f32"):
+    """{name: KernelFunction} of the four flash kernels of one dtype
+    ("f32", "bf16" or "all")."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    return {kf.name: kf for kf in (fa.FLASH_FWD, fa.FLASH_BWD_FUSED,
-                                   fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)}
+    kfs = {"f32": (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DQ,
+                   fa.FLASH_BWD_DKV),
+           "bf16": (fa.FLASH_FWD_BF16, fa.FLASH_BWD_FUSED_BF16,
+                    fa.FLASH_BWD_DQ_BF16, fa.FLASH_BWD_DKV_BF16)}
+    pick = kfs["f32"] + kfs["bf16"] if dtype == "all" else kfs[dtype]
+    return {kf.name: kf for kf in pick}
 
 
 def make_flash_case(seed, b, h, s, d, with_bias):
@@ -438,26 +499,31 @@ def attended_pairs(b, h, sq, sk, causal):
 
 def flash_bound(name, case, causal):
     """(bound_ms, bound_by): each input read once and each output written
-    once over HBM bandwidth, against the f32 flops the function needs
-    (per attended pair and head dim: forward 4, dQ 6 [S, dP, dS K],
-    dK/dV 8 [S, dP, dS^T Q, P^T dO], fused 10) over the f32 peak."""
+    once over HBM bandwidth, against the flops the function needs (per
+    attended pair and head dim: forward 4, dQ 6 [S, dP, dS K], dK/dV 8
+    [S, dP, dS^T Q, P^T dO], fused 10) over the card's peak for their
+    type: f32 outside the tensor cores for the f32 kernels, the bf16
+    tensor cores for the bf16 ones.  q, k, v, dO and the outputs count 4
+    or 2 bytes an element; lse, delta and the bias 4."""
     q, k, _, _, bias = case
     b, h, sq, d = q.shape
     sk = k.shape[2]
     qn, kn, rows = q.numel(), k.numel(), b * h * sq
     bias_n = 0 if bias is None else bias.numel()
-    elems = {   # (elements read, elements written), f32
-        "flash_fwd_f32": (qn + 2 * kn + bias_n, qn + rows),
-        "flash_bwd_fused_f32": (2 * qn + 2 * kn + 2 * rows + bias_n,
-                                qn + 2 * kn),
-        "flash_bwd_dq_f32": (2 * qn + 2 * kn + 2 * rows + bias_n, qn),
-        "flash_bwd_dkv_f32": (2 * qn + 2 * kn + 2 * rows + bias_n, 2 * kn),
-    }[name]
-    per_pair = {"flash_fwd_f32": 4, "flash_bwd_fused_f32": 10,
-                "flash_bwd_dq_f32": 6, "flash_bwd_dkv_f32": 8}[name]
+    kind = name.rsplit("_", 1)[0]       # flash_fwd, flash_bwd_fused, ...
+    data, f32 = {   # elements read + written: (in q's dtype, in f32)
+        "flash_fwd": (qn + 2 * kn + qn, bias_n + rows),
+        "flash_bwd_fused": (2 * qn + 2 * kn + qn + 2 * kn,
+                            2 * rows + bias_n),
+        "flash_bwd_dq": (2 * qn + 2 * kn + qn, 2 * rows + bias_n),
+        "flash_bwd_dkv": (2 * qn + 2 * kn + 2 * kn, 2 * rows + bias_n),
+    }[kind]
+    per_pair = {"flash_fwd": 4, "flash_bwd_fused": 10, "flash_bwd_dq": 6,
+                "flash_bwd_dkv": 8}[kind]
+    bf16 = name.endswith("_bf16")
     flops = per_pair * d * attended_pairs(b, h, sq, sk, causal)
-    t_bytes = 4 * sum(elems) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_bytes = ((2 if bf16 else 4) * data + 4 * f32) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -544,9 +610,11 @@ def time_events(fn, args_sets, calls=10) -> float:
     return start.elapsed_time(end) / calls
 
 
-def time_flash(name, cases, causal, rate):
-    """ms, plain_ms, library_ms and the bound of every flash kernel on
-    ``cases`` (copies of one shape, rotated to keep the L2 cold)."""
+def time_flash(name, cases, causal, rate, dt="f32"):
+    """ms, plain_ms, library_ms and the bound of every flash kernel of
+    dtype ``dt`` on ``cases`` (copies of one shape, rotated to keep the
+    L2 cold); for bf16 the q, k, v, dO of ``cases`` are bf16 and the
+    library call (SDPA) runs in bf16 too."""
     import torch
     import torch.nn.functional as F
 
@@ -560,17 +628,18 @@ def time_flash(name, cases, causal, rate):
     for q, k, v, do, bias in cases:
         keep = fa.flash_dropout_mask(b, h, s, s, rate, seed) if rate else None
         out, lse = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
-        sets.append((q, k, v, do, bias, keep, out, lse, (do * out).sum(-1)))
+        sets.append((q, k, v, do, bias, keep, out, lse,
+                     (do.float() * out.float()).sum(-1)))
     kern = {
-        "flash_fwd_f32": lambda q, k, v, do, bias, keep, out, lse, delta:
+        f"flash_fwd_{dt}": lambda q, k, v, do, bias, keep, out, lse, delta:
             fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed),
-        "flash_bwd_fused_f32": lambda q, k, v, do, bias, keep, out, lse,
+        f"flash_bwd_fused_{dt}": lambda q, k, v, do, bias, keep, out, lse,
             delta: fa.bwd_fused(q, k, v, bias, do, lse, delta, scale,
                                 causal, rate, seed),
-        "flash_bwd_dq_f32": lambda q, k, v, do, bias, keep, out, lse, delta:
-            fa.bwd_dq(q, k, v, bias, do, lse, delta, scale, causal, rate,
-                      seed),
-        "flash_bwd_dkv_f32": lambda q, k, v, do, bias, keep, out, lse,
+        f"flash_bwd_dq_{dt}": lambda q, k, v, do, bias, keep, out, lse,
+            delta: fa.bwd_dq(q, k, v, bias, do, lse, delta, scale, causal,
+                             rate, seed),
+        f"flash_bwd_dkv_{dt}": lambda q, k, v, do, bias, keep, out, lse,
             delta: fa.bwd_dkv(q, k, v, bias, do, lse, delta, scale, causal,
                               rate, seed),
     }
@@ -591,7 +660,7 @@ def time_flash(name, cases, causal, rate):
     def sdpa_args(q, k, v, do, bias, *_):
         """q, k, v, the mask, and SDPA's output with its graph: the
         forward runs here, outside the backward's timed region."""
-        mask = None if bias is None else bias[:, None, None, :]
+        mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         return (*qkv, mask, sdpa(*qkv, mask), do)
 
@@ -608,7 +677,7 @@ def time_flash(name, cases, causal, rate):
     rows = {}
     for kname, fn in kern.items():
         bound_ms, bound_by = flash_bound(kname, cases[0], causal)
-        fwd = kname == "flash_fwd_f32"
+        fwd = kname.startswith("flash_fwd")
         rows[kname] = {"shape": name, "b": b, "h": h, "s": s, "d": d,
                        "causal": causal, "dropout": rate,
                        "bias": cases[0][4] is not None,
@@ -670,7 +739,8 @@ def train_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     run = train(BertConfig(), batch=44, seq=512, steps=steps, lr=1e-4,
-                device="cuda", pad=True, warmup=warmup, log_every=1)
+                device="cuda", pad=True, warmup=warmup, log_every=1,
+                amp=False)
     torch.cuda.synchronize()
     base = {n: kf.launches for n, kf in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -699,7 +769,7 @@ def train_phase(torch):
     reset_counts(kernels)
     long_run = train(BertConfig(max_position_embeddings=2048), batch=2,
                      seq=2048, steps=2, lr=1e-4, device="cuda", pad=True,
-                     warmup=1, log_every=1)
+                     warmup=1, log_every=1, amp=False)
     torch.cuda.synchronize()
     longl = {n: kf.launches for n, kf in kernels.items()}
     n = layers * 3
@@ -720,7 +790,8 @@ def train_phase(torch):
 
 def card_vs_cpu(torch):
     """The whole model, 2 layers at full width: the port on the card and
-    on the CPU from the same weights, 3 Adam steps."""
+    on the CPU from the same weights, 3 Adam steps.  Returns the card's
+    f32 losses."""
     from paddle_tpu_torch.dygraph import jit_train_step, to_tensor
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.optimizer import AdamOptimizer
@@ -749,6 +820,251 @@ def card_vs_cpu(torch):
                                        "rtol": LOSS_RTOL}), flush=True)
     if not rel <= LOSS_RTOL:
         fail(f"card vs CPU losses differ by {rel:.3e} > {LOSS_RTOL}")
+    return losses["cuda"]
+
+
+# ==========================================================================
+# bf16: the flash kernels, and BERT-base under AMP O1 / O2
+# ==========================================================================
+def ulps_off(got, want) -> float:
+    """max |got - want| in bf16 ulps of the largest |want| (2^-8 of it)."""
+    scale = 2.0 ** -8 * float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def bf16_case(case):
+    q, k, v, do, bias = case
+    return (*(t.bfloat16() for t in (q, k, v, do)), bias)
+
+
+def check_flash_bf16(name, case, causal, rate):
+    """The four bf16 kernels against the bf16 plain versions (which round
+    where the kernels round), the keep rate, determinism, and the bf16
+    kernels against the f32 ones on the same bf16-representable inputs;
+    returns {kernel: max abs error}."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, bias = case
+    b, h, s, d = q.shape
+    scale = d ** -0.5
+    seed = torch.tensor([20261], dtype=torch.int64, device="cuda")
+    keep = fa.flash_dropout_mask(b, h, s, s, rate, seed) if rate else None
+    out, lse = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+    want_out, want_lse = fa.flash_fwd_reference(q, k, v, bias, scale,
+                                                causal, rate, keep)
+    ulps = {"flash_fwd_bf16": ulps_off(out, want_out)}
+    errs = {"flash_fwd_bf16": float((out.float() - want_out.float())
+                                    .abs().max())}
+    lse_err = float((lse - want_lse).abs().max())
+    if (out.dtype != torch.bfloat16 or not torch.isfinite(out).all()
+            or ulps["flash_fwd_bf16"] > BF16_ULPS or lse_err > KERNEL_ATOL):
+        fail(f"flash bf16 {name} rate {rate}: forward {out.dtype} vs plain "
+             f"{ulps['flash_fwd_bf16']:.2f} ulps (limit {BF16_ULPS}), lse "
+             f"{lse_err:.3e} (limit {KERNEL_ATOL})")
+    want = fa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale, causal,
+                                  rate, keep)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, bias, do, lse, delta, scale, causal, rate, seed)
+    got = {"flash_bwd_fused_bf16": (fa.bwd_fused(*args), want),
+           "flash_bwd_dq_bf16": ((fa.bwd_dq(*args),), want[:1]),
+           "flash_bwd_dkv_bf16": (fa.bwd_dkv(*args), want[1:])}
+    torch.cuda.synchronize()
+    for kname, (grads, wants) in got.items():
+        us = [ulps_off(g, w) for g, w in zip(grads, wants)]
+        if max(us) > BF16_ULPS or any(g.dtype != torch.bfloat16
+                                      for g in grads):
+            fail(f"flash bf16 {name} rate {rate}: {kname} gradients "
+                 f"{max(us):.2f} ulps from the plain version's (limit "
+                 f"{BF16_ULPS})")
+        ulps[kname] = max(us)
+        errs[kname] = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(grads, wants))
+    # the bf16 kernels against the f32 ones on the same inputs: apart by
+    # about a bf16 rounding, far above the f32 kernels' noise
+    f32 = [t.float() for t in (q, k, v, do)]
+    o32, l32 = fa.flash_fwd(*f32[:3], bias, scale, causal, rate, seed)
+    g32 = fa.flash_bwd(*f32[:3], bias, o32, l32, f32[3], scale, causal,
+                       rate, seed)
+    g16 = fa.flash_bwd(q, k, v, bias, out, lse, do, scale, causal, rate,
+                       seed)
+    vs_f32 = [ulps_off(a, w) for a, w in zip((out, *g16), (o32, *g32))]
+    if not all(2.0 ** -4 < u <= BF16_ULPS for u in vs_f32):
+        fail(f"flash bf16 {name} rate {rate}: bf16 vs f32 kernels "
+             f"{vs_f32} ulps, expected a bf16 rounding (0.0625, "
+             f"{BF16_ULPS}]")
+    if rate:
+        again, _ = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+        if not torch.equal(again, out):
+            fail(f"flash bf16 {name}: the same seed gave another output")
+        n = keep.numel()
+        kept = float(keep.sum(dtype=torch.float64))
+        sigma = (n * rate * (1 - rate)) ** 0.5
+        if abs(kept - n * (1 - rate)) > 4 * sigma:
+            fail(f"flash bf16 {name}: keep rate {kept / n:.6f} is more "
+                 f"than 4 sigma from {1 - rate}")
+    print("flash_check_bf16 " + json.dumps({
+        "case": name, "causal": causal, "dropout": rate, "lse_err": lse_err,
+        "ulps": ulps, "bf16_vs_f32_ulps": vs_f32, **errs}), flush=True)
+    return errs
+
+
+def flash_bf16_phase():
+    """Phase a (checks at the BERT-base and long shapes, causal and not,
+    dropout 0 and 0.1) and phase b (times at the two training
+    configurations).  Returns ({kernel: max abs err}, {shape: rows})."""
+    import torch
+
+    errs = {name: 0.0 for name, _ in FLASH_BF16_ROWS}
+    bert = bf16_case(make_flash_case(11, 44, 12, 512, 64, True))
+    long_bias = bf16_case(make_flash_case(12, 2, 12, 2048, 64, True))
+    long_causal = bf16_case(make_flash_case(13, 2, 12, 2048, 64, False))
+    for name, case, causal in (("bert", bert, False),
+                               ("bert_causal", bert, True),
+                               ("long", long_bias, False),
+                               ("long_causal", long_causal, True)):
+        for rate in (0.0, 0.1):
+            for kname, e in check_flash_bf16(name, case, causal,
+                                             rate).items():
+                errs[kname] = max(errs[kname], e)
+    torch.cuda.empty_cache()
+    times = {"bert": time_flash("bert", [bert, bf16_case(make_flash_case(
+                 14, 44, 12, 512, 64, True))], False, 0.1, "bf16"),
+             "long": time_flash("long", [long_bias] + [
+                 bf16_case(make_flash_case(15 + i, 2, 12, 2048, 64, True))
+                 for i in range(2)], False, 0.1, "bf16")}
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def train_amp(torch, level, cfg, batch, seq, warmup, steps):
+    """One AMP run through ``tools/train_bert.train``; returns the run and
+    the launches of every flash kernel during it."""
+    from paddle_tpu_torch.tools.train_bert import train
+
+    kernels = flash_kernels("all")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    run = train(cfg, batch=batch, seq=seq, steps=steps, lr=1e-4,
+                device="cuda", pad=True, warmup=warmup, log_every=1,
+                amp=True, amp_level=level)
+    torch.cuda.synchronize()
+    run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return run, {n: kf.launches for n, kf in kernels.items()}
+
+
+def check_amp_run(what, run, launches, n_steps, layers, split):
+    """Losses finite and falling, and per step one launch per layer of
+    the bf16 forward and of the bf16 backward (fused, or the split pair),
+    and no f32 flash kernel."""
+    losses = run["losses"]
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{what}: losses {losses} not finite or not falling")
+    n = layers * n_steps
+    want = {name: 0 for name in launches}
+    want["flash_fwd_bf16"] = n
+    for kname in (("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16") if split
+                  else ("flash_bwd_fused_bf16",)):
+        want[kname] = n
+    if launches != want:
+        fail(f"{what}: flash launches {launches}, expected {want} (layers "
+             f"{layers} x steps {n_steps}, bf16 only)")
+
+
+def amp_train_phase(torch, level, warmup, steps):
+    """Phase c (O1) or d (O2): BERT-base at batch 44 x seq 512 under AMP;
+    for O1 also 3 steps at seq 2048 (the split backward).  Returns the
+    bf16 flash kernels' launches."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    layers = BertConfig().num_hidden_layers
+    run, launches = train_amp(torch, level, BertConfig(), 44, 512, warmup,
+                              steps)
+    check_amp_run(f"AMP {level} BERT-base", run, launches, warmup + steps,
+                  layers, split=False)
+    if level == "O2":
+        # every parameter bf16; every one the optimizer has updated (all
+        # but the pooler and the NSP head, which the MLM loss gives no
+        # gradient) has an f32 master and f32 moments
+        params = run["model"].parameters()
+        states = [run["optimizer"]._state.get(id(p)) for p in params]
+        updated = [st for st in states if st is not None]
+        if (any(p.dtype != torch.bfloat16 for p in params)
+                or len(updated) != len(params) - 4
+                or any(st[key].dtype != torch.float32 for st in updated
+                       for key in ("master", "m1", "m2"))):
+            fail("AMP O2: a parameter is not bf16, or an updated one lacks "
+                 "an f32 master and f32 moments")
+    print("training_amp " + json.dumps({
+        "model": f"BERT-base AMP {level} bf16", "batch": 44, "seq": 512,
+        "dropout": 0.1, "warmup_steps": warmup, "timed_steps": steps,
+        "losses": run["losses"], "ms_per_step": run["ms_per_step"],
+        "tokens_per_s": run["tokens_per_s"],
+        "max_memory_allocated": run["max_memory_allocated"],
+        "launches": launches}), flush=True)
+    total = dict(launches)
+    del run
+    if level == "O1":
+        long_run, longl = train_amp(
+            torch, level, BertConfig(max_position_embeddings=2048), 2, 2048,
+            1, 2)
+        check_amp_run("AMP O1 seq 2048", long_run, longl, 3, layers,
+                      split=True)
+        print("training_amp_long " + json.dumps({
+            "batch": 2, "seq": 2048, "losses": long_run["losses"],
+            "ms_per_step": long_run["ms_per_step"], "launches": longl}),
+            flush=True)
+        total = {n: total[n] + longl[n] for n in total}
+        del long_run
+    torch.cuda.empty_cache()
+    return {n: c for n, c in total.items() if n.endswith("_bf16")}
+
+
+def amp_card_vs_cpu(torch, f32_losses):
+    """Phase e: 2 layers at full width, the same weights and batch as the
+    f32 card-vs-CPU phase, 3 Adam steps under AMP O1 and O2 on the card
+    (bf16 kernels) and on the CPU (plain versions)."""
+    from paddle_tpu_torch.dygraph import jit_train_step, to_tensor
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamOptimizer
+    from paddle_tpu_torch.tools.train_bert import make_batch
+
+    cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    batch = make_batch(cfg, 2, 128, seed=3, pad=True)
+    weights = BertForPretraining(cfg, device="cpu", seed=0).state_dict()
+    fwd16 = flash_kernels("bf16")["flash_fwd_bf16"]
+    result = {}
+    for level in ("O1", "O2"):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            model = BertForPretraining(cfg, device=dev, seed=1)
+            model.set_dict(weights)
+            step = jit_train_step(model, AdamOptimizer(
+                1e-4, parameter_list=model.parameters()),
+                lambda m, i, l, a: m(i, l, attention_mask=a), amp=True,
+                amp_level=level)
+            inputs = [to_tensor(x, dev) for x in batch]
+            launched = fwd16.launches
+            losses[dev] = [float(step(*inputs)) for _ in range(3)]
+            if dev == "cuda" and fwd16.launches != launched + 2 * 3:
+                fail(f"AMP {level} card vs CPU: the card's run did not "
+                     f"launch the bf16 flash kernels")
+        rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                                      losses["cuda"]))
+        vs_f32 = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                         f32_losses))
+        result[level] = {**losses, "max_rel_diff": rel, "rtol":
+                         AMP_LOSS_RTOL, "vs_f32_max_rel": vs_f32}
+        if not rel <= AMP_LOSS_RTOL:
+            fail(f"AMP {level} card vs CPU losses differ by {rel:.3e} > "
+                 f"{AMP_LOSS_RTOL}")
+        if level == "O1" and not vs_f32 > LOSS_RTOL:
+            fail(f"AMP O1 losses within {vs_f32:.3e} of the f32 run's "
+                 f"(f32 tolerance {LOSS_RTOL}): bf16 did not run")
+    print("amp_card_vs_cpu " + json.dumps(result), flush=True)
 
 
 # ==========================================================================
@@ -1229,6 +1545,8 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False   # the reference is full f32
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in f32 throughout, as the JAX package's
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.manual_seed(0)
 
     phase("device")
@@ -1279,7 +1597,19 @@ def main():
     flash_launches = train_phase(torch)
 
     phase("training: card vs CPU, 2 layers at full width")
-    card_vs_cpu(torch)
+    f32_losses = card_vs_cpu(torch)
+
+    phase("a/b. flash attention bf16: kernels vs plain versions, times")
+    flash16_errs, flash16_times = flash_bf16_phase()
+
+    phase("c. training: BERT-base AMP O1 (bf16), then seq 2048")
+    flash16_launches = amp_train_phase(torch, "O1", warmup=2, steps=10)
+
+    phase("d. training: BERT-base AMP O2 (bf16)")
+    amp_train_phase(torch, "O2", warmup=2, steps=5)
+
+    phase("e. training: AMP O1 / O2 card vs CPU, 2 layers at full width")
+    amp_card_vs_cpu(torch, f32_losses)
 
     phase("serving")
     launches = serve(torch)
@@ -1323,6 +1653,16 @@ def main():
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "launches": flash_launches[name],
             "max_abs_err": flash_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for name, replaces in FLASH_BF16_ROWS:
+        # each at the shape the AMP O1 training path launches it at
+        t = flash16_times[MAIN_PATH_SHAPE[name]][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": flash16_launches[name],
+            "max_abs_err": flash16_errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for name, replaces in EPILOGUE_ROWS:

@@ -1,14 +1,34 @@
-// Flash attention for Hopper (sm_90a), float32: forward, fused backward,
-// and the split dQ and dK/dV backward, with attention-probs dropout
-// regenerated inside every kernel.
+// Flash attention for Hopper (sm_90a), in float32 and in bfloat16:
+// forward, fused backward, and the split dQ and dK/dV backward, with
+// attention-probs dropout regenerated inside every kernel.
 //
-// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_kernels.py:
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_kernels.py,
+// each in both of the dtypes they take:
 //
-//   flash_fwd_f32        _fwd_single_block_kernel :203 and _fwd_kernel :150
-//                        (called from _flash_fwd :256-341)
-//   flash_bwd_fused_f32  _bwd_fused_kernel :449 (_flash_bwd_fused :477)
-//   flash_bwd_dq_f32     _bwd_dq_kernel :386    (_flash_bwd :523-574)
-//   flash_bwd_dkv_f32    _bwd_dkv_kernel :413   (_flash_bwd :576-621)
+//   flash_fwd_{f32,bf16}        _fwd_single_block_kernel :203 and
+//                               _fwd_kernel :150 (_flash_fwd :256-341)
+//   flash_bwd_fused_{f32,bf16}  _bwd_fused_kernel :449 (_flash_bwd_fused :477)
+//   flash_bwd_dq_{f32,bf16}     _bwd_dq_kernel :386    (_flash_bwd :523-574)
+//   flash_bwd_dkv_{f32,bf16}    _bwd_dkv_kernel :413   (_flash_bwd :576-621)
+//
+// bf16.  Every kernel is a template on the storage type T of q, k, v, dO
+// and the outputs; the padding bias, lse and delta stay float32, and all
+// arithmetic (products, online softmax, dS) is float32, as on the TPU
+// (preferred_element_type=float32).  With T = bf16 the kernels round where
+// the TPU kernels cast: the dropped probabilities before the PV product
+// (pd.astype(v.dtype), :190/:229) and before dV (:436/:470), dS before the
+// dQ and dK products (ds.astype(k.dtype) / ds.astype(q.dtype), :405/:440/
+// :467/:473), and each output once, at its store.  The forward rounds p
+// relative to the running row max of its kv tile, as the TPU's blocked
+// kernel does; the single-block TPU kernel rounds it relative to the
+// final max, so the two differ in the last bf16 bit of some p.  dQ is
+// never rounded before its last sum: the split dQ kernel keeps it in
+// registers, and the fused kernel, whose CTA adds every kv tile's share
+// into dQ in device memory, adds into a float32 scratch (b, h, sq, d)
+// that the wrapper allocates, and converts it to bf16 once at the end
+// (the TPU keeps an f32 VMEM scratch for the same reason, :393-410).
+// With T = float the scratch is dQ itself and nothing is rounded, so the
+// f32 kernels compute what they always did.
 //
 // Semantics (the JAX package's): q, k, v are (b, h, s, d) row-major;
 // s = q.k * scale + bias[b, key] (the additive padding bias, optional),
@@ -26,7 +46,11 @@
 // does 4 b h s^2 d = 35.4 GFLOP on 0.28 GB, about 127 flop per byte: on
 // this card (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) the
 // kernels are bound by operations, not bytes.  The backward does
-// 10 b h s^2 d (fused) on about twice the bytes.
+// 10 b h s^2 d (fused) on about twice the bytes.  In bf16 the bytes
+// halve and the bound is the tensor cores' 989 TFLOP/s, which these SIMT
+// kernels do not use: the bf16 kernels run at about the f32 kernels'
+// speed, and tensor-core products (wgmma with bf16 operands, TMA loads)
+// are the later work that closes the gap.
 //
 // Design.  The TPU walks the grid in order and carries the online softmax
 // (m, l, acc) in VMEM from one kv block to the next; here a loop inside
@@ -67,6 +91,7 @@
 // version can be fed exactly the kernels' mask.  Element kept iff its
 // 32 random bits >= thresh = rate * 2^32 (the TPU kernel's rule).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -87,6 +112,34 @@ struct Attn {
   uint32_t thresh;               // keep iff bits >= thresh
   float keep_scale;              // 1 / (1 - rate)
   uint32_t offset;
+};
+
+// Loads, stores and the cast-and-back of one element of storage type T.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  // a bf16 is the high half of the float32 with the same value
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __uint_as_float((uint32_t)u << 16);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
 };
 
 __device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
@@ -129,15 +182,15 @@ __device__ __forceinline__ float row_sum16(float v) {
 
 // rows [row0, row0 + 64) of an (n, D) row-major matrix into s[64][D + 1];
 // rows past n are zero
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* __restrict__ s,
-                                          const float* __restrict__ g,
-                                          int row0, int n) {
+                                          const T* __restrict__ g, int row0,
+                                          int n) {
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     s[r * (D + 1) + c] =
-        (row0 + r < n) ? __ldg(g + (size_t)(row0 + r) * D + c) : 0.f;
+        (row0 + r < n) ? Elem<T>::load(g + (size_t)(row0 + r) * D + c) : 0.f;
   }
 }
 
@@ -231,7 +284,9 @@ __device__ __forceinline__ int first_q_tile(const Attn& a, int col0) {
 
 // The backward's per-tile terms: from the dot products s = Q.K and
 // dp = dO.V of the tile at (row0, col0), the dropped probabilities
-// pd -> ps and dS -> dss (both [64][65] in shared memory).
+// pd -> ps and dS -> dss (both [64][65] in shared memory), each rounded
+// to T as the products that read them take it.
+template <typename T>
 __device__ __forceinline__ void bwd_terms(const Attn& a, uint64_t seed,
                                           int bh, int bi, int row0, int col0,
                                           const float (&s)[4][4],
@@ -265,18 +320,19 @@ __device__ __forceinline__ void bwd_terms(const Attn& a, uint64_t seed,
         pd = keep ? p * a.keep_scale : 0.f;
         dpd = keep ? dpd * a.keep_scale : 0.f;
       }
-      ps[(ty + 16 * i) * kLP + tx + 16 * j] = pd;
-      dss[(ty + 16 * i) * kLP + tx + 16 * j] = p * (dpd - delta[i]) * a.scale;
+      ps[(ty + 16 * i) * kLP + tx + 16 * j] = Elem<T>::round(pd);
+      dss[(ty + 16 * i) * kLP + tx + 16 * j] =
+          Elem<T>::round(p * (dpd - delta[i]) * a.scale);
     }
   }
 }
 
 // ---------------------------------------------------------------- forward
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, Attn a) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, Attn a) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, VD = D / 16;
   float* qs = smem;
@@ -337,7 +393,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float pd = p;
         if (a.seed != nullptr)
           pd = word(bits, j) >= a.thresh ? p * a.keep_scale : 0.f;
-        ps[(ty + 16 * i) * kLP + tx + 16 * j] = pd;
+        ps[(ty + 16 * i) * kLP + tx + 16 * j] = Elem<T>::round(pd);
       }
       l[i] = alpha * l[i] + row_sum16(rs);
       m[i] = m_next;
@@ -356,19 +412,20 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / l_safe;
 #pragma unroll
     for (int jd = 0; jd < VD; ++jd)
-      out[qoff + (size_t)r * D + tx + 16 * jd] = acc[i][jd] * inv;
+      Elem<T>::store(out + qoff + (size_t)r * D + tx + 16 * jd,
+                     acc[i][jd] * inv);
     if (tx == 0) lse[(size_t)bh * a.sq + r] = m[i] + logf(l_safe);
   }
 }
 
 // -------------------------------------------------------- backward: dQ
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq,
-                        Attn a) {
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    Attn a) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, VD = D / 16;
   float* qs = smem;
@@ -405,7 +462,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     float s[4][4], dp[4][4];
     dot_tile<D>(qs, ks, s, ty, tx);
     dot_tile<D>(dos, vs, dp, ty, tx);
-    bwd_terms(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ps, dss, ty, tx);
+    bwd_terms<T>(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ps, dss, ty,
+                 tx);
     __syncthreads();
     acc_rows<D>(dss, ks, acc, ty, tx);
   }
@@ -416,21 +474,23 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (r >= a.sq) continue;
 #pragma unroll
     for (int jd = 0; jd < VD; ++jd)
-      dq[qoff + (size_t)r * D + tx + 16 * jd] = acc[i][jd];
+      Elem<T>::store(dq + qoff + (size_t)r * D + tx + 16 * jd, acc[i][jd]);
   }
 }
 
 // ----------------------------------- backward: dK/dV, and the fused form
 // FUSED = false: grid (kv tile, b h), this CTA's kv tile is blockIdx.x.
-// FUSED = true:  grid (b h), the CTA walks every kv tile and also updates
-//                dQ in device memory.
-template <int D, bool FUSED>
+// FUSED = true:  grid (b h), the CTA walks every kv tile and also adds
+//                into dq_acc (float32, in device memory); for T = bf16 it
+//                then writes dq from dq_acc, for T = float dq_acc is dq.
+template <int D, bool FUSED, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq,
-                        float* __restrict__ dk, float* __restrict__ dv, Attn a) {
+flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq_acc,
+                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                    Attn a) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1, VD = D / 16;
   float* ks = smem;
@@ -475,7 +535,8 @@ flash_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       float s[4][4], dp[4][4];
       dot_tile<D>(qs, ks, s, ty, tx);
       dot_tile<D>(dos, vs, dp, ty, tx);
-      bwd_terms(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ps, dss, ty, tx);
+      bwd_terms<T>(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ps, dss, ty,
+                   tx);
       __syncthreads();
       acc_cols<D>(ps, dos, dva, ty, tx);
       acc_cols<D>(dss, qs, dka, ty, tx);
@@ -492,7 +553,7 @@ flash_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
           if (r >= a.sq) continue;
 #pragma unroll
           for (int jd = 0; jd < VD; ++jd) {
-            float* p = dq + qoff + (size_t)r * D + tx + 16 * jd;
+            float* p = dq_acc + qoff + (size_t)r * D + tx + 16 * jd;
             // kv tile 0 reads every q tile first: it initialises dQ
             *p = (kt == 0 ? 0.f : *p) + dqa[i][jd];
           }
@@ -506,8 +567,25 @@ flash_bwd_kv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       if (c >= a.sk) continue;
 #pragma unroll
       for (int jd = 0; jd < VD; ++jd) {
-        dk[koff + (size_t)c * D + tx + 16 * jd] = dka[i][jd];
-        dv[koff + (size_t)c * D + tx + 16 * jd] = dva[i][jd];
+        Elem<T>::store(dk + koff + (size_t)c * D + tx + 16 * jd, dka[i][jd]);
+        Elem<T>::store(dv + koff + (size_t)c * D + tx + 16 * jd, dva[i][jd]);
+      }
+    }
+  }
+
+  if (FUSED && (const void*)dq != (const void*)dq_acc) {
+    // dq_acc's elements were each written by this thread only (the same
+    // (ty, tx) slots of every q tile), so it reads back its own sums
+    for (int row0 = 0; row0 < a.sq; row0 += kTile) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + ty + 16 * i;
+        if (r >= a.sq) continue;
+#pragma unroll
+        for (int jd = 0; jd < VD; ++jd) {
+          const size_t o = qoff + (size_t)r * D + tx + 16 * jd;
+          Elem<T>::store(dq + o, dq_acc[o]);
+        }
       }
     }
   }
@@ -562,60 +640,49 @@ Attn make_attn(int h, int sq, int sk, float scale, int causal,
   return a;
 }
 
-template <int D>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v,
-                       float* out, float* lse, int b, const Attn& a,
-                       cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse,
+                       int b, const Attn& a, cudaStream_t stream) {
   const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + kTile - 1) / kTile, b * a.h);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse, a);
+  flash_fwd_kernel<D, T><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse,
+                                                           a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const float* q, const float* k, const float* v,
-                      const float* dout, const float* lse, const float* delta,
-                      float* dq, int b, const Attn& a, cudaStream_t stream) {
+template <int D, typename T>
+cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* dout,
+                      const float* lse, const float* delta, T* dq, int b,
+                      const Attn& a, cudaStream_t stream) {
   const size_t smem = bwd_smem(D);
-  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.sq + kTile - 1) / kTile, b * a.h);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, a);
   return cudaGetLastError();
 }
 
-template <int D, bool FUSED>
-cudaError_t launch_kv(const float* q, const float* k, const float* v,
-                      const float* dout, const float* lse, const float* delta,
-                      float* dq, float* dk, float* dv, int b, const Attn& a,
+template <int D, bool FUSED, typename T>
+cudaError_t launch_kv(const T* q, const T* k, const T* v, const T* dout,
+                      const float* lse, const float* delta, float* dq_acc,
+                      T* dq, T* dk, T* dv, int b, const Attn& a,
                       cudaStream_t stream) {
   const size_t smem = bwd_smem(D);
-  cudaError_t err = allow_smem(flash_bwd_kv_f32_kernel<D, FUSED>, smem);
+  cudaError_t err = allow_smem(flash_bwd_kv_kernel<D, FUSED, T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid = FUSED ? dim3(b * a.h) : dim3((a.sk + kTile - 1) / kTile, b * a.h);
-  flash_bwd_kv_f32_kernel<D, FUSED><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, dk, dv, a);
+  flash_bwd_kv_kernel<D, FUSED, T><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry points: every pointer is a device pointer (bias and seed may be
-// null), launches go on `stream`, and each returns the cudaError_t of the
-// launch.  d must be 32, 64 or 128 (else cudaErrorInvalidValue).
-extern "C" {
-
-int paddle_flash_fwd_f32(const float* q, const float* k, const float* v,
-                         const float* bias, float* out, float* lse, int b,
-                         int h, int sq, int sk, int d, float scale, int causal,
-                         const long long* seed, unsigned int thresh,
-                         float keep_scale, unsigned int offset,
-                         cudaStream_t stream) {
-  const Attn a = make_attn(h, sq, sk, scale, causal, bias, seed, thresh,
-                           keep_scale, offset);
+// The entry points' bodies, one per kernel, for either storage type.
+template <typename T>
+int fwd_entry(const T* q, const T* k, const T* v, T* out, float* lse, int b,
+              int d, const Attn& a, cudaStream_t stream) {
   switch (d) {
     case 32: return launch_fwd<32>(q, k, v, out, lse, b, a, stream);
     case 64: return launch_fwd<64>(q, k, v, out, lse, b, a, stream);
@@ -624,68 +691,113 @@ int paddle_flash_fwd_f32(const float* q, const float* k, const float* v,
   }
 }
 
-int paddle_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
-                            const float* bias, const float* dout,
-                            const float* lse, const float* delta, float* dq,
-                            int b, int h, int sq, int sk, int d, float scale,
-                            int causal, const long long* seed,
-                            unsigned int thresh, float keep_scale,
-                            unsigned int offset, cudaStream_t stream) {
-  const Attn a = make_attn(h, sq, sk, scale, causal, bias, seed, thresh,
-                           keep_scale, offset);
+template <typename T>
+int dq_entry(const T* q, const T* k, const T* v, const T* dout,
+             const float* lse, const float* delta, T* dq, int b, int d,
+             const Attn& a, cudaStream_t stream) {
   switch (d) {
     case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, b, a, stream);
     case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, b, a, stream);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, delta, dq, b, a, stream);
+    case 128:
+      return launch_dq<128>(q, k, v, dout, lse, delta, dq, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool FUSED, typename T>
+int kv_entry(const T* q, const T* k, const T* v, const T* dout,
+             const float* lse, const float* delta, float* dq_acc, T* dq,
+             T* dk, T* dv, int b, int d, const Attn& a, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return launch_kv<32, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
+                                  dv, b, a, stream);
+    case 64:
+      return launch_kv<64, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
+                                  dv, b, a, stream);
+    case 128:
+      return launch_kv<128, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
+                                   dv, b, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// C entry points: every pointer is a device pointer (bias and seed may be
+// null), launches go on `stream`, and each returns the cudaError_t of the
+// launch.  d must be 32, 64 or 128 (else cudaErrorInvalidValue).  The
+// _bf16 functions take q, k, v, dout and the outputs in bf16; bias, lse
+// and delta are float32 in both.
+#define ATTN_ARGS                                                        \
+  int h, int sq, int sk, int d, float scale, int causal,                 \
+      const long long *seed, unsigned int thresh, float keep_scale,      \
+      unsigned int offset, cudaStream_t stream
+#define MAKE_ATTN \
+  make_attn(h, sq, sk, scale, causal, bias, seed, thresh, keep_scale, offset)
+
+typedef __nv_bfloat16 bf16;
+
+extern "C" {
+
+int paddle_flash_fwd_f32(const float* q, const float* k, const float* v,
+                         const float* bias, float* out, float* lse, int b,
+                         ATTN_ARGS) {
+  return fwd_entry(q, k, v, out, lse, b, d, MAKE_ATTN, stream);
+}
+
+int paddle_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                          const float* bias, bf16* out, float* lse, int b,
+                          ATTN_ARGS) {
+  return fwd_entry(q, k, v, out, lse, b, d, MAKE_ATTN, stream);
+}
+
+int paddle_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
+                            const float* bias, const float* dout,
+                            const float* lse, const float* delta, float* dq,
+                            int b, ATTN_ARGS) {
+  return dq_entry(q, k, v, dout, lse, delta, dq, b, d, MAKE_ATTN, stream);
+}
+
+int paddle_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
+                             const float* bias, const bf16* dout,
+                             const float* lse, const float* delta, bf16* dq,
+                             int b, ATTN_ARGS) {
+  return dq_entry(q, k, v, dout, lse, delta, dq, b, d, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                              const float* bias, const float* dout,
                              const float* lse, const float* delta, float* dk,
-                             float* dv, int b, int h, int sq, int sk, int d,
-                             float scale, int causal, const long long* seed,
-                             unsigned int thresh, float keep_scale,
-                             unsigned int offset, cudaStream_t stream) {
-  const Attn a = make_attn(h, sq, sk, scale, causal, bias, seed, thresh,
-                           keep_scale, offset);
-  switch (d) {
-    case 32:
-      return launch_kv<32, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                  b, a, stream);
-    case 64:
-      return launch_kv<64, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                  b, a, stream);
-    case 128:
-      return launch_kv<128, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                                   b, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+                             float* dv, int b, ATTN_ARGS) {
+  return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
+                         (float*)nullptr, dk, dv, b, d, MAKE_ATTN, stream);
+}
+
+int paddle_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                              const float* bias, const bf16* dout,
+                              const float* lse, const float* delta, bf16* dk,
+                              bf16* dv, int b, ATTN_ARGS) {
+  return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
+                         (bf16*)nullptr, dk, dv, b, d, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_fused_f32(const float* q, const float* k, const float* v,
                                const float* bias, const float* dout,
                                const float* lse, const float* delta, float* dq,
-                               float* dk, float* dv, int b, int h, int sq,
-                               int sk, int d, float scale, int causal,
-                               const long long* seed, unsigned int thresh,
-                               float keep_scale, unsigned int offset,
-                               cudaStream_t stream) {
-  const Attn a = make_attn(h, sq, sk, scale, causal, bias, seed, thresh,
-                           keep_scale, offset);
-  switch (d) {
-    case 32:
-      return launch_kv<32, true>(q, k, v, dout, lse, delta, dq, dk, dv, b, a,
-                                 stream);
-    case 64:
-      return launch_kv<64, true>(q, k, v, dout, lse, delta, dq, dk, dv, b, a,
-                                 stream);
-    case 128:
-      return launch_kv<128, true>(q, k, v, dout, lse, delta, dq, dk, dv, b, a,
-                                  stream);
-    default: return cudaErrorInvalidValue;
-  }
+                               float* dk, float* dv, int b, ATTN_ARGS) {
+  return kv_entry<true>(q, k, v, dout, lse, delta, dq, dq, dk, dv, b, d,
+                        MAKE_ATTN, stream);
+}
+
+// dq_acc: a float32 (b, h, sq, d) scratch the kernel fully writes
+int paddle_flash_bwd_fused_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                const float* bias, const bf16* dout,
+                                const float* lse, const float* delta,
+                                float* dq_acc, bf16* dq, bf16* dk, bf16* dv,
+                                int b, ATTN_ARGS) {
+  return kv_entry<true>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b, d,
+                        MAKE_ATTN, stream);
 }
 
 int paddle_flash_dropout_mask(unsigned char* keep, int b, int h, int sq,

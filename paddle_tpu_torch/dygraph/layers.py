@@ -45,6 +45,18 @@ def create_parameter(attr, shape, is_bias=False, default_initializer=None,
     return nn.Parameter(data, requires_grad=attr.trainable)
 
 
+def _as_tensor(x) -> torch.Tensor:
+    """A tensor of ``x``.  A numpy bfloat16 array (``ml_dtypes``' type, as
+    the JAX package's bf16 arrays come out of ``np.asarray``) is carried
+    by its bits: torch reads no such dtype."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
 class Layer(nn.Module):
     """A dygraph layer: an ``nn.Module`` with Paddle's method names."""
 
@@ -52,14 +64,16 @@ class Layer(nn.Module):
         return list(super().parameters(recurse=include_sublayers))
 
     def set_dict(self, state_dict: Mapping):
-        """Copy, in place, every entry of ``state_dict`` (numpy arrays or
-        tensors) whose name this layer has; other names are skipped."""
+        """Copy, in place, every entry of ``state_dict`` (numpy arrays,
+        bfloat16 ones included, or tensors) whose name this layer has,
+        cast to the parameter's dtype (bf16 under AMP O2); other names
+        are skipped."""
         own = dict(self.named_parameters())
         own.update(self.named_buffers())
         with torch.no_grad():
             for name, t in own.items():
                 if name in state_dict:
-                    t.copy_(torch.as_tensor(np.asarray(state_dict[name])))
+                    t.copy_(_as_tensor(state_dict[name]))
         return self
 
     def clear_gradients(self):

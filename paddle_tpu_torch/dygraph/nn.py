@@ -19,6 +19,7 @@ from ..framework.random import default_generator
 from ..initializer import ConstantInitializer
 from ..ops import nn_ops
 from ..ops.decoder_ops import matmul
+from .amp import amp_cast
 from .layers import Layer, create_parameter
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout"]
@@ -60,7 +61,8 @@ class Embedding(Layer):
                                        device=device, generator=generator)
 
     def forward(self, input):
-        return nn_ops.lookup_table_v2(self.weight, input, self._padding_idx)
+        (w,) = amp_cast("lookup_table_v2", self.weight)   # white under O2
+        return nn_ops.lookup_table_v2(w, input, self._padding_idx)
 
 
 class LayerNorm(Layer):
@@ -84,8 +86,12 @@ class LayerNorm(Layer):
                      if shift else None)
 
     def forward(self, input):
-        w = None if self.weight is None else self.weight.reshape(self._shape)
-        b = None if self.bias is None else self.bias.reshape(self._shape)
+        # statistics in f32 (F.layer_norm's own accumulation), the output
+        # in x's dtype, Scale and Bias cast to it: JAX's layer_norm
+        # lowering under AMP (nn_ops.py:388-412)
+        w, b = (None if t is None
+                else t.reshape(self._shape).to(input.dtype)
+                for t in (self.weight, self.bias))
         return F.layer_norm(input, self._shape, w, b, self._epsilon)
 
 

@@ -13,6 +13,16 @@ Every model takes ``device`` (default "cuda", which raises without a
 card) and draws its initial weights, its hidden dropout masks and its
 attention dropout seeds from one ``torch.Generator`` on that device
 (``generator``, else one seeded with ``seed``).
+
+Under AMP (``dygraph.amp_guard``, ``jit_train_step(amp=True)``) the op
+fronts cast at the JAX tracer's boundaries: the Linear / decoder
+``matmul`` and ``fused_multihead_attention`` (q, k, v and the padding
+bias) are white, ``softmax_with_cross_entropy`` (exempt under bf16),
+``mean`` and the unfused path's ``softmax`` black.  ``einsum`` is on no
+list: the q/k/v and out projections promote their operands as
+``jnp.einsum`` does (:func:`_einsum`), so under O1 they run in f32, and
+the out projection of the bf16 attention output with its f32 weight is
+f32 too.  Elementwise ops promote as jnp does (bf16 + f32 -> f32).
 """
 from __future__ import annotations
 
@@ -57,6 +67,14 @@ class BertConfig:
         self.fuse_qkv = fuse_qkv
 
 
+def _einsum(equation, a, b):
+    """``torch.einsum`` of two operands promoted to their common dtype
+    first, as ``jnp.einsum`` promotes (``torch.einsum`` refuses mixed
+    dtypes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(equation, a.to(dt), b.to(dt))
+
+
 def _init(cfg):
     return ParamAttr(initializer=TruncatedNormalInitializer(
         0.0, cfg.initializer_range))
@@ -92,7 +110,7 @@ class MultiHeadAttention(Layer):
         def proj_heads(lin):
             # one einsum: projection + head split into [b, n, s, d]
             w = lin.weight.reshape(h, self.n_head, self.d_head)
-            out = torch.einsum("bsh,hnd->bnsd", x, w)
+            out = _einsum("bsh,hnd->bnsd", x, w)
             if lin.bias is not None:
                 out = out + lin.bias.reshape(self.n_head, 1, self.d_head)
             return out
@@ -121,11 +139,11 @@ class MultiHeadAttention(Layer):
                             alpha=1.0 / math.sqrt(self.d_head))
             if attn_mask is not None:
                 scores = scores + attn_mask
-            probs = self.drop(torch.softmax(scores, dim=-1))
+            probs = self.drop(nn_ops.softmax(scores, axis=-1))
             ctx = matmul(probs, v)
         # head merge + out-projection as one einsum from [b, n, s, d]
         w_out = self.out.weight.reshape(self.n_head, self.d_head, h)
-        y = torch.einsum("bnsd,ndh->bsh", ctx, w_out)
+        y = _einsum("bnsd,ndh->bsh", ctx, w_out)
         if self.out.bias is not None:
             y = y + self.out.bias
         return y
@@ -230,10 +248,10 @@ class BertForPretraining(Layer):
                                 attention_mask=attention_mask)
         h = self.mlm_ln(self.mlm_transform(seq))
         logits = matmul(h, self.bert.word_emb.weight, transpose_Y=True)
-        loss = torch.mean(nn_ops.softmax_with_cross_entropy(
+        loss = nn_ops.mean(nn_ops.softmax_with_cross_entropy(
             logits, nn_ops.unsqueeze2(labels, [2])))
         if nsp_labels is not None:
-            loss = loss + torch.mean(nn_ops.softmax_with_cross_entropy(
+            loss = loss + nn_ops.mean(nn_ops.softmax_with_cross_entropy(
                 self.nsp(pooled), nsp_labels))
         return loss
 

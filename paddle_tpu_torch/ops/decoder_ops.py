@@ -6,8 +6,10 @@ Counterparts of the JAX package's lowerings:
 * ``layer_norm`` (``ops/nn_ops.py``): statistics over the axes from
   ``begin_norm_axis`` on, population variance, ``eps`` inside the square
   root, then scale and bias;
-* ``matmul`` (``ops/math_ops.py``): ``alpha`` multiplies the product,
-  after it, as the JAX lowering does;
+* ``matmul`` (``ops/math_ops.py:394``): ``alpha`` multiplies the product,
+  after it, as the JAX lowering does; under AMP it is a white-list op
+  (its f32 operands are cast to bf16 first,
+  :func:`~paddle_tpu_torch.dygraph.amp.amp_cast`);
 * ``attention_reference`` (``ops/pallas_kernels.py``): the dense
   composition ``fused_multihead_attention`` (``ops/fused_ops.py``) runs
   when its bias is a whole ``(b, 1, q, kv)`` matrix rather than a
@@ -41,6 +43,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def matmul(x: torch.Tensor, y: torch.Tensor, transpose_Y: bool = False,
            alpha: float = 1.0) -> torch.Tensor:
+    # imported here: the dygraph package imports this module
+    from ..dygraph.amp import amp_cast
+    x, y = amp_cast("matmul", x, y)
     if transpose_Y:
         y = y.transpose(-1, -2)
     out = torch.matmul(x, y)

@@ -14,11 +14,22 @@ residual API: its forward saves ``(q, k, v, bias, out, lse, seed)`` and
 its backward runs the backward from ``lse`` with no forward replay.  The
 padding bias gets a zero gradient (``pallas_kernels.py:646-650``).
 
+Dtypes: q, k, v (and dO) are float32 or bfloat16, all of one dtype, as
+the TPU kernels take them; the output and the gradients are in that
+dtype, lse and delta are float32, and the padding bias reaches the
+kernels as float32 (under AMP it is the exact upcast of the bf16 bias
+the white-list cast made).  In bf16 every product accumulates in float32
+and the operands the TPU kernels cast are rounded at the same points:
+p before the PV product (``pd.astype(v.dtype)``, :190/:229), pd before
+dV (:436/:470), dS before dQ and dK (:405/:440/:467/:473).  float16
+raises ``NotImplementedError``: it is not ported.
+
 Dispatch: a CPU tensor takes the plain versions
 (:func:`flash_fwd_reference`, :func:`flash_bwd_reference`); a CUDA tensor
-launches the kernels of ``csrc/flash_attention.cu`` (:func:`flash_fwd`,
-:func:`flash_bwd`) or raises when they do not take its dtype or shape.
-There is no other path.  The backward takes the fused kernel when
+launches the kernels of ``csrc/flash_attention.cu`` for its dtype
+(:func:`flash_fwd`, :func:`flash_bwd`: ``flash_fwd_f32`` or
+``flash_fwd_bf16``, and so on) or raises when they do not take its dtype
+or shape.  There is no other path.  The backward takes the fused kernel when
 ``sq <= 512`` and ``sk <= 512`` (one TPU block, ``pallas_kernels.py:532``)
 and the split dQ and dK/dV pair above that.
 
@@ -45,10 +56,12 @@ from .paged_attention import DEFAULT_MASK_VALUE
 __all__ = [
     "DEFAULT_MASK_VALUE", "HEAD_DIMS", "FUSED_BWD_MAX_SEQ", "FLASH",
     "FLASH_FWD", "FLASH_BWD_FUSED", "FLASH_BWD_DQ", "FLASH_BWD_DKV",
-    "FLASH_DROPOUT_MASK", "is_padding_bias", "normalize_bias",
-    "seeded_keep", "attention_reference", "flash_fwd_reference",
-    "flash_bwd_reference", "flash_fwd", "flash_bwd", "bwd_fused", "bwd_dq",
-    "bwd_dkv", "flash_dropout_mask", "flash_attention",
+    "FLASH_FWD_BF16", "FLASH_BWD_FUSED_BF16", "FLASH_BWD_DQ_BF16",
+    "FLASH_BWD_DKV_BF16", "FLASH_DROPOUT_MASK", "is_padding_bias",
+    "normalize_bias", "seeded_keep", "attention_reference",
+    "flash_fwd_reference", "flash_bwd_reference", "attention_dtype",
+    "flash_fwd", "flash_bwd", "bwd_fused", "bwd_dq", "bwd_dkv",
+    "flash_dropout_mask", "flash_attention",
 ]
 
 #: head widths the kernels are built for
@@ -63,10 +76,15 @@ _U = ctypes.c_uint
 _ATTN = [_I, _I, _I, _I, _I, _F, _I, _P, _U, _F, _U, _P]
 #: the hand-written Hopper kernels (csrc/flash_attention.cu)
 FLASH = CudaKernel("flash_attention.cu", {
-    "paddle_flash_fwd_f32": [_P, _P, _P, _P, _P, _P] + _ATTN,
+    "paddle_flash_fwd_f32": [_P] * 6 + _ATTN,
     "paddle_flash_bwd_dq_f32": [_P] * 8 + _ATTN,
     "paddle_flash_bwd_dkv_f32": [_P] * 9 + _ATTN,
     "paddle_flash_bwd_fused_f32": [_P] * 10 + _ATTN,
+    "paddle_flash_fwd_bf16": [_P] * 6 + _ATTN,
+    "paddle_flash_bwd_dq_bf16": [_P] * 8 + _ATTN,
+    "paddle_flash_bwd_dkv_bf16": [_P] * 9 + _ATTN,
+    # the bf16 fused backward also takes its float32 dQ scratch
+    "paddle_flash_bwd_fused_bf16": [_P] * 11 + _ATTN,
     "paddle_flash_dropout_mask": [_P, _I, _I, _I, _I, _P, _U, _U, _P],
 })
 FLASH_FWD = KernelFunction(FLASH, "paddle_flash_fwd_f32", "flash_fwd_f32")
@@ -76,6 +94,21 @@ FLASH_BWD_DQ = KernelFunction(FLASH, "paddle_flash_bwd_dq_f32",
                               "flash_bwd_dq_f32")
 FLASH_BWD_DKV = KernelFunction(FLASH, "paddle_flash_bwd_dkv_f32",
                                "flash_bwd_dkv_f32")
+FLASH_FWD_BF16 = KernelFunction(FLASH, "paddle_flash_fwd_bf16",
+                                "flash_fwd_bf16")
+FLASH_BWD_FUSED_BF16 = KernelFunction(FLASH, "paddle_flash_bwd_fused_bf16",
+                                      "flash_bwd_fused_bf16")
+FLASH_BWD_DQ_BF16 = KernelFunction(FLASH, "paddle_flash_bwd_dq_bf16",
+                                   "flash_bwd_dq_bf16")
+FLASH_BWD_DKV_BF16 = KernelFunction(FLASH, "paddle_flash_bwd_dkv_bf16",
+                                    "flash_bwd_dkv_bf16")
+#: the kernel each wrapper launches, by the dtype of q
+_KERNELS = {
+    torch.float32: {"fwd": FLASH_FWD, "fused": FLASH_BWD_FUSED,
+                    "dq": FLASH_BWD_DQ, "dkv": FLASH_BWD_DKV},
+    torch.bfloat16: {"fwd": FLASH_FWD_BF16, "fused": FLASH_BWD_FUSED_BF16,
+                     "dq": FLASH_BWD_DQ_BF16, "dkv": FLASH_BWD_DKV_BF16},
+}
 FLASH_DROPOUT_MASK = KernelFunction(FLASH, "paddle_flash_dropout_mask",
                                     "flash_dropout_mask")
 
@@ -141,6 +174,12 @@ def _dropped(x, keep, rate):
         1.0 / (1.0 - rate))
 
 
+def _rounded(x, dtype):
+    """f32 ``x`` cast to ``dtype`` and back: where the TPU kernels cast an
+    f32 operand to the inputs' dtype before a product (a no-op in f32)."""
+    return x.to(dtype).float()
+
+
 def attention_reference(q, k, v, bias=None, causal=False, scale=1.0,
                         dropout_rate=0.0, dropout_seed=None, keep=None):
     """Dense attention, differentiable by autograd: the flash kernels'
@@ -162,9 +201,10 @@ def attention_reference(q, k, v, bias=None, causal=False, scale=1.0,
 
 def flash_fwd_reference(q, k, v, bias, scale, causal, dropout_rate=0.0,
                         keep=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel: ``(out, lse)`` with ``lse``
-    (b, h, sq) f32.  The softmax normalises the undropped p; only the PV
-    product sees ``keep``; a row whose sum is 0 gives zeros."""
+    """Plain version of the forward kernel: ``(out, lse)`` with ``out`` in
+    q's dtype and ``lse`` (b, h, sq) f32.  The softmax normalises the
+    undropped p; only the PV product sees ``keep``, and takes p rounded to
+    v's dtype; a row whose sum is 0 gives zeros."""
     s = _scores(q, k, bias, scale, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -172,7 +212,8 @@ def flash_fwd_reference(q, k, v, bias, scale, causal, dropout_rate=0.0,
     if dropout_rate > 0.0:
         p = _dropped(p, keep, dropout_rate)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
+    out = torch.einsum("bhqk,bhkd->bhqd", _rounded(p, v.dtype),
+                       v.float()) / l_safe
     return out.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
@@ -181,7 +222,9 @@ def flash_bwd_reference(q, k, v, bias, out, lse, do, scale, causal,
     """Plain version of the backward kernels (``_bwd_softmax_terms``
     :353 and its three contractions): ``(dq, dk, dv)`` from the saved
     ``lse``, with ``delta = rowsum(dO * O)`` and
-    ``dS = P * (keep(dP) / (1 - rate) - delta) * scale``."""
+    ``dS = P * (keep(dP) / (1 - rate) - delta) * scale``, all in f32;
+    dS and the dropped P are rounded to the inputs' dtype before the
+    products that take them, and the gradients come out in it."""
     delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
     p = torch.exp(_scores(q, k, bias, scale, causal) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
@@ -190,19 +233,38 @@ def flash_bwd_reference(q, k, v, bias, out, lse, do, scale, causal,
         pd = _dropped(p, keep, dropout_rate)
         dp = _dropped(dp, keep, dropout_rate)
     ds = p * (dp - delta) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
-    dv = torch.einsum("bhqk,bhqd->bhkd", pd, do.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype), k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype), q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(pd, do.dtype), do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ==========================================================================
 # the CUDA kernels' wrappers
 # ==========================================================================
+#: the tensors in the attention dtype; bias, lse and delta are f32
+_DATA = ("q", "k", "v", "do")
+
+
+def attention_dtype(fn, q) -> torch.dtype:
+    """q's dtype if the kernels take it (f32, bf16); float16 raises
+    ``NotImplementedError`` (not ported), anything else ``ValueError``."""
+    if q.dtype == torch.float16:
+        raise NotImplementedError(
+            f"{fn}: float16 attention is not ported (ROADMAP.md); the "
+            f"kernels take float32 or bfloat16")
+    if q.dtype not in _KERNELS:
+        raise ValueError(f"{fn}: q is {q.dtype}; the kernels take float32 "
+                         f"or bfloat16")
+    return q.dtype
+
+
 def _check_cuda(fn, **tensors):
-    """Raise unless every tensor is f32 (int64 for ``seed``), contiguous
+    """Raise unless q, k, v, do share q's dtype (f32 or bf16), bias, lse
+    and delta are f32 and ``seed`` int64, and every tensor is contiguous
     and on the CUDA device of the first."""
     dev = None
+    dt = attention_dtype(fn, tensors["q"]) if "q" in tensors else None
     for name, t in tensors.items():
         if t is None:
             continue
@@ -211,10 +273,11 @@ def _check_cuda(fn, **tensors):
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, expected the "
                              f"CUDA device {dev}")
-        want = torch.int64 if name == "seed" else torch.float32
+        want = (torch.int64 if name == "seed"
+                else dt if name in _DATA else torch.float32)
         if t.dtype != want:
             raise ValueError(f"{fn}: {name} is {t.dtype}; the kernel takes "
-                             f"{want} (bf16 attention is not ported)")
+                             f"{want}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
     return dev
@@ -260,20 +323,22 @@ def _ptr(t):
 
 
 def flash_fwd(q, k, v, bias, scale, causal, dropout_rate=0.0, seed=None):
-    """Launch ``flash_fwd_f32`` on the current stream: ``(out, lse)``,
-    out (b, h, sq, d) f32 and lse (b, h, sq) f32.  ``bias`` is None or
-    (b, sk) f32; ``seed`` an int64 tensor of one element (dropout only).
-    Raises on anything the kernel does not take."""
+    """Launch ``flash_fwd_f32`` (f32 q, k, v) or ``flash_fwd_bf16`` (bf16)
+    on the current stream: ``(out, lse)``, out (b, h, sq, d) in q's dtype
+    and lse (b, h, sq) f32.  ``bias`` is None or (b, sk) f32; ``seed`` an
+    int64 tensor of one element (dropout only).  Raises on anything the
+    kernels do not take."""
     dev = _check_cuda("flash_fwd", q=q, k=k, v=v, bias=bias, seed=seed)
     b, h, sq, sk, d = _shapes("flash_fwd", q, k, v, bias)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FLASH_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                  out.data_ptr(), lse.data_ptr(), b,
-                  *_attn_args(h, sq, sk, d, scale, causal, dropout_rate,
-                              seed, stream))
+        _KERNELS[q.dtype]["fwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            out.data_ptr(), lse.data_ptr(), b,
+            *_attn_args(h, sq, sk, d, scale, causal, dropout_rate, seed,
+                        stream))
     return out, lse
 
 
@@ -291,59 +356,67 @@ def _bwd_inputs(fn, q, k, v, bias, do, lse, delta, seed):
 
 def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
               dropout_rate=0.0, seed=None):
-    """Launch ``flash_bwd_fused_f32``: ``(dq, dk, dv)`` in one kernel."""
+    """Launch ``flash_bwd_fused_f32`` or ``flash_bwd_fused_bf16``: ``(dq, dk,
+    dv)`` in one kernel.  The bf16 kernel sums dQ in an f32 scratch
+    allocated here and rounds it once."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_fused", q, k, v, bias, do, lse,
                                          delta, seed)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_acc = (None if q.dtype == torch.float32 else
+              torch.empty(q.shape, dtype=torch.float32, device=dev))
+    scratch = [] if dq_acc is None else [dq_acc.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FLASH_BWD_FUSED(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-                        *_attn_args(h, sq, sk, d, scale, causal,
-                                    dropout_rate, seed, stream))
+        _KERNELS[q.dtype]["fused"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *scratch,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+            *_attn_args(h, sq, sk, d, scale, causal, dropout_rate, seed,
+                        stream))
     return dq, dk, dv
 
 
 def bwd_dq(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
            seed=None):
-    """Launch ``flash_bwd_dq_f32``: ``dq``."""
+    """Launch ``flash_bwd_dq_f32`` or ``flash_bwd_dq_bf16``: ``dq``."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_dq", q, k, v, bias, do, lse,
                                          delta, seed)
     dq = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FLASH_BWD_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), b,
-                     *_attn_args(h, sq, sk, d, scale, causal, dropout_rate,
-                                 seed, stream))
+        _KERNELS[q.dtype]["dq"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, *_attn_args(h, sq, sk, d, scale, causal, dropout_rate, seed,
+                           stream))
     return dq
 
 
 def bwd_dkv(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
             seed=None):
-    """Launch ``flash_bwd_dkv_f32``: ``(dk, dv)``."""
+    """Launch ``flash_bwd_dkv_f32`` or ``flash_bwd_dkv_bf16``: ``(dk,
+    dv)``."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_dkv", q, k, v, bias, do, lse,
                                          delta, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        FLASH_BWD_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr(), b,
-                      *_attn_args(h, sq, sk, d, scale, causal, dropout_rate,
-                                  seed, stream))
+        _KERNELS[q.dtype]["dkv"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b,
+            *_attn_args(h, sq, sk, d, scale, causal, dropout_rate, seed,
+                        stream))
     return dk, dv
 
 
 def flash_bwd(q, k, v, bias, out, lse, do, scale, causal, dropout_rate=0.0,
               seed=None):
-    """The backward on the card: ``delta = rowsum(dO * O)`` (a torch
+    """The backward on the card: ``delta = rowsum(dO * O)`` in f32 (a torch
     reduction, as in JAX :528), then the fused kernel when both lengths
     are at most :data:`FUSED_BWD_MAX_SEQ`, else the split dQ and dK/dV
     kernels.  Returns ``(dq, dk, dv)``."""
-    delta = (do * out).sum(dim=-1)
+    delta = (do.float() * out.float()).sum(dim=-1)
     args = (q, k, v, bias, do, lse, delta, scale, causal, dropout_rate, seed)
     if max(q.shape[2], k.shape[2]) <= FUSED_BWD_MAX_SEQ:
         return bwd_fused(*args)
@@ -417,11 +490,14 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     drops attention probabilities inside the kernels; ``dropout_seed``
     (an int64 tensor of one element on q's device) keys the mask, which
     the backward regenerates.  CPU tensors take the plain versions, CUDA
-    tensors the kernels (which raise on what they do not take)."""
+    tensors the kernels (which raise on what they do not take).  q, k, v
+    are float32 or bfloat16 (one dtype); a bf16 bias is taken as its exact
+    f32 upcast; float16 raises ``NotImplementedError``."""
+    attention_dtype("flash_attention", q)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if bias is not None:
-        bias = normalize_bias(bias)
+        bias = normalize_bias(bias).float()
         if q.device.type == "cuda":
             bias = bias.contiguous()
     if dropout_rate > 0.0 and dropout_seed is None:

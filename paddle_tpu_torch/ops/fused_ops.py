@@ -51,8 +51,9 @@ from . import bn_act
 from .matmul_epilogue import matmul_bias_act
 from .flash_attention import (attention_reference, flash_attention,
                               is_padding_bias)
-from .nn_ops import (bn_backward, bn_fold, bn_forward_stats, bn_is_test,
-                     bn_shapes, conv_attrs, conv_backward, conv_forward)
+from .nn_ops import (amp_cast, bn_backward, bn_fold, bn_forward_stats,
+                     bn_is_test, bn_shapes, conv_attrs, conv_backward,
+                     conv_forward)
 from .math_ops import align
 from .registry import grad_maker, op
 
@@ -73,7 +74,10 @@ def fused_multihead_attention(q, k, v, bias_qk=None, scale=0.0,
                               generator: Optional[torch.Generator] = None):
     """softmax(q k^T * scale + bias_qk [, causal]) [dropped] @ v.
     ``scale`` 0 means ``1 / sqrt(head_dim)``; the dropout seed comes from
-    ``generator`` (default: q's device's default generator)."""
+    ``generator`` (default: q's device's default generator).  Under AMP
+    it is a white-list op: q, k, v and the bias are cast to bf16."""
+    q, k, v, bias_qk = amp_cast("fused_multihead_attention", q, k, v,
+                                bias_qk)
     scale = scale or 1.0 / math.sqrt(q.shape[-1])
     seed = None
     if dropout_rate > 0.0:

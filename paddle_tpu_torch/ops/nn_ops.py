@@ -12,11 +12,20 @@ Counterparts of the JAX package's lowerings, with its semantics:
   ``downgrade_in_infer``, identity (or the downgrade) when ``is_test``;
   the keep mask is drawn from the caller's ``torch.Generator``;
 * the activations ``gelu`` (exact erf) and ``tanh`` (``math_ops.py:76,
-  109``) by name, and ``unsqueeze2`` (``tensor_ops.py:284``).
+  109``) by name, and ``unsqueeze2`` (``tensor_ops.py:284``);
+* the dygraph fronts ``mean`` and ``softmax`` (black-list ops under AMP).
+
+Under AMP (``paddle_tpu_torch.dygraph.amp_guard``) the fronts cast their
+inputs by the op lists (:func:`amp_cast`); every lowering here keeps its
+input's dtype as the JAX one does: ``dropout`` upscales by the factor
+rounded to x's dtype, ``gelu`` and ``tanh`` run in x's dtype,
+``softmax_with_cross_entropy`` takes an f32 log-sum-exp of bf16 logits,
+stores the Softmax in their dtype and returns the f32 loss, and its
+closed-form gradient comes back in the logits' dtype.
 
 ``layer_norm`` and ``matmul`` (with ``alpha`` / ``transpose_Y``) are the
-decoder forms' (:mod:`.decoder_ops`); ``mean`` and ``einsum`` are
-``torch.mean`` and ``torch.einsum``.
+decoder forms' (:mod:`.decoder_ops`); ``einsum`` is ``torch.einsum`` of
+operands promoted as jnp promotes them (``models/bert.py``).
 
 The static path's op lowerings (registered in :mod:`.registry`) follow
 below: ``conv2d`` (``conv_forward`` :45, ``_conv_lower`` :81), ``pool2d``
@@ -41,8 +50,15 @@ from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX
 from .registry import default_grad_maker, grad_maker, op
 
 __all__ = ["lookup_table_v2", "activation", "unsqueeze2", "dropout",
-           "softmax_with_cross_entropy", "conv_forward", "conv_backward",
-           "bn_shapes", "bn_train_stats"]
+           "softmax_with_cross_entropy", "mean", "softmax", "amp_cast",
+           "conv_forward", "conv_backward", "bn_shapes", "bn_train_stats"]
+
+
+def amp_cast(op_type: str, *tensors):
+    """:func:`paddle_tpu_torch.dygraph.amp.amp_cast` (imported at the call:
+    the dygraph package imports this module)."""
+    from ..dygraph.amp import amp_cast as cast
+    return cast(op_type, *tensors)
 
 
 def lookup_table_v2(table: torch.Tensor, ids: torch.Tensor,
@@ -94,6 +110,9 @@ def dropout(x: torch.Tensor, p: float, is_test: bool = False,
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     if implementation == "upscale_in_train":
         scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
+        if x.dtype != torch.float32:
+            # the factor in x's dtype, as JAX's jnp.asarray(scale, x.dtype)
+            scale = torch.full((), scale, dtype=x.dtype, device=x.device)
         return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
     return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
@@ -138,7 +157,21 @@ def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
     without the trailing unit axis."""
     if label.dim() == logits.dim() - 1:
         label = label.unsqueeze(-1)
+    (logits,) = amp_cast("softmax_with_cross_entropy", logits)
     return _SoftmaxCE.apply(logits, label.long(), int(ignore_index))
+
+
+def mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every element (the ``mean`` op; black-list under
+    AMP)."""
+    (x,) = amp_cast("mean", x)
+    return torch.mean(x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Softmax over ``axis`` (the ``softmax`` op; black-list under AMP)."""
+    (x,) = amp_cast("softmax", x)
+    return torch.softmax(x, dim=axis)
 
 
 # ==========================================================================

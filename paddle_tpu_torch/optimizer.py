@@ -27,7 +27,17 @@ Each parameter keeps its own accumulators and is updated only on a step
 that gave it a gradient, as in JAX.  Parameters whose beta powers agree
 are updated together by ``torch._foreach_*`` ops, in place (this takes
 the place of the JAX package's flattened multi-tensor update, a speed
-detail).  LAMB, AdamW and the other optimizers, regularization and
+detail).
+
+Master weights (AMP O2; ``optimizer.py:567-592``, ``_apply_fused_mp``
+:653-683, ``_eager_update`` :867-906).  A bf16 parameter gets an f32
+master in its state, seeded from the upcast of the bf16 value at its
+first update (not from any earlier f32 value), and f32 moments; its
+gradient is upcast to f32, the update runs on the master, and the
+parameter becomes the bf16 cast of the master after every step.  JAX
+packs the masters into one flat buffer, a TPU layout; the per-parameter
+``_foreach`` update over the masters computes the same elementwise
+update.  LAMB, AdamW and the other optimizers, regularization and
 gradient clipping are not ported.
 """
 from __future__ import annotations
@@ -213,11 +223,17 @@ class AdamOptimizer(Optimizer):
         self._state: Dict[int, dict] = {}
 
     def _param_state(self, p) -> dict:
+        """p's state; a bf16 / fp16 ``p`` also gets its f32 ``master``,
+        seeded from p's upcast when it first needs one."""
         st = self._state.get(id(p))
         if st is None:
-            st = {"m1": torch.zeros_like(p), "m2": torch.zeros_like(p),
-                  "b1p": np.float32(1.0), "b2p": np.float32(1.0)}
+            st = {"b1p": np.float32(1.0), "b2p": np.float32(1.0)}
             self._state[id(p)] = st
+        if p.dtype != torch.float32 and "master" not in st:
+            st["master"] = p.detach().float()
+        if "m1" not in st:
+            ref = st.get("master", p)
+            st["m1"], st["m2"] = torch.zeros_like(ref), torch.zeros_like(ref)
         return st
 
     def _apply(self, params_grads):
@@ -231,8 +247,9 @@ class AdamOptimizer(Optimizer):
         for (b1p, b2p), items in groups.items():
             b1p, b2p = np.float32(b1p), np.float32(b2p)
             lr_t = lr * np.sqrt(one - b2p * b2) / (one - b1p * b1)
-            ps = [p for p, _, _ in items]
-            gs = [g for _, g, _ in items]
+            # the update runs on the f32 master where there is one
+            ps = [st.get("master", p) for p, _, st in items]
+            gs = [g.float() for _, g, _ in items]
             m1 = [st["m1"] for _, _, st in items]
             m2 = [st["m2"] for _, _, st in items]
             # the moment coefficients as the JAX op forms them: Python
@@ -244,7 +261,9 @@ class AdamOptimizer(Optimizer):
             denom = torch._foreach_sqrt(m2)
             torch._foreach_add_(denom, float(self._epsilon))
             torch._foreach_addcdiv_(ps, m1, denom, value=-float(lr_t))
-            for _, _, st in items:
+            for p, _, st in items:
+                if "master" in st:
+                    p.copy_(st["master"])
                 st["b1p"] = b1p * b1
                 st["b2p"] = b2p * b2
 

@@ -2,16 +2,19 @@
 ``examples/train_bert_dygraph.py``.
 
     python -m paddle_tpu_torch.tools.train_bert [--batch 44] [--seq 512]
-        [--steps 100] [--lr 1e-4] [--tiny] [--pad] [--device cuda]
-        [--profile N]
+        [--steps 100] [--lr 1e-4] [--no-amp | --amp-level O1|O2] [--tiny]
+        [--pad] [--device cuda] [--profile N]
 
-The same flags as the example.  The run is float32: ``--no-amp`` is
-implied and ``--amp`` raises (AMP and bf16 attention are not ported).
-``BertForPretraining(BertConfig())`` (BERT-base) trains on random ids and
-labels from numpy seed 0 with ``AdamOptimizer`` through
-``jit_train_step``; the attention runs in the hand-written flash kernels
-on the card.  ``--tiny`` is a 2-layer model of hidden 128 and 4 heads
-(head width 32, the kernels' smallest) at batch 2, sequence 32, 3 steps.
+The example's flags, and its default: AMP O1 in bfloat16
+(``jit_train_step(amp=True)``: the matmuls and the attention in bf16,
+parameters and optimizer state f32).  ``--amp-level O2`` makes the
+parameters resident in bf16 with f32 master weights in the optimizer;
+``--no-amp`` runs float32.  ``BertForPretraining(BertConfig())``
+(BERT-base) trains on random ids and labels from numpy seed 0 with
+``AdamOptimizer`` through ``jit_train_step``; the attention runs in the
+hand-written flash kernels on the card, bf16 ones under AMP.  ``--tiny``
+is a 2-layer model of hidden 128 and 4 heads (head width 32, the
+kernels' smallest) at batch 2, sequence 32, 3 steps.
 ``--pad`` adds an attention mask whose rows keep between half and all of
 their tokens.  ``--profile N`` then runs N more steps, traces N more with
 ``torch.profiler`` and prints one JSON line: wall and device-busy ms per
@@ -61,15 +64,19 @@ def _loss_fn(model, ids, labels, mask=None):
 
 def train(cfg: BertConfig, batch: int = 44, seq: int = 512, steps: int = 100,
           lr: float = 1e-4, device="cuda", pad: bool = False,
-          warmup: int = 0, log_every: int = 20) -> dict:
+          warmup: int = 0, log_every: int = 20, amp: bool = True,
+          amp_level: str = "O1") -> dict:
     """Train ``warmup + steps`` steps on one repeated batch (weights and
-    batch from seed 0); time the last ``steps``.  Returns the per-step
-    losses, ms/step and tokens/s (host wall time around steps that end in
-    a device sync), the model, the step function and its inputs."""
+    batch from seed 0); time the last ``steps``.  ``amp`` / ``amp_level``
+    go to ``jit_train_step`` (bf16 AMP O1 by default, as the example).
+    Returns the per-step losses, ms/step and tokens/s (host wall time
+    around steps that end in a device sync), the model, the optimizer,
+    the step function and its inputs."""
     dev = resolve_device(device)
     model = BertForPretraining(cfg, device=dev, seed=0)
     opt = AdamOptimizer(lr, parameter_list=model.parameters())
-    step = jit_train_step(model, opt, _loss_fn)
+    step = jit_train_step(model, opt, _loss_fn, amp=amp,
+                          amp_level=amp_level)
     inputs = [to_tensor(x, dev) for x in make_batch(cfg, batch, seq, 0, pad)
               if x is not None]
     losses = []
@@ -85,7 +92,7 @@ def train(cfg: BertConfig, batch: int = 44, seq: int = 512, steps: int = 100,
     wall = time.perf_counter() - t0
     return {"losses": losses, "ms_per_step": wall / steps * 1e3,
             "tokens_per_s": batch * seq * steps / wall, "model": model,
-            "step": step, "inputs": inputs}
+            "optimizer": opt, "step": step, "inputs": inputs}
 
 
 def _self_device_us(evt) -> float:
@@ -123,8 +130,9 @@ def profile_steps(step, inputs, steps: int) -> dict:
                          "(device time not measured)")
     top = sorted(kernels, key=_self_device_us, reverse=True)[:15]
     flash_us = sum(_self_device_us(e) for e in kernels if "flash" in e.key)
+    # cuBLAS's GEMMs: "gemm" in the name, or its Hopper "nvjet" family
     gemm_us = sum(_self_device_us(e) for e in kernels
-                  if "gemm" in e.key.lower())
+                  if "gemm" in e.key.lower() or "nvjet" in e.key)
     return {"device": torch.cuda.get_device_name(0), "steps": steps,
             "wall_ms_per_step": plain_wall / steps * 1e3,
             "wall_ms_per_step_profiled": wall / steps * 1e3,
@@ -147,16 +155,13 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--no-amp", action="store_true",
-                    help="accepted; the port always runs float32")
-    ap.add_argument("--amp", action="store_true")
+                    help="train in float32 (default: bf16 AMP)")
+    ap.add_argument("--amp-level", choices=("O1", "O2"), default="O1")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--pad", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", type=int, default=0, metavar="N")
     args = ap.parse_args(argv)
-    if args.amp:
-        raise NotImplementedError("train_bert --amp: AMP O1/O2 and bf16 "
-                                  "attention are not ported (ROADMAP.md)")
     if args.tiny:
         cfg = tiny_config()
         args.batch, args.seq, args.steps = 2, 32, 3
@@ -164,9 +169,14 @@ def main(argv=None):
         cfg = BertConfig()
     if args.device != "cpu":
         torch.backends.cuda.matmul.allow_tf32 = False   # full f32
+        # bf16 GEMMs accumulate in f32 throughout, as the JAX package's
+        # (cuBLAS may otherwise reduce split-K partial sums in bf16)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     run = train(cfg, args.batch, args.seq, args.steps, args.lr, args.device,
-                pad=args.pad)
-    print(f"{args.steps} steps, {run['tokens_per_s']:.0f} tok/s, "
+                pad=args.pad, amp=not args.no_amp, amp_level=args.amp_level)
+    mode = "f32" if args.no_amp else f"AMP {args.amp_level} bf16"
+    print(f"{args.steps} steps ({mode}), {run['tokens_per_s']:.0f} tok/s, "
           f"{run['ms_per_step']:.1f} ms/step", flush=True)
     if args.profile:
         print(json.dumps(profile_steps(run["step"], run["inputs"],

@@ -14,7 +14,8 @@ into the port one to one (no transposes: both keep Paddle's layouts).
 * Adam alone against JAX ``eager_call("adam", ...)`` over 5 steps;
 * the op lowerings against JAX ``eager_call``; initializers; dropout;
 * the new entry points raise without a card, the left-out options raise
-  ``NotImplementedError``, and the new modules import no JAX;
+  ``NotImplementedError`` (float16 AMP among them), and the new modules
+  import no JAX;
 * ``tools/train_bert.py --tiny`` trains on the CPU.
 """
 import os
@@ -366,8 +367,10 @@ def test_left_out_options_raise():
     from paddle_tpu_torch.param_attr import ParamAttr
     m = Linear(2, 2, device="cpu")
     opt = AdamOptimizer(1e-3, parameter_list=m.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jit_train_step(m, opt, lambda m, x: m(x).sum(), amp=True)
+    # AMP runs in bf16; float16 AMP is not ported
+    with pytest.raises(NotImplementedError, match="not ported"):
+        jit_train_step(m, opt, lambda m, x: m(x).sum(), amp=True,
+                       amp_dtype="float16")
     for build in (lambda: topt.LambOptimizer(1e-3),
                   lambda: topt.AdamWOptimizer(1e-3),
                   lambda: AdamOptimizer(1e-3, grad_clip=object()),
@@ -384,7 +387,9 @@ def test_new_modules_import_no_jax():
             "paddle_tpu_torch.ops.fused_ops", "paddle_tpu_torch.ops.nn_ops",
             "paddle_tpu_torch.dygraph", "paddle_tpu_torch.models.bert",
             "paddle_tpu_torch.optimizer", "paddle_tpu_torch.initializer",
-            "paddle_tpu_torch.tools.train_bert"]
+            "paddle_tpu_torch.tools.train_bert",
+            "paddle_tpu_torch.contrib.mixed_precision",
+            "paddle_tpu_torch.dygraph.amp", "paddle_tpu_torch.dygraph.base"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -112,8 +112,8 @@ def _plain_grads(q, k, v, do, bias, causal, rate=0.0, keep=None):
 def _fused_and_split(q, k, v, bias, out, lse, do, scale, causal, rate=0.0,
                      seed=None):
     """(dq, dk, dv) from the fused kernel and from the split pair."""
-    args = (q, k, v, bias, do, lse, (do * out).sum(-1), scale, causal, rate,
-            seed)
+    args = (q, k, v, bias, do, lse, (do.float() * out.float()).sum(-1),
+            scale, causal, rate, seed)
     return [tfa.bwd_fused(*args), (tfa.bwd_dq(*args), *tfa.bwd_dkv(*args))]
 
 
@@ -194,8 +194,14 @@ def test_flash_attention_front_launches_kernels(cuda, s, n_bwd):
 def test_flash_wrappers_raise_on_unsupported(cuda):
     q, k, v, do, bias = _flash_case(cuda, 3, 1, 2, 64, 64, 64, True)
     with pytest.raises(ValueError, match="float32"):
-        tfa.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, 0.1,
-                      False)
+        tfa.flash_fwd(q.double(), k.double(), v.double(), None, 0.1, False)
+    with pytest.raises(ValueError, match="bfloat16"):   # mixed dtypes
+        tfa.flash_fwd(q.bfloat16(), k, v.bfloat16(), None, 0.1, False)
+    with pytest.raises(ValueError, match="float32"):    # a bf16 bias
+        tfa.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                      bias.bfloat16(), 0.1, False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tfa.flash_fwd(q.half(), k.half(), v.half(), None, 0.1, False)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_fwd(q.transpose(2, 3), k, v, None, 0.1, False)
     q48, k48, v48, _, _ = _flash_case(cuda, 3, 1, 2, 64, 64, 48, False)
@@ -205,6 +211,97 @@ def test_flash_wrappers_raise_on_unsupported(cuda):
         tfa.flash_fwd(q, k, v, bias, 0.1, False, dropout_rate=0.1)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd(q.cpu(), k.cpu(), v.cpu(), None, 0.1, False)
+
+
+# ==========================================================================
+# the bf16 flash kernels against their bf16 plain versions
+# ==========================================================================
+# Both round p, pd and dS to bf16 at the same points; the forward kernel
+# rounds p against the running max of its kv tile (the plain version
+# against the final max) and every sum runs in another order, so outputs
+# agree within BF16_ULPS bf16 ulps (2^-8 relative) of the tensor's
+# largest magnitude; lse is f32 (ATOL)
+BF16_ULPS = 4
+BF16_KERNELS = (tfa.FLASH_FWD_BF16, tfa.FLASH_BWD_FUSED_BF16,
+                tfa.FLASH_BWD_DQ_BF16, tfa.FLASH_BWD_DKV_BF16)
+F32_KERNELS = (tfa.FLASH_FWD, tfa.FLASH_BWD_FUSED, tfa.FLASH_BWD_DQ,
+               tfa.FLASH_BWD_DKV)
+
+
+def _bf16_ok(got, want):
+    assert got.dtype == torch.bfloat16 and want.dtype == torch.bfloat16
+    tol = BF16_ULPS * 2.0 ** -8 * float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _bf16_case(dev, seed, b, h, s, d, with_bias):
+    q, k, v, do, bias = _flash_case(dev, seed, b, h, s, s, d, with_bias)
+    return (*(t.bfloat16() for t in (q, k, v, do)), bias)
+
+
+@pytest.mark.parametrize("s", [64, 200, 512, 1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal,with_bias,rate", [
+    (False, True, 0.0), (True, False, 0.0), (False, True, 0.1)])
+def test_flash_bf16_kernels_match_plain(cuda, s, d, causal, with_bias,
+                                        rate):
+    q, k, v, do, bias = _bf16_case(cuda, 100 + s + d, 2, 3, s, d, with_bias)
+    scale = d ** -0.5
+    seed = torch.tensor([99], dtype=torch.int64, device=cuda)
+    keep = tfa.flash_dropout_mask(2, 3, s, s, rate, seed) if rate else None
+    before = [kf.launches for kf in BF16_KERNELS + F32_KERNELS]
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+    want_out, want_lse = tfa.flash_fwd_reference(q, k, v, bias, scale,
+                                                 causal, rate, keep)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _bf16_ok(out, want_out)
+    assert float((lse - want_lse).abs().max()) <= ATOL
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
+                                   causal, rate, keep)
+    for grads in _fused_and_split(q, k, v, bias, out, lse, do, scale,
+                                  causal, rate, seed if rate else None):
+        torch.cuda.synchronize()
+        for got, w in zip(grads, want):
+            assert _bf16_ok(got, w)
+    # the bf16 kernels ran, once each, and no f32 kernel
+    after = [kf.launches for kf in BF16_KERNELS + F32_KERNELS]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 0, 0, 0, 0]
+
+
+def test_flash_bf16_and_f32_kernels_differ_by_a_bf16_rounding(cuda):
+    """On the same bf16-representable inputs the bf16 kernels differ from
+    the f32 ones by about the bf16 roundings they make, far above the f32
+    kernels' own noise: a bf16 kernel that computed the f32 path would
+    show."""
+    q, k, v, do, bias = _bf16_case(cuda, 7, 2, 4, 512, 64, True)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o16, l16 = tfa.flash_fwd(q, k, v, bias, 0.125, False)
+    o32, l32 = tfa.flash_fwd(*f32[:3], bias, 0.125, False)
+    g16 = tfa.flash_bwd(q, k, v, bias, o16, l16, do, 0.125, False)
+    g32 = tfa.flash_bwd(*f32[:3], bias, o32, l32, f32[3], 0.125, False)
+    torch.cuda.synchronize()
+    for a, b in zip((o16, *g16), (o32, *g32)):
+        diff = float((a.float() - b).abs().max())
+        scale = float(b.abs().max())
+        assert 2.0 ** -12 * scale < diff <= BF16_ULPS * 2.0 ** -8 * scale
+
+
+@pytest.mark.parametrize("s,n_bwd", [(256, 1), (1024, 2)])
+def test_flash_attention_front_launches_bf16_kernels(cuda, s, n_bwd):
+    q, k, v, do, bias = _bf16_case(cuda, 8, 1, 2, s, 64, True)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = [kf.launches for kf in BF16_KERNELS + F32_KERNELS]
+    # under AMP the bias arrives in bf16; the front takes its f32 upcast
+    out = tfa.flash_attention(q, k, v, bias=bias.bfloat16()[:, None, None],
+                              dropout_rate=0.1, dropout_seed=torch.tensor(
+                                  [3], dtype=torch.int64, device=cuda))
+    out.backward(do)
+    torch.cuda.synchronize()
+    fwd, fused, dq, dkv, *f32 = (kf.launches - n0 for kf, n0 in zip(
+        BF16_KERNELS + F32_KERNELS, before))
+    assert fwd == 1 and fused + dq + dkv == n_bwd and f32 == [0] * 4
+    assert q.grad.dtype == torch.bfloat16
 
 
 # ==========================================================================

@@ -230,3 +230,142 @@ def test_cpu_path_launches_no_kernel_and_wrappers_refuse_cpu():
         tfa.flash_attention(q, k, v, bias=torch.zeros(1, 1, 64, 64))
     with pytest.raises(ValueError, match="dropout_seed"):
         tfa.flash_attention(q, k, v, dropout_rate=0.1)
+
+
+# ==========================================================================
+# bfloat16: the plain versions round p, pd and dS to bf16 where the TPU
+# kernels cast them, as the CUDA kernels do
+# ==========================================================================
+# bf16 outputs within BF16_ULPS bf16 ulps (2^-8 relative) of the tensor's
+# largest magnitude: both sides round at the same points, but JAX's
+# multi-block kernel rounds p against the running max of its kv block
+# (the plain version against the row's final max), the dense reference's
+# autodiff also rounds dP to bf16, and every sum runs in another order, so
+# an output may land one rounding step apart and a sum of rounded terms
+# moves by about one ulp of its largest term
+BF16_ULPS = 4
+# lse stays f32
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _bf16_pair(a):
+    """The bf16 rounding of f32 numpy ``a``: (jax array, torch tensor),
+    the same values (both round to nearest even)."""
+    t = torch.tensor(a).to(torch.bfloat16)
+    return jnp.asarray(a, jnp.bfloat16), t
+
+
+def _assert_bf16_close(got, want, what=""):
+    """``got`` (torch bf16) within BF16_ULPS ulps of max |want|."""
+    assert got.dtype == torch.bfloat16, what
+    w = np.asarray(want).astype(np.float32)
+    assert w.dtype == np.float32 and np.asarray(want).dtype.name == \
+        "bfloat16", what
+    tol = BF16_ULPS * 2.0 ** -8 * float(np.abs(w).max())
+    err = float(np.abs(got.float().numpy() - w).max())
+    assert err <= tol, f"{what}: max |err| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_bf16_forward_matches_jax_kernel(interpret_kernel, monkeypatch,
+                                               s, causal, with_bias):
+    _blocks(monkeypatch, s)
+    q, k, v, bias = _rand_qkv(s=s, seed=40 + s)
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16_pair(a) for a in (q, k, v))
+    b4 = bias[:, None, None, :] if with_bias else None
+    want = jflash(jq, jk, jv, bias=None if b4 is None else jnp.asarray(b4),
+                  causal=causal)
+    got = tfa.flash_attention(tq, tk, tv,
+                              bias=None if b4 is None else _t(b4),
+                              causal=causal)
+    _assert_bf16_close(got, want, "out")
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_grads_match_jax_kernel(interpret_kernel, monkeypatch, s,
+                                           causal):
+    _blocks(monkeypatch, s)
+    q, k, v, bias = _rand_qkv(s=s, seed=50 + s)
+    ct = np.random.RandomState(10).randn(*q.shape).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jct, tct) = (
+        _bf16_pair(a) for a in (q, k, v, ct))
+
+    def jloss(q_, k_, v_):
+        out = jflash(q_, k_, v_, bias=jnp.asarray(bias), causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jct.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    out = tfa.flash_attention(tq, tk, tv, bias=_t(bias), causal=causal)
+    out.backward(tct)
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        _assert_bf16_close(got, w, "d" + name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [64, 200])
+def test_flash_bf16_plain_matches_jax_attention_reference(causal, s):
+    """The plain bf16 forward and backward (what the CPU path runs, and
+    what the bf16 CUDA kernels are held to) against JAX's dense
+    ``attention_reference`` on the same bf16 inputs and its autodiff."""
+    from paddle_tpu.ops.pallas_kernels import attention_reference as jref
+
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=s, d=32, seed=60 + s)
+    ct = np.random.RandomState(11).randn(*q.shape).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jct, tct) = (
+        _bf16_pair(a) for a in (q, k, v, ct))
+
+    def jloss(q_, k_, v_):
+        out = jref(q_, k_, v_, jnp.asarray(bias), causal, 0.3)
+        return jnp.sum(out.astype(jnp.float32) * jct.astype(jnp.float32)), \
+            out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                       has_aux=True)(jq, jk, jv)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, _t(bias), 0.3, causal)
+    _assert_bf16_close(out, jout, "out")
+    # lse from the bf16 inputs is the f32 lse of their f32 upcasts
+    _, lse32 = tfa.flash_fwd_reference(tq.float(), tk.float(), tv.float(),
+                                       _t(bias), 0.3, causal)
+    torch.testing.assert_close(lse, lse32, **LSE_TOL)
+    grads = tfa.flash_bwd_reference(tq, tk, tv, _t(bias), out, lse, tct,
+                                    0.3, causal)
+    for name, got, w in zip("qkv", grads, jg):
+        _assert_bf16_close(got, w, "d" + name)
+
+
+def test_flash_bf16_rounds_where_the_tpu_kernels_cast():
+    """The bf16 plain versions differ from the f32 ones on the same
+    (bf16-representable) inputs by about a bf16 rounding, not by f32
+    noise: the roundings of p, pd and dS do happen."""
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=96, d=32, seed=70)
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    do = torch.tensor(np.random.RandomState(3)
+                      .randn(*q.shape)).to(torch.bfloat16)
+    outs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        a = [t.to(dt) for t in (tq, tk, tv)]
+        out, lse = tfa.flash_fwd_reference(*a, _t(bias), 0.2, False)
+        grads = tfa.flash_bwd_reference(*a, _t(bias), out, lse, do.to(dt),
+                                        0.2, False)
+        outs[dt] = [t.float() for t in (out, *grads)]
+    for b16, f32 in zip(outs[torch.bfloat16], outs[torch.float32]):
+        diff = float((b16 - f32).abs().max())
+        scale = float(f32.abs().max())
+        assert 2.0 ** -12 * scale < diff <= BF16_ULPS * 2.0 ** -8 * scale
+
+
+def test_flash_front_takes_a_bf16_bias_and_refuses_float16():
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=64, d=32, seed=71)
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    b16 = torch.tensor(bias).to(torch.bfloat16)
+    got = tfa.flash_attention(tq, tk, tv, bias=b16)
+    want = tfa.flash_attention(tq, tk, tv, bias=b16.float())
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tfa.flash_attention(tq.half(), tk.half(), tv.half())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tfa.flash_fwd(tq.half(), tk.half(), tv.half(), None, 0.1, False)
