@@ -12,7 +12,7 @@ Phases (any failure exits non-zero and prints no result):
    must be (9, 0);
 2. build: every kernel of the serving and training paths built by
    ``nvcc`` from the sources in this checkout (one ``nvcc`` per source,
-   all at once), with ``ptxas``'s register and spill lines;
+   all at once: six sources), with ``ptxas``'s register and spill lines;
 3. paged decode, kernel vs plain version: the paged-decode kernel against
    its plain PyTorch version on the card, at the serving shape and a GQA
    shape;
@@ -69,8 +69,14 @@ Phases (any failure exits non-zero and prints no result):
       ``flash_bwd_fused_bf16`` 12 times and no f32 flash kernel; tokens/s,
       ms/step and ``max_memory_allocated``; then 3 steps at seq 2048
       (batch 2), whose backward launches the split bf16 pair 12 times each;
-   d. the same under AMP O2 over 2 + 5 steps; every parameter bf16, every
-      updated one with an f32 master and f32 moments in the optimizer;
+   d. the bf16 gelu kernels (``gelu_fwd_bf16``, ``gelu_bwd_bf16``, the
+      rounding points of JAX's compiled gelu) against their plain versions
+      bit for bit at BERT's FFN shape and a ragged one, and timed against
+      the byte bound, the plain versions and ``F.gelu`` in bf16; then the
+      same training under AMP O2 over 2 + 5 steps; every parameter bf16,
+      every updated one with an f32 master and f32 moments in the
+      optimizer; each step launching each gelu kernel once per layer and
+      once for the MLM head (13 times);
    e. the 2-layer model of phase 8 under AMP O1 and O2, 3 Adam steps on
       the card and on the CPU: per-step losses within AMP_LOSS_RTOL, and
       O1's card losses differ from phase 8's f32 ones by more than
@@ -87,19 +93,23 @@ Phases (any failure exits non-zero and prints no result):
     layouts and a channels-last (M, C) case: bit for bit for "" and relu
     and the backward, within 1e-6 for sigmoid, tanh and gelu; then each
     kernel held to its plain version (relu, bit for bit) at each of the
-    49 shapes one training step gives it, and both timed over those 49
-    calls (CUDA-graph replay, every call on its own tensors, so the L2 is
-    cold), against the byte bound of those calls;
+    49 shapes one training step gives it, in NCHW and in NHWC, and both
+    timed over those 49 calls in the layout phase 11 runs (CUDA-graph
+    replay, every call on its own tensors, so the L2 is cold), against
+    the byte bound of those calls;
 11. ResNet-50 static training: ``examples/train_resnet_static.py``'s
     configuration (vB bottlenecks [3, 4, 6, 3], 224x224, 1000 classes,
     batch 128, Momentum 0.9, weights from the startup program, one batch
-    from numpy seed 0) in float32, at a tenth of the example's rate
+    from numpy seed 0) in float32 (``--no-amp``; NCHW, since
+    ``FLAGS_cuda_nhwc=auto`` takes channels-last only for bf16
+    convolutions), at a tenth of the example's rate
     (``MomentumOptimizer(0.01, 0.9)``; at 0.1 momentum on one repeated
     batch overshoots after two steps and where the twelfth step lands
     varies run to run), through ``fluid`` and ``Executor(CUDAPlace(0))``
     with the fusion flag at auto: 2 warm-up and 10 timed steps; every
     loss finite, the last below the first, each epilogue kernel launched
-    exactly 49 times per step, every scope tensor on the card;
+    exactly 49 times per step, the plan's fused convs in the layout
+    phase 10 timed, every scope tensor on the card;
 12. ResNet card vs CPU: ResNet-50 at batch 4, 32x32, 100 classes from
     one startup scope on the card and on the CPU: step-1 losses within
     1e-4 relative, later steps finite;
@@ -127,17 +137,56 @@ Phases (any failure exits non-zero and prints no result):
     12 steps, program seed 5, numpy seed 7) from one startup scope on the
     card and on the CPU: step 1 within 1e-5 relative, every step within
     1e-3 absolute;
+
+
+   static AMP in bf16 (``fluid.contrib.mixed_precision.decorate``, the
+   default of ``examples/train_resnet_static.py``), headed f-k:
+
+   f. conv epilogue bf16: ``bn_act_apply_bf16`` and ``bn_act_bwd_bf16``
+      against their plain versions, bit for bit for "" and relu and the
+      backward (every act, z, g; ragged shapes in both layouts and an
+      (M, C) case; sigmoid, tanh and gelu within a bf16 ulp), then at each
+      of the 49 shapes of the AMP ResNet-50 step in NCHW and in NHWC;
+      both timed over the 49 NHWC calls (the main path's layout) against
+      the byte bound (bf16 data) and their plain versions;
+   g. ResNet-50 under ``decorate(MomentumOptimizer(0.01, 0.9))``, batch
+      128, 224x224, channels-last by ``FLAGS_cuda_nhwc=auto``: 2 + 10
+      steps, the loss finite and falling, each bf16 epilogue kernel
+      launched 49 times a step and no f32 one, the plan's 49 fused convs
+      NHWC between its transposes; images/s, ms/step, peak memory;
+   h. the AMP ResNet-50 step at the oracle size (batch 4, 32x32) on the
+      card (NHWC, kernels) and the CPU (NCHW, plain versions) from one
+      startup scope: step 1 within AMP_RESNET_STEP1_RTOL, beside what
+      half-ulp bf16 noise on the images does to the CPU's own step 1;
+      the state after step 1, velocities and the rest apart, within
+      twice that noisy twin's worst and median per-tensor error;
+   i. matmul epilogue bf16: ``matmul_bias_act_bf16`` (tensor cores) at
+      phase 13's shapes and every act against its plain version (the AMP
+      program's unfused chain): every output within one bf16 ulp of the
+      largest, a bf16 bias once; timed against the bound (2MNK / 989
+      TFLOP/s, bf16 operand bytes), the plain version and ``torch.addmm``
+      in bf16 plus the act; the four calls of one LeNet step together;
+   j. LeNet and word2vec under ``decorate`` at phase 14-15's
+      configurations: the bf16 kernel 9 launched 4 and 2 times a step and
+      the f32 one never;
+   k. AMP LeNet card vs CPU, 12 steps from one startup scope: step 1
+      within AMP_LENET_STEP1_RTOL, every step within AMP_LENET_LOSS_ATOL;
+
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
-    (``flash_fwd_f32`` replaces two) and the five bf16 rows of kernels 1-5
-    (the bf16 launches from phase c, the AMP O1 main path), the card's
-    name and power limit, and the last line:
+    (``flash_fwd_f32`` replaces two), the five bf16 rows of kernels 1-5
+    (the bf16 launches from phase c, the AMP O1 main path), the three
+    bf16 rows of kernels 7-9 (launches from phases g and j), and the two
+    bf16 gelu kernels of the AMP O2 path (launches from phase d; no
+    Pallas kernel: their row names the JAX lowering XLA fuses), the
+    card's name and power limit, and the last line:
     ``{"ok": true, "device": {...}}``.
 
 Each phase's heading carries the seconds since the start.  The port is
 imported only after the device check, so run without the rest of the
 repository, or without a CUDA device, it fails.
 """
+import gc
 import json
 import subprocess
 import time
@@ -938,20 +987,31 @@ def flash_bf16_phase():
     return errs, times
 
 
+def gelu_kernels():
+    from paddle_tpu_torch.ops import gelu
+
+    return {"gelu_fwd_bf16": gelu.GELU_FWD_BF16,
+            "gelu_bwd_bf16": gelu.GELU_BWD_BF16}
+
+
 def train_amp(torch, level, cfg, batch, seq, warmup, steps):
-    """One AMP run through ``tools/train_bert.train``; returns the run and
-    the launches of every flash kernel during it."""
+    """One AMP run through ``tools/train_bert.train``; returns the run,
+    the launches of every flash kernel during it, and the bf16 gelu
+    kernels' (in ``run["gelu_launches"]``)."""
     from paddle_tpu_torch.tools.train_bert import train
 
     kernels = flash_kernels("all")
+    gk = gelu_kernels()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
+    reset_counts(gk)
     run = train(cfg, batch=batch, seq=seq, steps=steps, lr=1e-4,
                 device="cuda", pad=True, warmup=warmup, log_every=1,
                 amp=True, amp_level=level)
     torch.cuda.synchronize()
     run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    run["gelu_launches"] = {n: kf.launches for n, kf in gk.items()}
     return run, {n: kf.launches for n, kf in kernels.items()}
 
 
@@ -976,7 +1036,10 @@ def check_amp_run(what, run, launches, n_steps, layers, split):
 def amp_train_phase(torch, level, warmup, steps):
     """Phase c (O1) or d (O2): BERT-base at batch 44 x seq 512 under AMP;
     for O1 also 3 steps at seq 2048 (the split backward).  Returns the
-    bf16 flash kernels' launches."""
+    bf16 flash kernels' launches, and for O2, whose gelus are bf16
+    (under O1 the bias add promotes them to f32), the gelu kernels' too:
+    one forward and one backward per step for each layer's FFN and for
+    the MLM head's transform."""
     from paddle_tpu_torch.models.bert import BertConfig
 
     layers = BertConfig().num_hidden_layers
@@ -984,6 +1047,11 @@ def amp_train_phase(torch, level, warmup, steps):
                               steps)
     check_amp_run(f"AMP {level} BERT-base", run, launches, warmup + steps,
                   layers, split=False)
+    gl = run["gelu_launches"]
+    n_gelu = (layers + 1) * (warmup + steps) if level == "O2" else 0
+    if gl != {"gelu_fwd_bf16": n_gelu, "gelu_bwd_bf16": n_gelu}:
+        fail(f"AMP {level} BERT-base: gelu launches {gl}, expected "
+             f"{n_gelu} each")
     if level == "O2":
         # every parameter bf16; every one the optimizer has updated (all
         # but the pooler and the NSP head, which the MLM loss gives no
@@ -1003,9 +1071,11 @@ def amp_train_phase(torch, level, warmup, steps):
         "losses": run["losses"], "ms_per_step": run["ms_per_step"],
         "tokens_per_s": run["tokens_per_s"],
         "max_memory_allocated": run["max_memory_allocated"],
-        "launches": launches}), flush=True)
+        "launches": launches, "gelu_launches": gl}), flush=True)
     total = dict(launches)
     del run
+    if level == "O2":
+        return gl
     if level == "O1":
         long_run, longl = train_amp(
             torch, level, BertConfig(max_position_embeddings=2048), 2, 2048,
@@ -1070,21 +1140,24 @@ def amp_card_vs_cpu(torch, f32_losses):
 # ==========================================================================
 # the conv epilogue kernels, and ResNet-50 static training
 # ==========================================================================
-def resnet50_epilogue_shapes():
+def resnet50_epilogue_shapes(amp=False, nhwc=False):
     """[(conv-output shape, has z)] of the 49 fused_conv_bn_act ops of the
-    ResNet-50 training program at batch 128, 224x224, in program order."""
+    ResNet-50 training program at batch 128, 224x224, in program order;
+    ``nhwc``: as the NHWC layout pass leaves them (channels last)."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.tools.train_resnet import build_program
     from paddle_tpu_torch.utils import flags
 
-    prev = flags.get_flag("FLAGS_cuda_fuse")
-    flags.set_flags({"FLAGS_cuda_fuse": "1"})
+    names = ("FLAGS_cuda_fuse", "FLAGS_cuda_nhwc")
+    prev = {k: flags.get_flag(k) for k in names}
+    flags.set_flags({"FLAGS_cuda_fuse": "1",
+                     "FLAGS_cuda_nhwc": "1" if nhwc else "0"})
     try:
-        main, _, loss, acc1 = build_program(50, 224, 1000)
+        main, _, loss, acc1 = build_program(50, 224, 1000, amp=amp)
         rew = fluid.Executor("cpu")._apply_ir_passes(main, [loss.name,
                                                             acc1.name])
     finally:
-        flags.set_flags({"FLAGS_cuda_fuse": prev})
+        flags.set_flags(prev)
     blk = rew.global_block()
     return [(tuple(128 if d == -1 else d
                    for d in blk.var(op.output("ConvOut")[0]).shape),
@@ -1104,15 +1177,23 @@ def epilogue_inputs(shape, with_z, seed, c_axis=1):
     return x, z, vecs
 
 
-def epilogue_bytes(shape, with_z, bwd):
+def epilogue_bytes(shape, with_z, bwd, c_axis=1):
     """Bytes each call must move: every input read once, every output
     written once (f32): forward x (and z) in, y out; backward y, dy, x in,
     dx (and g) out; plus the per-channel vectors."""
     n = int(np.prod(shape))
-    c = shape[1]
+    c = shape[c_axis]
     if bwd:
         return 4 * (n * (4 + with_z) + 4 * c)
     return 4 * (n * (2 + with_z) + 2 * c)
+
+
+def bwd_err(dx, g, rdx, rg):
+    """Kernel 8's largest |kernel - plain| over dx and, if written, g."""
+    err = float((dx.float() - rdx.float()).abs().max())
+    if g is not None:
+        err = max(err, float((g.float() - rg.float()).abs().max()))
+    return err
 
 
 def check_epilogue():
@@ -1155,12 +1236,14 @@ def check_epilogue():
                     y, z if z is not None else x, x, a, mean, cx, b, act,
                     c_axis, want_g)
                 torch.cuda.synchronize()
+                err = bwd_err(dx, g, rdx, rg)
                 if not torch.equal(dx, rdx) or (want_g and
                                                  not torch.equal(g, rg)):
                     fail(f"bn_act_bwd_f32 {name} act {act!r} want_g "
                          f"{want_g}: not equal to the plain version "
-                         f"(max |err| {float((dx - rdx).abs().max()):.3e})")
-                row[f"bwd {act or 'none'}{' g' if want_g else ''}"] = 0.0
+                         f"(max |err| {err:.3e})")
+                row[f"bwd {act or 'none'}{' g' if want_g else ''}"] = err
+                errs["bn_act_bwd_f32"] = max(errs["bn_act_bwd_f32"], err)
                 del dx, g, rdx, rg
         print("epilogue_check " + json.dumps(row), flush=True)
         del x, z, y
@@ -1168,72 +1251,101 @@ def check_epilogue():
     return errs
 
 
+def path_layout(amp):
+    """(nhwc, channel axis) of the ResNet-50 program's convolutions on
+    the card: ``FLAGS_cuda_nhwc`` resolved for a CUDA place, as the
+    executor resolves it (``auto``: NHWC for bf16 convolutions only)."""
+    import torch
+
+    from paddle_tpu_torch.utils.flags import cuda_nhwc_enabled
+
+    nhwc = cuda_nhwc_enabled(torch.device("cuda"), bf16_convs=amp)
+    return nhwc, 3 if nhwc else 1
+
+
 def time_epilogue():
     """Each kernel against its plain version (bit for bit, relu) at
-    every one of the 49 shapes one ResNet-50 training step gives it, then
-    both timed over those 49 calls (every call on its own tensors) by
-    CUDA-graph replay; with the byte bound of those calls and the two
-    largest shapes' own rows.  Returns {kernel: row}."""
+    every one of the 49 shapes one ResNet-50 training step gives it, in
+    NCHW and in NHWC; then both timed over those 49 calls in the layout
+    the f32 main path runs (every call on its own tensors) by CUDA-graph
+    replay; with the byte bound of those calls and the two largest
+    shapes' own rows.  Returns {kernel: row}."""
     import torch
 
     from paddle_tpu_torch.ops import bn_act as ba
 
-    shapes = resnet50_epilogue_shapes()
-    if len(shapes) != 49:
-        fail(f"the ResNet-50 program has {len(shapes)} fused conv chains, "
-             f"expected 49")
-    fwd_sets, bwd_sets = [], []
-    for i, (shape, with_z) in enumerate(shapes):
-        x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, 100 + i)
-        fwd_sets.append((x, a, b, z))
-        y = torch.relu(x)
-        bwd_sets.append((y, torch.randn_like(x), x, a, mean, cx, b,
-                         with_z))
+    path_nhwc, _ = path_layout(amp=False)
     rows = {}
-    for name, sets, kern, plain, bwd in (
+    for nhwc in sorted((False, True), key=lambda v: v == path_nhwc):
+        c_axis = 3 if nhwc else 1
+        shapes = resnet50_epilogue_shapes(nhwc=nhwc)
+        if len(shapes) != 49:
+            fail(f"the ResNet-50 program has {len(shapes)} fused conv "
+                 f"chains, expected 49")
+        fwd_sets, bwd_sets = [], []
+        for i, (shape, with_z) in enumerate(shapes):
+            x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, 100 + i,
+                                                     c_axis)
+            fwd_sets.append((x, a, b, z))
+            bwd_sets.append((torch.relu(x), torch.randn_like(x), x, a, mean,
+                             cx, b, with_z))
+        kernels = (
             ("bn_act_apply_f32", fwd_sets,
-             lambda x, a, b, z: ba.bn_act_apply(x, a, b, z, "relu"),
-             lambda x, a, b, z: ba.bn_act_apply_reference(x, a, b, z,
-                                                          "relu"), False),
+             lambda x, a, b, z: ba.bn_act_apply(x, a, b, z, "relu", c_axis),
+             lambda x, a, b, z: ba.bn_act_apply_reference(
+                 x, a, b, z, "relu", c_axis), False),
             ("bn_act_bwd_f32", bwd_sets,
              lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_apply(
-                 y, dy, x, cg, m, cx, c0, "relu", 1, wg),
+                 y, dy, x, cg, m, cx, c0, "relu", c_axis, wg),
              lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_reference(
-                 y, dy, x, cg, m, cx, c0, "relu", 1, wg), True)):
-        for (shape, _), args in zip(shapes, sets):   # every path shape
-            got, want = kern(*args), plain(*args)
-            if bwd:
-                same = torch.equal(got[0], want[0]) and (
-                    got[1] is None or torch.equal(got[1], want[1]))
-            else:
-                same = torch.equal(got, want)
-            if not same:
-                fail(f"{name} differs from its plain version at {shape}")
-            del got, want
-        nbytes = sum(epilogue_bytes(s, z, bwd) for s, z in shapes)
-        step_ms = time_ms(kern, sets, per_graph=49, replays=5) * 49
-        plain_ms = time_ms(plain, sets, per_graph=49, replays=2) * 49
-        largest = {}
-        for shape, with_z in {(s, z) for s, z in shapes
-                              if s[1] * s[2] * s[3] == 64 * 112 * 112
-                              or s[1] * s[2] * s[3] == 256 * 56 * 56}:
-            idx = [i for i, (s, z) in enumerate(shapes)
-                   if (s, z) == (shape, with_z)]
-            one = [sets[i] for i in idx]
-            largest[f"{list(shape)}{' z' if with_z else ''}"] = {
-                "calls_per_step": len(idx),
-                "ms": time_ms(kern, one, per_graph=max(len(one), 4),
-                              replays=5),
-                "bound_ms": epilogue_bytes(shape, with_z, bwd)
-                / HBM_BYTES_PER_S * 1e3}
-        rows[name] = {"calls": len(shapes), "ms": step_ms,
-                      "plain_ms": plain_ms,
-                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                      "bound_by": "bytes", "bytes": nbytes,
-                      "library_ms": None, "largest_shapes": largest}
-        print(f"epilogue_time {name} " + json.dumps(rows[name]), flush=True)
-    del fwd_sets, bwd_sets
-    torch.cuda.empty_cache()
+                 y, dy, x, cg, m, cx, c0, "relu", c_axis, wg), True))
+        for name, sets, kern, plain, bwd in kernels:
+            for (shape, _), args in zip(shapes, sets):   # every path shape
+                got, want = kern(*args), plain(*args)
+                if bwd:
+                    same = torch.equal(got[0], want[0]) and (
+                        got[1] is None or torch.equal(got[1], want[1]))
+                else:
+                    same = torch.equal(got, want)
+                if not same:
+                    fail(f"{name} differs from its plain version at "
+                         f"{shape} (c_axis {c_axis})")
+                del got, want
+        print("epilogue_check " + json.dumps(
+            {"case": f"ResNet-50 path, {'NHWC' if nhwc else 'NCHW'}",
+             "shapes": 49, "c_axis": c_axis, "bit_exact": True}), flush=True)
+        if nhwc != path_nhwc:
+            del fwd_sets, bwd_sets, kernels
+            torch.cuda.empty_cache()
+            continue
+        for name, sets, kern, plain, bwd in kernels:
+            nbytes = sum(epilogue_bytes(s, z, bwd, c_axis)
+                         for s, z in shapes)
+            step_ms = time_ms(kern, sets, per_graph=49, replays=5) * 49
+            plain_ms = time_ms(plain, sets, per_graph=49, replays=2) * 49
+            largest = {}
+            for shape, with_z in {(s, z) for s, z in shapes
+                                  if np.prod(s[1:]) in (64 * 112 * 112,
+                                                        256 * 56 * 56)}:
+                idx = [i for i, (s, z) in enumerate(shapes)
+                       if (s, z) == (shape, with_z)]
+                one = [sets[i] for i in idx]
+                largest[f"{list(shape)}{' z' if with_z else ''}"] = {
+                    "calls_per_step": len(idx),
+                    "ms": time_ms(kern, one, per_graph=max(len(one), 4),
+                                  replays=5),
+                    "bound_ms": epilogue_bytes(shape, with_z, bwd, c_axis)
+                    / HBM_BYTES_PER_S * 1e3}
+            rows[name] = {"calls": len(shapes),
+                          "layout": "NHWC" if nhwc else "NCHW",
+                          "ms": step_ms, "plain_ms": plain_ms,
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_by": "bytes", "bytes": nbytes,
+                          "library_ms": None, "largest_shapes": largest}
+            print(f"epilogue_time {name} " + json.dumps(rows[name]),
+                  flush=True)
+        del fwd_sets, bwd_sets, kernels
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1250,7 +1362,8 @@ def resnet_phase(torch):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     run = train(depth=50, batch=batch, image=224, classes=1000, steps=steps,
-                lr=RESNET_LR, device="cuda", warmup=warmup, log_every=1)
+                lr=RESNET_LR, device="cuda", warmup=warmup, log_every=1,
+                amp=False)
     torch.cuda.synchronize()
     launches = {n: kf.launches for n, kf in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1263,13 +1376,21 @@ def resnet_phase(torch):
     if launches != {"bn_act_apply_f32": n, "bn_act_bwd_f32": n}:
         fail(f"ResNet-50 epilogue launches {launches}: expected {n} each "
              f"(49 chains x {warmup + steps} steps)")
+    layout = "NHWC" if path_layout(amp=False)[0] else "NCHW"
+    plan = next(p for key, p in run["executor"]._cache.items()
+                if key[0] == run["program"]._uid)
+    formats = {o.attrs.get("data_format") for o in plan.ops
+               if o.type == "fused_conv_bn_act"}
+    if formats != {layout}:
+        fail(f"ResNet-50 f32 plan: fused convs in {sorted(formats)}, the "
+             f"epilogue kernels were checked and timed in {layout}")
     off = [name for name, t in run["scope"].items()
            if not (isinstance(t, torch.Tensor) and t.device.type == "cuda")]
     if off:
         fail(f"scope vars not on the card: {off[:5]}")
     print("resnet_training " + json.dumps({
         "model": "ResNet-50 f32", "batch": batch, "image": 224,
-        "classes": 1000, "lr": RESNET_LR, "momentum": 0.9,
+        "classes": 1000, "lr": RESNET_LR, "momentum": 0.9, "layout": layout,
         "warmup_steps": warmup, "timed_steps": steps,
         "losses": losses, "acc1": run["acc1"],
         "ms_per_step": run["ms_per_step"],
@@ -1294,7 +1415,7 @@ def resnet_card_vs_cpu(torch):
     from paddle_tpu_torch.ops import bn_act as ba
     from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
 
-    main, startup, loss, _ = build_program(50, 32, 100, 0.01)
+    main, startup, loss, _ = build_program(50, 32, 100, 0.01, amp=False)
     cpu_exe = fluid.Executor(fluid.CPUPlace())
     start = Scope()
     cpu_exe.run(startup, scope=start)
@@ -1538,6 +1659,576 @@ def lenet_card_vs_cpu(torch):
              f"(tolerance {LENET_LOSS_ATOL})")
 
 
+# ==========================================================================
+# static AMP in bf16: the bf16 gelu, the bf16 epilogue kernels 7-9, and
+# ResNet-50 / LeNet / word2vec under decorate(optimizer)
+# ==========================================================================
+GELU_ROWS = (  # (kernel name, the JAX lowering it stands for: XLA-fused)
+    ("gelu_fwd_bf16", "paddle_tpu/ops/math_ops.py:110"),
+    ("gelu_bwd_bf16", "paddle_tpu/ops/math_ops.py:110"),
+)
+EPILOGUE_BF16_ROWS = tuple((name.replace("_f32", "_bf16"), replaces)
+                           for name, replaces in EPILOGUE_ROWS)
+# the steepest slope of kernel 9's acts (exact gelu's peaks at 1.13)
+MATMUL_BF16_SLOPE = 1.13
+# the AMP ResNet-50 step-1 loss on the card (NHWC, cuDNN bf16, the bf16
+# kernels) vs on the CPU (NCHW, oneDNN bf16, the plain versions) from one
+# startup scope: bf16 roundings in two summation orders through 50
+# layers of BN over four values per channel (1x1 maps) at batch 4, where
+# the loss is chaotic: half a bf16 ulp of noise (2^-9 relative) on the
+# images moves the CPU's own step-1 loss by 16% (printed each run as
+# cpu_noise_step1_rel).  Card vs CPU measured 9.3e-3 in two runs (both
+# sides deterministic): held to twice that.  After step 1 every state
+# tensor (``rel_errs``: its largest difference over the CPU's largest
+# magnitude) is held, velocities (the step-1 gradients) and the rest
+# apart, to twice the noisy CPU twin's worst and median
+AMP_RESNET_NOISE = 2.0 ** -9
+AMP_RESNET_STEP1_RTOL = 2e-2
+# AMP LeNet on the card vs on the CPU from one startup scope, 12 steps:
+# step 1 relative, every step absolute (bf16 products in two orders; on
+# the CPU JAX and the port differ by 2.1e-4 at step 1, 6.4e-3 by step 4)
+AMP_LENET_STEP1_RTOL, AMP_LENET_LOSS_ATOL = 2e-3, 5e-2
+
+
+def gelu_phase():
+    """The bf16 gelu kernels against their plain versions bit for bit at
+    BERT-base's FFN shape (22528 x 3072) and a ragged one, then timed at
+    the FFN shape against the bound, the plain versions and ``F.gelu`` in
+    bf16 (forward; its backward alone).  Returns {kernel: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import gelu
+
+    rows = {}
+    errs = {"gelu_fwd_bf16": 0.0, "gelu_bwd_bf16": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    ffn = (22528, 3072)
+    for shape in (ffn, (1001, 37)):
+        x = (torch.randn(shape, device="cuda", generator=gen) * 3).bfloat16()
+        dy = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        got, want = gelu.gelu_fwd_bf16(x), gelu.gelu_bf16_reference(x)
+        gdx = gelu.gelu_bwd_bf16(x, dy)
+        wdx = gelu.gelu_bf16_grad_reference(x, dy)
+        torch.cuda.synchronize()
+        fwd = float((got.float() - want.float()).abs().max())
+        bwd = float((gdx.float() - wdx.float()).abs().max())
+        errs["gelu_fwd_bf16"] = max(errs["gelu_fwd_bf16"], fwd)
+        errs["gelu_bwd_bf16"] = max(errs["gelu_bwd_bf16"], bwd)
+        if not (torch.equal(got, want) and torch.equal(gdx, wdx)):
+            fail(f"gelu bf16 kernels differ from their plain versions at "
+                 f"{shape}: forward {fwd}, backward {bwd}")
+    n = ffn[0] * ffn[1]
+    count = max(2, -(-COLD_BYTES // (4 * n)))
+    sets = [((torch.randn(ffn, device="cuda", generator=gen) * 3).bfloat16(),
+             torch.randn(ffn, device="cuda", generator=gen).bfloat16())
+            for _ in range(count)]
+
+    def lib_bwd(x, dy):
+        return torch.ops.aten.gelu_backward(dy, x)
+
+    for name, kern, plain, lib, nbytes in (
+            ("gelu_fwd_bf16", lambda x, dy: gelu.gelu_fwd_bf16(x),
+             lambda x, dy: gelu.gelu_bf16_reference(x),
+             lambda x, dy: F.gelu(x), 4 * n),
+            ("gelu_bwd_bf16", gelu.gelu_bwd_bf16,
+             gelu.gelu_bf16_grad_reference, lib_bwd, 6 * n)):
+        rows[name] = {"shape": list(ffn), "max_abs_err": errs[name],
+                      "ms": time_ms(kern, sets, 8, 5),
+                      "plain_ms": time_ms(plain, sets, 4, 2),
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes",
+                      "library_ms": time_ms(lib, sets, 8, 5)}
+        print(f"gelu_time {name} " + json.dumps(rows[name]), flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def epilogue_bf16_inputs(shape, with_z, seed, c_axis):
+    """bf16 x (and z), the bf16 per-channel vectors and an f32 c0."""
+    x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, seed, c_axis)
+    bf = [t.bfloat16() if t is not None else None for t in (x, z, a, b,
+                                                           mean, cx)]
+    return bf, b.clone()
+
+
+def epilogue_bf16_bytes(shape, with_z, bwd, c):
+    """Bytes each bf16 call must move: data at 2 bytes an element; the
+    per-channel vectors at 2 (a, b; cg, mean, cx) and 4 (c0)."""
+    n = int(np.prod(shape))
+    if bwd:
+        return 2 * n * (4 + with_z) + (2 * 3 + 4) * c
+    return 2 * n * (2 + with_z) + 2 * 2 * c
+
+
+def check_epilogue_bf16():
+    """Kernels 7 and 8 in bf16 against their plain versions: bit for bit
+    for "" and relu and the backward (with and without z / g), within a
+    bf16 ulp of the largest output for sigmoid, tanh and gelu, at a
+    ragged shape in both layouts and a channels-last (M, C) case; then at
+    each of the 49 shapes of the AMP ResNet-50 step, NCHW and NHWC, with
+    relu, z where the chain has one and g on the residual chains.
+    Returns ({kernel: max err}, the NHWC input sets for the timing)."""
+    import torch
+
+    from paddle_tpu_torch.ops import bn_act as ba
+
+    errs = {"bn_act_apply_bf16": 0.0, "bn_act_bwd_bf16": 0.0}
+
+    def one(name, shape, c_axis, with_z, acts, seed):
+        (x, z, a, b, mean, cx), c0 = epilogue_bf16_inputs(shape, with_z,
+                                                          seed, c_axis)
+        for act in acts:
+            for zz in ((None, z) if with_z else (None,)):
+                got = ba.bn_act_apply(x, a, b, zz, act, c_axis)
+                want = ba.bn_act_apply_reference(x, a, b, zz, act, c_axis)
+                torch.cuda.synchronize()
+                if got.dtype != torch.bfloat16:
+                    fail(f"bn_act_apply_bf16 {name}: output {got.dtype}")
+                err = ulps_off(got, want)
+                if ((act in ("", "relu") and not torch.equal(got, want))
+                        or err > 1.0):
+                    fail(f"bn_act_apply_bf16 {name} act {act!r} z "
+                         f"{zz is not None}: {err:.2f} bf16 ulps off")
+                errs["bn_act_apply_bf16"] = max(errs["bn_act_apply_bf16"],
+                                                float((got.float()
+                                                       - want.float())
+                                                      .abs().max()))
+        y = torch.relu(x)
+        dy = z if z is not None else x
+        for act in ("", "relu"):
+            for want_g in (False, True):
+                dx, g = ba.bn_act_bwd_apply(y, dy, x, a, mean, cx, c0, act,
+                                            c_axis, want_g)
+                rdx, rg = ba.bn_act_bwd_reference(y, dy, x, a, mean, cx, c0,
+                                                  act, c_axis, want_g)
+                torch.cuda.synchronize()
+                err = bwd_err(dx, g, rdx, rg)
+                if (dx.dtype != torch.bfloat16 or not torch.equal(dx, rdx)
+                        or (want_g and not torch.equal(g, rg))):
+                    fail(f"bn_act_bwd_bf16 {name} act {act!r} want_g "
+                         f"{want_g}: not equal to the plain version "
+                         f"(max |err| {err:.3e})")
+                errs["bn_act_bwd_bf16"] = max(errs["bn_act_bwd_bf16"], err)
+        return x, z, a, b, mean, cx, c0
+
+    for name, shape, c_axis, with_z in (
+            ("ragged-nchw", (3, 37, 13, 11), 1, True),
+            ("ragged-nhwc", (3, 13, 11, 37), 3, True),
+            ("channels-last-mc", (4096, 64), 1, True)):
+        one(name, shape, c_axis, with_z, tuple(ba.ACTS), 31)
+        print("epilogue_check_bf16 " + json.dumps(
+            {"case": name, "shape": list(shape), "c_axis": c_axis,
+             "acts": list(ba.ACTS), "bit_exact": ["", "relu", "bwd"]}),
+            flush=True)
+    nhwc_sets = None
+    for layout, c_axis in (("NCHW", 1), ("NHWC", 3)):
+        shapes = resnet50_epilogue_shapes(amp=True, nhwc=layout == "NHWC")
+        if len(shapes) != 49:
+            fail(f"the AMP ResNet-50 program ({layout}) has {len(shapes)} "
+                 f"fused conv chains, expected 49")
+        sets = []
+        for i, (shape, with_z) in enumerate(shapes):
+            t = one(f"path {layout} {shape}", shape, c_axis, with_z,
+                    ("relu",), 200 + i)
+            sets.append((shape, with_z, t))
+        print("epilogue_check_bf16 " + json.dumps(
+            {"case": f"ResNet-50 AMP path, {layout}", "shapes": 49,
+             "bit_exact": True}), flush=True)
+        if layout == "NHWC":
+            nhwc_sets = sets
+        else:
+            del sets
+    torch.cuda.empty_cache()
+    return errs, nhwc_sets
+
+
+def time_epilogue_bf16(sets):
+    """Both bf16 kernels timed over the 49 NHWC calls of one AMP ResNet-50
+    step (the main path's layout), every call on its own tensors, by
+    CUDA-graph replay, against their plain versions and the byte bound.
+    Returns {kernel: row}."""
+    import torch
+
+    from paddle_tpu_torch.ops import bn_act as ba
+
+    fwd = [(x, a, b, z) for _, _, (x, z, a, b, mean, cx, c0) in sets]
+    bwd = [(torch.relu(x), torch.randn_like(x), x, a, mean, cx, c0,
+            z is not None) for _, _, (x, z, a, b, mean, cx, c0) in sets]
+    rows = {}
+    for name, args, kern, plain, is_bwd in (
+            ("bn_act_apply_bf16", fwd,
+             lambda x, a, b, z: ba.bn_act_apply(x, a, b, z, "relu", 3),
+             lambda x, a, b, z: ba.bn_act_apply_reference(x, a, b, z,
+                                                          "relu", 3), False),
+            ("bn_act_bwd_bf16", bwd,
+             lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_apply(
+                 y, dy, x, cg, m, cx, c0, "relu", 3, wg),
+             lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_reference(
+                 y, dy, x, cg, m, cx, c0, "relu", 3, wg), True)):
+        nbytes = sum(epilogue_bf16_bytes(shape, z, is_bwd, shape[3])
+                     for shape, z, _ in sets)
+        rows[name] = {"calls": len(sets), "layout": "NHWC",
+                      "ms": time_ms(kern, args, per_graph=49, replays=5) * 49,
+                      "plain_ms": time_ms(plain, args, per_graph=49,
+                                          replays=2) * 49,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "bytes": nbytes,
+                      "library_ms": None}
+        print(f"epilogue_time {name} " + json.dumps(rows[name]), flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def matmul_bf16_bound(m, k, n):
+    """(bound_ms, bytes, flops): bf16 x and w, f32 bias and output, read
+    or written once; 2MNK operations at the bf16 tensor-core peak."""
+    nbytes = 2 * (m * k + k * n) + 4 * (n + m * n)
+    flops = 2 * m * n * k
+    return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+            nbytes, flops)
+
+
+def matmul_bf16_phase():
+    """The bf16 kernel 9 against its plain version (the AMP program's
+    unfused chain: the product rounded to bf16, the f32 bias added, the
+    act in f32) at every shape and act: the products are summed in
+    another order, so a product may round the other way: every output
+    within one bf16 ulp of its product times the act's largest slope
+    (MATMUL_BF16_SLOPE x 2^-7 |x @ w|), plus f32 noise, and the share of
+    outputs not bit-equal reported.  A bf16 bias (bf16 output) once.
+    Then times against the bound, the plain version and ``torch.addmm``
+    in bf16 plus the act; the four calls of one AMP LeNet step together.
+    Returns (max abs err, the LeNet step's row, the BERT FFN row)."""
+    import torch
+
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+    from paddle_tpu_torch.ops.bn_act import ACTS, apply_act
+
+    def bf16_set(m, k, n, seed):
+        x, w, b = matmul_inputs(m, k, n, seed)
+        return x.bfloat16(), w.bfloat16(), b, b.bfloat16()
+
+    err = 0.0
+    sets, rows = {}, {}
+    for name, m, k, n, acts in MATMUL_SHAPES:
+        nbytes = matmul_bf16_bound(m, k, n)[1]
+        count = max(2, min(200, -(-COLD_BYTES // nbytes)))
+        sets[name] = [bf16_set(m, k, n, 300 + i) for i in range(count)]
+        x, w, b, b16 = sets[name][0]
+        row = {"shape": name, "M": m, "K": k, "N": n}
+        prod = (x.float() @ w.float()).abs()     # TF32 off: full f32
+        for act in acts or ACTS:
+            got = me.matmul_bias_act(x, w, b, act)
+            want = me.matmul_bias_act_reference(x, w, b, act)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float32:
+                fail(f"matmul_bias_act_bf16 {name}: output {got.dtype}")
+            off = ulps_off(got, want)
+            bound = (MATMUL_BF16_SLOPE * 2.0 ** -7 * prod
+                     + 1e-6 * want.abs() + 1e-7)
+            if not (torch.isfinite(got).all()
+                    and bool(((got - want).abs() <= bound).all())):
+                fail(f"matmul_bias_act_bf16 {name} act {act!r}: an output "
+                     f"beyond one bf16 ulp of its product "
+                     f"({off:.2f} ulps of the largest output)")
+            row[f"ulps {act or 'none'}"] = off
+            row[f"unequal {act or 'none'}"] = float(
+                (got != want).float().mean())
+            err = max(err, float((got - want).abs().max()))
+            del got, want
+        got = me.matmul_bias_act(x, w, b16, "relu")
+        want = me.matmul_bias_act_reference(x, w, b16, "relu")
+        torch.cuda.synchronize()
+        # one ulp of the product, and the bf16 sum's own rounding
+        bound = 2.0 ** -7 * prod + 2.0 ** -8 * want.float().abs()
+        if got.dtype != torch.bfloat16 or not bool(
+                ((got.float() - want.float()).abs() <= bound).all()):
+            fail(f"matmul_bias_act_bf16 {name} with a bf16 bias: "
+                 f"{got.dtype}, {ulps_off(got, want):.2f} ulps off")
+        del prod
+        act = (acts or ("relu",))[0]
+        per_graph = max(len(sets[name]), 4)
+        replays = 3 if m * n * k > 1e9 else 10
+        bound_ms, nbytes, flops = matmul_bf16_bound(m, k, n)
+        row.update({
+            "act": act, "input_sets": len(sets[name]),
+            "ms": time_ms(lambda x, w, b, b16: me.matmul_bias_act(
+                x, w, b, act), sets[name], per_graph, replays),
+            "plain_ms": time_ms(
+                lambda x, w, b, b16: me.matmul_bias_act_reference(
+                    x, w, b, act), sets[name], per_graph, replays),
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / BF16_FLOP_PER_S else "operations"),
+            "library_ms": time_ms(
+                lambda x, w, b, b16: apply_act(torch.addmm(b16, x, w), act),
+                sets[name], per_graph, replays)})
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows[name] = row
+        print("matmul_case_bf16 " + json.dumps(row), flush=True)
+        if m * n * k > 1e9:
+            del sets[name]
+            torch.cuda.empty_cache()
+    args = [(*sets[name][i % len(sets[name])], act)
+            for i in range(64) for name, act in LENET_STEP_CALLS]
+    n_step = len(LENET_STEP_CALLS)
+    step = {"calls_per_step": n_step,
+            "bound_ms": sum(matmul_bf16_bound(rows[nm]["M"], rows[nm]["K"],
+                                              rows[nm]["N"])[0]
+                            for nm, _ in LENET_STEP_CALLS)}
+    for key, fn in (
+            ("ms", lambda x, w, b, b16, act: me.matmul_bias_act(x, w, b,
+                                                                act)),
+            ("plain_ms", lambda x, w, b, b16, act:
+                me.matmul_bias_act_reference(x, w, b, act)),
+            ("library_ms", lambda x, w, b, b16, act:
+                apply_act(torch.addmm(b16, x, w), act))):
+        step[key] = time_ms(fn, args, per_graph=len(args), replays=5) \
+            * n_step
+    step["bound_by"] = "bytes" if all(
+        rows[nm]["bound_by"] == "bytes" for nm, _ in LENET_STEP_CALLS) \
+        else "operations"
+    print("matmul_lenet_step_bf16 " + json.dumps(step), flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return err, step, rows["bert-ffn-in"]
+
+
+def resnet_amp_phase(torch):
+    """ResNet-50 under ``decorate(MomentumOptimizer)``, the example's
+    default, NHWC by ``FLAGS_cuda_nhwc=auto``: 2 warm-up and 10 timed
+    steps; every loss finite and the last below the first, each bf16
+    epilogue kernel launched 49 times per step and no f32 one, the
+    convolutions' Input channels-last.  Returns the bf16 epilogue
+    kernels' launches."""
+    from paddle_tpu_torch.ops import bn_act as ba
+    from paddle_tpu_torch.tools.train_resnet import train
+
+    kernels = {"bn_act_apply_bf16": ba.BN_ACT_APPLY_BF16,
+               "bn_act_bwd_bf16": ba.BN_ACT_BWD_BF16,
+               "bn_act_apply_f32": ba.BN_ACT_APPLY,
+               "bn_act_bwd_f32": ba.BN_ACT_BWD}
+    warmup, steps, batch = 2, 10, 128
+    gc.collect()   # the step is host-bound: no collection of earlier phases
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    run = train(depth=50, batch=batch, image=224, classes=1000, steps=steps,
+                lr=RESNET_LR, device="cuda", warmup=warmup, log_every=1,
+                amp=True)
+    torch.cuda.synchronize()
+    launches = {n: kf.launches for n, kf in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    if not np.all(np.isfinite(losses)):
+        fail(f"ResNet-50 AMP losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"ResNet-50 AMP loss did not fall: {losses}")
+    n = 49 * (warmup + steps)
+    want = {"bn_act_apply_bf16": n, "bn_act_bwd_bf16": n,
+            "bn_act_apply_f32": 0, "bn_act_bwd_f32": 0}
+    if launches != want:
+        fail(f"ResNet-50 AMP epilogue launches {launches}: expected {want}")
+    plan = next(p for key, p in run["executor"]._cache.items()
+                if key[0] == run["program"]._uid)
+    types = [o.type for o in plan.ops]
+    fused = [o for o in plan.ops if o.type == "fused_conv_bn_act"]
+    if (len(fused) != 49 or any(o.attrs.get("data_format") != "NHWC"
+                                for o in fused)
+            or "cast" not in types or "transpose2" not in types):
+        fail(f"ResNet-50 AMP plan: {len(fused)} fused convs, formats "
+             f"{sorted({o.attrs.get('data_format') for o in fused})}, "
+             f"casts {types.count('cast')}, transposes "
+             f"{types.count('transpose2')}")
+    print("resnet_training_amp " + json.dumps({
+        "model": "ResNet-50 AMP bf16 (decorate)", "batch": batch,
+        "image": 224, "classes": 1000, "lr": RESNET_LR, "momentum": 0.9,
+        "layout": "NHWC", "warmup_steps": warmup, "timed_steps": steps,
+        "losses": losses, "acc1": run["acc1"],
+        "ms_per_step": run["ms_per_step"],
+        "images_per_s": run["images_per_s"],
+        "max_memory_allocated": peak,
+        "launches_per_step": {k: v / (warmup + steps)
+                              for k, v in launches.items()},
+        "casts": types.count("cast"), "transposes": types.count("transpose2"),
+        "ops": len(types)}), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if k.endswith("_bf16")}
+
+
+def rel_errs(got, want):
+    """Per tensor: largest |got - want| over the largest |want|."""
+    return {n: float(np.abs(got[n] - w).max())
+            / max(float(np.abs(w).max()), 1e-12) for n, w in want.items()}
+
+
+def resnet_amp_card_vs_cpu(torch):
+    """The AMP ResNet-50 step at the oracle size (batch 4, 32x32, 100
+    classes) from one startup scope, 3 steps on the card (NHWC, kernels)
+    and on the CPU (NCHW, plain versions): step 1 within
+    AMP_RESNET_STEP1_RTOL, every step finite, and the state after step 1
+    (parameters, velocities, BN statistics) within the envelope of one
+    more CPU step on images carrying bf16-sized noise."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.ops import bn_act as ba
+    from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
+
+    main, startup, loss, _ = build_program(50, 32, 100, 0.01, amp=True)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    names = [n for n, _ in start.items()]
+    state = numpy_state(start, names)
+    img, label = make_batch(4, 32, 100)
+    losses, after1 = {}, {}
+    launched = ba.BN_ACT_APPLY_BF16.launches
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = []
+        for step in range(3):
+            losses[dev].append(float(exe.run(
+                main, feed={"img": img, "label": label}, fetch_list=[loss],
+                scope=scope)[0]))
+            if step == 0:
+                after1[dev] = numpy_state(scope, names)
+    if ba.BN_ACT_APPLY_BF16.launches != launched + 49 * 3:
+        fail("ResNet AMP card vs CPU: the card's run did not launch the "
+             "bf16 epilogue kernels")
+    scope = Scope()
+    load_numpy_state(scope, state, "cpu")
+    noisy = img * (1 + AMP_RESNET_NOISE * np.random.RandomState(1).randn(
+        *img.shape))
+    twin = float(fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"img": noisy.astype(np.float32), "label": label},
+        fetch_list=[loss], scope=scope)[0])
+    errs = rel_errs(after1["cuda"], after1["cpu"])
+    env = rel_errs(numpy_state(scope, names), after1["cpu"])
+    cpu1 = losses["cpu"][0]
+    envelope = abs(twin - cpu1) / abs(cpu1)
+    rtol = AMP_RESNET_STEP1_RTOL
+    rel = abs(cpu1 - losses["cuda"][0]) / abs(cpu1)
+    groups = {}
+    for gname, pick in (("velocities", lambda n: "velocity" in n),
+                        ("other_state", lambda n: "velocity" not in n)):
+        got = [e for n, e in errs.items() if pick(n)]
+        ref = [e for n, e in env.items() if pick(n)]
+        groups[gname] = {"tensors": len(got), "worst": max(got),
+                         "median": float(np.median(got)),
+                         "twin_worst": max(ref),
+                         "twin_median": float(np.median(ref))}
+    print("resnet_amp_card_vs_cpu " + json.dumps({
+        **losses, "step1_rel_diff": rel, "cpu_noise_step1_rel": envelope,
+        "rtol": rtol, "after_step1": groups}), flush=True)
+    if not np.all(np.isfinite(losses["cuda"])):
+        fail(f"ResNet AMP card vs CPU: card losses not finite {losses}")
+    if not rel <= rtol:
+        fail(f"ResNet AMP card vs CPU step-1 losses differ by {rel:.3e} > "
+             f"{rtol:.3e}")
+    for gname, g in groups.items():
+        if not (g["worst"] <= 2 * g["twin_worst"]
+                and g["median"] <= 2 * g["twin_median"]):
+            fail(f"ResNet AMP card vs CPU after step 1, {gname}: {g} "
+                 f"outside twice the noisy twin's envelope")
+
+
+def book_amp_phase(torch, model, chains, act):
+    """One book model under ``decorate`` at its tool defaults, 5 warm-up
+    and 30 timed steps: losses finite and falling, the chains fused, the
+    bf16 kernel 9 launched 2 x chains per step and the f32 one never.
+    Returns the bf16 kernel's launches."""
+    from paddle_tpu_torch.ops.matmul_epilogue import (MATMUL_BIAS_ACT_BF16,
+                                                      MATMUL_BIAS_ACT_F32)
+    from paddle_tpu_torch.tools.train_book import DEFAULTS, train
+
+    warmup, steps = 5, 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    MATMUL_BIAS_ACT_BF16.launches = MATMUL_BIAS_ACT_F32.launches = 0
+    run = train(model, DEFAULTS[model], steps=steps, device="cuda",
+                warmup=warmup, log_every=5, amp=True)
+    torch.cuda.synchronize()
+    launches = MATMUL_BIAS_ACT_BF16.launches
+    f32 = MATMUL_BIAS_ACT_F32.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{model} AMP losses {losses} not finite or not falling")
+    plan = next(p for key, p in run["executor"]._cache.items()
+                if key[0] == run["program"]._uid)
+    fused = [o for o in plan.ops if o.type == "fused_matmul_bias_act"]
+    grads = [o for o in plan.ops if o.type == "fused_matmul_bias_act_grad"]
+    if (len(fused), len(grads)) != (chains, chains) or any(
+            o.attrs["act_type"] != act for o in fused):
+        fail(f"{model} AMP: {len(fused)} fused_matmul_bias_act and "
+             f"{len(grads)} grads, expected {chains} each with act {act!r}")
+    n = 2 * chains * (warmup + steps)
+    if launches != n or f32:
+        fail(f"{model} AMP: matmul_bias_act_bf16 launched {launches} times "
+             f"(expected {n}), the f32 kernel {f32} times (expected 0)")
+    print(f"{model}_training_amp " + json.dumps({
+        "model": f"{model} AMP bf16 (decorate)", **DEFAULTS[model],
+        "warmup_steps": warmup, "timed_steps": steps, "losses": losses,
+        "acc": run["acc"], "ms_per_step": run["ms_per_step"],
+        "examples_per_s": run["examples_per_s"],
+        "max_memory_allocated": peak,
+        "launches_per_step": launches / (warmup + steps),
+        "fused_chains": len(fused)}), flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lenet_amp_card_vs_cpu(torch):
+    """``bench.py:_lenet_losses``'s run under ``decorate`` on the card
+    and on the CPU from one startup scope, 12 steps."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT_BF16
+    from paddle_tpu_torch.tools.train_book import build_program
+
+    steps = 12
+    main, startup, fetch = build_program("lenet", {"batch": 64, "lr": 0.05},
+                                         seed=5, amp=True)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    rng = np.random.RandomState(7)
+    feed = {"img": rng.rand(64, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (64, 1)).astype(np.int64)}
+    losses = {}
+    launched = MATMUL_BIAS_ACT_BF16.launches
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=fetch[:1],
+                                     scope=scope)[0]) for _ in range(steps)]
+    if MATMUL_BIAS_ACT_BF16.launches != launched + 4 * steps:
+        fail("LeNet AMP card vs CPU: the card's run did not launch the "
+             "bf16 kernel 9 4 times per step")
+    cpu, card = np.asarray(losses["cpu"]), np.asarray(losses["cuda"])
+    rel1 = abs(card[0] - cpu[0]) / abs(cpu[0])
+    worst = float(np.abs(card - cpu).max())
+    print("lenet_amp_card_vs_cpu " + json.dumps({
+        **losses, "step1_rel_diff": rel1, "step1_rtol": AMP_LENET_STEP1_RTOL,
+        "max_abs_diff": worst, "atol": AMP_LENET_LOSS_ATOL}), flush=True)
+    if not np.all(np.isfinite(card)):
+        fail(f"LeNet AMP card vs CPU: card losses not finite {losses}")
+    if not (rel1 <= AMP_LENET_STEP1_RTOL and worst <= AMP_LENET_LOSS_ATOL):
+        fail(f"LeNet AMP card vs CPU: step 1 {rel1:.3e} relative (tolerance "
+             f"{AMP_LENET_STEP1_RTOL}), worst step {worst:.3e} absolute "
+             f"(tolerance {AMP_LENET_LOSS_ATOL})")
+
+
 def main():
     import torch
 
@@ -1566,11 +2257,14 @@ def main():
     from paddle_tpu_torch import kernel_build
     from paddle_tpu_torch.ops.bn_act import BN_ACT
     from paddle_tpu_torch.ops.flash_attention import FLASH
-    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT
+    from paddle_tpu_torch.ops.gelu import GELU
+    from paddle_tpu_torch.ops.matmul_epilogue import (
+        MATMUL_BIAS_ACT, MATMUL_BIAS_ACT_BF16_LIB)
     from paddle_tpu_torch.ops.paged_attention import PAGED_ATTENTION
 
     phase("build")
-    kernels = [PAGED_ATTENTION, FLASH, BN_ACT, MATMUL_BIAS_ACT]
+    kernels = [PAGED_ATTENTION, FLASH, BN_ACT, MATMUL_BIAS_ACT,
+               MATMUL_BIAS_ACT_BF16_LIB, GELU]
     kernel_build.build_all(kernels)
     for k in kernels:
         print(f"built {k.source} in {k.build_seconds:.2f} s", flush=True)
@@ -1605,8 +2299,11 @@ def main():
     phase("c. training: BERT-base AMP O1 (bf16), then seq 2048")
     flash16_launches = amp_train_phase(torch, "O1", warmup=2, steps=10)
 
+    phase("d. bf16 gelu: kernels vs plain versions, times")
+    gelu_times = gelu_phase()
+
     phase("d. training: BERT-base AMP O2 (bf16)")
-    amp_train_phase(torch, "O2", warmup=2, steps=5)
+    gelu_launches = amp_train_phase(torch, "O2", warmup=2, steps=5)
 
     phase("e. training: AMP O1 / O2 card vs CPU, 2 layers at full width")
     amp_card_vs_cpu(torch, f32_losses)
@@ -1635,6 +2332,28 @@ def main():
 
     phase("training: LeNet card vs CPU, batch 64, 12 steps")
     lenet_card_vs_cpu(torch)
+
+    phase("f. conv epilogue bf16: kernels vs plain versions, times")
+    epi16_errs, epi16_sets = check_epilogue_bf16()
+    epi16_times = time_epilogue_bf16(epi16_sets)
+    del epi16_sets
+    torch.cuda.empty_cache()
+
+    phase("g. training: ResNet-50 static AMP (bf16, NHWC), batch 128")
+    epi16_launches = resnet_amp_phase(torch)
+
+    phase("h. training: ResNet-50 AMP card vs CPU, batch 4, 32x32")
+    resnet_amp_card_vs_cpu(torch)
+
+    phase("i. matmul epilogue bf16: kernel vs plain version, times")
+    mm16_err, mm16_step, _ = matmul_bf16_phase()
+
+    phase("j. training: LeNet and word2vec static AMP (bf16), batch 256")
+    mm16_launches = book_amp_phase(torch, "lenet", 2, "relu")
+    mm16_launches += book_amp_phase(torch, "word2vec", 1, "sigmoid")
+
+    phase("k. training: LeNet AMP card vs CPU, batch 64, 12 steps")
+    lenet_amp_card_vs_cpu(torch)
 
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",
@@ -1683,6 +2402,36 @@ def main():
         "plain_ms": mm_step["plain_ms"], "bound_ms": mm_step["bound_ms"],
         "bound_by": mm_step["bound_by"],
         "library_ms": mm_step["library_ms"]})
+    for name, replaces in EPILOGUE_BF16_ROWS:
+        t = epi16_times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/bn_act.cu",
+            "replaces": replaces, "launches": epi16_launches[name],
+            "max_abs_err": epi16_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    # the bf16 kernel 9 per AMP LeNet training step (its four calls)
+    rows.append({
+        "name": "matmul_bias_act_bf16", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/matmul_bias_act_bf16.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1186",
+        "launches": mm16_launches, "max_abs_err": mm16_err,
+        "ms": mm16_step["ms"], "plain_ms": mm16_step["plain_ms"],
+        "bound_ms": mm16_step["bound_ms"],
+        "bound_by": mm16_step["bound_by"],
+        "library_ms": mm16_step["library_ms"]})
+    # the bf16 gelu of the AMP O2 path (no Pallas kernel: XLA fuses the
+    # JAX lowering); bit-equal to its plain versions
+    for name, replaces in GELU_ROWS:
+        t = gelu_times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/gelu_bf16.cu",
+            "replaces": replaces, "launches": gelu_launches[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     phase("done")
     print(json.dumps({"kernels": rows}))
     print(smi_line)

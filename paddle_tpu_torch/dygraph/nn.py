@@ -86,9 +86,13 @@ class LayerNorm(Layer):
                      if shift else None)
 
     def forward(self, input):
-        # statistics in f32 (F.layer_norm's own accumulation), the output
-        # in x's dtype, Scale and Bias cast to it: JAX's layer_norm
-        # lowering under AMP (nn_ops.py:388-412)
+        # a bf16 input takes JAX's three roundings (nn_ops.layer_norm_lowp:
+        # normalized value, * Scale, + Bias, each in x's dtype); f32 is
+        # one F.layer_norm
+        if (input.dtype == torch.bfloat16 and self.weight is not None
+                and self.bias is not None):
+            return nn_ops.layer_norm_lowp(input, self.weight, self.bias,
+                                          self._shape, self._epsilon)
         w, b = (None if t is None
                 else t.reshape(self._shape).to(input.dtype)
                 for t in (self.weight, self.bias))

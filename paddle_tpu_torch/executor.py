@@ -8,12 +8,15 @@ one interprets it eagerly, as the reference's Executor does
 executor's device and launches its own kernels.
 
 * **The plan** (``_compile``): the IR pass pipeline (the two BatchNorm
-  fusions always, the epilogue fusion under ``FLAGS_cuda_fuse``, in the
-  JAX order, :797-799 then :811-820) on a clone of the program, the
+  fusions always, the NHWC layout pass under ``FLAGS_cuda_nhwc``, whose
+  ``auto`` takes only programs with bf16 convolutions, then
+  the epilogue fusion under ``FLAGS_cuda_fuse``, in the JAX order,
+  :797-799, :807-810, :811-820) on a clone of the program, the
   state analysis (``analyze_state``: what the op list reads before it
   writes, and which persistable vars it writes), the feed-conversion
   plan, and the last reader of every intermediate.  A plan is cached per
-  program uid and version, feed signature, fetch list and fuse flag.
+  program uid and version, feed signature, fetch list and the two
+  flags.
 * **State** lives in the scope as tensors on the device.  A step binds
   them, runs the ops, and writes every state output back *into the
   scope's own tensor* (``copy_``): parameters, velocities and BatchNorm
@@ -30,8 +33,7 @@ executor's device and launches its own kernels.
   later step overwrites.
 
 Not ported (ROADMAP.md): the hybrid host-op path, data-parallel and
-pipeline runners, ``fuse_optimizer_ops_pass`` and ``layout_transform_pass``,
-the memory plan, the numerics probes and ``check_nan_inf``, CUDA-graph
+pipeline runners, ``fuse_optimizer_ops_pass``, the memory plan, the numerics probes and ``check_nan_inf``, CUDA-graph
 capture of the step.
 """
 from __future__ import annotations
@@ -44,11 +46,11 @@ import torch
 
 from .framework.core import (EMPTY_VAR_NAME, Program, Variable,
                              default_main_program)
-from .framework.dtype import to_torch_dtype
+from .framework.dtype import VarType, to_torch_dtype
 from .framework.place import resolve_place
 from .framework.scope import Scope, global_scope
 from .ops import registry
-from .utils.flags import cuda_fuse_enabled
+from .utils.flags import cuda_fuse_enabled, cuda_nhwc_enabled
 
 __all__ = ["Executor", "analyze_state", "build_feed_plan", "as_numpy"]
 
@@ -92,9 +94,13 @@ def _fetch_name(f) -> str:
 
 
 def as_numpy(value) -> np.ndarray:
-    """A numpy copy of a fetched value."""
+    """A numpy copy of a fetched value; a bfloat16 tensor, which numpy
+    cannot hold, comes back as its exact float32 upcast."""
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy().copy()
+        value = value.detach()
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.cpu().numpy().copy()
     return np.array(value)
 
 
@@ -115,6 +121,18 @@ class _Plan:
         self.fetch_names = fetch_names
         self.free_after = free_after
         self.fused = fused
+
+
+def _bf16_convs(program: Program) -> bool:
+    """Whether ``program`` has a convolution whose Input is bf16 (a
+    program under ``decorate``)."""
+    for blk in program.blocks:
+        for op_ in blk.ops:
+            if op_.type in ("conv2d", "depthwise_conv2d"):
+                v = blk._find_var_recursive(op_.input("Input")[0])
+                if v is not None and v.dtype == VarType.BF16:
+                    return True
+    return False
 
 
 def _free_schedule(ops, keep) -> List[List[str]]:
@@ -147,10 +165,19 @@ class Executor:
         self._closed = False
         #: host seconds of the last ``run`` (ends in the fetches' copy)
         self.last_run_s: Optional[float] = None
+        #: wrap each op in a ``torch.profiler.record_function("op:<type>")``
+        #: range, so a trace attributes device time to op types
+        self.trace_ops = False
 
     def fuse_enabled(self) -> bool:
         """FLAGS_cuda_fuse resolved against this executor's device."""
         return cuda_fuse_enabled(self.device)
+
+    def nhwc_enabled(self, program: Program) -> bool:
+        """FLAGS_cuda_nhwc resolved against this executor's device and
+        ``program``'s convolutions (``auto``: NHWC where they read
+        bf16)."""
+        return cuda_nhwc_enabled(self.device, _bf16_convs(program))
 
     # ------------------------------------------------------------------
     def run(self, program: Optional[Program] = None,
@@ -177,16 +204,16 @@ class Executor:
 
     # ------------------------------------------------------------------
     def _compile(self, program: Program, feed, fetch_names, scope) -> _Plan:
-        fuse = self.fuse_enabled()
+        fuse, nhwc = self.fuse_enabled(), self.nhwc_enabled(program)
         feed_spec = tuple(sorted(
             (k, tuple(np.shape(v)), str(getattr(v, "dtype", None)))
             for k, v in feed.items()))
         key = (program._uid, program._version, feed_spec,
-               tuple(fetch_names), fuse)
+               tuple(fetch_names), fuse, nhwc)
         plan = self._cache.get(key)
         if plan is not None:
             return plan
-        rewritten = self._apply_ir_passes(program, fetch_names, fuse)
+        rewritten = self._apply_ir_passes(program, fetch_names, fuse, nhwc)
         block = rewritten.global_block()
         ops = list(block.ops)
         state_in, state_out = analyze_state(ops, block, feed, scope)
@@ -198,21 +225,29 @@ class Executor:
         return plan
 
     def _apply_ir_passes(self, program: Program, fetch_names,
-                         fuse: Optional[bool] = None) -> Program:
-        """The training-time fusion pipeline on a clone of ``program``
+                         fuse: Optional[bool] = None,
+                         nhwc: Optional[bool] = None) -> Program:
+        """The training-time pass pipeline on a clone of ``program``
         (the user's program stays as built): fuse_bn_add_act_pass and
         fuse_bn_act_pass when the program has a batch_norm, then
+        layout_transform_pass when NHWC is on and it has a conv2d (after
+        the BN fusions, so it sees the fused forms), then
         fuse_epilogue_pass when fusion is on and it has a conv2d or a
-        matrix product."""
+        matrix product (after the layout pass, so the chains it matches
+        are in their final layout)."""
         from .framework.ir import PassManager, get_pass
 
         fuse = self.fuse_enabled() if fuse is None else fuse
+        nhwc = self.nhwc_enabled(program) if nhwc is None else nhwc
         types = {o.type for b in program.blocks for o in b.ops}
         protected = tuple(fetch_names)
         passes = []
         if "batch_norm" in types:
             passes += [get_pass("fuse_bn_add_act_pass", protected=protected),
                        get_pass("fuse_bn_act_pass", protected=protected)]
+        if nhwc and types & {"conv2d", "depthwise_conv2d"}:
+            passes.append(get_pass("layout_transform_pass",
+                                   protected=protected))
         if fuse and types & {"conv2d", "depthwise_conv2d", "mul", "matmul",
                              "matmul_v2"}:
             passes.append(get_pass("fuse_epilogue_pass",
@@ -259,7 +294,11 @@ class Executor:
         gen = self._generator(program)
         with torch.no_grad():
             for op_, dead in zip(plan.ops, plan.free_after):
-                registry.run_op(op_, env, block, gen, dev)
+                if self.trace_ops:
+                    with torch.profiler.record_function("op:" + op_.type):
+                        registry.run_op(op_, env, block, gen, dev)
+                else:
+                    registry.run_op(op_, env, block, gen, dev)
                 for n in dead:
                     env.pop(n, None)
             for n in plan.state_out:

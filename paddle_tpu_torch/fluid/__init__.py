@@ -1,8 +1,9 @@
 """The ``fluid`` namespace of the port (counterpart of
 ``paddle_tpu/fluid/__init__.py``), for the static path: a reference-era
 script runs with ``import paddle_tpu_torch.fluid as fluid``.  Ported:
-what a ResNet training script uses."""
-from .. import initializer, layers, optimizer  # noqa: F401
+what a ResNet training script uses, with
+``fluid.contrib.mixed_precision.decorate`` for bf16 AMP."""
+from .. import contrib, initializer, layers, optimizer  # noqa: F401
 from ..backward import append_backward, gradients  # noqa: F401
 from ..executor import Executor  # noqa: F401
 from ..framework import unique_name  # noqa: F401

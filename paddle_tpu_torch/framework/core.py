@@ -118,7 +118,9 @@ class Variable:
 
     # numpy-ish sugar -------------------------------------------------------
     def astype(self, dtype):
-        raise NotImplementedError("the cast layer is not ported (ROADMAP.md)")
+        from ..layers import tensor as _tensor_layers
+
+        return _tensor_layers.cast(self, dtype)
 
     @property
     def grad_name(self) -> str:

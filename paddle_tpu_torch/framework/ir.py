@@ -7,17 +7,18 @@ by name), so a pass is a Python function over Blocks.
 Ported: the registry (``Pass``, ``register_pass``, ``get_pass``,
 ``PassManager``, :30-98), the graph helpers (:99-126), the BatchNorm
 fusions ``fuse_bn_act_pass`` (:489) and ``fuse_bn_add_act_pass`` (:570),
-and ``fuse_epilogue_pass`` (:711-912), which maps conv -> BN (-> add)
--> relu chains onto ``fused_conv_bn_act`` and mul / matmul -> bias add
--> act chains onto ``fused_matmul_bias_act``, forward and backward
-together; their epilogues are the hand-written kernels of
+``layout_transform_pass`` (:1470-1743, the NHWC propagation under
+``FLAGS_cuda_nhwc``) and ``fuse_epilogue_pass`` (:711-912), which maps
+conv -> BN (-> add) -> relu chains onto ``fused_conv_bn_act`` and mul /
+matmul -> bias add -> act chains onto ``fused_matmul_bias_act``, forward
+and backward together; their epilogues are the hand-written kernels of
 ``ops/bn_act.py`` and ``ops/matmul_epilogue.py``.  The rewrites are the
 JAX package's, op for op, so both packages compile a program to the same
 op list.
 
 Not ported (ROADMAP.md): the static verifier that brackets every pass
-under ``FLAGS_verify_passes``, ``layout_transform_pass``,
-``fuse_optimizer_ops_pass`` and the other passes of the JAX module.
+under ``FLAGS_verify_passes``, ``fuse_optimizer_ops_pass`` and the
+other passes of the JAX module.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from .core import Block, Operator, Program
 
 __all__ = ["PASS_REGISTRY", "Pass", "register_pass", "get_pass",
            "PassManager", "producer_map", "consumer_count", "remove_ops",
-           "FuseBNActPass", "FuseBNAddActPass", "FuseEpiloguePass"]
+           "FuseBNActPass", "FuseBNAddActPass", "LayoutTransformPass",
+           "FuseEpiloguePass"]
 
 # --------------------------------------------------------------------------
 # pass registry (reference: pass.h REGISTER_PASS)
@@ -81,8 +83,7 @@ class _NotPorted(Pass):
         raise NotImplementedError(f"{self.name} is not ported (ROADMAP.md)")
 
 
-for _name in ("layout_transform_pass", "fuse_optimizer_ops_pass",
-              "memory_relief_pass"):
+for _name in ("fuse_optimizer_ops_pass", "memory_relief_pass"):
     register_pass(_name)(type(_name, (_NotPorted,), {}))
 
 
@@ -374,6 +375,281 @@ class FuseBNAddActPass(_FuseBNActBase):
                 changed = True
                 break
         return fused
+
+
+# --------------------------------------------------------------------------
+# NHWC layout propagation (JAX ``layout_transform_pass``, ir.py:1470-1743;
+# reference: ir/conv_bn_fuse_pass + the cudnn NHWC kernels).  Under
+# FLAGS_cuda_nhwc the executor rewrites conv2d / pool2d / batch_norm and
+# the fused BN and conv-epilogue forms (and their grads) to compute in
+# NHWC, the layout of cuDNN's channels-last (tensor-core) convolutions:
+#
+# * a converted op consumes and produces ``<name>@NHWC`` aliases, vars
+#   that hold the NHWC value, and its layout attr (``data_format`` /
+#   ``data_layout``) flips to "NHWC" (also in a grad op's
+#   ``__fwd_attrs__``);
+# * layout-agnostic elementwise ops (relu, cast, sum, elementwise_add and
+#   their grads) ride along in NHWC when all their data inputs already
+#   are;
+# * a ``transpose2`` is inserted only at subgraph boundaries: NCHW ->
+#   NHWC on the first NHWC use of an NCHW value, NHWC -> NCHW on the
+#   first NCHW use of an NHWC value, so an unbroken conv -> bn -> relu ->
+#   conv chain has one transpose in and one out.
+#
+# Filters stay OIHW: the NHWC conv lowering views the NHWC tensor as
+# NCHW with channels-last strides (``ops/nn_ops.py`` ``_nchw``), so
+# weights, their grads and the optimizer state keep their layout.
+# --------------------------------------------------------------------------
+_NHWC_SUFFIX = "@NHWC"
+
+#: op type -> (layout attr, data input slots, data output slots).  Slots
+#: not listed (Filter, Scale, running stats, ...) are per-channel or
+#: kernel-layout values the NHWC lowering consumes unchanged.
+_LAYOUT_OPS: Dict[str, tuple] = {
+    "conv2d": ("data_format", ("Input",), ("Output",)),
+    "depthwise_conv2d": ("data_format", ("Input",), ("Output",)),
+    "conv2d_grad": ("data_format", ("Input", "Output", "Output@GRAD"),
+                    ("Input@GRAD",)),
+    "depthwise_conv2d_grad": ("data_format",
+                              ("Input", "Output", "Output@GRAD"),
+                              ("Input@GRAD",)),
+    "pool2d": ("data_format", ("X",), ("Out",)),
+    "pool2d_grad": ("data_format", ("X", "Out", "Out@GRAD"), ("X@GRAD",)),
+    "batch_norm": ("data_layout", ("X",), ("Y",)),
+    "batch_norm_grad": ("data_layout", ("X", "Y", "Y@GRAD"), ("X@GRAD",)),
+    "fused_batch_norm_act": ("data_layout", ("X",), ("Y",)),
+    "fused_batch_norm_act_grad": ("data_layout", ("X", "Y", "Y@GRAD"),
+                                  ("X@GRAD",)),
+    "fused_bn_add_activation": ("data_layout", ("X", "Z"), ("Y",)),
+    "fused_bn_add_activation_grad": ("data_layout", ("X", "Y", "Y@GRAD"),
+                                     ("X@GRAD", "Z@GRAD")),
+    # r14 fused conv epilogues: ONE layout attr (data_format) governs
+    # conv and BN; Filter/Filter@GRAD stay OIHW in both layouts
+    "fused_conv_bn_act": ("data_format", ("Input", "Z"),
+                          ("Output", "ConvOut")),
+    "fused_conv_bn_act_grad": ("data_format",
+                               ("Input", "ConvOut", "Output",
+                                "Output@GRAD"),
+                               ("Input@GRAD", "Z@GRAD")),
+}
+
+#: elementwise ops that compute identically in any layout: converted to
+#: consume/produce NHWC aliases when every 4-D data input already has
+#: one, so they never force a transpose back to NCHW mid-chain.
+_LAYOUT_AGNOSTIC: Dict[str, tuple] = {
+    "relu": (("X",), ("Out",)),
+    "relu_grad": (("X", "Out", "Out@GRAD"), ("X@GRAD",)),
+    "cast": (("X",), ("Out",)),
+    "cast_grad": (("X", "Out", "Out@GRAD"), ("X@GRAD",)),
+    "elementwise_add": (("X", "Y"), ("Out",)),
+    "elementwise_add_grad": (("X", "Y", "Out", "Out@GRAD"),
+                             ("X@GRAD", "Y@GRAD")),
+    "sum": (("X",), ("Out",)),
+}
+
+
+@register_pass("layout_transform_pass")
+class LayoutTransformPass(Pass):
+    """NCHW -> NHWC propagation over conv/bn/pool/elementwise chains."""
+
+    #: var names whose NCHW value must stay addressable (fetch targets)
+    protected: Sequence[str] = ()
+
+    def apply_impl(self, program):
+        block = program.global_block()
+        keep_nchw = set(self.protected)
+        # names referenced from other blocks (while/cond bodies) must
+        # keep their NCHW binding — sub-blocks are not rewritten
+        for other in program.blocks:
+            if other is block:
+                continue
+            for op_ in other.ops:
+                for names in op_.inputs.values():
+                    keep_nchw.update(names)
+                for names in op_.outputs.values():
+                    keep_nchw.update(names)
+        self.converted_count = self._apply_block(block, keep_nchw)
+        if self.converted_count:
+            program._bump_version()
+        return program
+
+    # -- helpers -----------------------------------------------------------
+    @staticmethod
+    def _is_4d(block, name):
+        if not name or name == "@EMPTY@":
+            return False
+        v = block._find_var_recursive(name)
+        return v is not None and v.shape is not None and len(v.shape) == 4
+
+    def _eligible(self, op_, block, attr_name, din, dout):
+        if op_.attrs.get(attr_name, "NCHW") not in ("NCHW", "AnyLayout"):
+            return False
+        if op_.type.startswith("pool2d"):
+            if op_.attrs.get("adaptive", False) and \
+                    not op_.attrs.get("global_pooling", False):
+                return False  # NHWC adaptive: only the lowering's
+                #                divisible path; stay conservative
+        names = []
+        for slot in din:
+            names.extend(op_.inputs.get(slot, []))
+        for slot in dout:
+            names.extend(n for n in op_.outputs.get(slot, [])
+                         if n != "@EMPTY@")
+        if not names:
+            return False
+        return all(self._is_4d(block, n) for n in names
+                   if n != "@EMPTY@")
+
+    # -- main walk ---------------------------------------------------------
+    def _apply_block(self, block, keep_nchw):
+        converted = 0
+        new_ops: List[Operator] = []
+        alias: Dict[str, str] = {}   # NCHW name -> live NHWC alias
+        pending: set = set()         # names whose NCHW value is not
+        #                              materialized (only alias is live)
+
+        def alias_var(name):
+            aname = name + _NHWC_SUFFIX
+            if not block.has_var(aname):
+                v = block._find_var_recursive(name)
+                s = list(v.shape)
+                block.create_var(name=aname,
+                                 shape=(s[0], s[2], s[3], s[1]),
+                                 dtype=v.dtype)
+            return aname
+
+        def to_nhwc(name):
+            a = alias.get(name)
+            if a is not None:
+                return a
+            a = alias_var(name)
+            new_ops.append(Operator(
+                block, "transpose2", inputs={"X": [name]},
+                outputs={"Out": [a]}, attrs={"axis": [0, 2, 3, 1]}))
+            alias[name] = a
+            return a
+
+        def to_nchw(name):
+            if name in pending:
+                new_ops.append(Operator(
+                    block, "transpose2", inputs={"X": [alias[name]]},
+                    outputs={"Out": [name]}, attrs={"axis": [0, 3, 1, 2]}))
+                pending.discard(name)
+            return name
+
+        def invalidate_outputs(op_, except_slots=()):
+            """An op overwriting an aliased name makes the alias stale."""
+            for slot, names in op_.outputs.items():
+                if slot in except_slots:
+                    continue
+                for n in names:
+                    if n in alias:
+                        alias.pop(n, None)
+                        pending.discard(n)
+
+        def convert(op_, attr_name, din, dout):
+            """Rewrite one op to compute in NHWC: data input slots take
+            (or create) aliases, data output slots produce aliases, the
+            layout attr flips — including the __fwd_attrs__ snapshot the
+            vjp replay of grad ops reads."""
+            data_out_names = {n for slot in dout
+                              for n in op_.outputs.get(slot, [])}
+            # non-data input slots are per-channel/kernel values that
+            # should never be pending; stay safe if one is
+            for slot, names in list(op_.inputs.items()):
+                if slot in din:
+                    op_.inputs[slot] = [
+                        to_nhwc(n) if n != "@EMPTY@" else n for n in names]
+                else:
+                    for n in names:
+                        if n in pending:
+                            to_nchw(n)
+            invalidate_outputs(op_, except_slots=dout)
+            for slot in dout:
+                names = op_.outputs.get(slot, [])
+                rewritten = []
+                for n in names:
+                    if n == "@EMPTY@":
+                        rewritten.append(n)
+                        continue
+                    a = alias_var(n)
+                    alias[n] = a
+                    pending.add(n)
+                    rewritten.append(a)
+                if names:
+                    op_.outputs[slot] = rewritten
+            if attr_name is not None:
+                op_.attrs[attr_name] = "NHWC"
+                fa = op_.attrs.get("__fwd_attrs__")
+                if isinstance(fa, dict):
+                    fa = dict(fa)
+                    fa[attr_name] = "NHWC"
+                    op_.attrs["__fwd_attrs__"] = fa
+            new_ops.append(op_)
+            # fetch targets / persistables need their NCHW value live NOW
+            for n in data_out_names:
+                if n != "@EMPTY@" and n in pending:
+                    v = block._find_var_recursive(n)
+                    if n in keep_nchw or (v is not None and
+                                          getattr(v, "persistable", False)):
+                        to_nchw(n)
+
+        for op_ in list(block.ops):
+            spec = _LAYOUT_OPS.get(op_.type)
+            agn = _LAYOUT_AGNOSTIC.get(op_.type)
+            if spec is not None:
+                attr_name, din, dout = spec
+                if self._eligible(op_, block, din=din, dout=dout,
+                                  attr_name=attr_name):
+                    convert(op_, attr_name, din, dout)
+                    converted += 1
+                    continue
+            elif agn is not None and self._agnostic_ok(op_, block, alias,
+                                                       *agn):
+                din, dout = agn
+                convert(op_, None, din, dout)
+                converted += 1
+                continue
+            # generic op: consume NCHW — materialize any pending input
+            for names in op_.inputs.values():
+                for n in names:
+                    if n in pending:
+                        to_nchw(n)
+            invalidate_outputs(op_)
+            new_ops.append(op_)
+
+        # live-out NHWC values someone outside the block may read
+        for n in sorted(pending):
+            v = block._find_var_recursive(n)
+            if n in keep_nchw or (v is not None
+                                  and getattr(v, "persistable", False)):
+                to_nchw(n)
+        if converted:
+            block.ops[:] = new_ops
+        return converted
+
+    def _agnostic_ok(self, op_, block, alias, din, dout):
+        """Every 4-D data input must already be NHWC; elementwise_add
+        additionally needs the default axis and equal shapes (a
+        broadcasting add is layout-sensitive)."""
+        names_in = [n for slot in din for n in op_.inputs.get(slot, [])
+                    if n != "@EMPTY@"]
+        names_out = [n for slot in dout for n in op_.outputs.get(slot, [])
+                     if n != "@EMPTY@"]
+        if not names_in or not names_out:
+            return False
+        if not all(self._is_4d(block, n) for n in names_in + names_out):
+            return False
+        if not all(n in alias for n in names_in):
+            return False
+        if op_.type.startswith("elementwise_add"):
+            if op_.attrs.get("axis", -1) != -1:
+                return False
+            shapes = {tuple(block._find_var_recursive(n).shape)
+                      for n in names_in}
+            if len(shapes) != 1:
+                return False
+        return True
 
 
 # --------------------------------------------------------------------------

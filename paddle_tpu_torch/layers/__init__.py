@@ -8,7 +8,7 @@ from __future__ import annotations
 from ..framework.core import default_main_program
 from ..framework.dtype import VarType, convert_dtype
 from . import nn, tensor
-from .nn import (accuracy, batch_norm, concat, conv2d,  # noqa: F401
+from .nn import (accuracy, batch_norm, cast, concat, conv2d,  # noqa: F401
                  elementwise_add, embedding, fc, mean, pool2d, relu,
                  reshape, sigmoid, softmax, softmax_with_cross_entropy, topk)
 from .tensor import (create_global_var, create_parameter,  # noqa: F401

@@ -3,21 +3,21 @@
 :93, ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
 ``sigmoid`` :409-410, ``elementwise_add`` :522, ``mean`` :558,
 ``softmax_with_cross_entropy`` :614, ``reshape`` :718, ``topk`` :870,
-``concat`` :964, ``accuracy`` :980).  Each builds vars and ops through
+``cast`` :955, ``concat`` :964, ``accuracy`` :980).  Each builds vars and ops through
 ``LayerHelper`` with the JAX package's op types, slots and attrs, so both
 packages build the same program."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..framework.dtype import VarType
+from ..framework.dtype import VarType, convert_dtype
 from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
            "relu", "sigmoid", "elementwise_add", "mean",
-           "softmax_with_cross_entropy", "reshape", "topk", "concat",
+           "softmax_with_cross_entropy", "reshape", "topk", "cast", "concat",
            "accuracy"]
 
 
@@ -238,6 +238,15 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"shape": list(shape)})
     return helper.append_activation(out, act)
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": int(x.dtype), "out_dtype": int(dtype)})
+    return out
 
 
 def concat(input, axis=0, name=None):

@@ -1,6 +1,6 @@
 """Tensor-creation layers (counterpart of ``paddle_tpu/layers/tensor.py``:
 ``create_parameter`` :18, ``create_global_var`` :30, ``fill_constant``
-:49, ``concat`` :136)."""
+:49, ``cast`` :130, ``concat`` :136)."""
 from __future__ import annotations
 
 from ..framework.dtype import convert_dtype
@@ -8,7 +8,7 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "create_global_var", "fill_constant",
-           "concat"]
+           "cast", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -49,6 +49,12 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         attrs={"shape": list(shape), "value": float(value),
                "dtype": int(dtype)})
     return out
+
+
+def cast(x, dtype):
+    from . import nn
+
+    return nn.cast(x, dtype)
 
 
 def concat(input, axis=0, name=None):

@@ -5,7 +5,8 @@ Counterparts of ``paddle_tpu/ops/pallas_kernels.py``:
 
 * :func:`bn_act_apply` (``bn_act_apply`` :1100, kernel
   ``_scale_shift_act_kernel`` :1039): ``y = act(x*a + b [+ z])`` with
-  per-channel f32 ``a`` and ``b`` (the folded BN scale and shift);
+  per-channel ``a`` and ``b`` in x's dtype (the folded BN scale and
+  shift);
 * :func:`bn_act_bwd_apply` (``bn_act_bwd_apply`` :1146, kernel
   ``_bn_act_bwd_kernel`` :1131): one pass over ``(y, dy, x)`` giving
   ``g = act'(y) * dy`` and ``dx = g*cg + (x - mean)*cx + c0``, with ``g``
@@ -18,11 +19,19 @@ axis ``c_axis`` may be any axis: 1 for NCHW, the last for NHWC.  The
 TPU's tiling gates (``c % 8``, the block ladders, ``_channel_tiling``
 returning None) are TPU facts: the kernels take any shape with C >= 1.
 
+Dtypes: float32 (the f32 program) or bfloat16 (static AMP), one kernel
+each (``csrc/bn_act.cu``, templated on the storage type).  In bf16 every
+tensor and per-channel vector is bf16 except the backward's ``c0``,
+which stays f32 and is rounded to bf16 before its add, as in the Pallas
+kernel (:1140); ``dx`` comes out in x's dtype and ``g`` in dy's.
+
 Dispatch: a tensor on the CPU (or the ``meta`` device, under shape
-inference) takes the plain version; a CUDA tensor launches the kernel or
-raises.  The plain versions do the kernels' arithmetic in the same
-order, each step rounded, so on the card the kernels equal them bit for
-bit for "" and relu and in the backward.
+inference) takes the plain version; a CUDA tensor launches the kernel of
+its dtype or raises (float16 is not ported).  The plain versions are
+PyTorch ops in the tensors' dtype, in the kernels' term order, so each
+multiply and add rounds to that dtype where the Pallas kernels round, and
+on the card the kernels equal them bit for bit for "" and relu and in the
+backward.
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ from ..kernel_build import CudaKernel, KernelFunction
 __all__ = ["ACTS", "apply_act", "act_mask_grad", "bn_act_apply",
            "bn_act_apply_reference", "bn_act_apply_f32", "bn_act_bwd_apply",
            "bn_act_bwd_reference", "bn_act_bwd_f32", "BN_ACT",
-           "BN_ACT_APPLY", "BN_ACT_BWD"]
+           "BN_ACT_APPLY", "BN_ACT_BWD",
+           "BN_ACT_APPLY_BF16", "BN_ACT_BWD_BF16"]
 
 #: the activation codes of csrc/bn_act.cu
 ACTS = {"": 0, "relu": 1, "sigmoid": 2, "tanh": 3, "gelu": 4}
@@ -48,16 +58,24 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _I = ctypes.c_int
 #: the hand-written Hopper kernels' library (csrc/bn_act.cu)
+_FWD_ARGS = [_P, _P, _P, _P, _P, _L, _L, _L, _I, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P]
 BN_ACT = CudaKernel("bn_act.cu", {
-    "paddle_bn_act_fwd_f32": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _P],
-    "paddle_bn_act_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
-                              _L, _I, _P],
+    "paddle_bn_act_fwd_f32": _FWD_ARGS, "paddle_bn_act_bwd_f32": _BWD_ARGS,
+    "paddle_bn_act_fwd_bf16": _FWD_ARGS, "paddle_bn_act_bwd_bf16": _BWD_ARGS,
 })
 #: its kernels; ``launches`` counts every launch of the wrappers below
 BN_ACT_APPLY = KernelFunction(BN_ACT, "paddle_bn_act_fwd_f32",
                               "bn_act_apply_f32")
 BN_ACT_BWD = KernelFunction(BN_ACT, "paddle_bn_act_bwd_f32",
                             "bn_act_bwd_f32")
+BN_ACT_APPLY_BF16 = KernelFunction(BN_ACT, "paddle_bn_act_fwd_bf16",
+                                   "bn_act_apply_bf16")
+BN_ACT_BWD_BF16 = KernelFunction(BN_ACT, "paddle_bn_act_bwd_bf16",
+                                 "bn_act_bwd_bf16")
+#: (forward, backward) kernel of each storage dtype
+_KERNELS = {torch.float32: (BN_ACT_APPLY, BN_ACT_BWD),
+            torch.bfloat16: (BN_ACT_APPLY_BF16, BN_ACT_BWD_BF16)}
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -124,16 +142,16 @@ def _geometry(name, x, c_axis) -> Tuple[int, int]:
     return channels, math.prod(x.shape[c_axis + 1:])
 
 
-def _check(name, dev, tensors, shapes):
-    """Every tensor f32, contiguous, on ``dev`` (a CUDA device), of its
-    expected shape."""
+def _check(name, dev, tensors, shapes, dtypes):
+    """Every tensor contiguous, on ``dev`` (a CUDA device), of its
+    expected dtype and shape."""
     for key, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
                              f"the CUDA device of x ({dev})")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} is {t.dtype}; the kernel takes "
-                             f"float32 (the bf16 variant is not ported)")
+        if t.dtype != dtypes[key]:
+            raise ValueError(f"{name}: {key} is {t.dtype}, expected "
+                             f"{dtypes[key]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if tuple(t.shape) != tuple(shapes[key]):
@@ -141,60 +159,90 @@ def _check(name, dev, tensors, shapes):
                              f"expected {tuple(shapes[key])}")
 
 
-def bn_act_apply_f32(x, a, b, z=None, act="relu", c_axis=1):
-    """Launch kernel 7 on ``torch.cuda.current_stream()``; returns y."""
-    name = "bn_act_apply_f32"
+def _storage(name, x) -> torch.dtype:
+    if x.dtype == torch.float16:
+        raise NotImplementedError(f"{name}: the float16 variant is not "
+                                  f"ported (ROADMAP.md, slice 8)")
+    if x.dtype not in _KERNELS:
+        raise ValueError(f"{name}: x is {x.dtype}; the kernels take "
+                         f"float32 and bfloat16")
+    return x.dtype
+
+
+def _launch_fwd(name, x, a, b, z, act, c_axis, want_dtype=None):
     if act not in ACTS:
         raise NotImplementedError(f"{name}: act {act!r} not in {list(ACTS)}")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: x is on {dev}, not a CUDA device")
+    dt = _storage(name, x)
+    if want_dtype is not None and dt != want_dtype:
+        raise ValueError(f"{name}: x is {dt}, expected {want_dtype}")
     channels, inner = _geometry(name, x, c_axis)
     tensors = {"x": x, "a": a, "b": b}
     shapes = {"x": x.shape, "a": (channels,), "b": (channels,)}
     if z is not None:
         tensors["z"], shapes["z"] = z, x.shape
-    _check(name, dev, tensors, shapes)
+    _check(name, dev, tensors, shapes, dict.fromkeys(tensors, dt))
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        BN_ACT_APPLY(x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                     z.data_ptr() if z is not None else None, y.data_ptr(),
-                     x.numel(), channels, inner, ACTS[act], stream)
+        _KERNELS[dt][0](x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                        z.data_ptr() if z is not None else None,
+                        y.data_ptr(), x.numel(), channels, inner, ACTS[act],
+                        stream)
     return y
 
 
-def bn_act_bwd_f32(y, dy, x, cg, mean, cx, c0, act="relu", c_axis=1,
-                   want_g=False):
-    """Launch kernel 8 on ``torch.cuda.current_stream()``; returns
-    ``(dx, g if want_g else None)``."""
-    name = "bn_act_bwd_f32"
+def _launch_bwd(name, y, dy, x, cg, mean, cx, c0, act, c_axis, want_g,
+                want_dtype=None):
     if act not in _BWD_ACTS:
         raise NotImplementedError(f"{name}: act grad {act!r} is not "
                                   f"supported (only {list(_BWD_ACTS)})")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: x is on {dev}, not a CUDA device")
+    dt = _storage(name, x)
+    if want_dtype is not None and dt != want_dtype:
+        raise ValueError(f"{name}: x is {dt}, expected {want_dtype}")
     channels, inner = _geometry(name, x, c_axis)
     vec = (channels,)
     tensors = {"y": y, "dy": dy, "x": x, "cg": cg, "mean": mean, "cx": cx,
                "c0": c0}
     shapes = {"y": x.shape, "dy": x.shape, "x": x.shape, "cg": vec,
               "mean": vec, "cx": vec, "c0": vec}
-    _check(name, dev, tensors, shapes)
+    dtypes = dict.fromkeys(tensors, dt)
+    dtypes["c0"] = torch.float32
+    _check(name, dev, tensors, shapes, dtypes)
     dx = torch.empty_like(x)
     g = torch.empty_like(x) if want_g else None
     if x.numel() == 0:
         return dx, g
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        BN_ACT_BWD(y.data_ptr(), dy.data_ptr(), x.data_ptr(), cg.data_ptr(),
-                   mean.data_ptr(), cx.data_ptr(), c0.data_ptr(),
-                   dx.data_ptr(), g.data_ptr() if want_g else None,
-                   x.numel(), channels, inner, ACTS[act], stream)
+        _KERNELS[dt][1](y.data_ptr(), dy.data_ptr(), x.data_ptr(),
+                        cg.data_ptr(), mean.data_ptr(), cx.data_ptr(),
+                        c0.data_ptr(), dx.data_ptr(),
+                        g.data_ptr() if want_g else None, x.numel(),
+                        channels, inner, ACTS[act], stream)
     return dx, g
+
+
+def bn_act_apply_f32(x, a, b, z=None, act="relu", c_axis=1):
+    """Launch kernel 7 (f32) on ``torch.cuda.current_stream()``; returns
+    y."""
+    return _launch_fwd("bn_act_apply_f32", x, a, b, z, act, c_axis,
+                       torch.float32)
+
+
+def bn_act_bwd_f32(y, dy, x, cg, mean, cx, c0, act="relu", c_axis=1,
+                   want_g=False):
+    """Launch kernel 8 (f32) on ``torch.cuda.current_stream()``; returns
+    ``(dx, g if want_g else None)``."""
+    return _launch_bwd("bn_act_bwd_f32", y, dy, x, cg, mean, cx, c0, act,
+                       c_axis, want_g, torch.float32)
 
 
 def _route(x: torch.Tensor) -> str:
@@ -207,19 +255,19 @@ def _route(x: torch.Tensor) -> str:
 
 def bn_act_apply(x, a, b, z: Optional[torch.Tensor] = None, act="relu",
                  c_axis=1) -> torch.Tensor:
-    """``act(x*a + b [+ z])``: the kernel for a CUDA tensor, the plain
-    version on the CPU."""
+    """``act(x*a + b [+ z])``: the kernel of x's dtype for a CUDA tensor,
+    the plain version on the CPU."""
     if _route(x) == "kernel":
-        return bn_act_apply_f32(x, a, b, z, act, c_axis)
+        return _launch_fwd("bn_act_apply", x, a, b, z, act, c_axis)
     return bn_act_apply_reference(x, a, b, z, act, c_axis)
 
 
 def bn_act_bwd_apply(y, dy, x, cg, mean, cx, c0, act="relu", c_axis=1,
                      want_g=False):
-    """``(dx, g if want_g else None)``: the kernel for a CUDA tensor, the
-    plain version on the CPU."""
+    """``(dx, g if want_g else None)``: the kernel of x's dtype for a CUDA
+    tensor, the plain version on the CPU."""
     if _route(x) == "kernel":
-        return bn_act_bwd_f32(y, dy, x, cg, mean, cx, c0, act, c_axis,
-                              want_g)
+        return _launch_bwd("bn_act_bwd_apply", y, dy, x, cg, mean, cx, c0,
+                           act, c_axis, want_g)
     return bn_act_bwd_reference(y, dy, x, cg, mean, cx, c0, act, c_axis,
                                 want_g)

@@ -355,8 +355,8 @@ def _act_backward(pre, dy, act):
 @op("fused_matmul_bias_act_grad", no_grad=True)
 def _fused_matmul_bias_act_grad(ctx):
     """Replay of the pre-activation, the act's derivative, then dX = g
-    W^T and dW = X^T g on the flattened views and dBias = the sum of g
-    over every axis but the bias's."""
+    W^T and dW = X^T g on the flattened views (g in the product's dtype)
+    and dBias = the sum of g over every axis but the bias's (in g's)."""
     x, w, bias = ctx.in_("X"), ctx.in_("Y"), ctx.in_("Bias")
     act, xnc, axis, trailing = _mm_attrs(ctx)
     x2, pre = _pre_act(x, w, bias, xnc, axis, trailing)
@@ -367,7 +367,11 @@ def _fused_matmul_bias_act_grad(ctx):
         red = [d for d in range(pre.dim()) if d != ax]
         ctx.set_out("Bias" + GRAD_SUFFIX,
                     g.sum(dim=red, keepdim=True).reshape(bias.shape))
-    g2 = g.reshape(x2.shape[0], w.shape[1])
+    # the product's cotangent in the product's dtype: under AMP the f32
+    # g of the bias add comes back to the bf16 ``mul`` output, as the
+    # unfused elementwise_add_grad hands it to mul_grad
+    g2 = g.reshape(x2.shape[0], w.shape[1]).to(
+        torch.promote_types(x2.dtype, w.dtype))
     if ctx.has_output("X" + GRAD_SUFFIX):
         ctx.set_out("X" + GRAD_SUFFIX, (g2 @ w.t()).reshape(x.shape))
     if ctx.has_output("Y" + GRAD_SUFFIX):

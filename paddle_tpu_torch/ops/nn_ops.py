@@ -49,7 +49,8 @@ import torch.nn.functional as F
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX
 from .registry import default_grad_maker, grad_maker, op
 
-__all__ = ["lookup_table_v2", "activation", "unsqueeze2", "dropout",
+__all__ = ["lookup_table_v2", "activation", "layer_norm_lowp", "unsqueeze2",
+           "dropout",
            "softmax_with_cross_entropy", "mean", "softmax", "amp_cast",
            "conv_forward", "conv_backward", "bn_shapes", "bn_train_stats"]
 
@@ -77,12 +78,79 @@ _ACTS = {"gelu": F.gelu, "tanh": torch.tanh}
 
 
 def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """``act`` by its Paddle name, or ``x`` when None."""
+    """``act`` by its Paddle name, or ``x`` when None.  A bf16 gelu
+    rounds where JAX's compiled gelu rounds (:func:`.gelu.gelu_lowp`)."""
     if act is None:
         return x
     if act not in _ACTS:
         raise NotImplementedError(f"activation {act!r} is not ported")
+    if act == "gelu" and x.dtype == torch.bfloat16:
+        from .gelu import gelu_lowp
+        return gelu_lowp(x)
     return _ACTS[act](x)
+
+
+class _LayerNormLowp(torch.autograd.Function):
+    """JAX's ``layer_norm`` lowering (``nn_ops.py:388-412``) on a bf16 x,
+    rounding where its compiled form rounds: the normalized value
+    (statistics in f32) rounded to x's dtype, then ``* Scale`` and
+    ``+ Bias`` as two ops in x's dtype.  The backward is the compiled
+    ``jax.vjp``'s: ``g = dy * Scale`` in f32, unrounded, through the f32
+    normalization backward, dX rounded once; dScale and dBias are sums
+    in f32 rounded once (XLA's CPU reduction rounds every partial sum to
+    bf16, so those two differ from it in the last bits).
+
+    On the card the backward is ATen's one-pass layer-norm backward with
+    the forward's f32 statistics, which does exactly that f32 math (dScale
+    from the unrounded normalized value).  ATen's CPU kernel takes bf16
+    statistics only, so the CPU spells the same math out in f32, with
+    JAX's dScale terms (the rounded normalized value times dy)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, shape, eps):
+        s = scale.reshape(shape).to(x.dtype)
+        b = bias.reshape(shape).to(x.dtype)
+        if x.is_cuda:
+            y_hat, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, list(shape), None, None, eps)
+            ctx.save_for_backward(x, s, mean, rstd)
+        else:
+            y_hat = F.layer_norm(x, shape, None, None, eps)
+            ctx.save_for_backward(x, s, y_hat)
+        ctx.shape, ctx.eps = shape, eps
+        ctx.dtypes = (scale.dtype, bias.dtype, scale.shape)
+        return y_hat * s + b
+
+    @staticmethod
+    def backward(ctx, dy):
+        sdt, bdt, pshape = ctx.dtypes
+        rows = tuple(range(dy.dim() - len(ctx.shape)))
+        if dy.is_cuda:
+            x, s, mean, rstd = ctx.saved_tensors
+            dx, dscale, dbias = torch.ops.aten.native_layer_norm_backward(
+                dy.contiguous(), x, list(ctx.shape), mean, rstd, s,
+                torch.zeros_like(s), [True, True, True])
+        else:
+            x, s, y_hat = ctx.saved_tensors
+            axes = tuple(range(x.dim() - len(ctx.shape), x.dim()))
+            x32 = x.float()
+            var, mean = torch.var_mean(x32, dim=axes, unbiased=False,
+                                       keepdim=True)
+            rstd = torch.rsqrt(var + ctx.eps)
+            dx = torch.ops.aten.native_layer_norm_backward(
+                dy.float() * s.float(), x32, list(ctx.shape), mean, rstd,
+                None, None, [True, False, False])[0].to(x.dtype)
+            dscale = (y_hat * dy).float().sum(dim=rows).to(x.dtype)
+            dbias = dy.float().sum(dim=rows).to(x.dtype)
+        return (dx, dscale.to(sdt).reshape(pshape),
+                dbias.to(bdt).reshape(pshape), None, None)
+
+
+def layer_norm_lowp(x, scale, bias, shape, eps=1e-5):
+    """LayerNorm over the trailing ``shape`` axes of a bf16 ``x`` with
+    JAX's rounding points (:class:`_LayerNormLowp`); output in x's
+    dtype."""
+    return _LayerNormLowp.apply(x, scale, bias, tuple(shape), eps)
 
 
 def unsqueeze2(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Creation, random and shape op lowerings of the static path
 (counterpart of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant`` :36,
-``gaussian_random`` :70, ``uniform_random`` :81, ``reshape2`` :214 with
-its shape inference :228, ``concat`` :332).  The shape ops' grads are the
-registry's generic vjp replay, as in JAX.
+``gaussian_random`` :70, ``uniform_random`` :81, ``cast`` :192,
+``reshape2`` :214 with its shape inference :228, ``transpose2`` :254,
+``concat`` :332).  The shape ops' and ``cast``'s grads are the registry's
+generic vjp replay, as in JAX: a cast's cotangent is cast back to the
+input's dtype, so an f32 parameter read through a bf16 cast gets an f32
+gradient.
 
 Random ops draw from the executor's ``torch.Generator`` (seeded from the
 program's ``random_seed``), or from a generator of their own when the op
@@ -81,6 +84,26 @@ def _uniform_random(ctx):
     lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
     out = _random_f32(ctx, lambda t, g: t.uniform_(lo, hi, generator=g))
     ctx.set_out("Out", out.to(_attr_dtype(ctx)))
+
+
+@op("cast")
+def _cast(ctx):
+    """``X`` converted to ``out_dtype`` (``in_dtype`` is informational:
+    the value's own dtype is what is converted, as in JAX)."""
+    dt = to_torch_dtype(VarType(int(ctx.attr("out_dtype",
+                                             int(VarType.FP32)))))
+    ctx.set_out("Out", ctx.in_("X").to(dt))
+
+
+@op("transpose2")
+def _transpose2(ctx):
+    """The permuted tensor, materialized (contiguous), as XLA's transpose
+    is: the layout pass's NHWC values are physically channels-last."""
+    x = ctx.in_("X")
+    ctx.set_out("Out", x.permute(*ctx.attr("axis")).contiguous())
+    if ctx.has_output("XShape"):
+        ctx.set_out("XShape", torch.zeros((0,), dtype=x.dtype,
+                                          device=x.device))
 
 
 def _resolve_shape(target, in_shape):

@@ -2,8 +2,8 @@
 word2vec N-gram language model.
 
     python -m paddle_tpu_torch.tools.train_book --model lenet|word2vec
-        [--batch B] [--steps 30] [--warmup 5] [--lr LR] [--log-every 10]
-        [--tiny] [--device cuda] [--profile N]
+        [--batch B] [--steps 30] [--warmup 5] [--lr LR] [--amp]
+        [--log-every 10] [--tiny] [--device cuda] [--profile N]
 
 The recipe is the JAX package's: ``fluid.layers.data`` -> the model's
 builder -> an optimizer's ``minimize(loss)`` -> ``Executor.run`` of the
@@ -21,9 +21,12 @@ repeated.
 
 ``--tiny`` is batch 8 and 3 steps (word2vec: vocabulary 50, embedding
 16, hidden 32, the JAX test's sizes).  The run is float32 with TF32 off
-on the card.  On the card the fusion flag is ``auto``: every fc -> bias
--> act chain (LeNet's two relu layers, word2vec's sigmoid layer) runs as
-``fused_matmul_bias_act``, whose epilogue is the hand-written kernel 9.
+on the card; ``--amp`` wraps the optimizer in
+``fluid.contrib.mixed_precision.decorate`` (bf16 AMP: the products and
+convolutions in bf16, f32 master weights).  On the card the fusion flag
+is ``auto``: every fc -> bias -> act chain (LeNet's two relu layers,
+word2vec's sigmoid layer) runs as ``fused_matmul_bias_act``, whose
+epilogue is the hand-written kernel 9 of the operands' dtype.
 ``--profile N`` runs N more steps, traces N more with ``torch.profiler``
 and prints one JSON line: wall and device-busy ms per step, the idle
 share, kernel 9's, cuBLAS's GEMMs', cuDNN's convolutions' and the other
@@ -45,7 +48,7 @@ from ..framework.place import resolve_device
 from ..framework.scope import Scope
 from ..models.lenet import build_lenet
 from ..models.word2vec import build_word2vec
-from .train_resnet import _is_conv, profile_steps
+from .train_resnet import _is_conv, profile_steps, set_card_precision
 
 __all__ = ["DEFAULTS", "TINY", "build_program", "make_batch", "train",
            "BOOK_GROUPS", "main"]
@@ -82,10 +85,10 @@ BOOK_GROUPS = {
 }
 
 
-def build_program(model, cfg, seed=1):
+def build_program(model, cfg, seed=1, amp=False):
     """(main, startup, fetches) of ``model``'s training program, from a
     fresh name generator; ``fetches[0]`` is the loss (LeNet: then the
-    accuracy)."""
+    accuracy).  ``amp`` wraps the optimizer in ``decorate`` (bf16)."""
     with unique_name.guard():
         main_prog, startup = fluid.Program(), fluid.Program()
         main_prog.random_seed = seed
@@ -105,6 +108,8 @@ def build_program(model, cfg, seed=1):
                                          cfg["embed_dim"], cfg["hidden_size"])
                 fetches = [loss]
                 opt = fluid.optimizer.SGDOptimizer(cfg["lr"])
+            if amp:
+                opt = fluid.contrib.mixed_precision.decorate(opt)
             opt.minimize(loss)
     return main_prog, startup, fetches
 
@@ -124,7 +129,7 @@ def make_batch(model, cfg, seed=0):
 
 
 def train(model="lenet", cfg=None, steps=30, device="cuda", warmup=0,
-          log_every=10) -> dict:
+          log_every=10, amp=False) -> dict:
     """Train ``warmup + steps`` steps on one repeated batch; time the last
     ``steps`` (host wall time around steps that each end in a host read
     of the loss).  Returns the per-step losses (and LeNet's accuracy),
@@ -132,7 +137,7 @@ def train(model="lenet", cfg=None, steps=30, device="cuda", warmup=0,
     feed, scope, fetches)."""
     cfg = dict(DEFAULTS[model] if cfg is None else cfg)
     dev = resolve_device(device)
-    main_prog, startup, fetch = build_program(model, cfg)
+    main_prog, startup, fetch = build_program(model, cfg, amp=amp)
     exe = fluid.Executor(dev)
     scope = Scope()
     exe.run(startup, scope=scope)
@@ -169,6 +174,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--log-every", type=int, default=10, metavar="K",
                     help="print the loss of every K-th step and the last")
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 AMP (fluid.contrib.mixed_precision.decorate)")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", type=int, default=0, metavar="N")
@@ -181,12 +188,11 @@ def main(argv=None):
     if args.lr is not None:
         cfg["lr"] = args.lr
     if args.device != "cpu":
-        # the f32 reference: no TF32 in convolutions or matrix products
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        set_card_precision()
     run = train(args.model, cfg, args.steps, args.device, warmup=args.warmup,
-                log_every=args.log_every)
-    print(f"{args.model}: {args.steps} steps, "
+                log_every=args.log_every, amp=args.amp)
+    print(f"{args.model}{' (AMP bf16)' if args.amp else ''}: "
+          f"{args.steps} steps, "
           f"{run['examples_per_s']:.1f} examples/s, "
           f"{run['ms_per_step']:.2f} ms/step", flush=True)
     if args.profile:

@@ -8,16 +8,25 @@ default below.  The TPU-named flags get CUDA names here:
   (``framework/ir.py`` ``fuse_epilogue_pass``).  ``"auto"`` turns it on
   when the executor's place is a CUDA device and off on the CPU; ``"1"``
   and ``"0"`` force it on or off.
+* ``FLAGS_cuda_nhwc`` (JAX ``FLAGS_tpu_nhwc``): the NHWC layout pass
+  (``framework/ir.py`` ``layout_transform_pass``), the same ``"1"`` /
+  ``"0"``.  Its ``"auto"`` is on for a CUDA device only when the
+  program's convolutions read bf16: cuDNN's bf16 convolutions are
+  fastest channels-last, its f32 ones are not (an f32 ResNet-50 step
+  takes 199.8 ms NHWC against 185.8 ms NCHW on an H100 80GB HBM3 at
+  700 W, ``tools/train_resnet.py --profile``; ``PERF.md`` section 5).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
-__all__ = ["DEFAULTS", "UNPORTED", "set_flags", "get_flag", "cuda_fuse_enabled"]
+__all__ = ["DEFAULTS", "UNPORTED", "set_flags", "get_flag",
+           "cuda_fuse_enabled", "cuda_nhwc_enabled"]
 
 DEFAULTS: Dict[str, Any] = {
     "FLAGS_cuda_fuse": "auto",
+    "FLAGS_cuda_nhwc": "auto",
 }
 #: JAX-package flags whose machinery the port has not taken yet
 #: (ROADMAP.md): setting one raises ``NotImplementedError``
@@ -25,7 +34,6 @@ UNPORTED: Dict[str, str] = {
     "FLAGS_verify_passes": "the static verifier (framework/verifier.py)",
     "FLAGS_hbm_budget_mb": "the memory plan (framework/memory_plan.py)",
     "FLAGS_memory_relief": "memory_relief_pass and the memory plan",
-    "FLAGS_cuda_nhwc": "layout_transform_pass (JAX FLAGS_tpu_nhwc)",
     "FLAGS_check_nan_inf": "the numerics probes",
 }
 _SET: Dict[str, Any] = {}
@@ -51,10 +59,21 @@ def get_flag(name: str):
     return DEFAULTS[name]
 
 
-def cuda_fuse_enabled(device) -> bool:
-    """FLAGS_cuda_fuse resolved against the executor's ``torch.device``."""
-    v = get_flag("FLAGS_cuda_fuse")
-    s = str(v).strip().lower()
+def _on_for(name: str, device) -> bool:
+    s = str(get_flag(name)).strip().lower()
     if s == "auto":
         return device.type == "cuda"
     return s in ("1", "true", "yes", "on")
+
+
+def cuda_fuse_enabled(device) -> bool:
+    """FLAGS_cuda_fuse resolved against the executor's ``torch.device``."""
+    return _on_for("FLAGS_cuda_fuse", device)
+
+
+def cuda_nhwc_enabled(device, bf16_convs: bool) -> bool:
+    """FLAGS_cuda_nhwc resolved against the executor's ``torch.device``
+    and, for ``"auto"``, whether the program's convolutions read bf16."""
+    if str(get_flag("FLAGS_cuda_nhwc")).strip().lower() == "auto":
+        return device.type == "cuda" and bf16_convs
+    return _on_for("FLAGS_cuda_nhwc", device)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu.fluid as fluid
@@ -211,26 +212,58 @@ def _pair(a):
     return jnp.asarray(a, jnp.bfloat16), torch.tensor(a).to(torch.bfloat16)
 
 
+def _jit_lowering(type_, attrs, in_slots, out_slot):
+    """``jax.jit`` of one JAX lowering, as ``jit_train_step`` and the
+    static executor run it: the compiled form is the reference, because
+    XLA keeps only some of the source's bf16 roundings."""
+    def f(*vals):
+        return eager_call(type_, {s: [v] for s, v in zip(in_slots, vals)},
+                          attrs, {out_slot: 1})[out_slot][0]
+    return jax.jit(f), jax.jit(
+        lambda *a: jax.vjp(f, *a[:-1])[1](a[-1]))
+
+
 @pytest.mark.parametrize("params", ["f32", "bf16"])
 def test_layer_norm_bf16_matches_jax(params):
+    """Forward: bit for bit with the compiled lowering (three roundings:
+    the normalized value, * Scale, + Bias).  Backward: dX bit for bit
+    (measured: 0 of 1344 differ); dScale and dBias within
+    ``LN_PARAM_GRAD_ULPS`` bf16 ulps of their largest magnitude, because
+    XLA's CPU reduction rounds every partial sum to bf16 where the port
+    sums in f32 and rounds once (measured here: 55-64% of elements
+    differ, by at most 0.78% of the largest, 2.0 ulps)."""
     rng = np.random.RandomState(1)
     x = (rng.randn(3, 7, 64) * 3 + 1).astype(np.float32)
     sc = (1 + 0.1 * rng.randn(64)).astype(np.float32)
     bi = (0.1 * rng.randn(64)).astype(np.float32)
+    dy = rng.randn(3, 7, 64).astype(np.float32)
     jx, tx = _pair(x)
     jp = [jnp.asarray(a, jnp.bfloat16 if params == "bf16" else jnp.float32)
           for a in (sc, bi)]
-    want = _jop("layer_norm", {"X": [jx], "Scale": [jp[0]],
-                               "Bias": [jp[1]]},
-                {"begin_norm_axis": 2, "epsilon": 1e-5},
-                {"Y": 1, "Mean": 1, "Variance": 1})["Y"][0]
+    fwd, vjp = _jit_lowering("layer_norm", {"begin_norm_axis": 2,
+                                            "epsilon": 1e-5},
+                             ("X", "Scale", "Bias"), "Y")
+    want = np.asarray(fwd(jx, *jp))
     layer = LayerNorm(64, device="cpu").set_dict({"weight": sc, "bias": bi})
     if params == "bf16":
         layer.weight.data = layer.weight.data.bfloat16()
         layer.bias.data = layer.bias.data.bfloat16()
+    tx.requires_grad_()
     got = layer(tx)
     assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
-    _bf16_close(got, want, what="layer_norm")
+    np.testing.assert_array_equal(got.detach().float().numpy(),
+                                  want.astype(np.float32))
+    got.backward(torch.tensor(dy).bfloat16())
+    wdx, wds, wdb = vjp(jx, *jp, jnp.asarray(dy, jnp.bfloat16))
+    np.testing.assert_array_equal(tx.grad.float().numpy(),
+                                  np.asarray(wdx).astype(np.float32))
+    for g, w, what in ((layer.weight.grad, wds, "dScale"),
+                       (layer.bias.grad, wdb, "dBias")):
+        assert g.dtype == layer.weight.dtype
+        _bf16_close(g, w, ulps=LN_PARAM_GRAD_ULPS, what=what)
+
+
+LN_PARAM_GRAD_ULPS = 3
 
 
 def test_softmax_with_cross_entropy_bf16_matches_jax():
@@ -285,11 +318,32 @@ def test_dropout_and_gelu_bf16_match_jax():
     np.testing.assert_array_equal(
         jd["Out"][0][jk].astype(np.float32),
         (tx * factor).float().numpy()[jk])
-    for act in ("gelu", "tanh"):
-        want = _jop(act, {"X": [jx]}, {}, {"Out": 1})["Out"][0]
-        got = nn_ops.activation(tx, act)
-        assert got.dtype == torch.bfloat16
-        _bf16_close(got, want, what=act)
+    # tanh: one op, rounded once on both sides
+    want = _jop("tanh", {"X": [jx]}, {}, {"Out": 1})["Out"][0]
+    got = nn_ops.activation(tx, "tanh")
+    assert got.dtype == torch.bfloat16
+    _bf16_close(got, want, what="tanh")
+    # gelu: bit for bit with the compiled lowering, forward and backward
+    # (bf16(0.5x * bf16(erfc(-0.70703125 x))) with XLA's f32 erfc; the
+    # vjp rounds after every op).  ``F.gelu``, which rounds once, differs
+    # from it on 25.6% of these inputs forward and 53.0% backward
+    # (measured; held below to more than a fifth)
+    fwd, vjp = _jit_lowering("gelu", {}, ("X",), "Out")
+    want = np.asarray(fwd(jx)).astype(np.float32)
+    tx.requires_grad_()
+    got = nn_ops.activation(tx, "gelu")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.detach().float().numpy(), want)
+    dy = rng.randn(4000).astype(np.float32)
+    got.backward(torch.tensor(dy).bfloat16())
+    (wdx,) = vjp(jx, jnp.asarray(dy, jnp.bfloat16))
+    wdx = np.asarray(wdx).astype(np.float32)
+    np.testing.assert_array_equal(tx.grad.float().numpy(), wdx)
+    one = tx.detach().clone().requires_grad_()
+    once = torch.nn.functional.gelu(one)
+    once.backward(torch.tensor(dy).bfloat16())
+    assert np.mean(once.detach().float().numpy() != want) > 0.2
+    assert np.mean(one.grad.float().numpy() != wdx) > 0.2
 
 
 # ==========================================================================
@@ -366,7 +420,7 @@ TINY = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
 # per-step losses, 3 AdamOptimizer(1e-3) steps: bf16 roundings of the two
 # frameworks' summation orders (measured on the CPU: 2.3e-5 at O1, 6.5e-5
 # at O2, at step 3)
-AMP_LOSS_RTOL = 2e-4
+AMP_LOSS_RTOL = 1e-4
 STEPS, LR = 3, 1e-3
 
 

@@ -389,6 +389,9 @@ def test_new_modules_import_no_jax():
             "paddle_tpu_torch.optimizer", "paddle_tpu_torch.initializer",
             "paddle_tpu_torch.tools.train_bert",
             "paddle_tpu_torch.contrib.mixed_precision",
+            "paddle_tpu_torch.contrib.mixed_precision.decorator",
+            "paddle_tpu_torch.contrib.mixed_precision.fp16_utils",
+            "paddle_tpu_torch.ops.gelu", "paddle_tpu_torch.ops.tensor_ops",
             "paddle_tpu_torch.dygraph.amp", "paddle_tpu_torch.dygraph.base"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

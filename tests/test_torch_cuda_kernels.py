@@ -375,17 +375,24 @@ def test_bn_act_bwd_kernel_matches_plain(cuda, shape, c_axis, act, want_g,
 
 def test_bn_act_wrappers_raise_on_unsupported(cuda):
     x, z, (a, b, _, _) = _bn_case(cuda, 2, (2, 8, 4, 4), 1)
-    with pytest.raises(ValueError, match="float32"):
-        tba.bn_act_apply(x.bfloat16(), a.bfloat16(), b.bfloat16())
+    with pytest.raises(NotImplementedError, match="float16"):
+        tba.bn_act_apply(x.half(), a.half(), b.half())
+    with pytest.raises(ValueError, match="float32"):   # mixed dtypes
+        tba.bn_act_apply(x.bfloat16(), a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tba.bn_act_apply(x.bfloat16().transpose(2, 3), a.bfloat16(),
+                         b.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         tba.bn_act_apply(x.transpose(2, 3), a, b)
     with pytest.raises(ValueError, match="shape"):
         tba.bn_act_apply(x, a[:4].contiguous(), b)
     with pytest.raises(ValueError, match="shape"):
         tba.bn_act_apply(x, a, b, z=z[:1])
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="bfloat16"):
         tba.bn_act_bwd_apply(x.bfloat16(), x.bfloat16(), x.bfloat16(), a, a,
                              a, a)
+    with pytest.raises(ValueError, match="float32"):   # c0 stays f32
+        tba.bn_act_bwd_apply(*(t.bfloat16() for t in (x, x, x, a, a, a, a)))
     with pytest.raises(NotImplementedError):
         tba.bn_act_bwd_apply(x, x, x, a, a, a, a, act="gelu")
     with pytest.raises(ValueError, match="CUDA device"):
@@ -398,16 +405,17 @@ def test_bn_act_wrappers_raise_on_unsupported(cuda):
 
 def test_resnet18_on_the_card_launches_the_epilogue_kernels(cuda):
     """Two ResNet-18 steps at 32x32 through fluid.Executor(CUDAPlace(0))
-    with the fusion flag at auto: each of the 17 conv chains launches
-    kernel 7 once per step and kernel 8 once per step."""
+    with the fusion and layout flags at auto (NCHW for an f32 program):
+    each of the 17 conv chains launches kernel 7 once per step and
+    kernel 8 once per step."""
     from paddle_tpu_torch.framework.scope import Scope
     from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
     import paddle_tpu_torch.fluid as fluid
 
     torch.backends.cudnn.allow_tf32 = False
-    main, startup, loss, acc1 = build_program(18, 32, 10, 0.1)
+    main, startup, loss, acc1 = build_program(18, 32, 10, 0.1, amp=False)
     exe = fluid.Executor(fluid.CUDAPlace(0))
-    assert exe.fuse_enabled()
+    assert exe.fuse_enabled() and not exe.nhwc_enabled(main)
     scope = Scope()
     exe.run(startup, scope=scope)
     img, label = make_batch(4, 32, 10)
@@ -465,8 +473,13 @@ def test_matmul_bias_act_kernel_matches_plain(cuda, m, k, n, act):
 def test_matmul_bias_act_wrapper_raises_on_unsupported(cuda):
     x, w, b = _mm_case(cuda, 1, 32, 48, 24)
     before = tme.MATMUL_BIAS_ACT_F32.launches
-    with pytest.raises(NotImplementedError, match="float32"):
-        tme.matmul_bias_act(x.bfloat16(), w.bfloat16(), b.bfloat16(), "relu")
+    with pytest.raises(NotImplementedError, match="float16"):
+        tme.matmul_bias_act(x.half(), w.half(), b.half(), "relu")
+    with pytest.raises(NotImplementedError, match="float32"):  # mixed
+        tme.matmul_bias_act(x, w.bfloat16(), b, "relu")
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        tme.matmul_bias_act(x.bfloat16().t().contiguous().t(), w.bfloat16(),
+                            b, "relu")
     with pytest.raises(NotImplementedError, match="contiguous"):
         tme.matmul_bias_act(x.t().contiguous().t(), w, b, "relu")
     with pytest.raises(NotImplementedError, match="contiguous"):
@@ -517,3 +530,229 @@ def test_book_models_on_the_card_launch_kernel_9(cuda, model, chains):
         assert launched == (0 if dev == "cpu" else 2 * chains * 3)
     assert all(t.device.type == "cuda" for _, t in scope.items())
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ==========================================================================
+# static AMP in bf16: kernels 7 and 8 in bf16 against their plain versions
+# bit for bit ("" and relu and the backward; both round every multiply and
+# add to bf16 in the Pallas kernels' order), sigmoid / tanh / gelu within
+# one bf16 ulp of the largest output (f32 libdevice functions of the same
+# rounded sum, rounded once)
+# ==========================================================================
+def _bn16(dev, seed, shape, c_axis, offset=0):
+    x, z, vecs = _bn_case(dev, seed, shape, c_axis, offset)
+    return x.bfloat16() if offset == 0 else _misaligned16(x, offset), \
+        z.bfloat16() if offset == 0 else _misaligned16(z, offset), \
+        [v.bfloat16() for v in vecs[:3]] + [vecs[3]]
+
+
+def _misaligned16(t, offset):
+    """A bf16 copy of ``t`` that starts ``offset`` elements (2 bytes each)
+    off 16-byte alignment."""
+    buf = torch.empty(t.numel() + offset, dtype=torch.bfloat16,
+                      device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bf16_ulps(got, want):
+    return float((got.float() - want.float()).abs().max()) / (
+        2.0 ** -8 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("with_z", [False, True], ids=["no-z", "z"])
+@pytest.mark.parametrize("act", ["", "relu", "sigmoid", "tanh", "gelu"])
+@pytest.mark.parametrize("shape,c_axis", BN_SHAPES, ids=BN_IDS)
+def test_bn_act_apply_bf16_kernel_matches_plain(cuda, shape, c_axis, act,
+                                                with_z, offset):
+    x, z, (a, b, _, _) = _bn16(cuda, 0, shape, c_axis, offset)
+    z = z if with_z else None
+    before = (tba.BN_ACT_APPLY_BF16.launches, tba.BN_ACT_APPLY.launches)
+    got = tba.bn_act_apply(x, a, b, z, act=act, c_axis=c_axis)
+    torch.cuda.synchronize()
+    assert (tba.BN_ACT_APPLY_BF16.launches,
+            tba.BN_ACT_APPLY.launches) == (before[0] + 1, before[1])
+    want = tba.bn_act_apply_reference(x, a, b, z, act=act, c_axis=c_axis)
+    assert got.dtype == want.dtype == torch.bfloat16
+    if act in ("", "relu"):
+        assert torch.equal(got, want)
+    else:
+        assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("want_g", [False, True], ids=["dx", "dx-and-g"])
+@pytest.mark.parametrize("act", ["", "relu"])
+@pytest.mark.parametrize("shape,c_axis", BN_SHAPES, ids=BN_IDS)
+def test_bn_act_bwd_bf16_kernel_matches_plain(cuda, shape, c_axis, act,
+                                              want_g, offset):
+    x, dy, (cg, mean, cx, c0) = _bn16(cuda, 1, shape, c_axis, offset)
+    y = torch.relu(x + 0.1)
+    before = tba.BN_ACT_BWD_BF16.launches
+    dx, g = tba.bn_act_bwd_apply(y, dy, x, cg, mean, cx, c0, act=act,
+                                 c_axis=c_axis, want_g=want_g)
+    torch.cuda.synchronize()
+    assert tba.BN_ACT_BWD_BF16.launches == before + 1
+    want_dx, want_gv = tba.bn_act_bwd_reference(y, dy, x, cg, mean, cx, c0,
+                                                act, c_axis, want_g)
+    assert dx.dtype == torch.bfloat16 and torch.equal(dx, want_dx)
+    if want_g:
+        assert torch.equal(g, want_gv)
+
+
+# the bf16 kernel 9 against its plain version, the AMP program's unfused
+# chain (bf16 product, bias in the promoted dtype, act): the products are
+# summed in another order, so a product may round the other way: every
+# output within one bf16 ulp of its product (2^-7 |x @ w|) times the
+# act's steepest slope (1.13, exact gelu), plus f32 noise and, for a bf16
+# bias, the bf16 sum's own rounding
+@pytest.mark.parametrize("bias_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("act", MM_ACTS)
+@pytest.mark.parametrize("m,k,n", MM_SHAPES, ids=MM_IDS)
+def test_matmul_bias_act_bf16_kernel_matches_plain(cuda, m, k, n, act,
+                                                   bias_dtype):
+    x, w, b = _mm_case(cuda, 0, m, k, n)
+    x, w = x.bfloat16(), w.bfloat16()
+    if bias_dtype == "bf16":
+        b = b.bfloat16()
+    before = (tme.MATMUL_BIAS_ACT_BF16.launches,
+              tme.MATMUL_BIAS_ACT_F32.launches)
+    got = tme.matmul_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert (tme.MATMUL_BIAS_ACT_BF16.launches,
+            tme.MATMUL_BIAS_ACT_F32.launches) == (before[0] + 1, before[1])
+    want = tme.matmul_bias_act_reference(x, w, b, act)
+    assert got.shape == (m, n) and got.dtype == want.dtype == b.dtype
+    prod = (x.float() @ w.float()).abs()
+    bound = 1.13 * 2.0 ** -7 * prod + 1e-6 * want.float().abs() + 1e-7
+    if bias_dtype == "bf16":
+        bound = bound + 2.0 ** -8 * want.float().abs()
+    assert torch.isfinite(got).all()
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+# ==========================================================================
+# the bf16 gelu (csrc/gelu_bf16.cu): bit for bit with its plain versions
+# ==========================================================================
+from paddle_tpu_torch.ops import gelu as tgelu  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(4096, 768), (1001, 37), (7,), (3, 5)],
+                         ids=["wide", "ragged", "short", "tiny"])
+def test_gelu_bf16_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randn(shape, device=cuda, generator=gen) * 4).bfloat16()
+    x.view(-1)[:4] = torch.tensor([0.0, -0.0, 30.0, -30.0])
+    dy = torch.randn(shape, device=cuda, generator=gen).bfloat16()
+    before = (tgelu.GELU_FWD_BF16.launches, tgelu.GELU_BWD_BF16.launches)
+    xr = x.clone().requires_grad_()
+    y = tgelu.gelu_lowp(xr)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (tgelu.GELU_FWD_BF16.launches,
+            tgelu.GELU_BWD_BF16.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, tgelu.gelu_bf16_reference(x))
+    assert torch.equal(xr.grad, tgelu.gelu_bf16_grad_reference(x, dy))
+
+
+def test_gelu_bf16_wrappers_raise_on_unsupported(cuda):
+    x = torch.randn(8, 8, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="bfloat16"):
+        tgelu.gelu_fwd_bf16(x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgelu.gelu_fwd_bf16(x.t())
+    with pytest.raises(ValueError, match="CUDA"):
+        tgelu.gelu_bwd_bf16(x, x.cpu())
+
+
+def test_layer_norm_bf16_on_the_card_matches_the_cpu(cuda):
+    """The bf16 LayerNorm on the card (ATen's fused backward with f32
+    statistics) against the CPU's spelled-out f32 path: the forward bit
+    for bit but for the f32 statistics' summation order (within one bf16
+    ulp of the largest output), the gradients within two."""
+    from paddle_tpu_torch.ops.nn_ops import layer_norm_lowp
+
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(64, 768, generator=gen) * 2 + 0.3).bfloat16()
+    sc = 1 + 0.1 * torch.randn(768, generator=gen)
+    bi = 0.1 * torch.randn(768, generator=gen)
+    dy = torch.randn(64, 768, generator=gen).bfloat16()
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xs, ss, bs = (t.detach().to(dev).requires_grad_()
+                      for t in (x, sc, bi))
+        y = layer_norm_lowp(xs, ss, bs, (768,))
+        y.backward(dy.to(dev))
+        outs[dev] = [t.detach().cpu() for t in (y, xs.grad, ss.grad,
+                                                bs.grad)]
+    for got, want, ulps in zip(outs["cuda"], outs["cpu"], (1, 2, 2, 2)):
+        assert got.dtype == want.dtype
+        assert _bf16_ulps(got, want) <= ulps
+
+
+def test_resnet18_amp_on_the_card_launches_the_bf16_epilogue_kernels(cuda):
+    """Two ResNet-18 steps at 32x32 under decorate(Momentum) through
+    fluid.Executor(CUDAPlace(0)), NHWC and fusion at auto: each of the 17
+    conv chains launches the bf16 kernels 7 and 8 once per step and the
+    f32 ones never."""
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, loss, acc1 = build_program(18, 32, 10, 0.1, amp=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    assert exe.fuse_enabled() and exe.nhwc_enabled(main)
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    img, label = make_batch(4, 32, 10)
+    kfs = (tba.BN_ACT_APPLY_BF16, tba.BN_ACT_BWD_BF16, tba.BN_ACT_APPLY,
+           tba.BN_ACT_BWD)
+    before = [k.launches for k in kfs]
+    losses = [float(exe.run(main, feed={"img": img, "label": label},
+                            fetch_list=[loss], scope=scope)[0])
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all()
+    assert [k.launches - b for k, b in zip(kfs, before)] == [34, 34, 0, 0]
+    assert all(t.device.type == "cuda" and t.dtype != torch.bfloat16
+               for _, t in scope.items())
+
+
+@pytest.mark.parametrize("model,chains", [("lenet", 2), ("word2vec", 1)])
+def test_book_models_amp_on_the_card_launch_the_bf16_kernel_9(cuda, model,
+                                                              chains):
+    """Three AMP steps of each book model at a small batch: the bf16
+    kernel 9 launches twice per fc chain per step and the f32 one never;
+    the card's losses follow the CPU's from one startup scope (bf16
+    products summed in two orders: rtol 2e-3)."""
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools import train_book as tb
+    import paddle_tpu_torch.fluid as fluid
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dict(tb.DEFAULTS[model], batch=16)
+    main, startup, fetch = tb.build_program(model, cfg, amp=True)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    feed = tb.make_batch(model, cfg)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        before = (tme.MATMUL_BIAS_ACT_BF16.launches,
+                  tme.MATMUL_BIAS_ACT_F32.launches)
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=fetch[:1],
+                                     scope=scope)[0]) for _ in range(3)]
+        torch.cuda.synchronize()
+        launched = (tme.MATMUL_BIAS_ACT_BF16.launches - before[0],
+                    tme.MATMUL_BIAS_ACT_F32.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu"
+                            else (2 * chains * 3, 0))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-3)

@@ -264,8 +264,7 @@ def test_unported_pieces_raise():
             tfluid.layers.conv2d(x, 8, 3, groups=8)
 
 
-@pytest.mark.parametrize("name", ["layout_transform_pass",
-                                  "fuse_optimizer_ops_pass",
+@pytest.mark.parametrize("name", ["fuse_optimizer_ops_pass",
                                   "memory_relief_pass"])
 def test_unported_passes_raise(name):
     from paddle_tpu_torch.framework.ir import get_pass

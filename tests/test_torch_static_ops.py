@@ -317,6 +317,17 @@ CASES.update({
         "reshape2", {"X": [("x", _r(0, 4, 6))]},
         {"Out": ["o"], "XShape": ["xs"]}, {"shape": [0, -1, 3]},
         cot_of=["o"]),
+    # the bf16 casts of static AMP: test_torch_static_amp.py
+    "cast": lambda: _check("cast", {"X": [("x", _r(0, 4, 6) * 5)]},
+                           {"Out": ["o"]}, {"in_dtype": 5, "out_dtype": 2}),
+    "cast-f32": lambda: _check("cast", {"X": [("x", _r(1, 4, 6))]},
+                               {"Out": ["o"]},
+                               {"in_dtype": 5, "out_dtype": 5},
+                               cot_of=["o"]),
+    "transpose2": lambda: _check(
+        "transpose2", {"X": [("x", _r(0, 2, 3, 4, 5))]},
+        {"Out": ["o"], "XShape": ["xs"]}, {"axis": [0, 2, 3, 1]},
+        cot_of=["o"], skip=("xs",)),
     "lookup_table": lambda: _check(
         "lookup_table", {"W": [("w", _r(0, 11, 5))],
                          "Ids": [("ids", _ids(1, 9, 11))]},
