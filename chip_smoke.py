@@ -172,9 +172,41 @@ Phases (any failure exits non-zero and prints no result):
    k. AMP LeNet card vs CPU, 12 steps from one startup scope: step 1
       within AMP_LENET_STEP1_RTOL, every step within AMP_LENET_LOSS_ATOL;
 
+   quantized KV serving (bf16 and int8 pools), headed l-o:
+
+   l. the paged-decode kernels over bf16 and int8 pages
+      (``paged_decode_bf16``, ``paged_decode_int8``) against their plain
+      versions on the same CUDA tensors at the serving and GQA shapes of
+      phase 3 (within KERNEL_ATOL: both dequantize as
+      ``code * (scale / 127)``), and timed as phase 4 (CUDA-graph replay,
+      enough input sets to keep the L2 cold) against the byte bound, the
+      plain versions and SDPA (bf16 over gathered bf16 K/V; for int8,
+      which no PyTorch call takes, over K/V dequantized to f32
+      beforehand);
+   m. serving: phase 9's engine and trace with bf16 and with int8 pools
+      bought by phase 9's byte budget (1,152 MiB: 2,048 and 4,096
+      pages); each launches its own kernel layers x decode steps times
+      and no other decode kernel; pages, pool bytes, tokens/s, decode
+      ms/step, prefill ms/request, preemptions, peak memory, and the
+      share of generated tokens equal to phase 9's f32 run;
+   n. the prefix cache and chunked prefill at GPT-2-small widths: 8
+      requests sharing a 256-token prefix (suffixes of 32-128 tokens, 32
+      new tokens each) served cold, with the prefix cache (its hit
+      tokens must be > 0) and with 64-token chunks, for each dtype; the
+      tokens equal the cold run's, or part from them first where the f32
+      reference's top-2 logit margin is below TIE_FACTOR times the
+      dtype's logit error, measured here against the reference over a
+      probe request and printed beside it;
+   o. 2 layers at GPT-2-small width on the card and on the CPU, bf16 and
+      int8 pools, once with the prefix cache (forks included) and once
+      with 32-token chunks: equal event streams under phase n's rule,
+      int8 codes within 1, layer 0's scales within SCALE_RTOL and the
+      deeper layers' within SCALE_RTOL_DEEP;
+
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
-    (``flash_fwd_f32`` replaces two), the five bf16 rows of kernels 1-5
+    (``flash_fwd_f32`` replaces two), the two quantized rows of kernel 6
+    (launches from phase m), the five bf16 rows of kernels 1-5
     (the bf16 launches from phase c, the AMP O1 main path), the three
     bf16 rows of kernels 7-9 (launches from phases g and j), and the two
     bf16 gelu kernels of the AMP O2 path (launches from phase d; no
@@ -386,22 +418,40 @@ def check_and_time_kernel(name, rng, hq, hkv, d, ps, n_pages, ctx_lens,
     return row
 
 
-def serve(torch):
+#: GPT-2 small widths (openai-community/gpt2 config.json)
+GPT2_SMALL = dict(vocab_size=50257, hidden=768, num_heads=12, num_layers=12,
+                  max_seq_len=1024)
+#: the quantized serving runs' KV budget: the f32 run's 1,024 pages of
+#: 1,179,648 bytes (2 x 12 layers x 12 heads x 16 slots x 64 x 4 bytes)
+KV_BUDGET_MB = 1152
+
+
+def decode_kernels():
+    from paddle_tpu_torch.ops import paged_attention as pa
+    return {"float32": pa.PAGED_DECODE, "bfloat16": pa.PAGED_DECODE_BF16,
+            "int8": pa.PAGED_DECODE_INT8}
+
+
+def serve(torch, kv_dtype="float32"):
+    """``serve()``'s 16-request trace through the GPT-2-small engine: f32
+    pools of 1,024 pages, or bf16 / int8 pools bought by the same byte
+    budget.  Returns the decode kernel's launches, the report and every
+    request's tokens."""
     from paddle_tpu_torch.inference.serving import (
         DecoderConfig, Request, ServingEngine, init_decoder_weights)
-    from paddle_tpu_torch.ops.paged_attention import PAGED_DECODE
 
-    # GPT-2 small widths (openai-community/gpt2 config.json)
-    cfg = DecoderConfig(vocab_size=50257, hidden=768, num_heads=12,
-                        num_layers=12, max_seq_len=1024)
+    cfg = DecoderConfig(**GPT2_SMALL)
+    pool = dict(num_pages=1024) if kv_dtype == "float32" else \
+        dict(kv_budget_mb=KV_BUDGET_MB)
     t0 = time.perf_counter()
-    eng = ServingEngine(cfg, init_decoder_weights(cfg, 0), num_pages=1024,
-                        page_size=16, max_batch=8, token_budget=1024,
-                        device="cuda")
+    eng = ServingEngine(cfg, init_decoder_weights(cfg, 0), page_size=16,
+                        max_batch=8, token_budget=1024, device="cuda",
+                        kv_dtype=kv_dtype, **pool)
     print(f"engine set-up {time.perf_counter() - t0:.3f} s "
           f"(weights {sum(p.numel() for p in eng.core.model.parameters())} "
-          f"f32, KV pools {eng.core.kv_pool_resident_bytes()} B)",
-          flush=True)
+          f"f32, {kv_dtype} KV pools of "
+          f"{eng.core.kv_config.num_pages} pages, "
+          f"{eng.core.kv_pool_resident_bytes()} B)", flush=True)
     core = eng.core
     # warm-up request (cuBLAS handles, allocator), not counted
     eng.generate([list(range(1, 33))], max_new_tokens=4)
@@ -426,15 +476,18 @@ def serve(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps0 = eng.stats["decode_steps"]
-    PAGED_DECODE.launches = 0
+    kernels = decode_kernels()
+    for k in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
     eng.run_to_completion()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = PAGED_DECODE.launches
-    core.prefill, core.decode_batch = prefill_fn, decode_fn
+    counts = {dt: k.launches for dt, k in kernels.items()}
+    launches = counts[kv_dtype]
+    del core.prefill, core.decode_batch   # the class's methods again
     peak = torch.cuda.max_memory_allocated()
 
     done = [r for r in reqs if r.finished_at is not None
@@ -443,10 +496,15 @@ def serve(torch):
         fail(f"{len(reqs) - len(done)} of {len(reqs)} requests unfinished")
     steps = eng.stats["decode_steps"] - steps0
     if launches != cfg.num_layers * steps:
-        fail(f"paged-decode launches {launches} != layers {cfg.num_layers}"
-             f" x decode steps {steps}")
+        fail(f"{kernels[kv_dtype].name} launches {launches} != layers "
+             f"{cfg.num_layers} x decode steps {steps}")
+    if any(n for dt, n in counts.items() if dt != kv_dtype):
+        fail(f"a {kv_dtype} engine launched another pool dtype's decode "
+             f"kernel: {counts}")
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    report = {"requests": len(reqs), "prompt_tokens": int(lens.sum()),
+    report = {"kv_dtype": kv_dtype, "pages": core.kv_config.num_pages,
+              "kv_pool_resident_bytes": core.kv_pool_resident_bytes(),
+              "requests": len(reqs), "prompt_tokens": int(lens.sum()),
               "generated_tokens": n_tok, "wall_s": elapsed,
               "tokens_per_s": n_tok / elapsed,
               "decode_steps": steps,
@@ -454,31 +512,36 @@ def serve(torch):
               "prefill_ms_total": wall["prefill"] * 1e3,
               "prefill_ms_per_request": wall["prefill"] / len(reqs) * 1e3,
               "preempted": eng.stats["preempted"],
-              "max_memory_allocated": peak, "paged_decode_launches": launches}
+              "max_memory_allocated": peak,
+              f"{kernels[kv_dtype].name}_launches": launches}
 
-    # two requests against the full-recompute greedy reference
-    checked = []
-    for r in (min(reqs, key=lambda r: len(r.prompt)),
-              max(reqs, key=lambda r: len(r.prompt))):
-        ref = core.greedy_reference(r.prompt, r.max_new_tokens)
-        row = {"req": r.req_id, "prompt": len(r.prompt),
-               "identical": ref == r.out_tokens}
-        if ref != r.out_tokens:
-            i = next(j for j, (a, b) in enumerate(zip(ref, r.out_tokens))
-                     if a != b)
-            top2 = torch.topk(core.reference_logits(
-                r.prompt + r.out_tokens[:i]), 2).values
-            margin = float(top2[0] - top2[1])
-            row.update(first_divergence=i, top2_margin=margin)
-            if margin >= TIE_MARGIN:
-                fail(f"request {r.req_id} diverges from the reference at "
-                     f"token {i} with top-2 margin {margin:.3e} >= "
-                     f"{TIE_MARGIN}")
-        checked.append(row)
-    report["reference_check"] = checked
-    report["tie_margin_tolerance"] = TIE_MARGIN
+    if kv_dtype == "float32":
+        # two requests against the full-recompute greedy reference
+        checked = []
+        for r in (min(reqs, key=lambda r: len(r.prompt)),
+                  max(reqs, key=lambda r: len(r.prompt))):
+            ref = core.greedy_reference(r.prompt, r.max_new_tokens)
+            row = {"req": r.req_id, "prompt": len(r.prompt),
+                   "identical": ref == r.out_tokens}
+            if ref != r.out_tokens:
+                i = next(j for j, (a, b) in enumerate(zip(ref, r.out_tokens))
+                         if a != b)
+                top2 = torch.topk(core.reference_logits(
+                    r.prompt + r.out_tokens[:i]), 2).values
+                margin = float(top2[0] - top2[1])
+                row.update(first_divergence=i, top2_margin=margin)
+                if margin >= TIE_MARGIN:
+                    fail(f"request {r.req_id} diverges from the reference "
+                         f"at token {i} with top-2 margin {margin:.3e} >= "
+                         f"{TIE_MARGIN}")
+            checked.append(row)
+        report["reference_check"] = checked
+        report["tie_margin_tolerance"] = TIE_MARGIN
     print("serving " + json.dumps(report), flush=True)
-    return launches
+    del eng, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report, [r.out_tokens for r in reqs]
 
 
 # ==========================================================================
@@ -2229,6 +2292,373 @@ def lenet_amp_card_vs_cpu(torch):
              f"(tolerance {AMP_LENET_LOSS_ATOL})")
 
 
+# ==========================================================================
+# quantized KV serving: kernel 6 over bf16 and int8 pages, the prefix cache
+# and chunked prefill
+# ==========================================================================
+QUANT_ROWS = (  # (pool dtype, kernel name)
+    ("bfloat16", "paged_decode_bf16"), ("int8", "paged_decode_int8"))
+# a quantized engine's token stream may part from another run's (cold vs
+# prefix-cache hit or chunked; card vs CPU) only where the reference's
+# top-2 logit margin is below TIE_FACTOR times the dtype's logit error,
+# measured in the same run (its decode logits against the f32
+# full-recompute reference's over a probe request)
+TIE_FACTOR = 4.0
+# int8 scales on the card vs on the CPU: layer 0's are the absmax of K/V
+# rows that cuBLAS and oneDNN compute an ulp or so apart
+# (tests/test_torch_kv_quant.py); a later layer's K/V also carry every
+# earlier layer's codes that rounded the other way, each one int8 step
+# (1/127 of its scale) in what the attention read, so they are held to
+# one int8 step relative
+SCALE_RTOL = 1e-5
+SCALE_RTOL_DEEP = 1.0 / 127
+
+
+def make_quant_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens, n_pad=0):
+    """``make_decode_case``'s tables and lengths over bf16 pools, or int8
+    pools (codes in [-127, 127]) with their f32 scale pools."""
+    import torch
+
+    q, k, v, tables, ctx = make_decode_case(rng, hq, hkv, d, ps, n_pages,
+                                            ctx_lens, n_pad)
+    if dtype == "bfloat16":
+        return (q, k.bfloat16(), v.bfloat16(), tables, ctx), ()
+    del k, v
+    codes = [torch.randint(-127, 128, (hkv, n_pages, ps, d), device="cuda",
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(hkv, n_pages, device="cuda") * 2 + 0.1
+              for _ in range(2)]
+    return (q, *codes, tables, ctx), tuple(scales)
+
+
+def quant_bound(case, scales):
+    """(bound_ms, bound_by): the live K/V rows at the pool's element size,
+    the live pages' scales (int8), q, out, tables and lengths over HBM
+    bandwidth, against the f32 operations over the f32 peak."""
+    q, k, _, tables, ctx = case
+    b, hq, d = q.shape
+    hkv, _, ps, _ = k.shape
+    tokens = int(ctx.sum())
+    nbytes = (2 * tokens * hkv * d * k.element_size() + 2 * q.numel() * 4
+              + tables.numel() * 4 + ctx.numel() * 4)
+    if scales:
+        nbytes += 2 * hkv * 4 * int(((ctx + ps - 1) // ps).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * hq * tokens / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quant_library_inputs(case, scales, dtype):
+    """SDPA's inputs: bf16 q, K and V gathered dense for a bf16 pool; for
+    int8 (no PyTorch call takes int8 pages and scales) the K/V
+    dequantized to f32 beforehand, f32 q."""
+    import torch
+
+    q, k, v, tables, ctx = case
+    if scales:
+        flat = tables.reshape(-1).long()
+        k = torch.zeros(k.shape, device="cuda").index_copy_(
+            1, flat, k.index_select(1, flat).float()
+            * (scales[0].index_select(1, flat) / 127.0)[..., None, None])
+        v = torch.zeros(v.shape, device="cuda").index_copy_(
+            1, flat, v.index_select(1, flat).float()
+            * (scales[1].index_select(1, flat) / 127.0)[..., None, None])
+    qd, kd, vd, mask = sdpa_inputs((q, k, v, tables, ctx))
+    if dtype == "bfloat16":
+        qd = qd.bfloat16()
+    return qd, kd, vd, mask
+
+
+def check_and_time_quant(name, dtype, rng, hq, hkv, d, ps, n_pages,
+                         ctx_lens, n_pad=0):
+    """One pool dtype's kernel at one shape: against its plain version on
+    the same CUDA tensors (both dequantize as ``code * (scale / 127)``,
+    so only the order of the sums differs: KERNEL_ATOL), then timed by
+    CUDA-graph replay over enough input sets to keep the L2 cold."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    esize = 2 if dtype == "bfloat16" else 1
+    live = 2 * sum(ctx_lens) * hkv * d * esize
+    n_sets = max(4, -(-COLD_BYTES // live) + 1)
+    cases = [make_quant_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens,
+                             n_pad) for _ in range(n_sets)]
+    scale = d ** -0.5
+    kernel = pa.paged_decode_bf16 if dtype == "bfloat16" else \
+        pa.paged_decode_int8
+    err = 0.0
+    for c, sc in cases[:4]:
+        got = kernel(*c, scale, *sc)
+        want = pa.paged_attention_reference(*c, scale, *sc)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{dtype} {name}: kernel output not finite")
+        err = max(err, float((got - want).abs().max()))
+    if err > KERNEL_ATOL:
+        fail(f"{dtype} {name}: kernel vs plain max |err| {err:.3e} > "
+             f"{KERNEL_ATOL}")
+    args = [(*c, *sc) for c, sc in cases]
+    ms = time_ms(lambda *a: kernel(*a[:5], scale, *a[5:]), args)
+    plain_ms = time_ms(lambda *a: pa.paged_attention_reference(
+        *a[:5], scale, *a[5:]), args)
+    lib_sets = [quant_library_inputs(c, sc, dtype) for c, sc in cases[:4]]
+    lib_ms = time_ms(lambda q, kd, vd, m: F.scaled_dot_product_attention(
+        q, kd, vd, attn_mask=m, scale=scale), lib_sets)
+    bound_ms, bound_by = quant_bound(*cases[0])
+    row = {"shape": name, "dtype": dtype, "B": len(cases[0][0][4]), "Hq": hq,
+           "Hkv": hkv, "D": d, "page_size": ps,
+           "width": int(cases[0][0][3].shape[1]), "input_sets": n_sets,
+           "ctx": [int(x) for x in cases[0][0][4].tolist()],
+           "max_abs_err": err, "tolerance": KERNEL_ATOL, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_ms,
+           "library": ("sdpa_bf16_dense" if dtype == "bfloat16" else
+                       "sdpa_f32_dense_predequantized")}
+    print("kernel_case_quant " + json.dumps(row), flush=True)
+    del cases, args, lib_sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def quant_kernel_phase():
+    rows = {}
+    for dtype, kname in QUANT_ROWS:
+        rng = np.random.RandomState(0)
+        serving = check_and_time_quant(
+            "serving", dtype, rng, hq=12, hkv=12, d=64, ps=16, n_pages=1024,
+            ctx_lens=[1024, 777, 512, 301, 64, 17], n_pad=2)
+        gqa = check_and_time_quant(
+            "gqa", dtype, rng, hq=32, hkv=8, d=128, ps=16, n_pages=1024,
+            ctx_lens=[1, 16, 33, 250, 512, 700, 1000, 1024])
+        rows[kname] = {**serving, "max_abs_err": max(serving["max_abs_err"],
+                                                     gqa["max_abs_err"])}
+    return rows
+
+
+def token_share(a, b):
+    """Share of generated tokens equal position by position."""
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    return same / max(1, sum(len(r) for r in a))
+
+
+def first_divergence(core, prompt, want, got, tie, what):
+    """None when the two token lists agree; else the first position
+    they part at, which must fall where the f32 reference's top-2 logit
+    margin is below ``tie``."""
+    import torch
+
+    if want == got:
+        return None
+    i = next((j for j, (x, y) in enumerate(zip(want, got)) if x != y),
+             min(len(want), len(got)))
+    top2 = torch.topk(core.reference_logits(list(prompt) + want[:i]),
+                      2).values
+    margin = float(top2[0] - top2[1])
+    if margin >= tie:
+        fail(f"{what}: token {i} parts with top-2 margin {margin:.3e} >= "
+             f"{tie:.3e}")
+    return {"first_divergence": i, "top2_margin": margin}
+
+
+def logit_error(eng, prompt, n_new):
+    """The largest |logit| difference between a quantized engine's decode
+    steps for one request and the f32 full-recompute reference at the
+    same positions: the dtype's logit error."""
+    from paddle_tpu_torch.inference.serving import Request
+
+    core = eng.core
+    seen = []
+    decode = core.model.decode
+
+    def capture(*a, **kw):
+        out = decode(*a, **kw)
+        seen.append(out[0].clone())
+        return out
+
+    core.model.decode = capture
+    req = Request("probe", list(prompt), n_new)
+    eng.submit(req)
+    eng.run_to_completion()
+    del core.model.decode
+    err = 0.0
+    for j, logits in enumerate(seen):
+        ref = core.reference_logits(list(prompt) + req.out_tokens[:j + 1])
+        err = max(err, float((logits - ref).abs().max()))
+    return err
+
+
+def shared_prefix_trace(vocab):
+    """8 requests sharing a 256-token prefix, suffixes of 32-128 tokens."""
+    rng = np.random.RandomState(7)
+    prefix = rng.randint(0, vocab, size=256).tolist()
+    return [prefix + rng.randint(0, vocab, size=int(n)).tolist()
+            for n in rng.randint(32, 129, size=8)]
+
+
+def prefix_chunk_phase(torch):
+    """Per quantized dtype, the shared-prefix trace cold, with the prefix
+    cache, and with 64-token chunks; the latter two must give the cold
+    run's tokens, or part from them only at a near-tie."""
+    from paddle_tpu_torch.inference.serving import (
+        DecoderConfig, Request, ServingEngine, init_decoder_weights)
+
+    cfg = DecoderConfig(**GPT2_SMALL)
+    weights = init_decoder_weights(cfg, 0)
+    prompts = shared_prefix_trace(cfg.vocab_size)
+    ties = {}
+    for dtype, kname in QUANT_ROWS:
+        kernel = decode_kernels()[dtype]
+
+        def engine(**kw):
+            return ServingEngine(cfg, weights, page_size=16, max_batch=8,
+                                 token_budget=1024, device="cuda",
+                                 kv_dtype=dtype, kv_budget_mb=KV_BUDGET_MB,
+                                 **kw)
+
+        eng = engine()
+        err = logit_error(eng, prompts[0], 16)
+        tie = TIE_FACTOR * err
+        ties[dtype] = tie
+        del eng
+        runs = {}
+        for label, kw in (("cold", {}), ("prefix_cache", dict(
+                prefix_cache=True)), ("chunk64", dict(prefill_chunk=64))):
+            eng = engine(**kw)
+            reqs = [Request(i, list(p), 32) for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = eng.kv.stats()["prefix_cache"]
+            runs[label] = {
+                "tokens": [r.out_tokens for r in reqs], "wall_s": wall,
+                "prefill_tokens": eng.stats["prefill_tokens"],
+                "prefill_hit_tokens": eng.stats["prefill_hit_tokens"],
+                "prefill_chunks": eng.stats["prefill_chunks"],
+                "forked_pages": st["forked_pages"],
+                "decode_steps": eng.stats["decode_steps"],
+                f"{kname}_launches": kernel.launches}
+            if kernel.launches != cfg.num_layers * eng.stats["decode_steps"]:
+                fail(f"{dtype} {label}: {kname} launches {kernel.launches}"
+                     f" != layers x decode steps")
+            core = eng.core
+            del eng
+        if runs["prefix_cache"]["prefill_hit_tokens"] <= 0:
+            fail(f"{dtype}: the prefix cache served no hit")
+        if runs["chunk64"]["prefill_chunks"] <= len(prompts):
+            fail(f"{dtype}: chunked prefill did not chunk")
+        cold = runs["cold"]["tokens"]
+        report = {"kv_dtype": dtype, "logit_error": err, "tie_margin": tie,
+                  "runs": {k: {kk: vv for kk, vv in v.items()
+                               if kk != "tokens"} for k, v in runs.items()}}
+        for label in ("prefix_cache", "chunk64"):
+            got = runs[label]["tokens"]
+            report["runs"][label]["equal_to_cold"] = got == cold
+            report["runs"][label]["divergences"] = [
+                d for d in (first_divergence(core, p, w, g, tie,
+                                             f"{dtype} {label} req {i}")
+                            for i, (p, w, g) in enumerate(zip(prompts, cold,
+                                                              got)))
+                if d is not None]
+        print("prefix_chunk " + json.dumps(report), flush=True)
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ties
+
+
+def quant_card_vs_cpu(torch, ties):
+    """2 layers at GPT-2-small width, the same weights and trace on the
+    card (the kernels) and on the CPU (the plain versions), bf16 and
+    int8 pools, once with the prefix cache (request 0's prompt is the
+    40-token shared prefix, so the others fork its partial page) and
+    once with 32-token chunks: equal event streams, or a first parting
+    at a near-tie; the int8 codes within 1 and the scales as
+    ``int8_pools_close`` holds them."""
+    from paddle_tpu_torch.inference.serving import (
+        DecoderConfig, Request, ServingEngine, init_decoder_weights)
+
+    cfg = DecoderConfig(**{**GPT2_SMALL, "num_layers": 2})
+    weights = init_decoder_weights(cfg, 0)
+    rng = np.random.RandomState(3)
+    prefix = rng.randint(0, cfg.vocab_size, size=40).tolist()
+    prompts = [list(prefix)] + [
+        prefix + rng.randint(0, cfg.vocab_size, size=int(n)).tolist()
+        for n in (3, 70, 150)]
+    for dtype, _ in QUANT_ROWS:
+        for label, kw in (("prefix_cache", dict(prefix_cache=True)),
+                          ("chunk32", dict(prefill_chunk=32))):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                eng = ServingEngine(cfg, weights, num_pages=64, page_size=16,
+                                    max_batch=4, token_budget=512,
+                                    device=dev, kv_dtype=dtype, **kw)
+                reqs = [Request(i, list(p), 16)
+                        for i, p in enumerate(prompts)]
+                for r in reqs:
+                    eng.submit(r)
+                events, t = [], 0.0
+                while eng.has_work():
+                    t += 1.0
+                    events.extend(eng.step(t))
+                out[dev] = (eng, events, [r.out_tokens for r in reqs])
+            card, cpu = out["cuda"], out["cpu"]
+            row = {"kv_dtype": dtype, "run": label,
+                   "events_equal": card[1] == cpu[1],
+                   "tie_margin": ties[dtype],
+                   "prefill_hit_tokens": card[0].stats["prefill_hit_tokens"],
+                   "prefill_chunks": card[0].stats["prefill_chunks"],
+                   "forked_pages": card[0].kv.stats()["prefix_cache"]
+                   ["forked_pages"]}
+            row["divergences"] = [
+                d for d in (first_divergence(
+                    cpu[0].core, p, w, g, ties[dtype],
+                    f"{dtype} {label} card vs CPU req {i}")
+                    for i, (p, w, g) in enumerate(zip(prompts, cpu[2],
+                                                      card[2])))
+                if d is not None]
+            if card[1] == cpu[1] and dtype == "int8":
+                (row["int8_codes_one_step_off"],
+                 row["int8_scale_rel_err_by_layer"]) = int8_pools_close(
+                    card[0].core, cpu[0].core)
+            print("quant_card_vs_cpu " + json.dumps(row), flush=True)
+            del out, card, cpu
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def int8_pools_close(card, cpu):
+    """The card's int8 pools within one code of the CPU's, its layer-0
+    scales within SCALE_RTOL and the others within SCALE_RTOL_DEEP;
+    returns the share of codes one step off and each layer's largest
+    relative scale difference."""
+    off = total = 0
+    rels = []
+    for layer, ((kc, vc), (kp, vp), sc, sp) in enumerate(zip(
+            card.kv_pools, cpu.kv_pools, card.kv_scales, cpu.kv_scales)):
+        for a, b in ((kc, kp), (vc, vp)):
+            diff = (a.cpu().int() - b.int()).abs()
+            if int(diff.max()) > 1:
+                fail(f"int8 card vs CPU: a code {int(diff.max())} steps off")
+            off += int((diff > 0).sum())
+            total += diff.numel()
+        rel = max(float(((a.cpu() - b).abs()
+                         / b.abs().clamp_min(1e-30)).max())
+                  for a, b in zip(sc, sp))
+        tol = SCALE_RTOL if layer == 0 else SCALE_RTOL_DEEP
+        if rel > tol:
+            fail(f"int8 card vs CPU: layer {layer}'s scales {rel:.3e} "
+                 f"apart > {tol:.3e}")
+        rels.append(rel)
+    return off / total, rels
+
+
 def main():
     import torch
 
@@ -2309,7 +2739,7 @@ def main():
     amp_card_vs_cpu(torch, f32_losses)
 
     phase("serving")
-    launches = serve(torch)
+    launches, _, f32_tokens = serve(torch)
 
     phase("conv epilogue: kernels vs plain versions, times")
     epi_errs = check_epilogue()
@@ -2355,6 +2785,23 @@ def main():
     phase("k. training: LeNet AMP card vs CPU, batch 64, 12 steps")
     lenet_amp_card_vs_cpu(torch)
 
+    phase("l. paged decode bf16 / int8: kernels vs plain versions, times")
+    quant_rows = quant_kernel_phase()
+
+    phase("m. serving, bf16 and int8 KV pools")
+    quant_serving = {}
+    for dtype, kname in QUANT_ROWS:
+        n, report, tokens = serve(torch, dtype)
+        share = token_share(tokens, f32_tokens)
+        print(f"serving_{dtype}_tokens_equal_to_f32 {share:.4f}", flush=True)
+        quant_serving[kname] = n
+
+    phase("n. prefix cache and chunked prefill on the card, bf16 and int8")
+    ties = prefix_chunk_phase(torch)
+
+    phase("o. serving card vs CPU, 2 layers, bf16 and int8 KV pools")
+    quant_card_vs_cpu(torch, ties)
+
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -2364,6 +2811,16 @@ def main():
         "ms": serving["ms"], "plain_ms": serving["plain_ms"],
         "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
         "library_ms": serving["library_ms"]}]
+    for _, name in QUANT_ROWS:
+        t = quant_rows[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:845",
+            "launches": quant_serving[name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     for name, replaces in FLASH_ROWS:
         # each kernel at the shape the training path launches it at
         t = flash_times[MAIN_PATH_SHAPE[name]][name]

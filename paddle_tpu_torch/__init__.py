@@ -4,9 +4,10 @@ The JAX package ``paddle_tpu`` is the reference; this package grows
 beside it slice by slice and imports nothing of it (nor ``jax``).  The
 ported slices so far:
 
-* decode serving: ``ServingEngine`` over a paged KV cache, whose
-  paged-decode attention is a hand-written CUDA kernel for Hopper
-  (``csrc/paged_attention.cu``);
+* decode serving: ``ServingEngine`` over a paged KV cache in float32,
+  bfloat16 or int8, with a copy-on-write prefix cache and chunked
+  prefill, whose paged-decode attention is a hand-written CUDA kernel for
+  Hopper, one per pool dtype (``csrc/paged_attention.cu``);
 * BERT/ERNIE-base dygraph pretraining in float32: ``BertForPretraining``,
   ``AdamOptimizer`` and ``dygraph.jit_train_step``, whose attention runs in
   hand-written flash-attention kernels, forward and backward

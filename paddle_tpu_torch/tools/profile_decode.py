@@ -1,9 +1,13 @@
 """Where a decode step's time goes on the GPU.
 
 Serves 8 requests at GPT-2-small widths (12 layers, random weights from
-seed 0, f32, 16-token pages) with ``ServingEngine``. Once all 8 are
-decoding, it traces ``--steps`` steps with ``torch.profiler``. It prints
-one JSON line holding:
+seed 0, 16-token pages; f32 pools of 1,024 pages by default) with
+``ServingEngine``. Once all 8 are decoding, it traces ``--steps`` steps
+with ``torch.profiler``. ``--kv-dtype bfloat16|int8`` stores the pools in
+that dtype (decoding on its own kernel), ``--kv-budget-mb`` sizes them
+from a byte budget instead, ``--prefix-cache`` turns the prefix cache on
+and ``--prefill-chunk N`` prefills in N-token slices. It prints one JSON
+line holding:
 
 - the host wall time per step, without and under the profiler;
 - the device busy time per step (the kernels' own time; one stream, so
@@ -15,6 +19,8 @@ one JSON line holding:
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
     python -m paddle_tpu_torch.tools.profile_decode [--steps 20]
+        [--kv-dtype int8 --kv-budget-mb 1152] [--prefix-cache]
+        [--prefill-chunk 64]
 """
 import argparse
 import json
@@ -33,6 +39,13 @@ def _self_device_us(evt) -> float:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--kv-dtype", default="float32",
+                    choices=["float32", "bfloat16", "int8"])
+    ap.add_argument("--kv-budget-mb", type=float, default=0.0,
+                    help="size the pools from this byte budget (0: 1,024 "
+                         "pages)")
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefill-chunk", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
@@ -45,14 +58,17 @@ def main():
                         num_layers=12, max_seq_len=1024)
     eng = ServingEngine(cfg, init_decoder_weights(cfg, 0), num_pages=1024,
                         page_size=16, max_batch=8, token_budget=4096,
-                        device="cuda")
+                        device="cuda", kv_dtype=args.kv_dtype,
+                        kv_budget_mb=args.kv_budget_mb,
+                        prefix_cache=args.prefix_cache,
+                        prefill_chunk=args.prefill_chunk)
     rng = np.random.RandomState(0)
     for i, n in enumerate(rng.randint(32, 513, size=8)):
         eng.submit(Request(i, rng.randint(0, cfg.vocab_size,
                                           size=int(n)).tolist(),
                            max_new_tokens=2 * args.steps + 8))
-    while eng.waiting:           # admit (prefill) every request
-        eng.step()
+    while eng.waiting or eng._prefill_job is not None:
+        eng.step()               # admit (prefill) every request
     for _ in range(3):           # warm decode steps
         eng.step()
     if len(eng.running) != 8:
@@ -86,7 +102,10 @@ def main():
                    if "paged_decode" in e.key)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "batch": 8,
-        "steps": steps,
+        "steps": steps, "kv_dtype": args.kv_dtype,
+        "pages": eng.core.kv_config.num_pages,
+        "prefix_cache": args.prefix_cache,
+        "prefill_chunk": args.prefill_chunk,
         "wall_ms_per_step": plain_wall / steps * 1e3,
         "wall_ms_per_step_profiled": wall / steps * 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

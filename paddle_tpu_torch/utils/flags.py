@@ -15,18 +15,29 @@ default below.  The TPU-named flags get CUDA names here:
   fastest channels-last, its f32 ones are not (an f32 ResNet-50 step
   takes 199.8 ms NHWC against 185.8 ms NCHW on an H100 80GB HBM3 at
   700 W, ``tools/train_resnet.py --profile``; ``PERF.md`` section 5).
+
+The serving flags keep the JAX names and defaults and are read where the
+JAX engine reads them (``inference/serving.py``, ``inference/kv_cache.py``):
+
+* ``FLAGS_kv_cache_dtype`` ("float32"): the KV pools' storage dtype,
+  "float32", "bfloat16" or "int8";
+* ``FLAGS_kv_prefix_cache`` (False): the copy-on-write prefix cache;
+* ``FLAGS_prefill_chunk_tokens`` (0): the chunked-prefill slice.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
-__all__ = ["DEFAULTS", "UNPORTED", "set_flags", "get_flag",
+__all__ = ["DEFAULTS", "UNPORTED", "set_flags", "get_flag", "flag_bool",
            "cuda_fuse_enabled", "cuda_nhwc_enabled"]
 
 DEFAULTS: Dict[str, Any] = {
     "FLAGS_cuda_fuse": "auto",
     "FLAGS_cuda_nhwc": "auto",
+    "FLAGS_kv_cache_dtype": "float32",
+    "FLAGS_kv_prefix_cache": False,
+    "FLAGS_prefill_chunk_tokens": 0,
 }
 #: JAX-package flags whose machinery the port has not taken yet
 #: (ROADMAP.md): setting one raises ``NotImplementedError``
@@ -57,6 +68,15 @@ def get_flag(name: str):
     if name in os.environ:
         return os.environ[name]
     return DEFAULTS[name]
+
+
+def flag_bool(name: str) -> bool:
+    """A boolean flag: a bool as set, or a string from the environment
+    ("1", "true", "yes", "on" are true)."""
+    v = get_flag(name)
+    if isinstance(v, str):
+        return v.strip().lower() in ("1", "true", "yes", "on")
+    return bool(v)
 
 
 def _on_for(name: str, device) -> bool:

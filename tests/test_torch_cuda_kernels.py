@@ -78,6 +78,138 @@ def test_paged_decode_wrapper_raises_on_unsupported(cuda):
         tpa.paged_attention(*case)
 
 
+def _q_case(dev, seed, dtype, hq, hkv, d, ps, n_pages, lens, n_pad=0):
+    """A decode case over bf16 or int8 pools (int8 with its scales).  The
+    first page of the second sequence is never written (int8: codes and
+    scale 0); ``lens`` may hold a context of 0."""
+    rng = np.random.RandomState(seed)
+    need = [max(1, -(-n // ps)) for n in lens]
+    width = 1
+    while width < max(need):
+        width *= 2
+    perm = rng.permutation(n_pages)
+    b = len(lens) + n_pad
+    tables = np.zeros((b, width), np.int32)
+    off = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[off:off + n]
+        off += n
+    q = torch.tensor(rng.randn(b, hq, d), dtype=torch.float32, device=dev)
+    scales = ()
+    if dtype == torch.int8:
+        kp, vp = (torch.tensor(rng.randint(-127, 128, (hkv, n_pages, ps, d)),
+                               dtype=torch.int8, device=dev)
+                  for _ in range(2))
+        ks, vs = (torch.tensor(np.abs(rng.randn(hkv, n_pages)) + 0.1,
+                               dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        blank = int(tables[min(1, len(lens) - 1), 0])
+        for pool in (kp, vp):
+            pool[:, blank] = 0
+        ks[:, blank] = 0
+        vs[:, blank] = 0
+        scales = (ks, vs)
+    else:
+        kp, vp = (torch.tensor(rng.randn(hkv, n_pages, ps, d),
+                               dtype=torch.float32, device=dev).to(dtype)
+                  for _ in range(2))
+    ctx = np.asarray(list(lens) + [1] * n_pad, np.int32)
+    return (q, kp, vp, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(ctx).to(dev)), scales
+
+
+QUANT_CASES = [   # hq, hkv, d, ps, lens, n_pad
+    (12, 12, 64, 16, [1024, 777, 512, 301, 64, 17], 2),   # GPT-2 small
+    (32, 8, 128, 16, [1, 16, 33, 250, 512, 700, 1000, 1024], 0),
+    (4, 4, 32, 8, [1, 8, 9, 0], 1),
+    (8, 1, 256, 16, [40, 3, 0], 0),
+    (8, 2, 64, 16, [16, 32, 47, 200], 3),
+    (16, 2, 128, 8, [7, 64, 65], 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,d,ps,lens,n_pad", QUANT_CASES)
+def test_paged_decode_quantized_kernels_match_plain(cuda, dtype, hq, hkv, d,
+                                                    ps, lens, n_pad):
+    case, scales = _q_case(cuda, 3, dtype, hq, hkv, d, ps, 512, lens, n_pad)
+    fn = (tpa.PAGED_DECODE_INT8 if dtype == torch.int8
+          else tpa.PAGED_DECODE_BF16)
+    before = (fn.launches, tpa.PAGED_DECODE.launches)
+    got = tpa.paged_attention(*case, None, *scales)
+    torch.cuda.synchronize()
+    assert (fn.launches, tpa.PAGED_DECODE.launches) == (before[0] + 1,
+                                                         before[1])
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    live = case[4] > 0
+    assert torch.isfinite(got).all()
+    assert float((got[live] - want[live]).abs().max()) <= ATOL
+    # a row with context 0 gives zeros, as the TPU kernel's l == 0 guard
+    if not live.all():
+        assert float(got[~live].abs().max()) == 0.0
+
+
+def test_paged_decode_quantized_wrappers_raise_on_unsupported(cuda):
+    counts = (tpa.PAGED_DECODE_BF16.launches, tpa.PAGED_DECODE_INT8.launches)
+    case, scales = _q_case(cuda, 4, torch.int8, 4, 2, 96, 8, 16, [5, 9])
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.paged_attention(*case, None, *scales)
+    case, scales = _q_case(cuda, 4, torch.int8, 4, 2, 64, 8, 16, [5, 9])
+    with pytest.raises(ValueError, match="k_scale"):
+        tpa.paged_attention(*case)                      # int8, no scales
+    bcase, _ = _q_case(cuda, 4, torch.bfloat16, 4, 2, 64, 8, 16, [5, 9])
+    with pytest.raises(ValueError, match="int8"):
+        tpa.paged_attention(*bcase, None, *scales)      # bf16 with scales
+    hcase = list(bcase)
+    hcase[1], hcase[2] = hcase[1].half(), hcase[2].half()
+    with pytest.raises(ValueError, match="float16"):
+        tpa.paged_attention(*hcase)                     # float16 pools
+    with pytest.raises(ValueError, match="expected torch.int8"):
+        tpa.paged_decode_int8(*bcase, 0.125, *scales)
+    with pytest.raises(ValueError, match="v_scale"):
+        tpa.paged_decode_int8(*case, 0.125, scales[0], scales[1].double())
+    assert counts == (tpa.PAGED_DECODE_BF16.launches,
+                      tpa.PAGED_DECODE_INT8.launches)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_dtype="bfloat16"), dict(kv_dtype="int8"),
+    dict(kv_dtype="int8", prefix_cache=True, prefill_chunk=8)],
+    ids=["bf16", "int8", "int8-prefix-chunk"])
+def test_quantized_engine_launches_its_kernel_per_layer_and_step(cuda, kw):
+    """A bf16 / int8 engine on the card launches its pool dtype's kernel
+    once per layer and decode step, and no other decode kernel; its
+    tokens equal the same engine's on the CPU, or part from them only
+    where the reference's top-2 logit margin is a near-tie (5e-2)."""
+    from paddle_tpu_torch.inference.serving import (
+        DecoderConfig, ServingEngine)
+
+    cfg = DecoderConfig(vocab_size=64, hidden=64, num_heads=2, num_layers=3,
+                        max_seq_len=128)
+    rng = np.random.RandomState(5)
+    prefix = rng.randint(0, 64, 20).tolist()
+    prompts = [prefix + rng.randint(0, 64, n).tolist() for n in (3, 9, 30)]
+    kernels = {"bfloat16": tpa.PAGED_DECODE_BF16, "int8": tpa.PAGED_DECODE_INT8}
+    mine = kernels[kw["kv_dtype"]]
+    counts = [k.launches for k in (tpa.PAGED_DECODE, *kernels.values())]
+    eng = ServingEngine(cfg, num_pages=32, page_size=8, max_batch=4,
+                        device=cuda, **kw)
+    before = mine.launches
+    outs = eng.generate(prompts, max_new_tokens=6)
+    assert mine.launches - before == cfg.num_layers * eng.stats["decode_steps"]
+    after = [k.launches for k in (tpa.PAGED_DECODE, *kernels.values())]
+    assert [a - b for a, b in zip(after, counts)].count(0) == 2
+    cpu = ServingEngine(cfg, num_pages=32, page_size=8, max_batch=4,
+                        device="cpu", **kw)
+    for p, got, want in zip(prompts, outs, cpu.generate(prompts, 6)):
+        if got != want:
+            i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            top2 = torch.topk(cpu.core.reference_logits(p + want[:i]),
+                              2).values
+            assert float(top2[0] - top2[1]) < 5e-2
+
+
 # ==========================================================================
 # flash attention (csrc/flash_attention.cu): forward, fused backward, split
 # dQ and dK/dV, and the dropout mask, against the plain versions

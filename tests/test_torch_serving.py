@@ -352,12 +352,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_dtype="int8"), dict(kv_dtype="bfloat16"), dict(tp=2),
-    dict(prefix_cache=True), dict(prefill_chunk=8), dict(spec_k=2),
-    dict(sampling=object()), dict(admission_policy="slo_aware")])
+    dict(tp=2), dict(spec_k=2), dict(sampling=object()),
+    dict(admission_policy="slo_aware"), "truncate_tokens"])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
-        T.ServingEngine(TCFG, device="cpu", **kw)
+        if kw == "truncate_tokens":   # speculative decoding's rollback
+            kv = PagedKVCache(KVCacheConfig(num_pages=4, page_size=4,
+                                            num_kv_heads=1, head_dim=8))
+            kv.append_tokens("a", 5)
+            kv.truncate_tokens("a", 2)
+        else:
+            T.ServingEngine(TCFG, device="cpu", **kw)
 
 
 def test_unknown_admission_policy_raises():
