@@ -147,8 +147,9 @@ Phases (any failure exits non-zero and prints no result):
       backward (every act, z, g; ragged shapes in both layouts and an
       (M, C) case; sigmoid, tanh and gelu within a bf16 ulp), then at each
       of the 49 shapes of the AMP ResNet-50 step in NCHW and in NHWC;
-      both timed over the 49 NHWC calls (the main path's layout) against
-      the byte bound (bf16 data) and their plain versions;
+      both timed over the 49 calls in the main path's layout (NHWC, from
+      ``FLAGS_cuda_nhwc``) against the byte bound (bf16 data) and their
+      plain versions;
    g. ResNet-50 under ``decorate(MomentumOptimizer(0.01, 0.9))``, batch
       128, 224x224, channels-last by ``FLAGS_cuda_nhwc=auto``: 2 + 10
       steps, the loss finite and falling, each bf16 epilogue kernel
@@ -203,12 +204,45 @@ Phases (any failure exits non-zero and prints no result):
       int8 codes within 1, layer 0's scales within SCALE_RTOL and the
       deeper layers' within SCALE_RTOL_DEEP;
 
+   static AMP in fp16 with dynamic loss scaling
+   (``decorate(use_fp16=True)``, the reference's AMP), headed p-u:
+
+   p. conv epilogue fp16: phase f for ``bn_act_apply_fp16`` and
+      ``bn_act_bwd_fp16`` (errors in fp16 half-ulps, 2^-11 of the largest
+      output), timed over the 49 calls of the fp16 program in its layout;
+   q. matmul epilogue fp16: phase i for ``matmul_bias_act_fp16`` (one
+      fp16 rounding of each product, 2^-10 |x @ w|, where bf16 has one
+      bf16 rounding), timed against the bound, the plain version and
+      ``torch.addmm`` in fp16 plus the act;
+   r. ResNet-50 under ``decorate(MomentumOptimizer(0.01, 0.9),
+      use_fp16=True)`` with decorate's defaults (scale 2^15), batch 128,
+      224x224, channels-last: 2 + 10 steps, run on until
+      FP16_CLEAN_STEPS steps found no Inf (at most FP16_MAX_STEPS); the
+      loss finite and falling over the clean steps, each fp16 epilogue
+      kernel launched 49 times a step and no f32 or bf16 one; images/s,
+      ms/step, peak memory, the found-Inf steps and the scale after each
+      step, and a profile of two more steps (idle share, kernels and ops
+      per step);
+   s. the fp16 ResNet-50 step at the oracle size on the card and the CPU:
+      with decorate's defaults (every step finds an Inf), the found-Inf
+      flags and the scale after each of 3 steps equal and step 1's loss
+      within twice what half an fp16 rounding step of image noise does to
+      the CPU's own (two noisy twins); then from FP16_CLEAN_SCALE, where
+      no step finds one, the same and the state after step 1 within twice
+      the first twin's envelope;
+   t. LeNet and word2vec under ``decorate(use_fp16=True)`` at phases
+      14-15's configurations: the fp16 kernel 9 launched 4 and 2 times a
+      step and no other kernel 9, no step finding an Inf;
+   u. fp16 AMP LeNet card vs CPU, 12 steps: phase k's tolerances and the
+      found-Inf and scale history equal;
+
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
     (``flash_fwd_f32`` replaces two), the two quantized rows of kernel 6
     (launches from phase m), the five bf16 rows of kernels 1-5
     (the bf16 launches from phase c, the AMP O1 main path), the three
-    bf16 rows of kernels 7-9 (launches from phases g and j), and the two
+    bf16 rows of kernels 7-9 (launches from phases g and j), the three
+    fp16 rows of kernels 7-9 (launches from phases r and t), and the two
     bf16 gelu kernels of the AMP O2 path (launches from phase d; no
     Pallas kernel: their row names the JAX lowering XLA fuses), the
     card's name and power limit, and the last line:
@@ -938,9 +972,10 @@ def card_vs_cpu(torch):
 # ==========================================================================
 # bf16: the flash kernels, and BERT-base under AMP O1 / O2
 # ==========================================================================
-def ulps_off(got, want) -> float:
-    """max |got - want| in bf16 ulps of the largest |want| (2^-8 of it)."""
-    scale = 2.0 ** -8 * float(want.float().abs().max())
+def ulps_off(got, want, unit=2.0 ** -8) -> float:
+    """max |got - want| in ``unit``s of the largest |want| (bf16 ulps:
+    2^-8 of it)."""
+    scale = unit * float(want.float().abs().max())
     return float((got.float() - want.float()).abs().max()) / scale
 
 
@@ -1203,10 +1238,11 @@ def amp_card_vs_cpu(torch, f32_losses):
 # ==========================================================================
 # the conv epilogue kernels, and ResNet-50 static training
 # ==========================================================================
-def resnet50_epilogue_shapes(amp=False, nhwc=False):
+def resnet50_epilogue_shapes(amp_dtype=None, nhwc=False):
     """[(conv-output shape, has z)] of the 49 fused_conv_bn_act ops of the
-    ResNet-50 training program at batch 128, 224x224, in program order;
-    ``nhwc``: as the NHWC layout pass leaves them (channels last)."""
+    ResNet-50 training program (f32, or AMP in ``amp_dtype``) at batch
+    128, 224x224, in program order; ``nhwc``: as the NHWC layout pass
+    leaves them (channels last)."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.tools.train_resnet import build_program
     from paddle_tpu_torch.utils import flags
@@ -1216,7 +1252,9 @@ def resnet50_epilogue_shapes(amp=False, nhwc=False):
     flags.set_flags({"FLAGS_cuda_fuse": "1",
                      "FLAGS_cuda_nhwc": "1" if nhwc else "0"})
     try:
-        main, _, loss, acc1 = build_program(50, 224, 1000, amp=amp)
+        main, _, loss, acc1 = build_program(
+            50, 224, 1000, amp=amp_dtype is not None,
+            amp_dtype=amp_dtype or "bfloat16")
         rew = fluid.Executor("cpu")._apply_ir_passes(main, [loss.name,
                                                             acc1.name])
     finally:
@@ -1314,15 +1352,17 @@ def check_epilogue():
     return errs
 
 
-def path_layout(amp):
+def path_layout(amp_dtype=None):
     """(nhwc, channel axis) of the ResNet-50 program's convolutions on
-    the card: ``FLAGS_cuda_nhwc`` resolved for a CUDA place, as the
-    executor resolves it (``auto``: NHWC for bf16 convolutions only)."""
+    the card (f32, or AMP in ``amp_dtype``): ``FLAGS_cuda_nhwc`` resolved
+    for a CUDA place, as the executor resolves it (``auto``: NHWC for
+    bf16 and fp16 convolutions only)."""
     import torch
 
     from paddle_tpu_torch.utils.flags import cuda_nhwc_enabled
 
-    nhwc = cuda_nhwc_enabled(torch.device("cuda"), bf16_convs=amp)
+    nhwc = cuda_nhwc_enabled(torch.device("cuda"),
+                             low_precision_convs=amp_dtype is not None)
     return nhwc, 3 if nhwc else 1
 
 
@@ -1337,7 +1377,7 @@ def time_epilogue():
 
     from paddle_tpu_torch.ops import bn_act as ba
 
-    path_nhwc, _ = path_layout(amp=False)
+    path_nhwc, _ = path_layout()
     rows = {}
     for nhwc in sorted((False, True), key=lambda v: v == path_nhwc):
         c_axis = 3 if nhwc else 1
@@ -1439,7 +1479,7 @@ def resnet_phase(torch):
     if launches != {"bn_act_apply_f32": n, "bn_act_bwd_f32": n}:
         fail(f"ResNet-50 epilogue launches {launches}: expected {n} each "
              f"(49 chains x {warmup + steps} steps)")
-    layout = "NHWC" if path_layout(amp=False)[0] else "NCHW"
+    layout = "NHWC" if path_layout()[0] else "NCHW"
     plan = next(p for key, p in run["executor"]._cache.items()
                 if key[0] == run["program"]._uid)
     formats = {o.attrs.get("data_format") for o in plan.ops
@@ -1732,25 +1772,60 @@ GELU_ROWS = (  # (kernel name, the JAX lowering it stands for: XLA-fused)
 )
 EPILOGUE_BF16_ROWS = tuple((name.replace("_f32", "_bf16"), replaces)
                            for name, replaces in EPILOGUE_ROWS)
+EPILOGUE_FP16_ROWS = tuple((name.replace("_f32", "_fp16"), replaces)
+                           for name, replaces in EPILOGUE_ROWS)
 # the steepest slope of kernel 9's acts (exact gelu's peaks at 1.13)
 MATMUL_BF16_SLOPE = 1.13
-# the AMP ResNet-50 step-1 loss on the card (NHWC, cuDNN bf16, the bf16
-# kernels) vs on the CPU (NCHW, oneDNN bf16, the plain versions) from one
-# startup scope: bf16 roundings in two summation orders through 50
-# layers of BN over four values per channel (1x1 maps) at batch 4, where
-# the loss is chaotic: half a bf16 ulp of noise (2^-9 relative) on the
-# images moves the CPU's own step-1 loss by 16% (printed each run as
-# cpu_noise_step1_rel).  Card vs CPU measured 9.3e-3 in two runs (both
-# sides deterministic): held to twice that.  After step 1 every state
-# tensor (``rel_errs``: its largest difference over the CPU's largest
-# magnitude) is held, velocities (the step-1 gradients) and the rest
-# apart, to twice the noisy CPU twin's worst and median
-AMP_RESNET_NOISE = 2.0 ** -9
+# per static AMP dtype: its kernels' name tag, the unit its errors are
+# printed in ("ulps": 2^-8 relative for bf16, half of a bf16 rounding
+# step at 1, as phase a counts them; 2^-11 for fp16, the same half step),
+# one rounding step of a product near 1 (2^-7 and 2^-10), and the f32
+# accumulators' difference kernel 9's tolerance adds, relative to
+# |x| @ |w| (the K products added in two orders; it can exceed an fp16
+# step of a small product: 1.5e-5 measured at K = 4099, H100; it stays
+# far under a bf16 one), and, for a 16-bit bias, what the 16-bit sum's
+# rounding adds relative to the output (bf16: half a step, as PR 6 held
+# it; fp16: a whole step, since the two sides' products one rounding
+# apart can round the sum apart: 1.33 half-steps measured at the ragged
+# shape, H100)
+AMP = {"bfloat16": {"tag": "bf16", "unit": 2.0 ** -8, "step": 2.0 ** -7,
+                    "acc": 0.0, "sum": 2.0 ** -8},
+       "float16": {"tag": "fp16", "unit": 2.0 ** -11, "step": 2.0 ** -10,
+                   "acc": 2.0 ** -18, "sum": 2.0 ** -10}}
+# the AMP ResNet-50 step-1 loss on the card (NHWC, cuDNN, the kernels) vs
+# on the CPU (NCHW, oneDNN, the plain versions) from one startup scope:
+# roundings in two summation orders through 50 layers of BN over four
+# values per channel (1x1 maps) at batch 4, where the loss is chaotic:
+# half a rounding step of noise (AMP_RESNET_NOISE, relative) on the
+# images moves the CPU's own step-1 loss by far more (printed each run as
+# cpu_noise_step1_rel; bf16: 16%).  bf16 card vs CPU measured 9.3e-3 in
+# two runs (both sides deterministic): held to AMP_RESNET_STEP1_RTOL,
+# twice that.  fp16 is held to the envelope itself, twice the larger
+# change of two noisy CPU twins (seeds 1 and 2): card vs CPU measured
+# 3.6e-2 at 2^15 in its first run (H100), where 2^-12 of image noise
+# moves the CPU's own step-1 loss by 2.1% and 1.9% (this sandbox's CPU),
+# so a fixed tolerance would be a guess.  After step 1 of a run that
+# found no Inf every state tensor (``rel_errs``: its largest difference
+# over the CPU's largest magnitude) is held, velocities (the step-1
+# gradients) and the rest apart, to twice the first noisy CPU twin's
+# worst and median
+AMP_RESNET_NOISE = {"bfloat16": 2.0 ** -9, "float16": 2.0 ** -12}
 AMP_RESNET_STEP1_RTOL = 2e-2
+# fp16 ResNet-50 at the oracle size finds an Inf at every step under
+# decorate's 2^15 (so does JAX's ResNet-18 there,
+# tests/test_torch_static_amp_fp16.py), and on the CPU still from 1024;
+# the card-vs-CPU state check runs a second time from this scale, where
+# the CPU's first three steps find none
+FP16_CLEAN_SCALE = 128.0
 # AMP LeNet on the card vs on the CPU from one startup scope, 12 steps:
 # step 1 relative, every step absolute (bf16 products in two orders; on
-# the CPU JAX and the port differ by 2.1e-4 at step 1, 6.4e-3 by step 4)
-AMP_LENET_STEP1_RTOL, AMP_LENET_LOSS_ATOL = 2e-3, 5e-2
+# the CPU JAX and the port differ by 2.1e-4 at step 1, 6.4e-3 by step 4;
+# fp16: 7e-8 at step 3, and the tolerances are bf16's)
+AMP_LENET_STEP1_RTOL = {"bfloat16": 2e-3, "float16": 2e-3}
+AMP_LENET_LOSS_ATOL = {"bfloat16": 5e-2, "float16": 5e-2}
+# the fp16 ResNet-50 main path: at least this many clean (no Inf) steps,
+# running past the first 12 when some are skipped, up to FP16_MAX_STEPS
+FP16_CLEAN_STEPS, FP16_MAX_STEPS = 4, 80
 
 
 def gelu_phase():
@@ -1808,16 +1883,16 @@ def gelu_phase():
     return rows
 
 
-def epilogue_bf16_inputs(shape, with_z, seed, c_axis):
-    """bf16 x (and z), the bf16 per-channel vectors and an f32 c0."""
+def epilogue_low_inputs(shape, with_z, seed, c_axis, dt):
+    """x (and z) and the per-channel vectors in ``dt``, an f32 c0."""
     x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, seed, c_axis)
-    bf = [t.bfloat16() if t is not None else None for t in (x, z, a, b,
-                                                           mean, cx)]
-    return bf, b.clone()
+    low = [t.to(dt) if t is not None else None for t in (x, z, a, b, mean,
+                                                          cx)]
+    return low, b.clone()
 
 
-def epilogue_bf16_bytes(shape, with_z, bwd, c):
-    """Bytes each bf16 call must move: data at 2 bytes an element; the
+def epilogue_low_bytes(shape, with_z, bwd, c):
+    """Bytes each 16-bit call must move: data at 2 bytes an element; the
     per-channel vectors at 2 (a, b; cg, mean, cx) and 4 (c0)."""
     n = int(np.prod(shape))
     if bwd:
@@ -1825,39 +1900,41 @@ def epilogue_bf16_bytes(shape, with_z, bwd, c):
     return 2 * n * (2 + with_z) + 2 * 2 * c
 
 
-def check_epilogue_bf16():
-    """Kernels 7 and 8 in bf16 against their plain versions: bit for bit
-    for "" and relu and the backward (with and without z / g), within a
-    bf16 ulp of the largest output for sigmoid, tanh and gelu, at a
-    ragged shape in both layouts and a channels-last (M, C) case; then at
-    each of the 49 shapes of the AMP ResNet-50 step, NCHW and NHWC, with
-    relu, z where the chain has one and g on the residual chains.
-    Returns ({kernel: max err}, the NHWC input sets for the timing)."""
+def check_epilogue_low(amp_dtype):
+    """Kernels 7 and 8 in ``amp_dtype`` against their plain versions: bit
+    for bit for "" and relu and the backward (with and without z / g),
+    within one unit (AMP) of the largest output for sigmoid, tanh and
+    gelu, at a ragged shape in both layouts and a channels-last (M, C)
+    case; then at each of the 49 shapes of the AMP ResNet-50 step, NCHW
+    and NHWC, with relu, z where the chain has one and g on the residual
+    chains.  Returns ({kernel: max err}, the input sets in the main
+    path's layout (from its plan) for the timing, that layout)."""
     import torch
 
     from paddle_tpu_torch.ops import bn_act as ba
 
-    errs = {"bn_act_apply_bf16": 0.0, "bn_act_bwd_bf16": 0.0}
+    dt, tag, unit = getattr(torch, amp_dtype), AMP[amp_dtype]["tag"], \
+        AMP[amp_dtype]["unit"]
+    fwd_name, bwd_name = f"bn_act_apply_{tag}", f"bn_act_bwd_{tag}"
+    errs = {fwd_name: 0.0, bwd_name: 0.0}
 
     def one(name, shape, c_axis, with_z, acts, seed):
-        (x, z, a, b, mean, cx), c0 = epilogue_bf16_inputs(shape, with_z,
-                                                          seed, c_axis)
+        (x, z, a, b, mean, cx), c0 = epilogue_low_inputs(shape, with_z, seed,
+                                                         c_axis, dt)
         for act in acts:
             for zz in ((None, z) if with_z else (None,)):
                 got = ba.bn_act_apply(x, a, b, zz, act, c_axis)
                 want = ba.bn_act_apply_reference(x, a, b, zz, act, c_axis)
                 torch.cuda.synchronize()
-                if got.dtype != torch.bfloat16:
-                    fail(f"bn_act_apply_bf16 {name}: output {got.dtype}")
-                err = ulps_off(got, want)
+                if got.dtype != dt:
+                    fail(f"{fwd_name} {name}: output {got.dtype}")
+                err = ulps_off(got, want, unit)
                 if ((act in ("", "relu") and not torch.equal(got, want))
                         or err > 1.0):
-                    fail(f"bn_act_apply_bf16 {name} act {act!r} z "
-                         f"{zz is not None}: {err:.2f} bf16 ulps off")
-                errs["bn_act_apply_bf16"] = max(errs["bn_act_apply_bf16"],
-                                                float((got.float()
-                                                       - want.float())
-                                                      .abs().max()))
+                    fail(f"{fwd_name} {name} act {act!r} z "
+                         f"{zz is not None}: {err:.2f} {tag} units off")
+                errs[fwd_name] = max(errs[fwd_name], float(
+                    (got.float() - want.float()).abs().max()))
         y = torch.relu(x)
         dy = z if z is not None else x
         for act in ("", "relu"):
@@ -1868,12 +1945,12 @@ def check_epilogue_bf16():
                                                   act, c_axis, want_g)
                 torch.cuda.synchronize()
                 err = bwd_err(dx, g, rdx, rg)
-                if (dx.dtype != torch.bfloat16 or not torch.equal(dx, rdx)
+                if (dx.dtype != dt or not torch.equal(dx, rdx)
                         or (want_g and not torch.equal(g, rg))):
-                    fail(f"bn_act_bwd_bf16 {name} act {act!r} want_g "
-                         f"{want_g}: not equal to the plain version "
-                         f"(max |err| {err:.3e})")
-                errs["bn_act_bwd_bf16"] = max(errs["bn_act_bwd_bf16"], err)
+                    fail(f"{bwd_name} {name} act {act!r} want_g {want_g}: "
+                         f"not equal to the plain version (max |err| "
+                         f"{err:.3e})")
+                errs[bwd_name] = max(errs[bwd_name], err)
         return x, z, a, b, mean, cx, c0
 
     for name, shape, c_axis, with_z in (
@@ -1881,58 +1958,62 @@ def check_epilogue_bf16():
             ("ragged-nhwc", (3, 13, 11, 37), 3, True),
             ("channels-last-mc", (4096, 64), 1, True)):
         one(name, shape, c_axis, with_z, tuple(ba.ACTS), 31)
-        print("epilogue_check_bf16 " + json.dumps(
+        print(f"epilogue_check_{tag} " + json.dumps(
             {"case": name, "shape": list(shape), "c_axis": c_axis,
              "acts": list(ba.ACTS), "bit_exact": ["", "relu", "bwd"]}),
             flush=True)
-    nhwc_sets = None
-    for layout, c_axis in (("NCHW", 1), ("NHWC", 3)):
-        shapes = resnet50_epilogue_shapes(amp=True, nhwc=layout == "NHWC")
+    path_nhwc, _ = path_layout(amp_dtype)
+    path_sets = None
+    for nhwc in (False, True):
+        layout, c_axis = ("NHWC", 3) if nhwc else ("NCHW", 1)
+        shapes = resnet50_epilogue_shapes(amp_dtype, nhwc)
         if len(shapes) != 49:
-            fail(f"the AMP ResNet-50 program ({layout}) has {len(shapes)} "
-                 f"fused conv chains, expected 49")
+            fail(f"the {tag} AMP ResNet-50 program ({layout}) has "
+                 f"{len(shapes)} fused conv chains, expected 49")
         sets = []
         for i, (shape, with_z) in enumerate(shapes):
             t = one(f"path {layout} {shape}", shape, c_axis, with_z,
                     ("relu",), 200 + i)
             sets.append((shape, with_z, t))
-        print("epilogue_check_bf16 " + json.dumps(
-            {"case": f"ResNet-50 AMP path, {layout}", "shapes": 49,
+        print(f"epilogue_check_{tag} " + json.dumps(
+            {"case": f"ResNet-50 {tag} AMP path, {layout}", "shapes": 49,
              "bit_exact": True}), flush=True)
-        if layout == "NHWC":
-            nhwc_sets = sets
+        if nhwc == path_nhwc:
+            path_sets = sets
         else:
             del sets
     torch.cuda.empty_cache()
-    return errs, nhwc_sets
+    return errs, path_sets, ("NHWC" if path_nhwc else "NCHW")
 
 
-def time_epilogue_bf16(sets):
-    """Both bf16 kernels timed over the 49 NHWC calls of one AMP ResNet-50
-    step (the main path's layout), every call on its own tensors, by
+def time_epilogue_low(amp_dtype, sets, layout):
+    """Both 16-bit kernels timed over the 49 calls of one AMP ResNet-50
+    step in the main path's layout, every call on its own tensors, by
     CUDA-graph replay, against their plain versions and the byte bound.
     Returns {kernel: row}."""
     import torch
 
     from paddle_tpu_torch.ops import bn_act as ba
 
+    tag = AMP[amp_dtype]["tag"]
+    c_axis = 3 if layout == "NHWC" else 1
     fwd = [(x, a, b, z) for _, _, (x, z, a, b, mean, cx, c0) in sets]
     bwd = [(torch.relu(x), torch.randn_like(x), x, a, mean, cx, c0,
             z is not None) for _, _, (x, z, a, b, mean, cx, c0) in sets]
     rows = {}
     for name, args, kern, plain, is_bwd in (
-            ("bn_act_apply_bf16", fwd,
-             lambda x, a, b, z: ba.bn_act_apply(x, a, b, z, "relu", 3),
-             lambda x, a, b, z: ba.bn_act_apply_reference(x, a, b, z,
-                                                          "relu", 3), False),
-            ("bn_act_bwd_bf16", bwd,
+            (f"bn_act_apply_{tag}", fwd,
+             lambda x, a, b, z: ba.bn_act_apply(x, a, b, z, "relu", c_axis),
+             lambda x, a, b, z: ba.bn_act_apply_reference(
+                 x, a, b, z, "relu", c_axis), False),
+            (f"bn_act_bwd_{tag}", bwd,
              lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_apply(
-                 y, dy, x, cg, m, cx, c0, "relu", 3, wg),
+                 y, dy, x, cg, m, cx, c0, "relu", c_axis, wg),
              lambda y, dy, x, cg, m, cx, c0, wg: ba.bn_act_bwd_reference(
-                 y, dy, x, cg, m, cx, c0, "relu", 3, wg), True)):
-        nbytes = sum(epilogue_bf16_bytes(shape, z, is_bwd, shape[3])
+                 y, dy, x, cg, m, cx, c0, "relu", c_axis, wg), True)):
+        nbytes = sum(epilogue_low_bytes(shape, z, is_bwd, shape[c_axis])
                      for shape, z, _ in sets)
-        rows[name] = {"calls": len(sets), "layout": "NHWC",
+        rows[name] = {"calls": len(sets), "layout": layout,
                       "ms": time_ms(kern, args, per_graph=49, replays=5) * 49,
                       "plain_ms": time_ms(plain, args, per_graph=49,
                                           replays=2) * 49,
@@ -1944,58 +2025,68 @@ def time_epilogue_bf16(sets):
     return rows
 
 
-def matmul_bf16_bound(m, k, n):
-    """(bound_ms, bytes, flops): bf16 x and w, f32 bias and output, read
-    or written once; 2MNK operations at the bf16 tensor-core peak."""
+def matmul_low_bound(m, k, n):
+    """(bound_ms, bytes, flops): 16-bit x and w, f32 bias and output, read
+    or written once; 2MNK operations at the bf16 / fp16 tensor-core peak
+    (the same 989 TFLOP/s)."""
     nbytes = 2 * (m * k + k * n) + 4 * (n + m * n)
     flops = 2 * m * n * k
     return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
             nbytes, flops)
 
 
-def matmul_bf16_phase():
-    """The bf16 kernel 9 against its plain version (the AMP program's
-    unfused chain: the product rounded to bf16, the f32 bias added, the
-    act in f32) at every shape and act: the products are summed in
-    another order, so a product may round the other way: every output
-    within one bf16 ulp of its product times the act's largest slope
-    (MATMUL_BF16_SLOPE x 2^-7 |x @ w|), plus f32 noise, and the share of
-    outputs not bit-equal reported.  A bf16 bias (bf16 output) once.
-    Then times against the bound, the plain version and ``torch.addmm``
-    in bf16 plus the act; the four calls of one AMP LeNet step together.
-    Returns (max abs err, the LeNet step's row, the BERT FFN row)."""
+def matmul_low_phase(amp_dtype):
+    """Kernel 9 in ``amp_dtype`` against its plain version (the AMP
+    program's unfused chain: the product rounded to the 16-bit type, the
+    f32 bias added, the act in f32) at every shape and act: the products
+    are summed in another order, so a product may round the other way:
+    every output within one rounding step of its product times the act's
+    largest slope (MATMUL_BF16_SLOPE x step x |x @ w|), plus f32 noise,
+    and the share of outputs not bit-equal reported.  A 16-bit bias (a
+    16-bit output) once.  Then times against the bound, the plain version
+    and ``torch.addmm`` in that type plus the act; the four calls of one
+    AMP LeNet step together.  Returns (max abs err, the LeNet step's row,
+    the BERT FFN row)."""
     import torch
 
     from paddle_tpu_torch.ops import matmul_epilogue as me
     from paddle_tpu_torch.ops.bn_act import ACTS, apply_act
 
-    def bf16_set(m, k, n, seed):
+    dt, tag = getattr(torch, amp_dtype), AMP[amp_dtype]["tag"]
+    unit, step_ulp = AMP[amp_dtype]["unit"], AMP[amp_dtype]["step"]
+    kname = f"matmul_bias_act_{tag}"
+
+    def low_set(m, k, n, seed):
         x, w, b = matmul_inputs(m, k, n, seed)
-        return x.bfloat16(), w.bfloat16(), b, b.bfloat16()
+        return x.to(dt), w.to(dt), b, b.to(dt)
 
     err = 0.0
     sets, rows = {}, {}
     for name, m, k, n, acts in MATMUL_SHAPES:
-        nbytes = matmul_bf16_bound(m, k, n)[1]
+        nbytes = matmul_low_bound(m, k, n)[1]
         count = max(2, min(200, -(-COLD_BYTES // nbytes)))
-        sets[name] = [bf16_set(m, k, n, 300 + i) for i in range(count)]
+        sets[name] = [low_set(m, k, n, 300 + i) for i in range(count)]
         x, w, b, b16 = sets[name][0]
         row = {"shape": name, "M": m, "K": k, "N": n}
         prod = (x.float() @ w.float()).abs()     # TF32 off: full f32
+        prod_tol = step_ulp * prod
+        if AMP[amp_dtype]["acc"]:
+            prod_tol += AMP[amp_dtype]["acc"] * (x.float().abs()
+                                                 @ w.float().abs())
         for act in acts or ACTS:
             got = me.matmul_bias_act(x, w, b, act)
             want = me.matmul_bias_act_reference(x, w, b, act)
             torch.cuda.synchronize()
             if got.dtype != torch.float32:
-                fail(f"matmul_bias_act_bf16 {name}: output {got.dtype}")
-            off = ulps_off(got, want)
-            bound = (MATMUL_BF16_SLOPE * 2.0 ** -7 * prod
+                fail(f"{kname} {name}: output {got.dtype}")
+            off = ulps_off(got, want, unit)
+            bound = (MATMUL_BF16_SLOPE * prod_tol
                      + 1e-6 * want.abs() + 1e-7)
             if not (torch.isfinite(got).all()
                     and bool(((got - want).abs() <= bound).all())):
-                fail(f"matmul_bias_act_bf16 {name} act {act!r}: an output "
-                     f"beyond one bf16 ulp of its product "
-                     f"({off:.2f} ulps of the largest output)")
+                fail(f"{kname} {name} act {act!r}: an output beyond one "
+                     f"{tag} rounding of its product ({off:.2f} units of "
+                     f"the largest output)")
             row[f"ulps {act or 'none'}"] = off
             row[f"unequal {act or 'none'}"] = float(
                 (got != want).float().mean())
@@ -2004,17 +2095,17 @@ def matmul_bf16_phase():
         got = me.matmul_bias_act(x, w, b16, "relu")
         want = me.matmul_bias_act_reference(x, w, b16, "relu")
         torch.cuda.synchronize()
-        # one ulp of the product, and the bf16 sum's own rounding
-        bound = 2.0 ** -7 * prod + 2.0 ** -8 * want.float().abs()
-        if got.dtype != torch.bfloat16 or not bool(
+        # one rounding of the product, and the 16-bit sum's own rounding
+        bound = prod_tol + AMP[amp_dtype]["sum"] * want.float().abs()
+        if got.dtype != dt or not bool(
                 ((got.float() - want.float()).abs() <= bound).all()):
-            fail(f"matmul_bias_act_bf16 {name} with a bf16 bias: "
-                 f"{got.dtype}, {ulps_off(got, want):.2f} ulps off")
-        del prod
+            fail(f"{kname} {name} with a {tag} bias: {got.dtype}, "
+                 f"{ulps_off(got, want, unit):.2f} units off")
+        del prod, prod_tol
         act = (acts or ("relu",))[0]
         per_graph = max(len(sets[name]), 4)
         replays = 3 if m * n * k > 1e9 else 10
-        bound_ms, nbytes, flops = matmul_bf16_bound(m, k, n)
+        bound_ms, nbytes, flops = matmul_low_bound(m, k, n)
         row.update({
             "act": act, "input_sets": len(sets[name]),
             "ms": time_ms(lambda x, w, b, b16: me.matmul_bias_act(
@@ -2030,7 +2121,7 @@ def matmul_bf16_phase():
                 sets[name], per_graph, replays)})
         row["tflops"] = flops / row["ms"] / 1e9
         rows[name] = row
-        print("matmul_case_bf16 " + json.dumps(row), flush=True)
+        print(f"matmul_case_{tag} " + json.dumps(row), flush=True)
         if m * n * k > 1e9:
             del sets[name]
             torch.cuda.empty_cache()
@@ -2038,8 +2129,8 @@ def matmul_bf16_phase():
             for i in range(64) for name, act in LENET_STEP_CALLS]
     n_step = len(LENET_STEP_CALLS)
     step = {"calls_per_step": n_step,
-            "bound_ms": sum(matmul_bf16_bound(rows[nm]["M"], rows[nm]["K"],
-                                              rows[nm]["N"])[0]
+            "bound_ms": sum(matmul_low_bound(rows[nm]["M"], rows[nm]["K"],
+                                             rows[nm]["N"])[0]
                             for nm, _ in LENET_STEP_CALLS)}
     for key, fn in (
             ("ms", lambda x, w, b, b16, act: me.matmul_bias_act(x, w, b,
@@ -2053,26 +2144,56 @@ def matmul_bf16_phase():
     step["bound_by"] = "bytes" if all(
         rows[nm]["bound_by"] == "bytes" for nm, _ in LENET_STEP_CALLS) \
         else "operations"
-    print("matmul_lenet_step_bf16 " + json.dumps(step), flush=True)
+    print(f"matmul_lenet_step_{tag} " + json.dumps(step), flush=True)
     del sets
     torch.cuda.empty_cache()
     return err, step, rows["bert-ffn-in"]
 
 
-def resnet_amp_phase(torch):
-    """ResNet-50 under ``decorate(MomentumOptimizer)``, the example's
-    default, NHWC by ``FLAGS_cuda_nhwc=auto``: 2 warm-up and 10 timed
-    steps; every loss finite and the last below the first, each bf16
-    epilogue kernel launched 49 times per step and no f32 one, the
-    convolutions' Input channels-last.  Returns the bf16 epilogue
-    kernels' launches."""
+def epilogue_kernels():
+    """{name: KernelFunction} of kernels 7 and 8 in every dtype."""
     from paddle_tpu_torch.ops import bn_act as ba
-    from paddle_tpu_torch.tools.train_resnet import train
 
-    kernels = {"bn_act_apply_bf16": ba.BN_ACT_APPLY_BF16,
-               "bn_act_bwd_bf16": ba.BN_ACT_BWD_BF16,
-               "bn_act_apply_f32": ba.BN_ACT_APPLY,
-               "bn_act_bwd_f32": ba.BN_ACT_BWD}
+    return {"bn_act_apply_f32": ba.BN_ACT_APPLY,
+            "bn_act_bwd_f32": ba.BN_ACT_BWD,
+            "bn_act_apply_bf16": ba.BN_ACT_APPLY_BF16,
+            "bn_act_bwd_bf16": ba.BN_ACT_BWD_BF16,
+            "bn_act_apply_fp16": ba.BN_ACT_APPLY_FP16,
+            "bn_act_bwd_fp16": ba.BN_ACT_BWD_FP16}
+
+
+def more_clean_steps(run, max_steps):
+    """Run a dynamic-loss-scaling :func:`train` result on until
+    FP16_CLEAN_STEPS of its steps found no Inf, or ``max_steps`` steps in
+    all; its losses, found-Inf flags and scales grow in place."""
+    while (sum(not f for f in run["found_inf"]) < FP16_CLEAN_STEPS
+           and len(run["losses"]) < max_steps):
+        out = run["executor"].run(run["program"], feed=run["feed"],
+                                  fetch_list=run["fetch"],
+                                  scope=run["scope"])
+        run["losses"].append(float(out[0]))
+        run["acc1"].append(float(out[1]))
+        run["loss_scaling"].append(float(out[2][0]))
+        run["found_inf"].append(bool(out[3][0]))
+        print(f"step {len(run['losses']) - 1}: loss {run['losses'][-1]:.4f}"
+              f" scale {run['loss_scaling'][-1]:g} found_inf "
+              f"{run['found_inf'][-1]}", flush=True)
+
+
+def resnet_amp_phase(torch, amp_dtype):
+    """ResNet-50 under ``decorate(MomentumOptimizer)`` in ``amp_dtype``,
+    NHWC by ``FLAGS_cuda_nhwc=auto``: 2 warm-up and 10 timed steps; every
+    loss finite and the last below the first (fp16: over the steps that
+    found no Inf, running on past the twelfth until FP16_CLEAN_STEPS of
+    them are clean), each epilogue kernel of the dtype launched 49 times
+    per step and no other one, the convolutions' Input channels-last.
+    fp16 also prints the found-Inf steps, the scale after each step, and
+    a profile of 2 more steps (idle share, kernels and ops per step).
+    Returns the dtype's epilogue kernels' launches."""
+    from paddle_tpu_torch.tools.train_resnet import profile_steps, train
+
+    tag = AMP[amp_dtype]["tag"]
+    kernels = epilogue_kernels()
     warmup, steps, batch = 2, 10, 128
     gc.collect()   # the step is host-bound: no collection of earlier phases
     torch.cuda.empty_cache()
@@ -2080,20 +2201,28 @@ def resnet_amp_phase(torch):
     reset_counts(kernels)
     run = train(depth=50, batch=batch, image=224, classes=1000, steps=steps,
                 lr=RESNET_LR, device="cuda", warmup=warmup, log_every=1,
-                amp=True)
+                amp=True, amp_dtype=amp_dtype)
+    scaled = "found_inf" in run
+    if scaled:
+        more_clean_steps(run, FP16_MAX_STEPS)
     torch.cuda.synchronize()
     launches = {n: kf.launches for n, kf in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = run["losses"]
+    n_steps = len(losses)
+    clean = ([i for i, f in enumerate(run["found_inf"]) if not f]
+             if scaled else list(range(n_steps)))
     if not np.all(np.isfinite(losses)):
-        fail(f"ResNet-50 AMP losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"ResNet-50 AMP loss did not fall: {losses}")
-    n = 49 * (warmup + steps)
-    want = {"bn_act_apply_bf16": n, "bn_act_bwd_bf16": n,
-            "bn_act_apply_f32": 0, "bn_act_bwd_f32": 0}
+        fail(f"ResNet-50 AMP {tag} losses not finite: {losses}")
+    if len(clean) < (FP16_CLEAN_STEPS if scaled else 2):
+        fail(f"ResNet-50 AMP {tag}: {len(clean)} clean steps of {n_steps}")
+    if not losses[clean[-1]] < losses[clean[0]]:
+        fail(f"ResNet-50 AMP {tag} loss did not fall over the clean steps "
+             f"{clean}: {losses}")
+    want = {k: (49 * n_steps if k.endswith(tag) else 0) for k in kernels}
     if launches != want:
-        fail(f"ResNet-50 AMP epilogue launches {launches}: expected {want}")
+        fail(f"ResNet-50 AMP {tag} epilogue launches {launches}: expected "
+             f"{want}")
     plan = next(p for key, p in run["executor"]._cache.items()
                 if key[0] == run["program"]._uid)
     types = [o.type for o in plan.ops]
@@ -2101,25 +2230,35 @@ def resnet_amp_phase(torch):
     if (len(fused) != 49 or any(o.attrs.get("data_format") != "NHWC"
                                 for o in fused)
             or "cast" not in types or "transpose2" not in types):
-        fail(f"ResNet-50 AMP plan: {len(fused)} fused convs, formats "
+        fail(f"ResNet-50 AMP {tag} plan: {len(fused)} fused convs, formats "
              f"{sorted({o.attrs.get('data_format') for o in fused})}, "
              f"casts {types.count('cast')}, transposes "
              f"{types.count('transpose2')}")
-    print("resnet_training_amp " + json.dumps({
-        "model": "ResNet-50 AMP bf16 (decorate)", "batch": batch,
-        "image": 224, "classes": 1000, "lr": RESNET_LR, "momentum": 0.9,
-        "layout": "NHWC", "warmup_steps": warmup, "timed_steps": steps,
-        "losses": losses, "acc1": run["acc1"],
-        "ms_per_step": run["ms_per_step"],
+    report = {
+        "model": f"ResNet-50 AMP {tag} (decorate"
+                 f"{', use_fp16=True' if scaled else ''})",
+        "batch": batch, "image": 224, "classes": 1000, "lr": RESNET_LR,
+        "momentum": 0.9, "layout": "NHWC", "warmup_steps": warmup,
+        "timed_steps": steps, "steps": n_steps, "losses": losses,
+        "acc1": run["acc1"], "ms_per_step": run["ms_per_step"],
         "images_per_s": run["images_per_s"],
         "max_memory_allocated": peak,
-        "launches_per_step": {k: v / (warmup + steps)
-                              for k, v in launches.items()},
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
         "casts": types.count("cast"), "transposes": types.count("transpose2"),
-        "ops": len(types)}), flush=True)
+        "ops": len(types)}
+    if scaled:
+        report.update(
+            found_inf_steps=[i for i, f in enumerate(run["found_inf"]) if f],
+            clean_steps=clean, loss_scaling=run["loss_scaling"])
+        prof = profile_steps(run, 2)
+        report["profile"] = {k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "kernels_per_step")}
+        report["profile"]["ops_per_step"] = len(types)
+    print(f"resnet_training_amp_{tag} " + json.dumps(report), flush=True)
     del run
     torch.cuda.empty_cache()
-    return {k: v for k, v in launches.items() if k.endswith("_bf16")}
+    return {k: v for k, v in launches.items() if k.endswith(tag)}
 
 
 def rel_errs(got, want):
@@ -2128,168 +2267,226 @@ def rel_errs(got, want):
             / max(float(np.abs(w).max()), 1e-12) for n, w in want.items()}
 
 
-def resnet_amp_card_vs_cpu(torch):
+def resnet_amp_card_vs_cpu(torch, amp_dtype, init_loss_scaling=None):
     """The AMP ResNet-50 step at the oracle size (batch 4, 32x32, 100
-    classes) from one startup scope, 3 steps on the card (NHWC, kernels)
-    and on the CPU (NCHW, plain versions): step 1 within
-    AMP_RESNET_STEP1_RTOL, every step finite, and the state after step 1
-    (parameters, velocities, BN statistics) within the envelope of one
-    more CPU step on images carrying bf16-sized noise."""
+    classes) in ``amp_dtype`` from one startup scope, 3 steps on the card
+    (NHWC, kernels) and on the CPU (NCHW, plain versions): every step
+    finite; step 1 within AMP_RESNET_STEP1_RTOL (bf16) or, under loss
+    scaling (fp16), within twice the step-1 change of two CPU twins on
+    images carrying half a rounding step of noise; under loss scaling
+    the found-Inf flags and the scale after each step equal; and, when
+    step 1 found no Inf, the state after step 1 (parameters, velocities,
+    BN statistics) within the envelope of the first twin.  Returns
+    whether step 1 was clean."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
                                                   numpy_state)
-    from paddle_tpu_torch.ops import bn_act as ba
-    from paddle_tpu_torch.tools.train_resnet import build_program, make_batch
+    from paddle_tpu_torch.tools.train_resnet import (build_program,
+                                                     loss_scaling_state,
+                                                     make_batch)
 
-    main, startup, loss, _ = build_program(50, 32, 100, 0.01, amp=True)
+    tag = AMP[amp_dtype]["tag"]
+    kf = epilogue_kernels()[f"bn_act_apply_{tag}"]
+    main, startup, loss, _ = build_program(
+        50, 32, 100, 0.01, amp=True, amp_dtype=amp_dtype,
+        init_loss_scaling=init_loss_scaling)
+    scaling = list(loss_scaling_state(main) or ())
     start = Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
     names = [n for n, _ in start.items()]
     state = numpy_state(start, names)
     img, label = make_batch(4, 32, 100)
-    losses, after1 = {}, {}
-    launched = ba.BN_ACT_APPLY_BF16.launches
+    losses, history, after1 = {}, {}, {}
+    launched = kf.launches
     for dev in ("cpu", "cuda"):
         scope = Scope()
         load_numpy_state(scope, state, dev)
         exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
                              else fluid.CUDAPlace(0))
-        losses[dev] = []
+        losses[dev], history[dev] = [], []
         for step in range(3):
-            losses[dev].append(float(exe.run(
-                main, feed={"img": img, "label": label}, fetch_list=[loss],
-                scope=scope)[0]))
+            out = exe.run(main, feed={"img": img, "label": label},
+                          fetch_list=[loss] + scaling, scope=scope)
+            losses[dev].append(float(out[0]))
+            if scaling:
+                history[dev].append([float(out[1][0]), bool(out[2][0])])
             if step == 0:
                 after1[dev] = numpy_state(scope, names)
-    if ba.BN_ACT_APPLY_BF16.launches != launched + 49 * 3:
-        fail("ResNet AMP card vs CPU: the card's run did not launch the "
-             "bf16 epilogue kernels")
-    scope = Scope()
-    load_numpy_state(scope, state, "cpu")
-    noisy = img * (1 + AMP_RESNET_NOISE * np.random.RandomState(1).randn(
-        *img.shape))
-    twin = float(fluid.Executor(fluid.CPUPlace()).run(
-        main, feed={"img": noisy.astype(np.float32), "label": label},
-        fetch_list=[loss], scope=scope)[0])
-    errs = rel_errs(after1["cuda"], after1["cpu"])
-    env = rel_errs(numpy_state(scope, names), after1["cpu"])
+    if kf.launches != launched + 49 * 3:
+        fail(f"ResNet AMP {tag} card vs CPU: the card's run did not launch "
+             f"the {tag} epilogue kernels")
+    clean1 = not (scaling and history["cpu"][0][1])
     cpu1 = losses["cpu"][0]
-    envelope = abs(twin - cpu1) / abs(cpu1)
-    rtol = AMP_RESNET_STEP1_RTOL
+
+    def twin(seed):
+        """(step-1 loss change, scope) of the CPU on noisy images."""
+        scope = Scope()
+        load_numpy_state(scope, state, "cpu")
+        noisy = img * (1 + AMP_RESNET_NOISE[amp_dtype]
+                       * np.random.RandomState(seed).randn(*img.shape))
+        got = float(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed={"img": noisy.astype(np.float32), "label": label},
+            fetch_list=[loss], scope=scope)[0])
+        return abs(got - cpu1) / abs(cpu1), scope
+
+    twins = [twin(seed) for seed in ((1, 2) if scaling else
+                                     (1,) if clean1 else ())]
+    rtol = (2 * max(t for t, _ in twins) if scaling
+            else AMP_RESNET_STEP1_RTOL)
     rel = abs(cpu1 - losses["cuda"][0]) / abs(cpu1)
+    report = {**losses, "init_loss_scaling": init_loss_scaling,
+              "history": history, "step1_rel_diff": rel, "rtol": rtol,
+              "cpu_noise_step1_rel": [t for t, _ in twins]}
     groups = {}
-    for gname, pick in (("velocities", lambda n: "velocity" in n),
-                        ("other_state", lambda n: "velocity" not in n)):
-        got = [e for n, e in errs.items() if pick(n)]
-        ref = [e for n, e in env.items() if pick(n)]
-        groups[gname] = {"tensors": len(got), "worst": max(got),
-                         "median": float(np.median(got)),
-                         "twin_worst": max(ref),
-                         "twin_median": float(np.median(ref))}
-    print("resnet_amp_card_vs_cpu " + json.dumps({
-        **losses, "step1_rel_diff": rel, "cpu_noise_step1_rel": envelope,
-        "rtol": rtol, "after_step1": groups}), flush=True)
+    if clean1:
+        scope = twins[0][1]
+        keep = [n for n in names if "loss_scaling" not in n]
+        errs = rel_errs({n: after1["cuda"][n] for n in keep},
+                        {n: after1["cpu"][n] for n in keep})
+        env = rel_errs({n: numpy_state(scope, keep)[n] for n in keep},
+                       {n: after1["cpu"][n] for n in keep})
+        for gname, pick in (("velocities", lambda n: "velocity" in n),
+                            ("other_state", lambda n: "velocity" not in n)):
+            got = [e for n, e in errs.items() if pick(n)]
+            ref = [e for n, e in env.items() if pick(n)]
+            groups[gname] = {"tensors": len(got), "worst": max(got),
+                             "median": float(np.median(got)),
+                             "twin_worst": max(ref),
+                             "twin_median": float(np.median(ref))}
+        report["after_step1"] = groups
+    print(f"resnet_amp_card_vs_cpu_{tag} " + json.dumps(report), flush=True)
     if not np.all(np.isfinite(losses["cuda"])):
-        fail(f"ResNet AMP card vs CPU: card losses not finite {losses}")
+        fail(f"ResNet AMP {tag} card vs CPU: card losses not finite "
+             f"{losses}")
+    if history["cuda"] != history["cpu"]:
+        fail(f"ResNet AMP {tag} card vs CPU: found-Inf / scale history "
+             f"{history['cuda']} on the card, {history['cpu']} on the CPU")
     if not rel <= rtol:
-        fail(f"ResNet AMP card vs CPU step-1 losses differ by {rel:.3e} > "
-             f"{rtol:.3e}")
+        fail(f"ResNet AMP {tag} card vs CPU step-1 losses differ by "
+             f"{rel:.3e} > {rtol:.3e}")
     for gname, g in groups.items():
         if not (g["worst"] <= 2 * g["twin_worst"]
                 and g["median"] <= 2 * g["twin_median"]):
-            fail(f"ResNet AMP card vs CPU after step 1, {gname}: {g} "
+            fail(f"ResNet AMP {tag} card vs CPU after step 1, {gname}: {g} "
                  f"outside twice the noisy twin's envelope")
+    return clean1
 
 
-def book_amp_phase(torch, model, chains, act):
-    """One book model under ``decorate`` at its tool defaults, 5 warm-up
-    and 30 timed steps: losses finite and falling, the chains fused, the
-    bf16 kernel 9 launched 2 x chains per step and the f32 one never.
-    Returns the bf16 kernel's launches."""
+def book_amp_phase(torch, model, chains, act, amp_dtype):
+    """One book model under ``decorate`` in ``amp_dtype`` at its tool
+    defaults, 5 warm-up and 30 timed steps: losses finite and falling,
+    the chains fused, kernel 9 of the dtype launched 2 x chains per step
+    and no other kernel 9; fp16: no step finds an Inf.  Returns the
+    dtype's kernel 9 launches."""
     from paddle_tpu_torch.ops.matmul_epilogue import (MATMUL_BIAS_ACT_BF16,
-                                                      MATMUL_BIAS_ACT_F32)
+                                                      MATMUL_BIAS_ACT_F32,
+                                                      MATMUL_BIAS_ACT_FP16)
     from paddle_tpu_torch.tools.train_book import DEFAULTS, train
 
+    tag = AMP[amp_dtype]["tag"]
+    kernels = {"f32": MATMUL_BIAS_ACT_F32, "bf16": MATMUL_BIAS_ACT_BF16,
+               "fp16": MATMUL_BIAS_ACT_FP16}
     warmup, steps = 5, 30
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    MATMUL_BIAS_ACT_BF16.launches = MATMUL_BIAS_ACT_F32.launches = 0
+    reset_counts(kernels)
     run = train(model, DEFAULTS[model], steps=steps, device="cuda",
-                warmup=warmup, log_every=5, amp=True)
+                warmup=warmup, log_every=5, amp=True, amp_dtype=amp_dtype)
     torch.cuda.synchronize()
-    launches = MATMUL_BIAS_ACT_BF16.launches
-    f32 = MATMUL_BIAS_ACT_F32.launches
+    launches = {k: kf.launches for k, kf in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = run["losses"]
     if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"{model} AMP losses {losses} not finite or not falling")
+        fail(f"{model} AMP {tag} losses {losses} not finite or not falling")
+    if any(run.get("found_inf", ())):
+        fail(f"{model} AMP {tag}: steps found an Inf: {run['found_inf']}")
     plan = next(p for key, p in run["executor"]._cache.items()
                 if key[0] == run["program"]._uid)
     fused = [o for o in plan.ops if o.type == "fused_matmul_bias_act"]
     grads = [o for o in plan.ops if o.type == "fused_matmul_bias_act_grad"]
     if (len(fused), len(grads)) != (chains, chains) or any(
             o.attrs["act_type"] != act for o in fused):
-        fail(f"{model} AMP: {len(fused)} fused_matmul_bias_act and "
+        fail(f"{model} AMP {tag}: {len(fused)} fused_matmul_bias_act and "
              f"{len(grads)} grads, expected {chains} each with act {act!r}")
     n = 2 * chains * (warmup + steps)
-    if launches != n or f32:
-        fail(f"{model} AMP: matmul_bias_act_bf16 launched {launches} times "
-             f"(expected {n}), the f32 kernel {f32} times (expected 0)")
-    print(f"{model}_training_amp " + json.dumps({
-        "model": f"{model} AMP bf16 (decorate)", **DEFAULTS[model],
+    want = {k: (n if k == tag else 0) for k in kernels}
+    if launches != want:
+        fail(f"{model} AMP {tag}: kernel 9 launches {launches}, expected "
+             f"{want}")
+    report = {
+        "model": f"{model} AMP {tag} (decorate)", **DEFAULTS[model],
         "warmup_steps": warmup, "timed_steps": steps, "losses": losses,
         "acc": run["acc"], "ms_per_step": run["ms_per_step"],
         "examples_per_s": run["examples_per_s"],
         "max_memory_allocated": peak,
-        "launches_per_step": launches / (warmup + steps),
-        "fused_chains": len(fused)}), flush=True)
+        "launches_per_step": launches[tag] / (warmup + steps),
+        "fused_chains": len(fused)}
+    if "loss_scaling" in run:
+        report["loss_scaling_last"] = run["loss_scaling"][-1]
+    print(f"{model}_training_amp_{tag} " + json.dumps(report), flush=True)
     del run
     torch.cuda.empty_cache()
-    return launches
+    return launches[tag]
 
 
-def lenet_amp_card_vs_cpu(torch):
-    """``bench.py:_lenet_losses``'s run under ``decorate`` on the card
-    and on the CPU from one startup scope, 12 steps."""
+def lenet_amp_card_vs_cpu(torch, amp_dtype):
+    """``bench.py:_lenet_losses``'s run under ``decorate`` in
+    ``amp_dtype`` on the card and on the CPU from one startup scope, 12
+    steps; fp16: the found-Inf flags and the scale equal at every
+    step."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
                                                   numpy_state)
-    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT_BF16
+    from paddle_tpu_torch.ops import matmul_epilogue as me
     from paddle_tpu_torch.tools.train_book import build_program
+    from paddle_tpu_torch.tools.train_resnet import loss_scaling_state
 
+    tag = AMP[amp_dtype]["tag"]
+    kf = getattr(me, f"MATMUL_BIAS_ACT_{tag.upper()}")
     steps = 12
     main, startup, fetch = build_program("lenet", {"batch": 64, "lr": 0.05},
-                                         seed=5, amp=True)
+                                         seed=5, amp=True,
+                                         amp_dtype=amp_dtype)
+    scaling = list(loss_scaling_state(main) or ())
     start = Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
     state = numpy_state(start, [n for n, _ in start.items()])
     rng = np.random.RandomState(7)
     feed = {"img": rng.rand(64, 1, 28, 28).astype(np.float32),
             "label": rng.randint(0, 10, (64, 1)).astype(np.int64)}
-    losses = {}
-    launched = MATMUL_BIAS_ACT_BF16.launches
+    losses, history = {}, {}
+    launched = kf.launches
     for dev in ("cpu", "cuda"):
         scope = Scope()
         load_numpy_state(scope, state, dev)
         exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
                              else fluid.CUDAPlace(0))
-        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=fetch[:1],
-                                     scope=scope)[0]) for _ in range(steps)]
-    if MATMUL_BIAS_ACT_BF16.launches != launched + 4 * steps:
-        fail("LeNet AMP card vs CPU: the card's run did not launch the "
-             "bf16 kernel 9 4 times per step")
+        outs = [exe.run(main, feed=feed, fetch_list=fetch[:1] + scaling,
+                        scope=scope) for _ in range(steps)]
+        losses[dev] = [float(o[0]) for o in outs]
+        history[dev] = [[float(o[1][0]), bool(o[2][0])] for o in outs
+                        if scaling]
+    if kf.launches != launched + 4 * steps:
+        fail(f"LeNet AMP {tag} card vs CPU: the card's run did not launch "
+             f"the {tag} kernel 9 4 times per step")
     cpu, card = np.asarray(losses["cpu"]), np.asarray(losses["cuda"])
     rel1 = abs(card[0] - cpu[0]) / abs(cpu[0])
     worst = float(np.abs(card - cpu).max())
-    print("lenet_amp_card_vs_cpu " + json.dumps({
-        **losses, "step1_rel_diff": rel1, "step1_rtol": AMP_LENET_STEP1_RTOL,
-        "max_abs_diff": worst, "atol": AMP_LENET_LOSS_ATOL}), flush=True)
+    rtol, atol = AMP_LENET_STEP1_RTOL[amp_dtype], AMP_LENET_LOSS_ATOL[
+        amp_dtype]
+    print(f"lenet_amp_card_vs_cpu_{tag} " + json.dumps({
+        **losses, "history": history, "step1_rel_diff": rel1,
+        "step1_rtol": rtol, "max_abs_diff": worst, "atol": atol}),
+        flush=True)
     if not np.all(np.isfinite(card)):
-        fail(f"LeNet AMP card vs CPU: card losses not finite {losses}")
-    if not (rel1 <= AMP_LENET_STEP1_RTOL and worst <= AMP_LENET_LOSS_ATOL):
-        fail(f"LeNet AMP card vs CPU: step 1 {rel1:.3e} relative (tolerance "
-             f"{AMP_LENET_STEP1_RTOL}), worst step {worst:.3e} absolute "
-             f"(tolerance {AMP_LENET_LOSS_ATOL})")
+        fail(f"LeNet AMP {tag} card vs CPU: card losses not finite {losses}")
+    if history["cuda"] != history["cpu"]:
+        fail(f"LeNet AMP {tag} card vs CPU: found-Inf / scale history "
+             f"differs: {history}")
+    if not (rel1 <= rtol and worst <= atol):
+        fail(f"LeNet AMP {tag} card vs CPU: step 1 {rel1:.3e} relative "
+             f"(tolerance {rtol}), worst step {worst:.3e} absolute "
+             f"(tolerance {atol})")
 
 
 # ==========================================================================
@@ -2666,8 +2863,10 @@ def main():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False   # the reference is full f32
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 GEMMs accumulate in f32 throughout, as the JAX package's
+    # bf16 and fp16 GEMMs accumulate in f32 throughout, as the JAX
+    # package's
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     torch.manual_seed(0)
 
     phase("device")
@@ -2688,13 +2887,13 @@ def main():
     from paddle_tpu_torch.ops.bn_act import BN_ACT
     from paddle_tpu_torch.ops.flash_attention import FLASH
     from paddle_tpu_torch.ops.gelu import GELU
-    from paddle_tpu_torch.ops.matmul_epilogue import (
-        MATMUL_BIAS_ACT, MATMUL_BIAS_ACT_BF16_LIB)
+    from paddle_tpu_torch.ops.matmul_epilogue import (MATMUL_BIAS_ACT,
+                                                      MATMUL_BIAS_ACT_TC)
     from paddle_tpu_torch.ops.paged_attention import PAGED_ATTENTION
 
     phase("build")
     kernels = [PAGED_ATTENTION, FLASH, BN_ACT, MATMUL_BIAS_ACT,
-               MATMUL_BIAS_ACT_BF16_LIB, GELU]
+               MATMUL_BIAS_ACT_TC, GELU]
     kernel_build.build_all(kernels)
     for k in kernels:
         print(f"built {k.source} in {k.build_seconds:.2f} s", flush=True)
@@ -2764,26 +2963,27 @@ def main():
     lenet_card_vs_cpu(torch)
 
     phase("f. conv epilogue bf16: kernels vs plain versions, times")
-    epi16_errs, epi16_sets = check_epilogue_bf16()
-    epi16_times = time_epilogue_bf16(epi16_sets)
+    epi16_errs, epi16_sets, layout = check_epilogue_low("bfloat16")
+    epi16_times = time_epilogue_low("bfloat16", epi16_sets, layout)
     del epi16_sets
     torch.cuda.empty_cache()
 
     phase("g. training: ResNet-50 static AMP (bf16, NHWC), batch 128")
-    epi16_launches = resnet_amp_phase(torch)
+    epi16_launches = resnet_amp_phase(torch, "bfloat16")
 
     phase("h. training: ResNet-50 AMP card vs CPU, batch 4, 32x32")
-    resnet_amp_card_vs_cpu(torch)
+    resnet_amp_card_vs_cpu(torch, "bfloat16")
 
     phase("i. matmul epilogue bf16: kernel vs plain version, times")
-    mm16_err, mm16_step, _ = matmul_bf16_phase()
+    mm16_err, mm16_step, _ = matmul_low_phase("bfloat16")
 
     phase("j. training: LeNet and word2vec static AMP (bf16), batch 256")
-    mm16_launches = book_amp_phase(torch, "lenet", 2, "relu")
-    mm16_launches += book_amp_phase(torch, "word2vec", 1, "sigmoid")
+    mm16_launches = book_amp_phase(torch, "lenet", 2, "relu", "bfloat16")
+    mm16_launches += book_amp_phase(torch, "word2vec", 1, "sigmoid",
+                                    "bfloat16")
 
     phase("k. training: LeNet AMP card vs CPU, batch 64, 12 steps")
-    lenet_amp_card_vs_cpu(torch)
+    lenet_amp_card_vs_cpu(torch, "bfloat16")
 
     phase("l. paged decode bf16 / int8: kernels vs plain versions, times")
     quant_rows = quant_kernel_phase()
@@ -2801,6 +3001,33 @@ def main():
 
     phase("o. serving card vs CPU, 2 layers, bf16 and int8 KV pools")
     quant_card_vs_cpu(torch, ties)
+
+    phase("p. conv epilogue fp16: kernels vs plain versions, times")
+    epi_h_errs, epi_h_sets, layout = check_epilogue_low("float16")
+    epi_h_times = time_epilogue_low("float16", epi_h_sets, layout)
+    del epi_h_sets
+    torch.cuda.empty_cache()
+
+    phase("q. matmul epilogue fp16: kernel vs plain version, times")
+    mm_h_err, mm_h_step, _ = matmul_low_phase("float16")
+
+    phase("r. training: ResNet-50 static AMP (fp16, loss scaling), "
+          "batch 128")
+    epi_h_launches = resnet_amp_phase(torch, "float16")
+
+    phase("s. training: ResNet-50 fp16 AMP card vs CPU, batch 4, 32x32")
+    resnet_amp_card_vs_cpu(torch, "float16")
+    if not resnet_amp_card_vs_cpu(torch, "float16", FP16_CLEAN_SCALE):
+        fail(f"fp16 ResNet-50 at the oracle size found an Inf at step 1 "
+             f"from a scale of {FP16_CLEAN_SCALE}")
+
+    phase("t. training: LeNet and word2vec static AMP (fp16), batch 256")
+    mm_h_launches = book_amp_phase(torch, "lenet", 2, "relu", "float16")
+    mm_h_launches += book_amp_phase(torch, "word2vec", 1, "sigmoid",
+                                    "float16")
+
+    phase("u. training: LeNet fp16 AMP card vs CPU, batch 64, 12 steps")
+    lenet_amp_card_vs_cpu(torch, "float16")
 
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",
@@ -2871,13 +3098,32 @@ def main():
     # the bf16 kernel 9 per AMP LeNet training step (its four calls)
     rows.append({
         "name": "matmul_bias_act_bf16", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/matmul_bias_act_bf16.cu",
+        "source": "paddle_tpu_torch/csrc/matmul_bias_act_tc.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1186",
         "launches": mm16_launches, "max_abs_err": mm16_err,
         "ms": mm16_step["ms"], "plain_ms": mm16_step["plain_ms"],
         "bound_ms": mm16_step["bound_ms"],
         "bound_by": mm16_step["bound_by"],
         "library_ms": mm16_step["library_ms"]})
+    for name, replaces in EPILOGUE_FP16_ROWS:
+        t = epi_h_times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/bn_act.cu",
+            "replaces": replaces, "launches": epi_h_launches[name],
+            "max_abs_err": epi_h_errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    # the fp16 kernel 9 per fp16 AMP LeNet training step (its four calls)
+    rows.append({
+        "name": "matmul_bias_act_fp16", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/matmul_bias_act_tc.cu",
+        "replaces": "paddle_tpu/ops/pallas_kernels.py:1186",
+        "launches": mm_h_launches, "max_abs_err": mm_h_err,
+        "ms": mm_h_step["ms"], "plain_ms": mm_h_step["plain_ms"],
+        "bound_ms": mm_h_step["bound_ms"],
+        "bound_by": mm_h_step["bound_by"],
+        "library_ms": mm_h_step["library_ms"]})
     # the bf16 gelu of the AMP O2 path (no Pallas kernel: XLA fuses the
     # JAX lowering); bit-equal to its plain versions
     for name, replaces in GELU_ROWS:

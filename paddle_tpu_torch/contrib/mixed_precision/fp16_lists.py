@@ -2,8 +2,8 @@
 ``paddle_tpu/contrib/mixed_precision/fp16_lists.py:1-60`` (reference:
 ``fluid/contrib/mixed_precision/fp16_lists.py``).
 
-White-list ops run in the low-precision dtype (bfloat16: float32's
-exponent range, so no loss scaling), black-list ops in float32, and
+White-list ops run in the low-precision dtype (bfloat16, or float16
+with loss scaling), black-list ops in float32, and
 gray-list ops in whichever dtype their inputs arrive in.
 """
 from __future__ import annotations

@@ -3,7 +3,8 @@
 ``fluid/contrib/mixed_precision/fp16_utils.py:190 rewrite_program``).
 
 :func:`rewrite_program` walks the forward program once: it casts the
-float32 inputs of white-list ops to the low dtype (bfloat16) and marks
+float32 inputs of white-list ops to the low dtype (bfloat16, or float16
+for ``decorate(use_fp16=True)``) and marks
 their float32 outputs low, and casts the low inputs of black-list ops
 back to float32.  Gray-list ops are left as they are: they run in
 whichever dtype their inputs arrive in, and the program keeps their
@@ -11,7 +12,8 @@ declared dtype.  The backward needs no pass of its own: ``append_backward``
 differentiates the inserted ``cast`` ops like any other, so an f32
 parameter read through a bf16 cast gets an f32 gradient.
 
-Cast names (``<var>.cast_bf16_<n>`` / ``<var>.cast_<dtype>_<n>``) and the
+Cast names (``<var>.cast_bf16_<n>`` / ``<var>.cast_<dtype>_<n>``, the
+dtype as its ``VarType`` number: ``4`` for float16, ``5`` for float32) and the
 cast cache (one cast per (var, dtype) for the whole program) are the JAX
 package's, so a program rewritten by either package serializes to the
 same ops.

@@ -1,6 +1,6 @@
 // The conv epilogue of a fused conv -> BatchNorm (-> residual add) ->
-// activation chain, forward and backward, in float32 and in bfloat16, for
-// Hopper (sm_90a).
+// activation chain, forward and backward, in float32, bfloat16 and float16,
+// for Hopper (sm_90a).
 //
 // Replaces, in paddle_tpu/ops/pallas_kernels.py:
 //   * _scale_shift_act_kernel (:1039, launched by bn_act_apply :1100):
@@ -16,40 +16,47 @@
 //   * a grid-stride loop over the flat tensor, about 8 CTAs of 256
 //     threads per SM, so every shape fills the card without a grid per
 //     shape;
-//   * 16-byte loads and stores (4 floats or 8 bf16) when every pointer is
-//     16-byte aligned and the elements of one access share a channel (the
-//     inner extent L of a channels-first (B, C, L) view is a multiple of
-//     the width) or are neighbouring channels (channels-last, C a multiple
-//     of the width); a scalar loop otherwise, so any shape with C >= 1
-//     works;
+//   * 16-byte loads and stores (4 floats, or 8 bf16 or fp16) when every
+//     pointer is 16-byte aligned and the elements of one access share a
+//     channel (the inner extent L of a channels-first (B, C, L) view is a
+//     multiple of the width) or are neighbouring channels (channels-last,
+//     C a multiple of the width); a scalar loop otherwise, so any shape
+//     with C >= 1 works;
 //   * the channel of element i is (i / inner) % C, one division per
 //     access; the per-channel vectors are read through the read-only cache
 //     and stay there (they are a few KB);
 //   * the TPU kernel's VMEM tiling gates (c % 8, the block ladders) have
 //     no counterpart: nothing here is tiled.
 //
-// Storage types: T is float or __nv_bfloat16 for x, z, y, dy, dx, g and the
-// per-channel a, b, cg, mean, cx; c0 is always float.  The math is f32,
-// and every multiply, add and subtract is written with __fmul_rn /
+// Storage types: T is float, __nv_bfloat16 or __half for x, z, y, dy, dx, g
+// and the per-channel a, b, cg, mean, cx; c0 is always float.  The math is
+// f32, and every multiply, add and subtract is written with __fmul_rn /
 // __fadd_rn / __fsub_rn (no FMA contraction) and rounded to T right after
 // (Elem<T>::round, the identity for float), in the TPU kernel's term
 // order: for bf16 the Pallas kernel in interpret mode gives
 // relu(bf16(bf16(bf16(x*a) + b) + z)) on every element, and the backward
-// rounds c0 to bf16 before its add (:1140).  So the results equal the
-// plain versions (paddle_tpu_torch/ops/bn_act.py), which are PyTorch ops
-// in T, bit for bit for act "" and relu and in the backward; sigmoid,
+// rounds c0 to bf16 before its add (:1140).  fp16 rounds at the same
+// points (f32 holds an fp16 product exactly and rounds an fp16 sum once
+// more without harm: 24 >= 2*11 + 2 bits, so each f32 result rounded to
+// fp16 is the correctly rounded fp16 result).  Overflow gives Inf as the
+// plain version does (__float2half_rn, no saturation; no fast-math, so
+// fp16 subnormals and f32 denormals are kept): the backward's dy is the
+// loss-scaled gradient of float16 AMP, and an Inf there is what the
+// found-Inf check must see.  So the results equal the plain versions
+// (paddle_tpu_torch/ops/bn_act.py), which are PyTorch ops in T, bit for bit for act "" and relu and in the backward; sigmoid,
 // tanh and gelu run in f32 on the rounded sum (accurate libdevice
 // functions, no fast-math) and round once.
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/bn_act.py);
 // each function returns the launch's cudaError_t:
-//   paddle_bn_act_fwd_{f32,bf16}(x, a, b, z|NULL, y, n, channels, inner,
-//                                act, stream)
-//   paddle_bn_act_bwd_{f32,bf16}(y, dy, x, cg, mean, cx, c0, dx, g|NULL, n,
-//                                channels, inner, act, stream)
+//   paddle_bn_act_fwd_{f32,bf16,fp16}(x, a, b, z|NULL, y, n, channels,
+//                                     inner, act, stream)
+//   paddle_bn_act_bwd_{f32,bf16,fp16}(y, dy, x, cg, mean, cx, c0, dx, g|NULL,
+//                                     n, channels, inner, act, stream)
 // act: 0 none, 1 relu, 2 sigmoid, 3 tanh, 4 gelu (exact erf); the
 // backward takes 0 and 1 only.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,6 +91,19 @@ struct Elem<__nv_bfloat16> {
   }
   static __device__ __forceinline__ __nv_bfloat16 store(float v) {
     return __float2bfloat16_rn(v);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(__half v) {
+    return __half2float(v);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __half2float(__float2half_rn(v));
+  }
+  static __device__ __forceinline__ __half store(float v) {
+    return __float2half_rn(v);
   }
 };
 
@@ -377,6 +397,7 @@ int bwd(const T* y, const T* dy, const T* x, const T* cg, const T* mean,
 }  // namespace
 
 typedef __nv_bfloat16 bf16;
+typedef __half fp16;
 
 extern "C" int paddle_bn_act_fwd_f32(const float* x, const float* a,
                                      const float* b, const float* z,
@@ -413,5 +434,24 @@ extern "C" int paddle_bn_act_bwd_bf16(const bf16* y, const bf16* dy,
                                       long long inner, int act,
                                       void* stream_ptr) {
   return bwd<bf16>(y, dy, x, cg, mean, cx, c0, dx, g, n, channels, inner,
+                   act, stream_ptr);
+}
+
+extern "C" int paddle_bn_act_fwd_fp16(const fp16* x, const fp16* a,
+                                      const fp16* b, const fp16* z, fp16* y,
+                                      long long n, long long channels,
+                                      long long inner, int act,
+                                      void* stream_ptr) {
+  return fwd<fp16>(x, a, b, z, y, n, channels, inner, act, stream_ptr);
+}
+
+extern "C" int paddle_bn_act_bwd_fp16(const fp16* y, const fp16* dy,
+                                      const fp16* x, const fp16* cg,
+                                      const fp16* mean, const fp16* cx,
+                                      const float* c0, fp16* dx, fp16* g,
+                                      long long n, long long channels,
+                                      long long inner, int act,
+                                      void* stream_ptr) {
+  return bwd<fp16>(y, dy, x, cg, mean, cx, c0, dx, g, n, channels, inner,
                    act, stream_ptr);
 }

@@ -1,34 +1,37 @@
-// The fc epilogue of a fused matmul -> bias -> activation chain on bf16
-// operands, for Hopper (sm_90a), on the tensor cores.
+// The fc epilogue of a fused matmul -> bias -> activation chain on 16-bit
+// operands (bf16 or fp16), for Hopper (sm_90a), on the tensor cores.
 //
-// Replaces the bf16 variant of _matmul_bias_act_kernel
+// Replaces the bf16 and fp16 variants of _matmul_bias_act_kernel
 // (paddle_tpu/ops/pallas_kernels.py:1186, launched by matmul_bias_act
-// :1207):  out = act(x @ w + bias),  x (M, K) and w (K, N) bf16, row-major,
-// bias (N,) f32 or bf16, f32 accumulation.
+// :1207):  out = act(x @ w + bias),  x (M, K) and w (K, N) of one 16-bit
+// type T, row-major, bias (N,) f32 or T, f32 accumulation.
 //
 // Rounding follows the static AMP program, not the Pallas kernel.  In a
-// rewritten program the chain is mul (bf16 x bf16 -> bf16) ->
-// elementwise_add (bf16 + f32 bias -> f32, as jnp promotes) -> act, and
-// the JAX package's own fallback (_matmul_bias_act_jnp, fused_ops.py:577)
-// computes exactly that; its Pallas kernel instead adds the bias to the
-// unrounded f32 accumulator and stores bf16 (result_type(x, w)).  Fusion
-// must not change numerics (fused_ops.py:422-423), so here:
-//   v = bf16(acc)                 the mul's bf16 output
+// rewritten program the chain is mul (T x T -> T) -> elementwise_add
+// (T + f32 bias -> f32, as jnp promotes) -> act, and the JAX package's own
+// fallback (_matmul_bias_act_jnp, fused_ops.py:577) computes exactly that;
+// its Pallas kernel instead adds the bias to the unrounded f32 accumulator
+// and stores T (result_type(x, w)).  Fusion must not change numerics
+// (fused_ops.py:422-423), so here:
+//   v = T(acc)                    the mul's T output
 //   v = v + bias                  in f32 (bias upcast)
-//   v = bf16(v) if bias is bf16   the bf16 add's rounding
-//   out = act(v)                  stored f32 for an f32 bias, bf16 else.
-// The product and the pre-activation sum never reach device memory.
+//   v = T(v) if bias is T         the T add's rounding
+//   out = act(v)                  stored f32 for an f32 bias, T else.
+// The product and the pre-activation sum never reach device memory.  In
+// fp16 an accumulator beyond 65504 rounds to Inf, as the unfused mul's
+// fp16 output does.
 //
-// What bounds it: 2*M*N*K operations at 989 TFLOP/s (bf16 tensor cores)
-// against (M*K + K*N)*2 + N*4 + M*N*4 bytes at 3.35 TB/s.  At BERT-base's
+// What bounds it: 2*M*N*K operations at 989 TFLOP/s (the bf16 and fp16
+// tensor-core peak) against (M*K + K*N)*2 + N*4 + M*N*4 bytes at 3.35 TB/s.  At BERT-base's
 // FFN-in shape (22528 x 768 x 3072) that is 0.107 ms of operations against
 // 0.095 ms of bytes; at LeNet's and word2vec's widths both are far under
 // a microsecond and the launch is the time.
 //
 // The design (the first tensor-core kernel: right and simple, not fast):
 //   * one CTA of 4 warps per 64 x 64 output tile, each warp a 32 x 32
-//     quarter: 2 x 4 mma.sync.m16n8k16 (bf16 in, f32 accumulators in
-//     registers) per 16 of K;
+//     quarter: 2 x 4 mma.sync.m16n8k16 (T in, f32 accumulators in
+//     registers) per 16 of K; bf16 and fp16 share every line but the mma
+//     instruction's type and the conversions (Ops<T>);
 //   * a loop over K, 32 deep per step, stages the x slice (64 x 32) and the
 //     w slice (32 x 64) in shared memory, rows padded by 16 bytes against
 //     bank conflicts; fragments come from ldmatrix (x4 for A, x4.trans for
@@ -39,12 +42,13 @@
 //   * no software pipelining, no TMA, no wgmma: later work.
 //
 // C interface (loaded with ctypes by paddle_tpu_torch/ops/matmul_epilogue.py);
-// returns the launch's cudaError_t:
-//   paddle_matmul_bias_act_bf16(x, w, bias, out, m, n, k, act, bias_bf16,
-//                               stream)
-// act: 0 none, 1 relu, 2 sigmoid, 3 tanh, 4 gelu (exact erf); bias_bf16 0:
-// bias and out are f32, 1: both are bf16.
+// each returns the launch's cudaError_t:
+//   paddle_matmul_bias_act_{bf16,fp16}(x, w, bias, out, m, n, k, act,
+//                                      bias_low, stream)
+// act: 0 none, 1 relu, 2 sigmoid, 3 tanh, 4 gelu (exact erf); bias_low 0:
+// bias and out are f32, 1: both are of x's type.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,8 +73,51 @@ __device__ __forceinline__ float act_fn(float v) {
   return v;
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// what differs between the two operand types: conversions and the mma
+template <typename T>
+struct Ops;
+
+template <>
+struct Ops<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+template <>
+struct Ops<__half> {
+  static __device__ __forceinline__ float load(__half v) {
+    return __half2float(v);
+  }
+  static __device__ __forceinline__ __half store(float v) {
+    return __float2half_rn(v);
+  }
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return Ops<T>::load(Ops<T>::store(v));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -92,20 +139,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
       : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // one 8-element (16-byte) chunk of a row-major (rows x cols) matrix at
 // (r, c) into shared memory, zero-filled outside it
-__device__ __forceinline__ void load_chunk(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* dst, const T* src,
                                            long long rows, long long cols,
                                            long long r, long long c,
                                            bool vec_ok) {
@@ -117,19 +154,18 @@ __device__ __forceinline__ void load_chunk(__nv_bfloat16* dst,
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     dst[e] = (r < rows && c + e < cols) ? src[r * cols + c + e]
-                                        : __float2bfloat16_rn(0.f);
+                                        : Ops<T>::store(0.f);
   }
 }
 
-template <int ACT, typename TB>
+template <typename T, int ACT, typename TB>
 __global__ void __launch_bounds__(kThreads)
-matmul_bias_act_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ w,
-                            const TB* __restrict__ bias, TB* __restrict__ out,
-                            long long m, long long n, long long k,
-                            bool x_vec, bool w_vec) {
-  __shared__ __align__(16) __nv_bfloat16 As[kBM][kPadA];
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBK][kPadB];
+matmul_bias_act_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          const TB* __restrict__ bias, TB* __restrict__ out,
+                          long long m, long long n, long long k, bool x_vec,
+                          bool w_vec) {
+  __shared__ __align__(16) T As[kBM][kPadA];
+  __shared__ __align__(16) T Bs[kBK][kPadB];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -175,7 +211,7 @@ matmul_bias_act_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < 4; ++j) Ops<T>::mma(acc[i][j], a[i], b[j]);
     }
     __syncthreads();
   }
@@ -193,18 +229,18 @@ matmul_bias_act_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         const long long row = m0 + wm + i * 16 + group + (e >> 1) * 8;
         const long long col = n0 + wn + j * 8 + tig * 2 + (e & 1);
         if (row >= m || col >= n) continue;
-        float v = round_bf16(acc[i][j][e]);
+        float v = round_to<T>(acc[i][j][e]);
         float bv;
         if constexpr (kLowOut) {
-          bv = __bfloat162float(bias[col]);
+          bv = Ops<T>::load(bias[col]);
         } else {
           bv = bias[col];
         }
         v = __fadd_rn(v, bv);
-        if (kLowOut) v = round_bf16(v);
+        if (kLowOut) v = round_to<T>(v);
         v = act_fn<ACT>(v);
         if constexpr (kLowOut) {
-          out[row * n + col] = __float2bfloat16_rn(v);
+          out[row * n + col] = Ops<T>::store(v);
         } else {
           out[row * n + col] = v;
         }
@@ -215,33 +251,50 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <int ACT, typename TB>
+template <typename T, int ACT, typename TB>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
                    long long m, long long n, long long k,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)((m + kBM - 1) / kBM),
                   (unsigned)((n + kBN - 1) / kBN));
-  matmul_bias_act_bf16_kernel<ACT, TB><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const TB*>(bias),
-      static_cast<TB*>(out), m, n, k, k % 8 == 0 && aligned16(x),
-      n % 8 == 0 && aligned16(w));
+  matmul_bias_act_tc_kernel<T, ACT, TB><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const TB*>(bias), static_cast<TB*>(out), m, n, k,
+      k % 8 == 0 && aligned16(x), n % 8 == 0 && aligned16(w));
   return cudaGetLastError();
 }
 
-template <typename TB>
+template <typename T, typename TB>
 cudaError_t dispatch(int act, const void* x, const void* w, const void* bias,
                      void* out, long long m, long long n, long long k,
                      cudaStream_t stream) {
   switch (act) {
-    case ACT_NONE: return launch<ACT_NONE, TB>(x, w, bias, out, m, n, k, stream);
-    case ACT_RELU: return launch<ACT_RELU, TB>(x, w, bias, out, m, n, k, stream);
+    case ACT_NONE:
+      return launch<T, ACT_NONE, TB>(x, w, bias, out, m, n, k, stream);
+    case ACT_RELU:
+      return launch<T, ACT_RELU, TB>(x, w, bias, out, m, n, k, stream);
     case ACT_SIGMOID:
-      return launch<ACT_SIGMOID, TB>(x, w, bias, out, m, n, k, stream);
-    case ACT_TANH: return launch<ACT_TANH, TB>(x, w, bias, out, m, n, k, stream);
-    case ACT_GELU: return launch<ACT_GELU, TB>(x, w, bias, out, m, n, k, stream);
+      return launch<T, ACT_SIGMOID, TB>(x, w, bias, out, m, n, k, stream);
+    case ACT_TANH:
+      return launch<T, ACT_TANH, TB>(x, w, bias, out, m, n, k, stream);
+    case ACT_GELU:
+      return launch<T, ACT_GELU, TB>(x, w, bias, out, m, n, k, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int entry(const void* x, const void* w, const void* bias, void* out,
+          long long m, long long n, long long k, int act, int bias_low,
+          void* stream_ptr) {
+  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  // grid.x holds the row tiles (up to 2^31 - 1), grid.y the column tiles
+  if ((m + kBM - 1) / kBM > 2147483647LL || (n + kBN - 1) / kBN > 65535LL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (bias_low)
+    return (int)dispatch<T, T>(act, x, w, bias, out, m, n, k, stream);
+  return (int)dispatch<T, float>(act, x, w, bias, out, m, n, k, stream);
 }
 
 }  // namespace
@@ -250,13 +303,15 @@ extern "C" int paddle_matmul_bias_act_bf16(const void* x, const void* w,
                                            const void* bias, void* out,
                                            long long m, long long n,
                                            long long k, int act,
-                                           int bias_bf16, void* stream_ptr) {
-  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  // grid.x holds the row tiles (up to 2^31 - 1), grid.y the column tiles
-  if ((m + kBM - 1) / kBM > 2147483647LL || (n + kBN - 1) / kBN > 65535LL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (bias_bf16)
-    return (int)dispatch<__nv_bfloat16>(act, x, w, bias, out, m, n, k, stream);
-  return (int)dispatch<float>(act, x, w, bias, out, m, n, k, stream);
+                                           int bias_low, void* stream_ptr) {
+  return entry<__nv_bfloat16>(x, w, bias, out, m, n, k, act, bias_low,
+                              stream_ptr);
+}
+
+extern "C" int paddle_matmul_bias_act_fp16(const void* x, const void* w,
+                                           const void* bias, void* out,
+                                           long long m, long long n,
+                                           long long k, int act,
+                                           int bias_low, void* stream_ptr) {
+  return entry<__half>(x, w, bias, out, m, n, k, act, bias_low, stream_ptr);
 }

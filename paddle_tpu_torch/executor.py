@@ -9,7 +9,7 @@ executor's device and launches its own kernels.
 
 * **The plan** (``_compile``): the IR pass pipeline (the two BatchNorm
   fusions always, the NHWC layout pass under ``FLAGS_cuda_nhwc``, whose
-  ``auto`` takes only programs with bf16 convolutions, then
+  ``auto`` takes only programs with bf16 or fp16 convolutions, then
   the epilogue fusion under ``FLAGS_cuda_fuse``, in the JAX order,
   :797-799, :807-810, :811-820) on a clone of the program, the
   state analysis (``analyze_state``: what the op list reads before it
@@ -95,7 +95,8 @@ def _fetch_name(f) -> str:
 
 def as_numpy(value) -> np.ndarray:
     """A numpy copy of a fetched value; a bfloat16 tensor, which numpy
-    cannot hold, comes back as its exact float32 upcast."""
+    cannot hold, comes back as its exact float32 upcast (float16 stays
+    float16)."""
     if isinstance(value, torch.Tensor):
         value = value.detach()
         if value.dtype == torch.bfloat16:
@@ -123,14 +124,14 @@ class _Plan:
         self.fused = fused
 
 
-def _bf16_convs(program: Program) -> bool:
-    """Whether ``program`` has a convolution whose Input is bf16 (a
-    program under ``decorate``)."""
+def _low_precision_convs(program: Program) -> bool:
+    """Whether ``program`` has a convolution whose Input is bf16 or fp16
+    (a program under ``decorate``)."""
     for blk in program.blocks:
         for op_ in blk.ops:
             if op_.type in ("conv2d", "depthwise_conv2d"):
                 v = blk._find_var_recursive(op_.input("Input")[0])
-                if v is not None and v.dtype == VarType.BF16:
+                if v is not None and v.dtype in (VarType.BF16, VarType.FP16):
                     return True
     return False
 
@@ -175,9 +176,9 @@ class Executor:
 
     def nhwc_enabled(self, program: Program) -> bool:
         """FLAGS_cuda_nhwc resolved against this executor's device and
-        ``program``'s convolutions (``auto``: NHWC where they read
-        bf16)."""
-        return cuda_nhwc_enabled(self.device, _bf16_convs(program))
+        ``program``'s convolutions (``auto``: NHWC where they read bf16 or
+        fp16)."""
+        return cuda_nhwc_enabled(self.device, _low_precision_convs(program))
 
     # ------------------------------------------------------------------
     def run(self, program: Optional[Program] = None,

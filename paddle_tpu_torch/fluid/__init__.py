@@ -2,7 +2,8 @@
 ``paddle_tpu/fluid/__init__.py``), for the static path: a reference-era
 script runs with ``import paddle_tpu_torch.fluid as fluid``.  Ported:
 what a ResNet training script uses, with
-``fluid.contrib.mixed_precision.decorate`` for bf16 AMP."""
+``fluid.contrib.mixed_precision.decorate`` for bf16 AMP, or fp16 AMP with
+loss scaling (``use_fp16=True``)."""
 from .. import contrib, initializer, layers, optimizer  # noqa: F401
 from ..backward import append_backward, gradients  # noqa: F401
 from ..executor import Executor  # noqa: F401

@@ -1,9 +1,10 @@
 """fluid.layers NN graph builders (counterpart of
 ``paddle_tpu/layers/nn.py``: ``fc`` :22, ``embedding`` :60, ``conv2d``
 :93, ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
-``sigmoid`` :409-410, ``elementwise_add`` :522, ``mean`` :558,
-``softmax_with_cross_entropy`` :614, ``reshape`` :718, ``topk`` :870,
-``cast`` :955, ``concat`` :964, ``accuracy`` :980).  Each builds vars and ops through
+``sigmoid`` :409-410, ``elementwise_add`` :522, ``elementwise_mul`` :524,
+``mean`` :558, ``scale`` :565, ``softmax_with_cross_entropy`` :614,
+``reshape`` :718, ``topk`` :870, ``cast`` :955, ``concat`` :964,
+``accuracy`` :980).  Each builds vars and ops through
 ``LayerHelper`` with the JAX package's op types, slots and attrs, so both
 packages build the same program."""
 from __future__ import annotations
@@ -16,9 +17,9 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
-           "relu", "sigmoid", "elementwise_add", "mean",
-           "softmax_with_cross_entropy", "reshape", "topk", "cast", "concat",
-           "accuracy"]
+           "relu", "sigmoid", "elementwise_add", "elementwise_mul", "mean",
+           "scale", "softmax_with_cross_entropy", "reshape", "topk", "cast",
+           "concat", "accuracy"]
 
 
 def _single(x, n=2):
@@ -197,12 +198,20 @@ relu = _simple_unary("relu")
 sigmoid = _simple_unary("sigmoid")
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name, act=act)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op("elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out, act)
+def _elementwise(op_type):
+    def fn(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out, act)
+
+    fn.__name__ = op_type
+    return fn
+
+
+elementwise_add = _elementwise("elementwise_add")
+elementwise_mul = _elementwise("elementwise_mul")
 
 
 def mean(x, name=None):
@@ -210,6 +219,16 @@ def mean(x, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]})
     return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out, act)
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -4,5 +4,5 @@ hand-written CUDA kernels with their plain versions.
 Importing the package registers the static path's op lowerings with
 :mod:`.registry`."""
 from . import registry  # noqa: F401
-from . import (fused_ops, math_ops, nn_ops, optimizer_ops,  # noqa: F401
-               tensor_ops)
+from . import (extra_ops, fused_ops, math_ops, nn_ops,  # noqa: F401
+               optimizer_ops, tensor_ops)

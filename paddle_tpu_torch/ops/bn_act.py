@@ -19,19 +19,22 @@ axis ``c_axis`` may be any axis: 1 for NCHW, the last for NHWC.  The
 TPU's tiling gates (``c % 8``, the block ladders, ``_channel_tiling``
 returning None) are TPU facts: the kernels take any shape with C >= 1.
 
-Dtypes: float32 (the f32 program) or bfloat16 (static AMP), one kernel
-each (``csrc/bn_act.cu``, templated on the storage type).  In bf16 every
-tensor and per-channel vector is bf16 except the backward's ``c0``,
-which stays f32 and is rounded to bf16 before its add, as in the Pallas
-kernel (:1140); ``dx`` comes out in x's dtype and ``g`` in dy's.
+Dtypes: float32 (the f32 program), bfloat16 (static AMP) or float16
+(static AMP with loss scaling), one kernel each (``csrc/bn_act.cu``,
+templated on the storage type).  In bf16 and fp16 every tensor and
+per-channel vector is of that dtype except the backward's ``c0``, which
+stays f32 and is rounded to the storage dtype before its add, as in the
+Pallas kernel (:1140); ``dx`` comes out in x's dtype and ``g`` in dy's.
 
 Dispatch: a tensor on the CPU (or the ``meta`` device, under shape
 inference) takes the plain version; a CUDA tensor launches the kernel of
-its dtype or raises (float16 is not ported).  The plain versions are
-PyTorch ops in the tensors' dtype, in the kernels' term order, so each
-multiply and add rounds to that dtype where the Pallas kernels round, and
+its dtype or raises.  The plain versions are PyTorch ops in the tensors'
+dtype, in the kernels' term order, so each multiply and add rounds to
+that dtype where the Pallas kernel's storage-dtype arithmetic rounds, and
 on the card the kernels equal them bit for bit for "" and relu and in the
-backward.
+backward.  (XLA's CPU runs the Pallas kernel's fp16 body in f32 and
+rounds less often, so in fp16 JAX on the CPU lies up to two fp16 rounding
+steps away: ROADMAP.md, Queue 3.)
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ __all__ = ["ACTS", "apply_act", "act_mask_grad", "bn_act_apply",
            "bn_act_apply_reference", "bn_act_apply_f32", "bn_act_bwd_apply",
            "bn_act_bwd_reference", "bn_act_bwd_f32", "BN_ACT",
            "BN_ACT_APPLY", "BN_ACT_BWD",
-           "BN_ACT_APPLY_BF16", "BN_ACT_BWD_BF16"]
+           "BN_ACT_APPLY_BF16", "BN_ACT_BWD_BF16", "BN_ACT_APPLY_FP16",
+           "BN_ACT_BWD_FP16"]
 
 #: the activation codes of csrc/bn_act.cu
 ACTS = {"": 0, "relu": 1, "sigmoid": 2, "tanh": 3, "gelu": 4}
@@ -63,6 +67,7 @@ _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P]
 BN_ACT = CudaKernel("bn_act.cu", {
     "paddle_bn_act_fwd_f32": _FWD_ARGS, "paddle_bn_act_bwd_f32": _BWD_ARGS,
     "paddle_bn_act_fwd_bf16": _FWD_ARGS, "paddle_bn_act_bwd_bf16": _BWD_ARGS,
+    "paddle_bn_act_fwd_fp16": _FWD_ARGS, "paddle_bn_act_bwd_fp16": _BWD_ARGS,
 })
 #: its kernels; ``launches`` counts every launch of the wrappers below
 BN_ACT_APPLY = KernelFunction(BN_ACT, "paddle_bn_act_fwd_f32",
@@ -73,9 +78,14 @@ BN_ACT_APPLY_BF16 = KernelFunction(BN_ACT, "paddle_bn_act_fwd_bf16",
                                    "bn_act_apply_bf16")
 BN_ACT_BWD_BF16 = KernelFunction(BN_ACT, "paddle_bn_act_bwd_bf16",
                                  "bn_act_bwd_bf16")
+BN_ACT_APPLY_FP16 = KernelFunction(BN_ACT, "paddle_bn_act_fwd_fp16",
+                                   "bn_act_apply_fp16")
+BN_ACT_BWD_FP16 = KernelFunction(BN_ACT, "paddle_bn_act_bwd_fp16",
+                                 "bn_act_bwd_fp16")
 #: (forward, backward) kernel of each storage dtype
 _KERNELS = {torch.float32: (BN_ACT_APPLY, BN_ACT_BWD),
-            torch.bfloat16: (BN_ACT_APPLY_BF16, BN_ACT_BWD_BF16)}
+            torch.bfloat16: (BN_ACT_APPLY_BF16, BN_ACT_BWD_BF16),
+            torch.float16: (BN_ACT_APPLY_FP16, BN_ACT_BWD_FP16)}
 
 
 def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -160,12 +170,9 @@ def _check(name, dev, tensors, shapes, dtypes):
 
 
 def _storage(name, x) -> torch.dtype:
-    if x.dtype == torch.float16:
-        raise NotImplementedError(f"{name}: the float16 variant is not "
-                                  f"ported (ROADMAP.md, slice 8)")
     if x.dtype not in _KERNELS:
         raise ValueError(f"{name}: x is {x.dtype}; the kernels take "
-                         f"float32 and bfloat16")
+                         f"float32, bfloat16 and float16")
     return x.dtype
 
 

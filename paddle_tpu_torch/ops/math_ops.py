@@ -1,6 +1,7 @@
 """Math op lowerings of the static path (counterpart of
-``paddle_tpu/ops/math_ops.py``: ``elementwise_add`` :50, ``relu`` :72,
-``sigmoid`` :74, ``sum`` (gradient accumulation), ``mean`` :222,
+``paddle_tpu/ops/math_ops.py``: ``elementwise_add`` and
+``elementwise_mul`` :50-52, ``relu`` :72, ``sigmoid`` :74, ``reciprocal``
+:99, ``scale`` :154, ``sum`` (gradient accumulation), ``mean`` :222,
 ``top_k`` :318 and ``mul`` :423).
 
 ``mul`` has an explicit grad lowering (two matrix products); the others
@@ -36,6 +37,48 @@ def align(x, y, axis):
 def _elementwise_add(ctx):
     x, y = align(ctx.in_("X"), ctx.in_("Y"), ctx.attr("axis", -1))
     ctx.set_out("Out", x + y)
+
+
+@op("elementwise_mul")
+def _elementwise_mul(ctx):
+    x, y = align(ctx.in_("X"), ctx.in_("Y"), ctx.attr("axis", -1))
+    ctx.set_out("Out", x * y)
+
+
+@op("reciprocal")
+def _reciprocal(ctx):
+    ctx.set_out("Out", torch.reciprocal(ctx.in_("X")))
+
+
+def _in_dtype(v: float, x: torch.Tensor) -> float:
+    """The python scalar ``v`` as JAX's weak typing hands it to an op on
+    ``x``: rounded to x's floating dtype (float16 and bfloat16 products
+    then see the rounded factor, as in JAX)."""
+    return float(torch.tensor(v, dtype=x.dtype))
+
+
+@op("scale")
+def _scale(ctx):
+    """``x * scale + bias`` (or ``(x + bias) * scale``) in x's dtype: an
+    integer x stays integer for integer-valued scale and bias, as in the
+    reference's scale_op.  A zero bias adds nothing (XLA drops the add of
+    zero from the JAX lowering, which would turn -0 into +0)."""
+    x = ctx.in_("X")
+    s = (ctx.in_("ScaleTensor") if ctx.has_input("ScaleTensor")
+         else float(ctx.attr("scale", 1.0)))
+    b = float(ctx.attr("bias", 0.0))
+    if x.is_floating_point():
+        b = _in_dtype(b, x)
+        if not isinstance(s, torch.Tensor):
+            s = _in_dtype(s, x)
+    elif (not isinstance(s, torch.Tensor) and s.is_integer()
+          and b.is_integer()):
+        s, b = int(s), int(b)
+    if ctx.attr("bias_after_scale", True):
+        out = x * s + b if b else x * s
+    else:
+        out = (x + b) * s if b else x * s
+    ctx.set_out("Out", out)
 
 
 @op("relu")

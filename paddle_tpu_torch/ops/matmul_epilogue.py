@@ -16,19 +16,19 @@ the TPU's (8, 128) tiling: the CUDA kernel masks its ragged edges and
 takes any M, N, K >= 1, so LeNet's 120-, 84- and 400-wide layers run it
 too.
 
-bf16 operands (static AMP) take the bf16 kernel
-(``csrc/matmul_bias_act_bf16.cu``, tensor cores, f32 accumulation), which
-rounds as the AMP program's unfused chain does: the product to bf16 (the
-``mul`` output), then the bias added in the promoted dtype (f32 for an f32
-bias, as jnp promotes bf16 + f32), then the act in that dtype.  JAX's
-Pallas kernel instead adds the bias to the unrounded accumulator and
-stores bf16; its own fallback, which the Program's var dtypes describe,
-does what the port does (ROADMAP.md, Queue 3).
+bf16 and fp16 operands (static AMP) take the tensor-core kernel of their
+dtype (``csrc/matmul_bias_act_tc.cu``, f32 accumulation), which rounds as
+the AMP program's unfused chain does: the product to the operands' dtype
+(the ``mul`` output; beyond 65504 an fp16 product is Inf), then the bias
+added in the promoted dtype (f32 for an f32 bias, as jnp promotes
+bf16 + f32 and fp16 + f32), then the act in that dtype.  JAX's Pallas
+kernel instead adds the bias to the unrounded accumulator and stores the
+operands' dtype; its own fallback, which the Program's var dtypes
+describe, does what the port does (ROADMAP.md, Queue 3).
 
 Dispatch: a tensor on the CPU (or the ``meta`` device, under shape
 inference) takes the plain version; a CUDA tensor launches the kernel of
-its dtype or raises (float32 or bf16 x and w, contiguous; float16 is not
-ported).
+its dtype or raises (float32, bf16 or fp16 x and w, contiguous).
 """
 from __future__ import annotations
 
@@ -40,9 +40,10 @@ from ..kernel_build import CudaKernel, KernelFunction
 from .bn_act import ACTS, apply_act
 
 __all__ = ["matmul_bias_act", "matmul_bias_act_reference",
-           "matmul_bias_act_f32", "matmul_bias_act_bf16", "MATMUL_BIAS_ACT",
-           "MATMUL_BIAS_ACT_F32", "MATMUL_BIAS_ACT_BF16_LIB",
-           "MATMUL_BIAS_ACT_BF16"]
+           "matmul_bias_act_f32", "matmul_bias_act_bf16",
+           "matmul_bias_act_fp16", "MATMUL_BIAS_ACT", "MATMUL_BIAS_ACT_F32",
+           "MATMUL_BIAS_ACT_TC", "MATMUL_BIAS_ACT_BF16",
+           "MATMUL_BIAS_ACT_FP16"]
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -55,14 +56,21 @@ MATMUL_BIAS_ACT = CudaKernel("matmul_bias_act.cu", {
 MATMUL_BIAS_ACT_F32 = KernelFunction(MATMUL_BIAS_ACT,
                                      "paddle_matmul_bias_act_f32",
                                      "matmul_bias_act_f32")
-#: the bf16 tensor-core kernel's library (csrc/matmul_bias_act_bf16.cu)
-MATMUL_BIAS_ACT_BF16_LIB = CudaKernel("matmul_bias_act_bf16.cu", {
-    "paddle_matmul_bias_act_bf16": [_P, _P, _P, _P, _L, _L, _L,
-                                    ctypes.c_int, ctypes.c_int, _P],
+_TC_ARGS = [_P, _P, _P, _P, _L, _L, _L, ctypes.c_int, ctypes.c_int, _P]
+#: the 16-bit tensor-core kernels' library (csrc/matmul_bias_act_tc.cu)
+MATMUL_BIAS_ACT_TC = CudaKernel("matmul_bias_act_tc.cu", {
+    "paddle_matmul_bias_act_bf16": _TC_ARGS,
+    "paddle_matmul_bias_act_fp16": _TC_ARGS,
 })
-MATMUL_BIAS_ACT_BF16 = KernelFunction(MATMUL_BIAS_ACT_BF16_LIB,
+MATMUL_BIAS_ACT_BF16 = KernelFunction(MATMUL_BIAS_ACT_TC,
                                       "paddle_matmul_bias_act_bf16",
                                       "matmul_bias_act_bf16")
+MATMUL_BIAS_ACT_FP16 = KernelFunction(MATMUL_BIAS_ACT_TC,
+                                      "paddle_matmul_bias_act_fp16",
+                                      "matmul_bias_act_fp16")
+#: the tensor-core kernel of each operand dtype
+_TC = {torch.bfloat16: MATMUL_BIAS_ACT_BF16,
+       torch.float16: MATMUL_BIAS_ACT_FP16}
 
 
 def matmul_bias_act_reference(x, w, bias, act=""):
@@ -102,7 +110,7 @@ def matmul_bias_act_f32(x, w, bias, act=""):
         if t.dtype != torch.float32:
             raise NotImplementedError(
                 f"{name}: {key} is {t.dtype}; the kernel takes float32 (bf16 "
-                f"goes to matmul_bias_act_bf16)")
+                f"and fp16 go to matmul_bias_act_bf16 / _fp16)")
         if not t.is_contiguous():
             raise NotImplementedError(f"{name}: {key} must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -117,20 +125,18 @@ def matmul_bias_act_f32(x, w, bias, act=""):
     return out
 
 
-def matmul_bias_act_bf16(x, w, bias, act=""):
-    """Launch the bf16 kernel 9 on ``torch.cuda.current_stream()``;
-    returns ``act(bf16(x @ w) + bias)`` of shape (M, N), float32 for an
-    f32 bias and bf16 for a bf16 one."""
-    name = "matmul_bias_act_bf16"
+def _launch_tc(name, low, x, w, bias, act):
+    """Launch the tensor-core kernel 9 of the 16-bit dtype ``low`` on
+    ``torch.cuda.current_stream()``; returns ``act(low(x @ w) + bias)`` of
+    shape (M, N), float32 for an f32 bias and ``low`` for a ``low`` one."""
     if act not in ACTS:
         raise NotImplementedError(f"{name}: act {act!r} not in {list(ACTS)}")
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: x is on {dev}, not a CUDA device")
     m, n, k = _shapes(name, x, w, bias)
-    for key, t, ok in (("x", x, (torch.bfloat16,)),
-                       ("w", w, (torch.bfloat16,)),
-                       ("bias", bias, (torch.float32, torch.bfloat16))):
+    for key, t, ok in (("x", x, (low,)), ("w", w, (low,)),
+                       ("bias", bias, (torch.float32, low))):
         if t.device != dev:
             raise ValueError(f"{name}: {key} is on {t.device}, expected the "
                              f"CUDA device of x ({dev})")
@@ -146,10 +152,24 @@ def matmul_bias_act_bf16(x, w, bias, act=""):
         raise ValueError(f"{name}: K is 0")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        MATMUL_BIAS_ACT_BF16(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                             out.data_ptr(), m, n, k, ACTS[act],
-                             int(bias.dtype == torch.bfloat16), stream)
+        _TC[low](x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), m, n, k, ACTS[act], int(bias.dtype == low),
+                 stream)
     return out
+
+
+def matmul_bias_act_bf16(x, w, bias, act=""):
+    """Launch the bf16 kernel 9: ``act(bf16(x @ w) + bias)``, float32 for
+    an f32 bias and bf16 for a bf16 one."""
+    return _launch_tc("matmul_bias_act_bf16", torch.bfloat16, x, w, bias,
+                      act)
+
+
+def matmul_bias_act_fp16(x, w, bias, act=""):
+    """Launch the fp16 kernel 9: ``act(fp16(x @ w) + bias)``, float32 for
+    an f32 bias and fp16 for an fp16 one."""
+    return _launch_tc("matmul_bias_act_fp16", torch.float16, x, w, bias,
+                      act)
 
 
 def matmul_bias_act(x, w, bias, act=""):
@@ -162,6 +182,5 @@ def matmul_bias_act(x, w, bias, act=""):
     if x.dtype == torch.bfloat16:
         return matmul_bias_act_bf16(x, w, bias, act)
     if x.dtype == torch.float16:
-        raise NotImplementedError("matmul_bias_act: the float16 variant is "
-                                  "not ported (ROADMAP.md, slice 8)")
+        return matmul_bias_act_fp16(x, w, bias, act)
     return matmul_bias_act_f32(x, w, bias, act)

@@ -31,7 +31,7 @@ import torch
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX, Block, Operator
 from ..framework.dtype import canonical_dtype, to_torch_dtype
 
-__all__ = ["OPS", "UNPORTED_OPS", "OpDef", "op", "grad_maker", "infer_for", "resolve",
+__all__ = ["OPS", "OpDef", "op", "grad_maker", "infer_for", "resolve",
            "LowerCtx", "infer_shape", "run_op", "has_grad", "make_grad_ops",
            "default_grad_maker", "generic_grad_lower"]
 
@@ -88,20 +88,9 @@ def infer_for(type: str):
     return deco
 
 
-#: op types of the JAX package that a ported API can emit but whose
-#: machinery the port has not taken yet: running one raises with its slice
-UNPORTED_OPS = {
-    "amp_check_finite_and_scale": "float16 AMP loss scaling (slice 8)",
-    "update_loss_scaling": "float16 AMP loss scaling (slice 8)",
-}
-
-
 def resolve(type: str) -> OpDef:
     """The op's definition; an unregistered ``*_grad`` whose forward has
     a lowering materializes as the generic vjp grad."""
-    if type in UNPORTED_OPS:
-        raise NotImplementedError(f"op {type!r}: {UNPORTED_OPS[type]} is "
-                                  f"not ported (ROADMAP.md)")
     d = OPS.get(type)
     if d is not None and d.lower is not None:
         return d

@@ -3,7 +3,8 @@ word2vec N-gram language model.
 
     python -m paddle_tpu_torch.tools.train_book --model lenet|word2vec
         [--batch B] [--steps 30] [--warmup 5] [--lr LR] [--amp]
-        [--log-every 10] [--tiny] [--device cuda] [--profile N]
+        [--amp-dtype bfloat16|float16] [--log-every 10] [--tiny]
+        [--device cuda] [--profile N]
 
 The recipe is the JAX package's: ``fluid.layers.data`` -> the model's
 builder -> an optimizer's ``minimize(loss)`` -> ``Executor.run`` of the
@@ -23,15 +24,19 @@ repeated.
 16, hidden 32, the JAX test's sizes).  The run is float32 with TF32 off
 on the card; ``--amp`` wraps the optimizer in
 ``fluid.contrib.mixed_precision.decorate`` (bf16 AMP: the products and
-convolutions in bf16, f32 master weights).  On the card the fusion flag
-is ``auto``: every fc -> bias -> act chain (LeNet's two relu layers,
-word2vec's sigmoid layer) runs as ``fused_matmul_bias_act``, whose
-epilogue is the hand-written kernel 9 of the operands' dtype.
+convolutions in bf16, f32 master weights); ``--amp-dtype float16`` (which
+implies ``--amp``) is ``decorate(use_fp16=True)``, fp16 with dynamic loss
+scaling, whose logged steps also print the scale and the found-Inf flag.
+On the card the fusion flag is ``auto``: every fc -> bias -> act chain
+(LeNet's two relu layers, word2vec's sigmoid layer) runs as
+``fused_matmul_bias_act``, whose epilogue is the hand-written kernel 9 of
+the operands' dtype.
 ``--profile N`` runs N more steps, traces N more with ``torch.profiler``
 and prints one JSON line: wall and device-busy ms per step, the idle
 share, kernel 9's, cuBLAS's GEMMs', cuDNN's convolutions' and the other
 kernels' ms per step, and the kernels that take the most device time (a
-GPU is needed).
+GPU is needed); in float16 one more line gives the steps that found an
+Inf and the scale after each step of the run.
 """
 from __future__ import annotations
 
@@ -48,7 +53,9 @@ from ..framework.place import resolve_device
 from ..framework.scope import Scope
 from ..models.lenet import build_lenet
 from ..models.word2vec import build_word2vec
-from .train_resnet import _is_conv, profile_steps, set_card_precision
+from .train_resnet import (AMP_DTYPES, _is_conv, decorate,
+                           loss_scaling_state, print_loss_scaling,
+                           profile_steps, set_card_precision)
 
 __all__ = ["DEFAULTS", "TINY", "build_program", "make_batch", "train",
            "BOOK_GROUPS", "main"]
@@ -85,10 +92,11 @@ BOOK_GROUPS = {
 }
 
 
-def build_program(model, cfg, seed=1, amp=False):
+def build_program(model, cfg, seed=1, amp=False, amp_dtype="bfloat16"):
     """(main, startup, fetches) of ``model``'s training program, from a
     fresh name generator; ``fetches[0]`` is the loss (LeNet: then the
-    accuracy).  ``amp`` wraps the optimizer in ``decorate`` (bf16)."""
+    accuracy).  ``amp`` wraps the optimizer in ``decorate`` in
+    ``amp_dtype``."""
     with unique_name.guard():
         main_prog, startup = fluid.Program(), fluid.Program()
         main_prog.random_seed = seed
@@ -109,7 +117,7 @@ def build_program(model, cfg, seed=1, amp=False):
                 fetches = [loss]
                 opt = fluid.optimizer.SGDOptimizer(cfg["lr"])
             if amp:
-                opt = fluid.contrib.mixed_precision.decorate(opt)
+                opt = decorate(opt, amp_dtype)
             opt.minimize(loss)
     return main_prog, startup, fetches
 
@@ -129,21 +137,29 @@ def make_batch(model, cfg, seed=0):
 
 
 def train(model="lenet", cfg=None, steps=30, device="cuda", warmup=0,
-          log_every=10, amp=False) -> dict:
+          log_every=10, amp=False, amp_dtype="bfloat16") -> dict:
     """Train ``warmup + steps`` steps on one repeated batch; time the last
     ``steps`` (host wall time around steps that each end in a host read
     of the loss).  Returns the per-step losses (and LeNet's accuracy),
     ms/step, examples/s, and what a profiler needs (executor, program,
-    feed, scope, fetches)."""
+    feed, scope, fetches); under dynamic loss scaling also each step's
+    found-Inf flag and the scale after it (``found_inf``,
+    ``loss_scaling``)."""
     cfg = dict(DEFAULTS[model] if cfg is None else cfg)
     dev = resolve_device(device)
-    main_prog, startup, fetch = build_program(model, cfg, amp=amp)
+    main_prog, startup, fetch = build_program(model, cfg, amp=amp,
+                                              amp_dtype=amp_dtype)
     exe = fluid.Executor(dev)
     scope = Scope()
     exe.run(startup, scope=scope)
     feed = {k: torch.from_numpy(v).to(dev)
             for k, v in make_batch(model, cfg).items()}
-    losses, accs = [], []
+    # under loss scaling the scale and the found-Inf flag are fetched too
+    # (in every step, so a profile of the run reuses the same plan)
+    scaling = loss_scaling_state(main_prog)
+    n_model = len(fetch)
+    fetch = fetch + list(scaling or ())
+    losses, accs, scales, found = [], [], [], []
     t0 = time.perf_counter()
     for i in range(warmup + steps):
         if i == warmup:
@@ -152,17 +168,25 @@ def train(model="lenet", cfg=None, steps=30, device="cuda", warmup=0,
             t0 = time.perf_counter()
         out = exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
         losses.append(float(out[0]))
-        if len(out) > 1:
+        if n_model > 1:
             accs.append(float(out[1]))
+        line = (f"step {i}: loss {losses[-1]:.4f}"
+                + (f" acc {accs[-1]:.3f}" if accs else ""))
+        if scaling:
+            scales.append(float(out[n_model][0]))
+            found.append(bool(out[n_model + 1][0]))
+            line += f" scale {scales[-1]:g} found_inf {found[-1]}"
         if log_every and (i % log_every == 0 or i == warmup + steps - 1):
-            print(f"step {i}: loss {losses[-1]:.4f}"
-                  + (f" acc {accs[-1]:.3f}" if accs else ""), flush=True)
+            print(line, flush=True)
     wall = time.perf_counter() - t0
-    return {"losses": losses, "acc": accs,
-            "ms_per_step": wall / steps * 1e3,
-            "examples_per_s": cfg["batch"] * steps / wall, "executor": exe,
-            "program": main_prog, "feed": feed, "scope": scope,
-            "fetch": fetch}
+    run = {"losses": losses, "acc": accs,
+           "ms_per_step": wall / steps * 1e3,
+           "examples_per_s": cfg["batch"] * steps / wall, "executor": exe,
+           "program": main_prog, "feed": feed, "scope": scope,
+           "fetch": fetch}
+    if scaling:
+        run.update(loss_scaling=scales, found_inf=found)
+    return run
 
 
 def main(argv=None):
@@ -176,6 +200,9 @@ def main(argv=None):
                     help="print the loss of every K-th step and the last")
     ap.add_argument("--amp", action="store_true",
                     help="bf16 AMP (fluid.contrib.mixed_precision.decorate)")
+    ap.add_argument("--amp-dtype", choices=AMP_DTYPES, default=None,
+                    help="the AMP dtype (implies --amp); float16 is "
+                         "decorate(use_fp16=True) with dynamic loss scaling")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", type=int, default=0, metavar="N")
@@ -187,16 +214,20 @@ def main(argv=None):
         cfg["batch"] = args.batch
     if args.lr is not None:
         cfg["lr"] = args.lr
+    amp = args.amp or args.amp_dtype is not None
+    amp_dtype = args.amp_dtype or "bfloat16"
     if args.device != "cpu":
         set_card_precision()
     run = train(args.model, cfg, args.steps, args.device, warmup=args.warmup,
-                log_every=args.log_every, amp=args.amp)
-    print(f"{args.model}{' (AMP bf16)' if args.amp else ''}: "
+                log_every=args.log_every, amp=amp, amp_dtype=amp_dtype)
+    tag = {"bfloat16": " (AMP bf16)", "float16": " (AMP fp16)"}[amp_dtype]
+    print(f"{args.model}{tag if amp else ''}: "
           f"{args.steps} steps, "
           f"{run['examples_per_s']:.1f} examples/s, "
           f"{run['ms_per_step']:.2f} ms/step", flush=True)
     if args.profile:
         print(json.dumps(profile_steps(run, args.profile, BOOK_GROUPS)))
+        print_loss_scaling(run)
 
 
 if __name__ == "__main__":

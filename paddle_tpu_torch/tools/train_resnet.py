@@ -3,12 +3,15 @@
 
     python -m paddle_tpu_torch.tools.train_resnet [--depth 50] [--batch 128]
         [--image 224] [--classes 1000] [--steps 100] [--warmup 2] [--lr 0.1]
-        [--no-amp] [--log-every 10] [--tiny] [--device cuda] [--profile N]
+        [--no-amp | --amp-dtype bfloat16|float16] [--log-every 10] [--tiny]
+        [--device cuda] [--profile N]
 
 The example's flags and recipe: ``fluid.layers.data`` -> ``build_resnet``
 -> ``MomentumOptimizer(lr, 0.9)``, wrapped in
-``fluid.contrib.mixed_precision.decorate`` (bf16 AMP, no loss scaling)
-unless ``--no-amp`` is given -> ``minimize(loss)`` -> ``Executor.run`` of
+``fluid.contrib.mixed_precision.decorate`` (bf16 AMP, no loss scaling;
+``--amp-dtype float16``: ``decorate(use_fp16=True)``, fp16 AMP with
+decorate's dynamic loss scaling) unless ``--no-amp`` is given ->
+``minimize(loss)`` -> ``Executor.run`` of
 the startup program, then of the main program with ``fetch_list=[loss,
 acc1]``.  Weights come from the startup program (program seed 1), the
 batch from numpy seed 0; the batch is made once and repeated, so the
@@ -17,11 +20,14 @@ overshoots on the repeated batch: the loss falls for two steps, then
 climbs and swings back, differently from run to run.  ``--warmup`` steps run before the timed ``--steps`` (the
 first builds the plan and initializes cuDNN).  AMP is the default, as
 in the example (``--amp`` is accepted and changes nothing); on the card
-cuBLAS's reduced-precision bf16 reductions are turned off.  With
+cuBLAS's reduced-precision bf16 and fp16 reductions are turned off.  In
+float16 each logged step also prints the loss scale after the step and
+whether the step found an Inf or a NaN (and so skipped its update).  With
 ``--no-amp`` the run is float32, with TF32 off for convolutions and
 matrix products on the card.  ``--tiny`` is ResNet-18 at batch 4,
 32x32, 10 classes, 3 steps.  On the card the fusion and NHWC flags are
-``auto``: the AMP program runs channels-last (``layout_transform_pass``;
+``auto``: the AMP program (bf16 or fp16) runs channels-last
+(``layout_transform_pass``;
 the f32 one stays NCHW, where cuDNN's f32 convolutions are faster) and
 every conv -> BN (-> add) -> relu chain runs as ``fused_conv_bn_act``,
 whose epilogue is the hand-written ``bn_act`` kernels of the activations'
@@ -31,7 +37,8 @@ step, the idle share, the device ms per step of the convolutions, the
 two epilogue kernels, the BN reductions, the copy kernels (casts and
 layout transposes) and everything else, each program op type's span on
 the device timeline per step, and the kernels that take the most device
-time (a GPU is needed).
+time (a GPU is needed); in float16 one more line gives the steps that
+found an Inf and the scale after each step of the run.
 """
 from __future__ import annotations
 
@@ -48,15 +55,31 @@ from ..framework.place import resolve_device
 from ..framework.scope import Scope
 from ..models.resnet import build_resnet
 
-__all__ = ["build_program", "make_batch", "train", "profile_steps",
+__all__ = ["AMP_DTYPES", "build_program", "make_batch", "train",
+           "loss_scaling_state", "print_loss_scaling", "profile_steps",
            "set_card_precision", "main"]
+
+#: ``--amp-dtype`` choices; float16 is ``decorate(use_fp16=True)``
+AMP_DTYPES = ("bfloat16", "float16")
+
+
+def decorate(opt, amp_dtype="bfloat16", init_loss_scaling=None):
+    """``opt`` under ``fluid.contrib.mixed_precision.decorate`` in
+    ``amp_dtype``, with decorate's defaults (float16: dynamic loss
+    scaling from 2^15, or from ``init_loss_scaling``)."""
+    if amp_dtype not in AMP_DTYPES:
+        raise ValueError(f"amp_dtype {amp_dtype!r} not in {AMP_DTYPES}")
+    kw = {} if init_loss_scaling is None else {
+        "init_loss_scaling": init_loss_scaling}
+    return fluid.contrib.mixed_precision.decorate(
+        opt, use_fp16=amp_dtype == "float16", **kw)
 
 
 def build_program(depth=50, image=224, classes=1000, lr=0.1, seed=1,
-                  amp=True):
+                  amp=True, amp_dtype="bfloat16", init_loss_scaling=None):
     """(main, startup, loss, acc1) of the example's training program,
     from a fresh name generator; ``amp`` wraps the optimizer in
-    ``decorate`` (bf16)."""
+    ``decorate`` in ``amp_dtype`` (:func:`decorate`)."""
     with unique_name.guard():
         main_prog, startup = fluid.Program(), fluid.Program()
         main_prog.random_seed = seed
@@ -68,9 +91,20 @@ def build_program(depth=50, image=224, classes=1000, lr=0.1, seed=1,
                                             class_num=classes)
             opt = fluid.optimizer.MomentumOptimizer(lr, 0.9)
             if amp:
-                opt = fluid.contrib.mixed_precision.decorate(opt)
+                opt = decorate(opt, amp_dtype, init_loss_scaling)
             opt.minimize(loss)
     return main_prog, startup, loss, acc1
+
+
+def loss_scaling_state(program):
+    """(loss-scale var name, found-Inf var name) of a program under
+    ``decorate(use_fp16=True)`` with dynamic loss scaling, read from its
+    ``update_loss_scaling`` op; None for any other program."""
+    for op_ in program.global_block().ops:
+        if op_.type == "update_loss_scaling":
+            return (op_.output("LossScalingOut")[0],
+                    op_.input("FoundInfinite")[0])
+    return None
 
 
 def make_batch(batch, image, classes, seed=0):
@@ -82,23 +116,29 @@ def make_batch(batch, image, classes, seed=0):
 
 
 def train(depth=50, batch=128, image=224, classes=1000, steps=100, lr=0.1,
-          device="cuda", warmup=0, log_every=10, amp=True) -> dict:
+          device="cuda", warmup=0, log_every=10, amp=True,
+          amp_dtype="bfloat16") -> dict:
     """Train ``warmup + steps`` steps on one repeated batch; time the last
     ``steps`` (host wall time around steps that each end in a host read
     of the loss).  Returns the per-step losses and acc1, ms/step,
     images/s, and what a profiler needs (executor, program, feed,
-    scope, fetches)."""
+    scope, fetches); under dynamic loss scaling also each step's
+    found-Inf flag and the scale after it (``found_inf``,
+    ``loss_scaling``), fetched with the loss."""
     dev = resolve_device(device)
-    main_prog, startup, loss, acc1 = build_program(depth, image, classes, lr,
-                                                   amp=amp)
+    main_prog, startup, loss, acc1 = build_program(
+        depth, image, classes, lr, amp=amp, amp_dtype=amp_dtype)
     exe = fluid.Executor(dev)
     scope = Scope()
     exe.run(startup, scope=scope)
     img, label = make_batch(batch, image, classes)
     feed = {"img": torch.from_numpy(img).to(dev),
             "label": torch.from_numpy(label).to(dev)}
-    fetch = [loss, acc1]
-    losses, accs = [], []
+    # under loss scaling the scale and the found-Inf flag are fetched too
+    # (in every step, so a profile of the run reuses the same plan)
+    scaling = loss_scaling_state(main_prog)
+    fetch = [loss, acc1] + list(scaling or ())
+    losses, accs, scales, found = [], [], [], []
     t0 = time.perf_counter()
     for i in range(warmup + steps):
         if i == warmup:
@@ -108,15 +148,22 @@ def train(depth=50, batch=128, image=224, classes=1000, steps=100, lr=0.1,
         out = exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
         losses.append(float(out[0]))
         accs.append(float(out[1]))
+        line = f"step {i}: loss {losses[-1]:.4f} acc1 {accs[-1]:.3f}"
+        if scaling:
+            scales.append(float(out[2][0]))
+            found.append(bool(out[3][0]))
+            line += f" scale {scales[-1]:g} found_inf {found[-1]}"
         if log_every and (i % log_every == 0 or i == warmup + steps - 1):
-            print(f"step {i}: loss {losses[-1]:.4f} acc1 {accs[-1]:.3f}",
-                  flush=True)
+            print(line, flush=True)
     wall = time.perf_counter() - t0
-    return {"losses": losses, "acc1": accs,
-            "ms_per_step": wall / steps * 1e3,
-            "images_per_s": batch * steps / wall, "executor": exe,
-            "program": main_prog, "feed": feed, "scope": scope,
-            "fetch": fetch}
+    run = {"losses": losses, "acc1": accs,
+           "ms_per_step": wall / steps * 1e3,
+           "images_per_s": batch * steps / wall, "executor": exe,
+           "program": main_prog, "feed": feed, "scope": scope,
+           "fetch": fetch}
+    if scaling:
+        run.update(loss_scaling=scales, found_inf=found)
+    return run
 
 
 def _self_device_us(evt) -> float:
@@ -220,10 +267,11 @@ def profile_steps(run: dict, steps: int, groups=None) -> dict:
 def set_card_precision():
     """The reference precision on the card: no TF32 in f32 convolutions
     and matrix products (PyTorch allows it in cuDNN by default), and f32
-    accumulation throughout cuBLAS's bf16 products."""
+    accumulation throughout cuBLAS's bf16 and fp16 products."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def main(argv=None):
@@ -240,6 +288,9 @@ def main(argv=None):
     ap.add_argument("--no-amp", action="store_true",
                     help="train in float32 (default: bf16 AMP, as the "
                          "example)")
+    ap.add_argument("--amp-dtype", choices=AMP_DTYPES, default="bfloat16",
+                    help="the AMP dtype; float16 is decorate(use_fp16=True) "
+                         "with dynamic loss scaling")
     ap.add_argument("--amp", action="store_true",
                     help="the default; accepted for symmetry")
     ap.add_argument("--tiny", action="store_true")
@@ -255,11 +306,24 @@ def main(argv=None):
         set_card_precision()
     run = train(args.depth, args.batch, args.image, args.classes, args.steps,
                 args.lr, args.device, warmup=args.warmup,
-                log_every=args.log_every, amp=not args.no_amp)
+                log_every=args.log_every, amp=not args.no_amp,
+                amp_dtype=args.amp_dtype)
     print(f"{args.steps} steps, {run['images_per_s']:.1f} img/s, "
           f"{run['ms_per_step']:.1f} ms/step", flush=True)
     if args.profile:
         print(json.dumps(profile_steps(run, args.profile)))
+        print_loss_scaling(run)
+
+
+def print_loss_scaling(run: dict) -> None:
+    """One JSON line of a dynamic-loss-scaling run: the steps that found
+    an Inf or a NaN (their updates were skipped) and the scale after
+    each step."""
+    if "found_inf" in run:
+        print(json.dumps({
+            "found_inf_steps": [i for i, f in enumerate(run["found_inf"])
+                                if f],
+            "loss_scaling": run["loss_scaling"]}))
 
 
 if __name__ == "__main__":

@@ -11,8 +11,9 @@ default below.  The TPU-named flags get CUDA names here:
 * ``FLAGS_cuda_nhwc`` (JAX ``FLAGS_tpu_nhwc``): the NHWC layout pass
   (``framework/ir.py`` ``layout_transform_pass``), the same ``"1"`` /
   ``"0"``.  Its ``"auto"`` is on for a CUDA device only when the
-  program's convolutions read bf16: cuDNN's bf16 convolutions are
-  fastest channels-last, its f32 ones are not (an f32 ResNet-50 step
+  program's convolutions read bf16 or fp16 (an AMP program): cuDNN's
+  tensor-core convolutions in those dtypes are fastest channels-last, its
+  f32 ones are not (an f32 ResNet-50 step
   takes 199.8 ms NHWC against 185.8 ms NCHW on an H100 80GB HBM3 at
   700 W, ``tools/train_resnet.py --profile``; ``PERF.md`` section 5).
 
@@ -91,9 +92,10 @@ def cuda_fuse_enabled(device) -> bool:
     return _on_for("FLAGS_cuda_fuse", device)
 
 
-def cuda_nhwc_enabled(device, bf16_convs: bool) -> bool:
+def cuda_nhwc_enabled(device, low_precision_convs: bool) -> bool:
     """FLAGS_cuda_nhwc resolved against the executor's ``torch.device``
-    and, for ``"auto"``, whether the program's convolutions read bf16."""
+    and, for ``"auto"``, whether the program's convolutions read a 16-bit
+    float type (bf16 or fp16: ``low_precision_convs``)."""
     if str(get_flag("FLAGS_cuda_nhwc")).strip().lower() == "auto":
-        return device.type == "cuda" and bf16_convs
+        return device.type == "cuda" and low_precision_convs
     return _on_for("FLAGS_cuda_nhwc", device)

@@ -19,6 +19,19 @@ tanh and the backward are equal bit for bit; sigmoid and gelu within
 ``BF16_ACT_ULPS`` bf16 ulps of the largest output (XLA's bf16 logistic
 and gelu against PyTorch's f32 functions rounded once; measured at most
 1.02 ulps).
+
+fp16 (static AMP with loss scaling): the same dtypes with fp16 for bf16.
+The plain versions round every multiply and add to fp16 in the kernels'
+term order, which numpy's sequential fp16 arithmetic reproduces bit for
+bit here.  JAX's jnp composition (the fallback at ragged shapes, one
+eager op at a time) equals them bit for bit for "", relu and tanh;
+sigmoid and gelu within ``FP16_ACT_ULPS`` fp16 half-ulps (2^-11
+relative) of the largest output.  The Pallas kernel in interpret mode is
+one XLA computation, and XLA's CPU runs its fp16 body in f32 and rounds
+where its fusion pass puts the converts (without z, once at the end), so
+at the tileable shapes it lies within ``FP16_KERNEL_ULPS`` half-ulps of
+the largest output (measured at most 3.0 forward, with tanh and z, and
+1.3 backward).
 """
 import jax
 import jax.numpy as jnp
@@ -31,6 +44,8 @@ from paddle_tpu_torch.ops import bn_act as ba
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 BF16_ACT_ULPS = 2
+FP16_ACT_ULPS = 2
+FP16_KERNEL_ULPS = 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -276,17 +291,139 @@ def test_backward_plain_matches_jax_bf16(interpret, shape, c_axis, want_g,
 
 
 def test_cpu_tensors_of_any_float_dtype_take_the_plain_version():
-    """bf16 and float16 CPU tensors take the plain versions (the card
-    refuses float16: ``tests/test_torch_cuda_kernels.py``) and launch
+    """bf16 and float16 CPU tensors take the plain versions and launch
     nothing."""
     x = torch.randn(2, 8, 4, 4)
     a = torch.randn(8)
-    before = (ba.BN_ACT_APPLY_BF16.launches, ba.BN_ACT_BWD_BF16.launches)
+    kernels = (ba.BN_ACT_APPLY_BF16, ba.BN_ACT_BWD_BF16,
+               ba.BN_ACT_APPLY_FP16, ba.BN_ACT_BWD_FP16)
+    before = [k.launches for k in kernels]
     for dt in (torch.bfloat16, torch.float16):
         y = ba.bn_act_apply(x.to(dt), a.to(dt), a.to(dt))
         assert y.dtype == dt
         dx, _ = ba.bn_act_bwd_apply(*(t.to(dt) for t in (y, x, x, a, a, a)),
                                     a)
         assert dx.dtype == dt
-    assert (ba.BN_ACT_APPLY_BF16.launches,
-            ba.BN_ACT_BWD_BF16.launches) == before
+    assert [k.launches for k in kernels] == before
+
+
+# ==========================================================================
+# fp16
+# ==========================================================================
+def _h(a):
+    """numpy float32 -> the float32 values of its fp16 rounding."""
+    return np.asarray(a, np.float16).astype(np.float32)
+
+
+def _ulps16(got, want):
+    """|got - want| in fp16 half-ulps (2^-11) of the largest |want|."""
+    return float(np.abs(got - want).max()) / (2.0 ** -11 * max(
+        float(np.abs(want).max()), 1e-30))
+
+
+def _seq_fwd16(x, a, b, z, c_axis):
+    """x*a + b (+ z) with every step rounded to fp16, in numpy."""
+    shape = [1] * x.ndim
+    shape[c_axis] = x.shape[c_axis]
+    y = _h(_h(x * a.reshape(shape)) + b.reshape(shape))
+    return y if z is None else _h(y + z)
+
+
+@pytest.mark.parametrize("act", ["", "relu", "sigmoid", "tanh", "gelu"])
+@pytest.mark.parametrize("with_z", [False, True], ids=["no-z", "z"])
+@pytest.mark.parametrize("shape,c_axis", SHAPES, ids=SHAPE_IDS)
+def test_forward_plain_matches_jax_fp16(interpret, shape, c_axis, with_z,
+                                        act):
+    x, z, (a, b, _, _) = _arrays(3, shape, c_axis)
+    x, z, a, b = _h(x), _h(z), _h(a), _h(b)
+    z = z if with_z else None
+    jx, ja, jb = (jnp.asarray(v, jnp.float16) for v in (x, a, b))
+    zj = None if z is None else jnp.asarray(z, jnp.float16)
+    want = pk.bn_act_apply(jx, ja, jb, z=zj, act=act, c_axis=c_axis)
+    kernel = want is not None
+    if want is None:   # the op's jnp composition (fused_ops.py:484-488)
+        shape_b = [1] * x.ndim
+        shape_b[c_axis] = x.shape[c_axis]
+        want = jx * ja.reshape(shape_b) + jb.reshape(shape_b)
+        if zj is not None:
+            want = want + zj
+        want = pk.apply_act(want, act)
+    t = [None if v is None else torch.from_numpy(v).half()
+         for v in (x, a, b, z)]
+    got = ba.bn_act_apply(*t, act=act, c_axis=c_axis)
+    assert got.dtype == torch.float16 and str(want.dtype) == "float16"
+    g, w = got.float().numpy(), _f32(want)
+    if act in ("", "relu"):   # the rounding points themselves
+        seq = _seq_fwd16(x, a, b, z, c_axis)
+        np.testing.assert_array_equal(g, np.maximum(seq, 0) if act else seq)
+    if kernel:
+        assert _ulps16(g, w) <= FP16_KERNEL_ULPS, _ulps16(g, w)
+    elif act in ("", "relu", "tanh"):
+        np.testing.assert_array_equal(g, w)
+    else:
+        assert _ulps16(g, w) <= FP16_ACT_ULPS, _ulps16(g, w)
+
+
+@pytest.mark.parametrize("act", ["", "relu"])
+@pytest.mark.parametrize("want_g", [False, True], ids=["dx", "dx-and-g"])
+@pytest.mark.parametrize("shape,c_axis", SHAPES, ids=SHAPE_IDS)
+def test_backward_plain_matches_jax_fp16(interpret, shape, c_axis, want_g,
+                                         act):
+    """c0 stays f32 and is rounded to fp16 inside; dx and g fp16.  g is
+    a select, equal everywhere; dx equal to the jnp composition and to
+    numpy's sequential fp16 arithmetic, and within FP16_KERNEL_ULPS of
+    the Pallas kernel."""
+    x, dy, (cg, mean, cx, c0) = _arrays(4, shape, c_axis)
+    x, dy, cg, mean, cx = (_h(v) for v in (x, dy, cg, mean, cx))
+    y = _h(np.maximum(x + 0.1, 0.0))
+    args = [jnp.asarray(v, jnp.float16) for v in (y, dy, x, cg, mean, cx)]
+    args.append(jnp.asarray(c0))
+    j = pk.bn_act_bwd_apply(*args, act=act, c_axis=c_axis, want_g=want_g)
+    kernel = j is not None
+    if j is None:   # the op's jnp composition (fused_ops.py:549-556)
+        shape_b = [1] * x.ndim
+        shape_b[c_axis] = x.shape[c_axis]
+        yj, dyj, xj, cgj, mj, cxj, c0j = args
+        g = pk._act_mask_grad(yj, dyj, act)
+        dx = (g * cgj.reshape(shape_b) + (xj - mj.reshape(shape_b))
+              * cxj.reshape(shape_b) + c0j.reshape(shape_b).astype(g.dtype))
+        j = (dx.astype(xj.dtype), g if want_g else None)
+    t = ba.bn_act_bwd_apply(*(torch.from_numpy(v).half()
+                              for v in (y, dy, x, cg, mean, cx)),
+                            torch.from_numpy(c0), act=act, c_axis=c_axis,
+                            want_g=want_g)
+    assert t[0].dtype == torch.float16
+    shape_b = [1] * x.ndim
+    shape_b[c_axis] = x.shape[c_axis]
+    g = np.where(y > 0, dy, 0).astype(np.float32) if act else dy
+    seq = _h(_h(_h(g * cg.reshape(shape_b))
+                + _h(_h(x - mean.reshape(shape_b)) * cx.reshape(shape_b)))
+             + _h(c0).reshape(shape_b))
+    got = t[0].float().numpy()
+    np.testing.assert_array_equal(got, seq)
+    if kernel:
+        assert _ulps16(got, _f32(j[0])) <= FP16_KERNEL_ULPS
+    else:
+        np.testing.assert_array_equal(got, _f32(j[0]))
+    if want_g:
+        np.testing.assert_array_equal(t[1].float().numpy(), _f32(j[1]))
+    else:
+        assert t[1] is None
+
+
+def test_fp16_overflow_and_subnormals_follow_fp16():
+    """What loss scaling leans on: an fp16 sum beyond 65504 is Inf (and a
+    loss-scaled Inf gradient stays Inf through the backward, where relu
+    lets it through), and fp16 subnormals are kept, not flushed."""
+    x = torch.tensor([[60000.0, 1e-5, -3e-5, 2.0]], dtype=torch.float16)
+    a = torch.tensor([2.0, 0.5, 0.25, 1.0], dtype=torch.float16)
+    b = torch.zeros(4, dtype=torch.float16)
+    y = ba.bn_act_apply(x, a, b, act="", c_axis=1)
+    assert torch.isinf(y[0, 0]) and y[0, 0] > 0
+    assert 0 < float(y[0, 1]) < 2.0 ** -14 and float(y[0, 2]) < 0
+    dy = torch.tensor([[float("inf"), 1e-6, 3.0, 1.0]], dtype=torch.float16)
+    dx, g = ba.bn_act_bwd_apply(torch.ones_like(x), dy, x, a, b, b,
+                                torch.zeros(4), act="relu", c_axis=1,
+                                want_g=True)
+    assert torch.isinf(dx[0, 0]) and torch.isinf(g[0, 0])
+    assert 0 < float(dx[0, 1]) < 2.0 ** -14

@@ -507,8 +507,8 @@ def test_bn_act_bwd_kernel_matches_plain(cuda, shape, c_axis, act, want_g,
 
 def test_bn_act_wrappers_raise_on_unsupported(cuda):
     x, z, (a, b, _, _) = _bn_case(cuda, 2, (2, 8, 4, 4), 1)
-    with pytest.raises(NotImplementedError, match="float16"):
-        tba.bn_act_apply(x.half(), a.half(), b.half())
+    with pytest.raises(ValueError, match="float16"):   # no float64 kernel
+        tba.bn_act_apply(x.double(), a.double(), b.double())
     with pytest.raises(ValueError, match="float32"):   # mixed dtypes
         tba.bn_act_apply(x.bfloat16(), a, b)
     with pytest.raises(ValueError, match="contiguous"):
@@ -605,8 +605,8 @@ def test_matmul_bias_act_kernel_matches_plain(cuda, m, k, n, act):
 def test_matmul_bias_act_wrapper_raises_on_unsupported(cuda):
     x, w, b = _mm_case(cuda, 1, 32, 48, 24)
     before = tme.MATMUL_BIAS_ACT_F32.launches
-    with pytest.raises(NotImplementedError, match="float16"):
-        tme.matmul_bias_act(x.half(), w.half(), b.half(), "relu")
+    with pytest.raises(NotImplementedError, match="fp16"):  # no float64
+        tme.matmul_bias_act(x.double(), w.double(), b.double(), "relu")
     with pytest.raises(NotImplementedError, match="float32"):  # mixed
         tme.matmul_bias_act(x, w.bfloat16(), b, "relu")
     with pytest.raises(NotImplementedError, match="contiguous"):
@@ -888,3 +888,294 @@ def test_book_models_amp_on_the_card_launch_the_bf16_kernel_9(cuda, model,
         assert launched == ((0, 0) if dev == "cpu"
                             else (2 * chains * 3, 0))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-3)
+
+
+# ==========================================================================
+# static AMP in fp16 (decorate(use_fp16=True)): kernels 7 and 8 in fp16
+# against their plain versions bit for bit ("" and relu and the backward:
+# both round every multiply and add to fp16 in the Pallas kernels' order),
+# sigmoid / tanh / gelu within one fp16 half-ulp (2^-11) of the largest
+# output; Inf and NaN through as the plain versions give them, fp16
+# subnormals kept; then kernel 9 in fp16
+# ==========================================================================
+def _as_fp16(t, offset):
+    """An fp16 copy of ``t``, starting ``offset`` elements off 16-byte
+    alignment when ``offset`` > 0."""
+    if offset == 0:
+        return t.half()
+    buf = torch.empty(t.numel() + offset, dtype=torch.float16,
+                      device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _fp16_case(dev, seed, shape, c_axis, offset=0, scale=1.0):
+    x, z, vecs = _bn_case(dev, seed, shape, c_axis)
+    return (_as_fp16(x * scale, offset), _as_fp16(z * scale, offset),
+            [v.half() for v in vecs[:3]] + [vecs[3]])
+
+
+def _fp16_half_ulps(got, want):
+    return float((got.float() - want.float()).abs().max()) / (
+        2.0 ** -11 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("with_z", [False, True], ids=["no-z", "z"])
+@pytest.mark.parametrize("act", ["", "relu", "sigmoid", "tanh", "gelu"])
+@pytest.mark.parametrize("shape,c_axis", BN_SHAPES, ids=BN_IDS)
+def test_bn_act_apply_fp16_kernel_matches_plain(cuda, shape, c_axis, act,
+                                                with_z, offset):
+    x, z, (a, b, _, _) = _fp16_case(cuda, 0, shape, c_axis, offset)
+    z = z if with_z else None
+    kfs = (tba.BN_ACT_APPLY_FP16, tba.BN_ACT_APPLY_BF16, tba.BN_ACT_APPLY)
+    before = [k.launches for k in kfs]
+    got = tba.bn_act_apply(x, a, b, z, act=act, c_axis=c_axis)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kfs, before)] == [1, 0, 0]
+    want = tba.bn_act_apply_reference(x, a, b, z, act=act, c_axis=c_axis)
+    assert got.dtype == want.dtype == torch.float16
+    if act in ("", "relu"):
+        assert torch.equal(got, want)
+    else:
+        assert _fp16_half_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("want_g", [False, True], ids=["dx", "dx-and-g"])
+@pytest.mark.parametrize("act", ["", "relu"])
+@pytest.mark.parametrize("shape,c_axis", BN_SHAPES, ids=BN_IDS)
+def test_bn_act_bwd_fp16_kernel_matches_plain(cuda, shape, c_axis, act,
+                                              want_g, offset):
+    """dy loss-scaled (x 2^12), as the fp16 AMP backward hands it over."""
+    x, dy, (cg, mean, cx, c0) = _fp16_case(cuda, 1, shape, c_axis, offset)
+    dy = _as_fp16(dy.float() * 4096, offset)
+    y = torch.relu(x + 0.1)
+    kfs = (tba.BN_ACT_BWD_FP16, tba.BN_ACT_BWD_BF16, tba.BN_ACT_BWD)
+    before = [k.launches for k in kfs]
+    dx, g = tba.bn_act_bwd_apply(y, dy, x, cg, mean, cx, c0 * 4096, act=act,
+                                 c_axis=c_axis, want_g=want_g)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kfs, before)] == [1, 0, 0]
+    want_dx, want_gv = tba.bn_act_bwd_reference(y, dy, x, cg, mean, cx,
+                                                c0 * 4096, act, c_axis,
+                                                want_g)
+    assert dx.dtype == torch.float16 and torch.equal(dx, want_dx)
+    if want_g:
+        assert torch.equal(g, want_gv)
+
+
+@pytest.mark.parametrize("shape,c_axis", [((2, 16, 5, 8), 1),
+                                          ((2, 5, 8, 16), 3),
+                                          ((3, 7, 5, 3), 1)],
+                         ids=["nchw", "nhwc", "ragged"])
+def test_bn_act_fp16_kernels_keep_inf_nan_and_subnormals(cuda, shape,
+                                                         c_axis):
+    """Inf and NaN in, overflow to Inf, and fp16 subnormals: the kernels
+    give exactly what the plain versions give (no saturation, no flush),
+    on both the vector and the scalar paths."""
+    x, z, (a, b, mean, c0) = _fp16_case(cuda, 3, shape, c_axis, 0)
+    flat = x.view(-1)
+    flat[0], flat[5], flat[9] = float("inf"), float("nan"), 60000.0
+    flat[13], flat[17] = 3e-7, -5e-8            # subnormal inputs
+    a = a.clone()
+    a[0] = 4.0                                  # 60000 * 4 overflows
+    tiny = torch.full_like(b, 2.0 ** -12)
+    for act in ("", "relu", "sigmoid"):
+        for zz in (None, z):
+            got = tba.bn_act_apply(x, a, b, zz, act=act, c_axis=c_axis)
+            want = tba.bn_act_apply_reference(x, a, b, zz, act=act,
+                                              c_axis=c_axis)
+            torch.cuda.synchronize()
+            assert torch.equal(got.isnan(), want.isnan())
+            ok = ~want.isnan()
+            if act == "sigmoid":
+                assert _fp16_half_ulps(got[ok], want[ok]) <= 1.0
+            else:
+                assert torch.equal(got[ok], want[ok])
+    # x * 2^-12 lands among the fp16 subnormals for |x| < 2^-2
+    got = tba.bn_act_apply(x, tiny, torch.zeros_like(b), act="",
+                           c_axis=c_axis)
+    want = tba.bn_act_apply_reference(x, tiny, torch.zeros_like(b), act="",
+                                      c_axis=c_axis)
+    torch.cuda.synchronize()
+    sub = (want.abs() < 2.0 ** -14) & (want != 0)
+    assert bool(sub.any()) and torch.equal(got[sub], want[sub])
+    dy = torch.full_like(x, 30000.0)
+    dy.view(-1)[2] = float("inf")
+    y = torch.relu(x)
+    for act in ("", "relu"):
+        dx, g = tba.bn_act_bwd_apply(y, dy, x, a, mean, a, c0, act=act,
+                                     c_axis=c_axis, want_g=True)
+        rdx, rg = tba.bn_act_bwd_reference(y, dy, x, a, mean, a, c0, act,
+                                           c_axis, True)
+        torch.cuda.synchronize()
+        assert bool(rdx.isinf().any())
+        assert torch.equal(dx.isnan(), rdx.isnan())
+        ok = ~rdx.isnan()
+        assert torch.equal(dx[ok], rdx[ok]) and torch.equal(g.isnan(),
+                                                            rg.isnan())
+        assert torch.equal(g[~rg.isnan()], rg[~rg.isnan()])
+
+
+@pytest.mark.parametrize("bias_dtype", ["f32", "fp16"])
+@pytest.mark.parametrize("act", MM_ACTS)
+@pytest.mark.parametrize("m,k,n", MM_SHAPES, ids=MM_IDS)
+def test_matmul_bias_act_fp16_kernel_matches_plain(cuda, m, k, n, act,
+                                                   bias_dtype):
+    """The fp16 kernel 9 against the unfused chain (cuBLAS's fp16 product
+    with f32 reductions, the bias, the act): every output within one fp16
+    ulp of its product (2^-10 |x @ w|) plus the f32 accumulators' own
+    difference (the K products added in two orders: 2^-18 |x| @ |w|,
+    which at K = 4099 exceeds an fp16 ulp of a small product; measured
+    1.5e-5 there), times the act's steepest slope, plus f32 noise; for an
+    fp16 bias (an fp16 output) also the fp16 sum's rounding (a whole
+    step of the pre-activation, 2^-10 |x @ w + b|: the two products one
+    rounding apart can round the sum apart) through the act, and the
+    act's own fp16 rounding."""
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+        False
+    x, w, b = _mm_case(cuda, 0, m, k, n)
+    x, w = x.half(), w.half()
+    if bias_dtype == "fp16":
+        b = b.half()
+    kfs = (tme.MATMUL_BIAS_ACT_FP16, tme.MATMUL_BIAS_ACT_BF16,
+           tme.MATMUL_BIAS_ACT_F32)
+    before = [kf.launches for kf in kfs]
+    got = tme.matmul_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    assert [kf.launches - c for kf, c in zip(kfs, before)] == [1, 0, 0]
+    want = tme.matmul_bias_act_reference(x, w, b, act)
+    assert got.shape == (m, n) and got.dtype == want.dtype == b.dtype
+    prod = (x.float() @ w.float()).abs()
+    acc = x.float().abs() @ w.float().abs()
+    bound = (1.13 * (2.0 ** -10 * prod + 2.0 ** -18 * acc)
+             + 1e-6 * want.float().abs() + 1e-7)
+    if bias_dtype == "fp16":
+        pre = (x.float() @ w.float() + b.float()).abs()
+        bound = (bound + 1.13 * 2.0 ** -10 * pre
+                 + 2.0 ** -11 * want.float().abs())
+    assert torch.isfinite(got).all()
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def test_matmul_bias_act_fp16_overflow_and_inf(cuda):
+    """A product beyond 65504 is Inf before the bias (the unfused mul's
+    fp16 output), with an f32 or an fp16 bias; an Inf operand gives what
+    the plain version gives."""
+    x = torch.full((70, 40), 64.0, dtype=torch.float16, device=cuda)
+    w = torch.full((40, 9), 32.0, dtype=torch.float16, device=cuda)
+    w[:, 0] = 0.5
+    b = torch.linspace(-1, 1, 9, device=cuda)
+    for bias in (b, b.half()):
+        got = tme.matmul_bias_act(x, w, bias, "relu")
+        want = tme.matmul_bias_act_reference(x, w, bias, "relu")
+        torch.cuda.synchronize()
+        assert torch.isinf(got[:, 1:]).all() and torch.isfinite(got[:, 0]).all()
+        assert torch.equal(got, want)
+    x[3, 7] = float("inf")
+    got = tme.matmul_bias_act(x, w, b, "")
+    want = tme.matmul_bias_act_reference(x, w, b, "")
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~want.isnan()], want[~want.isnan()])
+
+
+def test_fp16_wrappers_raise_on_unsupported(cuda):
+    x, z, (a, b, _, c0) = _fp16_case(cuda, 2, (2, 8, 4, 4), 1)
+    with pytest.raises(ValueError, match="float16"):    # mixed dtypes
+        tba.bn_act_apply(x, a.float(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tba.bn_act_apply(x.transpose(2, 3), a, b)
+    with pytest.raises(ValueError, match="float32"):    # c0 stays f32
+        tba.bn_act_bwd_apply(x, x, x, a, a, a, c0.half())
+    xm, wm, bm = _mm_case(cuda, 1, 32, 48, 24)
+    with pytest.raises(NotImplementedError, match="float16"):   # mixed
+        tme.matmul_bias_act(xm.half(), wm, bm)
+    with pytest.raises(NotImplementedError, match="float16"):   # bf16 bias
+        tme.matmul_bias_act(xm.half(), wm.half(), bm.bfloat16())
+    with pytest.raises(NotImplementedError, match="contiguous"):
+        tme.matmul_bias_act(xm.half().t().contiguous().t(), wm.half(), bm)
+    before = tme.MATMUL_BIAS_ACT_FP16.launches
+    tme.matmul_bias_act(xm.half().cpu(), wm.half().cpu(), bm.cpu())
+    assert tme.MATMUL_BIAS_ACT_FP16.launches == before
+
+
+def test_resnet18_fp16_on_the_card_launches_the_fp16_epilogue_kernels(cuda):
+    """Two ResNet-18 steps at 32x32 under decorate(Momentum,
+    use_fp16=True), NHWC and fusion at auto: each of the 17 conv chains
+    launches the fp16 kernels 7 and 8 once per step and the f32 and bf16
+    ones never; the loss-scaling state stays on the card."""
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.tools.train_resnet import (build_program,
+                                                     loss_scaling_state,
+                                                     make_batch)
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, loss, _ = build_program(18, 32, 10, 0.1,
+                                           amp_dtype="float16")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    assert exe.fuse_enabled() and exe.nhwc_enabled(main)
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    img, label = make_batch(4, 32, 10)
+    kfs = (tba.BN_ACT_APPLY_FP16, tba.BN_ACT_BWD_FP16,
+           tba.BN_ACT_APPLY_BF16, tba.BN_ACT_BWD_BF16, tba.BN_ACT_APPLY,
+           tba.BN_ACT_BWD)
+    before = [k.launches for k in kfs]
+    scale_name, found_name = loss_scaling_state(main)
+    for _ in range(2):
+        out = exe.run(main, feed={"img": img, "label": label},
+                      fetch_list=[loss, scale_name, found_name], scope=scope)
+        assert np.isfinite(out[0]).all() and out[1][0] > 0
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kfs, before)] == \
+        [34, 34, 0, 0, 0, 0]
+    assert scope.get(scale_name).device.type == "cuda"
+    assert scope.get(found_name).dtype == torch.bool
+
+
+@pytest.mark.parametrize("model,chains", [("lenet", 2), ("word2vec", 1)])
+def test_book_models_fp16_on_the_card_launch_the_fp16_kernel_9(cuda, model,
+                                                               chains):
+    """Three fp16 AMP steps of each book model at a small batch: the fp16
+    kernel 9 launches twice per fc chain per step and no other kernel 9;
+    the card's losses follow the CPU's from one startup scope (fp16
+    products summed in two orders: rtol 1e-3), and the scale and found-Inf
+    history is the CPU's."""
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools import train_book as tb
+    from paddle_tpu_torch.tools.train_resnet import loss_scaling_state
+    import paddle_tpu_torch.fluid as fluid
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    cfg = dict(tb.DEFAULTS[model], batch=16)
+    main, startup, fetch = tb.build_program(model, cfg, amp=True,
+                                            amp_dtype="float16")
+    scaling = list(loss_scaling_state(main))
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    feed = tb.make_batch(model, cfg)
+    losses, history = {}, {}
+    kfs = (tme.MATMUL_BIAS_ACT_FP16, tme.MATMUL_BIAS_ACT_BF16,
+           tme.MATMUL_BIAS_ACT_F32)
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        before = [k.launches for k in kfs]
+        outs = [exe.run(main, feed=feed, fetch_list=fetch[:1] + scaling,
+                        scope=scope) for _ in range(3)]
+        torch.cuda.synchronize()
+        losses[dev] = [float(o[0]) for o in outs]
+        history[dev] = [(float(o[1][0]), bool(o[2][0])) for o in outs]
+        launched = [k.launches - b for k, b in zip(kfs, before)]
+        assert launched == ([0, 0, 0] if dev == "cpu"
+                            else [2 * chains * 3, 0, 0])
+    assert history["cuda"] == history["cpu"]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)

@@ -30,6 +30,12 @@ that product rounding plus the two output roundings,
 ``2^-8 (|x @ w| + 2 |out|)`` (measured: 14.5% (relu) to 41.4% (gelu) of
 the elements differ, by up to 2.0 bf16 ulps of the largest output, with
 tanh, whose outputs are much smaller than its inputs).
+
+fp16 (static AMP with loss scaling, ``decorate(use_fp16=True)``): the same
+chain with the product rounded to fp16, so the same tests with one fp16
+ulp (``2^-10 |x @ w|``) where bf16 has one bf16 ulp, and against the
+Pallas kernel the fp16 roundings ``2^-11 (|x @ w| + 2 |out|)``; the fused
+op and grad equal the unfused chain bit for bit, as in bf16.
 """
 import numpy as np
 import pytest
@@ -222,3 +228,119 @@ def test_bf16_fused_op_and_grad_follow_the_unfused_ops():
     assert torch.equal(fused["dx"], xr.grad)
     assert torch.equal(fused["dy"], wr.grad)
     assert torch.equal(fused["db"], br.grad)
+
+
+# ==========================================================================
+# fp16
+# ==========================================================================
+def _fp16_case(seed, m, k, n):
+    x, w, b = _case(seed, m, k, n, scale=2.0)
+    x16 = torch.from_numpy(x).half()
+    w16 = torch.from_numpy(w).half()
+    # the exact product of the fp16 operands' values
+    prod = np.abs(x16.double().numpy() @ w16.double().numpy())
+    return x16, w16, b, prod
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("m,k,n", [(37, 53, 29), (8, 400, 120),
+                                   (256, 512, 256)],
+                         ids=["odd", "lenet-fc1", "pallas"])
+def test_fp16_plain_version_follows_the_unfused_chain(m, k, n, act):
+    """Against ``_matmul_bias_act_jnp`` on fp16 operands and an f32 bias:
+    f32 out, each element within one fp16 ulp of its product (measured:
+    equal but for the act's f32 noise, since both sides accumulate the
+    products in f32 and round once)."""
+    x16, w16, b, prod = _fp16_case(5, m, k, n)
+    want = np.asarray(jfused._matmul_bias_act_jnp(
+        jnp.asarray(x16.numpy()), jnp.asarray(w16.numpy()), jnp.asarray(b),
+        act, 1, -1))
+    got = tme.matmul_bias_act(x16, w16, torch.from_numpy(b), act)
+    assert got.dtype == torch.float32 and str(want.dtype) == "float32"
+    err = np.abs(got.numpy() - want)
+    assert (err <= 2.0 ** -10 * prod + 1e-6 * np.abs(want) + 1e-7).all(), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_fp16_plain_version_against_the_pallas_kernel(monkeypatch, act):
+    """JAX's kernel in interpret mode: it adds the f32 bias to the
+    unrounded accumulator and returns fp16, where the port (and JAX's
+    fallback) round the product first and return f32."""
+    monkeypatch.setenv("PT_PALLAS_INTERPRET", "1")
+    x16, w16, b, prod = _fp16_case(6, 256, 512, 256)
+    want = pk.matmul_bias_act(jnp.asarray(x16.numpy()),
+                              jnp.asarray(w16.numpy()), jnp.asarray(b), act)
+    assert want is not None and str(want.dtype) == "float16"
+    got = tme.matmul_bias_act(x16, w16, torch.from_numpy(b), act)
+    g = got.half().float().numpy()
+    w = np.asarray(want).astype(np.float32)
+    assert (np.abs(g - w) <= 2.0 ** -11 * (prod + 2 * np.abs(w))).all()
+    assert np.mean(g != w) > 0.01
+
+
+def test_fp16_fp16_bias_and_overflow_follow_the_unfused_chain():
+    """An fp16 bias keeps the output fp16 (fp16 + fp16), and a product
+    beyond fp16's range is Inf before the bias, as the unfused ``mul``'s
+    fp16 output is."""
+    x = torch.full((2, 4), 200.0, dtype=torch.float16)
+    w = torch.full((4, 3), 100.0, dtype=torch.float16)
+    b = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float16)
+    got = tme.matmul_bias_act(x, w, b, "relu")
+    assert got.dtype == torch.float16 and torch.isinf(got).all()
+    got = tme.matmul_bias_act(x, w, b.float(), "")
+    assert got.dtype == torch.float32 and torch.isinf(got).all()
+    x16, w16, b32, _ = _fp16_case(8, 9, 33, 7)
+    got = tme.matmul_bias_act(x16, w16, torch.from_numpy(b32).half(), "tanh")
+    want = torch.tanh(torch.matmul(x16, w16) + torch.from_numpy(b32).half())
+    assert got.dtype == torch.float16 and torch.equal(got, want)
+
+
+def test_fp16_fused_op_and_grad_follow_the_unfused_ops():
+    """The fused op on an fp16 product and an f32 bias, forward and grad,
+    equals the port's unfused mul -> elementwise_add -> relu chain bit for
+    bit: Out f32, dX and dY fp16, dBias f32."""
+    from paddle_tpu_torch.ops import registry as treg
+
+    rng = np.random.RandomState(9)
+    x16 = torch.from_numpy(rng.randn(6, 4, 2, 2).astype(np.float32)).half()
+    w16 = torch.from_numpy(rng.randn(16, 10).astype(np.float32) * 0.4).half()
+    b = torch.from_numpy(rng.randn(10).astype(np.float32))
+    dout = torch.from_numpy(rng.randn(6, 10).astype(np.float32) * 1000)
+    env = {"x": x16, "y": w16, "b": b, "o@GRAD": dout}
+
+    class _Op:
+        def __init__(self, type_, ins, outs, attrs):
+            self.type, self.inputs, self.outputs = type_, ins, outs
+            self.attrs = attrs
+
+    attrs = {"act_type": "relu", "x_num_col_dims": 1, "axis": -1}
+    treg.OPS["fused_matmul_bias_act"].lower(treg.LowerCtx(
+        _Op("fused_matmul_bias_act", {"X": ["x"], "Y": ["y"],
+                                      "Bias": ["b"]}, {"Out": ["o"]},
+            attrs), env))
+    treg.OPS["fused_matmul_bias_act_grad"].lower(treg.LowerCtx(
+        _Op("fused_matmul_bias_act_grad",
+            {"X": ["x"], "Y": ["y"], "Bias": ["b"], "Out@GRAD": ["o@GRAD"]},
+            {"X@GRAD": ["dx"], "Y@GRAD": ["dy"], "Bias@GRAD": ["db"]},
+            attrs), env))
+    xr, wr, br = (t.clone().requires_grad_() for t in (x16, w16, b))
+    out = torch.relu(torch.matmul(xr.reshape(6, 16), wr) + br)
+    out.backward(dout)
+    assert env["o"].dtype == torch.float32
+    assert torch.equal(env["o"], out.detach())
+    assert env["dx"].dtype == torch.float16
+    assert torch.equal(env["dx"], xr.grad)
+    assert torch.equal(env["dy"], wr.grad)
+    assert torch.equal(env["db"], br.grad)
+
+
+def test_fp16_cpu_tensors_take_the_plain_version():
+    x16, w16, b, _ = _fp16_case(3, 5, 7, 4)
+    before = tme.MATMUL_BIAS_ACT_FP16.launches
+    got = tme.matmul_bias_act(x16, w16, torch.from_numpy(b), "sigmoid")
+    assert torch.equal(got, tme.matmul_bias_act_reference(
+        x16, w16, torch.from_numpy(b), "sigmoid"))
+    assert tme.MATMUL_BIAS_ACT_FP16.launches == before
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tme.matmul_bias_act_fp16(x16, w16, torch.from_numpy(b))

@@ -90,11 +90,12 @@ W2V = dict(dict_size=50, embed_dim=16, hidden_size=32)
 # ==========================================================================
 # programs
 # ==========================================================================
-def _build(pkg, model, depth=18, image=32, train=False):
+def _build(pkg, model, depth=18, image=32, train=False, amp=None):
     """(main, startup, loss) of ``model``'s program from a fresh name
     generator: the fc model, LeNet, word2vec or a ResNet; with ``train``,
     the optimizer under ``decorate`` (Momentum for LeNet and the ResNets,
-    SGD for word2vec) minimizes the loss."""
+    SGD for word2vec; ``amp``: decorate's keyword arguments) minimizes
+    the loss."""
     fluid, un, builders = pkg
     prev = un.switch()
     try:
@@ -129,7 +130,8 @@ def _build(pkg, model, depth=18, image=32, train=False):
                     opt = fluid.optimizer.MomentumOptimizer(0.05, 0.9)
                 else:
                     opt = fluid.optimizer.MomentumOptimizer(0.01, 0.9)
-                fluid.contrib.mixed_precision.decorate(opt).minimize(loss)
+                fluid.contrib.mixed_precision.decorate(
+                    opt, **(amp or {})).minimize(loss)
     finally:
         un.switch(prev)
     return main, startup, loss
@@ -209,16 +211,39 @@ def test_decorate_minimize_builds_the_jax_program(model):
 
 
 def test_decorate_leaves_loss_scaling_and_float16_out():
+    """bf16 (the default) leaves loss scaling out: scale 1 whatever is
+    asked, no scaling state, no scaling ops.  float16 builds the scaling
+    state (the programs themselves: ``test_torch_static_amp_fp16.py``)
+    and its two ops resolve."""
     from paddle_tpu_torch.contrib import mixed_precision as mp
 
-    opt = mp.decorate(tfluid.optimizer.MomentumOptimizer(0.1, 0.9))
+    opt = mp.decorate(tfluid.optimizer.MomentumOptimizer(0.1, 0.9),
+                      init_loss_scaling=128.0)
     assert opt.get_loss_scaling() == 1.0
     assert opt.get_loss_scaling_var() is None
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        mp.decorate(tfluid.optimizer.SGDOptimizer(0.1), use_fp16=True)
+    main, _, _ = _build(PORT, "lenet", train=True)
+    types = {o.type for o in main.global_block().ops}
+    assert not types & {"amp_check_finite_and_scale", "update_loss_scaling",
+                        "reciprocal", "scale", "elementwise_mul"}
+    prev = tunique.switch()
+    try:
+        main16 = tfluid.Program()
+        with tfluid.program_guard(main16, tfluid.Program()):
+            x = tfluid.layers.data("x", [12])
+            loss = tfluid.layers.mean(tfluid.layers.fc(x, 4))
+            opt16 = mp.decorate(tfluid.optimizer.SGDOptimizer(0.1),
+                                use_fp16=True)
+            opt16.minimize(loss)
+    finally:
+        tunique.switch(prev)
+    assert opt16.get_loss_scaling() == 2.0 ** 15
+    assert opt16.get_loss_scaling_var().name == "loss_scaling_0"
+    assert opt16.get_found_inf_var().dtype == tcore.VarType.BOOL
+    types = [o.type for o in main16.global_block().ops]
+    assert types.count("amp_check_finite_and_scale") == 1
+    assert types.count("update_loss_scaling") == 1
     for op_type in ("amp_check_finite_and_scale", "update_loss_scaling"):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            treg.resolve(op_type)
+        assert treg.resolve(op_type).lower is not None
 
 
 def test_layout_transform_pass_matches_jax():
@@ -246,17 +271,21 @@ def test_layout_transform_pass_matches_jax():
 
 def test_cuda_nhwc_flag(monkeypatch):
     """``auto`` is NHWC on a CUDA device for a program whose convolutions
-    read bf16 (under ``decorate``) and NCHW for an f32 one; ``"1"``
-    forces NHWC anywhere."""
+    read bf16 or fp16 (under ``decorate``) and NCHW for an f32 one;
+    ``"1"`` forces NHWC anywhere."""
+    from paddle_tpu_torch.tools.train_resnet import build_program
+
     monkeypatch.setitem(tflags._SET, "FLAGS_cuda_nhwc", "auto")
     assert not tflags.cuda_nhwc_enabled(torch.device("cpu"), True)
     assert tflags.cuda_nhwc_enabled(torch.device("cuda"), True)
     assert not tflags.cuda_nhwc_enabled(torch.device("cuda"), False)
     amp, _, _ = _build(PORT, "resnet", train=True)
     f32 = _build(PORT, "resnet")[0]
+    fp16 = build_program(18, 32, 10, amp_dtype="float16")[0]
     exe = tfluid.Executor(tfluid.CPUPlace())
     exe.device = torch.device("cuda")  # resolve as a CUDA place would
     assert exe.nhwc_enabled(amp) and not exe.nhwc_enabled(f32)
+    assert exe.nhwc_enabled(fp16)
     tflags.set_flags({"FLAGS_cuda_nhwc": "1"})
     assert tflags.cuda_nhwc_enabled(torch.device("cpu"), False)
     assert "FLAGS_cuda_nhwc" not in tflags.UNPORTED

@@ -346,6 +346,72 @@ CASES.update({
                          "axis": 1}, cot_of=["o"], tol=SUMS),
 })
 
+def _with_inf(seed, *shape, bad=np.inf):
+    a = _r(seed, *shape)
+    a.flat[3] = bad
+    return a
+
+
+def _update_loss_scaling(found, good, bad, **attrs):
+    return _check(
+        "update_loss_scaling",
+        {"FoundInfinite": [("found", np.array([found]))],
+         "PrevLossScaling": [("scale", np.array([32768.0], np.float32))],
+         "InGoodSteps": [("good", np.array([good], np.int32))],
+         "InBadSteps": [("bad", np.array([bad], np.int32))]},
+        {"LossScalingOut": ["scale_out"], "OutGoodSteps": ["good_out"],
+         "OutBadSteps": ["bad_out"]},
+        dict({"incr_every_n_steps": 3, "decr_every_n_nan_or_inf": 2,
+              "incr_ratio": 2.0, "decr_ratio": 0.8}, **attrs),
+        tol=dict(rtol=0, atol=0))
+
+
+# the float16 AMP ops (decorate(use_fp16=True)); their float16 cases and
+# the state machine over many steps: test_torch_static_amp_fp16.py
+CASES.update({
+    "elementwise_mul": lambda: _check(
+        "elementwise_mul", {"X": [("x", _r(0, 4, 6))],
+                            "Y": [("y", _r(1, 4, 6))]},
+        {"Out": ["o"]}, {"axis": -1}, cot_of=["o"]),
+    "elementwise_mul-scaled-loss": lambda: _check(
+        "elementwise_mul", {"X": [("x", _r(0, 1))],
+                            "Y": [("y", np.array([32768.0], np.float32))]},
+        {"Out": ["o"]}, {"axis": -1}, cot_of=["o"], int_slots=("Y",)),
+    "elementwise_mul-bias-axis": lambda: _check(
+        "elementwise_mul", {"X": [("x", _r(0, 2, 3, 4))],
+                            "Y": [("y", _r(1, 3))]},
+        {"Out": ["o"]}, {"axis": 1}, cot_of=["o"]),
+    "reciprocal": lambda: _check(
+        "reciprocal", {"X": [("x", np.abs(_r(0, 5, 6)) + 0.5)]},
+        {"Out": ["o"]}, cot_of=["o"]),
+    "scale": lambda: _check(
+        "scale", {"X": [("x", _r(0, 5, 6))]}, {"Out": ["o"]},
+        {"scale": 2.5, "bias": 0.5, "bias_after_scale": True},
+        cot_of=["o"]),
+    "scale-bias-first": lambda: _check(
+        "scale", {"X": [("x", _r(0, 5, 6))]}, {"Out": ["o"]},
+        {"scale": 1.0 / 128, "bias": -1.0, "bias_after_scale": False},
+        cot_of=["o"]),
+    "scale-int": lambda: _check(
+        "scale", {"X": [("x", np.arange(6, dtype=np.int32))]},
+        {"Out": ["o"]}, {"scale": 3.0, "bias": 1.0}),
+    "amp_check_finite_and_scale": lambda: _check(
+        "amp_check_finite_and_scale",
+        {"X": [("g0", _r(0, 5, 6)), ("g1", _r(1, 7))],
+         "Scale": [("inv", np.array([2.0 ** -15], np.float32))]},
+        {"Out": ["g0o", "g1o"], "FoundInfinite": ["found"]},
+        tol=dict(rtol=0, atol=0)),
+    "amp_check_finite_and_scale-inf": lambda: _check(
+        "amp_check_finite_and_scale",
+        {"X": [("g0", _r(0, 5, 6)), ("g1", _with_inf(1, 7))],
+         "Scale": [("inv", np.array([2.0 ** -15], np.float32))]},
+        {"Out": ["g0o", "g1o"], "FoundInfinite": ["found"]},
+        tol=dict(rtol=0, atol=0)),
+    "update_loss_scaling-clean": lambda: _update_loss_scaling(False, 1, 1),
+    "update_loss_scaling-incr": lambda: _update_loss_scaling(False, 2, 0),
+    "update_loss_scaling-decr": lambda: _update_loss_scaling(True, 2, 1),
+})
+
 for _t in ("fused_batch_norm_act", "fused_bn_add_activation"):
     for _f in ("NCHW", "NHWC"):
         CASES[f"{_t}-{_f.lower()}"] = (
