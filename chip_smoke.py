@@ -236,16 +236,45 @@ Phases (any failure exits non-zero and prints no result):
    u. fp16 AMP LeNet card vs CPU, 12 steps: phase k's tolerances and the
       found-Inf and scale history equal;
 
+   dygraph AMP in fp16 (``jit_train_step(amp_dtype="float16")``, no loss
+   scale, as in the JAX package), headed v-z:
+
+   v. phases a-b for the fp16 flash kernels (``flash_fwd_fp16``,
+      ``flash_bwd_fused_fp16``, ``flash_bwd_dq_fp16``,
+      ``flash_bwd_dkv_fp16``): every fp16 output within FP16_ULPS fp16
+      ulps (2^-10) of the largest, the keep rate, one seed giving the
+      same output bit for bit, the fp16 kernels apart from the f32 ones by
+      about an fp16 rounding; times against the plain versions, SDPA in
+      fp16 and the bound (989 TFLOP/s, the dense fp16 tensor-core peak);
+   w. phase c under ``amp_dtype="float16"``: BERT-base AMP O1, 2 + 10
+      steps at batch 44 x seq 512, each launching ``flash_fwd_fp16`` and
+      ``flash_bwd_fused_fp16`` 12 times and no f32 or bf16 flash kernel,
+      then 3 steps at seq 2048 (the split fp16 pair);
+   x. the fp16 gelu kernels (``gelu_fwd_fp16``, ``gelu_bwd_fp16``) as
+      phase d, then BERT-base AMP O2 in fp16 over 2 + 5 steps: every
+      parameter fp16 with an f32 master, the fp16 gelu kernels 13 times a
+      step;
+   y. phase e in fp16: the 2-layer model, 3 Adam steps at O1 and O2 on the
+      card and on the CPU within AMP_LOSS_RTOL, at batch 1 x seq 64 (a
+      host CPU without fp16 arithmetic runs fp16 GEMMs slowly), with an
+      f32 card run of that batch for the check that fp16 did run;
+   z. head dims that are no tile width: the flash kernels at d 96 in
+      f32, bf16 and fp16 (and at d 40 and 120 in f32), and the paged
+      decode kernels over f32, bf16 and int8 pages at d 40, 96, 120 and
+      160, against their plain versions;
+
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
     (``flash_fwd_f32`` replaces two), the two quantized rows of kernel 6
     (launches from phase m), the five bf16 rows of kernels 1-5
     (the bf16 launches from phase c, the AMP O1 main path), the three
     bf16 rows of kernels 7-9 (launches from phases g and j), the three
-    fp16 rows of kernels 7-9 (launches from phases r and t), and the two
-    bf16 gelu kernels of the AMP O2 path (launches from phase d; no
-    Pallas kernel: their row names the JAX lowering XLA fuses), the
-    card's name and power limit, and the last line:
+    fp16 rows of kernels 7-9 (launches from phases r and t), the four
+    fp16 rows of kernels 1-5 (launches from phase w, the fp16 O1 main
+    path), and the two bf16 and two fp16 gelu kernels of the AMP O2 paths
+    (launches from phases d and x; no Pallas kernel: their rows name the
+    JAX lowering XLA fuses), the card's name and power limit, and the
+    last line:
     ``{"ok": true, "device": {...}}``.
 
 Each phase's heading carries the seconds since the start.  The port is
@@ -274,7 +303,8 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
 # below what bf16 changes, so phase e can tell the two apart)
 LOSS_RTOL = 1e-6
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the least time
-# the card could take for the bf16 kernels' products
+# the card could take for the bf16 kernels' products; dense fp16 has the
+# same peak
 BF16_FLOP_PER_S = 989e12
 # bf16 flash kernels vs their bf16 plain versions: both round p, pd and dS
 # to bf16 at the same points; the forward kernel rounds p against the
@@ -285,6 +315,13 @@ BF16_FLOP_PER_S = 989e12
 # most 0.95 here on the H100, 1.5 for the plain versions against JAX's
 # kernels in interpret mode on the CPU)
 BF16_ULPS = 4
+# fp16 flash kernels vs their fp16 plain versions: the same rounding
+# points, in fp16 ulps (2^-10 relative) of the tensor's largest magnitude
+FP16_ULPS = 4
+# per dygraph AMP dtype: the flash kernels' name tag, an ulp relative to
+# 1, and the limit in those ulps
+FLASH_LOW = {"bfloat16": ("bf16", 2.0 ** -8, BF16_ULPS),
+             "float16": ("fp16", 2.0 ** -10, FP16_ULPS)}
 # AMP (bf16) losses on the card (kernels, cuBLAS bf16 GEMMs) vs on the CPU
 # (plain versions, oneDNN bf16 GEMMs), per step of 3 Adam steps: bf16
 # roundings in two summation orders; JAX and the port differ by up to
@@ -591,6 +628,8 @@ FLASH_ROWS = (  # (kernel name, TPU kernel it replaces)
 )
 FLASH_BF16_ROWS = tuple((name.replace("_f32", "_bf16"), replaces)
                         for name, replaces in FLASH_ROWS)
+FLASH_FP16_ROWS = tuple((name.replace("_f32", "_fp16"), replaces)
+                        for name, replaces in FLASH_ROWS)
 EPILOGUE_ROWS = (  # (kernel name, TPU kernel it replaces)
     ("bn_act_apply_f32", "paddle_tpu/ops/pallas_kernels.py:1039"),
     ("bn_act_bwd_f32", "paddle_tpu/ops/pallas_kernels.py:1131"),
@@ -600,19 +639,21 @@ EPILOGUE_ROWS = (  # (kernel name, TPU kernel it replaces)
 MAIN_PATH_SHAPE = {f"flash_{k}_{t}": shape
                    for k, shape in (("fwd", "bert"), ("bwd_fused", "bert"),
                                     ("bwd_dq", "long"), ("bwd_dkv", "long"))
-                   for t in ("f32", "bf16")}
+                   for t in ("f32", "bf16", "fp16")}
 
 
 def flash_kernels(dtype="f32"):
     """{name: KernelFunction} of the four flash kernels of one dtype
-    ("f32", "bf16" or "all")."""
+    ("f32", "bf16", "fp16" or "all")."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     kfs = {"f32": (fa.FLASH_FWD, fa.FLASH_BWD_FUSED, fa.FLASH_BWD_DQ,
                    fa.FLASH_BWD_DKV),
            "bf16": (fa.FLASH_FWD_BF16, fa.FLASH_BWD_FUSED_BF16,
-                    fa.FLASH_BWD_DQ_BF16, fa.FLASH_BWD_DKV_BF16)}
-    pick = kfs["f32"] + kfs["bf16"] if dtype == "all" else kfs[dtype]
+                    fa.FLASH_BWD_DQ_BF16, fa.FLASH_BWD_DKV_BF16),
+           "fp16": (fa.FLASH_FWD_FP16, fa.FLASH_BWD_FUSED_FP16,
+                    fa.FLASH_BWD_DQ_FP16, fa.FLASH_BWD_DKV_FP16)}
+    pick = sum(kfs.values(), ()) if dtype == "all" else kfs[dtype]
     return {kf.name: kf for kf in pick}
 
 
@@ -648,9 +689,9 @@ def flash_bound(name, case, causal):
     once over HBM bandwidth, against the flops the function needs (per
     attended pair and head dim: forward 4, dQ 6 [S, dP, dS K], dK/dV 8
     [S, dP, dS^T Q, P^T dO], fused 10) over the card's peak for their
-    type: f32 outside the tensor cores for the f32 kernels, the bf16
-    tensor cores for the bf16 ones.  q, k, v, dO and the outputs count 4
-    or 2 bytes an element; lse, delta and the bias 4."""
+    type: f32 outside the tensor cores for the f32 kernels, the bf16 or
+    fp16 tensor cores for the bf16 and fp16 ones.  q, k, v, dO and the
+    outputs count 4 or 2 bytes an element; lse, delta and the bias 4."""
     q, k, _, _, bias = case
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -666,7 +707,7 @@ def flash_bound(name, case, causal):
     }[kind]
     per_pair = {"flash_fwd": 4, "flash_bwd_fused": 10, "flash_bwd_dq": 6,
                 "flash_bwd_dkv": 8}[kind]
-    bf16 = name.endswith("_bf16")
+    bf16 = name.endswith(("_bf16", "_fp16"))     # 2 bytes, tensor cores
     flops = per_pair * d * attended_pairs(b, h, sq, sk, causal)
     t_bytes = ((2 if bf16 else 4) * data + 4 * f32) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S) * 1e3
@@ -760,7 +801,7 @@ def time_flash(name, cases, causal, rate, dt="f32"):
     """ms, plain_ms, library_ms and the bound of every flash kernel of
     dtype ``dt`` on ``cases`` (copies of one shape, rotated to keep the
     L2 cold); for bf16 the q, k, v, dO of ``cases`` are bf16 and the
-    library call (SDPA) runs in bf16 too."""
+    library call (SDPA) runs in bf16 too, and likewise for fp16."""
     import torch
     import torch.nn.functional as F
 
@@ -979,20 +1020,25 @@ def ulps_off(got, want, unit=2.0 ** -8) -> float:
     return float((got.float() - want.float()).abs().max()) / scale
 
 
-def bf16_case(case):
+def low_case(case, amp_dtype="bfloat16"):
     q, k, v, do, bias = case
-    return (*(t.bfloat16() for t in (q, k, v, do)), bias)
+    import torch
+
+    dt = getattr(torch, amp_dtype)
+    return (*(t.to(dt) for t in (q, k, v, do)), bias)
 
 
-def check_flash_bf16(name, case, causal, rate):
-    """The four bf16 kernels against the bf16 plain versions (which round
-    where the kernels round), the keep rate, determinism, and the bf16
-    kernels against the f32 ones on the same bf16-representable inputs;
+def check_flash_low(name, case, causal, rate, amp_dtype="bfloat16"):
+    """The four bf16 or fp16 kernels against their plain versions (which
+    round where the kernels round), the keep rate, determinism, and the
+    kernels against the f32 ones on the same inputs (exact in f32);
     returns {kernel: max abs error}."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
 
+    tag, unit, limit = FLASH_LOW[amp_dtype]
+    dt = getattr(torch, amp_dtype)
     q, k, v, do, bias = case
     b, h, s, d = q.shape
     scale = d ** -0.5
@@ -1001,86 +1047,93 @@ def check_flash_bf16(name, case, causal, rate):
     out, lse = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
     want_out, want_lse = fa.flash_fwd_reference(q, k, v, bias, scale,
                                                 causal, rate, keep)
-    ulps = {"flash_fwd_bf16": ulps_off(out, want_out)}
-    errs = {"flash_fwd_bf16": float((out.float() - want_out.float())
-                                    .abs().max())}
+    fwd = f"flash_fwd_{tag}"
+    ulps = {fwd: ulps_off(out, want_out, unit)}
+    errs = {fwd: float((out.float() - want_out.float()).abs().max())}
     lse_err = float((lse - want_lse).abs().max())
-    if (out.dtype != torch.bfloat16 or not torch.isfinite(out).all()
-            or ulps["flash_fwd_bf16"] > BF16_ULPS or lse_err > KERNEL_ATOL):
-        fail(f"flash bf16 {name} rate {rate}: forward {out.dtype} vs plain "
-             f"{ulps['flash_fwd_bf16']:.2f} ulps (limit {BF16_ULPS}), lse "
-             f"{lse_err:.3e} (limit {KERNEL_ATOL})")
+    if (out.dtype != dt or not torch.isfinite(out).all()
+            or ulps[fwd] > limit or lse_err > KERNEL_ATOL):
+        fail(f"flash {tag} {name} rate {rate}: forward {out.dtype} vs plain "
+             f"{ulps[fwd]:.2f} ulps (limit {limit}), lse {lse_err:.3e} "
+             f"(limit {KERNEL_ATOL})")
     want = fa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale, causal,
                                   rate, keep)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, bias, do, lse, delta, scale, causal, rate, seed)
-    got = {"flash_bwd_fused_bf16": (fa.bwd_fused(*args), want),
-           "flash_bwd_dq_bf16": ((fa.bwd_dq(*args),), want[:1]),
-           "flash_bwd_dkv_bf16": (fa.bwd_dkv(*args), want[1:])}
+    got = {f"flash_bwd_fused_{tag}": (fa.bwd_fused(*args), want),
+           f"flash_bwd_dq_{tag}": ((fa.bwd_dq(*args),), want[:1]),
+           f"flash_bwd_dkv_{tag}": (fa.bwd_dkv(*args), want[1:])}
     torch.cuda.synchronize()
     for kname, (grads, wants) in got.items():
-        us = [ulps_off(g, w) for g, w in zip(grads, wants)]
-        if max(us) > BF16_ULPS or any(g.dtype != torch.bfloat16
-                                      for g in grads):
-            fail(f"flash bf16 {name} rate {rate}: {kname} gradients "
+        us = [ulps_off(g, w, unit) for g, w in zip(grads, wants)]
+        if max(us) > limit or any(g.dtype != dt for g in grads):
+            fail(f"flash {tag} {name} rate {rate}: {kname} gradients "
                  f"{max(us):.2f} ulps from the plain version's (limit "
-                 f"{BF16_ULPS})")
+                 f"{limit})")
         ulps[kname] = max(us)
         errs[kname] = max(float((g.float() - w.float()).abs().max())
                           for g, w in zip(grads, wants))
-    # the bf16 kernels against the f32 ones on the same inputs: apart by
-    # about a bf16 rounding, far above the f32 kernels' noise
+    # the kernels against the f32 ones on the same inputs: apart by about
+    # a rounding of their dtype, far above the f32 kernels' noise
     f32 = [t.float() for t in (q, k, v, do)]
     o32, l32 = fa.flash_fwd(*f32[:3], bias, scale, causal, rate, seed)
     g32 = fa.flash_bwd(*f32[:3], bias, o32, l32, f32[3], scale, causal,
                        rate, seed)
     g16 = fa.flash_bwd(q, k, v, bias, out, lse, do, scale, causal, rate,
                        seed)
-    vs_f32 = [ulps_off(a, w) for a, w in zip((out, *g16), (o32, *g32))]
-    if not all(2.0 ** -4 < u <= BF16_ULPS for u in vs_f32):
-        fail(f"flash bf16 {name} rate {rate}: bf16 vs f32 kernels "
-             f"{vs_f32} ulps, expected a bf16 rounding (0.0625, "
-             f"{BF16_ULPS}]")
+    vs_f32 = [ulps_off(a, w, unit) for a, w in zip((out, *g16),
+                                                   (o32, *g32))]
+    if not all(2.0 ** -4 < u <= limit for u in vs_f32):
+        fail(f"flash {tag} {name} rate {rate}: {tag} vs f32 kernels "
+             f"{vs_f32} ulps, expected a {tag} rounding (0.0625, {limit}]")
     if rate:
         again, _ = fa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
         if not torch.equal(again, out):
-            fail(f"flash bf16 {name}: the same seed gave another output")
+            fail(f"flash {tag} {name}: the same seed gave another output")
         n = keep.numel()
         kept = float(keep.sum(dtype=torch.float64))
         sigma = (n * rate * (1 - rate)) ** 0.5
         if abs(kept - n * (1 - rate)) > 4 * sigma:
-            fail(f"flash bf16 {name}: keep rate {kept / n:.6f} is more "
+            fail(f"flash {tag} {name}: keep rate {kept / n:.6f} is more "
                  f"than 4 sigma from {1 - rate}")
-    print("flash_check_bf16 " + json.dumps({
-        "case": name, "causal": causal, "dropout": rate, "lse_err": lse_err,
-        "ulps": ulps, "bf16_vs_f32_ulps": vs_f32, **errs}), flush=True)
+    print(f"flash_check_{tag} " + json.dumps({
+        "case": name, "causal": causal, "dropout": rate, "d": d,
+        "lse_err": lse_err, "ulps": ulps, f"{tag}_vs_f32_ulps": vs_f32,
+        **errs}), flush=True)
     return errs
 
 
-def flash_bf16_phase():
-    """Phase a (checks at the BERT-base and long shapes, causal and not,
-    dropout 0 and 0.1) and phase b (times at the two training
-    configurations).  Returns ({kernel: max abs err}, {shape: rows})."""
+def flash_low_phase(amp_dtype="bfloat16"):
+    """Phase a (bf16) or v (fp16): checks at the BERT-base and long
+    shapes, causal and not, dropout 0 and 0.1; then phase b's times at
+    the two training configurations.  Returns ({kernel: max abs err},
+    {shape: rows})."""
     import torch
 
-    errs = {name: 0.0 for name, _ in FLASH_BF16_ROWS}
-    bert = bf16_case(make_flash_case(11, 44, 12, 512, 64, True))
-    long_bias = bf16_case(make_flash_case(12, 2, 12, 2048, 64, True))
-    long_causal = bf16_case(make_flash_case(13, 2, 12, 2048, 64, False))
+    tag = FLASH_LOW[amp_dtype][0]
+    errs = {n.replace("_f32", f"_{tag}"): 0.0 for n, _ in FLASH_ROWS}
+    # fp16 draws other inputs than bf16 (its own seeds)
+    s0 = 11 if amp_dtype == "bfloat16" else 31
+    bert = low_case(make_flash_case(s0, 44, 12, 512, 64, True), amp_dtype)
+    long_bias = low_case(make_flash_case(s0 + 1, 2, 12, 2048, 64, True),
+                         amp_dtype)
+    long_causal = low_case(make_flash_case(s0 + 2, 2, 12, 2048, 64, False),
+                           amp_dtype)
     for name, case, causal in (("bert", bert, False),
                                ("bert_causal", bert, True),
                                ("long", long_bias, False),
                                ("long_causal", long_causal, True)):
         for rate in (0.0, 0.1):
-            for kname, e in check_flash_bf16(name, case, causal,
-                                             rate).items():
+            for kname, e in check_flash_low(name, case, causal, rate,
+                                            amp_dtype).items():
                 errs[kname] = max(errs[kname], e)
     torch.cuda.empty_cache()
-    times = {"bert": time_flash("bert", [bert, bf16_case(make_flash_case(
-                 14, 44, 12, 512, 64, True))], False, 0.1, "bf16"),
+    times = {"bert": time_flash("bert", [bert, low_case(make_flash_case(
+                 s0 + 3, 44, 12, 512, 64, True), amp_dtype)], False, 0.1,
+                 tag),
              "long": time_flash("long", [long_bias] + [
-                 bf16_case(make_flash_case(15 + i, 2, 12, 2048, 64, True))
-                 for i in range(2)], False, 0.1, "bf16")}
+                 low_case(make_flash_case(s0 + 4 + i, 2, 12, 2048, 64, True),
+                          amp_dtype) for i in range(2)], False, 0.1, tag)}
     torch.cuda.empty_cache()
     return errs, times
 
@@ -1089,13 +1142,16 @@ def gelu_kernels():
     from paddle_tpu_torch.ops import gelu
 
     return {"gelu_fwd_bf16": gelu.GELU_FWD_BF16,
-            "gelu_bwd_bf16": gelu.GELU_BWD_BF16}
+            "gelu_bwd_bf16": gelu.GELU_BWD_BF16,
+            "gelu_fwd_fp16": gelu.GELU_FWD_FP16,
+            "gelu_bwd_fp16": gelu.GELU_BWD_FP16}
 
 
-def train_amp(torch, level, cfg, batch, seq, warmup, steps):
+def train_amp(torch, level, cfg, batch, seq, warmup, steps,
+              amp_dtype="bfloat16"):
     """One AMP run through ``tools/train_bert.train``; returns the run,
-    the launches of every flash kernel during it, and the bf16 gelu
-    kernels' (in ``run["gelu_launches"]``)."""
+    the launches of every flash kernel during it, and the gelu kernels'
+    (in ``run["gelu_launches"]``)."""
     from paddle_tpu_torch.tools.train_bert import train
 
     kernels = flash_kernels("all")
@@ -1106,65 +1162,68 @@ def train_amp(torch, level, cfg, batch, seq, warmup, steps):
     reset_counts(gk)
     run = train(cfg, batch=batch, seq=seq, steps=steps, lr=1e-4,
                 device="cuda", pad=True, warmup=warmup, log_every=1,
-                amp=True, amp_level=level)
+                amp=True, amp_level=level, amp_dtype=amp_dtype)
     torch.cuda.synchronize()
     run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     run["gelu_launches"] = {n: kf.launches for n, kf in gk.items()}
     return run, {n: kf.launches for n, kf in kernels.items()}
 
 
-def check_amp_run(what, run, launches, n_steps, layers, split):
+def check_amp_run(what, run, launches, n_steps, layers, split, tag="bf16"):
     """Losses finite and falling, and per step one launch per layer of
-    the bf16 forward and of the bf16 backward (fused, or the split pair),
-    and no f32 flash kernel."""
+    the forward and of the backward (fused, or the split pair) of the AMP
+    dtype ``tag``, and no flash kernel of another dtype."""
     losses = run["losses"]
     if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail(f"{what}: losses {losses} not finite or not falling")
     n = layers * n_steps
     want = {name: 0 for name in launches}
-    want["flash_fwd_bf16"] = n
-    for kname in (("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16") if split
-                  else ("flash_bwd_fused_bf16",)):
+    want[f"flash_fwd_{tag}"] = n
+    for kname in ((f"flash_bwd_dq_{tag}", f"flash_bwd_dkv_{tag}") if split
+                  else (f"flash_bwd_fused_{tag}",)):
         want[kname] = n
     if launches != want:
         fail(f"{what}: flash launches {launches}, expected {want} (layers "
-             f"{layers} x steps {n_steps}, bf16 only)")
+             f"{layers} x steps {n_steps}, {tag} only)")
 
 
-def amp_train_phase(torch, level, warmup, steps):
-    """Phase c (O1) or d (O2): BERT-base at batch 44 x seq 512 under AMP;
-    for O1 also 3 steps at seq 2048 (the split backward).  Returns the
-    bf16 flash kernels' launches, and for O2, whose gelus are bf16
-    (under O1 the bias add promotes them to f32), the gelu kernels' too:
-    one forward and one backward per step for each layer's FFN and for
-    the MLM head's transform."""
+def amp_train_phase(torch, level, warmup, steps, amp_dtype="bfloat16"):
+    """Phase c / w (O1) or d / x (O2): BERT-base at batch 44 x seq 512
+    under AMP in ``amp_dtype``; for O1 also 3 steps at seq 2048 (the split
+    backward).  Returns the flash kernels' launches of that dtype, and
+    for O2, whose gelus run in the AMP dtype (under O1 the bias add
+    promotes them to f32), the gelu kernels' too: one forward and one
+    backward per step for each layer's FFN and for the MLM head's
+    transform."""
     from paddle_tpu_torch.models.bert import BertConfig
 
+    tag = FLASH_LOW[amp_dtype][0]
     layers = BertConfig().num_hidden_layers
     run, launches = train_amp(torch, level, BertConfig(), 44, 512, warmup,
-                              steps)
-    check_amp_run(f"AMP {level} BERT-base", run, launches, warmup + steps,
-                  layers, split=False)
+                              steps, amp_dtype)
+    check_amp_run(f"AMP {level} {tag} BERT-base", run, launches,
+                  warmup + steps, layers, split=False, tag=tag)
     gl = run["gelu_launches"]
     n_gelu = (layers + 1) * (warmup + steps) if level == "O2" else 0
-    if gl != {"gelu_fwd_bf16": n_gelu, "gelu_bwd_bf16": n_gelu}:
-        fail(f"AMP {level} BERT-base: gelu launches {gl}, expected "
-             f"{n_gelu} each")
+    want_gl = {n: n_gelu if n.endswith(tag) else 0 for n in gl}
+    if gl != want_gl:
+        fail(f"AMP {level} {tag} BERT-base: gelu launches {gl}, expected "
+             f"{want_gl}")
     if level == "O2":
-        # every parameter bf16; every one the optimizer has updated (all
-        # but the pooler and the NSP head, which the MLM loss gives no
-        # gradient) has an f32 master and f32 moments
+        # every parameter in the AMP dtype; every one the optimizer has
+        # updated (all but the pooler and the NSP head, which the MLM loss
+        # gives no gradient) has an f32 master and f32 moments
         params = run["model"].parameters()
         states = [run["optimizer"]._state.get(id(p)) for p in params]
         updated = [st for st in states if st is not None]
-        if (any(p.dtype != torch.bfloat16 for p in params)
+        if (any(p.dtype != getattr(torch, amp_dtype) for p in params)
                 or len(updated) != len(params) - 4
                 or any(st[key].dtype != torch.float32 for st in updated
                        for key in ("master", "m1", "m2"))):
-            fail("AMP O2: a parameter is not bf16, or an updated one lacks "
-                 "an f32 master and f32 moments")
+            fail(f"AMP O2: a parameter is not {tag}, or an updated one "
+                 f"lacks an f32 master and f32 moments")
     print("training_amp " + json.dumps({
-        "model": f"BERT-base AMP {level} bf16", "batch": 44, "seq": 512,
+        "model": f"BERT-base AMP {level} {tag}", "batch": 44, "seq": 512,
         "dropout": 0.1, "warmup_steps": warmup, "timed_steps": steps,
         "losses": run["losses"], "ms_per_step": run["ms_per_step"],
         "tokens_per_s": run["tokens_per_s"],
@@ -1177,23 +1236,25 @@ def amp_train_phase(torch, level, warmup, steps):
     if level == "O1":
         long_run, longl = train_amp(
             torch, level, BertConfig(max_position_embeddings=2048), 2, 2048,
-            1, 2)
-        check_amp_run("AMP O1 seq 2048", long_run, longl, 3, layers,
-                      split=True)
+            1, 2, amp_dtype)
+        check_amp_run(f"AMP O1 {tag} seq 2048", long_run, longl, 3, layers,
+                      split=True, tag=tag)
         print("training_amp_long " + json.dumps({
+            "model": f"BERT-base AMP O1 {tag}",
             "batch": 2, "seq": 2048, "losses": long_run["losses"],
             "ms_per_step": long_run["ms_per_step"], "launches": longl}),
             flush=True)
         total = {n: total[n] + longl[n] for n in total}
         del long_run
     torch.cuda.empty_cache()
-    return {n: c for n, c in total.items() if n.endswith("_bf16")}
+    return {n: c for n, c in total.items() if n.endswith(f"_{tag}")}
 
 
-def amp_card_vs_cpu(torch, f32_losses):
-    """Phase e: 2 layers at full width, the same weights and batch as the
-    f32 card-vs-CPU phase, 3 Adam steps under AMP O1 and O2 on the card
-    (bf16 kernels) and on the CPU (plain versions)."""
+def amp_card_vs_cpu(torch, f32_losses, amp_dtype="bfloat16"):
+    """Phase e (bf16) or y (fp16): 2 layers at full width, the same
+    weights and batch as the f32 card-vs-CPU phase, 3 Adam steps under
+    AMP O1 and O2 on the card (bf16 or fp16 kernels) and on the CPU
+    (plain versions)."""
     from paddle_tpu_torch.dygraph import jit_train_step, to_tensor
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.optimizer import AdamOptimizer
@@ -1201,10 +1262,23 @@ def amp_card_vs_cpu(torch, f32_losses):
 
     cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
                      attention_probs_dropout_prob=0.0)
-    batch = make_batch(cfg, 2, 128, seed=3, pad=True)
+    # fp16 GEMMs on a host CPU without fp16 arithmetic run PyTorch's slow
+    # fallback, most of this phase's time at phase 8's batch: fp16 takes
+    # 1 x 64 tokens, and its own f32 card run for the f32 comparison
+    b, s = (2, 128) if amp_dtype == "bfloat16" else (1, 64)
+    batch = make_batch(cfg, b, s, seed=3, pad=True)
     weights = BertForPretraining(cfg, device="cpu", seed=0).state_dict()
-    fwd16 = flash_kernels("bf16")["flash_fwd_bf16"]
-    result = {}
+    if (b, s) != (2, 128):
+        model = BertForPretraining(cfg, device="cuda", seed=1)
+        model.set_dict(weights)
+        step = jit_train_step(model, AdamOptimizer(
+            1e-4, parameter_list=model.parameters()),
+            lambda m, i, l, a: m(i, l, attention_mask=a))
+        inputs = [to_tensor(x, "cuda") for x in batch]
+        f32_losses = [float(step(*inputs)) for _ in range(3)]
+    tag = FLASH_LOW[amp_dtype][0]
+    fwd16 = flash_kernels(tag)[f"flash_fwd_{tag}"]
+    result = {"batch": b, "seq": s}
     for level in ("O1", "O2"):
         losses = {}
         for dev in ("cpu", "cuda"):
@@ -1213,13 +1287,13 @@ def amp_card_vs_cpu(torch, f32_losses):
             step = jit_train_step(model, AdamOptimizer(
                 1e-4, parameter_list=model.parameters()),
                 lambda m, i, l, a: m(i, l, attention_mask=a), amp=True,
-                amp_level=level)
+                amp_dtype=amp_dtype, amp_level=level)
             inputs = [to_tensor(x, dev) for x in batch]
             launched = fwd16.launches
             losses[dev] = [float(step(*inputs)) for _ in range(3)]
             if dev == "cuda" and fwd16.launches != launched + 2 * 3:
-                fail(f"AMP {level} card vs CPU: the card's run did not "
-                     f"launch the bf16 flash kernels")
+                fail(f"AMP {level} {tag} card vs CPU: the card's run did "
+                     f"not launch the {tag} flash kernels")
         rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
                                                       losses["cuda"]))
         vs_f32 = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
@@ -1227,12 +1301,13 @@ def amp_card_vs_cpu(torch, f32_losses):
         result[level] = {**losses, "max_rel_diff": rel, "rtol":
                          AMP_LOSS_RTOL, "vs_f32_max_rel": vs_f32}
         if not rel <= AMP_LOSS_RTOL:
-            fail(f"AMP {level} card vs CPU losses differ by {rel:.3e} > "
-                 f"{AMP_LOSS_RTOL}")
+            fail(f"AMP {level} {tag} card vs CPU losses differ by "
+                 f"{rel:.3e} > {AMP_LOSS_RTOL}")
         if level == "O1" and not vs_f32 > LOSS_RTOL:
-            fail(f"AMP O1 losses within {vs_f32:.3e} of the f32 run's "
-                 f"(f32 tolerance {LOSS_RTOL}): bf16 did not run")
-    print("amp_card_vs_cpu " + json.dumps(result), flush=True)
+            fail(f"AMP O1 {tag} losses within {vs_f32:.3e} of the f32 run's "
+                 f"(f32 tolerance {LOSS_RTOL}): {tag} did not run")
+    print(f"amp_card_vs_cpu{'' if tag == 'bf16' else '_' + tag} "
+          + json.dumps(result), flush=True)
 
 
 # ==========================================================================
@@ -1770,6 +1845,8 @@ GELU_ROWS = (  # (kernel name, the JAX lowering it stands for: XLA-fused)
     ("gelu_fwd_bf16", "paddle_tpu/ops/math_ops.py:110"),
     ("gelu_bwd_bf16", "paddle_tpu/ops/math_ops.py:110"),
 )
+GELU_FP16_ROWS = tuple((name.replace("_bf16", "_fp16"), replaces)
+                       for name, replaces in GELU_ROWS)
 EPILOGUE_BF16_ROWS = tuple((name.replace("_f32", "_bf16"), replaces)
                            for name, replaces in EPILOGUE_ROWS)
 EPILOGUE_FP16_ROWS = tuple((name.replace("_f32", "_fp16"), replaces)
@@ -1828,49 +1905,54 @@ AMP_LENET_LOSS_ATOL = {"bfloat16": 5e-2, "float16": 5e-2}
 FP16_CLEAN_STEPS, FP16_MAX_STEPS = 4, 80
 
 
-def gelu_phase():
-    """The bf16 gelu kernels against their plain versions bit for bit at
-    BERT-base's FFN shape (22528 x 3072) and a ragged one, then timed at
-    the FFN shape against the bound, the plain versions and ``F.gelu`` in
-    bf16 (forward; its backward alone).  Returns {kernel: row}."""
+def gelu_phase(amp_dtype="bfloat16"):
+    """The bf16 (or fp16) gelu kernels against their plain versions bit
+    for bit at BERT-base's FFN shape (22528 x 3072) and a ragged one,
+    then timed at the FFN shape against the bound, the plain versions and
+    ``F.gelu`` in that dtype (forward; its backward alone).  Returns
+    {kernel: row}."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import gelu
 
+    tag = FLASH_LOW[amp_dtype][0]
+    dt = getattr(torch, amp_dtype)
+    k_fwd = getattr(gelu, f"gelu_fwd_{tag}")
+    k_bwd = getattr(gelu, f"gelu_bwd_{tag}")
+    p_fwd = getattr(gelu, f"gelu_{tag}_reference")
+    p_bwd = getattr(gelu, f"gelu_{tag}_grad_reference")
+    fname, bname = f"gelu_fwd_{tag}", f"gelu_bwd_{tag}"
     rows = {}
-    errs = {"gelu_fwd_bf16": 0.0, "gelu_bwd_bf16": 0.0}
+    errs = {fname: 0.0, bname: 0.0}
     gen = torch.Generator(device="cuda").manual_seed(21)
     ffn = (22528, 3072)
     for shape in (ffn, (1001, 37)):
-        x = (torch.randn(shape, device="cuda", generator=gen) * 3).bfloat16()
-        dy = torch.randn(shape, device="cuda", generator=gen).bfloat16()
-        got, want = gelu.gelu_fwd_bf16(x), gelu.gelu_bf16_reference(x)
-        gdx = gelu.gelu_bwd_bf16(x, dy)
-        wdx = gelu.gelu_bf16_grad_reference(x, dy)
+        x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dt)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(dt)
+        got, want = k_fwd(x), p_fwd(x)
+        gdx, wdx = k_bwd(x, dy), p_bwd(x, dy)
         torch.cuda.synchronize()
         fwd = float((got.float() - want.float()).abs().max())
         bwd = float((gdx.float() - wdx.float()).abs().max())
-        errs["gelu_fwd_bf16"] = max(errs["gelu_fwd_bf16"], fwd)
-        errs["gelu_bwd_bf16"] = max(errs["gelu_bwd_bf16"], bwd)
+        errs[fname] = max(errs[fname], fwd)
+        errs[bname] = max(errs[bname], bwd)
         if not (torch.equal(got, want) and torch.equal(gdx, wdx)):
-            fail(f"gelu bf16 kernels differ from their plain versions at "
+            fail(f"gelu {tag} kernels differ from their plain versions at "
                  f"{shape}: forward {fwd}, backward {bwd}")
     n = ffn[0] * ffn[1]
     count = max(2, -(-COLD_BYTES // (4 * n)))
-    sets = [((torch.randn(ffn, device="cuda", generator=gen) * 3).bfloat16(),
-             torch.randn(ffn, device="cuda", generator=gen).bfloat16())
+    sets = [((torch.randn(ffn, device="cuda", generator=gen) * 3).to(dt),
+             torch.randn(ffn, device="cuda", generator=gen).to(dt))
             for _ in range(count)]
 
     def lib_bwd(x, dy):
         return torch.ops.aten.gelu_backward(dy, x)
 
     for name, kern, plain, lib, nbytes in (
-            ("gelu_fwd_bf16", lambda x, dy: gelu.gelu_fwd_bf16(x),
-             lambda x, dy: gelu.gelu_bf16_reference(x),
+            (fname, lambda x, dy: k_fwd(x), lambda x, dy: p_fwd(x),
              lambda x, dy: F.gelu(x), 4 * n),
-            ("gelu_bwd_bf16", gelu.gelu_bwd_bf16,
-             gelu.gelu_bf16_grad_reference, lib_bwd, 6 * n)):
+            (bname, k_bwd, p_bwd, lib_bwd, 6 * n)):
         rows[name] = {"shape": list(ffn), "max_abs_err": errs[name],
                       "ms": time_ms(kern, sets, 8, 5),
                       "plain_ms": time_ms(plain, sets, 4, 2),
@@ -2856,6 +2938,60 @@ def int8_pools_close(card, cpu):
     return off / total, rels
 
 
+# ==========================================================================
+# head dims that are no tile width
+# ==========================================================================
+# flash: (dtype, d) at b 4, h 8, s 640 (ten kv tiles, the last ragged);
+# paged decode: every pool dtype at these head dims (40 and 120 take the
+# int8 kernel's 8-byte slices, 96 and 160 its 16-byte ones)
+FLASH_HEAD_DIMS = (("float32", 40), ("float32", 96), ("float32", 120),
+                   ("bfloat16", 96), ("float16", 96))
+PAGED_HEAD_DIMS = (40, 96, 120, 160)
+
+
+def head_dim_phase():
+    """Phase z: the flash kernels (forward, fused and split backward) and
+    the paged decode kernels at head dims the JAX kernels take and no
+    tile width equals, each against its plain version on the same CUDA
+    tensors (the f32 flash kernels within KERNEL_ATOL and the gradient
+    tolerance, bf16 / fp16 within their ulps; the paged kernels within
+    KERNEL_ATOL)."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    for amp_dtype, d in FLASH_HEAD_DIMS:
+        case = make_flash_case(40 + d, 4, 8, 640, d, True)
+        for causal, rate in ((False, 0.1), (True, 0.0)):
+            if amp_dtype == "float32":
+                check_flash(f"d{d}", case, causal, rate)
+            else:
+                check_flash_low(f"d{d}", low_case(case, amp_dtype), causal,
+                                rate, amp_dtype)
+        del case
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(1)
+    lens = [1, 16, 33, 250, 777]
+    for d in PAGED_HEAD_DIMS:
+        errs = {}
+        case = make_decode_case(rng, 8, 2, d, 16, 256, lens, n_pad=1)
+        got = pa.paged_decode(*case, d ** -0.5)
+        want = pa.paged_attention_reference(*case, d ** -0.5)
+        errs["paged_decode_f32"] = float((got - want).abs().max())
+        for dtype, kname in QUANT_ROWS:
+            c, sc = make_quant_case(rng, dtype, 8, 2, d, 16, 256, lens, 1)
+            kernel = getattr(pa, kname)
+            got = kernel(*c, d ** -0.5, *sc)
+            want = pa.paged_attention_reference(*c, d ** -0.5, *sc)
+            if not torch.isfinite(got).all():
+                fail(f"{kname} at head dim {d}: output not finite")
+            errs[kname] = float((got - want).abs().max())
+        torch.cuda.synchronize()
+        print("head_dim_paged " + json.dumps({"d": d, **errs}), flush=True)
+        if max(errs.values()) > KERNEL_ATOL:
+            fail(f"paged decode at head dim {d}: {errs} > {KERNEL_ATOL}")
+
+
 def main():
     import torch
 
@@ -2923,7 +3059,7 @@ def main():
     f32_losses = card_vs_cpu(torch)
 
     phase("a/b. flash attention bf16: kernels vs plain versions, times")
-    flash16_errs, flash16_times = flash_bf16_phase()
+    flash16_errs, flash16_times = flash_low_phase("bfloat16")
 
     phase("c. training: BERT-base AMP O1 (bf16), then seq 2048")
     flash16_launches = amp_train_phase(torch, "O1", warmup=2, steps=10)
@@ -3029,6 +3165,28 @@ def main():
     phase("u. training: LeNet fp16 AMP card vs CPU, batch 64, 12 steps")
     lenet_amp_card_vs_cpu(torch, "float16")
 
+    # dygraph AMP in fp16
+    phase("v. flash attention fp16: kernels vs plain versions, times")
+    flash_h_errs, flash_h_times = flash_low_phase("float16")
+
+    phase("w. training: BERT-base AMP O1 (fp16), then seq 2048")
+    flash_h_launches = amp_train_phase(torch, "O1", warmup=2, steps=10,
+                                       amp_dtype="float16")
+
+    phase("x. fp16 gelu: kernels vs plain versions, times")
+    gelu_h_times = gelu_phase("float16")
+
+    phase("x. training: BERT-base AMP O2 (fp16)")
+    gelu_h_launches = amp_train_phase(torch, "O2", warmup=2, steps=5,
+                                      amp_dtype="float16")
+
+    phase("y. training: AMP O1 / O2 fp16 card vs CPU, 2 layers at full "
+          "width")
+    amp_card_vs_cpu(torch, f32_losses, "float16")
+
+    phase("z. head dims 40-160: flash and paged decode kernels vs plain")
+    head_dim_phase()
+
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -3058,16 +3216,20 @@ def main():
             "max_abs_err": flash_errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    for name, replaces in FLASH_BF16_ROWS:
-        # each at the shape the AMP O1 training path launches it at
-        t = flash16_times[MAIN_PATH_SHAPE[name]][name]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": flash16_launches[name],
-            "max_abs_err": flash16_errs[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for flash_rows, times, launched, errs in (
+            (FLASH_BF16_ROWS, flash16_times, flash16_launches, flash16_errs),
+            (FLASH_FP16_ROWS, flash_h_times, flash_h_launches,
+             flash_h_errs)):
+        for name, replaces in flash_rows:
+            # each at the shape the AMP O1 training path launches it at
+            t = times[MAIN_PATH_SHAPE[name]][name]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": replaces, "launches": launched[name],
+                "max_abs_err": errs[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for name, replaces in EPILOGUE_ROWS:
         t = epi_times[name]
         rows.append({
@@ -3124,17 +3286,20 @@ def main():
         "bound_ms": mm_h_step["bound_ms"],
         "bound_by": mm_h_step["bound_by"],
         "library_ms": mm_h_step["library_ms"]})
-    # the bf16 gelu of the AMP O2 path (no Pallas kernel: XLA fuses the
-    # JAX lowering); bit-equal to its plain versions
-    for name, replaces in GELU_ROWS:
-        t = gelu_times[name]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/gelu_bf16.cu",
-            "replaces": replaces, "launches": gelu_launches[name],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the bf16 and fp16 gelu of the AMP O2 paths (no Pallas kernel: XLA
+    # fuses the JAX lowering); bit-equal to their plain versions
+    for gelu_rows, times, launched in ((GELU_ROWS, gelu_times, gelu_launches),
+                                       (GELU_FP16_ROWS, gelu_h_times,
+                                        gelu_h_launches)):
+        for name, replaces in gelu_rows:
+            t = times[name]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/gelu_lowp.cu",
+                "replaces": replaces, "launches": launched[name],
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     phase("done")
     print(json.dumps({"kernels": rows}))
     print(smi_line)

@@ -1,15 +1,16 @@
-// Flash attention for Hopper (sm_90a), in float32 and in bfloat16:
+// Flash attention for Hopper (sm_90a), in float32, bfloat16 and float16:
 // forward, fused backward, and the split dQ and dK/dV backward, with
 // attention-probs dropout regenerated inside every kernel.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_kernels.py,
-// each in both of the dtypes they take:
+// each in every dtype they take:
 //
-//   flash_fwd_{f32,bf16}        _fwd_single_block_kernel :203 and
-//                               _fwd_kernel :150 (_flash_fwd :256-341)
-//   flash_bwd_fused_{f32,bf16}  _bwd_fused_kernel :449 (_flash_bwd_fused :477)
-//   flash_bwd_dq_{f32,bf16}     _bwd_dq_kernel :386    (_flash_bwd :523-574)
-//   flash_bwd_dkv_{f32,bf16}    _bwd_dkv_kernel :413   (_flash_bwd :576-621)
+//   flash_fwd_{f32,bf16,fp16}        _fwd_single_block_kernel :203 and
+//                                    _fwd_kernel :150 (_flash_fwd :256-341)
+//   flash_bwd_fused_{f32,bf16,fp16}  _bwd_fused_kernel :449
+//                                    (_flash_bwd_fused :477)
+//   flash_bwd_dq_{f32,bf16,fp16}     _bwd_dq_kernel :386 (_flash_bwd :523-574)
+//   flash_bwd_dkv_{f32,bf16,fp16}    _bwd_dkv_kernel :413 (_flash_bwd :576-621)
 //
 // bf16.  Every kernel is a template on the storage type T of q, k, v, dO
 // and the outputs; the padding bias, lse and delta stay float32, and all
@@ -29,6 +30,21 @@
 // (the TPU keeps an f32 VMEM scratch for the same reason, :393-410).
 // With T = float the scratch is dQ itself and nothing is rounded, so the
 // f32 kernels compute what they always did.
+//
+// fp16.  T = __half takes the same rounding points as bf16, each a
+// round-to-nearest-even __float2half_rn that keeps subnormals (as the TPU
+// kernel's astype does on XLA's CPU): dS of a long row sits largely below
+// fp16's smallest normal when no loss scale lifts it.  The padding bias
+// and the mask value stay float32.
+//
+// Head dims.  The kernels run at a tile width D in {32, 64, 128}: a head
+// dim d (any multiple of 8 up to 128) runs at the smallest D >= d, with d
+// as the row stride of q, k, v, dO and every output.  The tiles' columns
+// d..D-1 are zeros in shared memory, which leaves every dot product
+// unchanged, and only the first d columns are stored.  When d is the tile
+// width, the tile loads and the fused kernel's dQ updates take a branch
+// with the compile-time stride D (uniform across the block): the runtime
+// stride alone slowed the d = 64 kernels measurably.
 //
 // Semantics (the JAX package's): q, k, v are (b, h, s, d) row-major;
 // s = q.k * scale + bias[b, key] (the additive padding bias, optional),
@@ -92,6 +108,7 @@
 // 32 random bits >= thresh = rate * 2^32 (the TPU kernel's rule).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -105,6 +122,8 @@ constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
 
 struct Attn {
   int h, sq, sk;
+  int d;                         // the real head dim, the row stride
+                                 // (<= the tile width D)
   float scale;
   int causal;
   const float* bias;             // (b, sk) or null
@@ -125,6 +144,20 @@ struct Elem<float> {
   }
   static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
   static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(const __half* p) {
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __half2float(__ushort_as_half(u));
+  }
+  static __device__ __forceinline__ void store(__half* p, float x) {
+    *p = __float2half_rn(x);   // keeps subnormals, as the TPU's cast does
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
 };
 
 template <>
@@ -180,17 +213,61 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// rows [row0, row0 + 64) of an (n, D) row-major matrix into s[64][D + 1];
-// rows past n are zero
+// rows [row0, row0 + 64) of an (n, d) row-major matrix into s[64][D + 1]
+// (d <= D); rows past n and columns past d are zero, which leaves every
+// dot product over the tile's D columns unchanged
 template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* __restrict__ s,
                                           const T* __restrict__ g, int row0,
-                                          int n) {
+                                          int n, int d) {
+  if (d == D) {   // the tile width itself: a compile-time row stride
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+      const int r = idx / D, c = idx % D;
+      s[r * (D + 1) + c] =
+          (row0 + r < n) ? Elem<T>::load(g + (size_t)(row0 + r) * D + c) : 0.f;
+    }
+    return;
+  }
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    s[r * (D + 1) + c] =
-        (row0 + r < n) ? Elem<T>::load(g + (size_t)(row0 + r) * D + c) : 0.f;
+    s[r * (D + 1) + c] = (row0 + r < n && c < d)
+                             ? Elem<T>::load(g + (size_t)(row0 + r) * d + c)
+                             : 0.f;
+  }
+}
+
+// rows [row0, row0 + 64) of dQ's f32 scratch (rows of d floats) plus this
+// thread's share dqa of them; `first` (kv tile 0) initialises them
+template <int D>
+__device__ __forceinline__ void add_dq(float* __restrict__ g, int row0,
+                                       int n, int d, bool first,
+                                       const float (&dqa)[4][D / 16], int ty,
+                                       int tx) {
+  if (d == D) {   // the tile width itself: a compile-time row stride
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + ty + 16 * i;
+      if (r >= n) continue;
+#pragma unroll
+      for (int jd = 0; jd < D / 16; ++jd) {
+        float* p = g + (size_t)r * D + tx + 16 * jd;
+        *p = (first ? 0.f : *p) + dqa[i][jd];
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int jd = 0; jd < D / 16; ++jd) {
+      if (tx + 16 * jd >= d) continue;
+      float* p = g + (size_t)r * d + tx + 16 * jd;
+      *p = (first ? 0.f : *p) + dqa[i][jd];
+    }
   }
 }
 
@@ -342,10 +419,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, bi = bh / a.h;
   const int row0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qoff = (size_t)bh * a.sq * D, koff = (size_t)bh * a.sk * D;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
   const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
 
-  load_tile<D>(qs, q + qoff, row0, a.sq);
+  load_tile<D>(qs, q + qoff, row0, a.sq, a.d);
   float m[4], l[4], acc[4][VD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -359,8 +436,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int col0 = kt * kTile;
     __syncthreads();   // the previous tile's ks, vs, ps are consumed
-    load_tile<D>(ks, k + koff, col0, a.sk);
-    load_tile<D>(vs, v + koff, col0, a.sk);
+    load_tile<D>(ks, k + koff, col0, a.sk, a.d);
+    load_tile<D>(vs, v + koff, col0, a.sk, a.d);
     __syncthreads();
     float s[4][4];
     dot_tile<D>(qs, ks, s, ty, tx);
@@ -412,8 +489,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l_safe;
 #pragma unroll
     for (int jd = 0; jd < VD; ++jd)
-      Elem<T>::store(out + qoff + (size_t)r * D + tx + 16 * jd,
-                     acc[i][jd] * inv);
+      if (tx + 16 * jd < a.d)
+        Elem<T>::store(out + qoff + (size_t)r * a.d + tx + 16 * jd,
+                       acc[i][jd] * inv);
     if (tx == 0) lse[(size_t)bh * a.sq + r] = m[i] + logf(l_safe);
   }
 }
@@ -437,11 +515,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, bi = bh / a.h;
   const int row0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qoff = (size_t)bh * a.sq * D, koff = (size_t)bh * a.sk * D;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
   const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
 
-  load_tile<D>(qs, q + qoff, row0, a.sq);
-  load_tile<D>(dos, dout + qoff, row0, a.sq);
+  load_tile<D>(qs, q + qoff, row0, a.sq, a.d);
+  load_tile<D>(dos, dout + qoff, row0, a.sq, a.d);
   float lr[4], dr[4], acc[4][VD];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -456,8 +534,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_kv; ++kt) {
     const int col0 = kt * kTile;
     __syncthreads();
-    load_tile<D>(ks, k + koff, col0, a.sk);
-    load_tile<D>(vs, v + koff, col0, a.sk);
+    load_tile<D>(ks, k + koff, col0, a.sk, a.d);
+    load_tile<D>(vs, v + koff, col0, a.sk, a.d);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<D>(qs, ks, s, ty, tx);
@@ -474,7 +552,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= a.sq) continue;
 #pragma unroll
     for (int jd = 0; jd < VD; ++jd)
-      Elem<T>::store(dq + qoff + (size_t)r * D + tx + 16 * jd, acc[i][jd]);
+      if (tx + 16 * jd < a.d)
+        Elem<T>::store(dq + qoff + (size_t)r * a.d + tx + 16 * jd,
+                       acc[i][jd]);
   }
 }
 
@@ -502,7 +582,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = FUSED ? blockIdx.x : blockIdx.y;
   const int bi = bh / a.h;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qoff = (size_t)bh * a.sq * D, koff = (size_t)bh * a.sk * D;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
   const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
   const int n_q = (a.sq + kTile - 1) / kTile;
   const int kt_begin = FUSED ? 0 : (int)blockIdx.x;
@@ -511,8 +591,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int col0 = kt * kTile;
     __syncthreads();   // the previous kv tile's last products are done
-    load_tile<D>(ks, k + koff, col0, a.sk);
-    load_tile<D>(vs, v + koff, col0, a.sk);
+    load_tile<D>(ks, k + koff, col0, a.sk, a.d);
+    load_tile<D>(vs, v + koff, col0, a.sk, a.d);
     float dka[4][VD], dva[4][VD];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -522,8 +602,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = first_q_tile(a, col0); qt < n_q; ++qt) {
       const int row0 = qt * kTile;
       __syncthreads();   // qs, dos, ps, dss of the last q tile are consumed
-      load_tile<D>(qs, q + qoff, row0, a.sq);
-      load_tile<D>(dos, dout + qoff, row0, a.sq);
+      load_tile<D>(qs, q + qoff, row0, a.sq, a.d);
+      load_tile<D>(dos, dout + qoff, row0, a.sq, a.d);
       float lr[4], dr[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -547,17 +627,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int jd = 0; jd < VD; ++jd) dqa[i][jd] = 0.f;
         acc_rows<D>(dss, ks, dqa, ty, tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = row0 + ty + 16 * i;
-          if (r >= a.sq) continue;
-#pragma unroll
-          for (int jd = 0; jd < VD; ++jd) {
-            float* p = dq_acc + qoff + (size_t)r * D + tx + 16 * jd;
-            // kv tile 0 reads every q tile first: it initialises dQ
-            *p = (kt == 0 ? 0.f : *p) + dqa[i][jd];
-          }
-        }
+        // kv tile 0 reads every q tile first: it initialises dQ
+        add_dq<D>(dq_acc + qoff, row0, a.sq, a.d, kt == 0, dqa, ty, tx);
       }
     }
 
@@ -567,8 +638,9 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (c >= a.sk) continue;
 #pragma unroll
       for (int jd = 0; jd < VD; ++jd) {
-        Elem<T>::store(dk + koff + (size_t)c * D + tx + 16 * jd, dka[i][jd]);
-        Elem<T>::store(dv + koff + (size_t)c * D + tx + 16 * jd, dva[i][jd]);
+        if (tx + 16 * jd >= a.d) continue;
+        Elem<T>::store(dk + koff + (size_t)c * a.d + tx + 16 * jd, dka[i][jd]);
+        Elem<T>::store(dv + koff + (size_t)c * a.d + tx + 16 * jd, dva[i][jd]);
       }
     }
   }
@@ -583,7 +655,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (r >= a.sq) continue;
 #pragma unroll
         for (int jd = 0; jd < VD; ++jd) {
-          const size_t o = qoff + (size_t)r * D + tx + 16 * jd;
+          if (tx + 16 * jd >= a.d) continue;
+          const size_t o = qoff + (size_t)r * a.d + tx + 16 * jd;
           Elem<T>::store(dq + o, dq_acc[o]);
         }
       }
@@ -623,13 +696,14 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-Attn make_attn(int h, int sq, int sk, float scale, int causal,
+Attn make_attn(int h, int sq, int sk, int d, float scale, int causal,
                const float* bias, const long long* seed, unsigned int thresh,
                float keep_scale, unsigned int offset) {
   Attn a;
   a.h = h;
   a.sq = sq;
   a.sk = sk;
+  a.d = d;
   a.scale = scale;
   a.causal = causal;
   a.bias = bias;
@@ -679,11 +753,20 @@ cudaError_t launch_kv(const T* q, const T* k, const T* v, const T* dout,
   return cudaGetLastError();
 }
 
-// The entry points' bodies, one per kernel, for either storage type.
+// The tile width a head dim runs at: the smallest of 32, 64, 128 that
+// holds it (0: not taken).  Any d % 8 == 0 up to 128 is taken, as by the
+// TPU kernels (pallas_kernels.py:702); above 128 the SIMT backward's
+// shared memory does not fit (bwd_smem(256) = 296,448 B > 227 KB).
+int tile_width(int d) {
+  if (d <= 0 || d % 8 != 0 || d > 128) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+}
+
+// The entry points' bodies, one per kernel, for any storage type.
 template <typename T>
 int fwd_entry(const T* q, const T* k, const T* v, T* out, float* lse, int b,
-              int d, const Attn& a, cudaStream_t stream) {
-  switch (d) {
+              const Attn& a, cudaStream_t stream) {
+  switch (tile_width(a.d)) {
     case 32: return launch_fwd<32>(q, k, v, out, lse, b, a, stream);
     case 64: return launch_fwd<64>(q, k, v, out, lse, b, a, stream);
     case 128: return launch_fwd<128>(q, k, v, out, lse, b, a, stream);
@@ -693,9 +776,9 @@ int fwd_entry(const T* q, const T* k, const T* v, T* out, float* lse, int b,
 
 template <typename T>
 int dq_entry(const T* q, const T* k, const T* v, const T* dout,
-             const float* lse, const float* delta, T* dq, int b, int d,
+             const float* lse, const float* delta, T* dq, int b,
              const Attn& a, cudaStream_t stream) {
-  switch (d) {
+  switch (tile_width(a.d)) {
     case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, b, a, stream);
     case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, b, a, stream);
     case 128:
@@ -707,8 +790,8 @@ int dq_entry(const T* q, const T* k, const T* v, const T* dout,
 template <bool FUSED, typename T>
 int kv_entry(const T* q, const T* k, const T* v, const T* dout,
              const float* lse, const float* delta, float* dq_acc, T* dq,
-             T* dk, T* dv, int b, int d, const Attn& a, cudaStream_t stream) {
-  switch (d) {
+             T* dk, T* dv, int b, const Attn& a, cudaStream_t stream) {
+  switch (tile_width(a.d)) {
     case 32:
       return launch_kv<32, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
                                   dv, b, a, stream);
@@ -726,44 +809,47 @@ int kv_entry(const T* q, const T* k, const T* v, const T* dout,
 
 // C entry points: every pointer is a device pointer (bias and seed may be
 // null), launches go on `stream`, and each returns the cudaError_t of the
-// launch.  d must be 32, 64 or 128 (else cudaErrorInvalidValue).  The
-// _bf16 functions take q, k, v, dout and the outputs in bf16; bias, lse
-// and delta are float32 in both.
+// launch.  d must be a multiple of 8 up to 128 (else
+// cudaErrorInvalidValue).  The _bf16 and _fp16 functions take q, k, v,
+// dout and the outputs in bf16 or fp16; bias, lse and delta are float32 in
+// all three.
 #define ATTN_ARGS                                                        \
   int h, int sq, int sk, int d, float scale, int causal,                 \
       const long long *seed, unsigned int thresh, float keep_scale,      \
       unsigned int offset, cudaStream_t stream
 #define MAKE_ATTN \
-  make_attn(h, sq, sk, scale, causal, bias, seed, thresh, keep_scale, offset)
+  make_attn(h, sq, sk, d, scale, causal, bias, seed, thresh, keep_scale, \
+            offset)
 
 typedef __nv_bfloat16 bf16;
+typedef __half fp16;
 
 extern "C" {
 
 int paddle_flash_fwd_f32(const float* q, const float* k, const float* v,
                          const float* bias, float* out, float* lse, int b,
                          ATTN_ARGS) {
-  return fwd_entry(q, k, v, out, lse, b, d, MAKE_ATTN, stream);
+  return fwd_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                           const float* bias, bf16* out, float* lse, int b,
                           ATTN_ARGS) {
-  return fwd_entry(q, k, v, out, lse, b, d, MAKE_ATTN, stream);
+  return fwd_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                             const float* bias, const float* dout,
                             const float* lse, const float* delta, float* dq,
                             int b, ATTN_ARGS) {
-  return dq_entry(q, k, v, dout, lse, delta, dq, b, d, MAKE_ATTN, stream);
+  return dq_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                              const float* bias, const bf16* dout,
                              const float* lse, const float* delta, bf16* dq,
                              int b, ATTN_ARGS) {
-  return dq_entry(q, k, v, dout, lse, delta, dq, b, d, MAKE_ATTN, stream);
+  return dq_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
@@ -771,7 +857,7 @@ int paddle_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                              const float* lse, const float* delta, float* dk,
                              float* dv, int b, ATTN_ARGS) {
   return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
-                         (float*)nullptr, dk, dv, b, d, MAKE_ATTN, stream);
+                         (float*)nullptr, dk, dv, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
@@ -779,14 +865,14 @@ int paddle_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                               const float* lse, const float* delta, bf16* dk,
                               bf16* dv, int b, ATTN_ARGS) {
   return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
-                         (bf16*)nullptr, dk, dv, b, d, MAKE_ATTN, stream);
+                         (bf16*)nullptr, dk, dv, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_fused_f32(const float* q, const float* k, const float* v,
                                const float* bias, const float* dout,
                                const float* lse, const float* delta, float* dq,
                                float* dk, float* dv, int b, ATTN_ARGS) {
-  return kv_entry<true>(q, k, v, dout, lse, delta, dq, dq, dk, dv, b, d,
+  return kv_entry<true>(q, k, v, dout, lse, delta, dq, dq, dk, dv, b,
                         MAKE_ATTN, stream);
 }
 
@@ -796,7 +882,38 @@ int paddle_flash_bwd_fused_bf16(const bf16* q, const bf16* k, const bf16* v,
                                 const float* lse, const float* delta,
                                 float* dq_acc, bf16* dq, bf16* dk, bf16* dv,
                                 int b, ATTN_ARGS) {
-  return kv_entry<true>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b, d,
+  return kv_entry<true>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b,
+                        MAKE_ATTN, stream);
+}
+
+int paddle_flash_fwd_fp16(const fp16* q, const fp16* k, const fp16* v,
+                          const float* bias, fp16* out, float* lse, int b,
+                          ATTN_ARGS) {
+  return fwd_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
+}
+
+int paddle_flash_bwd_dq_fp16(const fp16* q, const fp16* k, const fp16* v,
+                             const float* bias, const fp16* dout,
+                             const float* lse, const float* delta, fp16* dq,
+                             int b, ATTN_ARGS) {
+  return dq_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
+}
+
+int paddle_flash_bwd_dkv_fp16(const fp16* q, const fp16* k, const fp16* v,
+                              const float* bias, const fp16* dout,
+                              const float* lse, const float* delta, fp16* dk,
+                              fp16* dv, int b, ATTN_ARGS) {
+  return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
+                         (fp16*)nullptr, dk, dv, b, MAKE_ATTN, stream);
+}
+
+// dq_acc: as the bf16 fused backward's
+int paddle_flash_bwd_fused_fp16(const fp16* q, const fp16* k, const fp16* v,
+                                const float* bias, const fp16* dout,
+                                const float* lse, const float* delta,
+                                float* dq_acc, fp16* dq, fp16* dk, fp16* dv,
+                                int b, ATTN_ARGS) {
+  return kv_entry<true>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b,
                         MAKE_ATTN, stream);
 }
 
@@ -804,7 +921,7 @@ int paddle_flash_dropout_mask(unsigned char* keep, int b, int h, int sq,
                               int sk, const long long* seed,
                               unsigned int thresh, unsigned int offset,
                               cudaStream_t stream) {
-  const Attn a = make_attn(h, sq, sk, 1.f, 0, nullptr, seed, thresh, 1.f,
+  const Attn a = make_attn(h, sq, sk, 0, 1.f, 0, nullptr, seed, thresh, 1.f,
                            offset);
   dim3 grid((sk + kTile - 1) / kTile, (sq + 15) / 16, b * h);
   flash_dropout_mask_kernel<<<grid, kThreads, 0, stream>>>(keep, a);

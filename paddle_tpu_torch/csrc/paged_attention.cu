@@ -75,8 +75,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // VEC = D / 32 elements per lane; MAXG = compile-time bound on the GQA
-// group (the runtime `group` is <= MAXG).
-template <int VEC, int MAXG>
+// group (the runtime `group` is <= MAXG); FULL: the head dim is D itself.
+template <int VEC, int MAXG, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k_pool,
@@ -85,19 +85,24 @@ paged_decode_f32_kernel(const float* __restrict__ q,
                         const int* __restrict__ context_lens,
                         float* __restrict__ out,
                         int n_q_heads, int n_pages, int page_size, int width,
-                        int group, float scale) {
+                        int group, float scale, int head_dim) {
   constexpr int D = VEC * 32;
   const int b = blockIdx.x;
   const int hkv = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // hd <= D is the real head dim and the row stride of q, the pools and
+  // out (a compile-time D when FULL); lanes past it hold zeros (hd % 8 ==
+  // 0, so a lane's VEC elements lie all inside hd or all past it)
+  const int hd = FULL ? D : head_dim;
+  const bool live = FULL || lane * VEC < hd;
   const int h0 = hkv * group;
 
   float qr[MAXG][VEC];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < group) {
-      load_row<VEC>(q + ((size_t)b * n_q_heads + h0 + g) * D + lane * VEC,
+    if (g < group && live) {
+      load_row<VEC>(q + ((size_t)b * n_q_heads + h0 + g) * hd + lane * VEC,
                     qr[g]);
     } else {
 #pragma unroll
@@ -117,17 +122,17 @@ paged_decode_f32_kernel(const float* __restrict__ q,
   // a context longer than the table covers cannot be read: clamp to it
   const int n = min(context_lens[b], width * page_size);
   const int* __restrict__ table = block_tables + (size_t)b * width;
-  const float* __restrict__ k_head = k_pool + (size_t)hkv * n_pages * page_size * D;
-  const float* __restrict__ v_head = v_pool + (size_t)hkv * n_pages * page_size * D;
+  const float* __restrict__ k_head = k_pool + (size_t)hkv * n_pages * page_size * hd;
+  const float* __restrict__ v_head = v_pool + (size_t)hkv * n_pages * page_size * hd;
 
   for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
     float kr[kUnroll][VEC], vr[kUnroll][VEC];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = base + u;
-      if (j < n) {
+      if (j < n && live) {
         const int page = table[j / page_size];
-        const size_t row = ((size_t)page * page_size + j % page_size) * D + lane * VEC;
+        const size_t row = ((size_t)page * page_size + j % page_size) * hd + lane * VEC;
         load_row<VEC>(k_head + row, kr[u]);
         load_row<VEC>(v_head + row, vr[u]);
       } else {
@@ -187,9 +192,9 @@ paged_decode_f32_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < group * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
+  for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
+    const int g = idx / hd;
+    const int d = idx % hd;
     float m_all = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w * MAXG + g]);
@@ -205,18 +210,18 @@ paged_decode_f32_kernel(const float* __restrict__ q,
         }
       }
     }
-    out[((size_t)b * n_q_heads + h0 + g) * D + d] =
+    out[((size_t)b * n_q_heads + h0 + g) * hd + d] =
         (l_all == 0.f) ? 0.f : a_all / l_all;
   }
 }
 
-template <int VEC, int MAXG>
+template <int VEC, int MAXG, bool FULL>
 cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
                    const int* block_tables, const int* context_lens,
                    float* out, int n_seqs, int n_q_heads, int n_kv_heads,
                    int n_pages, int page_size, int width, float scale,
-                   cudaStream_t stream) {
-  auto kernel = paged_decode_f32_kernel<VEC, MAXG>;
+                   int hd, cudaStream_t stream) {
+  auto kernel = paged_decode_f32_kernel<VEC, MAXG, FULL>;
   const size_t smem = (size_t)kWarps * MAXG * (2 + VEC * 32) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -226,7 +231,7 @@ cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
   const dim3 grid(n_seqs, n_kv_heads);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, k_pool, v_pool, block_tables, context_lens, out, n_q_heads, n_pages,
-      page_size, width, n_q_heads / n_kv_heads, scale);
+      page_size, width, n_q_heads / n_kv_heads, scale, hd);
   return cudaGetLastError();
 }
 
@@ -235,12 +240,18 @@ cudaError_t dispatch_group(int group, const float* q, const float* k_pool,
                            const float* v_pool, const int* block_tables,
                            const int* context_lens, float* out, int n_seqs,
                            int n_q_heads, int n_kv_heads, int n_pages,
-                           int page_size, int width, float scale,
+                           int page_size, int width, float scale, int hd,
                            cudaStream_t stream) {
-#define PD_LAUNCH(G)                                                         \
-  return launch<VEC, G>(q, k_pool, v_pool, block_tables, context_lens, out, \
-                        n_seqs, n_q_heads, n_kv_heads, n_pages, page_size,  \
-                        width, scale, stream)
+#define PD_LAUNCH(G)                                                        \
+  return hd == VEC * 32                                                    \
+             ? launch<VEC, G, true>(q, k_pool, v_pool, block_tables,       \
+                                    context_lens, out, n_seqs, n_q_heads,  \
+                                    n_kv_heads, n_pages, page_size, width, \
+                                    scale, hd, stream)                     \
+             : launch<VEC, G, false>(q, k_pool, v_pool, block_tables,      \
+                                     context_lens, out, n_seqs, n_q_heads, \
+                                     n_kv_heads, n_pages, page_size,       \
+                                     width, scale, hd, stream)
   if (group <= 1) PD_LAUNCH(1);
   if (group <= 2) PD_LAUNCH(2);
   if (group <= 4) PD_LAUNCH(4);
@@ -279,14 +290,27 @@ cudaError_t dispatch_group(int group, const float* q, const float* k_pool,
 // ids, and for int8 each page's two scales already divided by 127, are
 // read once per CTA into shared memory: a scale is read once a page, not
 // once an element.
+//
+// Head dims.  The real head dim hd (any multiple of 8 up to 256) is the
+// row stride of q, the pools and out; the kernel runs at the next
+// instantiated width D in {32, 64, 128, 256}, and the lanes whose slice
+// lies past hd load nothing and hold zeros, which leave every dot product
+// and sum unchanged.  A slice lies wholly inside hd or wholly past it:
+// bf16 slices are 8 elements, and int8 pools whose hd is not a multiple
+// of 16 take 8-byte slices of 8 codes (EPL = 8), so that every load is
+// also aligned to its own size.  A head dim that is the width itself runs
+// an instance (FULL) whose row stride is the compile-time D, as does the
+// f32 kernel's: a runtime stride alone slowed them measurably.
 // --------------------------------------------------------------------------
-template <typename T>
+template <typename T, int EPL>
 struct PageVec;
 
 // 8 bf16 in 16 bytes, low half of each 32-bit word first
 template <>
-struct PageVec<__nv_bfloat16> {
-  static constexpr int kElems = 8;
+struct PageVec<__nv_bfloat16, 8> {
+  __device__ __forceinline__ static uint4 load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
   __device__ __forceinline__ static void unpack(const uint4 r, float* x) {
     const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
@@ -297,24 +321,35 @@ struct PageVec<__nv_bfloat16> {
   }
 };
 
-// 16 int8 in 16 bytes, lowest byte first
-template <>
-struct PageVec<int8_t> {
-  static constexpr int kElems = 16;
+// EPL int8 codes in EPL bytes (16, or 8 in .x and .y), lowest byte first
+template <int EPL>
+struct Int8Vec {
+  __device__ __forceinline__ static uint4 load(const int8_t* p) {
+    if constexpr (EPL == 16) {
+      return __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+      return make_uint4(t.x, t.y, 0u, 0u);
+    }
+  }
   __device__ __forceinline__ static void unpack(const uint4 r, float* x) {
     const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < EPL / 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         x[4 * i + j] = __int2float_rn(static_cast<int>(w[i] << (24 - 8 * j)) >> 24);
     }
   }
 };
+template <>
+struct PageVec<int8_t, 16> : Int8Vec<16> {};
+template <>
+struct PageVec<int8_t, 8> : Int8Vec<8> {};
 
-template <typename T, int D, int MAXG>
+template <int EPL_, int D, int MAXG>
 struct QLayout {
-  static constexpr int EPL = PageVec<T>::kElems;  // elements a lane loads
+  static constexpr int EPL = EPL_;                // elements a lane loads
   static constexpr int LPR = D / EPL;             // lanes a row
   static constexpr int RPW = 32 / LPR;            // rows a warp loads at once
   static constexpr int U = RPW >= 4 ? 1 : 4 / RPW;
@@ -329,7 +364,7 @@ struct QLayout {
   }
 };
 
-template <typename T, int D, int MAXG, bool QUANT>
+template <typename T, int EPL_, int D, int MAXG, bool QUANT, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_q_kernel(const float* __restrict__ q,
                       const T* __restrict__ k_pool,
@@ -340,8 +375,9 @@ paged_decode_q_kernel(const float* __restrict__ q,
                       const int* __restrict__ context_lens,
                       float* __restrict__ out,
                       int n_q_heads, int n_pages, int page_size, int width,
-                      int group, float scale) {
-  using L = QLayout<T, D, MAXG>;
+                      int group, float scale, int head_dim) {
+  using L = QLayout<EPL_, D, MAXG>;
+  using V = PageVec<T, EPL_>;
   constexpr int EPL = L::EPL, LPR = L::LPR, RPW = L::RPW, U = L::U;
   const int b = blockIdx.x;
   const int hkv = blockIdx.y;
@@ -349,6 +385,10 @@ paged_decode_q_kernel(const float* __restrict__ q,
   const int lane = threadIdx.x % 32;
   const int slot = lane / LPR;  // which of the warp's RPW rows
   const int li = lane % LPR;    // which EPL-wide slice of that row
+  // the row stride (a compile-time D when FULL), and whether this lane's
+  // slice lies inside the head dim
+  const int hd = FULL ? D : head_dim;
+  const bool live = FULL || li * EPL < hd;
   const int h0 = hkv * group;
 
   extern __shared__ __align__(16) float qsmem[];
@@ -363,8 +403,9 @@ paged_decode_q_kernel(const float* __restrict__ q,
   // a context longer than the table covers cannot be read: clamp to it
   const int n = min(context_lens[b], width * page_size);
   const int n_used = (n + page_size - 1) / page_size;
-  const float* qb = q + ((size_t)b * n_q_heads + h0) * D;
-  for (int i = threadIdx.x; i < group * D; i += kThreads) sm_q[i] = qb[i];
+  const float* qb = q + ((size_t)b * n_q_heads + h0) * hd;
+  for (int i = threadIdx.x; i < group * D; i += kThreads)
+    sm_q[i] = i % D < hd ? qb[(i / D) * hd + i % D] : 0.f;
   const int* table = block_tables + (size_t)b * width;
   for (int i = threadIdx.x; i < n_used; i += kThreads) {
     const int page = table[i];
@@ -386,7 +427,7 @@ paged_decode_q_kernel(const float* __restrict__ q,
     for (int i = 0; i < EPL; ++i) acc[g][i] = 0.f;
   }
 
-  const size_t head = (size_t)hkv * n_pages * page_size * D;
+  const size_t head = (size_t)hkv * n_pages * page_size * hd;
   const T* __restrict__ k_head = k_pool + head;
   const T* __restrict__ v_head = v_pool + head;
 
@@ -395,12 +436,12 @@ paged_decode_q_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = base + u * RPW + slot;
-      if (j < n) {
+      if (j < n && live) {
         const size_t row =
-            ((size_t)sm_page[j / page_size] * page_size + j % page_size) * D +
+            ((size_t)sm_page[j / page_size] * page_size + j % page_size) * hd +
             li * EPL;
-        kraw[u] = __ldg(reinterpret_cast<const uint4*>(k_head + row));
-        vraw[u] = __ldg(reinterpret_cast<const uint4*>(v_head + row));
+        kraw[u] = V::load(k_head + row);
+        vraw[u] = V::load(v_head + row);
       } else {
         kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -408,8 +449,8 @@ paged_decode_q_kernel(const float* __restrict__ q,
     float kr[U][EPL], vr[U][EPL];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      PageVec<T>::unpack(kraw[u], kr[u]);
-      PageVec<T>::unpack(vraw[u], vr[u]);
+      V::unpack(kraw[u], kr[u]);
+      V::unpack(vraw[u], vr[u]);
       if constexpr (QUANT) {
         const int j = base + u * RPW + slot;
         const int pi = (j < n ? j : 0) / page_size;
@@ -491,9 +532,9 @@ paged_decode_q_kernel(const float* __restrict__ q,
   }
   __syncthreads();
   // merge the warps' states in a fixed order, as the f32 kernel does
-  for (int idx = threadIdx.x; idx < group * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
+  for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
+    const int g = idx / hd;
+    const int d = idx % hd;
     float m_all = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w * MAXG + g]);
@@ -509,7 +550,7 @@ paged_decode_q_kernel(const float* __restrict__ q,
         }
       }
     }
-    out[((size_t)b * n_q_heads + h0 + g) * D + d] =
+    out[((size_t)b * n_q_heads + h0 + g) * hd + d] =
         (l_all == 0.f) ? 0.f : a_all / l_all;
   }
 }
@@ -517,16 +558,16 @@ paged_decode_q_kernel(const float* __restrict__ q,
 // the largest dynamic shared memory a block may use on Hopper
 constexpr size_t kMaxSmem = 232448;
 
-template <typename T, int D, int MAXG>
+template <typename T, int EPL, int D, int MAXG, bool FULL>
 cudaError_t launch_q(const float* q, const T* k_pool, const T* v_pool,
                      const float* k_scale, const float* v_scale,
                      const int* block_tables, const int* context_lens,
                      float* out, int n_seqs, int n_q_heads, int n_kv_heads,
                      int n_pages, int page_size, int width, float scale,
-                     cudaStream_t stream) {
+                     int hd, cudaStream_t stream) {
   constexpr bool kQuant = sizeof(T) == 1;
-  auto kernel = paged_decode_q_kernel<T, D, MAXG, kQuant>;
-  const size_t smem = QLayout<T, D, MAXG>::words(width, kQuant) * 4;
+  auto kernel = paged_decode_q_kernel<T, EPL, D, MAXG, kQuant, FULL>;
+  const size_t smem = QLayout<EPL, D, MAXG>::words(width, kQuant) * 4;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -536,23 +577,31 @@ cudaError_t launch_q(const float* q, const T* k_pool, const T* v_pool,
   const dim3 grid(n_seqs, n_kv_heads);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, k_pool, v_pool, k_scale, v_scale, block_tables, context_lens, out,
-      n_q_heads, n_pages, page_size, width, n_q_heads / n_kv_heads, scale);
+      n_q_heads, n_pages, page_size, width, n_q_heads / n_kv_heads, scale,
+      hd);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int EPL, int D>
 cudaError_t dispatch_q_group(int group, const float* q, const T* k_pool,
                              const T* v_pool, const float* k_scale,
                              const float* v_scale, const int* block_tables,
                              const int* context_lens, float* out, int n_seqs,
                              int n_q_heads, int n_kv_heads, int n_pages,
-                             int page_size, int width, float scale,
+                             int page_size, int width, float scale, int hd,
                              cudaStream_t stream) {
-#define PDQ_LAUNCH(G)                                                       \
-  return launch_q<T, D, G>(q, k_pool, v_pool, k_scale, v_scale,            \
-                           block_tables, context_lens, out, n_seqs,        \
-                           n_q_heads, n_kv_heads, n_pages, page_size,      \
-                           width, scale, stream)
+  // int8 slices of 8 codes serve only head dims that are no multiple of
+  // 16, never the full width: no FULL instance of those
+  constexpr bool kCanBeFull = !(sizeof(T) == 1 && EPL == 8);
+#define PDQ_LAUNCH(G)                                                        \
+  return hd == D ? launch_q<T, EPL, D, G, kCanBeFull>(                       \
+                       q, k_pool, v_pool, k_scale, v_scale, block_tables,   \
+                       context_lens, out, n_seqs, n_q_heads, n_kv_heads,    \
+                       n_pages, page_size, width, scale, hd, stream)        \
+                 : launch_q<T, EPL, D, G, false>(                           \
+                       q, k_pool, v_pool, k_scale, v_scale, block_tables,   \
+                       context_lens, out, n_seqs, n_q_heads, n_kv_heads,    \
+                       n_pages, page_size, width, scale, hd, stream)
   if (group <= 1) PDQ_LAUNCH(1);
   if (group <= 2) PDQ_LAUNCH(2);
   if (group <= 4) PDQ_LAUNCH(4);
@@ -581,29 +630,38 @@ int paged_decode_q(const void* q, const void* k_pool, const void* v_pool,
   const int* cl = static_cast<const int*>(context_lens);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-#define PDQ_D(DIM)                                                          \
-  case DIM:                                                                 \
-    return (int)dispatch_q_group<T, DIM>(group, qf, kp, vp, ks, vs, bt, cl, \
-                                         of, n_seqs, n_q_heads, n_kv_heads, \
-                                         n_pages, page_size, width, scale,  \
-                                         s);
-    PDQ_D(32)
-    PDQ_D(64)
-    PDQ_D(128)
-    PDQ_D(256)
-#undef PDQ_D
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (head_dim <= 0 || head_dim % 8 != 0 || head_dim > 256)
+    return (int)cudaErrorInvalidValue;
+  // the next instantiated width; int8 rows of 8 (mod 16) codes take
+  // 8-byte slices
+  const int D = head_dim <= 32 ? 32 : head_dim <= 64 ? 64
+                : head_dim <= 128 ? 128 : 256;
+#define PDQ_D(EPL, DIM)                                                     \
+  if (D == DIM)                                                             \
+    return (int)dispatch_q_group<T, EPL, DIM>(                              \
+        group, qf, kp, vp, ks, vs, bt, cl, of, n_seqs, n_q_heads,           \
+        n_kv_heads, n_pages, page_size, width, scale, head_dim, s);
+#define PDQ_ALL_D(EPL) PDQ_D(EPL, 32) PDQ_D(EPL, 64) PDQ_D(EPL, 128) PDQ_D(EPL, 256)
+  if constexpr (sizeof(T) == 2) {
+    PDQ_ALL_D(8)
+  } else {
+    if (head_dim % 16 != 0) {
+      PDQ_ALL_D(8)
+    } else {
+      PDQ_ALL_D(16)
+    }
   }
+#undef PDQ_ALL_D
+#undef PDQ_D
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The C entry point bound with ctypes.  Every tensor is contiguous f32
 // (int32 for the tables and lengths) on the current device; the caller
-// allocates `out` (n_seqs, n_q_heads, head_dim).  Supported: head_dim in
-// {32, 64, 128, 256}, q_heads / kv_heads in 1..8.  Returns the launch's
+// allocates `out` (n_seqs, n_q_heads, head_dim).  Supported: head_dim a
+// multiple of 8 up to 256, q_heads / kv_heads in 1..8.  Returns the launch's
 // cudaError_t (0 on success); nothing is synchronised.
 extern "C" int paddle_paged_decode_f32(
     const void* q, const void* k_pool, const void* v_pool,
@@ -621,26 +679,26 @@ extern "C" int paddle_paged_decode_f32(
   const int* cl = static_cast<const int*>(context_lens);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the narrowest lane layout that holds the row: VEC = D / 32
   cudaError_t e;
-  switch (head_dim) {
-    case 32:
-      e = dispatch_group<1>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                            n_kv_heads, n_pages, page_size, width, scale, s);
-      break;
-    case 64:
-      e = dispatch_group<2>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                            n_kv_heads, n_pages, page_size, width, scale, s);
-      break;
-    case 128:
-      e = dispatch_group<4>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                            n_kv_heads, n_pages, page_size, width, scale, s);
-      break;
-    case 256:
-      e = dispatch_group<8>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                            n_kv_heads, n_pages, page_size, width, scale, s);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
+  if (head_dim <= 0 || head_dim % 8 != 0 || head_dim > 256) {
+    e = cudaErrorInvalidValue;
+  } else if (head_dim <= 32) {
+    e = dispatch_group<1>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
+                          n_kv_heads, n_pages, page_size, width, scale,
+                          head_dim, s);
+  } else if (head_dim <= 64) {
+    e = dispatch_group<2>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
+                          n_kv_heads, n_pages, page_size, width, scale,
+                          head_dim, s);
+  } else if (head_dim <= 128) {
+    e = dispatch_group<4>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
+                          n_kv_heads, n_pages, page_size, width, scale,
+                          head_dim, s);
+  } else {
+    e = dispatch_group<8>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
+                          n_kv_heads, n_pages, page_size, width, scale,
+                          head_dim, s);
   }
   return (int)e;
 }

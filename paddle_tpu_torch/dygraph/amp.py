@@ -13,8 +13,9 @@ type calls :func:`amp_cast` with that type and its floating inputs:
 The cast cache.  Inside a guard each tensor is cast at most once per
 dtype: a tensor read by two white-list ops gets one cast, and both
 consumers read its output.  The consumers' gradients therefore meet at
-the cast's output, are summed there in bf16 by autograd, and only then
-does the cast's backward take the sum to f32, which is the JAX tape's
+the cast's output, are summed there in bf16 (or fp16) by autograd, and
+only then does the cast's backward take the sum to f32, which is the JAX
+tape's
 order.  An entry is valid while the tensor is the same object at the same
 version (an in-place update, such as the optimizer's, invalidates it);
 the outermost guard drops the cache, so ``jit_train_step`` casts once per

@@ -24,8 +24,8 @@ from ..contrib.mixed_precision.fp16_lists import (AutoMixedPrecisionLists,
 
 __all__ = ["amp_guard", "auto_cast", "amp_state", "AMP_DTYPES"]
 
-#: the AMP dtypes the port runs, by name (float16 is not ported)
-AMP_DTYPES = {"bfloat16": torch.bfloat16}
+#: the AMP dtypes the port runs, by name
+AMP_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 class _AmpState:
@@ -52,30 +52,31 @@ def amp_state() -> _AmpState:
 
 
 def check_amp_dtype(dtype: str) -> None:
-    """Raise ``NotImplementedError`` for an AMP dtype the port lacks."""
+    """Raise ``ValueError`` for a dtype that is not an AMP dtype."""
     if str(dtype) not in AMP_DTYPES:
-        raise NotImplementedError(
-            f"AMP dtype {dtype!r} is not ported (ROADMAP.md): the port "
-            f"runs AMP in bfloat16")
+        raise ValueError(f"AMP dtype {dtype!r}: AMP runs in "
+                         f"{' or '.join(AMP_DTYPES)}")
 
 
 @contextlib.contextmanager
 def amp_guard(enable=True, custom_white_list=None, custom_black_list=None,
               dtype="bfloat16", level="O1"):
     """Dygraph auto-mixed-precision for the block: white-list ops
-    (``matmul``, ``fused_multihead_attention``, ...) take bf16 casts of
-    their f32 inputs, black-list ops (``mean``, ``softmax``, ...) f32
-    casts of their bf16 inputs (``softmax_with_cross_entropy`` excepted
-    under bf16: it upcasts inside), every other op runs in the dtype it
-    receives.  The casts are autograd ops, so the backward runs in the
-    forward's precisions.
+    (``matmul``, ``fused_multihead_attention``, ...) take ``dtype``
+    (bfloat16 or float16) casts of their f32 inputs, black-list ops
+    (``mean``, ``softmax``, ``softmax_with_cross_entropy``, ...) f32 casts
+    of their bf16 / fp16 inputs (``softmax_with_cross_entropy`` excepted
+    under bf16: it upcasts inside, and bf16 shares f32's range), every
+    other op runs in the dtype it receives.  As in the JAX package, fp16
+    AMP has no loss scaling in dygraph.  The casts are autograd ops, so
+    the backward runs in the forward's precisions.
 
     ``enable=False`` turns off an enclosing guard.  Custom lists merge
     as :class:`AutoMixedPrecisionLists` does; ``level="O2"`` also makes
     ``lookup_table`` and ``lookup_table_v2`` white, so the activations
-    stay bf16 from the embeddings on.  A guard with neither keeps the
-    enclosing guard's lists.  ``dtype="float16"`` raises
-    ``NotImplementedError`` (not ported)."""
+    stay in ``dtype`` from the embeddings on.  A guard with neither keeps
+    the enclosing guard's lists.  Any other ``dtype`` raises
+    ``ValueError``."""
     if enable:
         check_amp_dtype(dtype)
     st = _STATE

@@ -50,12 +50,13 @@ def jit_train_step(model, optimizer, loss_fn: Callable, amp=False,
     detached.
 
     ``amp=True`` runs the forward under ``amp_guard(dtype=amp_dtype,
-    level=amp_level)``: white-list ops in bf16 (their casts are autograd
-    ops, so the backward matches), parameters and optimizer state f32.
-    ``amp_level="O2"`` first makes the parameters resident in bf16
+    level=amp_level)``: white-list ops in ``amp_dtype`` (``"bfloat16"`` or
+    ``"float16"``; their casts are autograd ops, so the backward
+    matches), parameters and optimizer state f32.  ``amp_level="O2"``
+    first makes the parameters resident in ``amp_dtype``
     (:func:`_cast_params_resident`); the optimizer then keeps an f32
-    master of each.  ``amp_dtype="float16"`` raises ``NotImplementedError``
-    (not ported)."""
+    master of each.  fp16 runs without a loss scale, as the JAX
+    package's dygraph step does."""
     if amp:
         check_amp_dtype(amp_dtype)
         if amp_level == "O2":

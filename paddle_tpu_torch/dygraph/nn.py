@@ -86,11 +86,12 @@ class LayerNorm(Layer):
                      if shift else None)
 
     def forward(self, input):
-        # a bf16 input takes JAX's three roundings (nn_ops.layer_norm_lowp:
-        # normalized value, * Scale, + Bias, each in x's dtype); f32 is
-        # one F.layer_norm
-        if (input.dtype == torch.bfloat16 and self.weight is not None
-                and self.bias is not None):
+        # a bf16 or fp16 input takes JAX's rounding points (bf16: the
+        # normalized value, * Scale, + Bias, each in x's dtype; fp16: the
+        # normalized value, then * Scale + Bias rounded once, see
+        # nn_ops.layer_norm_lowp); f32 is one F.layer_norm
+        if (input.dtype in (torch.bfloat16, torch.float16)
+                and self.weight is not None and self.bias is not None):
             return nn_ops.layer_norm_lowp(input, self.weight, self.bias,
                                           self._shape, self._epsilon)
         w, b = (None if t is None

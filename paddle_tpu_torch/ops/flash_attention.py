@@ -14,24 +14,29 @@ residual API: its forward saves ``(q, k, v, bias, out, lse, seed)`` and
 its backward runs the backward from ``lse`` with no forward replay.  The
 padding bias gets a zero gradient (``pallas_kernels.py:646-650``).
 
-Dtypes: q, k, v (and dO) are float32 or bfloat16, all of one dtype, as
-the TPU kernels take them; the output and the gradients are in that
-dtype, lse and delta are float32, and the padding bias reaches the
-kernels as float32 (under AMP it is the exact upcast of the bf16 bias
-the white-list cast made).  In bf16 every product accumulates in float32
-and the operands the TPU kernels cast are rounded at the same points:
-p before the PV product (``pd.astype(v.dtype)``, :190/:229), pd before
-dV (:436/:470), dS before dQ and dK (:405/:440/:467/:473).  float16
-raises ``NotImplementedError``: it is not ported.
+Dtypes: q, k, v (and dO) are float32, bfloat16 or float16, all of one
+dtype, as the TPU kernels take them; the output and the gradients are in
+that dtype, lse and delta are float32, and the padding bias reaches the
+kernels as float32 (under AMP it is the exact upcast of the bf16 or fp16
+bias the white-list cast made).  In bf16 and fp16 every product
+accumulates in float32 and the operands the TPU kernels cast are rounded
+at the same points: p before the PV product (``pd.astype(v.dtype)``,
+:190/:229), pd before dV (:436/:470), dS before dQ and dK
+(:405/:440/:467/:473); fp16 keeps subnormals there, as XLA's cast does.
+
+Head dims: any multiple of 8 up to 128 (the TPU kernels engage for any
+multiple of 8, :702; above 128 the kernels' backward does not fit a
+block's shared memory, so a CUDA tensor with a wider head raises).
 
 Dispatch: a CPU tensor takes the plain versions
 (:func:`flash_fwd_reference`, :func:`flash_bwd_reference`); a CUDA tensor
 launches the kernels of ``csrc/flash_attention.cu`` for its dtype
-(:func:`flash_fwd`, :func:`flash_bwd`: ``flash_fwd_f32`` or
-``flash_fwd_bf16``, and so on) or raises when they do not take its dtype
-or shape.  There is no other path.  The backward takes the fused kernel when
-``sq <= 512`` and ``sk <= 512`` (one TPU block, ``pallas_kernels.py:532``)
-and the split dQ and dK/dV pair above that.
+(:func:`flash_fwd`, :func:`flash_bwd`: ``flash_fwd_f32``,
+``flash_fwd_bf16`` or ``flash_fwd_fp16``, and so on) or raises when they
+do not take its dtype or shape.  There is no other path.  The backward
+takes the fused kernel when ``sq <= 512`` and ``sk <= 512`` (one TPU
+block, ``pallas_kernels.py:532``) and the split dQ and dK/dV pair above
+that.
 
 Dropout (attention probabilities, upscale in train) is keyed by a seed:
 an int64 tensor of one element, drawn by the caller.  On the card the
@@ -54,18 +59,20 @@ from ..kernel_build import CudaKernel, KernelFunction
 from .paged_attention import DEFAULT_MASK_VALUE
 
 __all__ = [
-    "DEFAULT_MASK_VALUE", "HEAD_DIMS", "FUSED_BWD_MAX_SEQ", "FLASH",
+    "DEFAULT_MASK_VALUE", "MAX_HEAD_DIM", "FUSED_BWD_MAX_SEQ", "FLASH",
     "FLASH_FWD", "FLASH_BWD_FUSED", "FLASH_BWD_DQ", "FLASH_BWD_DKV",
     "FLASH_FWD_BF16", "FLASH_BWD_FUSED_BF16", "FLASH_BWD_DQ_BF16",
-    "FLASH_BWD_DKV_BF16", "FLASH_DROPOUT_MASK", "is_padding_bias",
-    "normalize_bias", "seeded_keep", "attention_reference",
+    "FLASH_BWD_DKV_BF16", "FLASH_FWD_FP16", "FLASH_BWD_FUSED_FP16",
+    "FLASH_BWD_DQ_FP16", "FLASH_BWD_DKV_FP16", "FLASH_DROPOUT_MASK",
+    "is_padding_bias", "normalize_bias", "seeded_keep", "attention_reference",
     "flash_fwd_reference", "flash_bwd_reference", "attention_dtype",
     "flash_fwd", "flash_bwd", "bwd_fused", "bwd_dq", "bwd_dkv",
     "flash_dropout_mask", "flash_attention",
 ]
 
-#: head widths the kernels are built for
-HEAD_DIMS = (32, 64, 128)
+#: the kernels take every head dim that is a multiple of 8 up to this one;
+#: they run at the next of the tile widths 32, 64, 128
+MAX_HEAD_DIM = 128
 #: the backward takes the fused kernel up to this many queries and keys
 FUSED_BWD_MAX_SEQ = 512
 
@@ -83,8 +90,12 @@ FLASH = CudaKernel("flash_attention.cu", {
     "paddle_flash_fwd_bf16": [_P] * 6 + _ATTN,
     "paddle_flash_bwd_dq_bf16": [_P] * 8 + _ATTN,
     "paddle_flash_bwd_dkv_bf16": [_P] * 9 + _ATTN,
-    # the bf16 fused backward also takes its float32 dQ scratch
+    # the bf16 and fp16 fused backwards also take their float32 dQ scratch
     "paddle_flash_bwd_fused_bf16": [_P] * 11 + _ATTN,
+    "paddle_flash_fwd_fp16": [_P] * 6 + _ATTN,
+    "paddle_flash_bwd_dq_fp16": [_P] * 8 + _ATTN,
+    "paddle_flash_bwd_dkv_fp16": [_P] * 9 + _ATTN,
+    "paddle_flash_bwd_fused_fp16": [_P] * 11 + _ATTN,
     "paddle_flash_dropout_mask": [_P, _I, _I, _I, _I, _P, _U, _U, _P],
 })
 FLASH_FWD = KernelFunction(FLASH, "paddle_flash_fwd_f32", "flash_fwd_f32")
@@ -102,12 +113,22 @@ FLASH_BWD_DQ_BF16 = KernelFunction(FLASH, "paddle_flash_bwd_dq_bf16",
                                    "flash_bwd_dq_bf16")
 FLASH_BWD_DKV_BF16 = KernelFunction(FLASH, "paddle_flash_bwd_dkv_bf16",
                                     "flash_bwd_dkv_bf16")
+FLASH_FWD_FP16 = KernelFunction(FLASH, "paddle_flash_fwd_fp16",
+                                "flash_fwd_fp16")
+FLASH_BWD_FUSED_FP16 = KernelFunction(FLASH, "paddle_flash_bwd_fused_fp16",
+                                      "flash_bwd_fused_fp16")
+FLASH_BWD_DQ_FP16 = KernelFunction(FLASH, "paddle_flash_bwd_dq_fp16",
+                                   "flash_bwd_dq_fp16")
+FLASH_BWD_DKV_FP16 = KernelFunction(FLASH, "paddle_flash_bwd_dkv_fp16",
+                                    "flash_bwd_dkv_fp16")
 #: the kernel each wrapper launches, by the dtype of q
 _KERNELS = {
     torch.float32: {"fwd": FLASH_FWD, "fused": FLASH_BWD_FUSED,
                     "dq": FLASH_BWD_DQ, "dkv": FLASH_BWD_DKV},
     torch.bfloat16: {"fwd": FLASH_FWD_BF16, "fused": FLASH_BWD_FUSED_BF16,
                      "dq": FLASH_BWD_DQ_BF16, "dkv": FLASH_BWD_DKV_BF16},
+    torch.float16: {"fwd": FLASH_FWD_FP16, "fused": FLASH_BWD_FUSED_FP16,
+                    "dq": FLASH_BWD_DQ_FP16, "dkv": FLASH_BWD_DKV_FP16},
 }
 FLASH_DROPOUT_MASK = KernelFunction(FLASH, "paddle_flash_dropout_mask",
                                     "flash_dropout_mask")
@@ -247,20 +268,16 @@ _DATA = ("q", "k", "v", "do")
 
 
 def attention_dtype(fn, q) -> torch.dtype:
-    """q's dtype if the kernels take it (f32, bf16); float16 raises
-    ``NotImplementedError`` (not ported), anything else ``ValueError``."""
-    if q.dtype == torch.float16:
-        raise NotImplementedError(
-            f"{fn}: float16 attention is not ported (ROADMAP.md); the "
-            f"kernels take float32 or bfloat16")
+    """q's dtype if the kernels take it (f32, bf16, fp16), else raise
+    ``ValueError``."""
     if q.dtype not in _KERNELS:
-        raise ValueError(f"{fn}: q is {q.dtype}; the kernels take float32 "
-                         f"or bfloat16")
+        raise ValueError(f"{fn}: q is {q.dtype}; the kernels take float32, "
+                         f"bfloat16 or float16")
     return q.dtype
 
 
 def _check_cuda(fn, **tensors):
-    """Raise unless q, k, v, do share q's dtype (f32 or bf16), bias, lse
+    """Raise unless q, k, v, do share q's dtype (f32, bf16, fp16), bias, lse
     and delta are f32 and ``seed`` int64, and every tensor is contiguous
     and on the CUDA device of the first."""
     dev = None
@@ -293,8 +310,9 @@ def _shapes(fn, q, k, v, bias):
     if tuple(k.shape) != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"{fn}: inconsistent shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{fn}: head_dim {d} not in {HEAD_DIMS}")
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{fn}: head_dim {d} is not a multiple of 8 in "
+                         f"[8, {MAX_HEAD_DIM}]")
     if sq < 1 or sk < 1 or b < 1 or h < 1:
         raise ValueError(f"{fn}: empty input q{tuple(q.shape)} "
                          f"k{tuple(k.shape)}")
@@ -323,11 +341,11 @@ def _ptr(t):
 
 
 def flash_fwd(q, k, v, bias, scale, causal, dropout_rate=0.0, seed=None):
-    """Launch ``flash_fwd_f32`` (f32 q, k, v) or ``flash_fwd_bf16`` (bf16)
-    on the current stream: ``(out, lse)``, out (b, h, sq, d) in q's dtype
-    and lse (b, h, sq) f32.  ``bias`` is None or (b, sk) f32; ``seed`` an
-    int64 tensor of one element (dropout only).  Raises on anything the
-    kernels do not take."""
+    """Launch ``flash_fwd_f32`` (f32 q, k, v), ``flash_fwd_bf16`` (bf16) or
+    ``flash_fwd_fp16`` (fp16) on the current stream: ``(out, lse)``, out
+    (b, h, sq, d) in q's dtype and lse (b, h, sq) f32.  ``bias`` is None
+    or (b, sk) f32; ``seed`` an int64 tensor of one element (dropout
+    only).  Raises on anything the kernels do not take."""
     dev = _check_cuda("flash_fwd", q=q, k=k, v=v, bias=bias, seed=seed)
     b, h, sq, sk, d = _shapes("flash_fwd", q, k, v, bias)
     out = torch.empty_like(q)
@@ -356,9 +374,9 @@ def _bwd_inputs(fn, q, k, v, bias, do, lse, delta, seed):
 
 def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
               dropout_rate=0.0, seed=None):
-    """Launch ``flash_bwd_fused_f32`` or ``flash_bwd_fused_bf16``: ``(dq, dk,
-    dv)`` in one kernel.  The bf16 kernel sums dQ in an f32 scratch
-    allocated here and rounds it once."""
+    """Launch ``flash_bwd_fused_f32``, ``_bf16`` or ``_fp16``: ``(dq, dk,
+    dv)`` in one kernel.  The bf16 and fp16 kernels sum dQ in an f32
+    scratch allocated here and round it once."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_fused", q, k, v, bias, do, lse,
                                          delta, seed)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -378,7 +396,7 @@ def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
 
 def bwd_dq(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
            seed=None):
-    """Launch ``flash_bwd_dq_f32`` or ``flash_bwd_dq_bf16``: ``dq``."""
+    """Launch ``flash_bwd_dq_f32``, ``_bf16`` or ``_fp16``: ``dq``."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_dq", q, k, v, bias, do, lse,
                                          delta, seed)
     dq = torch.empty_like(q)
@@ -394,7 +412,7 @@ def bwd_dq(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
 
 def bwd_dkv(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
             seed=None):
-    """Launch ``flash_bwd_dkv_f32`` or ``flash_bwd_dkv_bf16``: ``(dk,
+    """Launch ``flash_bwd_dkv_f32``, ``_bf16`` or ``_fp16``: ``(dk,
     dv)``."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_dkv", q, k, v, bias, do, lse,
                                          delta, seed)
@@ -491,8 +509,8 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     (an int64 tensor of one element on q's device) keys the mask, which
     the backward regenerates.  CPU tensors take the plain versions, CUDA
     tensors the kernels (which raise on what they do not take).  q, k, v
-    are float32 or bfloat16 (one dtype); a bf16 bias is taken as its exact
-    f32 upcast; float16 raises ``NotImplementedError``."""
+    are float32, bfloat16 or float16 (one dtype); a bf16 or fp16 bias is
+    taken as its exact f32 upcast."""
     attention_dtype("flash_attention", q)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -1,6 +1,6 @@
-"""Exact-erf GELU on bfloat16 tensors, rounding where the JAX package's
-compiled lowering rounds: the CUDA kernels' wrappers, their plain PyTorch
-versions, and the autograd function that joins them.
+"""Exact-erf GELU on bfloat16 and float16 tensors, rounding where the JAX
+package's compiled lowering rounds: the CUDA kernels' wrappers, their
+plain PyTorch versions, and the autograd function that joins them.
 
 The JAX package computes a bf16 gelu as ``jax.nn.gelu(x,
 approximate=False)`` (``paddle_tpu/ops/math_ops.py``), that is
@@ -16,13 +16,18 @@ CPU are the ``convert`` pairs that survive in the compiled HLO
 * the CPU flushes subnormal results to zero and reads subnormal inputs
   as zero.
 
+In float16 the compiled form rounds at other points (its ``f16``
+multiplies survive, and XLA's CPU keeps fp16 subnormals): see
+:func:`gelu_fp16_reference` and :func:`gelu_fp16_grad_reference`.
+
 ``F.gelu`` computes in f32 and rounds once, and differed from the
-compiled form on about a fifth of bf16 inputs.  :func:`gelu_lowp` is the
-bf16 gelu of the port: the kernels ``gelu_fwd_bf16`` / ``gelu_bwd_bf16``
-(``csrc/gelu_bf16.cu``) on the card, the plain versions below on the CPU;
-the kernels do the plain versions' ops in one pass and equal them bit for
-bit on the card.  Neither replaces a Pallas kernel: XLA fuses the JAX
-lowering on its own.
+compiled form on about a fifth of bf16 inputs and on 31.8% of fp16
+inputs (forward; 52.1% backward).  :func:`gelu_lowp` is the bf16 and fp16
+gelu of the port: the kernels ``gelu_fwd_bf16`` / ``gelu_bwd_bf16`` and
+``gelu_fwd_fp16`` / ``gelu_bwd_fp16`` (``csrc/gelu_lowp.cu``) on the card,
+the plain versions below on the CPU; the kernels do the plain versions'
+ops in one pass and equal them bit for bit on the card.  None replaces a
+Pallas kernel: XLA fuses the JAX lowering on its own.
 """
 from __future__ import annotations
 
@@ -33,22 +38,32 @@ import torch
 from ..kernel_build import CudaKernel, KernelFunction
 
 __all__ = ["erfc_xla", "gelu_bf16_reference", "gelu_bf16_grad_reference",
-           "gelu_fwd_bf16", "gelu_bwd_bf16", "gelu_lowp", "GELU",
-           "GELU_FWD_BF16", "GELU_BWD_BF16"]
+           "gelu_fp16_reference", "gelu_fp16_grad_reference",
+           "gelu_fwd_bf16", "gelu_bwd_bf16", "gelu_fwd_fp16",
+           "gelu_bwd_fp16", "gelu_lowp", "GELU", "GELU_FWD_BF16",
+           "GELU_BWD_BF16", "GELU_FWD_FP16", "GELU_BWD_FP16"]
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
-#: the hand-written Hopper kernels' library (csrc/gelu_bf16.cu)
-GELU = CudaKernel("gelu_bf16.cu", {
+#: the hand-written Hopper kernels' library (csrc/gelu_lowp.cu)
+GELU = CudaKernel("gelu_lowp.cu", {
     "paddle_gelu_fwd_bf16": [_P, _P, _L, _P],
     "paddle_gelu_bwd_bf16": [_P, _P, _P, _L, _P],
+    "paddle_gelu_fwd_fp16": [_P, _P, _L, _P],
+    "paddle_gelu_bwd_fp16": [_P, _P, _P, _L, _P],
 })
 GELU_FWD_BF16 = KernelFunction(GELU, "paddle_gelu_fwd_bf16", "gelu_fwd_bf16")
 GELU_BWD_BF16 = KernelFunction(GELU, "paddle_gelu_bwd_bf16", "gelu_bwd_bf16")
+GELU_FWD_FP16 = KernelFunction(GELU, "paddle_gelu_fwd_fp16", "gelu_fwd_fp16")
+GELU_BWD_FP16 = KernelFunction(GELU, "paddle_gelu_bwd_fp16", "gelu_bwd_fp16")
+#: the kernels by dtype: (forward, backward)
+_KERNELS = {torch.bfloat16: (GELU_FWD_BF16, GELU_BWD_BF16),
+            torch.float16: (GELU_FWD_FP16, GELU_BWD_FP16)}
 
 _FLT_MIN = 1.1754943508222875e-38
 _SQRT_HALF = 0.70703125      # sqrt(1/2) rounded to bf16
 _TWO_OVER_SQRT_PI = 1.125    # 2/sqrt(pi) rounded to bf16
+_TWO_OVER_SQRT_PI_FP16 = 1.1279296875   # and to fp16 (sqrt(1/2) is the same)
 
 
 def _ftz(t: torch.Tensor) -> torch.Tensor:
@@ -107,42 +122,95 @@ def gelu_bf16_grad_reference(x: torch.Tensor, dy: torch.Tensor
     return _ftz(t1 + t2).to(torch.bfloat16)
 
 
-def _check(name, **tensors):
+def _rh(t: torch.Tensor) -> torch.Tensor:
+    """An f32 result rounded to fp16, subnormals kept (kept as f32)."""
+    return t.to(torch.float16).float()
+
+
+def gelu_fp16_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gelu_fwd_fp16``:
+    ``fp16(fp16(0.5 x) * fp16(erfc(fp16(-x * 0.70703125))))``."""
+    x32 = x.float()
+    e = _rh(erfc_xla(_rh(x32 * -_SQRT_HALF)))
+    return (_rh(0.5 * x32) * e).to(torch.float16)
+
+
+def gelu_fp16_grad_reference(x: torch.Tensor, dy: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain version of ``gelu_bwd_fp16``: dx of the compiled ``jax.vjp``
+    of the fp16 gelu, every op rounded to fp16 but ``m3 * 0.70703125``,
+    which is exact in f32."""
+    x32, d = x.float(), dy.float()
+    u = _rh(x32 * -_SQRT_HALF)
+    e = _rh(erfc_xla(u))
+    r3 = _rh(_rh(_rh(x32 * 0.5) * d) * -_TWO_OVER_SQRT_PI_FP16)
+    m3 = _rh(r3 * _rh(torch.exp(-_rh(u * u))))
+    t2 = _rh(_rh(d * e) * 0.5)
+    return (t2 - m3 * _SQRT_HALF).to(torch.float16)
+
+
+def _check(name, dtype, **tensors):
     dev = next(iter(tensors.values())).device
     for key, t in tensors.items():
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{name}: {key} is on {t.device}; the kernel "
                              f"takes CUDA tensors on one device")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {key} is {t.dtype}, not bfloat16")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {key} is {t.dtype}, not "
+                             f"{str(dtype).replace('torch.', '')}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     return dev
 
 
-def gelu_fwd_bf16(x: torch.Tensor) -> torch.Tensor:
-    """Launch ``gelu_fwd_bf16`` on the current stream."""
-    dev = _check("gelu_fwd_bf16", x=x)
+def _fwd(dtype, x: torch.Tensor) -> torch.Tensor:
+    kernel = _KERNELS[dtype][0]
+    dev = _check(kernel.name, dtype, x=x)
     y = torch.empty_like(x)
     if x.numel():
         with torch.cuda.device(dev):
-            GELU_FWD_BF16(x.data_ptr(), y.data_ptr(), x.numel(),
-                          torch.cuda.current_stream(dev).cuda_stream)
+            kernel(x.data_ptr(), y.data_ptr(), x.numel(),
+                   torch.cuda.current_stream(dev).cuda_stream)
     return y
 
 
-def gelu_bwd_bf16(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Launch ``gelu_bwd_bf16`` on the current stream."""
-    dev = _check("gelu_bwd_bf16", x=x, dy=dy)
+def _bwd(dtype, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    kernel = _KERNELS[dtype][1]
+    dev = _check(kernel.name, dtype, x=x, dy=dy)
     if dy.shape != x.shape:
-        raise ValueError(f"gelu_bwd_bf16: dy{tuple(dy.shape)} is not "
+        raise ValueError(f"{kernel.name}: dy{tuple(dy.shape)} is not "
                          f"x{tuple(x.shape)}")
     dx = torch.empty_like(x)
     if x.numel():
         with torch.cuda.device(dev):
-            GELU_BWD_BF16(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                          x.numel(), torch.cuda.current_stream(dev).cuda_stream)
+            kernel(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel(),
+                   torch.cuda.current_stream(dev).cuda_stream)
     return dx
+
+
+def gelu_fwd_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Launch ``gelu_fwd_bf16`` on the current stream."""
+    return _fwd(torch.bfloat16, x)
+
+
+def gelu_bwd_bf16(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Launch ``gelu_bwd_bf16`` on the current stream."""
+    return _bwd(torch.bfloat16, x, dy)
+
+
+def gelu_fwd_fp16(x: torch.Tensor) -> torch.Tensor:
+    """Launch ``gelu_fwd_fp16`` on the current stream."""
+    return _fwd(torch.float16, x)
+
+
+def gelu_bwd_fp16(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Launch ``gelu_bwd_fp16`` on the current stream."""
+    return _bwd(torch.float16, x, dy)
+
+
+#: the plain versions by dtype: (forward, backward)
+_PLAIN = {torch.bfloat16: (gelu_bf16_reference, gelu_bf16_grad_reference),
+          torch.float16: (gelu_fp16_reference, gelu_fp16_grad_reference)}
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -153,24 +221,27 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"gelu: no path for device {x.device}")
 
 
-class _GeluBf16(torch.autograd.Function):
+class _GeluLowp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return gelu_fwd_bf16(x) if _on_card(x) else gelu_bf16_reference(x)
+        if _on_card(x):
+            return _fwd(x.dtype, x)
+        return _PLAIN[x.dtype][0](x)
 
     @staticmethod
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
-        dy = dy.to(torch.bfloat16).contiguous()
+        dy = dy.to(x.dtype).contiguous()
         if _on_card(x):
-            return gelu_bwd_bf16(x, dy)
-        return gelu_bf16_grad_reference(x, dy)
+            return _bwd(x.dtype, x, dy)
+        return _PLAIN[x.dtype][1](x, dy)
 
 
 def gelu_lowp(x: torch.Tensor) -> torch.Tensor:
-    """The bf16 gelu, with its gradient: the kernels for a CUDA tensor,
-    the plain versions on the CPU."""
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"gelu_lowp takes bfloat16, not {x.dtype}")
-    return _GeluBf16.apply(x.contiguous())
+    """The bf16 or fp16 gelu, with its gradient: the kernels for a CUDA
+    tensor, the plain versions on the CPU."""
+    if x.dtype not in _KERNELS:
+        raise ValueError(f"gelu_lowp takes bfloat16 or float16, not "
+                         f"{x.dtype}")
+    return _GeluLowp.apply(x.contiguous())

@@ -19,7 +19,8 @@ Under AMP (``paddle_tpu_torch.dygraph.amp_guard``) the fronts cast their
 inputs by the op lists (:func:`amp_cast`); every lowering here keeps its
 input's dtype as the JAX one does: ``dropout`` upscales by the factor
 rounded to x's dtype, ``gelu`` and ``tanh`` run in x's dtype,
-``softmax_with_cross_entropy`` takes an f32 log-sum-exp of bf16 logits,
+``softmax_with_cross_entropy`` takes an f32 log-sum-exp of bf16 logits
+(fp16 logits reach it as their f32 cast: it is black-listed under fp16),
 stores the Softmax in their dtype and returns the f32 loss, and its
 closed-form gradient comes back in the logits' dtype.
 
@@ -78,27 +79,35 @@ _ACTS = {"gelu": F.gelu, "tanh": torch.tanh}
 
 
 def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """``act`` by its Paddle name, or ``x`` when None.  A bf16 gelu
-    rounds where JAX's compiled gelu rounds (:func:`.gelu.gelu_lowp`)."""
+    """``act`` by its Paddle name, or ``x`` when None.  A bf16 or fp16
+    gelu rounds where JAX's compiled gelu rounds (:func:`.gelu.gelu_lowp`)."""
     if act is None:
         return x
     if act not in _ACTS:
         raise NotImplementedError(f"activation {act!r} is not ported")
-    if act == "gelu" and x.dtype == torch.bfloat16:
+    if act == "gelu" and x.dtype in (torch.bfloat16, torch.float16):
         from .gelu import gelu_lowp
         return gelu_lowp(x)
     return _ACTS[act](x)
 
 
 class _LayerNormLowp(torch.autograd.Function):
-    """JAX's ``layer_norm`` lowering (``nn_ops.py:388-412``) on a bf16 x,
-    rounding where its compiled form rounds: the normalized value
-    (statistics in f32) rounded to x's dtype, then ``* Scale`` and
-    ``+ Bias`` as two ops in x's dtype.  The backward is the compiled
-    ``jax.vjp``'s: ``g = dy * Scale`` in f32, unrounded, through the f32
-    normalization backward, dX rounded once; dScale and dBias are sums
-    in f32 rounded once (XLA's CPU reduction rounds every partial sum to
-    bf16, so those two differ from it in the last bits).
+    """JAX's ``layer_norm`` lowering (``nn_ops.py:388-412``) on a bf16 or
+    fp16 x, rounding where its compiled form rounds (measured against
+    ``jax.jit`` on XLA's CPU, ``tests/test_torch_amp.py``).  bf16: the
+    normalized value (statistics in f32) rounded to x's dtype, then
+    ``* Scale`` and ``+ Bias`` as two ops in x's dtype.  fp16: XLA
+    computes the fused ``* Scale + Bias`` in f32 and rounds once, so only
+    the normalized value and the output round.  The backward is the
+    compiled ``jax.vjp``'s: ``g = dy * Scale`` (in f32, unrounded, for
+    bf16; rounded to fp16 for fp16) through the f32 normalization
+    backward, dX rounded once; dScale and dBias are sums in f32 rounded
+    once (XLA's CPU reduction rounds partial sums to x's dtype, so those
+    two differ from it in the last bits).  In fp16 the products and sums
+    take fp16 operands straight into f32 arithmetic (``torch.mul`` of an
+    fp16 and an f32 tensor computes in f32), so no f32 copy of an
+    activation is made; ATen's layer-norm kernels on the card take fp16
+    in and out with f32 math, the CPU's run on f32 copies.
 
     On the card the backward is ATen's one-pass layer-norm backward with
     the forward's f32 statistics, which does exactly that f32 math (dScale
@@ -110,6 +119,16 @@ class _LayerNormLowp(torch.autograd.Function):
     def forward(ctx, x, scale, bias, shape, eps):
         s = scale.reshape(shape).to(x.dtype)
         b = bias.reshape(shape).to(x.dtype)
+        ctx.shape, ctx.eps = shape, eps
+        ctx.dtypes = (scale.dtype, bias.dtype, scale.shape)
+        ctx.fp16 = x.dtype == torch.float16
+        if ctx.fp16:
+            y_hat, mean, rstd = torch.ops.aten.native_layer_norm(
+                x if x.is_cuda else x.float(), list(shape), None, None, eps)
+            y_hat = y_hat.to(x.dtype)
+            ctx.save_for_backward(x, s, y_hat, mean, rstd)
+            # the f32 product, then the f32 sum, rounded once
+            return torch.mul(y_hat, s.float()).add_(b.float()).to(x.dtype)
         if x.is_cuda:
             y_hat, mean, rstd = torch.ops.aten.native_layer_norm(
                 x, list(shape), None, None, eps)
@@ -117,15 +136,27 @@ class _LayerNormLowp(torch.autograd.Function):
         else:
             y_hat = F.layer_norm(x, shape, None, None, eps)
             ctx.save_for_backward(x, s, y_hat)
-        ctx.shape, ctx.eps = shape, eps
-        ctx.dtypes = (scale.dtype, bias.dtype, scale.shape)
         return y_hat * s + b
 
     @staticmethod
     def backward(ctx, dy):
         sdt, bdt, pshape = ctx.dtypes
         rows = tuple(range(dy.dim() - len(ctx.shape)))
-        if dy.is_cuda:
+        if ctx.fp16:
+            x, s, y_hat, mean, rstd = ctx.saved_tensors
+            g = torch.mul(dy, s.float()).to(x.dtype)
+            if dy.is_cuda:
+                dx = torch.ops.aten.native_layer_norm_backward(
+                    g.contiguous(), x, list(ctx.shape), mean, rstd, None,
+                    None, [True, False, False])[0]
+            else:
+                dx = torch.ops.aten.native_layer_norm_backward(
+                    g.float(), x.float(), list(ctx.shape), mean, rstd, None,
+                    None, [True, False, False])[0].to(x.dtype)
+            # fp16 x fp16 is exact in f32
+            dscale = torch.mul(y_hat, dy.float()).sum(dim=rows).to(x.dtype)
+            dbias = dy.sum(dim=rows, dtype=torch.float32).to(x.dtype)
+        elif dy.is_cuda:
             x, s, mean, rstd = ctx.saved_tensors
             dx, dscale, dbias = torch.ops.aten.native_layer_norm_backward(
                 dy.contiguous(), x, list(ctx.shape), mean, rstd, s,
@@ -147,7 +178,7 @@ class _LayerNormLowp(torch.autograd.Function):
 
 
 def layer_norm_lowp(x, scale, bias, shape, eps=1e-5):
-    """LayerNorm over the trailing ``shape`` axes of a bf16 ``x`` with
+    """LayerNorm over the trailing ``shape`` axes of a bf16 or fp16 ``x`` with
     JAX's rounding points (:class:`_LayerNormLowp`); output in x's
     dtype."""
     return _LayerNormLowp.apply(x, scale, bias, tuple(shape), eps)

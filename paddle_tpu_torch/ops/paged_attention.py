@@ -68,7 +68,10 @@ PAGED_DECODE_BF16 = KernelFunction(PAGED_ATTENTION,
 PAGED_DECODE_INT8 = KernelFunction(PAGED_ATTENTION,
                                    "paddle_paged_decode_int8",
                                    "paged_decode_int8")
-_HEAD_DIMS = (32, 64, 128, 256)
+#: the kernels take any head dim that is a multiple of 8 up to this (JAX's
+#: kernel engages for any multiple of 8, ``pallas_kernels.py:1257``); they
+#: run at the next of 32, 64, 128, 256 with the real dim as the row stride
+_MAX_HEAD_DIM = 256
 _MAX_GROUP = 8
 #: the quantized kernels keep a sequence's page ids (and scales) in
 #: shared memory: the table widths they take
@@ -167,8 +170,9 @@ def _check(name, q, k_pages, v_pages, block_tables, context_lens,
             f"k{tuple(k_pages.shape)} v{tuple(v_pages.shape)} "
             f"tables{tuple(block_tables.shape)} "
             f"lens{tuple(context_lens.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not in {_HEAD_DIMS}")
+    if d % 8 or not 0 < d <= _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} is not a multiple of 8 in "
+                         f"[8, {_MAX_HEAD_DIM}]")
     if group > _MAX_GROUP:
         raise ValueError(f"{name}: GQA group {group} > {_MAX_GROUP}")
     width = block_tables.shape[1]
@@ -198,8 +202,8 @@ def paged_decode(q, k_pages, v_pages, block_tables, context_lens, scale):
     return its output ``(num_seqs, q_heads, head_dim)`` f32.
 
     Takes f32 q and pools, int32 tables and lengths, all contiguous on one
-    CUDA device; head_dim in {32, 64, 128, 256}; q_heads / kv_heads at
-    most 8.  Raises on anything else.  A row with context length 0
+    CUDA device; head_dim a multiple of 8 up to 256; q_heads / kv_heads
+    at most 8.  Raises on anything else.  A row with context length 0
     yields zeros; a length past the table's reach is clamped to it."""
     _check("paged_decode", q, k_pages, v_pages, block_tables, context_lens,
            torch.float32)

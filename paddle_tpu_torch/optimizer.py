@@ -31,10 +31,11 @@ detail).
 
 Master weights (AMP O2; ``optimizer.py:567-592``, ``_apply_fused_mp``
 :653-683, ``_eager_update`` :867-906).  A bf16 parameter gets an f32
-master in its state, seeded from the upcast of the bf16 value at its
-first update (not from any earlier f32 value), and f32 moments; its
-gradient is upcast to f32, the update runs on the master, and the
-parameter becomes the bf16 cast of the master after every step.  JAX
+master in its state (an fp16 one likewise), seeded from the upcast of
+the bf16 value at its first update (not from any earlier f32 value), and
+f32 moments; its gradient is upcast to f32, the update runs on the
+master, and the parameter becomes the bf16 cast of the master after
+every step.  JAX
 packs the masters into one flat buffer, a TPU layout; the per-parameter
 ``_foreach`` update over the masters computes the same elementwise
 update.  LAMB, AdamW and the other optimizers, regularization and

@@ -2,24 +2,28 @@
 ``examples/train_bert_dygraph.py``.
 
     python -m paddle_tpu_torch.tools.train_bert [--batch 44] [--seq 512]
-        [--steps 100] [--lr 1e-4] [--no-amp | --amp-level O1|O2] [--tiny]
-        [--pad] [--device cuda] [--profile N]
+        [--steps 100] [--lr 1e-4] [--no-amp | --amp-level O1|O2]
+        [--amp-dtype bfloat16|float16] [--tiny] [--pad] [--device cuda]
+        [--profile N]
 
 The example's flags, and its default: AMP O1 in bfloat16
 (``jit_train_step(amp=True)``: the matmuls and the attention in bf16,
-parameters and optimizer state f32).  ``--amp-level O2`` makes the
-parameters resident in bf16 with f32 master weights in the optimizer;
+parameters and optimizer state f32).  ``--amp-dtype float16`` is
+``jit_train_step``'s ``amp_dtype="float16"`` (no loss scale, as in the
+JAX package's dygraph step).  ``--amp-level O2`` makes the parameters
+resident in the AMP dtype with f32 master weights in the optimizer;
 ``--no-amp`` runs float32.  ``BertForPretraining(BertConfig())``
 (BERT-base) trains on random ids and labels from numpy seed 0 with
 ``AdamOptimizer`` through ``jit_train_step``; the attention runs in the
-hand-written flash kernels on the card, bf16 ones under AMP.  ``--tiny``
-is a 2-layer model of hidden 128 and 4 heads (head width 32, the
-kernels' smallest) at batch 2, sequence 32, 3 steps.
+hand-written flash kernels on the card, bf16 or fp16 ones under AMP.
+``--tiny`` is a 2-layer model of hidden 128 and 4 heads (head width 32,
+the kernels' smallest) at batch 2, sequence 32, 3 steps.
 ``--pad`` adds an attention mask whose rows keep between half and all of
 their tokens.  ``--profile N`` then runs N more steps, traces N more with
 ``torch.profiler`` and prints one JSON line: wall and device-busy ms per
 step, the device's idle share, the flash kernels' and the GEMMs' ms per
 step, and the kernels that take the most device time (a GPU is needed).
+On a GPU the summary line also gives the peak memory allocated.
 """
 from __future__ import annotations
 
@@ -65,10 +69,11 @@ def _loss_fn(model, ids, labels, mask=None):
 def train(cfg: BertConfig, batch: int = 44, seq: int = 512, steps: int = 100,
           lr: float = 1e-4, device="cuda", pad: bool = False,
           warmup: int = 0, log_every: int = 20, amp: bool = True,
-          amp_level: str = "O1") -> dict:
+          amp_level: str = "O1", amp_dtype: str = "bfloat16") -> dict:
     """Train ``warmup + steps`` steps on one repeated batch (weights and
     batch from seed 0); time the last ``steps``.  ``amp`` / ``amp_level``
-    go to ``jit_train_step`` (bf16 AMP O1 by default, as the example).
+    / ``amp_dtype`` go to ``jit_train_step`` (bf16 AMP O1 by default, as
+    the example).
     Returns the per-step losses, ms/step and tokens/s (host wall time
     around steps that end in a device sync), the model, the optimizer,
     the step function and its inputs."""
@@ -76,7 +81,7 @@ def train(cfg: BertConfig, batch: int = 44, seq: int = 512, steps: int = 100,
     model = BertForPretraining(cfg, device=dev, seed=0)
     opt = AdamOptimizer(lr, parameter_list=model.parameters())
     step = jit_train_step(model, opt, _loss_fn, amp=amp,
-                          amp_level=amp_level)
+                          amp_dtype=amp_dtype, amp_level=amp_level)
     inputs = [to_tensor(x, dev) for x in make_batch(cfg, batch, seq, 0, pad)
               if x is not None]
     losses = []
@@ -157,6 +162,8 @@ def main(argv=None):
     ap.add_argument("--no-amp", action="store_true",
                     help="train in float32 (default: bf16 AMP)")
     ap.add_argument("--amp-level", choices=("O1", "O2"), default="O1")
+    ap.add_argument("--amp-dtype", choices=("bfloat16", "float16"),
+                    default="bfloat16")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--pad", action="store_true")
     ap.add_argument("--device", default="cuda")
@@ -169,15 +176,22 @@ def main(argv=None):
         cfg = BertConfig()
     if args.device != "cpu":
         torch.backends.cuda.matmul.allow_tf32 = False   # full f32
-        # bf16 GEMMs accumulate in f32 throughout, as the JAX package's
-        # (cuBLAS may otherwise reduce split-K partial sums in bf16)
+        # bf16 and fp16 GEMMs accumulate in f32 throughout, as the JAX
+        # package's (cuBLAS may otherwise reduce split-K partial sums in
+        # the low precision)
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            False
     run = train(cfg, args.batch, args.seq, args.steps, args.lr, args.device,
-                pad=args.pad, amp=not args.no_amp, amp_level=args.amp_level)
-    mode = "f32" if args.no_amp else f"AMP {args.amp_level} bf16"
+                pad=args.pad, amp=not args.no_amp, amp_level=args.amp_level,
+                amp_dtype=args.amp_dtype)
+    mode = ("f32" if args.no_amp
+            else f"AMP {args.amp_level} {args.amp_dtype}")
+    peak = (f", peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+            if args.device != "cpu" else "")
     print(f"{args.steps} steps ({mode}), {run['tokens_per_s']:.0f} tok/s, "
-          f"{run['ms_per_step']:.1f} ms/step", flush=True)
+          f"{run['ms_per_step']:.1f} ms/step{peak}", flush=True)
     if args.profile:
         print(json.dumps(profile_steps(run["step"], run["inputs"],
                                        args.profile)))

@@ -13,9 +13,10 @@ into the port one to one (no transposes: both keep Paddle's layouts).
   in interpret mode;
 * Adam alone against JAX ``eager_call("adam", ...)`` over 5 steps;
 * the op lowerings against JAX ``eager_call``; initializers; dropout;
+* a head dim that is no tile width (96) trains as JAX's does;
 * the new entry points raise without a card, the left-out options raise
-  ``NotImplementedError`` (float16 AMP among them), and the new modules
-  import no JAX;
+  ``NotImplementedError`` (an AMP dtype that is none raises
+  ``ValueError``), and the new modules import no JAX;
 * ``tools/train_bert.py --tiny`` trains on the CPU.
 """
 import os
@@ -171,6 +172,22 @@ def test_trajectory_matches_jax_pallas_kernels(monkeypatch):
     monkeypatch.setenv("PT_FLASH_ATTENTION", "1")
     jl, tl, jp, tp = _trajectories({}, via_step=False, steps=2)
     np.testing.assert_allclose(tl, jl, **TRAJ_TOL)
+    for name in jp:
+        np.testing.assert_allclose(tp[name], jp[name], **TRAJ_TOL,
+                                   err_msg=name)
+
+
+def test_trajectory_at_head_dim_96_matches_jax_pallas_kernels(monkeypatch):
+    """A head dim that is no tile width (hidden 192, 2 heads: d 96), which
+    JAX's flash kernels take and so must the port's: 3 ``jit_train_step``
+    steps in f32 against JAX's through its Pallas kernels (interpret
+    mode)."""
+    monkeypatch.setenv("PT_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("PT_FLASH_ATTENTION", "1")
+    jl, tl, jp, tp = _trajectories(dict(hidden_size=192, num_attention_heads=2,
+                                        intermediate_size=384), via_step=True)
+    np.testing.assert_allclose(tl, jl, **TRAJ_TOL)
+    assert tl[-1] < tl[0]
     for name in jp:
         np.testing.assert_allclose(tp[name], jp[name], **TRAJ_TOL,
                                    err_msg=name)
@@ -367,10 +384,10 @@ def test_left_out_options_raise():
     from paddle_tpu_torch.param_attr import ParamAttr
     m = Linear(2, 2, device="cpu")
     opt = AdamOptimizer(1e-3, parameter_list=m.parameters())
-    # AMP runs in bf16; float16 AMP is not ported
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # AMP runs in bf16 or fp16 (tests/test_torch_amp.py); no other dtype
+    with pytest.raises(ValueError, match="AMP dtype"):
         jit_train_step(m, opt, lambda m, x: m(x).sum(), amp=True,
-                       amp_dtype="float16")
+                       amp_dtype="float64")
     for build in (lambda: topt.LambOptimizer(1e-3),
                   lambda: topt.AdamWOptimizer(1e-3),
                   lambda: AdamOptimizer(1e-3, grad_clip=object()),
@@ -412,4 +429,18 @@ def test_train_bert_tool_tiny_on_cpu():
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("step ")]
     losses = [float(ln.split("loss ")[1]) for ln in lines]
     # steps 0 and 2 are printed (every 20th step and the last)
+    assert len(losses) == 2 and losses[-1] < losses[0]
+
+
+def test_train_bert_tool_tiny_fp16_on_cpu():
+    """``--amp-dtype float16`` is ``jit_train_step``'s fp16 AMP: the tiny
+    model trains at O2 with fp16-resident parameters."""
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.tools.train_bert", "--tiny",
+         "--device", "cpu", "--amp-dtype", "float16", "--amp-level", "O2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "(AMP O2 float16)" in r.stdout
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("step ")]
+    losses = [float(ln.split("loss ")[1]) for ln in lines]
     assert len(losses) == 2 and losses[-1] < losses[0]

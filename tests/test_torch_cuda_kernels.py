@@ -69,9 +69,17 @@ def test_paged_decode_kernel_matches_plain(cuda, hq, hkv, d, ps, lens,
 
 
 def test_paged_decode_wrapper_raises_on_unsupported(cuda):
+    # head dim 48 (no instantiated width, a multiple of 8) runs, as JAX's
+    # kernel takes it; 44 and 264 do not
     case = list(_case(cuda, 1, 4, 2, 48, 8, 16, [5, 9]))
-    with pytest.raises(ValueError, match="head_dim"):
-        tpa.paged_attention(*case)
+    got = tpa.paged_attention(*case)
+    want = tpa.paged_attention_reference(*case)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+    for d in (44, 264):
+        case = list(_case(cuda, 1, 4, 2, d, 8, 16, [5, 9]))
+        with pytest.raises(ValueError, match="head_dim"):
+            tpa.paged_attention(*case)
     case = list(_case(cuda, 1, 4, 2, 32, 8, 16, [5, 9]))
     case[1] = case[1].double()
     with pytest.raises(ValueError, match="float32"):
@@ -151,8 +159,15 @@ def test_paged_decode_quantized_kernels_match_plain(cuda, dtype, hq, hkv, d,
 
 
 def test_paged_decode_quantized_wrappers_raise_on_unsupported(cuda):
-    counts = (tpa.PAGED_DECODE_BF16.launches, tpa.PAGED_DECODE_INT8.launches)
+    # head dim 96 runs (the next width, 128) and matches; 100 does not
     case, scales = _q_case(cuda, 4, torch.int8, 4, 2, 96, 8, 16, [5, 9])
+    got = tpa.paged_attention(*case, None, *scales)
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+    # nothing below launches a kernel
+    counts = (tpa.PAGED_DECODE_BF16.launches, tpa.PAGED_DECODE_INT8.launches)
+    case, scales = _q_case(cuda, 4, torch.int8, 4, 2, 100, 8, 16, [5, 9])
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_attention(*case, None, *scales)
     case, scales = _q_case(cuda, 4, torch.int8, 4, 2, 64, 8, 16, [5, 9])
@@ -332,13 +347,20 @@ def test_flash_wrappers_raise_on_unsupported(cuda):
     with pytest.raises(ValueError, match="float32"):    # a bf16 bias
         tfa.flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(),
                       bias.bfloat16(), 0.1, False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfa.flash_fwd(q.half(), k.half(), v.half(), None, 0.1, False)
+    with pytest.raises(ValueError, match="float16"):    # mixed dtypes
+        tfa.flash_fwd(q.half(), k.bfloat16(), v.half(), None, 0.1, False)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_fwd(q.transpose(2, 3), k, v, None, 0.1, False)
+    # head dim 48 runs at the 64-wide tile and matches; 44 and 136 raise
     q48, k48, v48, _, _ = _flash_case(cuda, 3, 1, 2, 64, 64, 48, False)
-    with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_fwd(q48, k48, v48, None, 0.1, False)
+    out, lse = tfa.flash_fwd(q48, k48, v48, None, 0.1, False)
+    want, _ = tfa.flash_fwd_reference(q48, k48, v48, None, 0.1, False)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= ATOL
+    for d in (44, 136):
+        qd, kd, vd, _, _ = _flash_case(cuda, 3, 1, 2, 64, 64, d, False)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa.flash_fwd(qd, kd, vd, None, 0.1, False)
     with pytest.raises(ValueError, match="seed"):
         tfa.flash_fwd(q, k, v, bias, 0.1, False, dropout_rate=0.1)
     with pytest.raises(ValueError, match="CUDA"):
@@ -434,6 +456,164 @@ def test_flash_attention_front_launches_bf16_kernels(cuda, s, n_bwd):
         BF16_KERNELS + F32_KERNELS, before))
     assert fwd == 1 and fused + dq + dkv == n_bwd and f32 == [0] * 4
     assert q.grad.dtype == torch.bfloat16
+
+
+# ==========================================================================
+# the fp16 flash kernels against their fp16 plain versions: bf16's
+# rounding points, fp16 subnormals kept; FP16_ULPS fp16 ulps (2^-10)
+# ==========================================================================
+FP16_ULPS = 4
+FP16_KERNELS = (tfa.FLASH_FWD_FP16, tfa.FLASH_BWD_FUSED_FP16,
+                tfa.FLASH_BWD_DQ_FP16, tfa.FLASH_BWD_DKV_FP16)
+
+
+def _fp16_ok(got, want):
+    assert got.dtype == torch.float16 and want.dtype == torch.float16
+    tol = FP16_ULPS * 2.0 ** -10 * float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _low_case(dev, seed, b, h, s, d, with_bias, dtype):
+    q, k, v, do, bias = _flash_case(dev, seed, b, h, s, s, d, with_bias)
+    return (*(t.to(dtype) for t in (q, k, v, do)), bias)
+
+
+@pytest.mark.parametrize("s", [64, 200, 512, 1024])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal,with_bias,rate", [
+    (False, True, 0.0), (True, False, 0.0), (False, True, 0.1)])
+def test_flash_fp16_kernels_match_plain(cuda, s, d, causal, with_bias,
+                                        rate):
+    q, k, v, do, bias = _low_case(cuda, 200 + s + d, 2, 3, s, d, with_bias,
+                                  torch.float16)
+    scale = d ** -0.5
+    seed = torch.tensor([98], dtype=torch.int64, device=cuda)
+    keep = tfa.flash_dropout_mask(2, 3, s, s, rate, seed) if rate else None
+    kernels = FP16_KERNELS + BF16_KERNELS + F32_KERNELS
+    before = [kf.launches for kf in kernels]
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+    want_out, want_lse = tfa.flash_fwd_reference(q, k, v, bias, scale,
+                                                 causal, rate, keep)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    assert _fp16_ok(out, want_out)
+    assert float((lse - want_lse).abs().max()) <= ATOL
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
+                                   causal, rate, keep)
+    for grads in _fused_and_split(q, k, v, bias, out, lse, do, scale,
+                                  causal, rate, seed if rate else None):
+        torch.cuda.synchronize()
+        for got, w in zip(grads, want):
+            assert _fp16_ok(got, w)
+    # the fp16 kernels ran, once each, and no bf16 or f32 kernel
+    after = [kf.launches for kf in kernels]
+    assert [a - b for a, b in zip(after, before)] == [1] * 4 + [0] * 8
+
+
+def test_flash_fp16_subnormal_ds_matches_plain(cuda):
+    """Small scores and a small dO put most of dS below fp16's smallest
+    normal: the kernels keep its subnormals as the plain version does
+    (a flush to zero would take dq and dk outside the tolerance)."""
+    q, k, v, do, bias = _flash_case(cuda, 11, 2, 3, 512, 512, 64, True)
+    q, k, do = 0.05 * q, 0.05 * k, 2e-3 * do
+    q, k, v, do = (t.half() for t in (q, k, v, do))
+    scale = 0.125
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, False)
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
+                                   False)
+    p = torch.exp(tfa._scores(q, k, bias, scale, False) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = (p * (dp - (do.float() * out.float()).sum(-1, keepdim=True))
+          * scale).abs()
+    assert float((ds[ds > 0] < 2.0 ** -14).float().mean()) > 0.5
+    for grads in _fused_and_split(q, k, v, bias, out, lse, do, scale,
+                                  False):
+        torch.cuda.synchronize()
+        for got, w in zip(grads, want):
+            assert _fp16_ok(got, w)
+
+
+def test_flash_fp16_and_f32_kernels_differ_by_an_fp16_rounding(cuda):
+    q, k, v, do, bias = _low_case(cuda, 9, 2, 4, 512, 64, True,
+                                  torch.float16)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o16, l16 = tfa.flash_fwd(q, k, v, bias, 0.125, False)
+    o32, l32 = tfa.flash_fwd(*f32[:3], bias, 0.125, False)
+    g16 = tfa.flash_bwd(q, k, v, bias, o16, l16, do, 0.125, False)
+    g32 = tfa.flash_bwd(*f32[:3], bias, o32, l32, f32[3], 0.125, False)
+    torch.cuda.synchronize()
+    for a, b in zip((o16, *g16), (o32, *g32)):
+        diff = float((a.float() - b).abs().max())
+        scale = float(b.abs().max())
+        assert 2.0 ** -14 * scale < diff <= FP16_ULPS * 2.0 ** -10 * scale
+
+
+@pytest.mark.parametrize("s,n_bwd", [(256, 1), (1024, 2)])
+def test_flash_attention_front_launches_fp16_kernels(cuda, s, n_bwd):
+    q, k, v, do, bias = _low_case(cuda, 10, 1, 2, s, 64, True, torch.float16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    kernels = FP16_KERNELS + BF16_KERNELS + F32_KERNELS
+    before = [kf.launches for kf in kernels]
+    # under AMP the bias arrives in fp16; the front takes its f32 upcast
+    out = tfa.flash_attention(q, k, v, bias=bias.half()[:, None, None],
+                              dropout_rate=0.1, dropout_seed=torch.tensor(
+                                  [3], dtype=torch.int64, device=cuda))
+    out.backward(do)
+    torch.cuda.synchronize()
+    fwd, fused, dq, dkv, *rest = (kf.launches - n0 for kf, n0 in zip(
+        kernels, before))
+    assert fwd == 1 and fused + dq + dkv == n_bwd and rest == [0] * 8
+    assert q.grad.dtype == torch.float16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "fp16"])
+@pytest.mark.parametrize("d", [8, 40, 96, 120])
+def test_flash_head_dims_match_plain(cuda, dtype, d):
+    """Head dims that are no tile width run at the next one, with the
+    real dim as the row stride: forward, fused and split backward."""
+    q, k, v, do, bias = _low_case(cuda, 300 + d, 2, 3, 200, d, True, dtype)
+    scale = d ** -0.5
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, True)
+    want_out, _ = tfa.flash_fwd_reference(q, k, v, bias, scale, True)
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale, True)
+    grads = _fused_and_split(q, k, v, bias, out, lse, do, scale, True)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float((out - want_out).abs().max()) <= ATOL
+        for g in grads:
+            for got, w in zip(g, want):
+                torch.testing.assert_close(got, w, **GRAD_TOL)
+    else:
+        ok = _fp16_ok if dtype == torch.float16 else _bf16_ok
+        assert ok(out, want_out)
+        for g in grads:
+            assert all(ok(got, w) for got, w in zip(g, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [8, 40, 96, 120, 160, 248])
+def test_paged_decode_head_dims_match_plain(cuda, dtype, d):
+    """Every pool dtype at head dims that are no instantiated width (int8
+    at 8, 40, 120 and 248 takes 8-byte slices)."""
+    if dtype == torch.float32:
+        case = _case(cuda, d, 8, 2, d, 16, 256, [1, 16, 33, 250], 1)
+        scales = ()
+        fn = tpa.PAGED_DECODE
+    else:
+        case, scales = _q_case(cuda, d, dtype, 8, 2, d, 16, 256,
+                               [1, 16, 33, 250, 0], 1)
+        fn = (tpa.PAGED_DECODE_INT8 if dtype == torch.int8
+              else tpa.PAGED_DECODE_BF16)
+    before = fn.launches
+    got = tpa.paged_attention(*case, None, *scales)
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    live = case[4] > 0
+    assert torch.isfinite(got).all()
+    assert float((got[live] - want[live]).abs().max()) <= ATOL
 
 
 # ==========================================================================
@@ -766,7 +946,8 @@ def test_matmul_bias_act_bf16_kernel_matches_plain(cuda, m, k, n, act,
 
 
 # ==========================================================================
-# the bf16 gelu (csrc/gelu_bf16.cu): bit for bit with its plain versions
+# the bf16 and fp16 gelu (csrc/gelu_lowp.cu): bit for bit with their plain
+# versions
 # ==========================================================================
 from paddle_tpu_torch.ops import gelu as tgelu  # noqa: E402
 
@@ -787,6 +968,61 @@ def test_gelu_bf16_kernels_match_plain(cuda, shape):
             tgelu.GELU_BWD_BF16.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(y, tgelu.gelu_bf16_reference(x))
     assert torch.equal(xr.grad, tgelu.gelu_bf16_grad_reference(x, dy))
+
+
+@pytest.mark.parametrize("shape", [(4096, 768), (1001, 37), (7,), (3, 5)],
+                         ids=["wide", "ragged", "short", "tiny"])
+def test_gelu_fp16_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(shape, device=cuda, generator=gen) * 4).half()
+    # zeros, saturation, and an fp16 subnormal input
+    x.view(-1)[:4] = torch.tensor([0.0, -0.0, 30.0, -3e-6])
+    dy = torch.randn(shape, device=cuda, generator=gen).half()
+    before = (tgelu.GELU_FWD_FP16.launches, tgelu.GELU_BWD_FP16.launches,
+              tgelu.GELU_FWD_BF16.launches)
+    xr = x.clone().requires_grad_()
+    y = tgelu.gelu_lowp(xr)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (tgelu.GELU_FWD_FP16.launches, tgelu.GELU_BWD_FP16.launches,
+            tgelu.GELU_FWD_BF16.launches) == (before[0] + 1, before[1] + 1,
+                                              before[2])
+    assert torch.equal(y, tgelu.gelu_fp16_reference(x))
+    assert torch.equal(xr.grad, tgelu.gelu_fp16_grad_reference(x, dy))
+
+
+def test_gelu_fp16_wrappers_raise_on_unsupported(cuda):
+    x = torch.randn(8, 8, device=cuda).half()
+    with pytest.raises(ValueError, match="float16"):
+        tgelu.gelu_fwd_fp16(x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tgelu.gelu_bwd_fp16(x.t(), x)
+
+
+def test_layer_norm_fp16_on_the_card_matches_the_cpu(cuda):
+    """The fp16 LayerNorm (one rounding of ``* Scale + Bias``, as XLA's
+    CPU does) runs the same f32 math on both devices: within one fp16
+    ulp (2^-10) of the largest value (the f32 statistics' summation
+    order), the gradients within two."""
+    from paddle_tpu_torch.ops.nn_ops import layer_norm_lowp
+
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(64, 768, generator=gen) * 2 + 0.3).half()
+    sc = 1 + 0.1 * torch.randn(768, generator=gen)
+    bi = 0.1 * torch.randn(768, generator=gen)
+    dy = torch.randn(64, 768, generator=gen).half()
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        xs, ss, bs = (t.detach().to(dev).requires_grad_()
+                      for t in (x, sc, bi))
+        y = layer_norm_lowp(xs, ss, bs, (768,))
+        y.backward(dy.to(dev))
+        outs[dev] = [t.detach().cpu() for t in (y, xs.grad, ss.grad,
+                                                bs.grad)]
+    for got, want, ulps in zip(outs["cuda"], outs["cpu"], (1, 2, 2, 2)):
+        assert got.dtype == want.dtype
+        tol = ulps * 2.0 ** -10 * float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= tol
 
 
 def test_gelu_bf16_wrappers_raise_on_unsupported(cuda):

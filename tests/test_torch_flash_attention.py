@@ -14,10 +14,15 @@ inputs.
   seeded mask is the one ``seeded_keep`` gives, in the forward and the
   backward; the keep rate is within binomial bounds;
 * dispatch: CPU tensors never launch a kernel, the kernels' wrappers
-  refuse CPU tensors.
+  refuse CPU tensors;
+* bfloat16 and float16: the plain versions round where the Pallas kernels
+  cast, against JAX's kernels in interpret mode and its dense reference;
+  fp16 also where dS lies below fp16's smallest normal;
+* head dims that are no tile width (40, 96, 120) against JAX's kernels.
 
 Tolerances: forward rtol 1e-4 / atol 1e-5 and gradients rtol 1e-3 /
-atol 1e-5 (f32, the same sums in another order).
+atol 1e-5 (f32, the same sums in another order); bf16 and fp16 as stated
+at ``BF16_ULPS`` and ``FP16_ULPS``.
 """
 import numpy as np
 import pytest
@@ -402,14 +407,168 @@ def test_flash_bf16_rounds_where_the_tpu_kernels_cast():
         assert 2.0 ** -12 * scale < diff <= BF16_ULPS * 2.0 ** -8 * scale
 
 
-def test_flash_front_takes_a_bf16_bias_and_refuses_float16():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_front_takes_a_low_precision_bias(dtype):
+    """A bf16 or fp16 padding bias is taken as its exact f32 upcast, and
+    the output keeps q's dtype; the fp16 wrapper refuses CPU tensors as
+    the others do."""
     q, k, v, bias = _rand_qkv(b=1, h=2, s=64, d=32, seed=71)
-    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
-    b16 = torch.tensor(bias).to(torch.bfloat16)
+    tq, tk, tv = (torch.tensor(a).to(dtype) for a in (q, k, v))
+    b16 = torch.tensor(bias).to(dtype)
     got = tfa.flash_attention(tq, tk, tv, bias=b16)
     want = tfa.flash_attention(tq, tk, tv, bias=b16.float())
-    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfa.flash_attention(tq.half(), tk.half(), tv.half())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfa.flash_fwd(tq.half(), tk.half(), tv.half(), None, 0.1, False)
+    assert got.dtype == dtype and torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd(tq, tk, tv, None, 0.1, False)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tfa.flash_attention(tq.double(), tk.double(), tv.double())
+
+
+# ==========================================================================
+# float16: the bf16 rounding points, with fp16's subnormals kept
+# ==========================================================================
+# fp16 outputs within FP16_ULPS fp16 ulps (2^-10 relative) of the tensor's
+# largest magnitude, for the reasons BF16_ULPS gives
+FP16_ULPS = 4
+
+
+def _fp16_pair(a):
+    return jnp.asarray(a, jnp.float16), torch.tensor(a).to(torch.float16)
+
+
+def _assert_fp16_close(got, want, what="", ulps=FP16_ULPS):
+    """``got`` (torch fp16) within ``ulps`` fp16 ulps of max |want|."""
+    assert got.dtype == torch.float16, what
+    assert np.asarray(want).dtype == np.float16, what
+    w = np.asarray(want).astype(np.float32)
+    tol = ulps * 2.0 ** -10 * float(np.abs(w).max())
+    err = float(np.abs(got.float().numpy() - w).max())
+    assert err <= tol, f"{what}: max |err| {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("s", [128, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fp16_matches_jax_kernel(interpret_kernel, s, causal):
+    """Forward (out, lse) and q/k/v gradients of the fp16 front on the
+    CPU (the plain versions) against JAX's Pallas kernels in interpret
+    mode, from the same fp16 inputs, with a padding bias."""
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=s, d=32, seed=80 + s)
+    ct = np.random.RandomState(12).randn(*q.shape).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jct, tct) = (
+        _fp16_pair(a) for a in (q, k, v, ct))
+    from paddle_tpu.ops.pallas_kernels import flash_attention_fwd_res
+
+    jout, jlse = flash_attention_fwd_res(jq, jk, jv, bias=jnp.asarray(bias),
+                                         causal=causal)
+
+    def jloss(q_, k_, v_):
+        out = jflash(q_, k_, v_, bias=jnp.asarray(bias), causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jct.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, _t(bias),
+                                       1 / np.sqrt(32), causal)
+    _assert_fp16_close(out, jout, "out")
+    torch.testing.assert_close(lse, torch.tensor(
+        np.asarray(jlse)[..., 0]), **LSE_TOL)
+    tq, tk, tv = (t.requires_grad_() for t in (tq, tk, tv))
+    got = tfa.flash_attention(tq, tk, tv, bias=_t(bias), causal=causal)
+    assert torch.equal(got.detach(), out)
+    got.backward(tct)
+    for name, g, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        _assert_fp16_close(g, w, "d" + name)
+
+
+def test_flash_fp16_keeps_subnormal_ds_as_jax_kernel_does(interpret_kernel):
+    """Small scores and a small dO put dS = P (dP - delta) scale below
+    fp16's smallest normal (6.1e-5) for most elements: the plain backward
+    rounds it to fp16 keeping subnormals, as the Pallas kernel's astype
+    does on XLA's CPU, and dq / dk agree with JAX's.  Flushing dS to zero
+    instead would move them far outside the tolerance."""
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=128, d=32, seed=90)
+    q, k = 0.05 * q, 0.05 * k
+    ct = 2e-3 * np.random.RandomState(13).randn(*q.shape).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jct, tct) = (
+        _fp16_pair(a) for a in (q, k, v, ct))
+
+    def jloss(q_, k_, v_):
+        out = jflash(q_, k_, v_, bias=jnp.asarray(bias))
+        return jnp.sum(out.astype(jnp.float32) * jct.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    scale = 1 / np.sqrt(32)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, _t(bias), scale, False)
+    # dS of the plain backward, before its rounding
+    p = torch.exp(tfa._scores(tq, tk, _t(bias), scale, False) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", tct.float(), tv.float())
+    delta = (tct.float() * out.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).abs()
+    live = ds[ds > 0]
+    assert float((live < 2.0 ** -14).float().mean()) > 0.5
+    grads = tfa.flash_bwd_reference(tq, tk, tv, _t(bias), out, lse, tct,
+                                    scale, False)
+    for name, g, w in zip("qkv", grads, want):
+        _assert_fp16_close(g, w, "d" + name)
+    # a flush-to-zero of dS is told apart
+    ftz = torch.where(ds < 2.0 ** -14, torch.zeros_like(ds),
+                      p * (dp - delta) * scale).half().float()
+    dq_ftz = torch.einsum("bhqk,bhkd->bhqd", ftz, tk.float())
+    w = np.asarray(want[0]).astype(np.float32)
+    assert float(np.abs(dq_ftz.numpy() - w).max()) > \
+        FP16_ULPS * 2.0 ** -10 * float(np.abs(w).max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fp16_plain_matches_jax_attention_reference(causal):
+    """The plain fp16 forward and backward against JAX's dense
+    ``attention_reference`` on the same fp16 inputs and its autodiff
+    (which keeps dS in f32: unit-scale inputs keep dS normal, so the
+    kernels' fp16 rounding of dS stays within the tolerance)."""
+    from paddle_tpu.ops.pallas_kernels import attention_reference as jref
+
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=96, d=32, seed=61)
+    ct = np.random.RandomState(14).randn(*q.shape).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv), (jct, tct) = (
+        _fp16_pair(a) for a in (q, k, v, ct))
+
+    def jloss(q_, k_, v_):
+        out = jref(q_, k_, v_, jnp.asarray(bias), causal, 0.3)
+        return jnp.sum(out.astype(jnp.float32) * jct.astype(jnp.float32)), \
+            out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                       has_aux=True)(jq, jk, jv)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, _t(bias), 0.3, causal)
+    _assert_fp16_close(out, jout, "out")
+    grads = tfa.flash_bwd_reference(tq, tk, tv, _t(bias), out, lse, tct,
+                                    0.3, causal)
+    for name, got, w in zip("qkv", grads, jg):
+        _assert_fp16_close(got, w, "d" + name)
+
+
+# ==========================================================================
+# head dims that are not a tile width
+# ==========================================================================
+@pytest.mark.parametrize("d", [40, 96, 120])
+def test_flash_head_dims_match_jax_kernel(interpret_kernel, d):
+    """JAX's kernels engage for any head dim that is a multiple of 8
+    (``pallas_kernels.py:702``); the port's kernels take the same ones,
+    at the next tile width.  The plain versions (their oracle) against
+    JAX's kernels, f32, forward and gradients."""
+    q, k, v, bias = _rand_qkv(b=1, h=2, s=128, d=d, seed=d)
+    ct = np.random.RandomState(d).randn(*q.shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jflash(q_, k_, v_, bias=jnp.asarray(bias),
+                              causal=True) * ct)
+
+    jval, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    out = tfa.flash_attention(tq, tk, tv, bias=_t(bias), causal=True)
+    (out * _t(ct)).sum().backward()
+    np.testing.assert_allclose(float((out * _t(ct)).sum().detach()),
+                               float(jval),
+                               rtol=1e-4)
+    for got, w in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **GRAD_TOL)

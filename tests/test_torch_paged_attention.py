@@ -169,3 +169,37 @@ def test_kv_cache_append_matches_jax_exactly(slots):
     assert (tk.data_ptr(), tv.data_ptr()) == (k_ptr, v_ptr)   # in place
     np.testing.assert_array_equal(tk.numpy(), want_k)
     np.testing.assert_array_equal(tv.numpy(), want_v)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [40, 96, 120])
+def test_head_dims_match_pallas_kernel_interpret(monkeypatch, d, pool):
+    """JAX's kernel engages for any head dim that is a multiple of 8
+    (``pallas_kernels.py:1257``); the port's kernels take the same ones,
+    at the next instantiated width.  Their oracle, the plain version,
+    against the Pallas kernel in interpret mode, for every pool dtype
+    (int8 with its per-page scales)."""
+    monkeypatch.setenv("PT_PALLAS_INTERPRET", "1")
+    q, kp, vp, tables, lens = _case(3, 3, 4, 2, d, 8, 12, [1, 13, 29])
+    scales = {}
+    if pool == "bfloat16":
+        kp, vp = (np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (kp, vp))
+    elif pool == "int8":
+        rng = np.random.RandomState(d)
+        kp, vp = (rng.randint(-127, 128, a.shape).astype(np.int8)
+                  for a in (kp, vp))
+        scales = {n: rng.uniform(0.5, 2.0, (2, 12)).astype(np.float32)
+                  for n in ("k_scale", "v_scale")}
+    ker = np.asarray(pk._paged_decode_call(
+        *(jnp.asarray(a) for a in (q, kp, vp, tables, lens)), d ** -0.5,
+        **{n: jnp.asarray(a) for n, a in scales.items()}))
+    if pool == "bfloat16":
+        kp, vp = (torch.from_numpy(a.view(np.int16).copy())
+                  .view(torch.bfloat16) for a in (kp, vp))
+    else:
+        kp, vp = torch.from_numpy(kp), torch.from_numpy(vp)
+    got = tpa.paged_attention(
+        torch.from_numpy(q), kp, vp, torch.from_numpy(tables),
+        torch.from_numpy(lens),
+        **{n: torch.from_numpy(a) for n, a in scales.items()}).numpy()
+    np.testing.assert_allclose(got, ker, **TOL)
