@@ -13,6 +13,9 @@ Phases (any failure exits non-zero and prints no result):
 2. build: every kernel of the serving and training paths built by
    ``nvcc`` from the sources in this checkout (one ``nvcc`` per source,
    all at once: six sources), with ``ptxas``'s register and spill lines;
+   the SASS (``cuobjdump -sass``) of every instance of the bf16 and fp16
+   split flash kernels must hold HGMMA (tensor-core) instructions, and
+   ptxas must report no spill stores for them (``tensor_cores`` lines);
 3. paged decode, kernel vs plain version: the paged-decode kernel against
    its plain PyTorch version on the card, at the serving shape and a GQA
    shape;
@@ -58,7 +61,10 @@ Phases (any failure exits non-zero and prints no result):
       bf16 ulps of the largest, lse within KERNEL_ATOL; the keep rate, one
       seed giving the same output bit for bit, and the bf16 kernels apart
       from the f32 kernels on the same inputs by about a bf16 rounding;
-   b. their times, as phase 6 (CUDA-graph replay, cold L2), against the
+   b. their times, as phase 6 (CUDA-graph replay, cold L2; each row also
+      gives the achieved TFLOP/s and the share of the bound, and a
+      ``flash_time_split_pair_bf16`` line the pair's sum beside SDPA's
+      backward and the fused kernel, at both shapes), against the
       plain versions, SDPA in bf16 (forward, and backward alone), and the
       bound max(bytes at 2 bytes an element / 3.35 TB/s, flops / 989
       TFLOP/s, the dense bf16 tensor-core peak);
@@ -283,6 +289,8 @@ repository, or without a CUDA device, it fails.
 """
 import gc
 import json
+import os
+import re
 import subprocess
 import time
 
@@ -345,6 +353,15 @@ MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4
 # LeNet on the card vs on the CPU from one startup scope: step 1, and
 # every step of bench.py:_lenet_losses's 12 (both sides f32)
 LENET_STEP1_RTOL, LENET_LOSS_ATOL = 1e-5, 1e-3
+# the bf16 / fp16 split pair on the tensor cores: each entry point's kernel
+# template and its element type as they appear in the mangled names (one
+# instance per tile width 32, 64, 128)
+TC_SPLIT_KERNELS = {
+    "flash_bwd_dq_bf16": ("flash_bwd_dq_tc_kernel", "13__nv_bfloat16"),
+    "flash_bwd_dq_fp16": ("flash_bwd_dq_tc_kernel", "6__half"),
+    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_tc_kernel", "13__nv_bfloat16"),
+    "flash_bwd_dkv_fp16": ("flash_bwd_dkv_tc_kernel", "6__half"),
+}
 # the L2 a timing's rotated inputs must overflow to run cold (50 MB)
 COLD_BYTES = 64 << 20
 # a served token may differ from the reference only where the
@@ -657,6 +674,51 @@ def flash_kernels(dtype="f32"):
     return {kf.name: kf for kf in pick}
 
 
+def tensor_core_check(flash):
+    """Every instance of the four tensor-core split kernels: its SASS (by
+    ``cuobjdump -sass`` of the built library) holds HGMMA instructions,
+    and ptxas reported no spill stores for it.  Prints one line each."""
+    from paddle_tpu_torch import kernel_build
+
+    cuobjdump = os.path.join(os.path.dirname(kernel_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", flash.lib_path()],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    hgmma, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            hgmma[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            hgmma[fn] += 1
+    spills, fn = {}, None
+    for ln in flash.build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and fn is not None:
+            spills[fn] = int(m.group(1))
+    for entry, (kernel, elem) in TC_SPLIT_KERNELS.items():
+        insts = sorted(n for n in hgmma if kernel in n and elem in n)
+        if len(insts) != 3:
+            fail(f"{entry}: {len(insts)} instances of {kernel} in the SASS, "
+                 f"expected one per tile width 32, 64, 128")
+        for n in insts:
+            width = int(re.search(r"ILi(\d+)E", n).group(1))
+            print("tensor_cores " + json.dumps({
+                "kernel": entry, "tile_width": width, "hgmma": hgmma[n],
+                "spill_stores": spills.get(n)}), flush=True)
+            if hgmma[n] == 0:
+                fail(f"{entry} (tile width {width}): no HGMMA in its SASS")
+            if spills.get(n) != 0:
+                fail(f"{entry} (tile width {width}): ptxas reports spill "
+                     f"stores {spills.get(n)}")
+
+
 def make_flash_case(seed, b, h, s, d, with_bias):
     """q, k, v, dO (b, h, s, d) and, with_bias, a padding bias from a 0/1
     mask whose rows keep between half and all of their keys."""
@@ -684,6 +746,17 @@ def attended_pairs(b, h, sq, sk, causal):
     return b * h * int(rows.sum())
 
 
+def flash_flops(name, case, causal):
+    """The flops a flash kernel's function needs on ``case``: per attended
+    pair and head dim, forward 4, dQ 6 [S, dP, dS K], dK/dV 8 [S, dP,
+    dS^T Q, P^T dO], fused 10."""
+    q, k = case[0], case[1]
+    b, h, sq, d = q.shape
+    per_pair = {"flash_fwd": 4, "flash_bwd_fused": 10, "flash_bwd_dq": 6,
+                "flash_bwd_dkv": 8}[name.rsplit("_", 1)[0]]
+    return per_pair * d * attended_pairs(b, h, sq, k.shape[2], causal)
+
+
 def flash_bound(name, case, causal):
     """(bound_ms, bound_by): each input read once and each output written
     once over HBM bandwidth, against the flops the function needs (per
@@ -705,10 +778,8 @@ def flash_bound(name, case, causal):
         "flash_bwd_dq": (2 * qn + 2 * kn + qn, 2 * rows + bias_n),
         "flash_bwd_dkv": (2 * qn + 2 * kn + 2 * kn, 2 * rows + bias_n),
     }[kind]
-    per_pair = {"flash_fwd": 4, "flash_bwd_fused": 10, "flash_bwd_dq": 6,
-                "flash_bwd_dkv": 8}[kind]
     bf16 = name.endswith(("_bf16", "_fp16"))     # 2 bytes, tensor cores
-    flops = per_pair * d * attended_pairs(b, h, sq, sk, causal)
+    flops = flash_flops(name, case, causal)
     t_bytes = ((2 if bf16 else 4) * data + 4 * f32) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -872,7 +943,17 @@ def time_flash(name, cases, causal, rate, dt="f32"):
                        "plain_ms": plain["fwd" if fwd else "bwd"],
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": lib_fwd if fwd else lib_bwd}
+        # achieved rate, and the share of the bound this time reaches
+        rows[kname]["tflops"] = (flash_flops(kname, cases[0], causal)
+                                 / rows[kname]["ms"] * 1e-9)
+        rows[kname]["bound_share"] = bound_ms / rows[kname]["ms"]
         print(f"flash_time {kname} " + json.dumps(rows[kname]), flush=True)
+    pair = [rows[f"flash_bwd_{k}_{dt}"] for k in ("dq", "dkv")]
+    print(f"flash_time_split_pair_{dt} " + json.dumps({
+        "shape": name, "ms": pair[0]["ms"] + pair[1]["ms"],
+        "bound_ms": pair[0]["bound_ms"] + pair[1]["bound_ms"],
+        "library_ms": lib_bwd, "fused_ms": rows[f"flash_bwd_fused_{dt}"]["ms"]}),
+        flush=True)
     return rows
 
 
@@ -3037,6 +3118,7 @@ def main():
             if ("registers" in ln or "spill" in ln or "error" in ln
                     or "Compiling entry" in ln):
                 print("  ptxas: " + ln.strip())
+    tensor_core_check(FLASH)
 
     phase("paged decode: kernel vs plain version, times")
     rng = np.random.RandomState(0)

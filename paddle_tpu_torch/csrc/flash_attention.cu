@@ -12,6 +12,10 @@
 //   flash_bwd_dq_{f32,bf16,fp16}     _bwd_dq_kernel :386 (_flash_bwd :523-574)
 //   flash_bwd_dkv_{f32,bf16,fp16}    _bwd_dkv_kernel :413 (_flash_bwd :576-621)
 //
+// The bf16 and fp16 split pair (flash_bwd_dq_tc_kernel,
+// flash_bwd_dkv_tc_kernel, the pallas_calls at :562 and :599) runs on the
+// tensor cores; every other kernel here is SIMT f32 arithmetic (below).
+//
 // bf16.  Every kernel is a template on the storage type T of q, k, v, dO
 // and the outputs; the padding bias, lse and delta stay float32, and all
 // arithmetic (products, online softmax, dS) is float32, as on the TPU
@@ -42,9 +46,9 @@
 // as the row stride of q, k, v, dO and every output.  The tiles' columns
 // d..D-1 are zeros in shared memory, which leaves every dot product
 // unchanged, and only the first d columns are stored.  When d is the tile
-// width, the tile loads and the fused kernel's dQ updates take a branch
-// with the compile-time stride D (uniform across the block): the runtime
-// stride alone slowed the d = 64 kernels measurably.
+// width, the SIMT kernels' tile loads and the fused kernel's dQ updates
+// take a branch with the compile-time stride D (uniform across the
+// block): the runtime stride alone slowed the d = 64 kernels measurably.
 //
 // Semantics (the JAX package's): q, k, v are (b, h, s, d) row-major;
 // s = q.k * scale + bias[b, key] (the additive padding bias, optional),
@@ -63,15 +67,13 @@
 // this card (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) the
 // kernels are bound by operations, not bytes.  The backward does
 // 10 b h s^2 d (fused) on about twice the bytes.  In bf16 the bytes
-// halve and the bound is the tensor cores' 989 TFLOP/s, which these SIMT
-// kernels do not use: the bf16 kernels run at about the f32 kernels'
-// speed, and tensor-core products (wgmma with bf16 operands, TMA loads)
-// are the later work that closes the gap.
+// halve and the bound is the tensor cores' 989 TFLOP/s.
 //
-// Design.  The TPU walks the grid in order and carries the online softmax
-// (m, l, acc) in VMEM from one kv block to the next; here a loop inside
-// each CTA takes the place of that sequential grid axis, so no state
-// crosses CTAs.  Every kernel works on 64 x 64 score tiles with 256
+// SIMT design (f32 in every kernel; the bf16 / fp16 forward and fused
+// backward).  The TPU walks the grid in order and carries the online
+// softmax (m, l, acc) in VMEM from one kv block to the next; here a loop
+// inside each CTA takes the place of that sequential grid axis, so no
+// state crosses CTAs.  Every kernel works on 64 x 64 score tiles with 256
 // threads as 16 x 16: thread (ty, tx) owns rows ty + 16 i and columns
 // tx + 16 j (i, j < 4) of each score tile, and rows ty + 16 i, columns
 // tx + 16 jd of each (64, d) accumulator.  Tiles of q, k, v and dO live in
@@ -83,7 +85,9 @@
 // are 4-step shuffles.  Ragged edges are masked in the kernel (rows past
 // sq or keys past sk load as zeros and take no probability), so any
 // sq, sk >= 1 is accepted; under causal masking the kv tiles wholly above
-// the diagonal are skipped.
+// the diagonal are skipped.  In bf16 and fp16 these kernels widen every
+// operand to f32 and leave the tensor cores idle: their redesign is later
+// work.
 //
 // * forward: grid (q tile, b h); the kv loop keeps m, l and the output
 //   accumulator in registers; one kv tile is the single-block kernel
@@ -96,6 +100,51 @@
 //   written back in device memory.  Only this CTA touches this (b, h) and
 //   each dQ element is always updated by the same thread, so there is no
 //   race and no atomic, and the result is deterministic.
+//
+// Tensor-core split pair (bf16, fp16).  At b 2, h 12, s 2048, d 64 the
+// dQ kernel does 6 b h s^2 d = 38.7 GFLOP (S, dP, dS K) and the dK/dV
+// kernel 8 b h s^2 d = 51.5 GFLOP (S^T, dP^T, P^T dO, dS^T Q) on about
+// 32 and 38 MB: bound by operations at 989 TFLOP/s, 0.039 + 0.052 ms
+// (the bytes take 0.010 + 0.011 ms at 3.35 TB/s).  What the design does
+// about it (hopper.cuh holds the primitives):
+// * every product is a wgmma.m64nNk16 with T operands and f32
+//   accumulators.  dQ: S = Q K^T and dP = dO V^T read both operands from
+//   shared memory K-major; dQ += dS K takes dS from registers and K
+//   MN-major through the transpose bit.  dK/dV computes S^T = K Q^T and
+//   dP^T = V dO^T, so P^T and dS^T come out in accumulator layout, are
+//   rounded to T in registers (cvt.rn into T x 2 pairs: the accumulator
+//   layout of 16 columns is the A-operand layout of one k16 step) and
+//   feed dV += P^T dO and dK += dS^T Q as the register A operand, with
+//   dO and Q MN-major.  No score tile goes through shared memory;
+// * TMA loads every tile, by 3-D tensor maps (d, s, b h) with a box of
+//   one swizzle atom (64 columns, 128-byte swizzle; 32 columns, 64-byte
+//   swizzle at D = 32; two atoms at D = 128) by the tile's rows: columns
+//   d..D-1 and rows past s of each head arrive as zeros, so head dims
+//   and ragged edges cost nothing, and the swizzle is the one the wgmma
+//   descriptors name.  Q and dO (dQ) or K and V (dK/dV) are loaded once;
+//   K, V (dQ) or Q, dO, lse, delta (dK/dV; lse and delta by 1-D maps)
+//   stream through a 2-stage ring of mbarrier-tracked buffers, the next
+//   tile's copy in flight while the current one is computed.  One thread
+//   issues every copy, and a __syncthreads after a tile's last wgmma
+//   releases its stage;
+// * one warpgroup (128 threads) per CTA, grid (64-row tile, b h): 768
+//   CTAs at s 2048, several resident on an SM (the largest shared-memory
+//   carveout), whose interleaving hides what warp specialisation would.
+//   The dK/dV kernel's q tile is 64 rows, 32 at D = 128, where dK and dV
+//   alone take 128 accumulators a thread;
+// * dropout on the accumulator fragment, through drop_bits, bit for bit
+//   the forward's mask.  In the dQ kernel a thread's 16 columns of a row
+//   are the columns {g, g + 16, g + 32, g + 48} of four Philox groups g:
+//   one call per 4 elements.  In the dK/dV kernel the query is the
+//   fragment's column, and the kv tile sits in shared memory in swap34
+//   order (8-row TMA boxes), so a thread's two rows are kv rows j and
+//   j + 16 and warp w ^ 2's (same lane) j + 32 and j + 48: one call
+//   (query, group of j) serves both warps, which split the calls and
+//   trade words through shared memory, again one call per 4 elements;
+// * P = exp(S scale + bias - lse), the mask and dS are f32 on the
+//   fragments, in the order of bwd_terms (tiles that no ragged edge or
+//   causal mask reaches skip the masks); each output is rounded once at
+//   its store; no atomics, so the result is deterministic.
 //
 // Dropout.  A Philox-4x32-10 generator, keyed by the 64-bit seed and
 // counted by (column group, query row, b h, offset), decides every
@@ -112,6 +161,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -664,6 +715,462 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ====================================== split backward on the tensor cores
+// The bf16 / fp16 dQ and dK/dV kernels (T = __nv_bfloat16 or __half): one
+// warpgroup per CTA, wgmma products with f32 accumulators, TMA-fed tiles
+// in shared memory (see the note at the top).
+constexpr int kTcThreads = 128;
+
+// This thread's place in an m64 accumulator: rows tc_row() and
+// tc_row() + 8, columns 8 n + tc_col() + e (e < 2).
+__device__ __forceinline__ int tc_row() {
+  return 16 * (threadIdx.x / 32) + (threadIdx.x % 32) / 4;
+}
+__device__ __forceinline__ int tc_col() { return 2 * (threadIdx.x % 4); }
+
+// Row R of the dK/dV kernel's kv tile holds kv row swap34(R): bits 3 and 4
+// exchanged, so a thread's two accumulator rows R and R + 8 are kv rows j
+// and j + 16, two words of one Philox call.
+__device__ __forceinline__ int swap34(int r) {
+  return (r & ~24) | ((r & 8) << 1) | ((r & 16) >> 1);
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (hopper::smem_addr(p) & 1023u)) & 1023u);
+}
+
+// the R-row tile of head bh at row0 of a (b h, s, d) map into `tile`
+template <int D, int R>
+__device__ __forceinline__ void tma_tile(uint8_t* tile, const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int bh) {
+  using G = hopper::TileCols<D>;
+#pragma unroll
+  for (int at = 0; at < G::kAtoms; ++at)
+    hopper::tma_load_3d(tile + at * R * G::kRowBytes, map, bar,
+                        at * G::kAtomCols, row0, bh);
+}
+
+// the 64-row kv tile at col0 in swap34 order, as 8-row boxes (the map's)
+template <int D>
+__device__ __forceinline__ void tma_kv_swapped(uint8_t* tile,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int col0,
+                                               int bh) {
+  using G = hopper::TileCols<D>;
+#pragma unroll
+  for (int at = 0; at < G::kAtoms; ++at)
+#pragma unroll
+    for (int blk = 0; blk < kTile / 8; ++blk)
+      hopper::tma_load_3d(tile + (at * kTile + 8 * blk) * G::kRowBytes, map,
+                          bar, at * G::kAtomCols, col0 + swap34(8 * blk), bh);
+}
+
+// dS of one 64 x 64 tile of the dQ kernel, from this thread's elements of
+// S = Q K^T and dP = dO V^T (rows row0 + tc_row() + 8 h, columns col0 +
+// 8 n + tc_col() + e), rounded to T and packed as the A operand of
+// dQ += dS K (k16 step c in ds[c]).  The arithmetic of bwd_terms; with
+// EDGE false (a tile inside sq x sk that no causal mask reaches) the
+// masks are left out.
+template <typename T, bool EDGE>
+__device__ __forceinline__ void dq_terms(const Attn& a, uint64_t seed, int bh,
+                                         int bi, int row0, int col0,
+                                         const float (&s)[32],
+                                         const float (&dp)[32],
+                                         const float (&lr)[2],
+                                         const float (&dr)[2],
+                                         uint32_t (&ds)[4][4]) {
+  const int rr = tc_row(), cc = tc_col();
+  float bj[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + 8 * n + cc + e;
+      bj[n][e] = (a.bias != nullptr && (!EDGE || c < a.sk))
+                     ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+    }
+  float v[32];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rr + 8 * h;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        // one Philox call: columns col0 + 8 n + cc + e, n = m, m + 2,
+        // m + 4, m + 6 (word n / 2)
+        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+        if (a.seed != nullptr)
+          bits = drop_bits(a, seed, bh, r, col0 + 8 * m + cc + e);
+#pragma unroll
+        for (int n = m; n < 8; n += 2) {
+          const int i = 4 * n + 2 * h + e;
+          const int c = col0 + 8 * n + cc + e;
+          float p;
+          if (EDGE) {
+            const bool valid = r < a.sq && c < a.sk;
+            p = valid ? expf(score(a, s[i], bj[n][e], r, c) - lr[h]) : 0.f;
+          } else {
+            p = expf(s[i] * a.scale + bj[n][e] - lr[h]);
+          }
+          float dpd = dp[i];
+          if (a.seed != nullptr)
+            dpd = word(bits, n >> 1) >= a.thresh ? dpd * a.keep_scale : 0.f;
+          v[i] = p * (dpd - dr[h]) * a.scale;
+        }
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      ds[c][m] = hopper::pack2<T>(v[8 * c + 2 * m], v[8 * c + 2 * m + 1]);
+}
+
+// -------------------------------------------- backward: dQ, tensor cores
+// grid (q tile, b h).  Q and dO (64 rows) stay in shared memory; K and V
+// tiles stream through a 2-stage TMA ring.
+template <int D, typename T>
+__global__ void __launch_bounds__(kTcThreads, D == 128 ? 1 : 3)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       Attn a) {
+  using namespace hopper;
+  constexpr int kBytes = kTile * D * 2;   // one 64-row tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* dos = qs + kBytes;
+  uint8_t* kv = dos + kBytes;   // stage st: K at kv + 2 st kBytes, then V
+  // bar[0]: Q and dO; bar[1 + st]: ring stage st
+  uint64_t* bar = reinterpret_cast<uint64_t*>(kv + 4 * kBytes);
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int row0 = blockIdx.x * kTile;
+  const int n_kv = kv_tiles(a, row0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], 2 * kBytes);
+    tma_tile<D, kTile>(qs, &tq, &bar[0], row0, bh);
+    tma_tile<D, kTile>(dos, &tdo, &bar[0], row0, bh);
+    for (int st = 0; st < 2 && st < n_kv; ++st) {
+      mbar_expect_tx(&bar[1 + st], 2 * kBytes);
+      tma_tile<D, kTile>(kv + 2 * st * kBytes, &tk, &bar[1 + st],
+                         st * kTile, bh);
+      tma_tile<D, kTile>(kv + (2 * st + 1) * kBytes, &tv, &bar[1 + st],
+                         st * kTile, bh);
+    }
+  }
+  const int rr = tc_row(), cc = tc_col();
+  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rr + 8 * h;
+    lr[h] = r < a.sq ? __ldg(lse + (size_t)bh * a.sq + r) : 0.f;
+    dr[h] = r < a.sq ? __ldg(delta + (size_t)bh * a.sq + r) : 0.f;
+  }
+  float acc[D / 2];
+  mbar_wait(&bar[0], 0);
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int st = kt & 1;
+    uint8_t* ks = kv + 2 * st * kBytes;
+    uint8_t* vs = ks + kBytes;
+    mbar_wait(&bar[1 + st], (kt >> 1) & 1);
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0>(s, desc_kmajor<D, kTile>(qs, kk),
+                     desc_kmajor<D, kTile>(ks, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0>(dp, desc_kmajor<D, kTile>(dos, kk),
+                     desc_kmajor<D, kTile>(vs, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    uint32_t ds[4][4];
+    const int col0 = kt * kTile;
+    if (row0 + kTile > a.sq || col0 + kTile > a.sk ||
+        (a.causal && col0 + kTile - 1 > row0))
+      dq_terms<T, true>(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ds);
+    else
+      dq_terms<T, false>(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ds);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      wgmma_rs<T, 1>(acc, ds[c], desc_mnmajor<D, kTile>(ks, c),
+                     kt > 0 || c > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(ds[c]);
+    __syncthreads();   // every warp is done with stage st
+    if (threadIdx.x == 0 && kt + 2 < n_kv) {
+      mbar_expect_tx(&bar[1 + st], 2 * kBytes);
+      tma_tile<D, kTile>(ks, &tk, &bar[1 + st], (kt + 2) * kTile, bh);
+      tma_tile<D, kTile>(vs, &tv, &bar[1 + st], (kt + 2) * kTile, bh);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rr + 8 * h;
+    if (r >= a.sq) continue;
+    T* row = dq + ((size_t)bh * a.sq + r) * a.d;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (8 * n + cc < a.d)
+        *reinterpret_cast<uint32_t*>(row + 8 * n + cc) =
+            pack2<T>(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+  }
+}
+
+// The dK/dV kernel's q tile: 64 rows, or 32 at D = 128, where dK and dV
+// alone hold 128 accumulators a thread.
+template <int D>
+constexpr int kDkvQRows = D == 128 ? 32 : 64;
+
+// P^T (dropped) and dS^T of one kv x q tile of the dK/dV kernel, from this
+// thread's elements of S^T = K Q^T and dP^T = V dO^T (kv rows jr[h],
+// query columns q0 + 8 n + tc_col() + e), rounded to T and packed as the
+// A operands of dV += P^T dO (pa) and dK += dS^T Q (da).  EDGE as in
+// dq_terms.
+//
+// Dropout: one Philox call (query, group of jr[0]) holds the keep words of
+// kv rows jr[0], jr[0] + 16 (this thread's: words 2 half, 2 half + 1,
+// half = warp / 2) and jr[0] + 32, jr[0] + 48 (warp ^ 2's, same lane).
+// So warps w and w ^ 2 share their calls: each draws those of the column
+// blocks n with n % 2 == half into xchg (shared memory, kDkvXchg<NQ>
+// bytes), and both read their two words from there: one call per 4
+// elements.
+template <int NQ>   // the calls' words: (warp % 2, n % 2, n / 2, e, lane)
+constexpr int kDkvXchg = 2 * 2 * (NQ / 16) * 2 * 32 * (int)sizeof(uint4);
+
+template <typename T, int NQ, bool EDGE>
+__device__ __forceinline__ void dkv_terms(
+    const Attn& a, uint64_t seed, int bh, int q0, const int (&jr)[2],
+    const float (&br)[2], const float (&s)[NQ / 2],
+    const float (&dp)[NQ / 2], const float* lse_s, const float* delta_s,
+    uint4* xchg, uint32_t (&pa)[NQ / 16][4], uint32_t (&da)[NQ / 16][4]) {
+  const int cc = tc_col(), lane = threadIdx.x % 32;
+  const int half = threadIdx.x / 64, pair = threadIdx.x / 32 % 2;
+  constexpr int kSlot = (NQ / 16) * 2 * 32;   // one (pair, n % 2)'s calls
+  const uint2* words = reinterpret_cast<const uint2*>(xchg + pair * 2 * kSlot);
+  if (a.seed != nullptr) {
+    uint4* mine = xchg + (pair * 2 + half) * kSlot;
+#pragma unroll
+    for (int m = 0; m < NQ / 16; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        mine[(2 * m + e) * 32 + lane] = drop_bits(
+            a, seed, bh, q0 + 16 * m + 8 * half + cc + e, jr[0]);
+    __syncthreads();   // the partner's calls are in xchg
+  }
+  float pv[NQ / 2], dv[NQ / 2];
+#pragma unroll
+  for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ci = 8 * n + cc + e;
+      const int i = q0 + ci;
+      const float li = lse_s[ci], di = delta_s[ci];
+      uint2 kw = make_uint2(0u, 0u);   // keep words of kv rows jr[0], jr[1]
+      if (a.seed != nullptr)
+        kw = words[2 * (((n & 1) * (NQ / 16) + (n >> 1)) * 2 * 32 + e * 32 +
+                        lane) + half];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int x = 4 * n + 2 * h + e;
+        float p;
+        if (EDGE) {
+          const bool valid = i < a.sq && jr[h] < a.sk;
+          p = valid ? expf(score(a, s[x], br[h], i, jr[h]) - li) : 0.f;
+        } else {
+          p = expf(s[x] * a.scale + br[h] - li);
+        }
+        float pd = p, dpd = dp[x];
+        if (a.seed != nullptr) {
+          const bool keep = (h ? kw.y : kw.x) >= a.thresh;
+          pd = keep ? p * a.keep_scale : 0.f;
+          dpd = keep ? dpd * a.keep_scale : 0.f;
+        }
+        pv[x] = pd;
+        dv[x] = p * (dpd - di) * a.scale;
+      }
+    }
+#pragma unroll
+  for (int c = 0; c < NQ / 16; ++c)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      pa[c][m] = hopper::pack2<T>(pv[8 * c + 2 * m], pv[8 * c + 2 * m + 1]);
+      da[c][m] = hopper::pack2<T>(dv[8 * c + 2 * m], dv[8 * c + 2 * m + 1]);
+    }
+}
+
+// ----------------------------------------- backward: dK/dV, tensor cores
+// grid (kv tile, b h).  K and V (64 rows, swap34 order) stay in shared
+// memory; Q, dO, lse and delta tiles stream through a 2-stage TMA ring.
+// lse and delta of a q tile arrive as kDkvQRows + 4 floats from the
+// 16-byte boundary at or before the tile's first row (TMA's 1-D boxes
+// start there), each in a 128-byte aligned slot (TMA's destinations are)
+template <int D>
+constexpr int kDkvVecBox = kDkvQRows<D> + 4;
+template <int D>
+constexpr int kDkvVecSlot = (kDkvVecBox<D> * 4 + 127) / 128 * 128;
+template <int D>   // one ring stage (Q, dO, lse, delta), 1024-aligned
+constexpr int kDkvStageBytes =
+    (2 * kDkvQRows<D> * D * 2 + 2 * kDkvVecSlot<D> + 1023) / 1024 * 1024;
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kTcThreads, D == 128 ? 1 : 3)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tlse,
+                        const __grid_constant__ CUtensorMap tdelta,
+                        T* __restrict__ dk, T* __restrict__ dv, Attn a) {
+  using namespace hopper;
+  constexpr int NQ = kDkvQRows<D>;
+  constexpr int kKvBytes = kTile * D * 2, kQBytes = NQ * D * 2;
+  constexpr int kStage = kDkvStageBytes<D>;
+  constexpr int kVec = kDkvVecSlot<D>;
+  constexpr uint32_t kStageTx = 2 * kQBytes + 2 * kDkvVecBox<D> * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align_1024(smem_raw);
+  uint8_t* vs = ks + kKvBytes;
+  uint8_t* ring = vs + kKvBytes;   // stage st: Q, dO, lse, delta
+  uint4* xchg = reinterpret_cast<uint4*>(ring + 2 * kStage);
+  // bar[0]: K and V; bar[1 + st]: ring stage st
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(ring + 2 * kStage + kDkvXchg<NQ>);
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int col0 = blockIdx.x * kTile;
+  // the q tiles that see this kv tile (causal: none above the diagonal)
+  const int q_begin = a.causal ? col0 / NQ : 0;
+  const int n_q = (a.sq + NQ - 1) / NQ - q_begin;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  auto load_q = [&](int it, int st) {   // thread 0: q tile q_begin + it
+    uint8_t* stage = ring + st * kStage;
+    const int q0 = (q_begin + it) * NQ;
+    mbar_expect_tx(&bar[1 + st], kStageTx);
+    tma_tile<D, NQ>(stage, &tq, &bar[1 + st], q0, bh);
+    tma_tile<D, NQ>(stage + kQBytes, &tdo, &bar[1 + st], q0, bh);
+    const int v0 = (bh * a.sq + q0) & ~3;
+    tma_load_1d(stage + 2 * kQBytes, &tlse, &bar[1 + st], v0);
+    tma_load_1d(stage + 2 * kQBytes + kVec, &tdelta, &bar[1 + st], v0);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], 2 * kKvBytes);
+    tma_kv_swapped<D>(ks, &tk, &bar[0], col0, bh);
+    tma_kv_swapped<D>(vs, &tv, &bar[0], col0, bh);
+    for (int st = 0; st < 2 && st < n_q; ++st) load_q(st, st);
+  }
+  const int rr = tc_row(), cc = tc_col();
+  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
+  const int jr[2] = {col0 + swap34(rr), col0 + swap34(rr) + 16};
+  float br[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    br[h] = (a.bias != nullptr && jr[h] < a.sk)
+                ? __ldg(a.bias + (size_t)bi * a.sk + jr[h]) : 0.f;
+  float dka[D / 2], dva[D / 2];
+  mbar_wait(&bar[0], 0);
+
+  for (int it = 0; it < n_q; ++it) {
+    const int st = it & 1;
+    uint8_t* qs = ring + st * kStage;
+    uint8_t* dos = qs + kQBytes;
+    const int q0 = (q_begin + it) * NQ;
+    // lse and delta of row q0 + ci at lse_s[ci], delta_s[ci]
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kQBytes) +
+                         ((bh * a.sq + q0) & 3);
+    const float* delta_s = lse_s + kVec / 4;
+    mbar_wait(&bar[1 + st], (it >> 1) & 1);
+    float s[NQ / 2], dp[NQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0>(s, desc_kmajor<D, kTile>(ks, kk),
+                     desc_kmajor<D, NQ>(qs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0>(dp, desc_kmajor<D, kTile>(vs, kk),
+                     desc_kmajor<D, NQ>(dos, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+    if (q0 + NQ > a.sq || col0 + kTile > a.sk ||
+        (a.causal && col0 + kTile - 1 > q0))
+      dkv_terms<T, NQ, true>(a, seed, bh, q0, jr, br, s, dp, lse_s, delta_s,
+                             xchg, pa, da);
+    else
+      dkv_terms<T, NQ, false>(a, seed, bh, q0, jr, br, s, dp, lse_s, delta_s,
+                              xchg, pa, da);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NQ / 16; ++c)
+      wgmma_rs<T, 1>(dva, pa[c], desc_mnmajor<D, NQ>(dos, c),
+                     it > 0 || c > 0);
+#pragma unroll
+    for (int c = 0; c < NQ / 16; ++c)
+      wgmma_rs<T, 1>(dka, da[c], desc_mnmajor<D, NQ>(qs, c),
+                     it > 0 || c > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+#pragma unroll
+    for (int c = 0; c < NQ / 16; ++c) {
+      fence_regs(pa[c]);
+      fence_regs(da[c]);
+    }
+    __syncthreads();   // every warp is done with stage st
+    if (threadIdx.x == 0 && it + 2 < n_q) load_q(it + 2, st);
+  }
+
+  if (n_q <= 0) {   // no query sees this kv tile
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = jr[h];
+    if (j >= a.sk) continue;
+    const size_t o = ((size_t)bh * a.sk + j) * a.d;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (8 * n + cc < a.d) {
+        const int x = 4 * n + 2 * h;
+        *reinterpret_cast<uint32_t*>(dk + o + 8 * n + cc) =
+            pack2<T>(dka[x], dka[x + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o + 8 * n + cc) =
+            pack2<T>(dva[x], dva[x + 1]);
+      }
+  }
+}
+
 // ------------------------------------------------------- dropout mask out
 // keep[bh, i, j] (uint8) through the kernels' own drop_bits; grid
 // (kv tile, 16-row group, b h), 256 threads as 16 rows x 16 columns.
@@ -753,6 +1260,89 @@ cudaError_t launch_kv(const T* q, const T* k, const T* v, const T* dout,
   return cudaGetLastError();
 }
 
+// ... and for the tensor-core kernels the largest shared-memory carveout,
+// so that three or four CTAs (one warpgroup each) share an SM
+template <typename K>
+cudaError_t allow_smem_carveout(K kernel, size_t bytes) {
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return hopper::kIsBf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// the 3-D map of a (b h, s, d) tensor of T, boxes of one atom x `rows`
+template <int D, typename T>
+cudaError_t head_map(CUtensorMap* map, const T* base, int s, int bh, int d,
+                     int rows) {
+  using G = hopper::TileCols<D>;
+  return hopper::encode_3d(map, base, tma_type<T>(), d, s, bh, G::kAtomCols,
+                           rows, G::kTmaSwizzle);
+}
+
+template <int D>
+constexpr size_t dq_tc_smem() {
+  return 6 * kTile * D * 2 + 3 * sizeof(uint64_t) + 1024;
+}
+template <int D>
+constexpr size_t dkv_tc_smem() {
+  return 2 * kTile * D * 2 + 2 * kDkvStageBytes<D> +
+         kDkvXchg<kDkvQRows<D>> + 3 * sizeof(uint64_t) + 1024;
+}
+
+template <int D, typename T>
+cudaError_t launch_dq_tc(const T* q, const T* k, const T* v, const T* dout,
+                         const float* lse, const float* delta, T* dq, int b,
+                         const Attn& a, cudaStream_t stream) {
+  const int bh = b * a.h;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = head_map<D>(&tq, q, a.sq, bh, a.d, kTile)) != cudaSuccess ||
+      (err = head_map<D>(&tk, k, a.sk, bh, a.d, kTile)) != cudaSuccess ||
+      (err = head_map<D>(&tv, v, a.sk, bh, a.d, kTile)) != cudaSuccess ||
+      (err = head_map<D>(&tdo, dout, a.sq, bh, a.d, kTile)) != cudaSuccess)
+    return err;
+  const size_t smem = dq_tc_smem<D>();
+  err = allow_smem_carveout(flash_bwd_dq_tc_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + kTile - 1) / kTile, bh);
+  flash_bwd_dq_tc_kernel<D, T><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, dq, a);
+  return cudaGetLastError();
+}
+
+template <int D, typename T>
+cudaError_t launch_dkv_tc(const T* q, const T* k, const T* v, const T* dout,
+                          const float* lse, const float* delta, T* dk, T* dv,
+                          int b, const Attn& a, cudaStream_t stream) {
+  constexpr int NQ = kDkvQRows<D>;
+  const int bh = b * a.h;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  cudaError_t err;
+  if ((err = head_map<D>(&tq, q, a.sq, bh, a.d, NQ)) != cudaSuccess ||
+      (err = head_map<D>(&tk, k, a.sk, bh, a.d, 8)) != cudaSuccess ||
+      (err = head_map<D>(&tv, v, a.sk, bh, a.d, 8)) != cudaSuccess ||
+      (err = head_map<D>(&tdo, dout, a.sq, bh, a.d, NQ)) != cudaSuccess ||
+      (err = hopper::encode_1d_f32(&tlse, lse, (uint64_t)bh * a.sq,
+                                   kDkvVecBox<D>)) != cudaSuccess ||
+      (err = hopper::encode_1d_f32(&tdelta, delta, (uint64_t)bh * a.sq,
+                                   kDkvVecBox<D>)) != cudaSuccess)
+    return err;
+  const size_t smem = dkv_tc_smem<D>();
+  err = allow_smem_carveout(flash_bwd_dkv_tc_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sk + kTile - 1) / kTile, bh);
+  flash_bwd_dkv_tc_kernel<D, T><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, dk, dv, a);
+  return cudaGetLastError();
+}
+
 // The tile width a head dim runs at: the smallest of 32, 64, 128 that
 // holds it (0: not taken).  Any d % 8 == 0 up to 128 is taken, as by the
 // TPU kernels (pallas_kernels.py:702); above 128 the SIMT backward's
@@ -805,6 +1395,40 @@ int kv_entry(const T* q, const T* k, const T* v, const T* dout,
   }
 }
 
+// the bf16 / fp16 split pair, on the tensor cores
+template <typename T>
+int dq_tc_entry(const T* q, const T* k, const T* v, const T* dout,
+                const float* lse, const float* delta, T* dq, int b,
+                const Attn& a, cudaStream_t stream) {
+  switch (tile_width(a.d)) {
+    case 32:
+      return launch_dq_tc<32>(q, k, v, dout, lse, delta, dq, b, a, stream);
+    case 64:
+      return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, b, a, stream);
+    case 128:
+      return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, b, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dkv_tc_entry(const T* q, const T* k, const T* v, const T* dout,
+                 const float* lse, const float* delta, T* dk, T* dv, int b,
+                 const Attn& a, cudaStream_t stream) {
+  switch (tile_width(a.d)) {
+    case 32:
+      return launch_dkv_tc<32>(q, k, v, dout, lse, delta, dk, dv, b, a,
+                               stream);
+    case 64:
+      return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, b, a,
+                               stream);
+    case 128:
+      return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, b, a,
+                                stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C entry points: every pointer is a device pointer (bias and seed may be
@@ -849,7 +1473,7 @@ int paddle_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                              const float* bias, const bf16* dout,
                              const float* lse, const float* delta, bf16* dq,
                              int b, ATTN_ARGS) {
-  return dq_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
+  return dq_tc_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
@@ -864,8 +1488,8 @@ int paddle_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                               const float* bias, const bf16* dout,
                               const float* lse, const float* delta, bf16* dk,
                               bf16* dv, int b, ATTN_ARGS) {
-  return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
-                         (bf16*)nullptr, dk, dv, b, MAKE_ATTN, stream);
+  return dkv_tc_entry(q, k, v, dout, lse, delta, dk, dv, b, MAKE_ATTN,
+                      stream);
 }
 
 int paddle_flash_bwd_fused_f32(const float* q, const float* k, const float* v,
@@ -896,15 +1520,15 @@ int paddle_flash_bwd_dq_fp16(const fp16* q, const fp16* k, const fp16* v,
                              const float* bias, const fp16* dout,
                              const float* lse, const float* delta, fp16* dq,
                              int b, ATTN_ARGS) {
-  return dq_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
+  return dq_tc_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dkv_fp16(const fp16* q, const fp16* k, const fp16* v,
                               const float* bias, const fp16* dout,
                               const float* lse, const float* delta, fp16* dk,
                               fp16* dv, int b, ATTN_ARGS) {
-  return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
-                         (fp16*)nullptr, dk, dv, b, MAKE_ATTN, stream);
+  return dkv_tc_entry(q, k, v, dout, lse, delta, dk, dv, b, MAKE_ATTN,
+                      stream);
 }
 
 // dq_acc: as the bf16 fused backward's

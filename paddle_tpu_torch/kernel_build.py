@@ -6,14 +6,16 @@ interface, loaded with :mod:`ctypes`.  Nothing is built when this module
 is imported: a kernel is built at its first launch (or by
 :func:`build_all`, which starts one ``nvcc`` per source at once), into
 ``build/kernels/`` at the root of the checkout.  The library's file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+carries a hash of the source, of every header it includes with
+``#include "..."`` (``csrc/hopper.cuh``), and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -49,6 +51,33 @@ def nvcc_path() -> str:
         "port's kernels")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources_with_headers(source: str) -> List[str]:
+    """``source`` and every header it pulls in through ``#include "..."``
+    lines, resolved beside the file that names them, recursively and each
+    once, in the order they are first met."""
+    seen: List[str] = []
+    todo = [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, encoding="utf-8") as f:
+            names = _INCLUDE.findall(f.read())
+        here = os.path.dirname(path)
+        todo.extend(os.path.abspath(os.path.join(here, n)) for n in names
+                    if os.path.isfile(os.path.join(here, n)))
+    return seen
+
+
+def _log_path(lib: str) -> str:
+    """Where the compiler's output for the library ``lib`` is kept."""
+    return os.path.splitext(lib)[0] + ".log"
+
+
 class CudaKernel:
     """One ``csrc/<source>`` library and the C functions it exports.
 
@@ -69,8 +98,10 @@ class CudaKernel:
         return os.path.join(CSRC_DIR, self.source)
 
     def lib_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha1(f.read())
+        digest = hashlib.sha1()
+        for path in _sources_with_headers(self.source_path):
+            with open(path, "rb") as f:
+                digest.update(f.read())
         digest.update(" ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR,
@@ -84,6 +115,9 @@ class CudaKernel:
         returns ``(process, tmp_path, final_path)`` or None."""
         final = self.lib_path()
         if os.path.exists(final):
+            if os.path.exists(_log_path(final)):
+                with open(_log_path(final)) as f:
+                    self.build_log = f.read()
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -103,6 +137,8 @@ class CudaKernel:
             raise RuntimeError(
                 f"nvcc failed on {self.source} (exit {proc.returncode}):\n"
                 f"{out}")
+        with open(_log_path(final), "w") as f:   # ptxas's lines, for reuse
+            f.write(out)
         os.replace(tmp, final)   # atomic: a reader never sees half a file
 
     def load(self):

@@ -36,7 +36,9 @@ launches the kernels of ``csrc/flash_attention.cu`` for its dtype
 do not take its dtype or shape.  There is no other path.  The backward
 takes the fused kernel when ``sq <= 512`` and ``sk <= 512`` (one TPU
 block, ``pallas_kernels.py:532``) and the split dQ and dK/dV pair above
-that.
+that; in bf16 and fp16 that pair runs on the tensor cores and reads its
+inputs through TMA tensor maps, so a view off a 16-byte boundary is
+copied first.
 
 Dropout (attention probabilities, upscale in train) is keyed by a seed:
 an int64 tensor of one element, drawn by the caller.  On the card the
@@ -394,11 +396,18 @@ def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
     return dq, dk, dv
 
 
+def _tma_ready(*tensors):
+    """The tensors, each copied if its address is not 16-byte aligned: the
+    bf16 and fp16 split kernels read them through TMA tensor maps."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 def bwd_dq(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
            seed=None):
     """Launch ``flash_bwd_dq_f32``, ``_bf16`` or ``_fp16``: ``dq``."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_dq", q, k, v, bias, do, lse,
                                          delta, seed)
+    q, k, v, do = _tma_ready(q, k, v, do)
     dq = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -416,6 +425,7 @@ def bwd_dkv(q, k, v, bias, do, lse, delta, scale, causal, dropout_rate=0.0,
     dv)``."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_dkv", q, k, v, bias, do, lse,
                                          delta, seed)
+    q, k, v, do, lse, delta = _tma_ready(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -172,8 +172,8 @@ def main(argv=None):
     if args.tiny:
         cfg = tiny_config()
         args.batch, args.seq, args.steps = 2, 32, 3
-    else:
-        cfg = BertConfig()
+    else:   # positions for sequences past BERT-base's 512
+        cfg = BertConfig(max_position_embeddings=max(512, args.seq))
     if args.device != "cpu":
         torch.backends.cuda.matmul.allow_tf32 = False   # full f32
         # bf16 and fp16 GEMMs accumulate in f32 throughout, as the JAX
