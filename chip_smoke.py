@@ -14,8 +14,9 @@ Phases (any failure exits non-zero and prints no result):
    ``nvcc`` from the sources in this checkout (one ``nvcc`` per source,
    all at once: six sources), with ``ptxas``'s register and spill lines;
    the SASS (``cuobjdump -sass``) of every instance of the bf16 and fp16
-   split flash kernels must hold HGMMA (tensor-core) instructions, and
-   ptxas must report no spill stores for them (``tensor_cores`` lines);
+   flash kernels (forward, fused backward, split dQ and dK/dV) must hold
+   HGMMA (tensor-core) instructions, and ptxas must report no spill
+   stores for them (``tensor_cores`` lines);
 3. paged decode, kernel vs plain version: the paged-decode kernel against
    its plain PyTorch version on the card, at the serving shape and a GQA
    shape;
@@ -67,7 +68,8 @@ Phases (any failure exits non-zero and prints no result):
       backward and the fused kernel, at both shapes), against the
       plain versions, SDPA in bf16 (forward, and backward alone), and the
       bound max(bytes at 2 bytes an element / 3.35 TB/s, flops / 989
-      TFLOP/s, the dense bf16 tensor-core peak);
+      TFLOP/s, the dense bf16 tensor-core peak); ``fused_occupancy`` lines
+      give the fused kernel's CTAs per SM and its waves at the BERT shape;
    c. BERT-base under AMP O1 through ``jit_train_step(amp=True)``: batch
       44 x seq 512 with padding, dropout 0.1, ``AdamOptimizer(1e-4)``, 2
       warm-up and 10 timed steps on one batch; the loss finite and
@@ -353,15 +355,17 @@ MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4
 # LeNet on the card vs on the CPU from one startup scope: step 1, and
 # every step of bench.py:_lenet_losses's 12 (both sides f32)
 LENET_STEP1_RTOL, LENET_LOSS_ATOL = 1e-5, 1e-3
-# the bf16 / fp16 split pair on the tensor cores: each entry point's kernel
-# template and its element type as they appear in the mangled names (one
-# instance per tile width 32, 64, 128)
-TC_SPLIT_KERNELS = {
-    "flash_bwd_dq_bf16": ("flash_bwd_dq_tc_kernel", "13__nv_bfloat16"),
-    "flash_bwd_dq_fp16": ("flash_bwd_dq_tc_kernel", "6__half"),
-    "flash_bwd_dkv_bf16": ("flash_bwd_dkv_tc_kernel", "13__nv_bfloat16"),
-    "flash_bwd_dkv_fp16": ("flash_bwd_dkv_tc_kernel", "6__half"),
-}
+# the bf16 / fp16 flash kernels, all on the tensor cores: each entry
+# point's kernel template, its element type as they appear in the mangled
+# names, and its tile widths (one instance each; the fused kernel runs
+# head dims up to 64 at the 64 tile)
+TC_KERNELS = {
+    f"flash_{entry}_{tag}": (f"flash_{kernel}_tc_kernel", elem, widths)
+    for entry, kernel, widths in (("fwd", "fwd", (32, 64, 128)),
+                                  ("bwd_fused", "bwd_fused", (64, 128)),
+                                  ("bwd_dq", "bwd_dq", (32, 64, 128)),
+                                  ("bwd_dkv", "bwd_dkv", (32, 64, 128)))
+    for tag, elem in (("bf16", "13__nv_bfloat16"), ("fp16", "6__half"))}
 # the L2 a timing's rotated inputs must overflow to run cold (50 MB)
 COLD_BYTES = 64 << 20
 # a served token may differ from the reference only where the
@@ -675,7 +679,7 @@ def flash_kernels(dtype="f32"):
 
 
 def tensor_core_check(flash):
-    """Every instance of the four tensor-core split kernels: its SASS (by
+    """Every instance of the eight bf16 / fp16 flash kernels: its SASS (by
     ``cuobjdump -sass`` of the built library) holds HGMMA instructions,
     and ptxas reported no spill stores for it.  Prints one line each."""
     from paddle_tpu_torch import kernel_build
@@ -702,11 +706,12 @@ def tensor_core_check(flash):
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and fn is not None:
             spills[fn] = int(m.group(1))
-    for entry, (kernel, elem) in TC_SPLIT_KERNELS.items():
+    for entry, (kernel, elem, widths) in TC_KERNELS.items():
         insts = sorted(n for n in hgmma if kernel in n and elem in n)
-        if len(insts) != 3:
-            fail(f"{entry}: {len(insts)} instances of {kernel} in the SASS, "
-                 f"expected one per tile width 32, 64, 128")
+        got = sorted(int(re.search(r"ILi(\d+)E", n).group(1)) for n in insts)
+        if got != list(widths):
+            fail(f"{entry}: instances of {kernel} at tile widths {got} in "
+                 f"the SASS, expected one per tile width {widths}")
         for n in insts:
             width = int(re.search(r"ILi(\d+)E", n).group(1))
             print("tensor_cores " + json.dumps({
@@ -1184,6 +1189,33 @@ def check_flash_low(name, case, causal, rate, amp_dtype="bfloat16"):
     return errs
 
 
+def fused_occupancy(tag):
+    """The bf16 / fp16 fused kernel's CTAs resident on one SM at tile
+    widths 64 and 128 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    and the waves its grid (one CTA per kv tile and b h) takes at the
+    BERT-base shape (b 44, h 12, s 512): one line each."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (64, 128):
+        blocks = ctypes.c_int(0)
+        err = fa.FLASH.load().paddle_flash_fused_occupancy(
+            d, int(tag == "fp16"), ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            fail(f"flash_bwd_fused_{tag}: occupancy query at d {d} gave "
+                 f"error {err}, {blocks.value} CTAs per SM")
+        grid = -(-512 // 64) * 44 * 12
+        print("fused_occupancy " + json.dumps({
+            "kernel": f"flash_bwd_fused_{tag}", "tile_width": d,
+            "ctas_per_sm": blocks.value, "resident": blocks.value * sms,
+            "grid_bert": grid, "waves_bert": grid / (blocks.value * sms)}),
+            flush=True)
+
+
 def flash_low_phase(amp_dtype="bfloat16"):
     """Phase a (bf16) or v (fp16): checks at the BERT-base and long
     shapes, causal and not, dropout 0 and 0.1; then phase b's times at
@@ -1215,6 +1247,7 @@ def flash_low_phase(amp_dtype="bfloat16"):
              "long": time_flash("long", [long_bias] + [
                  low_case(make_flash_case(s0 + 4 + i, 2, 12, 2048, 64, True),
                           amp_dtype) for i in range(2)], False, 0.1, tag)}
+    fused_occupancy(tag)
     torch.cuda.empty_cache()
     return errs, times
 

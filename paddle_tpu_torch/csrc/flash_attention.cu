@@ -12,9 +12,11 @@
 //   flash_bwd_dq_{f32,bf16,fp16}     _bwd_dq_kernel :386 (_flash_bwd :523-574)
 //   flash_bwd_dkv_{f32,bf16,fp16}    _bwd_dkv_kernel :413 (_flash_bwd :576-621)
 //
-// The bf16 and fp16 split pair (flash_bwd_dq_tc_kernel,
-// flash_bwd_dkv_tc_kernel, the pallas_calls at :562 and :599) runs on the
-// tensor cores; every other kernel here is SIMT f32 arithmetic (below).
+// In bf16 and fp16 every kernel runs on the tensor cores (wgmma, TMA):
+// the forward flash_fwd_tc_kernel (the pallas_calls at :281 and :320),
+// the fused backward flash_bwd_fused_tc_kernel (:502) and the split pair
+// flash_bwd_dq_tc_kernel, flash_bwd_dkv_tc_kernel (:562, :599).  The f32
+// kernels are SIMT f32 arithmetic (below), in full f32 (no TF32).
 //
 // bf16.  Every kernel is a template on the storage type T of q, k, v, dO
 // and the outputs; the padding bias, lse and delta stay float32, and all
@@ -24,16 +26,16 @@
 // (pd.astype(v.dtype), :190/:229) and before dV (:436/:470), dS before the
 // dQ and dK products (ds.astype(k.dtype) / ds.astype(q.dtype), :405/:440/
 // :467/:473), and each output once, at its store.  The forward rounds p
-// relative to the running row max of its kv tile, as the TPU's blocked
-// kernel does; the single-block TPU kernel rounds it relative to the
-// final max, so the two differ in the last bf16 bit of some p.  dQ is
+// relative to the running row max of its 64-wide kv tile, as the TPU's
+// blocked kernel does; the single-block TPU kernel rounds it relative to
+// the final max, so the two differ in the last bf16 bit of some p.  dQ is
 // never rounded before its last sum: the split dQ kernel keeps it in
-// registers, and the fused kernel, whose CTA adds every kv tile's share
-// into dQ in device memory, adds into a float32 scratch (b, h, sq, d)
-// that the wrapper allocates, and converts it to bf16 once at the end
-// (the TPU keeps an f32 VMEM scratch for the same reason, :393-410).
-// With T = float the scratch is dQ itself and nothing is rounded, so the
-// f32 kernels compute what they always did.
+// registers, and the fused kernel, whose kv-tile CTAs each add a share
+// into dQ, sums the shares in a float32 scratch (b, h, sq, d) that the
+// wrapper allocates, in kv order, and the last share's CTA rounds the sum
+// to bf16 once (the TPU keeps an f32 VMEM scratch for the same reason,
+// :393-410).  With T = float the SIMT fused kernel's scratch is dQ itself
+// and nothing is rounded.
 //
 // fp16.  T = __half takes the same rounding points as bf16, each a
 // round-to-nearest-even __float2half_rn that keeps subnormals (as the TPU
@@ -64,14 +66,17 @@
 //
 // Bound.  At the BERT-base shape (b 44, h 12, s 512, d 64) the forward
 // does 4 b h s^2 d = 35.4 GFLOP on 0.28 GB, about 127 flop per byte: on
-// this card (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) the
+// this card (67 TFLOP/s f32 outside the tensor cores, 3.35 TB/s) the f32
 // kernels are bound by operations, not bytes.  The backward does
-// 10 b h s^2 d (fused) on about twice the bytes.  In bf16 the bytes
-// halve and the bound is the tensor cores' 989 TFLOP/s.
+// 10 b h s^2 d (fused, 88.6 GFLOP) on about twice the bytes.  In bf16 and
+// fp16 the bytes halve: the forward's products take 0.036 ms at the
+// tensor cores' 989 TFLOP/s and its bytes 0.042 ms at 3.35 TB/s (q, k,
+// v, out, the bias and lse, each once), so it is bound by bytes; the
+// fused backward is bound by operations, 0.090 ms.
 //
-// SIMT design (f32 in every kernel; the bf16 / fp16 forward and fused
-// backward).  The TPU walks the grid in order and carries the online
-// softmax (m, l, acc) in VMEM from one kv block to the next; here a loop
+// SIMT design (the f32 kernels).  The TPU walks the grid in order and
+// carries the online softmax (m, l, acc) in VMEM from one kv block to the
+// next; here a loop
 // inside each CTA takes the place of that sequential grid axis, so no
 // state crosses CTAs.  Every kernel works on 64 x 64 score tiles with 256
 // threads as 16 x 16: thread (ty, tx) owns rows ty + 16 i and columns
@@ -85,9 +90,7 @@
 // are 4-step shuffles.  Ragged edges are masked in the kernel (rows past
 // sq or keys past sk load as zeros and take no probability), so any
 // sq, sk >= 1 is accepted; under causal masking the kv tiles wholly above
-// the diagonal are skipped.  In bf16 and fp16 these kernels widen every
-// operand to f32 and leave the tensor cores idle: their redesign is later
-// work.
+// the diagonal are skipped.
 //
 // * forward: grid (q tile, b h); the kv loop keeps m, l and the output
 //   accumulator in registers; one kv tile is the single-block kernel
@@ -146,6 +149,40 @@
 //   causal mask reaches skip the masks); each output is rounded once at
 //   its store; no atomics, so the result is deterministic.
 //
+// Tensor-core forward and fused backward (bf16, fp16), built from the
+// split pair's pieces.  At the BERT-base shape the forward is bound by
+// its bytes (0.042 ms; products 0.036 ms) and the fused backward by its
+// five products (0.090 ms); what keeps both from those bounds is the f32
+// work on the fragments (Philox, expf, masks), which the design keeps to
+// one Philox call per 4 elements and to edge tiles only:
+// * forward (replaces _fwd_kernel :150 and _fwd_single_block_kernel
+//   :203): grid (64-row q tile, b h), one warpgroup; Q by TMA once, K and
+//   V through the dQ kernel's 2-stage ring.  S = Q K^T by wgmma (both
+//   K-major); the online softmax runs on the accumulator fragment, where
+//   a row's 64 columns sit in the 4 lanes of a quad (two shuffles for
+//   the max and for the sum); O is rescaled by alpha, then O += P V takes
+//   the dropped p, rounded to T in registers, as the A operand and V
+//   MN-major.  The kv tile stays 64 wide, so p is rounded against the
+//   same running max as the SIMT kernel's.  O is stored once in T, lse in
+//   f32; causal skips the tiles above the diagonal;
+// * fused backward (replaces _bwd_fused_kernel :449): the dK/dV kernel,
+//   grid (kv tile x b h), plus the fifth product.  dS^T goes from
+//   registers to shared memory (a 64 x NQ tile of T in TMA's swizzle, in
+//   the bytes of the Philox exchange once they are read); dK += dS^T Q
+//   reads it K-major, and dQ^T = K^T dS^T reads K and it MN-major (M = D
+//   in m64 blocks, so head dims up to 32 run at the 64 tile).  One CTA
+//   per kv tile keeps the split pair's parallelism (4,224 CTAs at the
+//   BERT shape, against 528 for one CTA per (b, h), which would fill 1.33
+//   waves of 3 CTAs an SM).  dQ is summed across the kv-tile CTAs of a
+//   (b, h) in float32 in kv order, so it is the same bits in every run:
+//   up to 8 kv tiles (sk <= 512) the CTAs form a thread-block cluster and
+//   sum each q tile's shares through distributed shared memory after one
+//   cluster barrier, with no traffic to device memory but dQ itself;
+//   above that, through a float32 scratch in device memory, each CTA
+//   adding its share once a flag says the CTA before it has (at the BERT
+//   shape that chain's fences, flag polls and L2 atomics made the kernel
+//   slower than the split pair).
+//
 // Dropout.  A Philox-4x32-10 generator, keyed by the 64-bit seed and
 // counted by (column group, query row, b h, offset), decides every
 // element (b, h, i, j) on its own: column j takes word (j % 64) / 16 of
@@ -197,32 +234,18 @@ struct Elem<float> {
   static __device__ __forceinline__ float round(float x) { return x; }
 };
 
+// (the bf16 and fp16 kernels only store single elements)
 template <>
 struct Elem<__half> {
-  static __device__ __forceinline__ float load(const __half* p) {
-    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-    return __half2float(__ushort_as_half(u));
-  }
   static __device__ __forceinline__ void store(__half* p, float x) {
     *p = __float2half_rn(x);   // keeps subnormals, as the TPU's cast does
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __half2float(__float2half_rn(x));
   }
 };
 
 template <>
 struct Elem<__nv_bfloat16> {
-  // a bf16 is the high half of the float32 with the same value
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-    return __uint_as_float((uint32_t)u << 16);
-  }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
   }
 };
 
@@ -612,8 +635,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ----------------------------------- backward: dK/dV, and the fused form
 // FUSED = false: grid (kv tile, b h), this CTA's kv tile is blockIdx.x.
 // FUSED = true:  grid (b h), the CTA walks every kv tile and also adds
-//                into dq_acc (float32, in device memory); for T = bf16 it
-//                then writes dq from dq_acc, for T = float dq_acc is dq.
+//                into dq_acc (float32, in device memory), which is dq.
 template <int D, bool FUSED, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -696,23 +718,6 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (FUSED && (const void*)dq != (const void*)dq_acc) {
-    // dq_acc's elements were each written by this thread only (the same
-    // (ty, tx) slots of every q tile), so it reads back its own sums
-    for (int row0 = 0; row0 < a.sq; row0 += kTile) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + ty + 16 * i;
-        if (r >= a.sq) continue;
-#pragma unroll
-        for (int jd = 0; jd < VD; ++jd) {
-          if (tx + 16 * jd >= a.d) continue;
-          const size_t o = qoff + (size_t)r * a.d + tx + 16 * jd;
-          Elem<T>::store(dq + o, dq_acc[o]);
-        }
-      }
-    }
-  }
 }
 
 // ====================================== split backward on the tensor cores
@@ -1171,6 +1176,525 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------- forward, tensor cores
+// The forward's softmax on the fragment of one 64 x 64 tile S = Q K^T
+// (rows row0 + tc_row() + 8 h, columns col0 + 8 n + tc_col() + e): the
+// online max and sum of flash_fwd_kernel, with a row's 64 columns in the
+// 4 lanes of a quad (two shuffles).  l takes the undropped p; the dropped
+// p, rounded to T, is packed as the A operand of O += P V (k16 step c in
+// pa[c]).  alpha[h] rescales row h's output.  Dropout draws one Philox
+// call per 4 elements, as dq_terms does.  EDGE as in dq_terms.
+template <typename T, bool EDGE>
+__device__ __forceinline__ void fwd_terms(const Attn& a, uint64_t seed,
+                                          int bh, int bi, int row0, int col0,
+                                          float (&s)[32], float (&m)[2],
+                                          float (&l)[2], float (&alpha)[2],
+                                          uint32_t (&pa)[4][4]) {
+  const int rr = tc_row(), cc = tc_col();
+  float bj[8][2];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + 8 * n + cc + e;
+      bj[n][e] = (a.bias != nullptr && (!EDGE || c < a.sk))
+                     ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rr + 8 * h;
+    float mc = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * n + 2 * h + e;
+        s[i] = EDGE ? score(a, s[i], bj[n][e], r, col0 + 8 * n + cc + e)
+                    : s[i] * a.scale + bj[n][e];
+        mc = fmaxf(mc, s[i]);
+      }
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+    mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+    const float m_next = fmaxf(m[h], mc);
+    const float base = m_next == -INFINITY ? 0.f : m_next;
+    alpha[h] = expf(m[h] - base);
+    float rs = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        // one Philox call: columns col0 + 8 n + cc + e, n = mm, mm + 2,
+        // mm + 4, mm + 6 (word n / 2)
+        uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+        if (a.seed != nullptr)
+          bits = drop_bits(a, seed, bh, r, col0 + 8 * mm + cc + e);
+#pragma unroll
+        for (int n = mm; n < 8; n += 2) {
+          const int i = 4 * n + 2 * h + e;
+          const float p = expf(s[i] - base);
+          rs += p;
+          s[i] = p;
+          if (a.seed != nullptr)
+            s[i] = word(bits, n >> 1) >= a.thresh ? p * a.keep_scale : 0.f;
+        }
+      }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l[h] = alpha[h] * l[h] + rs;
+    m[h] = m_next;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int mm = 0; mm < 4; ++mm)
+      pa[c][mm] = hopper::pack2<T>(s[8 * c + 2 * mm], s[8 * c + 2 * mm + 1]);
+}
+
+// grid (q tile, b h), one warpgroup.  Q (64 rows) stays in shared memory;
+// K and V tiles stream through a 2-stage TMA ring, as in the dQ kernel.
+// S = Q K^T reads both operands K-major; O += P V takes P from registers
+// and V MN-major.  m, l and O live in registers across the kv loop.
+template <int D, typename T>
+__global__ void __launch_bounds__(kTcThreads, D == 128 ? 2 : 3)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    T* __restrict__ out, float* __restrict__ lse, Attn a) {
+  using namespace hopper;
+  constexpr int kBytes = kTile * D * 2;   // one 64-row tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align_1024(smem_raw);
+  uint8_t* kv = qs + kBytes;   // stage st: K at kv + 2 st kBytes, then V
+  // bar[0]: Q; bar[1 + st]: ring stage st
+  uint64_t* bar = reinterpret_cast<uint64_t*>(kv + 4 * kBytes);
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int row0 = blockIdx.x * kTile;
+  const int n_kv = kv_tiles(a, row0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], kBytes);
+    tma_tile<D, kTile>(qs, &tq, &bar[0], row0, bh);
+    for (int st = 0; st < 2 && st < n_kv; ++st) {
+      mbar_expect_tx(&bar[1 + st], 2 * kBytes);
+      tma_tile<D, kTile>(kv + 2 * st * kBytes, &tk, &bar[1 + st],
+                         st * kTile, bh);
+      tma_tile<D, kTile>(kv + (2 * st + 1) * kBytes, &tv, &bar[1 + st],
+                         st * kTile, bh);
+    }
+  }
+  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
+  float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  mbar_wait(&bar[0], 0);
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int st = kt & 1;
+    uint8_t* ks = kv + 2 * st * kBytes;
+    uint8_t* vs = ks + kBytes;
+    mbar_wait(&bar[1 + st], (kt >> 1) & 1);
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<T, 0>(s, desc_kmajor<D, kTile>(qs, kk),
+                     desc_kmajor<D, kTile>(ks, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    const int col0 = kt * kTile;
+    float alpha[2];
+    uint32_t pa[4][4];
+    if (col0 + kTile > a.sk || (a.causal && col0 + kTile - 1 > row0))
+      fwd_terms<T, true>(a, seed, bh, bi, row0, col0, s, m, l, alpha, pa);
+    else
+      fwd_terms<T, false>(a, seed, bh, bi, row0, col0, s, m, l, alpha, pa);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      wgmma_rs<T, 1>(o, pa[c], desc_mnmajor<D, kTile>(vs, c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(pa[c]);
+    __syncthreads();   // every warp is done with stage st
+    if (threadIdx.x == 0 && kt + 2 < n_kv) {
+      mbar_expect_tx(&bar[1 + st], 2 * kBytes);
+      tma_tile<D, kTile>(ks, &tk, &bar[1 + st], (kt + 2) * kTile, bh);
+      tma_tile<D, kTile>(vs, &tv, &bar[1 + st], (kt + 2) * kTile, bh);
+    }
+  }
+
+  const int rr = tc_row(), cc = tc_col();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rr + 8 * h;
+    if (r >= a.sq) continue;
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    const float inv = 1.f / l_safe;
+    T* row = out + ((size_t)bh * a.sq + r) * a.d;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (8 * n + cc < a.d)
+        *reinterpret_cast<uint32_t*>(row + 8 * n + cc) = pack2<T>(
+            o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
+    if (cc == 0) lse[(size_t)bh * a.sq + r] = m[h] + logf(l_safe);
+  }
+}
+
+// ------------------------------------------ fused backward, tensor cores
+// A T x 2 pair v at (row r, column col) of a 16-bit shared-memory tile of
+// `cols` (32 or 64) columns in TMA's swizzle (64- or 128-byte), the
+// layout the wgmma descriptors read.
+__device__ __forceinline__ void st_swizzled(uint8_t* tile, int cols, int r,
+                                            int col, uint32_t v) {
+  const int x = cols == 64 ? (r & 7) : ((r >> 1) & 3);
+  *reinterpret_cast<uint32_t*>(tile + r * 2 * cols +
+                               (((col >> 3) ^ x) << 4) + (col & 7) * 2) = v;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// after a __syncthreads: every store and red of this CTA is visible on
+// the device, then *flag = v
+__device__ __forceinline__ void publish(int* flag, int v) {
+  __threadfence();
+  st_release(flag, v);
+}
+
+// spins until *flag == want; traps after about 2^34 clocks, as mbar_wait
+__device__ __forceinline__ void wait_flag(const int* flag, int want) {
+  const long long t0 = clock64();
+  while (ld_acquire(flag) != want)
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// The last kv tile that adds into the q tile at q0 (NQ rows): every kv
+// tile, or when causal the last whose first q tile (col0 / NQ) is at or
+// before it.
+template <int NQ>
+__device__ __forceinline__ int last_kv_tile(const Attn& a, int q0) {
+  const int last = (a.sk + kTile - 1) / kTile - 1;
+  return a.causal ? min(last, (q0 + NQ - 1) / kTile) : last;
+}
+
+// The dK/dV kernel's body plus dQ.  dS^T, which dkv_terms leaves in
+// registers in kv-row layout, is stored to shared memory as a 64 x NQ tile
+// of T in TMA's swizzle (in the bytes of the Philox exchange, once its
+// words are read); from there it is the A operand of dK += dS^T Q
+// (K-major) and the B operand of dQ^T = K^T dS^T (both MN-major, M = D in
+// m64 blocks: so head dims up to 32 run at the 64 tile).  The kv rows of K
+// and dS^T are both in swap34 order, which the sum over kv does not see.
+//
+// dQ is summed in float32 across the kv tiles of a (b, h) in kv order, so
+// that every run gives the same bits, in one of two ways:
+// * clustered (up to kFusedMaxCluster kv tiles, every sk <= 512): grid
+//   (kv tile, b h), the (b, h)'s kv-tile CTAs one thread-block cluster.
+//   For each q tile every CTA writes its f32 share of dQ over the tile's
+//   Q and dO in its own ring stage (consumed by then) and, after a
+//   cluster barrier, sums a slice of the tile over the cluster's shares,
+//   rank 0 first, read 16 bytes at a time through distributed shared
+//   memory, and stores it in T.  The next barrier, one q tile later,
+//   says that the cluster has read the share: only then does its stage
+//   take the next q tile.  One cluster barrier a q tile, no device memory
+//   but dQ; the q tiles run in step across the cluster (a CTA with no
+//   share of a causal q tile only sums);
+// * chained (more kv tiles): grid (kv tile x b h), flattened.  CTA (kt,
+//   bh) adds its share of q tile qt into dq_acc (device memory, through
+//   L2) once CTA (kt - 1, bh) has, by a flag per (b h, q tile) that counts
+//   the shares added: kv tile 0 stores, the middle ones add (red.add;
+//   like every f32 atomic it flushes sums below 2^-126 to zero), the last
+//   reads, adds and stores in T.  A CTA polls its flag while its last
+//   products of the tile run, and raises the next one's after the next
+//   tile's first products are issued.  The CTAs take their (kt, bh) from
+//   a counter in the order they start, so the CTA a flag waits on has
+//   started (it waits only on earlier ones): no deadlock, whatever the
+//   number of CTAs.
+constexpr int kFusedMaxCluster = 8;   // the portable cluster size
+
+// The float offset of dQ element (query i, dim j) of a q tile's share:
+// rows of D floats, the dims' 8-float groups XOR-swizzled by the query so
+// that the fragment's stores (4 queries x 8 dims a warp) hit 32 banks.
+template <int D>
+__device__ __forceinline__ int part_off(int i, int j) {
+  return i * D + (j ^ (((i >> 1) & 3) << 3));
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kTcThreads, D == 128 ? 1 : 3)
+flash_bwd_fused_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tlse,
+                          const __grid_constant__ CUtensorMap tdelta,
+                          float* __restrict__ dq_acc, int* __restrict__ flags,
+                          T* __restrict__ dq, T* __restrict__ dk,
+                          T* __restrict__ dv, Attn a) {
+  using namespace hopper;
+  constexpr int NQ = kDkvQRows<D>;
+  constexpr int kKvBytes = kTile * D * 2, kQBytes = NQ * D * 2;
+  constexpr int kStage = kDkvStageBytes<D>;
+  constexpr int kVec = kDkvVecSlot<D>;
+  constexpr uint32_t kStageTx = 2 * kQBytes + 2 * kDkvVecBox<D> * 4;
+  constexpr int MB = D / 64;   // m64 blocks of dQ^T
+  static_assert(NQ * D * 4 == 2 * kQBytes, "a share fits over Q and dO");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align_1024(smem_raw);
+  uint8_t* vs = ks + kKvBytes;
+  uint8_t* ring = vs + kKvBytes;   // stage st: Q, dO, lse, delta
+  uint4* xchg = reinterpret_cast<uint4*>(ring + 2 * kStage);
+  uint8_t* dst = reinterpret_cast<uint8_t*>(xchg);   // dS^T
+  // bar[0]: K and V; bar[1 + st]: ring stage st; then the CTA's number
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(ring + 2 * kStage + kDkvXchg<NQ>);
+  int* order = reinterpret_cast<int*>(&bar[3]);
+  const int n_kv = (a.sk + kTile - 1) / kTile;
+  const bool clustered = cluster_size() > 1;
+  if (threadIdx.x == 0) {
+    if (!clustered) *order = atomicAdd(&flags[0], 1);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int kt = clustered ? (int)cluster_rank() : *order % n_kv;
+  const int bh = clustered ? (int)blockIdx.y : *order / n_kv;
+  const int bi = bh / a.h, col0 = kt * kTile;
+  const int n_qt = (a.sq + NQ - 1) / NQ;
+  int* qflag = flags + 1 + (size_t)bh * n_qt;   // chained: one per q tile
+  // the q tiles that see this kv tile (causal: none above the diagonal)
+  const int q_begin = a.causal ? col0 / NQ : 0;
+  const int n_q = n_qt - q_begin;
+
+  auto load_q = [&](int it, int st) {   // thread 0: q tile q_begin + it
+    uint8_t* stage = ring + st * kStage;
+    const int q0 = (q_begin + it) * NQ;
+    mbar_expect_tx(&bar[1 + st], kStageTx);
+    tma_tile<D, NQ>(stage, &tq, &bar[1 + st], q0, bh);
+    tma_tile<D, NQ>(stage + kQBytes, &tdo, &bar[1 + st], q0, bh);
+    const int v0 = (bh * a.sq + q0) & ~3;
+    tma_load_1d(stage + 2 * kQBytes, &tlse, &bar[1 + st], v0);
+    tma_load_1d(stage + 2 * kQBytes + kVec, &tdelta, &bar[1 + st], v0);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar[0], 2 * kKvBytes);
+    tma_kv_swapped<D>(ks, &tk, &bar[0], col0, bh);
+    tma_kv_swapped<D>(vs, &tv, &bar[0], col0, bh);
+    for (int st = 0; st < 2 && st < n_q; ++st) load_q(st, st);
+  }
+  const int rr = tc_row(), cc = tc_col();
+  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
+  const int jr[2] = {col0 + swap34(rr), col0 + swap34(rr) + 16};
+  float br[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    br[h] = (a.bias != nullptr && jr[h] < a.sk)
+                ? __ldg(a.bias + (size_t)bi * a.sk + jr[h]) : 0.f;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  float* acc = dq_acc + (size_t)bh * a.sq * a.d;
+  T* dqh = dq + (size_t)bh * a.sq * a.d;
+  mbar_wait(&bar[0], 0);
+
+  // clustered: every q tile, in step with the cluster; chained: this kv
+  // tile's q tiles
+  for (int qt = clustered ? 0 : q_begin; qt < n_qt; ++qt) {
+    const int it = qt - q_begin, q0 = qt * NQ;
+    const int last = last_kv_tile<NQ>(a, q0);   // the last share's kv tile
+    float dqt[MB][NQ / 2];
+    if (it >= 0) {
+      const int st = it & 1;
+      uint8_t* qs = ring + st * kStage;
+      uint8_t* dos = qs + kQBytes;
+      // lse and delta of row q0 + ci at lse_s[ci], delta_s[ci]
+      const float* lse_s = reinterpret_cast<const float*>(qs + 2 * kQBytes) +
+                           ((bh * a.sq + q0) & 3);
+      const float* delta_s = lse_s + kVec / 4;
+      mbar_wait(&bar[1 + st], (it >> 1) & 1);
+      float s[NQ / 2], dp[NQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, 0>(s, desc_kmajor<D, kTile>(ks, kk),
+                       desc_kmajor<D, NQ>(qs, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, 0>(dp, desc_kmajor<D, kTile>(vs, kk),
+                       desc_kmajor<D, NQ>(dos, kk), kk);
+      wgmma_commit();
+      // chained: the last q tile's share is in L2; tell kv tile kt + 1
+      // while the products run
+      if (!clustered && threadIdx.x == 0 && it > 0)
+        publish(&qflag[qt - 1], kt + 1);
+      __syncwarp();   // warp 0 whole again for the aligned wait
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+      if (q0 + NQ > a.sq || col0 + kTile > a.sk ||
+          (a.causal && col0 + kTile - 1 > q0))
+        dkv_terms<T, NQ, true>(a, seed, bh, q0, jr, br, s, dp, lse_s,
+                               delta_s, xchg, pa, da);
+      else
+        dkv_terms<T, NQ, false>(a, seed, bh, q0, jr, br, s, dp, lse_s,
+                                delta_s, xchg, pa, da);
+      if (a.seed != nullptr) __syncthreads();   // xchg's words are read
+      // da[c][mm]: kv row rr + 8 (mm % 2), queries 16 c + 8 (mm / 2) + cc
+      // and + 1
+#pragma unroll
+      for (int c = 0; c < NQ / 16; ++c)
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm)
+          st_swizzled(dst, NQ, rr + 8 * (mm & 1),
+                      16 * c + 8 * (mm >> 1) + cc, da[c][mm]);
+      fence_async_smem();
+      __syncthreads();   // dS^T is whole
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NQ / 16; ++c)
+        wgmma_rs<T, 1>(dva, pa[c], desc_mnmajor<D, NQ>(dos, c), 1);
+#pragma unroll
+      for (int c = 0; c < NQ / 16; ++c)
+        wgmma_rs<T, 1>(dka, da[c], desc_mnmajor<D, NQ>(qs, c), 1);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int c = 0; c < kTile / 16; ++c)
+          wgmma_ss<T, 1, 1>(dqt[mb],
+                            desc_mnmajor<64, kTile>(ks + mb * kTile * 128, c),
+                            desc_mnmajor<NQ, kTile>(dst, c), c > 0);
+      wgmma_commit();
+      // chained: kv tiles 0 .. kt - 1 have added their shares of this tile
+      if (!clustered && threadIdx.x == 0) wait_flag(&qflag[qt], kt);
+      __syncwarp();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_regs(dqt[mb]);
+#pragma unroll
+      for (int c = 0; c < NQ / 16; ++c) {
+        fence_regs(pa[c]);
+        fence_regs(da[c]);
+      }
+      __syncthreads();   // stage st and dst are free
+      if (threadIdx.x == 0 && it + 2 < n_q && !clustered) load_q(it + 2, st);
+    }
+    // dqt[mb][4 n + 2 h + e]: dim 64 mb + rr + 8 h, query q0 + 8 n + cc + e
+    if (clustered) {
+      // the share goes over this tile's Q and dO in its ring stage
+      float* mine = reinterpret_cast<float*>(ring + (it & 1) * kStage);
+      if (it >= 0) {
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+          for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                mine[part_off<D>(8 * n + cc + e, 64 * mb + rr + 8 * h)] =
+                    dqt[mb][4 * n + 2 * h + e];
+      }
+      cluster_sync();   // every share of this q tile is written
+      if (threadIdx.x == 0 && it >= 1 && it + 1 < n_q) {
+        // the stage of q tile it - 1 held its share, which the cluster
+        // has read: it takes q tile it + 1
+        fence_async_smem();
+        load_q(it + 1, (it + 1) & 1);
+      }
+      // this CTA sums the tile's chunks kt, kt + n_kv, ... of 128 groups
+      // of 4 floats (4 dims of one query, contiguous in every share)
+      for (int g = kt * kTcThreads + threadIdx.x; g < NQ * D / 4;
+           g += n_kv * kTcThreads) {
+        const int i = 4 * g / D, j = 4 * g % D;
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c <= last; ++c) {
+          // CTA c's share, over its stage of q tile qt
+          const int qb = a.causal ? c * kTile / NQ : 0;
+          const float4 x = ld_cluster_f32x4(
+              reinterpret_cast<const float*>(ring + ((qt - qb) & 1) * kStage) +
+                  part_off<D>(i, j),
+              c);
+          if (c == 0) {
+            sum = x;
+          } else {
+            sum.x += x.x;
+            sum.y += x.y;
+            sum.z += x.z;
+            sum.w += x.w;
+          }
+        }
+        if (q0 + i < a.sq && j < a.d)
+          *reinterpret_cast<uint2*>(dqh + (size_t)(q0 + i) * a.d + j) =
+              make_uint2(pack2<T>(sum.x, sum.y), pack2<T>(sum.z, sum.w));
+      }
+    } else {
+      // kv tile 0 stores its share, the middle ones add theirs in L2 (red,
+      // which waits for nothing), the last reads the sum, adds and rounds
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = q0 + 8 * n + cc + e, j = 64 * mb + rr + 8 * h;
+              if (i >= a.sq || j >= a.d) continue;
+              const size_t o = (size_t)i * a.d + j;
+              const float x = dqt[mb][4 * n + 2 * h + e];
+              if (kt == last)
+                Elem<T>::store(dqh + o, kt == 0 ? x : __ldcg(acc + o) + x);
+              else if (kt == 0)
+                __stcg(acc + o, x);
+              else
+                atomicAdd(acc + o, x);
+            }
+      __syncthreads();   // every share is issued: the publish covers them
+    }
+  }
+  if (!clustered && threadIdx.x == 0 && n_q > 0)
+    publish(&qflag[n_qt - 1], kt + 1);
+  if (clustered) cluster_sync();   // the last shares are read
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = jr[h];
+    if (j >= a.sk) continue;
+    const size_t o = ((size_t)bh * a.sk + j) * a.d;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (8 * n + cc < a.d) {
+        const int x = 4 * n + 2 * h;
+        *reinterpret_cast<uint32_t*>(dk + o + 8 * n + cc) =
+            pack2<T>(dka[x], dka[x + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o + 8 * n + cc) =
+            pack2<T>(dva[x], dva[x + 1]);
+      }
+  }
+}
+
 // ------------------------------------------------------- dropout mask out
 // keep[bh, i, j] (uint8) through the kernels' own drop_bits; grid
 // (kv tile, 16-row group, b h), 256 threads as 16 rows x 16 columns.
@@ -1343,6 +1867,96 @@ cudaError_t launch_dkv_tc(const T* q, const T* k, const T* v, const T* dout,
   return cudaGetLastError();
 }
 
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return 5 * kTile * D * 2 + 3 * sizeof(uint64_t) + 1024;
+}
+template <int D>   // the dK/dV kernel's, and a slot for the CTA's number
+constexpr size_t fused_tc_smem() {
+  return dkv_tc_smem<D>() + sizeof(uint64_t);
+}
+
+template <int D, typename T>
+cudaError_t launch_fwd_tc(const T* q, const T* k, const T* v, T* out,
+                          float* lse, int b, const Attn& a,
+                          cudaStream_t stream) {
+  const int bh = b * a.h;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = head_map<D>(&tq, q, a.sq, bh, a.d, kTile)) != cudaSuccess ||
+      (err = head_map<D>(&tk, k, a.sk, bh, a.d, kTile)) != cudaSuccess ||
+      (err = head_map<D>(&tv, v, a.sk, bh, a.d, kTile)) != cudaSuccess)
+    return err;
+  const size_t smem = fwd_tc_smem<D>();
+  err = allow_smem_carveout(flash_fwd_tc_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + kTile - 1) / kTile, bh);
+  flash_fwd_tc_kernel<D, T><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv,
+                                                                out, lse, a);
+  return cudaGetLastError();
+}
+
+// dq_acc: the float32 (b h, sq, d) sums, then the order flags (zeroed
+// by the caller): the CTA counter and one flag per (b h, q tile)
+template <int D, typename T>
+cudaError_t launch_fused_tc(const T* q, const T* k, const T* v,
+                            const T* dout, const float* lse,
+                            const float* delta, float* dq_acc, T* dq, T* dk,
+                            T* dv, int b, const Attn& a, cudaStream_t stream) {
+  constexpr int NQ = kDkvQRows<D>;
+  const int bh = b * a.h;
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  cudaError_t err;
+  if ((err = head_map<D>(&tq, q, a.sq, bh, a.d, NQ)) != cudaSuccess ||
+      (err = head_map<D>(&tk, k, a.sk, bh, a.d, 8)) != cudaSuccess ||
+      (err = head_map<D>(&tv, v, a.sk, bh, a.d, 8)) != cudaSuccess ||
+      (err = head_map<D>(&tdo, dout, a.sq, bh, a.d, NQ)) != cudaSuccess ||
+      (err = hopper::encode_1d_f32(&tlse, lse, (uint64_t)bh * a.sq,
+                                   kDkvVecBox<D>)) != cudaSuccess ||
+      (err = hopper::encode_1d_f32(&tdelta, delta, (uint64_t)bh * a.sq,
+                                   kDkvVecBox<D>)) != cudaSuccess)
+    return err;
+  const size_t smem = fused_tc_smem<D>();
+  err = allow_smem_carveout(flash_bwd_fused_tc_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  int* flags = reinterpret_cast<int*>(dq_acc + (size_t)bh * a.sq * a.d);
+  const int n_kv = (a.sk + kTile - 1) / kTile;
+  if (n_kv < 2 || n_kv > kFusedMaxCluster || bh > 65535) {   // chained
+    flash_bwd_fused_tc_kernel<D, T><<<n_kv * bh, kTcThreads, smem, stream>>>(
+        tq, tk, tv, tdo, tlse, tdelta, dq_acc, flags, dq, dk, dv, a);
+    return cudaGetLastError();
+  }
+  // clustered: the kv-tile CTAs of a (b, h) form one cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_kv, bh);
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = n_kv;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_fused_tc_kernel<D, T>, tq, tk, tv,
+                           tdo, tlse, tdelta, dq_acc, flags, dq, dk, dv, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// CTAs of the fused kernel resident on one SM (its launch's attributes
+// set first), for a report
+template <int D, typename T>
+cudaError_t fused_tc_occupancy(int* blocks) {
+  const size_t smem = fused_tc_smem<D>();
+  const cudaError_t err =
+      allow_smem_carveout(flash_bwd_fused_tc_kernel<D, T>, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, flash_bwd_fused_tc_kernel<D, T>, kTcThreads, smem);
+}
+
 // The tile width a head dim runs at: the smallest of 32, 64, 128 that
 // holds it (0: not taken).  Any d % 8 == 0 up to 128 is taken, as by the
 // TPU kernels (pallas_kernels.py:702); above 128 the SIMT backward's
@@ -1395,7 +2009,40 @@ int kv_entry(const T* q, const T* k, const T* v, const T* dout,
   }
 }
 
-// the bf16 / fp16 split pair, on the tensor cores
+// the bf16 / fp16 kernels, on the tensor cores
+template <typename T>
+int fwd_tc_entry(const T* q, const T* k, const T* v, T* out, float* lse,
+                 int b, const Attn& a, cudaStream_t stream) {
+  switch (tile_width(a.d)) {
+    case 32: return launch_fwd_tc<32>(q, k, v, out, lse, b, a, stream);
+    case 64: return launch_fwd_tc<64>(q, k, v, out, lse, b, a, stream);
+    case 128: return launch_fwd_tc<128>(q, k, v, out, lse, b, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the fused kernel's tile width: 64 for head dims up to 64
+int fused_width(int d) {
+  const int w = tile_width(d);
+  return w == 32 ? 64 : w;
+}
+
+template <typename T>
+int fused_tc_entry(const T* q, const T* k, const T* v, const T* dout,
+                   const float* lse, const float* delta, float* dq_acc,
+                   T* dq, T* dk, T* dv, int b, const Attn& a,
+                   cudaStream_t stream) {
+  switch (fused_width(a.d)) {
+    case 64:
+      return launch_fused_tc<64>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
+                                 dv, b, a, stream);
+    case 128:
+      return launch_fused_tc<128>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
+                                  dv, b, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int dq_tc_entry(const T* q, const T* k, const T* v, const T* dout,
                 const float* lse, const float* delta, T* dq, int b,
@@ -1459,7 +2106,7 @@ int paddle_flash_fwd_f32(const float* q, const float* k, const float* v,
 int paddle_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                           const float* bias, bf16* out, float* lse, int b,
                           ATTN_ARGS) {
-  return fwd_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
+  return fwd_tc_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
@@ -1500,20 +2147,22 @@ int paddle_flash_bwd_fused_f32(const float* q, const float* k, const float* v,
                         MAKE_ATTN, stream);
 }
 
-// dq_acc: a float32 (b, h, sq, d) scratch the kernel fully writes
+// dq_acc: a float32 scratch of b h sq d floats (dQ's sums), then
+// b h ceil(sq / 32) + 1 words that the caller zeroes (the kernel's order
+// flags); q, k, v, dout, lse and delta 16-byte aligned (TMA)
 int paddle_flash_bwd_fused_bf16(const bf16* q, const bf16* k, const bf16* v,
                                 const float* bias, const bf16* dout,
                                 const float* lse, const float* delta,
                                 float* dq_acc, bf16* dq, bf16* dk, bf16* dv,
                                 int b, ATTN_ARGS) {
-  return kv_entry<true>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b,
+  return fused_tc_entry(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b,
                         MAKE_ATTN, stream);
 }
 
 int paddle_flash_fwd_fp16(const fp16* q, const fp16* k, const fp16* v,
                           const float* bias, fp16* out, float* lse, int b,
                           ATTN_ARGS) {
-  return fwd_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
+  return fwd_tc_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dq_fp16(const fp16* q, const fp16* k, const fp16* v,
@@ -1537,8 +2186,20 @@ int paddle_flash_bwd_fused_fp16(const fp16* q, const fp16* k, const fp16* v,
                                 const float* lse, const float* delta,
                                 float* dq_acc, fp16* dq, fp16* dk, fp16* dv,
                                 int b, ATTN_ARGS) {
-  return kv_entry<true>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b,
+  return fused_tc_entry(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, b,
                         MAKE_ATTN, stream);
+}
+
+// *blocks: the bf16 (is_fp16 = 0) or fp16 fused kernel's CTAs resident
+// on one SM at head dim d
+int paddle_flash_fused_occupancy(int d, int is_fp16, int* blocks) {
+  switch (fused_width(d) * 2 + (is_fp16 != 0)) {
+    case 128: return fused_tc_occupancy<64, bf16>(blocks);
+    case 129: return fused_tc_occupancy<64, fp16>(blocks);
+    case 256: return fused_tc_occupancy<128, bf16>(blocks);
+    case 257: return fused_tc_occupancy<128, fp16>(blocks);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 int paddle_flash_dropout_mask(unsigned char* keep, int b, int h, int sq,

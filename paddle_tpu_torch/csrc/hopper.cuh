@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written tensor-core kernels:
 // wgmma (warpgroup matrix multiply) descriptors and instructions, the
-// wgmma fence / commit / wait, mbarrier wrappers, TMA tile loads, and the
+// wgmma fence / commit / wait, mbarrier wrappers, thread-block cluster
+// barriers and distributed shared-memory reads, TMA tile loads, and the
 // host-side tensor-map encoder.
 //
 // The encoder looks cuTensorMapEncodeTiled up at run time through
@@ -75,6 +76,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// -------------------------------------------------- thread-block cluster
+// (a kernel launched without a cluster is a cluster of one CTA)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// every thread of every CTA of the cluster: the shared-memory writes
+// before it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the 4 floats at the same shared-memory offset as `local` (16-byte
+// aligned), in the CTA of the cluster with this rank
+__device__ __forceinline__ float4 ld_cluster_f32x4(const float* local,
+                                                   uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_addr(local)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote) : "memory");
+  return v;
 }
 
 // ------------------------------------------------------------------ TMA
@@ -152,6 +188,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads); a barrier then publishes them to the
+// other warps' wgmmas.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma owns across the wait (or reusing them before it).
 template <int N>
@@ -184,7 +227,7 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 // The m64nNk16 products with f32 accumulators.  d holds this thread's
 // N / 2 accumulators: d[4 n + 2 h + e] is row 16 warp + lane / 4 + 8 h,
 // column 8 n + 2 (lane % 4) + e.  `accumulate` 0 overwrites d.  TB = 1
-// reads B MN-major.
+// reads B MN-major; TA = 1 reads A MN-major (an A in shared memory only).
 #define HOPPER_ACC8(o)                                                   \
   "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),            \
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
@@ -205,13 +248,14 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
 
-// A and B from shared memory (descriptors); A K-major
-#define HOPPER_WGMMA_SS(N, TY, REGS, ACC, IA, IB, IS, IT)                  \
+// A and B from shared memory (descriptors); TA = 1 reads A MN-major
+#define HOPPER_WGMMA_SS(N, TY, REGS, ACC, IA, IB, IS, ITA, IT)             \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IS ", 0;\n"            \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
-               " " REGS ", %" IA ", %" IB ", p, 1, 1, 0, %" IT ";\n}\n"    \
+               " " REGS ", %" IA ", %" IB ", p, 1, 1, %" ITA ", %" IT      \
+               ";\n}\n"                                                    \
                : ACC                                                       \
-               : "l"(a), "l"(b), "r"(accumulate), "n"(TB))
+               : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB))
 // A from registers (four T x 2 registers, the accumulator's layout for
 // the 16 columns of one k16 step), B from shared memory
 #define HOPPER_WGMMA_RS(N, TY, REGS, ACC, IA, IB, IS, IT)                  \
@@ -225,25 +269,25 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 template <typename T>
 constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int TB>
+template <typename T, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
                                          uint64_t b, int accumulate) {
   if constexpr (kIsBf16<T>)
     HOPPER_WGMMA_SS(32, "bf16", HOPPER_REGS16, HOPPER_ACC16, "16", "17", "18",
-                    "19");
+                    "19", "20");
   else
     HOPPER_WGMMA_SS(32, "f16", HOPPER_REGS16, HOPPER_ACC16, "16", "17", "18",
-                    "19");
+                    "19", "20");
 }
-template <typename T, int TB>
+template <typename T, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int accumulate) {
   if constexpr (kIsBf16<T>)
     HOPPER_WGMMA_SS(64, "bf16", HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34",
-                    "35");
+                    "35", "36");
   else
     HOPPER_WGMMA_SS(64, "f16", HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34",
-                    "35");
+                    "35", "36");
 }
 template <typename T, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],

@@ -36,9 +36,10 @@ launches the kernels of ``csrc/flash_attention.cu`` for its dtype
 do not take its dtype or shape.  There is no other path.  The backward
 takes the fused kernel when ``sq <= 512`` and ``sk <= 512`` (one TPU
 block, ``pallas_kernels.py:532``) and the split dQ and dK/dV pair above
-that; in bf16 and fp16 that pair runs on the tensor cores and reads its
-inputs through TMA tensor maps, so a view off a 16-byte boundary is
-copied first.
+that.  In bf16 and fp16 the forward and both backwards run on the tensor
+cores (``wgmma``) and read their inputs through TMA tensor maps, so a
+view off a 16-byte boundary is copied first; the f32 kernels are SIMT
+f32 arithmetic (no TF32).
 
 Dropout (attention probabilities, upscale in train) is keyed by a seed:
 an int64 tensor of one element, drawn by the caller.  On the card the
@@ -99,6 +100,8 @@ FLASH = CudaKernel("flash_attention.cu", {
     "paddle_flash_bwd_dkv_fp16": [_P] * 9 + _ATTN,
     "paddle_flash_bwd_fused_fp16": [_P] * 11 + _ATTN,
     "paddle_flash_dropout_mask": [_P, _I, _I, _I, _I, _P, _U, _U, _P],
+    # not a launch: the bf16 / fp16 fused kernel's CTAs per SM, for reports
+    "paddle_flash_fused_occupancy": [_I, _I, _P],
 })
 FLASH_FWD = KernelFunction(FLASH, "paddle_flash_fwd_f32", "flash_fwd_f32")
 FLASH_BWD_FUSED = KernelFunction(FLASH, "paddle_flash_bwd_fused_f32",
@@ -350,6 +353,7 @@ def flash_fwd(q, k, v, bias, scale, causal, dropout_rate=0.0, seed=None):
     only).  Raises on anything the kernels do not take."""
     dev = _check_cuda("flash_fwd", q=q, k=k, v=v, bias=bias, seed=seed)
     b, h, sq, sk, d = _shapes("flash_fwd", q, k, v, bias)
+    q, k, v = _tma_ready(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -374,16 +378,28 @@ def _bwd_inputs(fn, q, k, v, bias, do, lse, delta, seed):
     return dev, (b, h, sq, sk, d)
 
 
+def _fused_scratch(b, h, sq, d, dev):
+    """The bf16 / fp16 fused kernel's float32 scratch: dQ's sums (b h sq d
+    floats), then its order flags, zeroed: a CTA counter and one flag per
+    (b h, q tile of 32 or 64 rows)."""
+    n = b * h * sq * d
+    buf = torch.empty(n + b * h * -(-sq // 32) + 1, dtype=torch.float32,
+                      device=dev)
+    buf[n:].zero_()
+    return buf
+
+
 def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
               dropout_rate=0.0, seed=None):
     """Launch ``flash_bwd_fused_f32``, ``_bf16`` or ``_fp16``: ``(dq, dk,
     dv)`` in one kernel.  The bf16 and fp16 kernels sum dQ in an f32
-    scratch allocated here and round it once."""
+    scratch allocated here, in kv order, and round it once."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_fused", q, k, v, bias, do, lse,
                                          delta, seed)
+    q, k, v, do, lse, delta = _tma_ready(q, k, v, do, lse, delta)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dq_acc = (None if q.dtype == torch.float32 else
-              torch.empty(q.shape, dtype=torch.float32, device=dev))
+              _fused_scratch(b, h, sq, d, dev))
     scratch = [] if dq_acc is None else [dq_acc.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -398,7 +414,7 @@ def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
 
 def _tma_ready(*tensors):
     """The tensors, each copied if its address is not 16-byte aligned: the
-    bf16 and fp16 split kernels read them through TMA tensor maps."""
+    bf16 and fp16 kernels read them through TMA tensor maps."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 

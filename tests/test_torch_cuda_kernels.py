@@ -591,15 +591,19 @@ def test_flash_head_dims_match_plain(cuda, dtype, d):
             assert all(ok(got, w) for got, w in zip(g, want))
 
 
-# the bf16 and fp16 split pair (wgmma with TMA-fed tiles): unequal and
-# ragged lengths (TMA zero-fills rows past each head's end), head dims
-# below the tile width (zero-filled columns), the dumped dropout mask,
-# determinism (no atomics) and one launch of each kernel per call
+# the bf16 and fp16 kernels on the tensor cores (wgmma with TMA-fed
+# tiles): the split pair, and the forward and the fused backward on the
+# same cases: unequal and ragged lengths (TMA zero-fills rows past each
+# head's end), head dims below the tile width (zero-filled columns), the
+# dumped dropout mask, determinism (no atomics in the pair; the fused
+# kernel sums dQ in a fixed order) and one launch of each kernel per call
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
                          ids=["bf16", "fp16"])
 @pytest.mark.parametrize("sq,sk,d", [
     (200, 1000, 64), (1000, 200, 64), (577, 577, 64), (2048, 2048, 64),
-    (1024, 1024, 40), (1024, 1024, 96), (1024, 1024, 120)])
+    (1024, 1024, 40), (1024, 1024, 96), (1024, 1024, 120),
+    (200, 500, 64), (500, 200, 64), (333, 333, 64), (512, 512, 64),
+    (300, 300, 40), (300, 300, 96), (300, 300, 120)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_split_pair_low_matches_plain(cuda, dtype, sq, sk, d, causal,
@@ -611,22 +615,29 @@ def test_flash_split_pair_low_matches_plain(cuda, dtype, sq, sk, d, causal,
     scale = d ** -0.5
     seed = torch.tensor([97], dtype=torch.int64, device=cuda)
     keep = tfa.flash_dropout_mask(b, h, sq, sk, rate, seed) if rate else None
-    out, lse = tfa.flash_fwd(q, k, v, bias, scale, causal, rate, seed)
+    sd = seed if rate else None
+    kernels = [tfa._KERNELS[dtype][n] for n in ("dq", "dkv", "fwd", "fused")]
+    before = [kf.launches for kf in kernels]
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, causal, rate, sd)
+    want_out, want_lse = tfa.flash_fwd_reference(q, k, v, bias, scale,
+                                                 causal, rate, keep)
     want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
                                    causal, rate, keep)
     args = (q, k, v, bias, do, lse, (do.float() * out.float()).sum(-1),
-            scale, causal, rate, seed if rate else None)
+            scale, causal, rate, sd)
     ok = _fp16_ok if dtype == torch.float16 else _bf16_ok
-    split = tfa._KERNELS[dtype]["dq"], tfa._KERNELS[dtype]["dkv"]
-    before = [kf.launches for kf in split]
     grads = (tfa.bwd_dq(*args), *tfa.bwd_dkv(*args))
+    fused = tfa.bwd_fused(*args)
     torch.cuda.synchronize()
-    assert [kf.launches - n for kf, n in zip(split, before)] == [1, 1]
-    for got, w in zip(grads, want):
+    assert [kf.launches - n for kf, n in zip(kernels, before)] == [1] * 4
+    assert ok(out, want_out)
+    assert float((lse - want_lse).abs().max()) <= ATOL
+    for got, w in zip(grads + fused, want + want):
         assert ok(got, w)
-    again = (tfa.bwd_dq(*args), *tfa.bwd_dkv(*args))
+    again = (tfa.bwd_dq(*args), *tfa.bwd_dkv(*args), *tfa.bwd_fused(*args),
+             *tfa.flash_fwd(q, k, v, bias, scale, causal, rate, sd))
     torch.cuda.synchronize()
-    for got, g2 in zip(grads, again):
+    for got, g2 in zip(grads + fused + (out, lse), again):
         assert torch.equal(got, g2)
 
 
@@ -634,7 +645,8 @@ def test_flash_split_pair_low_matches_plain(cuda, dtype, sq, sk, d, causal,
                          ids=["bf16", "fp16"])
 def test_flash_split_pair_takes_unaligned_inputs(cuda, dtype):
     """Contiguous views that start off a 16-byte boundary (TMA's base
-    alignment) give what aligned copies give."""
+    alignment) give what aligned copies give: the split pair, the forward
+    and the fused backward."""
     b, h, s, d = 1, 2, 300, 64
     q, k, v, do, bias = _flash_case(cuda, 12, b, h, s, s, d, True)
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
@@ -650,11 +662,16 @@ def test_flash_split_pair_takes_unaligned_inputs(cuda, dtype):
         return view
 
     want = (tfa.bwd_dq(q, k, v, bias, do, lse, delta, 0.125, False),
-            *tfa.bwd_dkv(q, k, v, bias, do, lse, delta, 0.125, False))
+            *tfa.bwd_dkv(q, k, v, bias, do, lse, delta, 0.125, False),
+            *tfa.bwd_fused(q, k, v, bias, do, lse, delta, 0.125, False),
+            out, lse)
     moved = [shifted(t) for t in (q, k, v, do, lse, delta)]
     qs, ks, vs, dos, lses, deltas = moved
     got = (tfa.bwd_dq(qs, ks, vs, bias, dos, lses, deltas, 0.125, False),
-           *tfa.bwd_dkv(qs, ks, vs, bias, dos, lses, deltas, 0.125, False))
+           *tfa.bwd_dkv(qs, ks, vs, bias, dos, lses, deltas, 0.125, False),
+           *tfa.bwd_fused(qs, ks, vs, bias, dos, lses, deltas, 0.125,
+                          False),
+           *tfa.flash_fwd(qs, ks, vs, bias, 0.125, False))
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -281,6 +281,39 @@ def test_cpu_path_launches_no_kernel_and_wrappers_refuse_cpu():
         tfa.flash_attention(q, k, v, dropout_rate=0.1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "fp16"])
+@pytest.mark.parametrize("sq,sk", [(512, 512), (513, 513), (512, 513),
+                                   (100, 600)])
+def test_flash_bwd_routes_by_sequence_length(monkeypatch, dtype, sq, sk):
+    """The card's backward takes the fused kernel when both lengths are at
+    most FUSED_BWD_MAX_SEQ and the split pair above: the wrappers are
+    replaced by recorders, so the rule is pinned without a card."""
+    calls = []
+
+    def recorder(name, n_out):
+        def launch(q, k, v, bias, do, lse, delta, *attrs):
+            calls.append((name, tuple(delta.shape), delta.dtype))
+            outs = (torch.zeros_like(q), torch.zeros_like(k),
+                    torch.zeros_like(v))
+            return outs if n_out == 3 else (outs[0] if name == "dq"
+                                            else outs[1:])
+        return launch
+
+    monkeypatch.setattr(tfa, "bwd_fused", recorder("fused", 3))
+    monkeypatch.setattr(tfa, "bwd_dq", recorder("dq", 1))
+    monkeypatch.setattr(tfa, "bwd_dkv", recorder("dkv", 2))
+    q, out, do = (torch.ones(2, 3, sq, 64, dtype=dtype) for _ in range(3))
+    k, v = (torch.ones(2, 3, sk, 64, dtype=dtype) for _ in range(2))
+    lse = torch.zeros(2, 3, sq)
+    dq, dk, dv = tfa.flash_bwd(q, k, v, None, out, lse, do, 0.125, False)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    fused = max(sq, sk) <= tfa.FUSED_BWD_MAX_SEQ
+    names = ["fused"] if fused else ["dq", "dkv"]
+    # delta = rowsum(dO * O) in f32, as the kernels take it
+    assert calls == [(n, (2, 3, sq), torch.float32) for n in names]
+
+
 # ==========================================================================
 # bfloat16: the plain versions round p, pd and dS to bf16 where the TPU
 # kernels cast them, as the CUDA kernels do
