@@ -14,9 +14,11 @@ Phases (any failure exits non-zero and prints no result):
    ``nvcc`` from the sources in this checkout (one ``nvcc`` per source,
    all at once: six sources), with ``ptxas``'s register and spill lines;
    the SASS (``cuobjdump -sass``) of every instance of the bf16 and fp16
-   flash kernels (forward, fused backward, split dQ and dK/dV) must hold
-   HGMMA (tensor-core) instructions, and ptxas must report no spill
-   stores for them (``tensor_cores`` lines);
+   flash kernels (forward, fused backward, split dQ and dK/dV) and of the
+   bf16 and fp16 kernel 9 (each variant: the TMA feed at 64 x 64 and
+   128 x 128 tiles, the cp.async feed; each bias dtype) must hold HGMMA
+   (tensor-core) instructions, and ptxas must report no spill stores for
+   them (``tensor_cores`` lines);
 3. paged decode, kernel vs plain version: the paged-decode kernel against
    its plain PyTorch version on the card, at the serving shape and a GQA
    shape;
@@ -78,9 +80,13 @@ Phases (any failure exits non-zero and prints no result):
       ms/step and ``max_memory_allocated``; then 3 steps at seq 2048
       (batch 2), whose backward launches the split bf16 pair 12 times each;
    d. the bf16 gelu kernels (``gelu_fwd_bf16``, ``gelu_bwd_bf16``, the
-      rounding points of JAX's compiled gelu) against their plain versions
-      bit for bit at BERT's FFN shape and a ragged one, and timed against
-      the byte bound, the plain versions and ``F.gelu`` in bf16; then the
+      rounding points of JAX's compiled gelu): their tables, built on the
+      card, equal to ``gelu_table_reference``'s; the forward on all 65,536
+      inputs and the backward on every input with 4 seeded dy bit for bit
+      with their plain versions run on the CPU (``gelu_every_input``
+      line), and at BERT's FFN shape and a ragged one; timed against
+      the byte bound, the plain versions, ``F.gelu`` in bf16 and one
+      PyTorch call that moves the same bytes (a copy, an add); then the
       same training under AMP O2 over 2 + 5 steps; every parameter bf16,
       every updated one with an f32 master and f32 moments in the
       optimizer; each step launching each gelu kernel once per layer and
@@ -170,11 +176,16 @@ Phases (any failure exits non-zero and prints no result):
       the state after step 1, velocities and the rest apart, within
       twice that noisy twin's worst and median per-tensor error;
    i. matmul epilogue bf16: ``matmul_bias_act_bf16`` (tensor cores) at
-      phase 13's shapes and every act against its plain version (the AMP
-      program's unfused chain): every output within one bf16 ulp of the
-      largest, a bf16 bias once; timed against the bound (2MNK / 989
-      TFLOP/s, bf16 operand bytes), the plain version and ``torch.addmm``
-      in bf16 plus the act; the four calls of one LeNet step together;
+      the tile edges (MATMUL_LOW_EDGES: every variant that takes the shape
+      with gelu and both bias dtypes, the variant ``tc_variant`` picks
+      with every act; ``matmul_edge_bf16`` lines) and at phase 13's shapes
+      with every act against its plain version (the AMP program's unfused
+      chain): every output within one bf16 rounding of its product, a bf16
+      bias once; timed against the bound (2MNK / 989 TFLOP/s, bf16 operand
+      bytes), the plain version and ``torch.addmm`` in bf16 plus the act,
+      with TFLOP/s and the share of the bound; FFN-in a second time with a
+      bf16 bias (a bf16 output, the bytes ``addmm`` writes); the four
+      calls of one LeNet step together;
    j. LeNet and word2vec under ``decorate`` at phase 14-15's
       configurations: the bf16 kernel 9 launched 4 and 2 times a step and
       the f32 one never;
@@ -678,15 +689,14 @@ def flash_kernels(dtype="f32"):
     return {kf.name: kf for kf in pick}
 
 
-def tensor_core_check(flash):
-    """Every instance of the eight bf16 / fp16 flash kernels: its SASS (by
-    ``cuobjdump -sass`` of the built library) holds HGMMA instructions,
-    and ptxas reported no spill stores for it.  Prints one line each."""
+def sass_counts(lib):
+    """({function: HGMMA instructions in its SASS}, {function: ptxas's
+    spill-store bytes}) of a built library (``cuobjdump -sass``)."""
     from paddle_tpu_torch import kernel_build
 
     cuobjdump = os.path.join(os.path.dirname(kernel_build.nvcc_path()),
                              "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", flash.lib_path()],
+    sass = subprocess.run([cuobjdump, "-sass", lib.lib_path()],
                           capture_output=True, text=True, timeout=600,
                           check=True).stdout
     hgmma, fn = {}, None
@@ -698,7 +708,7 @@ def tensor_core_check(flash):
         elif fn is not None and "HGMMA" in ln:
             hgmma[fn] += 1
     spills, fn = {}, None
-    for ln in flash.build_log.splitlines():
+    for ln in lib.build_log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([A-Za-z0-9_]+)", ln)
         if m:
@@ -706,6 +716,14 @@ def tensor_core_check(flash):
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and fn is not None:
             spills[fn] = int(m.group(1))
+    return hgmma, spills
+
+
+def tensor_core_check(flash):
+    """Every instance of the eight bf16 / fp16 flash kernels: its SASS (by
+    ``cuobjdump -sass`` of the built library) holds HGMMA instructions,
+    and ptxas reported no spill stores for it.  Prints one line each."""
+    hgmma, spills = sass_counts(flash)
     for entry, (kernel, elem, widths) in TC_KERNELS.items():
         insts = sorted(n for n in hgmma if kernel in n and elem in n)
         got = sorted(int(re.search(r"ILi(\d+)E", n).group(1)) for n in insts)
@@ -722,6 +740,43 @@ def tensor_core_check(flash):
             if spills.get(n) != 0:
                 fail(f"{entry} (tile width {width}): ptxas reports spill "
                      f"stores {spills.get(n)}")
+
+
+def matmul_tensor_core_check(tc):
+    """Every instance of the bf16 / fp16 kernel 9 (its TMA variants and
+    its cp.async one, with an f32 and a 16-bit bias): HGMMA in its SASS
+    and no spill stores.  Prints one line each."""
+    from paddle_tpu_torch.ops.matmul_epilogue import TC_VARIANTS
+
+    hgmma, spills = sass_counts(tc)
+    insts = [n for n in hgmma
+             if "mm_tma_kernel" in n or "mm_cpasync_kernel" in n]
+    # one instance per variant, operand dtype and bias dtype
+    if len(insts) != 4 * len(TC_VARIANTS):
+        fail(f"kernel 9: {len(insts)} tensor-core instances in the SASS, "
+             f"expected {4 * len(TC_VARIANTS)}")
+    for n in sorted(insts):
+        tag = "bf16" if "13__nv_bfloat16" in n else "fp16"
+        m = re.search(r"mm_tma_kernelI\w+?(f|S\d*_)Li(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)E", n)
+        if m:
+            feed = (f"tma {64 * int(m.group(2))}x{m.group(3)}, "
+                    f"{m.group(4)} stages, {m.group(5)} CTAs/SM")
+            bias = "f32" if m.group(1) == "f" else tag
+        else:
+            feed = "cp.async 64x64"
+            bias = "f32" if re.search(r"mm_cpasync_kernelI\w+?fEEv", n) \
+                else tag
+        print("tensor_cores " + json.dumps({
+            "kernel": f"matmul_bias_act_{tag}", "variant": feed,
+            "bias": bias, "hgmma": hgmma[n],
+            "spill_stores": spills.get(n)}), flush=True)
+        if hgmma[n] == 0:
+            fail(f"matmul_bias_act_{tag} ({feed}, {bias} bias): no HGMMA in "
+                 f"its SASS")
+        if spills.get(n) != 0:
+            fail(f"matmul_bias_act_{tag} ({feed}, {bias} bias): ptxas "
+                 f"reports spill stores {spills.get(n)}")
 
 
 def make_flash_case(seed, b, h, s, d, with_bias):
@@ -2019,12 +2074,26 @@ AMP_LENET_LOSS_ATOL = {"bfloat16": 5e-2, "float16": 5e-2}
 FP16_CLEAN_STEPS, FP16_MAX_STEPS = 4, 80
 
 
+def same16(got, want) -> bool:
+    """Bit for bit, NaN where ``want`` has NaN."""
+    import torch
+
+    nan = torch.isnan(want.float())
+    return bool(torch.equal(torch.isnan(got.float()), nan)) and bool(
+        torch.equal(got.view(torch.int16)[~nan], want.view(torch.int16)[~nan]))
+
+
 def gelu_phase(amp_dtype="bfloat16"):
-    """The bf16 (or fp16) gelu kernels against their plain versions bit
-    for bit at BERT-base's FFN shape (22528 x 3072) and a ragged one,
-    then timed at the FFN shape against the bound, the plain versions and
-    ``F.gelu`` in that dtype (forward; its backward alone).  Returns
-    {kernel: row}."""
+    """The bf16 (or fp16) gelu kernels: their tables (built on the card by
+    the kernels' arithmetic) equal to ``gelu_table_reference`` (the plain
+    ops on the CPU); the forward on all 65,536 inputs and the backward on
+    every input with 4 seeded dy, and both at BERT-base's FFN shape
+    (22528 x 3072) and a ragged one, bit for bit with the plain versions
+    run on the CPU (JAX's values on every finite input; on the card the
+    plain bf16 version's exp, CUDA's expf, is a rounding step off at x =
+    -1.71875); then timed at the FFN shape against the bound, the plain
+    versions on the card and ``F.gelu`` in that dtype (forward; its
+    backward alone).  Returns {kernel: row}."""
     import torch
     import torch.nn.functional as F
 
@@ -2039,14 +2108,32 @@ def gelu_phase(amp_dtype="bfloat16"):
     fname, bname = f"gelu_fwd_{tag}", f"gelu_bwd_{tag}"
     rows = {}
     errs = {fname: 0.0, bname: 0.0}
+    if not torch.equal(gelu.gelu_tables(dt, "cuda").cpu(),
+                       gelu.gelu_table_reference(dt)):
+        fail(f"gelu {tag}: the card's tables differ from "
+             f"gelu_table_reference")
+    every = torch.arange(65536, dtype=torch.int32, device="cuda").to(
+        torch.int16).view(dt)
+    if not same16(k_fwd(every).cpu(), p_fwd(every.cpu())):
+        fail(f"{fname} differs from its plain version on the 65,536 inputs")
+    xs = every.repeat(4)
+    dys = torch.tensor(np.random.RandomState(22).randn(xs.numel()),
+                       dtype=torch.float32, device="cuda").to(dt)
+    if not same16(k_bwd(xs, dys).cpu(), p_bwd(xs.cpu(), dys.cpu())):
+        fail(f"{bname} differs from its plain version on every input "
+             f"with 4 dy")
+    print(f"gelu_every_input_{tag} " + json.dumps({
+        "forward_inputs": 65536, "backward_pairs": xs.numel(),
+        "bit_equal": True, "band": list(gelu.GELU_BANDS[dt])}), flush=True)
+    del every, xs, dys
     gen = torch.Generator(device="cuda").manual_seed(21)
     ffn = (22528, 3072)
     for shape in (ffn, (1001, 37)):
         x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dt)
         dy = torch.randn(shape, device="cuda", generator=gen).to(dt)
-        got, want = k_fwd(x), p_fwd(x)
-        gdx, wdx = k_bwd(x, dy), p_bwd(x, dy)
-        torch.cuda.synchronize()
+        got, gdx = k_fwd(x).cpu(), k_bwd(x, dy).cpu()
+        x, dy = x.cpu(), dy.cpu()
+        want, wdx = p_fwd(x), p_bwd(x, dy)
         fwd = float((got.float() - want.float()).abs().max())
         bwd = float((gdx.float() - wdx.float()).abs().max())
         errs[fname] = max(errs[fname], fwd)
@@ -2054,6 +2141,7 @@ def gelu_phase(amp_dtype="bfloat16"):
         if not (torch.equal(got, want) and torch.equal(gdx, wdx)):
             fail(f"gelu {tag} kernels differ from their plain versions at "
                  f"{shape}: forward {fwd}, backward {bwd}")
+        del x, dy, got, gdx, want, wdx
     n = ffn[0] * ffn[1]
     count = max(2, -(-COLD_BYTES // (4 * n)))
     sets = [((torch.randn(ffn, device="cuda", generator=gen) * 3).to(dt),
@@ -2063,16 +2151,20 @@ def gelu_phase(amp_dtype="bfloat16"):
     def lib_bwd(x, dy):
         return torch.ops.aten.gelu_backward(dy, x)
 
-    for name, kern, plain, lib, nbytes in (
+    # the same bytes moved by one PyTorch call without the arithmetic (a
+    # copy for the forward, an add for the backward): the streaming rate
+    # the card reaches for this shape
+    for name, kern, plain, lib, copy, nbytes in (
             (fname, lambda x, dy: k_fwd(x), lambda x, dy: p_fwd(x),
-             lambda x, dy: F.gelu(x), 4 * n),
-            (bname, k_bwd, p_bwd, lib_bwd, 6 * n)):
+             lambda x, dy: F.gelu(x), lambda x, dy: x.clone(), 4 * n),
+            (bname, k_bwd, p_bwd, lib_bwd, lambda x, dy: x + dy, 6 * n)):
         rows[name] = {"shape": list(ffn), "max_abs_err": errs[name],
                       "ms": time_ms(kern, sets, 8, 5),
                       "plain_ms": time_ms(plain, sets, 4, 2),
                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                       "bound_by": "bytes",
-                      "library_ms": time_ms(lib, sets, 8, 5)}
+                      "library_ms": time_ms(lib, sets, 8, 5),
+                      "copy_ms": time_ms(copy, sets, 8, 5)}
         print(f"gelu_time {name} " + json.dumps(rows[name]), flush=True)
     del sets
     torch.cuda.empty_cache()
@@ -2221,11 +2313,19 @@ def time_epilogue_low(amp_dtype, sets, layout):
     return rows
 
 
-def matmul_low_bound(m, k, n):
-    """(bound_ms, bytes, flops): 16-bit x and w, f32 bias and output, read
-    or written once; 2MNK operations at the bf16 / fp16 tensor-core peak
-    (the same 989 TFLOP/s)."""
-    nbytes = 2 * (m * k + k * n) + 4 * (n + m * n)
+# kernel 9's tile edges in bf16 / fp16 (M, K, N): around the 64- and
+# 128-row tiles, the 64-deep stages and the 128- and 256-wide column
+# tiles, with K and N multiples of 8 so that every variant takes them,
+# a K of 72 (a ragged second stage), and one all-odd shape (cp.async only)
+MATMUL_LOW_EDGES = ((127, 128, 136), (129, 136, 128), (255, 256, 264),
+                    (257, 248, 256), (200, 72, 136), (255, 257, 263))
+
+
+def matmul_low_bound(m, k, n, low_out=False):
+    """(bound_ms, bytes, flops): 16-bit x and w, f32 bias and output (or,
+    ``low_out``, 16-bit ones), read or written once; 2MNK operations at
+    the bf16 / fp16 tensor-core peak (the same 989 TFLOP/s)."""
+    nbytes = 2 * (m * k + k * n) + (2 if low_out else 4) * (n + m * n)
     flops = 2 * m * n * k
     return (max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
             nbytes, flops)
@@ -2257,6 +2357,51 @@ def matmul_low_phase(amp_dtype):
         return x.to(dt), w.to(dt), b, b.to(dt)
 
     err = 0.0
+    # the tile edges: each variant that takes the shape, gelu (the
+    # steepest act), both bias dtypes; the variant tc_variant picks with
+    # every act
+    for m, k, n in MATMUL_LOW_EDGES:
+        x, w, b, b16 = low_set(m, k, n, 290)
+        signed = x.float() @ w.float()
+        prod = signed.abs()
+        pre = (signed + b16.float()).abs()
+        prod_tol = step_ulp * prod
+        if AMP[amp_dtype]["acc"]:
+            prod_tol += AMP[amp_dtype]["acc"] * (x.float().abs()
+                                                 @ w.float().abs())
+        picked = me.tc_variant(m, n, k)
+        worst = 0.0
+        for variant in me.TC_VARIANTS:
+            if variant != "cp.async 64x64" and (k % 8 or n % 8):
+                continue
+            for act in (ACTS if variant == picked else ("gelu",)):
+                for bias in (b, b16):
+                    got = getattr(me, kname)(x, w, bias, act, variant)
+                    want = me.matmul_bias_act_reference(x, w, bias, act)
+                    torch.cuda.synchronize()
+                    bound = (MATMUL_BF16_SLOPE * prod_tol
+                             + 1e-6 * want.float().abs() + 1e-7)
+                    if bias is b16:
+                        # the 16-bit sum's rounding, as the card tests
+                        # hold it (tests/test_torch_cuda_kernels.py)
+                        bound = bound + (
+                            2.0 ** -8 * want.float().abs() if tag == "bf16"
+                            else MATMUL_BF16_SLOPE * 2.0 ** -10 * pre
+                            + 2.0 ** -11 * want.float().abs())
+                    diff = (got.float() - want.float()).abs()
+                    if got.dtype != bias.dtype or not (
+                            torch.isfinite(got).all()
+                            and bool((diff <= bound).all())):
+                        fail(f"{kname} ({variant}) at {m}x{k}x{n} act "
+                             f"{act!r}, {bias.dtype} bias: "
+                             f"{ulps_off(got, want, unit):.2f} units off")
+                    worst = max(worst, ulps_off(got, want, unit))
+                    err = max(err, float(diff.max()))
+        print(f"matmul_edge_{tag} " + json.dumps({
+            "M": m, "K": k, "N": n, "picked": picked,
+            "variants": [v for v in me.TC_VARIANTS if v == "cp.async 64x64"
+                         or not (k % 8 or n % 8)],
+            "worst_units": worst}), flush=True)
     sets, rows = {}, {}
     for name, m, k, n, acts in MATMUL_SHAPES:
         nbytes = matmul_low_bound(m, k, n)[1]
@@ -2316,9 +2461,30 @@ def matmul_low_phase(amp_dtype):
                 lambda x, w, b, b16: apply_act(torch.addmm(b16, x, w), act),
                 sets[name], per_graph, replays)})
         row["tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = bound_ms / row["ms"]
+        row["variant"] = me.tc_variant(m, n, k)
         rows[name] = row
         print(f"matmul_case_{tag} " + json.dumps(row), flush=True)
         if m * n * k > 1e9:
+            # the same product with a 16-bit bias: a 16-bit output, the
+            # bytes addmm writes
+            bound16, nbytes16, _ = matmul_low_bound(m, k, n, low_out=True)
+            row16 = {"shape": name, "M": m, "K": k, "N": n, "bias": tag,
+                     "act": act, "input_sets": len(sets[name]),
+                     "ms": time_ms(lambda x, w, b, b16: me.matmul_bias_act(
+                         x, w, b16, act), sets[name], per_graph, replays),
+                     "plain_ms": time_ms(
+                         lambda x, w, b, b16: me.matmul_bias_act_reference(
+                             x, w, b16, act), sets[name], per_graph,
+                         replays),
+                     "bound_ms": bound16,
+                     "bound_by": ("bytes" if nbytes16 / HBM_BYTES_PER_S
+                                  >= flops / BF16_FLOP_PER_S
+                                  else "operations"),
+                     "library_ms": row["library_ms"]}
+            row16["tflops"] = flops / row16["ms"] / 1e9
+            row16["bound_share"] = bound16 / row16["ms"]
+            print(f"matmul_case_{tag} " + json.dumps(row16), flush=True)
             del sets[name]
             torch.cuda.empty_cache()
     args = [(*sets[name][i % len(sets[name])], act)
@@ -3152,6 +3318,7 @@ def main():
                     or "Compiling entry" in ln):
                 print("  ptxas: " + ln.strip())
     tensor_core_check(FLASH)
+    matmul_tensor_core_check(MATMUL_BIAS_ACT_TC)
 
     phase("paged decode: kernel vs plain version, times")
     rng = np.random.RandomState(0)

@@ -59,6 +59,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
+// one plain arrival (a consumer handing a ring stage back)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // spins until the barrier's phase of this parity has completed; traps
 // after about 2^34 clocks (seconds), so a copy that never lands fails the
 // launch instead of hanging the card
@@ -134,6 +141,32 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0)
       : "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+// `bytes` (4, 8 or 16) from global src into shared dst; only the first
+// src_bytes are read, the rest of the chunk is zero-filled (0: all zero)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         uint32_t src_bytes) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // -------------------------------------------------------- tile geometry
@@ -288,6 +321,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
   else
     HOPPER_WGMMA_SS(64, "f16", HOPPER_REGS32, HOPPER_ACC32, "32", "33", "34",
                     "35", "36");
+}
+template <typename T, int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (kIsBf16<T>)
+    HOPPER_WGMMA_SS(128, "bf16", HOPPER_REGS64, HOPPER_ACC64, "64", "65", "66",
+                    "67", "68");
+  else
+    HOPPER_WGMMA_SS(128, "f16", HOPPER_REGS64, HOPPER_ACC64, "64", "65", "66",
+                    "67", "68");
 }
 template <typename T, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],

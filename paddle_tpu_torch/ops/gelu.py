@@ -25,9 +25,18 @@ compiled form on about a fifth of bf16 inputs and on 31.8% of fp16
 inputs (forward; 52.1% backward).  :func:`gelu_lowp` is the bf16 and fp16
 gelu of the port: the kernels ``gelu_fwd_bf16`` / ``gelu_bwd_bf16`` and
 ``gelu_fwd_fp16`` / ``gelu_bwd_fp16`` (``csrc/gelu_lowp.cu``) on the card,
-the plain versions below on the CPU; the kernels do the plain versions'
-ops in one pass and equal them bit for bit on the card.  None replaces a
-Pallas kernel: XLA fuses the JAX lowering on its own.
+the plain versions below on the CPU; the kernels equal the plain versions
+bit for bit on the card.  None replaces a Pallas kernel: XLA fuses the JAX
+lowering on its own.
+
+What depends on x alone sits in tables that a kernel builds once per
+device and dtype (:func:`gelu_tables`): the ``e = erfc`` and ``ee = exp``
+terms of the inputs whose magnitude lies in their bands,
+:data:`GELU_BANDS` (outside a band they equal those at its nearer edge,
+so the kernels clamp the index; bf16 pairs the two terms over one band,
+fp16 evaluates e's ``|u| < 1`` branch instead of tabling it); the
+forward is ``rb(rb(0.5 x) * e)``, the backward the dy-dependent rest.
+:func:`gelu_table_reference` computes the same tables with the plain ops.
 """
 from __future__ import annotations
 
@@ -39,26 +48,47 @@ from ..kernel_build import CudaKernel, KernelFunction
 
 __all__ = ["erfc_xla", "gelu_bf16_reference", "gelu_bf16_grad_reference",
            "gelu_fp16_reference", "gelu_fp16_grad_reference",
+           "gelu_table_reference", "gelu_xterms_reference", "gelu_tables",
+           "GELU_BANDS",
            "gelu_fwd_bf16", "gelu_bwd_bf16", "gelu_fwd_fp16",
            "gelu_bwd_fp16", "gelu_lowp", "GELU", "GELU_FWD_BF16",
-           "GELU_BWD_BF16", "GELU_FWD_FP16", "GELU_BWD_FP16"]
+           "GELU_BWD_BF16", "GELU_FWD_FP16", "GELU_BWD_FP16",
+           "GELU_TABLES_BF16", "GELU_TABLES_FP16"]
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
+_I = ctypes.c_int
 #: the hand-written Hopper kernels' library (csrc/gelu_lowp.cu)
 GELU = CudaKernel("gelu_lowp.cu", {
-    "paddle_gelu_fwd_bf16": [_P, _P, _L, _P],
-    "paddle_gelu_bwd_bf16": [_P, _P, _P, _L, _P],
-    "paddle_gelu_fwd_fp16": [_P, _P, _L, _P],
-    "paddle_gelu_bwd_fp16": [_P, _P, _P, _L, _P],
+    "paddle_gelu_tables_bf16": [_P, _I, _I, _I, _I, _P],
+    "paddle_gelu_tables_fp16": [_P, _I, _I, _I, _I, _P],
+    "paddle_gelu_fwd_bf16": [_P, _P, _L, _P, _I, _I, _I, _I, _P],
+    "paddle_gelu_bwd_bf16": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P],
+    "paddle_gelu_fwd_fp16": [_P, _P, _L, _P, _I, _I, _I, _I, _P],
+    "paddle_gelu_bwd_fp16": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _P],
 })
 GELU_FWD_BF16 = KernelFunction(GELU, "paddle_gelu_fwd_bf16", "gelu_fwd_bf16")
 GELU_BWD_BF16 = KernelFunction(GELU, "paddle_gelu_bwd_bf16", "gelu_bwd_bf16")
 GELU_FWD_FP16 = KernelFunction(GELU, "paddle_gelu_fwd_fp16", "gelu_fwd_fp16")
 GELU_BWD_FP16 = KernelFunction(GELU, "paddle_gelu_bwd_fp16", "gelu_bwd_fp16")
-#: the kernels by dtype: (forward, backward)
-_KERNELS = {torch.bfloat16: (GELU_FWD_BF16, GELU_BWD_BF16),
-            torch.float16: (GELU_FWD_FP16, GELU_BWD_FP16)}
+#: the tables' builders, launched once per device and dtype
+GELU_TABLES_BF16 = KernelFunction(GELU, "paddle_gelu_tables_bf16",
+                                  "gelu_tables_bf16")
+GELU_TABLES_FP16 = KernelFunction(GELU, "paddle_gelu_tables_fp16",
+                                  "gelu_tables_fp16")
+#: the kernels by dtype: (forward, backward, table builder)
+_KERNELS = {torch.bfloat16: (GELU_FWD_BF16, GELU_BWD_BF16, GELU_TABLES_BF16),
+            torch.float16: (GELU_FWD_FP16, GELU_BWD_FP16, GELU_TABLES_FP16)}
+#: per dtype, the bands ((lo, hi) of |x|'s 15 bits, x's bits without the
+#: sign) over which the tables hold e (each sign) and ee: at and below lo
+#: a term equals that of lo, at and above hi - 1 (Inf included) that of
+#: hi - 1.  bf16 pairs e and ee over one band (each sign); fp16 holds ee
+#: (even in x) over its own band of one sign, and its e band starts at
+#: 1.4140625, the least |x| whose u = fp16(0.70703125 |x|) is 1: below it
+#: the kernels evaluate the small branch of erfc.
+#: tests/test_torch_gelu_lowp.py proves the bands on every input.
+GELU_BANDS = {torch.bfloat16: ((15136, 16725), (15136, 16725)),
+              torch.float16: ((15784, 17804), (9641, 17893))}
 
 _FLT_MIN = 1.1754943508222875e-38
 _SQRT_HALF = 0.70703125      # sqrt(1/2) rounded to bf16
@@ -149,6 +179,96 @@ def gelu_fp16_grad_reference(x: torch.Tensor, dy: torch.Tensor
     return (t2 - m3 * _SQRT_HALF).to(torch.float16)
 
 
+def gelu_xterms_reference(x: torch.Tensor) -> tuple:
+    """The x-only terms of the bf16 or fp16 backward, ``e`` (erfc) and
+    ``ee`` (exp), by the plain ops (those of ``gelu_*_grad_reference``),
+    in x's dtype."""
+    if x.dtype == torch.bfloat16:
+        u32 = _ftz(x.float()) * -_SQRT_HALF
+        e = _rb(erfc_xla(u32))
+        u = _rb(u32)
+        ee = _rb(_ftz(torch.exp(-_rb(u * u))))
+    else:
+        u = _rh(x.float() * -_SQRT_HALF)
+        e = _rh(erfc_xla(u))
+        ee = _rh(torch.exp(-_rh(u * u)))
+    return e.to(x.dtype), ee.to(x.dtype)
+
+
+def _ee_offset(span_e: int) -> int:
+    """Where the ee table starts: after the e table, 16-byte aligned."""
+    return -(-2 * span_e // 8) * 8
+
+
+def _table_len(dtype, bands) -> int:
+    (lo_e, hi_e), (lo_ee, hi_ee) = bands
+    if dtype == torch.bfloat16:
+        return 4 * (hi_e - lo_e)
+    return _ee_offset(hi_e - lo_e) + hi_ee - lo_ee
+
+
+def gelu_table_reference(dtype, bands=None) -> torch.Tensor:
+    """The ``dtype`` (bf16 or fp16) kernels' tables by the plain ops on the
+    CPU, as :func:`gelu_tables` lays them out (int16), over ``bands`` =
+    ((lo_e, hi_e), (lo_ee, hi_ee)) (by default :data:`GELU_BANDS`'), for
+    the input of sign ``s`` and magnitude bits ``a``, ``i = s * (hi_e -
+    lo_e) + a - lo_e``: bf16 holds e at ``2 i`` and ee at ``2 i + 1`` (its
+    ee band is e's); fp16 holds e at ``i`` and, from ``2 * (hi_e - lo_e)``
+    rounded up to a multiple of 8, ee of magnitude bits ``a`` at ``a -
+    lo_ee``."""
+    bands = bands or GELU_BANDS[dtype]
+    (lo_e, hi_e), (lo_ee, hi_ee) = bands
+    mags = torch.arange(lo_e, hi_e, dtype=torch.int32)
+    xe = torch.cat([mags, mags | 0x8000]).to(torch.int16).view(dtype)
+    e, ee = (t.view(torch.int16) for t in gelu_xterms_reference(xe))
+    out = torch.zeros(_table_len(dtype, bands), dtype=torch.int16)
+    if dtype == torch.bfloat16:
+        out[0::2], out[1::2] = e, ee
+        return out
+    xee = torch.arange(lo_ee, hi_ee, dtype=torch.int32).to(
+        torch.int16).view(dtype)
+    out[:2 * (hi_e - lo_e)] = e
+    out[_ee_offset(hi_e - lo_e):] = gelu_xterms_reference(xee)[1].view(
+        torch.int16)
+    return out
+
+
+def _bands_args(dtype) -> tuple:
+    (lo_e, hi_e), (lo_ee, hi_ee) = GELU_BANDS[dtype]
+    return lo_e, hi_e - lo_e, lo_ee, hi_ee - lo_ee
+
+
+#: {(dtype, device index): the kernels' tables} on the card
+_TABLES = {}
+
+
+def gelu_tables(dtype, device) -> torch.Tensor:
+    """The ``dtype`` kernels' tables on the CUDA ``device``: built by the
+    ``gelu_tables_*`` kernel at the first call for that device (not while a
+    CUDA graph is being captured), kept for the process."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"gelu_tables: {dev} is not a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dtype, dev.index)
+    if key not in _TABLES:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "gelu_tables: the gelu tables are built outside a CUDA "
+                "graph capture; call gelu_tables(dtype, device) (or the "
+                "gelu once) before capturing")
+        tables = torch.zeros(_table_len(dtype, GELU_BANDS[dtype]),
+                             dtype=torch.int16, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            _KERNELS[dtype][2](tables.data_ptr(), *_bands_args(dtype),
+                               stream.cuda_stream)
+            stream.synchronize()   # ready for launches on any stream
+        _TABLES[key] = tables
+    return _TABLES[key]
+
+
 def _check(name, dtype, **tensors):
     dev = next(iter(tensors.values())).device
     for key, t in tensors.items():
@@ -168,8 +288,10 @@ def _fwd(dtype, x: torch.Tensor) -> torch.Tensor:
     dev = _check(kernel.name, dtype, x=x)
     y = torch.empty_like(x)
     if x.numel():
+        tables = gelu_tables(dtype, dev)
         with torch.cuda.device(dev):
-            kernel(x.data_ptr(), y.data_ptr(), x.numel(),
+            kernel(x.data_ptr(), y.data_ptr(), x.numel(), tables.data_ptr(),
+                   *_bands_args(dtype),
                    torch.cuda.current_stream(dev).cuda_stream)
     return y
 
@@ -182,8 +304,10 @@ def _bwd(dtype, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          f"x{tuple(x.shape)}")
     dx = torch.empty_like(x)
     if x.numel():
+        tables = gelu_tables(dtype, dev)
         with torch.cuda.device(dev):
             kernel(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), x.numel(),
+                   tables.data_ptr(), *_bands_args(dtype),
                    torch.cuda.current_stream(dev).cuda_stream)
     return dx
 

@@ -17,7 +17,9 @@ takes any M, N, K >= 1, so LeNet's 120-, 84- and 400-wide layers run it
 too.
 
 bf16 and fp16 operands (static AMP) take the tensor-core kernel of their
-dtype (``csrc/matmul_bias_act_tc.cu``, f32 accumulation), which rounds as
+dtype (``csrc/matmul_bias_act_tc.cu``: wgmma over a ring of swizzled
+shared-memory tiles, f32 accumulation) in the variant :func:`tc_variant`
+picks from the shape and alignment, which rounds as
 the AMP program's unfused chain does: the product to the operands' dtype
 (the ``mul`` output; beyond 65504 an fp16 product is Inf), then the bias
 added in the promoted dtype (f32 for an f32 bias, as jnp promotes
@@ -39,7 +41,8 @@ import torch
 from ..kernel_build import CudaKernel, KernelFunction
 from .bn_act import ACTS, apply_act
 
-__all__ = ["matmul_bias_act", "matmul_bias_act_reference",
+__all__ = ["matmul_bias_act", "matmul_bias_act_reference", "tc_variant",
+           "TC_VARIANTS",
            "matmul_bias_act_f32", "matmul_bias_act_bf16",
            "matmul_bias_act_fp16", "MATMUL_BIAS_ACT", "MATMUL_BIAS_ACT_F32",
            "MATMUL_BIAS_ACT_TC", "MATMUL_BIAS_ACT_BF16",
@@ -56,7 +59,8 @@ MATMUL_BIAS_ACT = CudaKernel("matmul_bias_act.cu", {
 MATMUL_BIAS_ACT_F32 = KernelFunction(MATMUL_BIAS_ACT,
                                      "paddle_matmul_bias_act_f32",
                                      "matmul_bias_act_f32")
-_TC_ARGS = [_P, _P, _P, _P, _L, _L, _L, ctypes.c_int, ctypes.c_int, _P]
+_TC_ARGS = [_P, _P, _P, _P, _L, _L, _L, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _P]
 #: the 16-bit tensor-core kernels' library (csrc/matmul_bias_act_tc.cu)
 MATMUL_BIAS_ACT_TC = CudaKernel("matmul_bias_act_tc.cu", {
     "paddle_matmul_bias_act_bf16": _TC_ARGS,
@@ -71,6 +75,24 @@ MATMUL_BIAS_ACT_FP16 = KernelFunction(MATMUL_BIAS_ACT_TC,
 #: the tensor-core kernel of each operand dtype
 _TC = {torch.bfloat16: MATMUL_BIAS_ACT_BF16,
        torch.float16: MATMUL_BIAS_ACT_FP16}
+#: the tensor-core kernel's variants, as csrc/matmul_bias_act_tc.cu numbers
+#: them: its operand feed and output tile (rows x columns)
+TC_VARIANTS = {"cp.async 64x64": 0, "tma 64x64": 1, "tma 128x128": 2}
+_SMS = 132   # the H100's streaming multiprocessors
+
+
+def tc_variant(m, n, k, x_aligned=True, w_aligned=True):
+    """The variant of the tensor-core kernel 9 for an (M, K) x (K, N)
+    product whose x and w start 16-byte aligned or not: the TMA feed needs
+    16-byte row strides (K and N multiples of 8) and aligned bases, and
+    every other shape takes the cp.async feed; a TMA product whose 128 x
+    128 tiles would not fill the card's SMs takes 64 x 64 tiles, four
+    times as many CTAs."""
+    if k % 8 or n % 8 or not (x_aligned and w_aligned):
+        return "cp.async 64x64"
+    if -(-m // 128) * -(-n // 128) >= _SMS:
+        return "tma 128x128"
+    return "tma 64x64"
 
 
 def matmul_bias_act_reference(x, w, bias, act=""):
@@ -125,10 +147,12 @@ def matmul_bias_act_f32(x, w, bias, act=""):
     return out
 
 
-def _launch_tc(name, low, x, w, bias, act):
+def _launch_tc(name, low, x, w, bias, act, variant=None):
     """Launch the tensor-core kernel 9 of the 16-bit dtype ``low`` on
-    ``torch.cuda.current_stream()``; returns ``act(low(x @ w) + bias)`` of
-    shape (M, N), float32 for an f32 bias and ``low`` for a ``low`` one."""
+    ``torch.cuda.current_stream()`` in ``variant`` (a key of
+    :data:`TC_VARIANTS`; by default :func:`tc_variant`'s); returns
+    ``act(low(x @ w) + bias)`` of shape (M, N), float32 for an f32 bias
+    and ``low`` for a ``low`` one."""
     if act not in ACTS:
         raise NotImplementedError(f"{name}: act {act!r} not in {list(ACTS)}")
     dev = x.device
@@ -150,26 +174,32 @@ def _launch_tc(name, low, x, w, bias, act):
         return out
     if k == 0:
         raise ValueError(f"{name}: K is 0")
+    if variant is None:
+        variant = tc_variant(m, n, k, x.data_ptr() % 16 == 0,
+                             w.data_ptr() % 16 == 0)
+    if variant not in TC_VARIANTS:
+        raise ValueError(f"{name}: variant {variant!r} not in "
+                         f"{list(TC_VARIANTS)}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _TC[low](x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                  out.data_ptr(), m, n, k, ACTS[act], int(bias.dtype == low),
-                 stream)
+                 TC_VARIANTS[variant], stream)
     return out
 
 
-def matmul_bias_act_bf16(x, w, bias, act=""):
+def matmul_bias_act_bf16(x, w, bias, act="", variant=None):
     """Launch the bf16 kernel 9: ``act(bf16(x @ w) + bias)``, float32 for
     an f32 bias and bf16 for a bf16 one."""
     return _launch_tc("matmul_bias_act_bf16", torch.bfloat16, x, w, bias,
-                      act)
+                      act, variant)
 
 
-def matmul_bias_act_fp16(x, w, bias, act=""):
+def matmul_bias_act_fp16(x, w, bias, act="", variant=None):
     """Launch the fp16 kernel 9: ``act(fp16(x @ w) + bias)``, float32 for
     an f32 bias and fp16 for an fp16 one."""
     return _launch_tc("matmul_bias_act_fp16", torch.float16, x, w, bias,
-                      act)
+                      act, variant)
 
 
 def matmul_bias_act(x, w, bias, act=""):

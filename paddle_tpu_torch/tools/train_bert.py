@@ -135,6 +135,8 @@ def profile_steps(step, inputs, steps: int) -> dict:
                          "(device time not measured)")
     top = sorted(kernels, key=_self_device_us, reverse=True)[:15]
     flash_us = sum(_self_device_us(e) for e in kernels if "flash" in e.key)
+    # the bf16 / fp16 gelu kernels (csrc/gelu_lowp.cu) of AMP O2
+    gelu_us = sum(_self_device_us(e) for e in kernels if "gelu_" in e.key)
     # cuBLAS's GEMMs: "gemm" in the name, or its Hopper "nvjet" family
     gemm_us = sum(_self_device_us(e) for e in kernels
                   if "gemm" in e.key.lower() or "nvjet" in e.key)
@@ -145,6 +147,7 @@ def profile_steps(step, inputs, steps: int) -> dict:
             "device_idle_share": 1.0 - busy_us / 1e6 / plain_wall,
             "kernels_per_step": sum(e.count for e in kernels) / steps,
             "flash_ms_per_step": flash_us / steps / 1e3,
+            "gelu_ms_per_step": gelu_us / steps / 1e3,
             "gemm_ms_per_step": gemm_us / steps / 1e3,
             "top_kernels": [{"name": e.key[:90],
                              "ms_per_step": _self_device_us(e) / steps / 1e3,

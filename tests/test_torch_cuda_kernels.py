@@ -1052,8 +1052,12 @@ def test_gelu_bf16_kernels_match_plain(cuda, shape):
     torch.cuda.synchronize()
     assert (tgelu.GELU_FWD_BF16.launches,
             tgelu.GELU_BWD_BF16.launches) == (before[0] + 1, before[1] + 1)
-    assert torch.equal(y, tgelu.gelu_bf16_reference(x))
-    assert torch.equal(xr.grad, tgelu.gelu_bf16_grad_reference(x, dy))
+    # the plain version on the CPU: on the card its exp (CUDA's expf) is a
+    # rounding step off at x = -1.71875, where the kernels' table follows
+    # the CPU's and JAX's correctly rounded exp
+    assert torch.equal(y.cpu(), tgelu.gelu_bf16_reference(x.cpu()))
+    assert torch.equal(xr.grad.cpu(),
+                       tgelu.gelu_bf16_grad_reference(x.cpu(), dy.cpu()))
 
 
 @pytest.mark.parametrize("shape", [(4096, 768), (1001, 37), (7,), (3, 5)],
@@ -1501,3 +1505,218 @@ def test_book_models_fp16_on_the_card_launch_the_fp16_kernel_9(cuda, model,
                             else [2 * chains * 3, 0, 0])
     assert history["cuda"] == history["cpu"]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+# ==========================================================================
+# kernel 9 in bf16 and fp16 on wgmma: every variant (the TMA feed at 64 x
+# 64, 128 x 128 and 128 x 256 tiles, the cp.async feed) at the tile edges,
+# N = 84 and 16-byte-misaligned views, within the tolerances above
+# ==========================================================================
+LOW = {"bf16": torch.bfloat16, "fp16": torch.float16}
+# (M, K, N) around the 64- and 128-row tiles, the 64-deep stages and the
+# 128- and 256-wide column tiles; a K of 72 (one stage and a ragged
+# second); LeNet's fc2 (N = 84: no tensor map)
+TILE_EDGE_SHAPES = [(127, 128, 129), (128, 129, 127), (129, 127, 128),
+                    (255, 256, 257), (256, 257, 255), (257, 255, 256),
+                    (200, 72, 136), (256, 120, 84)]
+TILE_EDGE_IDS = ["127-128-129", "128-129-127", "129-127-128", "255-256-257",
+                 "256-257-255", "257-255-256", "k72", "lenet-fc2"]
+
+
+def _low_bound(x, w, b, want, tag):
+    """The bf16 and fp16 tests' tolerance above, per output."""
+    prod = (x.float() @ w.float()).abs()
+    if tag == "bf16":
+        bound = 1.13 * 2.0 ** -7 * prod + 1e-6 * want.float().abs() + 1e-7
+        if b.dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * want.float().abs()
+        return bound
+    acc = x.float().abs() @ w.float().abs()
+    bound = (1.13 * (2.0 ** -10 * prod + 2.0 ** -18 * acc)
+             + 1e-6 * want.float().abs() + 1e-7)
+    if b.dtype == torch.float16:
+        pre = (x.float() @ w.float() + b.float()).abs()
+        bound = (bound + 1.13 * 2.0 ** -10 * pre
+                 + 2.0 ** -11 * want.float().abs())
+    return bound
+
+
+def _low_mm_case(dev, seed, m, k, n, tag, bias_low, offset=0):
+    x, w, b = _mm_case(dev, seed, m, k, n)
+    dt = LOW[tag]
+    if offset:   # views starting `offset` elements past 16-byte alignment
+        x, w = (_as_fp16(t, offset).to(dt) if dt == torch.float16
+                else _misaligned16(t, offset) for t in (x, w))
+        assert x.data_ptr() % 16 and w.data_ptr() % 16
+    else:
+        x, w = x.to(dt), w.to(dt)
+    return x, w, (b.to(dt) if bias_low else b)
+
+
+@pytest.mark.parametrize("bias_low", [False, True], ids=["f32-bias",
+                                                         "low-bias"])
+@pytest.mark.parametrize("variant", list(tme.TC_VARIANTS))
+@pytest.mark.parametrize("m,k,n", TILE_EDGE_SHAPES, ids=TILE_EDGE_IDS)
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_matmul_bias_act_low_variants_at_tile_edges(cuda, tag, m, k, n,
+                                                    variant, bias_low):
+    """Each variant that takes the shape (the TMA ones need K and N
+    multiples of 8) against the plain version, gelu (the steepest act);
+    a second call bit-equal to the first; one launch a call."""
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+        False
+    kernel, kf = ((tme.matmul_bias_act_bf16, tme.MATMUL_BIAS_ACT_BF16)
+                  if tag == "bf16" else
+                  (tme.matmul_bias_act_fp16, tme.MATMUL_BIAS_ACT_FP16))
+    if variant != "cp.async 64x64" and (k % 8 or n % 8):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernel(*_low_mm_case(cuda, 0, m, k, n, tag, bias_low), "gelu",
+                   variant)
+        return
+    x, w, b = _low_mm_case(cuda, 0, m, k, n, tag, bias_low)
+    before = kf.launches
+    got = kernel(x, w, b, "gelu", variant)
+    again = kernel(x, w, b, "gelu", variant)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 2
+    want = tme.matmul_bias_act_reference(x, w, b, "gelu")
+    assert got.shape == (m, n) and got.dtype == want.dtype == b.dtype
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _low_bound(x, w, b, want, tag)).all())
+
+
+@pytest.mark.parametrize("bias_low", [False, True], ids=["f32-bias",
+                                                         "low-bias"])
+@pytest.mark.parametrize("act", MM_ACTS)
+@pytest.mark.parametrize("m,k,n", [(255, 256, 257), (256, 120, 84),
+                                   (2048, 64, 1056)],
+                         ids=["255-256-257", "lenet-fc2", "a-wave"])
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_matmul_bias_act_low_every_act(cuda, tag, m, k, n, act, bias_low):
+    """Every act through the front (``matmul_bias_act``, the variant
+    ``tc_variant`` picks: cp.async, 64 x 64 TMA, the large TMA tile)."""
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+        False
+    x, w, b = _low_mm_case(cuda, 1, m, k, n, tag, bias_low)
+    got = tme.matmul_bias_act(x, w, b, act)
+    torch.cuda.synchronize()
+    want = tme.matmul_bias_act_reference(x, w, b, act)
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    assert bool(((got.float() - want.float()).abs()
+                 <= _low_bound(x, w, b, want, tag)).all())
+
+
+@pytest.mark.parametrize("m,k,n", [(129, 127, 128), (256, 400, 120),
+                                   (300, 96, 200)],
+                         ids=["129-127-128", "lenet-fc1", "tiles"])
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_matmul_bias_act_low_misaligned_views(cuda, tag, m, k, n):
+    """x and w starting 2 bytes past a 16-byte boundary take the cp.async
+    feed (element copies), with both bias dtypes."""
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+        False
+    assert tme.tc_variant(m, n, k, False, False) == "cp.async 64x64"
+    for bias_low in (False, True):
+        x, w, b = _low_mm_case(cuda, 2, m, k, n, tag, bias_low, offset=1)
+        got = tme.matmul_bias_act(x, w, b, "relu")
+        torch.cuda.synchronize()
+        want = tme.matmul_bias_act_reference(x, w, b, "relu")
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        assert bool(((got.float() - want.float()).abs()
+                     <= _low_bound(x, w, b, want, tag)).all())
+
+
+# ==========================================================================
+# the gelu tables and kernels on every 16-bit input
+# ==========================================================================
+def _every16(dt, dev):
+    return torch.arange(65536, dtype=torch.int32, device=dev).to(
+        torch.int16).view(dt)
+
+
+def _same16(got, want):
+    """Bit for bit, NaN where the plain version has NaN."""
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(got.view(torch.int16)[~nan],
+                       want.view(torch.int16)[~nan])
+
+
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_gelu_tables_match_the_plain_tables(cuda, tag):
+    """The device-built tables (the kernels' own arithmetic, exp correctly
+    rounded) equal ``gelu_table_reference`` (the plain ops on the CPU,
+    JAX's values) bit for bit."""
+    band = tgelu.gelu_tables(LOW[tag], cuda)
+    assert torch.equal(band.cpu(), tgelu.gelu_table_reference(LOW[tag]))
+
+
+def _plain_cpu(tag, x, dy=None):
+    """The plain version on the CPU (JAX's values on every finite input)
+    of the CUDA tensors x (and dy)."""
+    if dy is None:
+        fn = tgelu.gelu_bf16_reference if tag == "bf16" else \
+            tgelu.gelu_fp16_reference
+        return fn(x.cpu())
+    fn = tgelu.gelu_bf16_grad_reference if tag == "bf16" else \
+        tgelu.gelu_fp16_grad_reference
+    return fn(x.cpu(), dy.cpu())
+
+
+@pytest.mark.parametrize("copies", [1, 32], ids=["once", "32-shuffled"])
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_gelu_forward_every_input(cuda, tag, copies):
+    """All 65,536 inputs (or 32 shuffled copies: 2^21 elements, 256 CTAs)
+    bit for bit with the plain version."""
+    dt = LOW[tag]
+    x = _every16(dt, cuda).repeat(copies)
+    x = x[torch.randperm(x.numel(), device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(0))]
+    kf = tgelu.GELU_FWD_BF16 if tag == "bf16" else tgelu.GELU_FWD_FP16
+    before = kf.launches
+    got = (tgelu.gelu_fwd_bf16 if tag == "bf16" else tgelu.gelu_fwd_fp16)(x)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    _same16(got.cpu(), _plain_cpu(tag, x))
+
+
+@pytest.mark.parametrize("n_dy", [4, 16], ids=["4-dy", "16-dy"])
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_gelu_backward_every_input(cuda, tag, n_dy):
+    """Every x with ``n_dy`` seeded dy each, bit for bit with the plain
+    version."""
+    dt = LOW[tag]
+    x = _every16(dt, cuda).repeat(n_dy)
+    dy = torch.tensor(np.random.RandomState(5).randn(x.numel()),
+                      dtype=torch.float32, device=cuda).to(dt)
+    kf = tgelu.GELU_BWD_BF16 if tag == "bf16" else tgelu.GELU_BWD_FP16
+    before = kf.launches
+    got = (tgelu.gelu_bwd_bf16 if tag == "bf16"
+           else tgelu.gelu_bwd_fp16)(x, dy)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    _same16(got.cpu(), _plain_cpu(tag, x, dy))
+
+
+@pytest.mark.parametrize("n", [4099, 2 ** 20 + 3], ids=["short", "long"])
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_gelu_kernels_take_misaligned_views(cuda, tag, n):
+    """Inputs and outputs starting 2 bytes past a 16-byte boundary take
+    the element-wise loops, bit for bit with the plain versions."""
+    dt = LOW[tag]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    src = torch.randn(n, device=cuda, generator=gen) * 4
+    x = _as_fp16(src, 1).to(dt) if dt == torch.float16 else \
+        _misaligned16(src, 1)
+    dys = torch.randn(n, device=cuda, generator=gen)
+    dy = _as_fp16(dys, 1).to(dt) if dt == torch.float16 else \
+        _misaligned16(dys, 1)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    fwd, bwd = ((tgelu.gelu_fwd_bf16, tgelu.gelu_bwd_bf16) if tag == "bf16"
+                else (tgelu.gelu_fwd_fp16, tgelu.gelu_bwd_fp16))
+    y, dx = fwd(x), bwd(x, dy)
+    torch.cuda.synchronize()
+    _same16(y.cpu(), _plain_cpu(tag, x))
+    _same16(dx.cpu(), _plain_cpu(tag, x, dy))
