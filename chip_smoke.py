@@ -135,7 +135,10 @@ Phases (any failure exits non-zero and prints no result):
     rotated through enough copies to keep the L2 cold) against the
     bound max(bytes / 3.35 TB/s, 2MNK / 67 TFLOP/s) and the library
     yardstick ``torch.addmm`` followed by the act (the port never calls
-    it), TF32 off; the four calls of one LeNet step timed together;
+    it), TF32 off; each row names the variant ``f32_variant`` picked (its
+    tile and w copy width) and gives the share of the bound, and two calls
+    must be bit-identical; the four calls of one LeNet step timed
+    together;
 14. LeNet static training: ``bench.py:bench_lenet``'s configuration
     (batch 256, 1x28x28, ``MomentumOptimizer(0.01, 0.9)``, program seed
     1, one batch from numpy seed 0) through ``fluid`` and
@@ -202,7 +205,11 @@ Phases (any failure exits non-zero and prints no result):
       enough input sets to keep the L2 cold) against the byte bound, the
       plain versions and SDPA (bf16 over gathered bf16 K/V; for int8,
       which no PyTorch call takes, over K/V dequantized to f32
-      beforehand);
+      beforehand); each row gives the split walk's plan (``n_splits``,
+      ``span_pages``), the achieved GB/s and the share of the byte bound;
+      two calls must be bit-identical, and a CUDA graph of the call
+      (warmed up on its capture stream) replayed three times must equal
+      the eager call bit for bit;
    m. serving: phase 9's engine and trace with bf16 and with int8 pools
       bought by phase 9's byte budget (1,152 MiB: 2,048 and 4,096
       pages); each launches its own kernel layers x decode steps times
@@ -403,11 +410,17 @@ def time_ms(fn, args_sets, per_graph=40, replays=10) -> float:
     (argument checks, the ctypes call) is not in the time."""
     import torch
 
-    for args in args_sets:   # warm-up: library loaded, allocator primed
-        fn(*args)
+    # warm-up on the capture stream: library loaded, allocator primed, and
+    # the paged kernels' per-stream tickets made outside the capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for args in args_sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(per_graph):
             fn(*args_sets[i % len(args_sets)])
     graph.replay()
@@ -1844,7 +1857,8 @@ def matmul_phase():
         count = max(2, min(200, -(-COLD_BYTES // nbytes)))
         sets[name] = [matmul_inputs(m, k, n, 100 + i) for i in range(count)]
         x, w, b = sets[name][0]
-        row = {"shape": name, "M": m, "K": k, "N": n}
+        row = {"shape": name, "M": m, "K": k, "N": n,
+               "variant": me.f32_variant(m, n, k, w.data_ptr() % 16 == 0)}
         for act in acts or ACTS:
             got = me.matmul_bias_act(x, w, b, act)
             want = me.matmul_bias_act_reference(x, w, b, act)
@@ -1858,6 +1872,14 @@ def matmul_phase():
                      f"/ atol {MATMUL_ATOL}")
             row[f"err {act or 'none'}"] = float(diff.max())
             err = max(err, float(diff.max()))
+            if act == (acts or ("relu",))[0]:
+                again = me.matmul_bias_act(x, w, b, act)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"matmul_bias_act_f32 {name} act {act!r}: two "
+                         f"calls differ")
+                row["repeatable"] = True
+                del again
             del got, want, diff
         act = (acts or ("relu",))[0]
         per_graph = max(len(sets[name]), 4)
@@ -1877,6 +1899,7 @@ def matmul_phase():
                 lambda x, w, b: apply_act(torch.addmm(b, x, w), act),
                 sets[name], per_graph, replays)})
         row["tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = bound_ms / row["ms"]
         rows[name] = row
         print("matmul_case " + json.dumps(row), flush=True)
         if m * n * k > 1e9:
@@ -1903,6 +1926,9 @@ def matmul_phase():
     step["bound_by"] = "bytes" if all(
         rows[nm]["bound_by"] == "bytes" for nm, _ in LENET_STEP_CALLS) \
         else "operations"
+    step["bound_share"] = step["bound_ms"] / step["ms"]
+    step["variants"] = sorted({rows[nm]["variant"]
+                               for nm, _ in LENET_STEP_CALLS})
     print("matmul_lenet_step " + json.dumps(step), flush=True)
     del sets
     torch.cuda.empty_cache()
@@ -2890,19 +2916,26 @@ def make_quant_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens, n_pad=0):
     return (q, *codes, tables, ctx), tuple(scales)
 
 
-def quant_bound(case, scales):
-    """(bound_ms, bound_by): the live K/V rows at the pool's element size,
-    the live pages' scales (int8), q, out, tables and lengths over HBM
-    bandwidth, against the f32 operations over the f32 peak."""
+def quant_bytes(case, scales):
+    """The bytes a call must move: the live K/V rows at the pool's element
+    size, the live pages' scales (int8), q, out, tables and lengths."""
     q, k, _, tables, ctx = case
-    b, hq, d = q.shape
-    hkv, _, ps, _ = k.shape
+    hkv, _, ps, d = k.shape
     tokens = int(ctx.sum())
     nbytes = (2 * tokens * hkv * d * k.element_size() + 2 * q.numel() * 4
               + tables.numel() * 4 + ctx.numel() * 4)
     if scales:
         nbytes += 2 * hkv * 4 * int(((ctx + ps - 1) // ps).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return nbytes
+
+
+def quant_bound(case, scales):
+    """(bound_ms, bound_by): :func:`quant_bytes` over HBM bandwidth,
+    against the f32 operations over the f32 peak."""
+    q, k, _, _, ctx = case
+    hq, d = q.shape[1], q.shape[2]
+    tokens = int(ctx.sum())
+    t_bytes = quant_bytes(case, scales) / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * d * hq * tokens / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -2958,6 +2991,29 @@ def check_and_time_quant(name, dtype, rng, hq, hkv, d, ps, n_pages,
     if err > KERNEL_ATOL:
         fail(f"{dtype} {name}: kernel vs plain max |err| {err:.3e} > "
              f"{KERNEL_ATOL}")
+    # the split walk's merge: two calls and a CUDA graph's replays (the
+    # call warmed up on its capture stream) equal bit for bit
+    c, sc = cases[0]
+    eager = kernel(*c, scale, *sc)
+    if not torch.equal(eager, kernel(*c, scale, *sc)):
+        fail(f"{dtype} {name}: two calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*c, scale, *sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = kernel(*c, scale, *sc)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            fail(f"{dtype} {name}: a CUDA graph replay differs from the "
+                 f"eager call")
+    del graph, captured, eager
+    n_splits, span = pa.split_plan(c[0], c[1], c[3])
     args = [(*c, *sc) for c, sc in cases]
     ms = time_ms(lambda *a: kernel(*a[:5], scale, *a[5:]), args)
     plain_ms = time_ms(lambda *a: pa.paged_attention_reference(
@@ -2970,9 +3026,12 @@ def check_and_time_quant(name, dtype, rng, hq, hkv, d, ps, n_pages,
            "Hkv": hkv, "D": d, "page_size": ps,
            "width": int(cases[0][0][3].shape[1]), "input_sets": n_sets,
            "ctx": [int(x) for x in cases[0][0][4].tolist()],
-           "max_abs_err": err, "tolerance": KERNEL_ATOL, "ms": ms,
+           "max_abs_err": err, "tolerance": KERNEL_ATOL,
+           "n_splits": n_splits, "span_pages": span,
+           "repeatable": True, "graph_replay_equal": True, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": lib_ms,
+           "gb_per_s": quant_bytes(*cases[0]) / ms / 1e6,
+           "bound_share": bound_ms / ms, "library_ms": lib_ms,
            "library": ("sdpa_bf16_dense" if dtype == "bfloat16" else
                        "sdpa_f32_dense_predequantized")}
     print("kernel_case_quant " + json.dumps(row), flush=True)

@@ -106,6 +106,15 @@ def _rb(t: torch.Tensor) -> torch.Tensor:
     return _ftz(t).to(torch.bfloat16).float()
 
 
+def _exp(t: torch.Tensor) -> torch.Tensor:
+    """exp of an f32 tensor, correctly rounded to f32 on every device: in
+    float64, rounded once.  (f32 ``torch.exp`` is CUDA's ``expf`` on the
+    card, up to 2 ulps off: 0.61 ulp at -z of bf16 x = -1.71875, enough to
+    put erfc there on a bf16 rounding tie; XLA's CPU exp and the CPU's
+    ``torch.exp`` are correctly rounded at every input the gelus reach.)"""
+    return torch.exp(t.double()).float()
+
+
 def erfc_xla(u: torch.Tensor) -> torch.Tensor:
     """XLA's f32 erfc (the Cephes ``erfcf`` polynomials), op for op."""
     au, z = u.abs(), u * u
@@ -114,7 +123,7 @@ def erfc_xla(u: torch.Tensor) -> torch.Tensor:
               1.12837911):
         p = p * z + c
     small = 1.0 - u * p
-    q = _ftz(_ftz(torch.exp(-z)) * (1.0 / au))
+    q = _ftz(_ftz(_exp(-z)) * (1.0 / au))
     w = 1.0 / z
     r1 = w * 0.0232682 + (-0.138703942)
     for c in (0.368742466, -0.582473278, 0.621000469, -0.494451523,
@@ -146,7 +155,7 @@ def gelu_bf16_grad_reference(x: torch.Tensor, dy: torch.Tensor
     e = _rb(erfc_xla(u32))
     r3 = _rb(_rb(_rb(0.5 * x32) * d) * -_TWO_OVER_SQRT_PI)
     u = _rb(u32)
-    ee = _rb(_ftz(torch.exp(-_rb(u * u))))
+    ee = _rb(_ftz(_exp(-_rb(u * u))))
     t1 = _rb(-_rb(_rb(r3 * ee) * _SQRT_HALF))
     t2 = _rb(_rb(d * e) * 0.5)
     return _ftz(t1 + t2).to(torch.bfloat16)
@@ -174,7 +183,7 @@ def gelu_fp16_grad_reference(x: torch.Tensor, dy: torch.Tensor
     u = _rh(x32 * -_SQRT_HALF)
     e = _rh(erfc_xla(u))
     r3 = _rh(_rh(_rh(x32 * 0.5) * d) * -_TWO_OVER_SQRT_PI_FP16)
-    m3 = _rh(r3 * _rh(torch.exp(-_rh(u * u))))
+    m3 = _rh(r3 * _rh(_exp(-_rh(u * u))))
     t2 = _rh(_rh(d * e) * 0.5)
     return (t2 - m3 * _SQRT_HALF).to(torch.float16)
 
@@ -187,11 +196,11 @@ def gelu_xterms_reference(x: torch.Tensor) -> tuple:
         u32 = _ftz(x.float()) * -_SQRT_HALF
         e = _rb(erfc_xla(u32))
         u = _rb(u32)
-        ee = _rb(_ftz(torch.exp(-_rb(u * u))))
+        ee = _rb(_ftz(_exp(-_rb(u * u))))
     else:
         u = _rh(x.float() * -_SQRT_HALF)
         e = _rh(erfc_xla(u))
-        ee = _rh(torch.exp(-_rh(u * u)))
+        ee = _rh(_exp(-_rh(u * u)))
     return e.to(x.dtype), ee.to(x.dtype)
 
 

@@ -28,6 +28,13 @@ kernel instead adds the bias to the unrounded accumulator and stores the
 operands' dtype; its own fallback, which the Program's var dtypes
 describe, does what the port does (ROADMAP.md, Queue 3).
 
+The f32 kernel (``csrc/matmul_bias_act.cu``) is a register-tiled SIMT
+GEMM over a ring of ``cp.async``-fed shared-memory stages, in full f32
+FMAs summed along K in increasing order (no TF32, no split-K: its output
+does not depend on the tile and is bit-identical from run to run), in the
+variant :func:`f32_variant` picks from the grid a tile gives and from w's
+row stride and alignment.
+
 Dispatch: a tensor on the CPU (or the ``meta`` device, under shape
 inference) takes the plain version; a CUDA tensor launches the kernel of
 its dtype or raises (float32, bf16 or fp16 x and w, contiguous).
@@ -42,7 +49,7 @@ from ..kernel_build import CudaKernel, KernelFunction
 from .bn_act import ACTS, apply_act
 
 __all__ = ["matmul_bias_act", "matmul_bias_act_reference", "tc_variant",
-           "TC_VARIANTS",
+           "TC_VARIANTS", "f32_variant", "F32_VARIANTS",
            "matmul_bias_act_f32", "matmul_bias_act_bf16",
            "matmul_bias_act_fp16", "MATMUL_BIAS_ACT", "MATMUL_BIAS_ACT_F32",
            "MATMUL_BIAS_ACT_TC", "MATMUL_BIAS_ACT_BF16",
@@ -53,7 +60,7 @@ _L = ctypes.c_longlong
 #: the hand-written Hopper kernel's library (csrc/matmul_bias_act.cu)
 MATMUL_BIAS_ACT = CudaKernel("matmul_bias_act.cu", {
     "paddle_matmul_bias_act_f32": [_P, _P, _P, _P, _L, _L, _L,
-                                   ctypes.c_int, _P],
+                                   ctypes.c_int, ctypes.c_int, _P],
 })
 #: its kernel; ``launches`` counts every launch of the wrapper below
 MATMUL_BIAS_ACT_F32 = KernelFunction(MATMUL_BIAS_ACT,
@@ -95,6 +102,27 @@ def tc_variant(m, n, k, x_aligned=True, w_aligned=True):
     return "tma 64x64"
 
 
+#: the f32 kernel's variants, as csrc/matmul_bias_act.cu numbers them: its
+#: output tile (rows x columns) and the width of its w copies (16 bytes
+#: where w's rows and base allow, else 4; x always takes 4-byte copies,
+#: which transpose it into shared memory)
+F32_VARIANTS = {f"{tile} {copy}": 2 * i + j
+                for i, tile in enumerate(("128x128", "32x64"))
+                for j, copy in enumerate(("cp16", "cp4"))}
+
+
+def f32_variant(m, n, k, w_aligned=True):
+    """The variant of the f32 kernel 9 for an (M, K) x (K, N) product whose
+    w starts 16-byte aligned or not: 128 x 128 tiles where they fill the
+    card's SMs, else 32 x 64 (a LeNet-sized grid: more CTAs, each with its
+    K loop's loads in flight); 16-byte w copies where N is a multiple of 4
+    and w is aligned, else 4-byte ones."""
+    copy = "cp16" if n % 4 == 0 and w_aligned else "cp4"
+    if -(-m // 128) * -(-n // 128) >= _SMS:
+        return f"128x128 {copy}"
+    return f"32x64 {copy}"
+
+
 def matmul_bias_act_reference(x, w, bias, act=""):
     """Plain version of kernel 9: the product (in x's and w's dtype), then
     the bias (the sum promoted as jnp promotes), then the act, in the
@@ -115,9 +143,10 @@ def _shapes(name, x, w, bias):
     return m, w.shape[1], k
 
 
-def matmul_bias_act_f32(x, w, bias, act=""):
-    """Launch kernel 9 on ``torch.cuda.current_stream()``; returns
-    ``act(x @ w + bias)``, float32 of shape (M, N)."""
+def matmul_bias_act_f32(x, w, bias, act="", variant=None):
+    """Launch kernel 9 on ``torch.cuda.current_stream()`` in ``variant`` (a
+    key of :data:`F32_VARIANTS`; by default :func:`f32_variant`'s);
+    returns ``act(x @ w + bias)``, float32 of shape (M, N)."""
     name = "matmul_bias_act_f32"
     if act not in ACTS:
         raise NotImplementedError(f"{name}: act {act!r} not in {list(ACTS)}")
@@ -140,10 +169,20 @@ def matmul_bias_act_f32(x, w, bias, act=""):
         return out
     if k == 0:
         raise ValueError(f"{name}: K is 0")
+    w_aligned = w.data_ptr() % 16 == 0
+    if variant is None:
+        variant = f32_variant(m, n, k, w_aligned)
+    if variant not in F32_VARIANTS:
+        raise ValueError(f"{name}: variant {variant!r} not in "
+                         f"{list(F32_VARIANTS)}")
+    if variant.endswith("cp16") and (n % 4 or not w_aligned):
+        raise ValueError(f"{name}: variant {variant!r} needs N % 4 == 0 "
+                         f"and a 16-byte aligned w")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         MATMUL_BIAS_ACT_F32(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                            out.data_ptr(), m, n, k, ACTS[act], stream)
+                            out.data_ptr(), m, n, k, ACTS[act],
+                            F32_VARIANTS[variant], stream)
     return out
 
 

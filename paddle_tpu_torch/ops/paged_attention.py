@@ -39,7 +39,8 @@ import torch
 
 from ..kernel_build import CudaKernel, KernelFunction
 
-__all__ = ["DEFAULT_MASK_VALUE", "INT8_QMAX", "gqa_group",
+__all__ = ["DEFAULT_MASK_VALUE", "INT8_QMAX", "gqa_group", "decode_splits",
+           "decode_scratch_numel", "split_plan",
            "paged_attention_reference", "paged_decode", "paged_decode_bf16",
            "paged_decode_int8", "paged_attention", "PAGED_ATTENTION",
            "PAGED_DECODE", "PAGED_DECODE_BF16", "PAGED_DECODE_INT8"]
@@ -51,11 +52,13 @@ INT8_QMAX = 127.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SHAPE = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+#: the quantized kernels' shape arguments: ``_SHAPE`` and the split
+_Q_SHAPE = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 #: the hand-written Hopper kernels' library (csrc/paged_attention.cu)
 PAGED_ATTENTION = CudaKernel("paged_attention.cu", {
     "paddle_paged_decode_f32": [_P] * 6 + _SHAPE,
-    "paddle_paged_decode_bf16": [_P] * 6 + _SHAPE,
-    "paddle_paged_decode_int8": [_P] * 8 + _SHAPE,
+    "paddle_paged_decode_bf16": [_P] * 8 + _Q_SHAPE,
+    "paddle_paged_decode_int8": [_P] * 10 + _Q_SHAPE,
 })
 #: its kernels, one per pool dtype; each ``launches`` counts every launch
 #: made by :func:`paged_decode`, :func:`paged_decode_bf16` and
@@ -76,6 +79,73 @@ _MAX_GROUP = 8
 #: the quantized kernels keep a sequence's page ids (and scales) in
 #: shared memory: the table widths they take
 _MAX_WIDTH = 8192
+
+
+#: the quantized kernels' split of the page walk: a split takes at least
+#: this many tokens, two rounds of its CTA's loads (4 warps x 16 rows) ...
+_SPLIT_TOKENS = 128
+#: ... and spans double until the grid is at most this many CTAs (12 an
+#: SM; both chosen by timing spans of 1 to 64 pages at page 16 on the H100)
+_SMS = 132   # the H100's streaming multiprocessors
+_MAX_CTAS = 12 * _SMS
+
+
+def decode_splits(n_seqs: int, n_kv_heads: int, width: int,
+                  page_size: int) -> tuple:
+    """``(n_splits, span)``: the quantized kernels walk each (sequence, kv
+    head) pair's block-table row in ``n_splits`` spans of ``span`` pages,
+    one CTA each.  A span holds at least ``_SPLIT_TOKENS`` tokens, and
+    doubles while the grid ``n_seqs * n_kv_heads * n_splits`` is larger
+    than ``_MAX_CTAS``.  It depends on shapes the host holds, never on
+    the context lengths, which live on the card: the launch needs no
+    host sync and can be captured in a CUDA graph.  Splits that start
+    past a sequence's context return at once."""
+    span = min(width, -(-_SPLIT_TOKENS // page_size))
+    while span < width and n_seqs * n_kv_heads * -(-width // span) \
+            > _MAX_CTAS:
+        span *= 2
+    span = min(span, width)
+    return -(-width // span), span
+
+
+def decode_scratch_numel(n_seqs: int, n_kv_heads: int, group: int,
+                         head_dim: int, n_splits: int) -> int:
+    """f32 words of the split partials a launch needs: per split of each
+    (sequence, kv head) pair, ``group`` rows of ``head_dim`` accumulators
+    and a max and a sum each; none for an unsplit walk."""
+    if n_splits == 1:
+        return 0
+    return n_seqs * n_kv_heads * n_splits * group * (head_dim + 2)
+
+
+def split_plan(q, k_pages, block_tables) -> tuple:
+    """:func:`decode_splits` for one call, from its tensors' shapes alone
+    (no tensor is read)."""
+    return decode_splits(q.shape[0], k_pages.shape[0], block_tables.shape[1],
+                         k_pages.shape[2])
+
+
+#: {(device index, stream): int32 tickets}, zeroed once; each launch
+#: leaves its tickets zero again
+_TICKETS = {}
+
+
+def _tickets(dev, stream: int, count: int):
+    """The split kernels' ticket buffer for ``stream`` on ``dev``, at least
+    ``count`` long: one per stream, so that two streams never share a
+    ticket.  It is made (zeroed, on that stream) outside a CUDA graph
+    capture: run the decode once on the capture stream before capturing."""
+    key = (dev.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode: no ticket buffer for this stream yet; run the "
+                "decode once on the capture stream before capturing it in "
+                "a CUDA graph")
+        buf = torch.zeros(max(count, 4096), dtype=torch.int32, device=dev)
+        _TICKETS[key] = buf
+    return buf
 
 
 def gqa_group(n_heads: int, n_kv: int) -> int:
@@ -197,6 +267,31 @@ def _launch(kernel, q, k_pages, v_pages, scales, block_tables, context_lens,
     return out
 
 
+def _launch_split(kernel, q, k_pages, v_pages, scales, block_tables,
+                  context_lens, scale):
+    """Launch a quantized kernel over its split walk (:func:`split_plan`),
+    with its partials' scratch and its stream's tickets."""
+    n_seqs, n_heads, d = q.shape
+    n_kv, n_pages, page_size, _ = k_pages.shape
+    n_splits, span = split_plan(q, k_pages, block_tables)
+    out = torch.empty_like(q)
+    numel = decode_scratch_numel(n_seqs, n_kv, n_heads // n_kv, d, n_splits)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = tickets = None
+        if numel:
+            part = torch.empty(numel, dtype=torch.float32, device=q.device)
+            tickets = _tickets(q.device, stream, n_seqs * n_kv)
+        kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+               *(t.data_ptr() for t in scales), block_tables.data_ptr(),
+               context_lens.data_ptr(), out.data_ptr(),
+               part.data_ptr() if numel else None,
+               tickets.data_ptr() if numel else None, n_seqs, n_heads,
+               n_kv, n_pages, page_size, block_tables.shape[1], d,
+               float(scale), n_splits, span, stream)
+    return out
+
+
 def paged_decode(q, k_pages, v_pages, block_tables, context_lens, scale):
     """Launch the f32 kernel on ``torch.cuda.current_stream()`` and
     return its output ``(num_seqs, q_heads, head_dim)`` f32.
@@ -218,8 +313,8 @@ def paged_decode_bf16(q, k_pages, v_pages, block_tables, context_lens,
     8,192 pages wide."""
     _check("paged_decode_bf16", q, k_pages, v_pages, block_tables,
            context_lens, torch.bfloat16)
-    return _launch(PAGED_DECODE_BF16, q, k_pages, v_pages, (), block_tables,
-                   context_lens, scale)
+    return _launch_split(PAGED_DECODE_BF16, q, k_pages, v_pages, (),
+                         block_tables, context_lens, scale)
 
 
 def paged_decode_int8(q, k_pages, v_pages, block_tables, context_lens,
@@ -229,8 +324,9 @@ def paged_decode_int8(q, k_pages, v_pages, block_tables, context_lens,
     dequantizes as ``code * (scale / 127)`` in the kernel)."""
     _check("paged_decode_int8", q, k_pages, v_pages, block_tables,
            context_lens, torch.int8, (k_scale, v_scale))
-    return _launch(PAGED_DECODE_INT8, q, k_pages, v_pages,
-                   (k_scale, v_scale), block_tables, context_lens, scale)
+    return _launch_split(PAGED_DECODE_INT8, q, k_pages, v_pages,
+                         (k_scale, v_scale), block_tables, context_lens,
+                         scale)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,

@@ -1,4 +1,5 @@
-"""Every variant of the bf16 / fp16 tensor-core kernel 9, checked and timed.
+"""Every variant of kernel 9, checked and timed: the bf16 / fp16
+tensor-core kernel, or with ``--dtype float32`` the f32 SIMT kernel.
 
 For each shape and each variant of ``csrc/matmul_bias_act_tc.cu`` that
 takes it (the TMA variants need K and N multiples of 8; the cp.async one
@@ -10,9 +11,12 @@ order than cuBLAS, which can move a product that nearly cancels by more
 than a rounding step of its small value), whether a second call is
 bit-equal to the first, then the time per call by CUDA-graph replay over
 enough input sets to keep the 50 MB L2 cold, beside ``torch.addmm`` in
-the same dtype plus the act.  It prints one JSON line per (dtype, shape,
+the same dtype plus the act.  With ``--dtype float32`` the variants are
+those of ``csrc/matmul_bias_act.cu`` (the 16-byte w copies need N % 4 ==
+0), the data f32 and the tolerance kernel 9's (rtol 2e-5, atol 2e-4, f32
+sums in another order).  It prints one JSON line per (dtype, shape,
 variant) and one ``best`` line per (dtype, shape); the variant that
-``tc_variant`` picks is marked.
+``tc_variant`` (``f32_variant``) picks is marked.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 
@@ -35,6 +39,8 @@ SHAPES = (("lenet-fc1", 256, 400, 120, "relu"),
 COLD_BYTES = 64 << 20
 STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 ACC = 2.0 ** -18
+# the f32 kernel vs its plain version: JAX's own kernel test's tolerance
+F32_RTOL, F32_ATOL = 2e-5, 2e-4
 
 
 def time_ms(fn, sets, replays):
@@ -62,7 +68,7 @@ def time_ms(fn, sets, replays):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="both",
-                    choices=["both", "bfloat16", "float16"])
+                    choices=["both", "bfloat16", "float16", "float32"])
     ap.add_argument("--shapes", default=",".join(s[0] for s in SHAPES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -84,12 +90,14 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(7)
     for amp_dtype in dtypes:
         dt = getattr(torch, amp_dtype)
-        kernel = (me.matmul_bias_act_bf16 if amp_dtype == "bfloat16"
-                  else me.matmul_bias_act_fp16)
+        f32 = amp_dtype == "float32"
+        kernel = {"bfloat16": me.matmul_bias_act_bf16,
+                  "float16": me.matmul_bias_act_fp16,
+                  "float32": me.matmul_bias_act_f32}[amp_dtype]
         for name, m, k, n, act in SHAPES:
             if name not in names:
                 continue
-            nbytes = 2 * (m * k + k * n) + 4 * (n + m * n)
+            nbytes = dt.itemsize * (m * k + k * n) + 4 * (n + m * n)
             count = max(2, min(64, -(-COLD_BYTES // nbytes)))
             sets = [(torch.randn(m, k, device="cuda", generator=gen).to(dt),
                      (torch.randn(k, n, device="cuda", generator=gen)
@@ -98,16 +106,22 @@ def main():
                     for _ in range(count)]
             x, w, b = sets[0]
             want = me.matmul_bias_act_reference(x, w, b, act)
-            prod = (x.float() @ w.float()).abs()
-            bound = (1.13 * (STEP[amp_dtype] * prod + ACC
-                             * (x.float().abs() @ w.float().abs()))
-                     + 1e-6 * want.abs() + 1e-7)
-            del prod
+            if f32:
+                bound = F32_ATOL + F32_RTOL * want.abs()
+            else:
+                prod = (x.float() @ w.float()).abs()
+                bound = (1.13 * (STEP[amp_dtype] * prod + ACC
+                                 * (x.float().abs() @ w.float().abs()))
+                         + 1e-6 * want.abs() + 1e-7)
+                del prod
             replays = 3 if m * n * k > 1e9 else 10
-            picked = me.tc_variant(m, n, k)
+            picked = me.f32_variant(m, n, k) if f32 else me.tc_variant(m, n, k)
             rows = []
-            for variant in me.TC_VARIANTS:
-                if variant != "cp.async 64x64" and (k % 8 or n % 8):
+            for variant in (me.F32_VARIANTS if f32 else me.TC_VARIANTS):
+                if f32 and variant.endswith("cp16") and n % 4:
+                    continue
+                if (not f32 and variant != "cp.async 64x64"
+                        and (k % 8 or n % 8)):
                     continue
 
                 def run(x, w, b, variant=variant):

@@ -1720,3 +1720,178 @@ def test_gelu_kernels_take_misaligned_views(cuda, tag, n):
     torch.cuda.synchronize()
     _same16(y.cpu(), _plain_cpu(tag, x))
     _same16(dx.cpu(), _plain_cpu(tag, x, dy))
+
+
+# ==========================================================================
+# the gelu plain versions run on the card: every 16-bit input, forward and
+# backward, equal to the plain versions on the CPU (their exps are
+# correctly rounded on every device)
+# ==========================================================================
+@pytest.mark.parametrize("tag", ["bf16", "fp16"])
+def test_gelu_plain_version_on_the_card_equals_the_cpu(cuda, tag):
+    dt = LOW[tag]
+    x = _every16(dt, cuda).repeat(4)
+    dy = torch.tensor(np.random.RandomState(11).randn(x.numel()),
+                      dtype=torch.float32, device=cuda).to(dt)
+    fwd, bwd = ((tgelu.gelu_bf16_reference, tgelu.gelu_bf16_grad_reference)
+                if tag == "bf16" else
+                (tgelu.gelu_fp16_reference, tgelu.gelu_fp16_grad_reference))
+    _same16(fwd(x).cpu(), fwd(x.cpu()))
+    _same16(bwd(x, dy).cpu(), bwd(x.cpu(), dy.cpu()))
+    # where CUDA's f32 expf is 0.61 ulp off and erfc lands on a bf16 tie
+    x0 = torch.tensor([-1.71875], dtype=dt, device=cuda)
+    want = -0.0732421875 if tag == "bf16" else float(fwd(x0.cpu()))
+    assert float(fwd(x0)) == want
+
+
+# ==========================================================================
+# kernel 9 in f32: every variant (128 x 128 and 32 x 64 tiles;
+# 16- and 4-byte w copies) at its tile edges and LeNet's N = 84 and the
+# ragged K = 517, with every act; two calls bit-identical
+# ==========================================================================
+def _f32_edge_shapes(variant):
+    """(M, K, N) at the variant's tile tm x tn: M and K over 1, tm - 1, tm,
+    tm + 1; N over 1, tn - 1, tn, tn + 1 for 4-byte w copies, and over
+    multiples of 4 (4, tn - 4, tn, tn + 4) for 16-byte ones; then N = 84
+    and K = 517."""
+    tm, tn = (int(s) for s in variant.split()[0].split("x"))
+    ns = ((4, tn - 4, tn, tn + 4, 84, 84) if variant.endswith("cp16")
+          else (1, tn - 1, tn, tn + 1, 84, 263))
+    return list(zip((1, tm - 1, tm, tm + 1, tm + 1, 2 * tm + 3),
+                    (1, tm, tm + 1, tm - 1, 517, 517), ns))
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("act", MM_ACTS)
+@pytest.mark.parametrize("variant", list(tme.F32_VARIANTS))
+def test_matmul_bias_act_f32_variants_at_tile_edges(cuda, variant, act,
+                                                    case):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = _f32_edge_shapes(variant)[case]
+    x, w, b = _mm_case(cuda, case, m, k, n)
+    before = tme.MATMUL_BIAS_ACT_F32.launches
+    got = tme.matmul_bias_act_f32(x, w, b, act, variant)
+    again = tme.matmul_bias_act_f32(x, w, b, act, variant)
+    torch.cuda.synchronize()
+    assert tme.MATMUL_BIAS_ACT_F32.launches == before + 2
+    want = tme.matmul_bias_act_reference(x, w, b, act)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **MM_TOL)
+    assert torch.equal(got, again)
+
+
+def test_matmul_bias_act_f32_variants_agree_bit_for_bit(cuda):
+    """Every output is one fmaf chain over k in increasing order, then the
+    bias and the act, whatever the tile: all variants give the same bits."""
+    x, w, b = _mm_case(cuda, 5, 300, 517, 200)
+    outs = [tme.matmul_bias_act_f32(x, w, b, "gelu", v)
+            for v in tme.F32_VARIANTS]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_matmul_bias_act_f32_wide_copies_refuse_unaligned_w(cuda):
+    x, w, b = _mm_case(cuda, 6, 64, 32, 83)
+    before = tme.MATMUL_BIAS_ACT_F32.launches
+    with pytest.raises(ValueError, match="cp16"):
+        tme.matmul_bias_act_f32(x, w, b, "", "32x64 cp16")   # N % 4
+    wide = torch.empty(32 * 84 + 1, device=cuda)[1:].view(32, 84)
+    wide.copy_(torch.randn(32, 84, device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        tme.matmul_bias_act_f32(x, wide, torch.zeros(84, device=cuda), "",
+                                "128x128 cp16")
+    with pytest.raises(ValueError, match="variant"):
+        tme.matmul_bias_act_f32(x, w, b, "", "16x16 cp4")
+    assert tme.MATMUL_BIAS_ACT_F32.launches == before
+    # the picker takes 4-byte copies for the misaligned view
+    got = tme.matmul_bias_act_f32(x, wide, torch.zeros(84, device=cuda))
+    torch.testing.assert_close(got, x @ wide, **MM_TOL)
+
+
+# ==========================================================================
+# paged decode over bf16 / int8 pages, split walk: contexts around the
+# split boundaries, head dims 8-256 and groups 1-8 against the plain
+# version; bit-identical calls, the tickets left zero, graph replay
+# ==========================================================================
+# (hq, hkv, d): groups 1, 2, 3, 4 and 8 over head dims 8 to 256
+SPLIT_HEADS = [(2, 2, 8), (4, 2, 64), (12, 4, 96), (8, 2, 128), (8, 1, 256),
+               (16, 2, 40), (6, 6, 64)]
+
+
+def _run_q(dtype, case, scales):
+    fn = tpa.paged_decode_int8 if dtype == torch.int8 else \
+        tpa.paged_decode_bf16
+    d = case[0].shape[-1]
+    return fn(*case, d ** -0.5, *scales)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,d", SPLIT_HEADS)
+def test_paged_decode_split_boundaries_match_plain(cuda, dtype, hq, hkv, d):
+    """Page 16, a table 32 pages wide: spans of 8 pages (128 tokens), 4
+    splits; contexts of 1, span - 1, span, span + 1, the whole table, 0."""
+    lens = [1, 127, 128, 129, 512, 0]
+    case, scales = _q_case(cuda, 7, dtype, hq, hkv, d, 16, 64, lens)
+    assert case[3].shape[1] == 32
+    assert tpa.split_plan(case[0], case[1], case[3]) == (4, 8)
+    fn = (tpa.PAGED_DECODE_INT8 if dtype == torch.int8
+          else tpa.PAGED_DECODE_BF16)
+    before = fn.launches
+    got = _run_q(dtype, case, scales)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    live = case[4] > 0
+    assert torch.isfinite(got).all()
+    assert float((got[live] - want[live]).abs().max()) <= ATOL
+    assert float(got[~live].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_decode_split_wide_batch_matches_plain(cuda, dtype):
+    """64 sequences x 12 kv heads: the span doubles to 32 pages (2 splits
+    of a 64-page table) to keep the grid within 12 CTAs an SM."""
+    rng = np.random.RandomState(3)
+    lens = rng.randint(1, 1025, 64).tolist()
+    lens[:3] = [1024, 512, 513]
+    case, scales = _q_case(cuda, 8, dtype, 12, 12, 64, 16, 4200, lens)
+    assert tpa.split_plan(case[0], case[1], case[3]) == (2, 32)
+    got = _run_q(dtype, case, scales)
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_paged_decode_split_is_deterministic_and_replays(cuda, dtype):
+    """At the serving shape: two calls equal bit for bit, the stream's
+    tickets all zero after them, and a CUDA graph of the call (warmed up
+    on its capture stream) replayed three times equal to the eager call
+    bit for bit, the capture stream's tickets zero after it."""
+    case, scales = _q_case(cuda, 9, dtype, 12, 12, 64, 16, 1024,
+                           [1024, 777, 512, 301, 64, 17], 2)
+    eager = _run_q(dtype, case, scales)
+    again = _run_q(dtype, case, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, again)
+    key = (cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+    assert int(tpa._TICKETS[key].abs().sum()) == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _run_q(dtype, case, scales)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = _run_q(dtype, case, scales)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert int(tpa._TICKETS[(cuda.index or 0, side.cuda_stream)]
+               .abs().sum()) == 0
+

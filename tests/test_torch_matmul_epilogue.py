@@ -344,3 +344,32 @@ def test_fp16_cpu_tensors_take_the_plain_version():
     assert tme.MATMUL_BIAS_ACT_FP16.launches == before
     with pytest.raises(ValueError, match="not a CUDA device"):
         tme.matmul_bias_act_fp16(x16, w16, torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("m,k,n,w_aligned,want", [
+    (256, 400, 120, True, "32x64 cp16"),       # LeNet fc1: 8 x 2 CTAs
+    (256, 120, 84, True, "32x64 cp16"),        # LeNet fc2
+    (256, 128, 256, True, "32x64 cp16"),       # word2vec
+    (1001, 517, 263, True, "32x64 cp4"),       # ragged: 4-byte w rows
+    (22528, 768, 3072, True, "128x128 cp16"),  # BERT-base FFN-in
+    (22528, 768, 3072, False, "128x128 cp4"),  # a misaligned w view
+    (256, 400, 120, False, "32x64 cp4"),
+    (2048, 64, 1024, True, "32x64 cp16"),      # 128 large tiles < 132
+    (2048, 64, 1056, True, "128x128 cp16"),    # 144 large tiles
+], ids=["lenet-fc1", "lenet-fc2", "word2vec", "ragged", "ffn-in",
+        "ffn-in-misaligned", "lenet-fc1-misaligned", "below-a-wave",
+        "a-wave"])
+def test_matmul_f32_variant_rule(m, k, n, w_aligned, want):
+    """The f32 kernel 9's variant at the shapes the main paths run: the
+    tile from the grid it would give, 4-byte w copies where N % 4 != 0 or
+    w is misaligned."""
+    assert tme.f32_variant(m, n, k, w_aligned) == want
+    assert want in tme.F32_VARIANTS
+
+
+def test_matmul_f32_variant_is_refused_on_the_cpu():
+    x, w = torch.randn(4, 3), torch.randn(3, 5)
+    before = tme.MATMUL_BIAS_ACT_F32.launches
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        tme.matmul_bias_act_f32(x, w, torch.zeros(5), "", "32x64 cp4")
+    assert tme.MATMUL_BIAS_ACT_F32.launches == before
