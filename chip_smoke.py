@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no result):
    bf16 and fp16 kernel 9 (each variant: the TMA feed at 64 x 64 and
    128 x 128 tiles, the cp.async feed; each bias dtype) must hold HGMMA
    (tensor-core) instructions, and ptxas must report no spill stores for
-   them (``tensor_cores`` lines);
+   them (``tensor_cores`` lines), nor for any instance of the f32 split
+   pair (each tile width, dropout on and off: ``simt_spills`` lines, with
+   their registers);
 3. paged decode, kernel vs plain version: the paged-decode kernel against
    its plain PyTorch version on the card, at the serving shape and a GQA
    shape;
@@ -34,14 +36,18 @@ Phases (any failure exits non-zero and prints no result):
    the BERT-base shape (b 44, h 12, s 512, d 64, a padding bias) and a
    long shape (b 2, h 12, s 2048, d 64, causal and not), with dropout 0
    and 0.1 (the plain side takes ``flash_dropout_mask``'s mask); the
-   keep rate within 4 sigma of the binomial, and one seed giving the same
-   output bit for bit;
+   keep rate within 4 sigma of the binomial, one seed giving the same
+   output bit for bit, and a second call of the f32 split pair giving the
+   same bits;
 6. flash attention, times at the two training configurations (padding
    bias, dropout 0.1, not causal; the BERT shape and s=2048): the
    kernels and plain versions by CUDA-graph replay, cold L2; the library
    call between CUDA events, SDPA's forward, and its backward alone (the
    forward run outside the timed region); against the bound
-   max(bytes / 3.35 TB/s, flops / 67 TFLOP/s);
+   max(bytes / 3.35 TB/s, flops / 67 TFLOP/s), each row with its
+   TFLOP/s and share of the bound, and ``flash_time_split_pair_f32``
+   lines the pair's sum and share beside SDPA's backward; then s=2048
+   again without dropout (those rows are not the ``kernels`` line's);
 7. training: BERT-base (``google-bert/bert-base-uncased`` widths), f32,
    batch 44 x seq 512 with padding, dropout 0.1, ``AdamOptimizer(1e-4)``
    through ``jit_train_step``: 2 warm-up and 10 timed steps on one
@@ -755,6 +761,45 @@ def tensor_core_check(flash):
                      f"stores {spills.get(n)}")
 
 
+# the f32 split pair (SIMT): one instance per tile width and dropout (on,
+# off), none may spill
+SIMT_PAIR = {"flash_bwd_dq_f32": "flash_bwd_dq_f32_kernel",
+             "flash_bwd_dkv_f32": "flash_bwd_dkv_f32_kernel"}
+
+
+def simt_spill_check(flash):
+    """Every instance of the f32 split pair: one per tile width and
+    dropout, and ptxas reported no spill stores for it.  Prints one line
+    each, with its registers."""
+    _, spills = sass_counts(flash)
+    regs, fn = {}, None
+    for ln in flash.build_log.splitlines():
+        m = re.search(r"Compiling entry function '([A-Za-z0-9_]+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            regs[fn] = int(m.group(1))
+    for entry, kernel in SIMT_PAIR.items():
+        insts = {}
+        for n in spills:
+            m = re.search(kernel + r"ILi(\d+)ELb([01])E", n)
+            if m:
+                insts[int(m.group(1)), m.group(2) == "1"] = n
+        want = [(w, drop) for w in (32, 64, 128) for drop in (False, True)]
+        if sorted(insts) != want:
+            fail(f"{entry}: instances (tile width, dropout) {sorted(insts)} "
+                 f"in the build log, expected {want}")
+        for (width, drop), n in sorted(insts.items()):
+            print("simt_spills " + json.dumps({
+                "kernel": entry, "tile_width": width, "dropout": drop,
+                "registers": regs.get(n), "spill_stores": spills[n]}),
+                flush=True)
+            if spills[n] != 0:
+                fail(f"{entry} (tile width {width}, dropout {drop}): ptxas "
+                     f"reports spill stores {spills[n]}")
+
+
 def matmul_tensor_core_check(tc):
     """Every instance of the bf16 / fp16 kernel 9 (its TMA variants and
     its cp.async one, with an f32 and a 16-bit bias): HGMMA in its SASS
@@ -907,6 +952,13 @@ def check_flash(name, case, causal, rate):
             fail(f"flash {name} rate {rate}: {kname} gradients outside "
                  f"rtol {GRAD_RTOL} / atol {GRAD_ATOL} of autograd's")
         errs[kname] = max(es)
+    # no atomics and no split sum in the pair: a second call, the same bits
+    again = (fa.bwd_dq(*args), *fa.bwd_dkv(*args))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(
+            again, got["flash_bwd_dq_f32"] + got["flash_bwd_dkv_f32"])):
+        fail(f"flash {name} rate {rate}: a second call of the f32 split "
+             f"pair gave other bits")
     if rate:
         n = keep.numel()
         kept = float(keep.sum(dtype=torch.float64))
@@ -1022,11 +1074,13 @@ def time_flash(name, cases, causal, rate, dt="f32"):
         rows[kname]["bound_share"] = bound_ms / rows[kname]["ms"]
         print(f"flash_time {kname} " + json.dumps(rows[kname]), flush=True)
     pair = [rows[f"flash_bwd_{k}_{dt}"] for k in ("dq", "dkv")]
+    pair_ms = pair[0]["ms"] + pair[1]["ms"]
+    pair_bound = pair[0]["bound_ms"] + pair[1]["bound_ms"]
     print(f"flash_time_split_pair_{dt} " + json.dumps({
-        "shape": name, "ms": pair[0]["ms"] + pair[1]["ms"],
-        "bound_ms": pair[0]["bound_ms"] + pair[1]["bound_ms"],
-        "library_ms": lib_bwd, "fused_ms": rows[f"flash_bwd_fused_{dt}"]["ms"]}),
-        flush=True)
+        "shape": name, "dropout": rate, "ms": pair_ms,
+        "bound_ms": pair_bound,
+        "bound_share": pair_bound / pair_ms, "library_ms": lib_bwd,
+        "fused_ms": rows[f"flash_bwd_fused_{dt}"]["ms"]}), flush=True)
     return rows
 
 
@@ -1034,8 +1088,9 @@ def flash_phase():
     """Checks at both shapes, dropout 0 and 0.1, then times at the two
     training configurations (padding bias, dropout 0.1, not causal): the
     BERT shape, whose backward takes the fused kernel, and s=2048, whose
-    backward takes the split pair.  Returns ({kernel: max abs err},
-    {shape: {kernel: timing row}})."""
+    backward takes the split pair; s=2048 is timed again without dropout.
+    Returns ({kernel: max abs err}, {shape: {kernel: timing row}}) of the
+    dropout-0.1 runs."""
     import torch
 
     errs = {name: 0.0 for name, _ in FLASH_ROWS}
@@ -1054,6 +1109,10 @@ def flash_phase():
              "long": time_flash("long", [long_bias] + [
                  make_flash_case(5 + i, 2, 12, 2048, 64, True)
                  for i in range(2)], False, 0.1)}
+    # s=2048 without dropout: what the keep decisions cost the kernels
+    time_flash("long", [long_bias] + [
+        make_flash_case(5 + i, 2, 12, 2048, 64, True) for i in range(2)],
+        False, 0.0)
     torch.cuda.empty_cache()
     return errs, times
 
@@ -3361,6 +3420,7 @@ def main():
     from paddle_tpu_torch import kernel_build
     from paddle_tpu_torch.ops.bn_act import BN_ACT
     from paddle_tpu_torch.ops.flash_attention import FLASH
+
     from paddle_tpu_torch.ops.gelu import GELU
     from paddle_tpu_torch.ops.matmul_epilogue import (MATMUL_BIAS_ACT,
                                                       MATMUL_BIAS_ACT_TC)
@@ -3377,6 +3437,7 @@ def main():
                     or "Compiling entry" in ln):
                 print("  ptxas: " + ln.strip())
     tensor_core_check(FLASH)
+    simt_spill_check(FLASH)
     matmul_tensor_core_check(MATMUL_BIAS_ACT_TC)
 
     phase("paged decode: kernel vs plain version, times")

@@ -76,33 +76,105 @@
 //
 // SIMT design (the f32 kernels).  The TPU walks the grid in order and
 // carries the online softmax (m, l, acc) in VMEM from one kv block to the
-// next; here a loop
-// inside each CTA takes the place of that sequential grid axis, so no
-// state crosses CTAs.  Every kernel works on 64 x 64 score tiles with 256
-// threads as 16 x 16: thread (ty, tx) owns rows ty + 16 i and columns
-// tx + 16 j (i, j < 4) of each score tile, and rows ty + 16 i, columns
-// tx + 16 jd of each (64, d) accumulator.  Tiles of q, k, v and dO live in
-// shared memory with a row stride of d + 1, so both the dot-product reads
-// (16 different rows, one column) and the accumulate reads (one row, 16
-// consecutive columns) are free of bank conflicts; the products are
-// SIMT f32 FMAs (the reference is full f32; no TF32).  The 16 threads of
-// a row are 16 consecutive lanes of one warp, so the row max and row sum
-// are 4-step shuffles.  Ragged edges are masked in the kernel (rows past
-// sq or keys past sk load as zeros and take no probability), so any
-// sq, sk >= 1 is accepted; under causal masking the kv tiles wholly above
-// the diagonal are skipped.
+// next; here a loop inside each CTA takes the place of that sequential
+// grid axis, so no state crosses CTAs.  The products are SIMT f32 FMAs
+// (the reference is full f32; no TF32).  Ragged edges are masked in the
+// kernel (rows past sq or keys past sk load as zeros and take no
+// probability), so any sq, sk >= 1 is accepted; under causal masking the
+// kv tiles wholly above the diagonal are skipped.
 //
+// The forward and the fused backward keep the first SIMT design: 64 x 64
+// score tiles with 256 threads as 16 x 16: thread (ty, tx) owns
+// rows ty + 16 i and columns tx + 16 j (i, j < 4) of each score tile, and
+// rows ty + 16 i, columns tx + 16 jd of each (64, d) accumulator.  Tiles
+// of q, k, v and dO live in shared memory with a row stride of d + 1, so
+// both the dot-product reads (16 different rows, one column) and the
+// accumulate reads (one row, 16 consecutive columns) are free of bank
+// conflicts.  The 16 threads of a row are 16 consecutive lanes of one
+// warp, so the row max and row sum are 4-step shuffles.
 // * forward: grid (q tile, b h); the kv loop keeps m, l and the output
 //   accumulator in registers; one kv tile is the single-block kernel
 //   (row 1), more is the blocked one (row 2).
-// * dQ: grid (q tile, b h), kv loop inside; dK/dV: grid (kv tile, b h),
-//   q loop inside.  Each recomputes S and dP from lse, as the TPU kernels
-//   do, so S is computed twice over the pair.
 // * fused: one CTA per (b, h).  For each kv tile, dK and dV accumulate in
 //   registers over every q tile; dQ of that q tile is read, added to and
 //   written back in device memory.  Only this CTA touches this (b, h) and
 //   each dQ element is always updated by the same thread, so there is no
 //   race and no atomic, and the result is deterministic.
+//
+// SIMT split pair (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel).
+// At b 2, h 12, s 2048, d 64 dQ does 38.7 GFLOP (S, dP, dS K: 0.577 ms at
+// 67 TFLOP/s) and dK/dV 51.5 (S, dP, P^T dO, dS^T Q: 0.769).  The first pair
+// reached 32% / 35% of that: 8 scalar LDS.32 for 16 FFMAs a thread and k
+// capped its loops, and every tile waited out its copy.  Each kernel
+// recomputes S and dP from lse, as the TPU kernels do.
+// * Tiles: 64 queries x 64 keys a loop step, scored by a group of 128
+//   threads.  Up to D = 64 a CTA is two groups (256 threads, one CTA an
+//   SM: 171 KB of shared memory for dQ, 206 KB for dK/dV at D 64) that
+//   share the tiles they stream.  dQ: grid (128-query tile, b h), each
+//   group its 64 queries, the kv loop inside; dK/dV: grid (128-key tile,
+//   b h), each group its 64 keys, the q loop inside.  At D 128 a CTA is
+//   one group of 256 threads, where dK and dV take 2 x 64 x 128 floats.
+// * Micro-tiles: a thread scores SQ = 8 queries (qb + 4 (i % 4) +
+//   16 (i / 4)) against the 4 keys g, g + 16, g + 32, g + 48 of one
+//   Philox call: 8 x 4 accumulators each for S and dP (4 x 4 at 256
+//   threads a group).  It accumulates 8 x 4 outputs (of dQ, or of dK and
+//   of dV).
+// * Layouts: q, k, v and dO row-major, row stride D + 4 floats (4 mod 32
+//   words).  The products over d (S = Q K^T, dP = dO V^T) read 4
+//   consecutive d of a row by one LDS.128; the 4 rows (or 8) a warp reads
+//   at once lie in distinct bank groups, one wavefront each: 12 LDS.128
+//   for 128 FFMAs.  The products over the tile's rows (dQ += dS K,
+//   dV += P^T dO, dK += dS^T Q) read 4 consecutive d of a K, dO or Q row
+//   and 4 consecutive outputs' values of one row of a P or dS tile (row
+//   stride 68): 3 LDS.128 for 32 FFMAs.  Each group writes its P / dS
+//   tiles from registers in the order that read wants, one STS.128 per 4
+//   values (4 wavefronts a warp, the least for 512 bytes).  dQ: dS^T
+//   [key][query with the two 2-bit fields of its index within 16
+//   swapped]; dK/dV: P and dS [query][4 (key % 16) + key / 16].  No
+//   transposed copy of any input.
+// * Copies: 16-byte cp.async (d % 8 == 0, and _tma_ready's 16-byte
+//   bases), zero-filled past sq / sk and past d; lse and delta by 4-byte
+//   copies.  Up to D 64, 2-stage rings: dQ loads each group's Q, dO, lse
+//   and delta once and streams K and V; dK/dV loads each group's K, V and
+//   bias row once and streams Q, dO, lse and delta.  A tile's copy is
+//   issued after the CTA barrier at the top of the tile before it, so it
+//   has that tile's products to land; a barrier of the group
+//   (bar.sync 1 + group, 128 threads) puts its dS^T (dQ) or P and dS
+//   (dK/dV) writes before its products: two barriers a tile.  Under
+//   causal masking a CTA walks the tiles its last group needs; the first
+//   group's extra tile lies above its diagonal and adds zeros.  At D 128
+//   a second stage does not fit: dQ streams K through a 2-stage ring and
+//   V through one slot refilled under the dQ product; dK/dV has one slot
+//   for Q (with lse) and one for dO (with delta), the next q tile's Q
+//   copied under the dV product and its dO under the S^T product.
+// * Per element: the masks only on tiles that a ragged edge or the
+//   diagonal reaches; the bias once per kv tile (dQ) or CTA (dK/dV);
+//   expf.  Dropout is a template argument: a step's 32 keep decisions are
+//   one register, drawn by 8 drop_bits calls in the step before (dK/dV:
+//   spread over the dV product's blocks, among its FFMAs; dQ: after its
+//   dQ product, while the other warps reach the barrier).
+// Measured (H100 80GB HBM3, 700 W; b 2 h 12 s 2048 d 64, padding bias,
+// dropout 0.1, dQ / dK/dV ms; chip_smoke.py's flash phase run on copies
+// of the tree in turns, one call): two groups over the rings 1.047-1.048
+// / 1.317 (pair 2.365; dropout off 0.956 / 1.223); one group a CTA at two
+// CTAs an SM, with dQ's K ring and V slot and dK/dV's single Q and dO
+// slots, 1.051 / 1.375-1.376 (2.426-2.427); the dK/dV ring alone (dQ one
+// group) 1.064-1.072 / 1.317-1.326; a dK/dV ring at one group a CTA,
+// which leaves one 128-thread CTA an SM, 3.185 for the pair.  The first
+// pair: 1.795 / 2.177.
+// What lost before the rings (one group a CTA, two CTAs an SM; each
+// against the design of its day in the same call): partly unrolled loops
+// (score k by 4, accumulate c by 8: 1.165 / 1.452 against 1.117 / 1.403
+// fully unrolled k and c by 16); 256 threads with 4 x 4 micro-tiles at D
+// 64 (1.205 / 1.557 against 1.165 / 1.452); score k unrolled by 4 (1.069
+// / 1.397 against 1.052 / 1.375; by 8 a tie, 1.046 / 1.375); a dQ of four
+// tiles (one K slot, V and dS^T sharing one) at three CTAs an SM and 168
+// registers (1.208 against 1.064); dQ's V slot taking dS^T behind a third
+// barrier (1.058 against 1.059: a tie, the two-barrier form stays); the
+// keep bits drawn before the products (spills), or among the dQ
+// product's FFMAs (1.161 against 1.059); P computed row by row among the
+// dP product's FFMAs (1.091 / 1.390 against 1.059 / 1.387, and a spill in
+// dQ).
 //
 // Tensor-core split pair (bf16, fp16).  At b 2, h 12, s 2048, d 64 the
 // dQ kernel does 6 b h s^2 d = 38.7 GFLOP (S, dP, dS K) and the dK/dV
@@ -570,75 +642,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// -------------------------------------------------------- backward: dQ
+// ------------------------------------------------- backward: the fused form
+// grid (b h): the CTA walks every kv tile and also adds into dq_acc
+// (float32, in device memory), which is dq.
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    Attn a) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1, VD = D / 16;
-  float* qs = smem;
-  float* dos = qs + kTile * LD;
-  float* ks = dos + kTile * LD;
-  float* vs = ks + kTile * LD;
-  float* ps = vs + kTile * LD;
-  float* dss = ps + kTile * kLP;
-  const int bh = blockIdx.y, bi = bh / a.h;
-  const int row0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
-  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
-
-  load_tile<D>(qs, q + qoff, row0, a.sq, a.d);
-  load_tile<D>(dos, dout + qoff, row0, a.sq, a.d);
-  float lr[4], dr[4], acc[4][VD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    lr[i] = r < a.sq ? __ldg(lse + (size_t)bh * a.sq + r) : 0.f;
-    dr[i] = r < a.sq ? __ldg(delta + (size_t)bh * a.sq + r) : 0.f;
-#pragma unroll
-    for (int jd = 0; jd < VD; ++jd) acc[i][jd] = 0.f;
-  }
-
-  const int n_kv = kv_tiles(a, row0);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int col0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(ks, k + koff, col0, a.sk, a.d);
-    load_tile<D>(vs, v + koff, col0, a.sk, a.d);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<D>(qs, ks, s, ty, tx);
-    dot_tile<D>(dos, vs, dp, ty, tx);
-    bwd_terms<T>(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ps, dss, ty,
-                 tx);
-    __syncthreads();
-    acc_rows<D>(dss, ks, acc, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= a.sq) continue;
-#pragma unroll
-    for (int jd = 0; jd < VD; ++jd)
-      if (tx + 16 * jd < a.d)
-        Elem<T>::store(dq + qoff + (size_t)r * a.d + tx + 16 * jd,
-                       acc[i][jd]);
-  }
-}
-
-// ----------------------------------- backward: dK/dV, and the fused form
-// FUSED = false: grid (kv tile, b h), this CTA's kv tile is blockIdx.x.
-// FUSED = true:  grid (b h), the CTA walks every kv tile and also adds
-//                into dq_acc (float32, in device memory), which is dq.
-template <int D, bool FUSED, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq_acc,
@@ -652,16 +661,15 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dos = qs + kTile * LD;
   float* ps = dos + kTile * LD;
   float* dss = ps + kTile * kLP;
-  const int bh = FUSED ? blockIdx.x : blockIdx.y;
+  const int bh = blockIdx.x;
   const int bi = bh / a.h;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
   const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
   const int n_q = (a.sq + kTile - 1) / kTile;
-  const int kt_begin = FUSED ? 0 : (int)blockIdx.x;
-  const int kt_end = FUSED ? (a.sk + kTile - 1) / kTile : (int)blockIdx.x + 1;
+  const int n_kv = (a.sk + kTile - 1) / kTile;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  for (int kt = 0; kt < n_kv; ++kt) {
     const int col0 = kt * kTile;
     __syncthreads();   // the previous kv tile's last products are done
     load_tile<D>(ks, k + koff, col0, a.sk, a.d);
@@ -693,16 +701,14 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       acc_cols<D>(ps, dos, dva, ty, tx);
       acc_cols<D>(dss, qs, dka, ty, tx);
-      if (FUSED) {
-        float dqa[4][VD];
+      float dqa[4][VD];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int jd = 0; jd < VD; ++jd) dqa[i][jd] = 0.f;
-        acc_rows<D>(dss, ks, dqa, ty, tx);
-        // kv tile 0 reads every q tile first: it initialises dQ
-        add_dq<D>(dq_acc + qoff, row0, a.sq, a.d, kt == 0, dqa, ty, tx);
-      }
+        for (int jd = 0; jd < VD; ++jd) dqa[i][jd] = 0.f;
+      acc_rows<D>(dss, ks, dqa, ty, tx);
+      // kv tile 0 reads every q tile first: it initialises dQ
+      add_dq<D>(dq_acc + qoff, row0, a.sq, a.d, kt == 0, dqa, ty, tx);
     }
 
 #pragma unroll
@@ -718,6 +724,761 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+}
+
+// ------------------------------------------- backward, f32: the split pair
+// The f32 dQ and dK/dV kernels (see "SIMT split pair" at the top): a
+// 64 x 64 score tile a loop step, each thread scoring SQ queries against
+// the four keys g, g + 16, g + 32, g + 48 of one Philox call; products
+// from row-major tiles (row stride D + 4) read by 16-byte loads; tiles
+// copied by cp.async, the next one in flight over the current products.
+template <int D>
+struct SplitF32 {
+  static constexpr int kNT = D == 128 ? 256 : 128;   // threads a group
+  static constexpr int kSQ = kNT == 128 ? 8 : 4;     // queries a thread scores
+  static constexpr int kLS = kTile + 4;              // P / dS tile row
+  static constexpr int kCW = D / 32;                 // warps across an output
+  static constexpr int kRW = kNT / 32 / kCW;         // warps down an output
+  static constexpr int kAR = kTile / kRW / 4;        // output rows a thread
+  static constexpr int kTileF = kTile * (D + 4);     // floats of a q/k/v/dO tile
+  static constexpr int kScoreF = kTile * kLS;        // floats of a P / dS tile
+  static_assert(kAR % 4 == 0, "output rows in blocks of 4 positions");
+};
+
+// Tile query of a thread's score element i: qb + 4 (i % 4) + 16 (i / 4),
+// qb = 4 SQ (warp / 2) + lane / 8.  For each i the 4 lane rows of a warp
+// read 4 consecutive q or dO rows, in 4 distinct bank groups.
+__device__ __forceinline__ int score_row(int qb, int i) {
+  return qb + 4 * (i % 4) + 16 * (i / 4);
+}
+
+// rows [row0, row0 + R) of an (n, d) row-major f32 matrix into
+// s[R][D + 4], by 16-byte cp.async (d % 8 == 0: a chunk of 4 columns is
+// wholly inside d or past it); rows past n and columns d..D-1 arrive as
+// zeros.  Each thread copies one column chunk of every NT / (D / 4)-th row.
+template <int D, int NT, int R = kTile>
+__device__ __forceinline__ void cp_tile(float* __restrict__ s,
+                                        const float* __restrict__ g, int row0,
+                                        int n, int d) {
+  constexpr int kC = D / 4, kStep = NT / kC;
+  static_assert(NT % kC == 0, "every thread copies one column chunk");
+  const int c4 = threadIdx.x % kC, r0 = threadIdx.x / kC;
+  const bool col_ok = 4 * c4 < d;
+#pragma unroll
+  for (int i = 0; i < R / kStep; ++i) {
+    const int r = r0 + i * kStep;
+    const bool ok = col_ok && row0 + r < n;
+    hopper::cp_async<16>(s + r * (D + 4) + 4 * c4,
+                         ok ? g + (size_t)(row0 + r) * d + 4 * c4 : g,
+                         ok ? 16u : 0u);
+  }
+}
+
+// x[row0 .. row0 + R) into s[R] by threads 0..R-1 (4-byte copies: lse
+// and delta rows start anywhere), zeros past n
+template <int R = kTile>
+__device__ __forceinline__ void cp_row_vec(float* __restrict__ s,
+                                           const float* __restrict__ x,
+                                           int row0, int n) {
+  const int r = threadIdx.x;
+  if (r < R) {
+    const bool ok = row0 + r < n;
+    hopper::cp_async<4>(s + r, ok ? x + row0 + r : x, ok ? 4u : 0u);
+  }
+}
+
+// s[i][j] = a[score_row(i)] . b[g + 16 j] over the tile's D columns, one
+// f32 FMA chain a product in column order (a, b: [64][D + 4]); per 4
+// columns SQ + 4 LDS.128 for 16 SQ FFMAs
+template <int D, int SQ>
+__device__ __forceinline__ void score_tile(const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           float (&s)[SQ][4], int qb, int g) {
+#pragma unroll
+  for (int i = 0; i < SQ; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; k += 4) {
+    float4 av[SQ], bv[4];
+#pragma unroll
+    for (int i = 0; i < SQ; ++i)
+      av[i] = *reinterpret_cast<const float4*>(
+          a + score_row(qb, i) * (D + 4) + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + (g + 16 * j) * (D + 4) + k);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+  }
+}
+
+// acc[4 m + t][e] += sum_c p[c][pb + 16 m + t] * x[c][dc + e], c in tile
+// order (p: [64][68], a P or dS tile with the output's rows as its
+// columns; x: [64][D + 4]); per c AR / 4 + 1 LDS.128 for 4 AR FFMAs.  In
+// kAccBlocks blocks of c, each opened by step(block): work that its FFMAs
+// hide.  (One block of all 64 c made the dK/dV loop too long: 3.34 ms
+// against 1.39 at b 2 s 2048; two blocks 1.45.)
+constexpr int kAccBlocks = 4;
+template <int D, int AR, class Step>
+__device__ __forceinline__ void acc_tile(const float* __restrict__ p,
+                                         const float* __restrict__ x,
+                                         float (&acc)[AR][4], int pb, int dc,
+                                         Step step) {
+  constexpr int kC = kTile / kAccBlocks;
+#pragma unroll 1
+  for (int blk = 0; blk < kAccBlocks; ++blk) {
+    step(blk);
+#pragma unroll
+    for (int c = blk * kC; c < (blk + 1) * kC; ++c) {
+      float4 pv[AR / 4];
+#pragma unroll
+      for (int m = 0; m < AR / 4; ++m)
+        pv[m] = *reinterpret_cast<const float4*>(p + c * (kTile + 4) + pb +
+                                                 16 * m);
+      const float4 xv =
+          *reinterpret_cast<const float4*>(x + c * (D + 4) + dc);
+      const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int m = 0; m < AR / 4; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[4 * m][e] = fmaf(pv[m].x, xe[e], acc[4 * m][e]);
+          acc[4 * m + 1][e] = fmaf(pv[m].y, xe[e], acc[4 * m + 1][e]);
+          acc[4 * m + 2][e] = fmaf(pv[m].z, xe[e], acc[4 * m + 2][e]);
+          acc[4 * m + 3][e] = fmaf(pv[m].w, xe[e], acc[4 * m + 3][e]);
+        }
+    }
+  }
+}
+
+// s (dot products Q.K) -> P = exp(s scale + bias - lse) of the thread's
+// elements (queries row0 + score_row(i), keys col0 + g + 16 j); EDGE: the
+// tile reaches past sq or sk or the causal diagonal, so bwd_terms' masks
+// apply (score(), zero outside), else none does
+template <int SQ, bool EDGE>
+__device__ __forceinline__ void split_probs(const Attn& a, int row0, int col0,
+                                            int qb, int g, float (&s)[SQ][4],
+                                            const float (&lse)[SQ],
+                                            const float (&bias)[4]) {
+#pragma unroll
+  for (int i = 0; i < SQ; ++i) {
+    const int r = row0 + score_row(qb, i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + g + 16 * j;
+      if (EDGE)
+        s[i][j] = (r < a.sq && c < a.sk)
+                      ? expf(score(a, s[i][j], bias[j], r, c) - lse[i])
+                      : 0.f;
+      else
+        s[i][j] = expf(s[i][j] * a.scale + bias[j] - lse[i]);
+    }
+  }
+}
+
+// The keep decisions of the thread's elements i0 .. i0 + n - 1 (bit
+// 4 i + j: query row0 + score_row(i), key col0 + g + 16 j), one drop_bits
+// call a query.  Kept in one register, a tile's are drawn during the tile
+// before it: in dK/dV a few queries in each block of its dV product,
+// among the FFMAs; in dQ after its last product, before the barrier that
+// waits for the other warps (spread over the dQ product's blocks they
+// took registers it does not have: 1.16 ms against 1.06 at b 2 s 2048).
+template <int SQ>
+__device__ __forceinline__ uint32_t keep_bits(const Attn& a, uint64_t seed,
+                                              int bh, int row0, int col0,
+                                              int qb, int g, int i0 = 0,
+                                              int n = SQ) {
+  static_assert(4 * SQ <= 32, "one bit an element");
+  uint32_t keep = 0;
+#pragma unroll
+  for (int i = i0; i < i0 + n; ++i) {
+    const uint4 w = drop_bits(a, seed, bh, row0 + score_row(qb, i), col0 + g);
+    keep |= ((uint32_t)(w.x >= a.thresh) | (uint32_t)(w.y >= a.thresh) << 1 |
+             (uint32_t)(w.z >= a.thresh) << 2 |
+             (uint32_t)(w.w >= a.thresh) << 3) << (4 * i);
+  }
+  return keep;
+}
+
+// p (P) and dp (dO.V) -> the dropped P in p and dS in dp, as bwd_terms
+// (DROP: with dropout, `keep` from keep_bits)
+template <int SQ, bool DROP>
+__device__ __forceinline__ void split_grads(const Attn& a, float (&p)[SQ][4],
+                                            float (&dp)[SQ][4],
+                                            const float (&delta)[SQ],
+                                            uint32_t keep) {
+#pragma unroll
+  for (int i = 0; i < SQ; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float pv = p[i][j];
+      float pd = pv, dpd = dp[i][j];
+      if (DROP) {
+        const bool kept = (keep >> (4 * i + j)) & 1u;
+        pd = kept ? pv * a.keep_scale : 0.f;
+        dpd = kept ? dpd * a.keep_scale : 0.f;
+      }
+      dp[i][j] = pv * (dpd - delta[i]) * a.scale;
+      p[i][j] = pd;
+    }
+}
+
+__device__ __forceinline__ bool edge_tile(const Attn& a, int row0, int col0) {
+  return row0 + kTile > a.sq || col0 + kTile > a.sk ||
+         (a.causal && col0 + kTile - 1 > row0);
+}
+
+// dQ at D = 128: grid (q tile, b h), one group of 256 threads a CTA; K of
+// each kv tile through a 2-stage ring, V through one slot refilled under
+// the dQ product, dS^T in a tile of its own: two barriers a kv tile (DROP:
+// with dropout)
+template <int D, bool DROP>
+__device__ __forceinline__ void dq_f32_slots(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta,
+                                             float* __restrict__ dq, Attn a) {
+  using C = SplitF32<D>;
+  constexpr int NT = C::kNT, SQ = C::kSQ, AR = C::kAR;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + C::kTileF;
+  float* ks = dos + C::kTileF;       // [2][64][D + 4]
+  float* vs = ks + 2 * C::kTileF;
+  float* dst = vs + C::kTileF;       // dS^T [key][position of query]
+  float* lse_s = dst + C::kScoreF;
+  float* delta_s = lse_s + kTile;
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int row0 = blockIdx.x * kTile;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
+  const uint64_t seed = DROP ? (uint64_t)*a.seed : 0ull;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // scores: keys g + 16 j, queries score_row(qb, i)
+  const int g = 8 * (warp % 2) + lane % 8;
+  const int qb = 4 * SQ * (warp / 2) + lane / 8;
+  // dQ: columns dc .. dc + 3 of dS^T positions pb + 16 m + t
+  const int dc = 32 * (warp % C::kCW) + 4 * (lane % 8);
+  const int pb = (kTile / C::kRW) * (warp / C::kCW) + 4 * (lane / 8);
+  const int n_kv = kv_tiles(a, row0);
+
+  cp_tile<D, NT>(qs, q + qoff, row0, a.sq, a.d);
+  cp_tile<D, NT>(dos, dout + qoff, row0, a.sq, a.d);
+  cp_tile<D, NT>(ks, k + koff, 0, a.sk, a.d);
+  cp_tile<D, NT>(vs, v + koff, 0, a.sk, a.d);
+  cp_row_vec(lse_s, lse + (size_t)bh * a.sq, row0, a.sq);
+  cp_row_vec(delta_s, delta + (size_t)bh * a.sq, row0, a.sq);
+  hopper::cp_async_commit();
+  float acc[AR][4];
+#pragma unroll
+  for (int i = 0; i < AR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  uint32_t keep = DROP ? keep_bits<SQ>(a, seed, bh, row0, 0, qb, g) : 0u;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int col0 = kt * kTile;
+    const float* kst = ks + (kt & 1) * C::kTileF;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // K and V of tile kt have landed; all threads are
+                       // past tile kt - 1's dQ product
+    if (kt + 1 < n_kv)
+      cp_tile<D, NT>(ks + ((kt + 1) & 1) * C::kTileF, k + koff, col0 + kTile,
+                     a.sk, a.d);
+    hopper::cp_async_commit();
+    float bj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + g + 16 * j;
+      bj[j] = (a.bias != nullptr && c < a.sk)
+                  ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+    }
+    float s[SQ][4], dp[SQ][4], lr[SQ], dr[SQ];
+    score_tile<D, SQ>(qs, kst, s, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) lr[i] = lse_s[score_row(qb, i)];
+    if (edge_tile(a, row0, col0))
+      split_probs<SQ, true>(a, row0, col0, qb, g, s, lr, bj);
+    else
+      split_probs<SQ, false>(a, row0, col0, qb, g, s, lr, bj);
+    score_tile<D, SQ>(dos, vs, dp, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) dr[i] = delta_s[score_row(qb, i)];
+    split_grads<SQ, DROP>(a, s, dp, dr, keep);
+    // dS^T[key][position]: query 16 m' + 4 t + l sits at position
+    // 16 m' + 4 l + t, so a thread's queries 4 m .. 4 m + 3 are one STS.128
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int m = 0; m < SQ / 4; ++m)
+        *reinterpret_cast<float4*>(dst + (g + 16 * j) * C::kLS +
+                                   4 * SQ * (warp / 2) + 16 * m +
+                                   4 * (lane / 8)) =
+            make_float4(dp[4 * m][j], dp[4 * m + 1][j], dp[4 * m + 2][j],
+                        dp[4 * m + 3][j]);
+    __syncthreads();   // dS^T is whole; every warp has read V
+    if (kt + 1 < n_kv)
+      cp_tile<D, NT>(vs, v + koff, col0 + kTile, a.sk, a.d);
+    hopper::cp_async_commit();
+    acc_tile<D, AR>(dst, kst, acc, pb, dc, [](int) {});
+    // the next tile's keep bits, while the other warps finish their FFMAs
+    if (DROP) keep = keep_bits<SQ>(a, seed, bh, row0, col0 + kTile, qb, g);
+  }
+  hopper::cp_async_wait<0>();
+
+  // position pb + 16 m + t holds query (pb & ~15) + 16 m + 4 t + lane / 8
+#pragma unroll
+  for (int m = 0; m < AR / 4; ++m)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int r = row0 + (kTile / C::kRW) * (warp / C::kCW) + 16 * m +
+                    4 * t + lane / 8;
+      if (r < a.sq && dc < a.d)
+        *reinterpret_cast<float4*>(dq + qoff + (size_t)r * a.d + dc) =
+            make_float4(acc[4 * m + t][0], acc[4 * m + t][1],
+                        acc[4 * m + t][2], acc[4 * m + t][3]);
+    }
+}
+
+// dK/dV at D = 128: grid (kv tile, b h), one group of 256 threads a CTA;
+// K, V and the bias loaded once; Q with lse and dO with delta in one slot
+// each (a second would not fit), the next q tile's Q copied over the dV
+// product and its dO over its S^T product (DROP: with dropout)
+template <int D, bool DROP>
+__device__ __forceinline__ void dkv_f32_slots(const float* __restrict__ q,
+                                              const float* __restrict__ k,
+                                              const float* __restrict__ v,
+                                              const float* __restrict__ dout,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              float* __restrict__ dk,
+                                              float* __restrict__ dv, Attn a) {
+  using C = SplitF32<D>;
+  constexpr int NT = C::kNT, SQ = C::kSQ, AR = C::kAR;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + C::kTileF;
+  float* qs = vs + C::kTileF;
+  float* dos = qs + C::kTileF;
+  float* ps = dos + C::kTileF;     // dropped P [query][position of key]
+  float* dss = ps + C::kScoreF;    // dS [query][position of key]
+  float* lse_s = dss + C::kScoreF;
+  float* delta_s = lse_s + kTile;
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int col0 = blockIdx.x * kTile;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
+  const float* lse_h = lse + (size_t)bh * a.sq;
+  const float* delta_h = delta + (size_t)bh * a.sq;
+  const uint64_t seed = DROP ? (uint64_t)*a.seed : 0ull;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = 8 * (warp % 2) + lane % 8;
+  const int qb = 4 * SQ * (warp / 2) + lane / 8;
+  const int dc = 32 * (warp % C::kCW) + 4 * (lane % 8);
+  const int pb = (kTile / C::kRW) * (warp / C::kCW) + 4 * (lane / 8);
+  const int n_q = (a.sq + kTile - 1) / kTile;
+  const int qt0 = first_q_tile(a, col0);
+
+  cp_tile<D, NT>(ks, k + koff, col0, a.sk, a.d);
+  cp_tile<D, NT>(vs, v + koff, col0, a.sk, a.d);
+  if (qt0 < n_q) {
+    cp_tile<D, NT>(qs, q + qoff, qt0 * kTile, a.sq, a.d);
+    cp_row_vec(lse_s, lse_h, qt0 * kTile, a.sq);
+  }
+  hopper::cp_async_commit();
+  float bj[4], dka[AR][4], dva[AR][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = col0 + g + 16 * j;
+    bj[j] = (a.bias != nullptr && c < a.sk)
+                ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < AR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  uint32_t keep =
+      DROP ? keep_bits<SQ>(a, seed, bh, qt0 * kTile, col0, qb, g) : 0u;
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int row0 = qt * kTile;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // Q, lse of tile qt have landed; all threads are
+                       // past tile qt - 1's dV product
+    cp_tile<D, NT>(dos, dout + qoff, row0, a.sq, a.d);
+    cp_row_vec(delta_s, delta_h, row0, a.sq);
+    hopper::cp_async_commit();
+    const bool edge = edge_tile(a, row0, col0);
+    float s[SQ][4], dp[SQ][4], lr[SQ], dr[SQ];
+    score_tile<D, SQ>(qs, ks, s, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) lr[i] = lse_s[score_row(qb, i)];
+    if (edge)
+      split_probs<SQ, true>(a, row0, col0, qb, g, s, lr, bj);
+    else
+      split_probs<SQ, false>(a, row0, col0, qb, g, s, lr, bj);
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // dO, delta of tile qt have landed
+    score_tile<D, SQ>(dos, vs, dp, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) dr[i] = delta_s[score_row(qb, i)];
+    split_grads<SQ, DROP>(a, s, dp, dr, keep);
+    // key g + 16 j sits at position 4 g + j: a thread's 4 keys of a query
+    // are one STS.128
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) {
+      const int r = score_row(qb, i) * C::kLS + 4 * g;
+      *reinterpret_cast<float4*>(ps + r) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      *reinterpret_cast<float4*>(dss + r) =
+          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+    }
+    __syncthreads();
+    acc_tile<D, AR>(dss, qs, dka, pb, dc, [](int) {});
+    __syncthreads();   // every warp has read Q and lse: the next tile's go in
+    if (qt + 1 < n_q) {
+      cp_tile<D, NT>(qs, q + qoff, row0 + kTile, a.sq, a.d);
+      cp_row_vec(lse_s, lse_h, row0 + kTile, a.sq);
+    }
+    hopper::cp_async_commit();
+    // the next tile's keep bits, drawn among this product's FFMAs
+    keep = 0u;
+    acc_tile<D, AR>(ps, dos, dva, pb, dc, [&](int blk) {
+      if (DROP)
+        keep |= keep_bits<SQ>(a, seed, bh, row0 + kTile, col0, qb, g,
+                              blk * SQ / kAccBlocks, SQ / kAccBlocks);
+    });
+  }
+  hopper::cp_async_wait<0>();
+
+  // position p = pb + 16 m + t holds key (p >> 2) + 16 (p & 3)
+#pragma unroll
+  for (int m = 0; m < AR / 4; ++m)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = col0 + ((pb + 16 * m) >> 2) + 16 * t;
+      if (c >= a.sk || dc >= a.d) continue;
+      const size_t o = koff + (size_t)c * a.d + dc;
+      *reinterpret_cast<float4*>(dk + o) =
+          make_float4(dka[4 * m + t][0], dka[4 * m + t][1], dka[4 * m + t][2],
+                      dka[4 * m + t][3]);
+      *reinterpret_cast<float4*>(dv + o) =
+          make_float4(dva[4 * m + t][0], dva[4 * m + t][1], dva[4 * m + t][2],
+                      dva[4 * m + t][3]);
+    }
+}
+
+// the 128 threads of group grp (barrier 1 + grp; the whole CTA if H == 1)
+template <int H>
+__device__ __forceinline__ void group_sync(int grp) {
+  if (H == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + grp) : "memory");
+}
+
+// dQ over a 2-stage ring (D <= 64): grid (q tile of 64 H queries, b h), H
+// groups of 128 threads, each scoring and accumulating its 64 queries as
+// dq_f32_slots' CTA does.  The groups share each kv tile's K and V, copied one kv tile
+// ahead into the other stage: a CTA-wide barrier at the top of a kv tile
+// and a barrier of the group between its dS^T writes and its dQ product
+template <int D, bool DROP, int H>
+__device__ __forceinline__ void dq_f32_ring(const float* __restrict__ q,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            float* __restrict__ dq, Attn a) {
+  using C = SplitF32<D>;
+  static_assert(C::kNT == 128, "groups of 128 threads");
+  constexpr int NT = 128 * H, SQ = C::kSQ, AR = C::kAR;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                       // [H][64][D + 4]
+  float* dos = qs + H * C::kTileF;        // [H][64][D + 4]
+  float* ks = dos + H * C::kTileF;        // [2][64][D + 4]
+  float* vs = ks + 2 * C::kTileF;         // [2][64][D + 4]
+  float* dst = vs + 2 * C::kTileF;        // [H] dS^T [key][position]
+  float* lse_s = dst + H * C::kScoreF;    // [H][64]
+  float* delta_s = lse_s + H * kTile;     // [H][64]
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int grp = threadIdx.x / 128;
+  const int cta0 = blockIdx.x * H * kTile, row0 = cta0 + grp * kTile;
+  const float* qsg = qs + grp * C::kTileF;
+  const float* dosg = dos + grp * C::kTileF;
+  float* dstg = dst + grp * C::kScoreF;
+  const float* lsg = lse_s + grp * kTile;
+  const float* dlg = delta_s + grp * kTile;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
+  const uint64_t seed = DROP ? (uint64_t)*a.seed : 0ull;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = 8 * (warp % 2) + lane % 8;
+  const int qb = 4 * SQ * (warp / 2) + lane / 8;
+  const int dc = 32 * (warp % C::kCW) + 4 * (lane % 8);
+  const int pb = (kTile / C::kRW) * (warp / C::kCW) + 4 * (lane / 8);
+  // the last group's kv tiles: under causal masking an earlier group's
+  // extra tiles lie wholly above its diagonal and add zeros
+  const int n_kv = kv_tiles(a, cta0 + (H - 1) * kTile);
+
+  cp_tile<D, NT, H * kTile>(qs, q + qoff, cta0, a.sq, a.d);
+  cp_tile<D, NT, H * kTile>(dos, dout + qoff, cta0, a.sq, a.d);
+  cp_tile<D, NT>(ks, k + koff, 0, a.sk, a.d);
+  cp_tile<D, NT>(vs, v + koff, 0, a.sk, a.d);
+  cp_row_vec<H * kTile>(lse_s, lse + (size_t)bh * a.sq, cta0, a.sq);
+  cp_row_vec<H * kTile>(delta_s, delta + (size_t)bh * a.sq, cta0, a.sq);
+  hopper::cp_async_commit();
+  float acc[AR][4];
+#pragma unroll
+  for (int i = 0; i < AR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  uint32_t keep = DROP ? keep_bits<SQ>(a, seed, bh, row0, 0, qb, g) : 0u;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int col0 = kt * kTile, st = kt & 1;
+    const float* kst = ks + st * C::kTileF;
+    const float* vst = vs + st * C::kTileF;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // K and V of tile kt have landed; every thread is
+                       // past tile kt - 1's dQ product, so its stage and
+                       // dS^T are free
+    if (kt + 1 < n_kv) {
+      const int nx = (st ^ 1) * C::kTileF;
+      cp_tile<D, NT>(ks + nx, k + koff, col0 + kTile, a.sk, a.d);
+      cp_tile<D, NT>(vs + nx, v + koff, col0 + kTile, a.sk, a.d);
+    }
+    hopper::cp_async_commit();
+    float bj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + g + 16 * j;
+      bj[j] = (a.bias != nullptr && c < a.sk)
+                  ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+    }
+    float s[SQ][4], dp[SQ][4], lr[SQ], dr[SQ];
+    score_tile<D, SQ>(qsg, kst, s, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) lr[i] = lsg[score_row(qb, i)];
+    if (edge_tile(a, row0, col0))
+      split_probs<SQ, true>(a, row0, col0, qb, g, s, lr, bj);
+    else
+      split_probs<SQ, false>(a, row0, col0, qb, g, s, lr, bj);
+    score_tile<D, SQ>(dosg, vst, dp, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) dr[i] = dlg[score_row(qb, i)];
+    split_grads<SQ, DROP>(a, s, dp, dr, keep);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int m = 0; m < SQ / 4; ++m)
+        *reinterpret_cast<float4*>(dstg + (g + 16 * j) * C::kLS +
+                                   4 * SQ * (warp / 2) + 16 * m +
+                                   4 * (lane / 8)) =
+            make_float4(dp[4 * m][j], dp[4 * m + 1][j], dp[4 * m + 2][j],
+                        dp[4 * m + 3][j]);
+    group_sync<H>(grp);   // the group's dS^T is whole
+    acc_tile<D, AR>(dstg, kst, acc, pb, dc, [](int) {});
+    if (DROP) keep = keep_bits<SQ>(a, seed, bh, row0, col0 + kTile, qb, g);
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int m = 0; m < AR / 4; ++m)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int r = row0 + (kTile / C::kRW) * (warp / C::kCW) + 16 * m +
+                    4 * t + lane / 8;
+      if (r < a.sq && dc < a.d)
+        *reinterpret_cast<float4*>(dq + qoff + (size_t)r * a.d + dc) =
+            make_float4(acc[4 * m + t][0], acc[4 * m + t][1],
+                        acc[4 * m + t][2], acc[4 * m + t][3]);
+    }
+}
+
+// dK/dV over a 2-stage ring (D <= 64): grid (kv tile of 64 H keys, b h), H
+// groups of 128 threads, each scoring and accumulating its 64 keys as
+// dkv_f32_slots' CTA does.  The groups share each q tile's Q, dO, lse and delta, copied one q
+// tile ahead into the other stage, so a copy has a whole tile's products
+// to land: a CTA-wide barrier at the top of a q tile and a barrier of the
+// group between its P / dS writes and its products (DROP: with dropout)
+template <int D, bool DROP, int H>
+__device__ __forceinline__ void dkv_f32_ring(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta,
+                                             float* __restrict__ dk,
+                                             float* __restrict__ dv, Attn a) {
+  using C = SplitF32<D>;
+  static_assert(C::kNT == 128, "groups of 128 threads");
+  constexpr int NT = 128 * H, SQ = C::kSQ, AR = C::kAR;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                       // [H][64][D + 4]
+  float* vs = ks + H * C::kTileF;         // [H][64][D + 4]
+  float* qs = vs + H * C::kTileF;         // [2][64][D + 4]
+  float* dos = qs + 2 * C::kTileF;        // [2][64][D + 4]
+  float* ps = dos + 2 * C::kTileF;        // [H] dropped P [query][position]
+  float* dss = ps + H * C::kScoreF;       // [H] dS [query][position]
+  float* lse_s = dss + H * C::kScoreF;    // [2][64]
+  float* delta_s = lse_s + 2 * kTile;     // [2][64]
+  float* bias_s = delta_s + 2 * kTile;    // [H][64]
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int grp = threadIdx.x / 128;
+  const int cta0 = blockIdx.x * H * kTile, col0 = cta0 + grp * kTile;
+  const float* bsg = bias_s + grp * kTile;
+  const float* ksg = ks + grp * C::kTileF;
+  const float* vsg = vs + grp * C::kTileF;
+  float* psg = ps + grp * C::kScoreF;
+  float* dssg = dss + grp * C::kScoreF;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
+  const float* lse_h = lse + (size_t)bh * a.sq;
+  const float* delta_h = delta + (size_t)bh * a.sq;
+  const uint64_t seed = DROP ? (uint64_t)*a.seed : 0ull;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = 8 * (warp % 2) + lane % 8;
+  const int qb = 4 * SQ * (warp / 2) + lane / 8;
+  const int dc = 32 * (warp % C::kCW) + 4 * (lane % 8);
+  const int pb = (kTile / C::kRW) * (warp / C::kCW) + 4 * (lane / 8);
+  const int n_q = (a.sq + kTile - 1) / kTile;
+  const int qt0 = first_q_tile(a, cta0);
+
+  cp_tile<D, NT, H * kTile>(ks, k + koff, cta0, a.sk, a.d);
+  cp_tile<D, NT, H * kTile>(vs, v + koff, cta0, a.sk, a.d);
+  if (qt0 < n_q) {
+    cp_tile<D, NT>(qs, q + qoff, qt0 * kTile, a.sq, a.d);
+    cp_tile<D, NT>(dos, dout + qoff, qt0 * kTile, a.sq, a.d);
+    cp_row_vec(lse_s, lse_h, qt0 * kTile, a.sq);
+    cp_row_vec(delta_s, delta_h, qt0 * kTile, a.sq);
+  }
+  hopper::cp_async_commit();
+  if (threadIdx.x % 128 < kTile) {   // the group's bias row
+    const int c = col0 + threadIdx.x % 128;
+    bias_s[threadIdx.x % 128 + grp * kTile] =
+        (a.bias != nullptr && c < a.sk)
+            ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+  }
+  float dka[AR][4], dva[AR][4];
+#pragma unroll
+  for (int i = 0; i < AR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  uint32_t keep =
+      DROP ? keep_bits<SQ>(a, seed, bh, qt0 * kTile, col0, qb, g) : 0u;
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int row0 = qt * kTile, st = (qt - qt0) & 1;
+    const float* qst = qs + st * C::kTileF;
+    const float* dost = dos + st * C::kTileF;
+    const float* lst = lse_s + st * kTile;
+    const float* dlt = delta_s + st * kTile;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // tile qt has landed; every thread is past tile
+                       // qt - 1's products, so its stage, P and dS are free
+    if (qt + 1 < n_q) {
+      const int nx = (st ^ 1) * C::kTileF;
+      cp_tile<D, NT>(qs + nx, q + qoff, row0 + kTile, a.sq, a.d);
+      cp_tile<D, NT>(dos + nx, dout + qoff, row0 + kTile, a.sq, a.d);
+      cp_row_vec(lse_s + (st ^ 1) * kTile, lse_h, row0 + kTile, a.sq);
+      cp_row_vec(delta_s + (st ^ 1) * kTile, delta_h, row0 + kTile, a.sq);
+    }
+    hopper::cp_async_commit();
+    float s[SQ][4], dp[SQ][4], lr[SQ], dr[SQ], bj[4];
+    score_tile<D, SQ>(qst, ksg, s, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) lr[i] = lst[score_row(qb, i)];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bj[j] = bsg[g + 16 * j];
+    if (edge_tile(a, row0, col0))
+      split_probs<SQ, true>(a, row0, col0, qb, g, s, lr, bj);
+    else
+      split_probs<SQ, false>(a, row0, col0, qb, g, s, lr, bj);
+    score_tile<D, SQ>(dost, vsg, dp, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) dr[i] = dlt[score_row(qb, i)];
+    split_grads<SQ, DROP>(a, s, dp, dr, keep);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) {
+      const int r = score_row(qb, i) * C::kLS + 4 * g;
+      *reinterpret_cast<float4*>(psg + r) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      *reinterpret_cast<float4*>(dssg + r) =
+          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+    }
+    group_sync<H>(grp);   // the group's P and dS are whole
+    acc_tile<D, AR>(dssg, qst, dka, pb, dc, [](int) {});
+    keep = 0u;
+    acc_tile<D, AR>(psg, dost, dva, pb, dc, [&](int blk) {
+      if (DROP)
+        keep |= keep_bits<SQ>(a, seed, bh, row0 + kTile, col0, qb, g,
+                              blk * SQ / kAccBlocks, SQ / kAccBlocks);
+    });
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int m = 0; m < AR / 4; ++m)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = col0 + ((pb + 16 * m) >> 2) + 16 * t;
+      if (c >= a.sk || dc >= a.d) continue;
+      const size_t o = koff + (size_t)c * a.d + dc;
+      *reinterpret_cast<float4*>(dk + o) =
+          make_float4(dka[4 * m + t][0], dka[4 * m + t][1], dka[4 * m + t][2],
+                      dka[4 * m + t][3]);
+      *reinterpret_cast<float4*>(dv + o) =
+          make_float4(dva[4 * m + t][0], dva[4 * m + t][1], dva[4 * m + t][2],
+                      dva[4 * m + t][3]);
+    }
+}
+
+// The pair's kernels: two groups over the rings up to D = 64, the single
+// slots at D = 128 (whose dK and dV alone take 64 accumulators a thread);
+// 256 threads and one CTA an SM either way.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, Attn a) {
+  if constexpr (D == 128)
+    dq_f32_slots<D, DROP>(q, k, v, dout, lse, delta, dq, a);
+  else
+    dq_f32_ring<D, DROP, 2>(q, k, v, dout, lse, delta, dq, a);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         Attn a) {
+  if constexpr (D == 128)
+    dkv_f32_slots<D, DROP>(q, k, v, dout, lse, delta, dk, dv, a);
+  else
+    dkv_f32_ring<D, DROP, 2>(q, k, v, dout, lse, delta, dk, dv, a);
 }
 
 // ====================================== split backward on the tensor cores
@@ -1758,29 +2519,71 @@ cudaError_t launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse,
 }
 
 template <int D, typename T>
-cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* dout,
-                      const float* lse, const float* delta, T* dq, int b,
-                      const Attn& a, cudaStream_t stream) {
+cudaError_t launch_fused(const T* q, const T* k, const T* v, const T* dout,
+                         const float* lse, const float* delta, float* dq_acc,
+                         T* dq, T* dk, T* dv, int b, const Attn& a,
+                         cudaStream_t stream) {
   const size_t smem = bwd_smem(D);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, smem);
+  cudaError_t err = allow_smem(flash_bwd_fused_kernel<D, T>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + kTile - 1) / kTile, b * a.h);
-  flash_bwd_dq_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_fused_kernel<D, T><<<b * a.h, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, a);
+  return cudaGetLastError();
+}
+
+// the f32 split pair's shared memory: Q, dO, a 2-stage ring of K, V,
+// dS^T, lse and delta (dQ); K, V, Q, dO, P, dS, lse and delta (dK/dV)
+template <int D>
+constexpr size_t dq_f32_smem() {
+  using C = SplitF32<D>;
+  return sizeof(float) * (5 * C::kTileF + C::kScoreF + 2 * kTile);
+}
+template <int D>
+constexpr size_t dkv_f32_smem() {
+  using C = SplitF32<D>;
+  return sizeof(float) * (4 * C::kTileF + 2 * C::kScoreF + 2 * kTile);
+}
+// ... and over the 2-stage rings, two groups a CTA: Q, dO, lse, delta and
+// dS^T of each group and two stages of K and V (dQ); K, V, P, dS and the
+// bias row of each group and two stages of Q, dO, lse and delta (dK/dV)
+template <int D>
+constexpr size_t dq_ring_f32_smem() {
+  using C = SplitF32<D>;
+  return sizeof(float) * (8 * C::kTileF + 2 * C::kScoreF + 4 * kTile);
+}
+template <int D>
+constexpr size_t dkv_ring_f32_smem() {
+  using C = SplitF32<D>;
+  return sizeof(float) * (8 * C::kTileF + 4 * C::kScoreF + 6 * kTile);
+}
+
+template <int D, bool DROP>
+cudaError_t launch_dq_f32(const float* q, const float* k, const float* v,
+                          const float* dout, const float* lse,
+                          const float* delta, float* dq, int b, const Attn& a,
+                          cudaStream_t stream) {
+  const int rows = D == 128 ? kTile : 2 * kTile;
+  const size_t smem = D == 128 ? dq_f32_smem<D>() : dq_ring_f32_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D, DROP>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + rows - 1) / rows, b * a.h);
+  flash_bwd_dq_f32_kernel<D, DROP><<<grid, 256, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, a);
   return cudaGetLastError();
 }
 
-template <int D, bool FUSED, typename T>
-cudaError_t launch_kv(const T* q, const T* k, const T* v, const T* dout,
-                      const float* lse, const float* delta, float* dq_acc,
-                      T* dq, T* dk, T* dv, int b, const Attn& a,
-                      cudaStream_t stream) {
-  const size_t smem = bwd_smem(D);
-  cudaError_t err = allow_smem(flash_bwd_kv_kernel<D, FUSED, T>, smem);
+template <int D, bool DROP>
+cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v,
+                           const float* dout, const float* lse,
+                           const float* delta, float* dk, float* dv, int b,
+                           const Attn& a, cudaStream_t stream) {
+  const int rows = D == 128 ? kTile : 2 * kTile;
+  const size_t smem = D == 128 ? dkv_f32_smem<D>() : dkv_ring_f32_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_f32_kernel<D, DROP>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid = FUSED ? dim3(b * a.h) : dim3((a.sk + kTile - 1) / kTile, b * a.h);
-  flash_bwd_kv_kernel<D, FUSED, T><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, a);
+  dim3 grid((a.sk + rows - 1) / rows, b * a.h);
+  flash_bwd_dkv_f32_kernel<D, DROP><<<grid, 256, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, a);
   return cudaGetLastError();
 }
 
@@ -1978,33 +2781,47 @@ int fwd_entry(const T* q, const T* k, const T* v, T* out, float* lse, int b,
   }
 }
 
-template <typename T>
-int dq_entry(const T* q, const T* k, const T* v, const T* dout,
-             const float* lse, const float* delta, T* dq, int b,
-             const Attn& a, cudaStream_t stream) {
-  switch (tile_width(a.d)) {
-    case 32: return launch_dq<32>(q, k, v, dout, lse, delta, dq, b, a, stream);
-    case 64: return launch_dq<64>(q, k, v, dout, lse, delta, dq, b, a, stream);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, b, a, stream);
-    default: return cudaErrorInvalidValue;
+// the f32 pair's instance: tile width x dropout
+#define SPLIT_F32_CASES(LAUNCH, ...)                                      \
+  switch (tile_width(a.d) * 2 + (a.seed != nullptr)) {                    \
+    case 64: return LAUNCH<32, false>(__VA_ARGS__);                       \
+    case 65: return LAUNCH<32, true>(__VA_ARGS__);                        \
+    case 128: return LAUNCH<64, false>(__VA_ARGS__);                      \
+    case 129: return LAUNCH<64, true>(__VA_ARGS__);                       \
+    case 256: return LAUNCH<128, false>(__VA_ARGS__);                     \
+    case 257: return LAUNCH<128, true>(__VA_ARGS__);                      \
+    default: return cudaErrorInvalidValue;                                \
   }
+
+int dq_f32_entry(const float* q, const float* k, const float* v,
+                 const float* dout, const float* lse, const float* delta,
+                 float* dq, int b, const Attn& a, cudaStream_t stream) {
+  SPLIT_F32_CASES(launch_dq_f32, q, k, v, dout, lse, delta, dq, b, a, stream)
 }
 
-template <bool FUSED, typename T>
-int kv_entry(const T* q, const T* k, const T* v, const T* dout,
-             const float* lse, const float* delta, float* dq_acc, T* dq,
-             T* dk, T* dv, int b, const Attn& a, cudaStream_t stream) {
+int dkv_f32_entry(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  float* dk, float* dv, int b, const Attn& a,
+                  cudaStream_t stream) {
+  SPLIT_F32_CASES(launch_dkv_f32, q, k, v, dout, lse, delta, dk, dv, b, a,
+                  stream)
+}
+#undef SPLIT_F32_CASES
+
+template <typename T>
+int fused_entry(const T* q, const T* k, const T* v, const T* dout,
+                const float* lse, const float* delta, float* dq_acc, T* dq,
+                T* dk, T* dv, int b, const Attn& a, cudaStream_t stream) {
   switch (tile_width(a.d)) {
     case 32:
-      return launch_kv<32, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
-                                  dv, b, a, stream);
+      return launch_fused<32>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv,
+                              b, a, stream);
     case 64:
-      return launch_kv<64, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
-                                  dv, b, a, stream);
+      return launch_fused<64>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv,
+                              b, a, stream);
     case 128:
-      return launch_kv<128, FUSED>(q, k, v, dout, lse, delta, dq_acc, dq, dk,
-                                   dv, b, a, stream);
+      return launch_fused<128>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv,
+                               b, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2113,7 +2930,7 @@ int paddle_flash_bwd_dq_f32(const float* q, const float* k, const float* v,
                             const float* bias, const float* dout,
                             const float* lse, const float* delta, float* dq,
                             int b, ATTN_ARGS) {
-  return dq_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
+  return dq_f32_entry(q, k, v, dout, lse, delta, dq, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
@@ -2127,8 +2944,8 @@ int paddle_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                              const float* bias, const float* dout,
                              const float* lse, const float* delta, float* dk,
                              float* dv, int b, ATTN_ARGS) {
-  return kv_entry<false>(q, k, v, dout, lse, delta, (float*)nullptr,
-                         (float*)nullptr, dk, dv, b, MAKE_ATTN, stream);
+  return dkv_f32_entry(q, k, v, dout, lse, delta, dk, dv, b, MAKE_ATTN,
+                       stream);
 }
 
 int paddle_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
@@ -2143,8 +2960,8 @@ int paddle_flash_bwd_fused_f32(const float* q, const float* k, const float* v,
                                const float* bias, const float* dout,
                                const float* lse, const float* delta, float* dq,
                                float* dk, float* dv, int b, ATTN_ARGS) {
-  return kv_entry<true>(q, k, v, dout, lse, delta, dq, dq, dk, dv, b,
-                        MAKE_ATTN, stream);
+  return fused_entry(q, k, v, dout, lse, delta, dq, dq, dk, dv, b, MAKE_ATTN,
+                     stream);
 }
 
 // dq_acc: a float32 scratch of b h sq d floats (dQ's sums), then

@@ -414,7 +414,9 @@ def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
 
 def _tma_ready(*tensors):
     """The tensors, each copied if its address is not 16-byte aligned: the
-    bf16 and fp16 kernels read them through TMA tensor maps."""
+    bf16 and fp16 kernels read them through TMA tensor maps, and the f32
+    split pair (``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) by 16-byte
+    ``cp.async`` copies, which need 16-byte-aligned rows."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 

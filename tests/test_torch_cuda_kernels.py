@@ -591,14 +591,16 @@ def test_flash_head_dims_match_plain(cuda, dtype, d):
             assert all(ok(got, w) for got, w in zip(g, want))
 
 
-# the bf16 and fp16 kernels on the tensor cores (wgmma with TMA-fed
-# tiles): the split pair, and the forward and the fused backward on the
-# same cases: unequal and ragged lengths (TMA zero-fills rows past each
-# head's end), head dims below the tile width (zero-filled columns), the
-# dumped dropout mask, determinism (no atomics in the pair; the fused
-# kernel sums dQ in a fixed order) and one launch of each kernel per call
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
-                         ids=["bf16", "fp16"])
+# the split pair in every dtype (bf16 and fp16 on the tensor cores,
+# wgmma with TMA-fed tiles; f32 register-tiled SIMT over a cp.async ring),
+# and the forward and the fused backward on the same cases: unequal and
+# ragged lengths (rows past each head's end arrive as zeros), head dims
+# below the tile width (zero-filled columns), the dumped dropout mask,
+# determinism (no atomics in the pair; the fused kernel sums dQ in a fixed
+# order) and one launch of each kernel per call; f32 within ATOL (the
+# forward) and GRAD_TOL (the gradients), as test_flash_kernels_match_plain
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "fp16"])
 @pytest.mark.parametrize("sq,sk,d", [
     (200, 1000, 64), (1000, 200, 64), (577, 577, 64), (2048, 2048, 64),
     (1024, 1024, 40), (1024, 1024, 96), (1024, 1024, 120),
@@ -625,15 +627,20 @@ def test_flash_split_pair_low_matches_plain(cuda, dtype, sq, sk, d, causal,
                                    causal, rate, keep)
     args = (q, k, v, bias, do, lse, (do.float() * out.float()).sum(-1),
             scale, causal, rate, sd)
-    ok = _fp16_ok if dtype == torch.float16 else _bf16_ok
     grads = (tfa.bwd_dq(*args), *tfa.bwd_dkv(*args))
     fused = tfa.bwd_fused(*args)
     torch.cuda.synchronize()
     assert [kf.launches - n for kf, n in zip(kernels, before)] == [1] * 4
-    assert ok(out, want_out)
     assert float((lse - want_lse).abs().max()) <= ATOL
-    for got, w in zip(grads + fused, want + want):
-        assert ok(got, w)
+    if dtype == torch.float32:
+        assert float((out - want_out).abs().max()) <= ATOL
+        for got, w in zip(grads + fused, want + want):
+            torch.testing.assert_close(got, w, **GRAD_TOL)
+    else:
+        ok = _fp16_ok if dtype == torch.float16 else _bf16_ok
+        assert ok(out, want_out)
+        for got, w in zip(grads + fused, want + want):
+            assert ok(got, w)
     again = (tfa.bwd_dq(*args), *tfa.bwd_dkv(*args), *tfa.bwd_fused(*args),
              *tfa.flash_fwd(q, k, v, bias, scale, causal, rate, sd))
     torch.cuda.synchronize()
@@ -641,12 +648,12 @@ def test_flash_split_pair_low_matches_plain(cuda, dtype, sq, sk, d, causal,
         assert torch.equal(got, g2)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
-                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "fp16"])
 def test_flash_split_pair_takes_unaligned_inputs(cuda, dtype):
     """Contiguous views that start off a 16-byte boundary (TMA's base
-    alignment) give what aligned copies give: the split pair, the forward
-    and the fused backward."""
+    alignment, and the f32 pair's 16-byte cp.async) give what aligned
+    copies give: the split pair, the forward and the fused backward."""
     b, h, s, d = 1, 2, 300, 64
     q, k, v, do, bias = _flash_case(cuda, 12, b, h, s, s, d, True)
     q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
