@@ -18,8 +18,9 @@ Phases (any failure exits non-zero and prints no result):
    bf16 and fp16 kernel 9 (each variant: the TMA feed at 64 x 64 and
    128 x 128 tiles, the cp.async feed; each bias dtype) must hold HGMMA
    (tensor-core) instructions, and ptxas must report no spill stores for
-   them (``tensor_cores`` lines), nor for any instance of the f32 split
-   pair (each tile width, dropout on and off: ``simt_spills`` lines, with
+   them (``tensor_cores`` lines), nor for any instance of the four f32
+   flash kernels, the forward, the fused backward and the split pair
+   (each tile width, dropout on and off: ``simt_spills`` lines, with
    their registers);
 3. paged decode, kernel vs plain version: the paged-decode kernel against
    its plain PyTorch version on the card, at the serving shape and a GQA
@@ -37,8 +38,8 @@ Phases (any failure exits non-zero and prints no result):
    long shape (b 2, h 12, s 2048, d 64, causal and not), with dropout 0
    and 0.1 (the plain side takes ``flash_dropout_mask``'s mask); the
    keep rate within 4 sigma of the binomial, one seed giving the same
-   output bit for bit, and a second call of the f32 split pair giving the
-   same bits;
+   output bit for bit, and a second call of the f32 fused backward and
+   split pair giving the same bits;
 6. flash attention, times at the two training configurations (padding
    bias, dropout 0.1, not causal; the BERT shape and s=2048): the
    kernels and plain versions by CUDA-graph replay, cold L2; the library
@@ -46,8 +47,10 @@ Phases (any failure exits non-zero and prints no result):
    forward run outside the timed region); against the bound
    max(bytes / 3.35 TB/s, flops / 67 TFLOP/s), each row with its
    TFLOP/s and share of the bound, and ``flash_time_split_pair_f32``
-   lines the pair's sum and share beside SDPA's backward; then s=2048
-   again without dropout (those rows are not the ``kernels`` line's);
+   lines the pair's sum and share beside SDPA's backward, and at the
+   BERT shape a ``flash_time_fused_vs_pair_f32`` line the fused kernel
+   against the pair and SDPA's backward; then s=2048 again without
+   dropout (those rows are not the ``kernels`` line's);
 7. training: BERT-base (``google-bert/bert-base-uncased`` widths), f32,
    batch 44 x seq 512 with padding, dropout 0.1, ``AdamOptimizer(1e-4)``
    through ``jit_train_step``: 2 warm-up and 10 timed steps on one
@@ -761,16 +764,19 @@ def tensor_core_check(flash):
                      f"stores {spills.get(n)}")
 
 
-# the f32 split pair (SIMT): one instance per tile width and dropout (on,
-# off), none may spill
-SIMT_PAIR = {"flash_bwd_dq_f32": "flash_bwd_dq_f32_kernel",
-             "flash_bwd_dkv_f32": "flash_bwd_dkv_f32_kernel"}
+# the f32 flash kernels (SIMT): the forward, the fused backward and the
+# split pair, one instance per tile width and dropout (on, off), none may
+# spill
+SIMT_F32 = {"flash_fwd_f32": "flash_fwd_f32_kernel",
+            "flash_bwd_fused_f32": "flash_bwd_fused_f32_kernel",
+            "flash_bwd_dq_f32": "flash_bwd_dq_f32_kernel",
+            "flash_bwd_dkv_f32": "flash_bwd_dkv_f32_kernel"}
 
 
 def simt_spill_check(flash):
-    """Every instance of the f32 split pair: one per tile width and
-    dropout, and ptxas reported no spill stores for it.  Prints one line
-    each, with its registers."""
+    """Every instance of the four f32 flash kernels: one per tile width
+    and dropout, and ptxas reported no spill stores for it.  Prints one
+    line each, with its registers."""
     _, spills = sass_counts(flash)
     regs, fn = {}, None
     for ln in flash.build_log.splitlines():
@@ -780,7 +786,7 @@ def simt_spill_check(flash):
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn is not None:
             regs[fn] = int(m.group(1))
-    for entry, kernel in SIMT_PAIR.items():
+    for entry, kernel in SIMT_F32.items():
         insts = {}
         for n in spills:
             m = re.search(kernel + r"ILi(\d+)ELb([01])E", n)
@@ -952,13 +958,15 @@ def check_flash(name, case, causal, rate):
             fail(f"flash {name} rate {rate}: {kname} gradients outside "
                  f"rtol {GRAD_RTOL} / atol {GRAD_ATOL} of autograd's")
         errs[kname] = max(es)
-    # no atomics and no split sum in the pair: a second call, the same bits
-    again = (fa.bwd_dq(*args), *fa.bwd_dkv(*args))
+    # no atomics, and the fused kernel sums dQ's shares in kv order: a
+    # second call of each backward, the same bits
+    again = (*fa.bwd_fused(*args), fa.bwd_dq(*args), *fa.bwd_dkv(*args))
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(
-            again, got["flash_bwd_dq_f32"] + got["flash_bwd_dkv_f32"])):
-        fail(f"flash {name} rate {rate}: a second call of the f32 split "
-             f"pair gave other bits")
+            again, got["flash_bwd_fused_f32"] + got["flash_bwd_dq_f32"]
+            + got["flash_bwd_dkv_f32"])):
+        fail(f"flash {name} rate {rate}: a second call of the f32 fused "
+             f"backward or split pair gave other bits")
     if rate:
         n = keep.numel()
         kept = float(keep.sum(dtype=torch.float64))
@@ -1081,6 +1089,17 @@ def time_flash(name, cases, causal, rate, dt="f32"):
         "bound_ms": pair_bound,
         "bound_share": pair_bound / pair_ms, "library_ms": lib_bwd,
         "fused_ms": rows[f"flash_bwd_fused_{dt}"]["ms"]}), flush=True)
+    if dt == "f32" and name == "bert":
+        # the training path's backward at seq 512 against the two others
+        # that compute it: the split pair and SDPA's backward
+        fused = rows["flash_bwd_fused_f32"]
+        print("flash_time_fused_vs_pair_f32 " + json.dumps({
+            "shape": name, "dropout": rate, "fused_ms": fused["ms"],
+            "pair_ms": pair_ms, "library_ms": lib_bwd,
+            "fused_over_pair": fused["ms"] / pair_ms,
+            "fused_over_library": fused["ms"] / lib_bwd,
+            "bound_ms": fused["bound_ms"],
+            "bound_share": fused["bound_share"]}), flush=True)
     return rows
 
 

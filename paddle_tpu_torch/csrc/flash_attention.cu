@@ -34,8 +34,8 @@
 // into dQ, sums the shares in a float32 scratch (b, h, sq, d) that the
 // wrapper allocates, in kv order, and the last share's CTA rounds the sum
 // to bf16 once (the TPU keeps an f32 VMEM scratch for the same reason,
-// :393-410).  With T = float the SIMT fused kernel's scratch is dQ itself
-// and nothing is rounded.
+// :393-410).  The f32 fused kernel sums the shares in f32 in the same
+// order (below), and nothing is rounded.
 //
 // fp16.  T = __half takes the same rounding points as bf16, each a
 // round-to-nearest-even __float2half_rn that keeps subnormals (as the TPU
@@ -83,23 +83,51 @@
 // probability), so any sq, sk >= 1 is accepted; under causal masking the
 // kv tiles wholly above the diagonal are skipped.
 //
-// The forward and the fused backward keep the first SIMT design: 64 x 64
-// score tiles with 256 threads as 16 x 16: thread (ty, tx) owns
-// rows ty + 16 i and columns tx + 16 j (i, j < 4) of each score tile, and
-// rows ty + 16 i, columns tx + 16 jd of each (64, d) accumulator.  Tiles
-// of q, k, v and dO live in shared memory with a row stride of d + 1, so
-// both the dot-product reads (16 different rows, one column) and the
-// accumulate reads (one row, 16 consecutive columns) are free of bank
-// conflicts.  The 16 threads of a row are 16 consecutive lanes of one
-// warp, so the row max and row sum are 4-step shuffles.
-// * forward: grid (q tile, b h); the kv loop keeps m, l and the output
-//   accumulator in registers; one kv tile is the single-block kernel
-//   (row 1), more is the blocked one (row 2).
-// * fused: one CTA per (b, h).  For each kv tile, dK and dV accumulate in
-//   registers over every q tile; dQ of that q tile is read, added to and
-//   written back in device memory.  Only this CTA touches this (b, h) and
-//   each dQ element is always updated by the same thread, so there is no
-//   race and no atomic, and the result is deterministic.
+// SIMT forward and fused backward (flash_fwd_f32_kernel,
+// flash_bwd_fused_f32_kernel), built from the split pair's pieces below
+// (score_tile, acc_tile, cp_tile, split_probs / split_grads, the keep bits
+// drawn a tile ahead).  At the BERT-base shape the forward does 35.4
+// GFLOP (0.529 ms at 67 TFLOP/s) and the fused backward 88.6 (S, dP, dV,
+// dK, dQ: 1.322 ms), against 14 b h s^2 d for the split pair; the first
+// SIMT kernels (4 x 4 scalar reads over rows of d + 1 floats, synchronous
+// loads, and one CTA per (b, h) for the fused one) reached 31% / 34%.
+// * forward: grid (q tile of 64 H queries, b h), H groups of 64 queries
+//   (two of 128 threads up to D = 64, one of 256 at D = 128); Q loaded
+//   once, K and V through a 2-stage cp.async ring shared by the groups.
+//   A thread scores 4 queries (2 at D = 128) against the 8 keys g + 8 n +
+//   16 j (g = lane % 8) of two Philox calls, so a query row's 64 keys lie
+//   in the 8 lanes of one warp and its max and sum are 3-step shuffles
+//   (the pair's layout puts a row in two warps).  The row's l stays a
+//   per-thread partial, rescaled by alpha each tile and summed once at
+//   the end.  P (dropped) goes to shared memory as P^T [key][query,
+//   2-bit fields swapped], alpha by query beside it; after a barrier of
+//   the group each thread rescales its 8 x 4 outputs and adds P V by
+//   acc_tile.  p is normalised against the running max of its 64-key
+//   tile; under causal masking an earlier group's tile above its
+//   diagonal changes nothing (alpha 1, p 0).
+// * fused: the dK/dV kernel's CTA (two 64-key groups over 2-stage rings
+//   of Q, dO, lse and delta up to D = 64; one group of 256 threads with
+//   one slot, refilled after the tile's products, at D = 128, where a
+//   second stage would take 238,848 bytes) plus, for each q tile, the
+//   CTA's dQ share, dS K over its 128 (64) keys: a thread's 4 x 4 outputs
+//   (D / 16 rows x 4 at other widths) read 4 keys of a dS row by one
+//   LDS.128, then those keys' K rows.  Grid: (kv tile, b h) flattened,
+//   4,224 CTAs at the BERT shape against 528 for one a (b, h).  dQ is
+//   summed across the kv-tile CTAs of a (b, h) in f32, rank (kv order) 0
+//   first, so two calls give the same bits: each CTA stores its share of
+//   every q tile to a float32 scratch, one (b, h, sq, d) slice per rank,
+//   and a second launch (flash_dq_parts_sum_kernel) sums the slices in
+//   rank order.  The scratch holds at most 256 MiB
+//   (kFusedF32ScratchBytes), or 4 slices where they are larger, and the
+//   CTAs run in launches of as many ranks as it holds, each summed onto
+//   the last one's dQ, so the scratch grows with sq, not sq x sk (the
+//   sum's order, and so its bits, do not change with the launches); one
+//   CTA per (b, h) stores dQ itself.  No red.add, so no f32 atomic
+//   flushes a small sum to zero.  At the BERT shape a thread-block
+//   cluster of the 4 CTAs summing through distributed shared memory was
+//   slower on an H100 (3.01-3.02 ms against 2.80-2.82): one CTA an SM,
+//   clusters of 4 held 120 of the 132 SMs.  Shared memory at D = 64:
+//   210,432 bytes.
 //
 // SIMT split pair (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel).
 // At b 2, h 12, s 2048, d 64 dQ does 38.7 GFLOP (S, dP, dS K: 0.577 ms at
@@ -277,7 +305,6 @@ namespace {
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
-constexpr int kLP = kTile + 1;   // row stride of a score tile in shared memory
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
 
 struct Attn {
@@ -293,20 +320,11 @@ struct Attn {
   uint32_t offset;
 };
 
-// Loads, stores and the cast-and-back of one element of storage type T.
+// The store of one element of storage type T (the bf16 / fp16 kernels'
+// rounding of an f32 sum at its store).
 template <typename T>
 struct Elem;
 
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) {
-    return __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-// (the bf16 and fp16 kernels only store single elements)
 template <>
 struct Elem<__half> {
   static __device__ __forceinline__ void store(__half* p, float x) {
@@ -346,144 +364,6 @@ __device__ __forceinline__ uint32_t word(const uint4& w, int j) {
   return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
 }
 
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [row0, row0 + 64) of an (n, d) row-major matrix into s[64][D + 1]
-// (d <= D); rows past n and columns past d are zero, which leaves every
-// dot product over the tile's D columns unchanged
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* __restrict__ s,
-                                          const T* __restrict__ g, int row0,
-                                          int n, int d) {
-  if (d == D) {   // the tile width itself: a compile-time row stride
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      s[r * (D + 1) + c] =
-          (row0 + r < n) ? Elem<T>::load(g + (size_t)(row0 + r) * D + c) : 0.f;
-    }
-    return;
-  }
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    s[r * (D + 1) + c] = (row0 + r < n && c < d)
-                             ? Elem<T>::load(g + (size_t)(row0 + r) * d + c)
-                             : 0.f;
-  }
-}
-
-// rows [row0, row0 + 64) of dQ's f32 scratch (rows of d floats) plus this
-// thread's share dqa of them; `first` (kv tile 0) initialises them
-template <int D>
-__device__ __forceinline__ void add_dq(float* __restrict__ g, int row0,
-                                       int n, int d, bool first,
-                                       const float (&dqa)[4][D / 16], int ty,
-                                       int tx) {
-  if (d == D) {   // the tile width itself: a compile-time row stride
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-      if (r >= n) continue;
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        float* p = g + (size_t)r * D + tx + 16 * jd;
-        *p = (first ? 0.f : *p) + dqa[i][jd];
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int jd = 0; jd < D / 16; ++jd) {
-      if (tx + 16 * jd >= d) continue;
-      float* p = g + (size_t)r * d + tx + 16 * jd;
-      *p = (first ? 0.f : *p) + dqa[i][jd];
-    }
-  }
-}
-
-// acc[i][j] = a[ty + 16 i] . b[tx + 16 j]   (a, b: [64][D + 1])
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* __restrict__ a,
-                                         const float* __restrict__ b,
-                                         float (&acc)[4][4], int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < D; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][jd] += sum_c p[ty + 16 i][c] * x[c][tx + 16 jd]
-//   (p: [64][65] score tile, x: [64][D + 1]) -- O += P V, dQ += dS K
-template <int D>
-__device__ __forceinline__ void acc_rows(const float* __restrict__ p,
-                                         const float* __restrict__ x,
-                                         float (&acc)[4][D / 16], int ty,
-                                         int tx) {
-#pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float pv[4], xv[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * kLP + c];
-#pragma unroll
-    for (int jd = 0; jd < D / 16; ++jd) xv[jd] = x[c * (D + 1) + tx + 16 * jd];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd)
-        acc[i][jd] = fmaf(pv[i], xv[jd], acc[i][jd]);
-  }
-}
-
-// acc[i][jd] += sum_r p[r][ty + 16 i] * x[r][tx + 16 jd]
-//   (the transposed product) -- dV += PD^T dO, dK += dS^T Q
-template <int D>
-__device__ __forceinline__ void acc_cols(const float* __restrict__ p,
-                                         const float* __restrict__ x,
-                                         float (&acc)[4][D / 16], int ty,
-                                         int tx) {
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float pv[4], xv[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[r * kLP + ty + 16 * i];
-#pragma unroll
-    for (int jd = 0; jd < D / 16; ++jd) xv[jd] = x[r * (D + 1) + tx + 16 * jd];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd)
-        acc[i][jd] = fmaf(pv[i], xv[jd], acc[i][jd]);
-  }
-}
-
 // The scaled, biased, masked score of tile element (i, j); -inf past sk.
 __device__ __forceinline__ float score(const Attn& a, float dot, float bias,
                                        int r, int c) {
@@ -503,227 +383,6 @@ __device__ __forceinline__ int kv_tiles(const Attn& a, int row0) {
 // First q tile that reads the kv tile at col0.
 __device__ __forceinline__ int first_q_tile(const Attn& a, int col0) {
   return a.causal ? col0 / kTile : 0;
-}
-
-// The backward's per-tile terms: from the dot products s = Q.K and
-// dp = dO.V of the tile at (row0, col0), the dropped probabilities
-// pd -> ps and dS -> dss (both [64][65] in shared memory), each rounded
-// to T as the products that read them take it.
-template <typename T>
-__device__ __forceinline__ void bwd_terms(const Attn& a, uint64_t seed,
-                                          int bh, int bi, int row0, int col0,
-                                          const float (&s)[4][4],
-                                          const float (&dp)[4][4],
-                                          const float (&lse)[4],
-                                          const float (&delta)[4],
-                                          float* __restrict__ ps,
-                                          float* __restrict__ dss, int ty,
-                                          int tx) {
-  float bj[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = col0 + tx + 16 * j;
-    bj[j] = (a.bias != nullptr && c < a.sk) ? __ldg(a.bias + (size_t)bi * a.sk + c)
-                                            : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    if (a.seed != nullptr) bits = drop_bits(a, seed, bh, r, col0 + tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      const bool valid = r < a.sq && c < a.sk;
-      const float p =
-          valid ? expf(score(a, s[i][j], bj[j], r, c) - lse[i]) : 0.f;
-      float pd = p, dpd = dp[i][j];
-      if (a.seed != nullptr) {
-        const bool keep = word(bits, j) >= a.thresh;
-        pd = keep ? p * a.keep_scale : 0.f;
-        dpd = keep ? dpd * a.keep_scale : 0.f;
-      }
-      ps[(ty + 16 * i) * kLP + tx + 16 * j] = Elem<T>::round(pd);
-      dss[(ty + 16 * i) * kLP + tx + 16 * j] =
-          Elem<T>::round(p * (dpd - delta[i]) * a.scale);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- forward
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, Attn a) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1, VD = D / 16;
-  float* qs = smem;
-  float* ks = qs + kTile * LD;
-  float* vs = ks + kTile * LD;
-  float* ps = vs + kTile * LD;
-  const int bh = blockIdx.y, bi = bh / a.h;
-  const int row0 = blockIdx.x * kTile;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
-  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
-
-  load_tile<D>(qs, q + qoff, row0, a.sq, a.d);
-  float m[4], l[4], acc[4][VD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < VD; ++jd) acc[i][jd] = 0.f;
-  }
-
-  const int n_kv = kv_tiles(a, row0);
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int col0 = kt * kTile;
-    __syncthreads();   // the previous tile's ks, vs, ps are consumed
-    load_tile<D>(ks, k + koff, col0, a.sk, a.d);
-    load_tile<D>(vs, v + koff, col0, a.sk, a.d);
-    __syncthreads();
-    float s[4][4];
-    dot_tile<D>(qs, ks, s, ty, tx);
-    float bj[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      bj[j] = (a.bias != nullptr && c < a.sk)
-                  ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-      float mc = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = score(a, s[i][j], bj[j], r, col0 + tx + 16 * j);
-        mc = fmaxf(mc, s[i][j]);
-      }
-      const float m_next = fmaxf(m[i], row_max16(mc));
-      const float base = m_next == -INFINITY ? 0.f : m_next;
-      const float alpha = expf(m[i] - base);
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (a.seed != nullptr) bits = drop_bits(a, seed, bh, r, col0 + tx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - base);
-        rs += p;
-        float pd = p;
-        if (a.seed != nullptr)
-          pd = word(bits, j) >= a.thresh ? p * a.keep_scale : 0.f;
-        ps[(ty + 16 * i) * kLP + tx + 16 * j] = Elem<T>::round(pd);
-      }
-      l[i] = alpha * l[i] + row_sum16(rs);
-      m[i] = m_next;
-#pragma unroll
-      for (int jd = 0; jd < VD; ++jd) acc[i][jd] *= alpha;
-    }
-    __syncthreads();
-    acc_rows<D>(ps, vs, acc, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= a.sq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    const float inv = 1.f / l_safe;
-#pragma unroll
-    for (int jd = 0; jd < VD; ++jd)
-      if (tx + 16 * jd < a.d)
-        Elem<T>::store(out + qoff + (size_t)r * a.d + tx + 16 * jd,
-                       acc[i][jd] * inv);
-    if (tx == 0) lse[(size_t)bh * a.sq + r] = m[i] + logf(l_safe);
-  }
-}
-
-// ------------------------------------------------- backward: the fused form
-// grid (b h): the CTA walks every kv tile and also adds into dq_acc
-// (float32, in device memory), which is dq.
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq_acc,
-                    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                    Attn a) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1, VD = D / 16;
-  float* ks = smem;
-  float* vs = ks + kTile * LD;
-  float* qs = vs + kTile * LD;
-  float* dos = qs + kTile * LD;
-  float* ps = dos + kTile * LD;
-  float* dss = ps + kTile * kLP;
-  const int bh = blockIdx.x;
-  const int bi = bh / a.h;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
-  const uint64_t seed = a.seed != nullptr ? (uint64_t)*a.seed : 0ull;
-  const int n_q = (a.sq + kTile - 1) / kTile;
-  const int n_kv = (a.sk + kTile - 1) / kTile;
-
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int col0 = kt * kTile;
-    __syncthreads();   // the previous kv tile's last products are done
-    load_tile<D>(ks, k + koff, col0, a.sk, a.d);
-    load_tile<D>(vs, v + koff, col0, a.sk, a.d);
-    float dka[4][VD], dva[4][VD];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jd = 0; jd < VD; ++jd) dka[i][jd] = dva[i][jd] = 0.f;
-
-    for (int qt = first_q_tile(a, col0); qt < n_q; ++qt) {
-      const int row0 = qt * kTile;
-      __syncthreads();   // qs, dos, ps, dss of the last q tile are consumed
-      load_tile<D>(qs, q + qoff, row0, a.sq, a.d);
-      load_tile<D>(dos, dout + qoff, row0, a.sq, a.d);
-      float lr[4], dr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = row0 + ty + 16 * i;
-        lr[i] = r < a.sq ? __ldg(lse + (size_t)bh * a.sq + r) : 0.f;
-        dr[i] = r < a.sq ? __ldg(delta + (size_t)bh * a.sq + r) : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      dot_tile<D>(qs, ks, s, ty, tx);
-      dot_tile<D>(dos, vs, dp, ty, tx);
-      bwd_terms<T>(a, seed, bh, bi, row0, col0, s, dp, lr, dr, ps, dss, ty,
-                   tx);
-      __syncthreads();
-      acc_cols<D>(ps, dos, dva, ty, tx);
-      acc_cols<D>(dss, qs, dka, ty, tx);
-      float dqa[4][VD];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < VD; ++jd) dqa[i][jd] = 0.f;
-      acc_rows<D>(dss, ks, dqa, ty, tx);
-      // kv tile 0 reads every q tile first: it initialises dQ
-      add_dq<D>(dq_acc + qoff, row0, a.sq, a.d, kt == 0, dqa, ty, tx);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = col0 + ty + 16 * i;
-      if (c >= a.sk) continue;
-#pragma unroll
-      for (int jd = 0; jd < VD; ++jd) {
-        if (tx + 16 * jd >= a.d) continue;
-        Elem<T>::store(dk + koff + (size_t)c * a.d + tx + 16 * jd, dka[i][jd]);
-        Elem<T>::store(dv + koff + (size_t)c * a.d + tx + 16 * jd, dva[i][jd]);
-      }
-    }
-  }
-
 }
 
 // ------------------------------------------- backward, f32: the split pair
@@ -787,43 +446,48 @@ __device__ __forceinline__ void cp_row_vec(float* __restrict__ s,
   }
 }
 
-// s[i][j] = a[score_row(i)] . b[g + 16 j] over the tile's D columns, one
-// f32 FMA chain a product in column order (a, b: [64][D + 4]); per 4
-// columns SQ + 4 LDS.128 for 16 SQ FFMAs
-template <int D, int SQ>
+// s[i][4 n + j] = a[score_row(i)] . b[g + 8 n + 16 j] over the tile's D
+// columns, one f32 FMA chain a product in column order (a, b: [64][D + 4]);
+// per 4 columns SQ + 4 NG LDS.128 for 16 SQ NG FFMAs.  NG = 1: the keys
+// g, g + 16, g + 32, g + 48 of one Philox call (the split pair); NG = 2
+// (the forward): those of g and of g + 8
+template <int D, int SQ, int NG = 1>
 __device__ __forceinline__ void score_tile(const float* __restrict__ a,
                                            const float* __restrict__ b,
-                                           float (&s)[SQ][4], int qb, int g) {
+                                           float (&s)[SQ][4 * NG], int qb,
+                                           int g) {
+  constexpr int NK = 4 * NG;
 #pragma unroll
   for (int i = 0; i < SQ; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < NK; ++j) s[i][j] = 0.f;
 #pragma unroll
   for (int k = 0; k < D; k += 4) {
-    float4 av[SQ], bv[4];
+    float4 av[SQ], bv[NK];
 #pragma unroll
     for (int i = 0; i < SQ; ++i)
       av[i] = *reinterpret_cast<const float4*>(
           a + score_row(qb, i) * (D + 4) + k);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (g + 16 * j) * (D + 4) + k);
+    for (int j = 0; j < NK; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(
+          b + (g + 8 * (j / 4) + 16 * (j % 4)) * (D + 4) + k);
 #pragma unroll
     for (int i = 0; i < SQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+      for (int j = 0; j < NK; ++j) s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
 #pragma unroll
     for (int i = 0; i < SQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+      for (int j = 0; j < NK; ++j) s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
 #pragma unroll
     for (int i = 0; i < SQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+      for (int j = 0; j < NK; ++j) s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
 #pragma unroll
     for (int i = 0; i < SQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+      for (int j = 0; j < NK; ++j) s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
   }
 }
 
@@ -1479,6 +1143,476 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     dkv_f32_slots<D, DROP>(q, k, v, dout, lse, delta, dk, dv, a);
   else
     dkv_f32_ring<D, DROP, 2>(q, k, v, dout, lse, delta, dk, dv, a);
+}
+
+// =================================== forward and fused backward, f32 (SIMT)
+// Built from the split pair's pieces (see "SIMT forward and fused
+// backward" at the top).
+
+// Where query r of a 64-row tile sits in a P^T row: the two 2-bit fields
+// of r % 16 swapped, so that a thread's queries r, r + 4, r + 8, r + 12
+// lie side by side (one STS.128) and acc_tile's positions pb + 16 m + t
+// are the queries (pb & ~15) + 16 m + 4 t + lane / 8.
+__device__ __forceinline__ int qpos(int r) {
+  return (r & ~15) | ((r & 3) << 2) | ((r >> 2) & 3);
+}
+
+// The forward's keep decisions of queries i0 .. i0 + n - 1 of the thread
+// (bit 8 i + 4 n' + j: query row0 + fq + 4 i, key col0 + g + 8 n' + 16 j),
+// one drop_bits call per query and key group
+__device__ __forceinline__ uint32_t fwd_keep_bits(const Attn& a,
+                                                  uint64_t seed, int bh,
+                                                  int row0, int col0, int fq,
+                                                  int g, int i0, int n) {
+  uint32_t keep = 0;
+  for (int i = i0; i < i0 + n; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 w =
+          drop_bits(a, seed, bh, row0 + fq + 4 * i, col0 + g + 8 * h);
+      keep |= ((uint32_t)(w.x >= a.thresh) | (uint32_t)(w.y >= a.thresh) << 1 |
+               (uint32_t)(w.z >= a.thresh) << 2 |
+               (uint32_t)(w.w >= a.thresh) << 3) << (8 * i + 4 * h);
+    }
+  return keep;
+}
+
+__device__ __forceinline__ float max8(float v) {   // over lane % 8
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float sum8(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The forward: grid (q tile of 64 H queries, b h), H groups of 64 queries
+// (H = 2, 128 threads each, up to D = 64; H = 1, 256 threads, at D = 128).
+// A thread scores SQ queries fq + 4 i against the 8 keys g + 8 n + 16 j of
+// two Philox calls, so a query row's 64 keys lie in the 8 lanes of one
+// warp: its max and sum are 3-step shuffles.  It accumulates the outputs
+// of acc_tile's positions.  Q is loaded once; K and V stream through a
+// 2-stage ring, one kv tile ahead; a CTA-wide barrier at the top of a kv
+// tile and a barrier of the group between its P^T / alpha writes and its
+// O += P V product (DROP: with dropout).
+template <int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, Attn a) {
+  using C = SplitF32<D>;
+  constexpr int H = 256 / C::kNT, NT = 256, AR = C::kAR;
+  constexpr int SQ = C::kNT == 128 ? 4 : 2;   // queries a thread scores
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                       // [H][64][D + 4]
+  float* ks = qs + H * C::kTileF;         // [2][64][D + 4]
+  float* vs = ks + 2 * C::kTileF;         // [2][64][D + 4]
+  float* pt = vs + 2 * C::kTileF;         // [H] dropped P^T [key][qpos]
+  float* rs = pt + H * C::kScoreF;        // [H][64] alpha, then 1 / l, by qpos
+  const int bh = blockIdx.y, bi = bh / a.h;
+  const int grp = threadIdx.x / C::kNT;
+  const int cta0 = blockIdx.x * H * kTile, row0 = cta0 + grp * kTile;
+  const float* qsg = qs + grp * C::kTileF;
+  float* ptg = pt + grp * C::kScoreF;
+  float* rsg = rs + grp * kTile;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
+  const uint64_t seed = DROP ? (uint64_t)*a.seed : 0ull;
+  const int warp = (threadIdx.x % C::kNT) / 32, lane = threadIdx.x % 32;
+  // scores: queries fq + 4 i, keys g + 8 n + 16 j (element [i][4 n + j])
+  const int g = lane % 8, fq = 4 * SQ * warp + lane / 8;
+  // O: columns dc .. dc + 3 of P^T positions pb + 16 m + t
+  const int dc = 32 * (warp % C::kCW) + 4 * (lane % 8);
+  const int pb = (kTile / C::kRW) * (warp / C::kCW) + 4 * (lane / 8);
+  // the last group's kv tiles: under causal masking an earlier group's
+  // extra tile lies wholly above its diagonal (alpha 1, p 0: no change)
+  const int n_kv = kv_tiles(a, cta0 + (H - 1) * kTile);
+
+  cp_tile<D, NT, H * kTile>(qs, q + qoff, cta0, a.sq, a.d);
+  cp_tile<D, NT>(ks, k + koff, 0, a.sk, a.d);
+  cp_tile<D, NT>(vs, v + koff, 0, a.sk, a.d);
+  hopper::cp_async_commit();
+  float acc[AR][4], m[SQ], l[SQ];
+#pragma unroll
+  for (int i = 0; i < AR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SQ; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;   // this thread's 8 keys of the row; summed at the end
+  }
+  uint32_t keep =
+      DROP ? fwd_keep_bits(a, seed, bh, row0, 0, fq, g, 0, SQ) : 0u;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int col0 = kt * kTile, st = kt & 1;
+    const float* kst = ks + st * C::kTileF;
+    const float* vst = vs + st * C::kTileF;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // K and V of tile kt have landed; every thread is
+                       // past tile kt - 1's product, so its stage, P^T
+                       // and alpha are free
+    if (kt + 1 < n_kv) {
+      const int nx = (st ^ 1) * C::kTileF;
+      cp_tile<D, NT>(ks + nx, k + koff, col0 + kTile, a.sk, a.d);
+      cp_tile<D, NT>(vs + nx, v + koff, col0 + kTile, a.sk, a.d);
+    }
+    hopper::cp_async_commit();
+    float s[SQ][8], bj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = col0 + g + 8 * (j / 4) + 16 * (j % 4);
+      bj[j] = (a.bias != nullptr && c < a.sk)
+                  ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+    }
+    score_tile<D, SQ, 2>(qsg, kst, s, fq, g);
+    if (edge_tile(a, row0, col0)) {   // the masks only where they reach
+#pragma unroll
+      for (int i = 0; i < SQ; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[i][j] = score(a, s[i][j], bj[j], row0 + fq + 4 * i,
+                          col0 + g + 8 * (j / 4) + 16 * (j % 4));
+    } else {
+#pragma unroll
+      for (int i = 0; i < SQ; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = s[i][j] * a.scale + bj[j];
+    }
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) {
+      float mc = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mc = fmaxf(mc, s[i][j]);
+      const float m_next = fmaxf(m[i], max8(mc));
+      const float base = m_next == -INFINITY ? 0.f : m_next;
+      const float alpha = expf(m[i] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - base);
+        sum += p;
+        s[i][j] = DROP ? ((keep >> (8 * i + j)) & 1u ? p * a.keep_scale : 0.f)
+                       : p;
+      }
+      l[i] = alpha * l[i] + sum;
+      m[i] = m_next;
+      if (g == 0) rsg[qpos(fq + 4 * i)] = alpha;
+    }
+    // P^T[key][qpos]: the thread's SQ queries of a key are side by side
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* dst = ptg + (g + 8 * (j / 4) + 16 * (j % 4)) * C::kLS + qpos(fq);
+      if constexpr (SQ == 4)
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      else
+        *reinterpret_cast<float2*>(dst) = make_float2(s[0][j], s[1][j]);
+    }
+    group_sync<H>(grp);   // the group's P^T and alpha are whole
+#pragma unroll
+    for (int mm = 0; mm < AR / 4; ++mm) {
+      const float4 al = *reinterpret_cast<const float4*>(rsg + pb + 16 * mm);
+      const float ae[4] = {al.x, al.y, al.z, al.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * mm + t][e] *= ae[t];
+    }
+    // the next tile's keep bits, a query in each of the first SQ blocks
+    if (DROP) keep = 0u;
+    acc_tile<D, AR>(ptg, vst, acc, pb, dc, [&](int blk) {
+      if (DROP && blk < SQ)
+        keep |= fwd_keep_bits(a, seed, bh, row0, col0 + kTile, fq, g, blk, 1);
+    });
+  }
+  hopper::cp_async_wait<0>();
+
+  group_sync<H>(grp);   // every thread of the group has read alpha
+#pragma unroll
+  for (int i = 0; i < SQ; ++i) {
+    const float lr = sum8(l[i]);
+    const float l_safe = lr == 0.f ? 1.f : lr;
+    const int r = row0 + fq + 4 * i;
+    if (g == 0) {
+      rsg[qpos(fq + 4 * i)] = 1.f / l_safe;
+      if (r < a.sq) lse[(size_t)bh * a.sq + r] = m[i] + logf(l_safe);
+    }
+  }
+  group_sync<H>(grp);   // 1 / l of every row
+#pragma unroll
+  for (int mm = 0; mm < AR / 4; ++mm) {
+    const float4 il = *reinterpret_cast<const float4*>(rsg + pb + 16 * mm);
+    const float ie[4] = {il.x, il.y, il.z, il.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int r = row0 + (kTile / C::kRW) * (warp / C::kCW) + 16 * mm +
+                    4 * t + lane / 8;
+      if (r < a.sq && dc < a.d)
+        *reinterpret_cast<float4*>(out + qoff + (size_t)r * a.d + dc) =
+            make_float4(acc[4 * mm + t][0] * ie[t], acc[4 * mm + t][1] * ie[t],
+                        acc[4 * mm + t][2] * ie[t],
+                        acc[4 * mm + t][3] * ie[t]);
+    }
+  }
+}
+
+// The fused backward's CTA: H kv tiles of 64 keys (H = 2 up to D = 64,
+// H = 1 at D = 128), one group of the dK/dV kernel's each, and its dQ
+// share of every q tile, a 64 x D f32 tile.  Thread t (warp w, lane l)
+// holds rows qr + kRStep i (i < D / 16), qr = l / 8 + 4 (w / (kCB / 8)),
+// at columns 4 cb .. 4 cb + 3, cb = l % 8 + 8 (w % (kCB / 8)): a warp
+// reads 4 dS rows and 8 contiguous 16-byte chunks of a K row, one
+// wavefront each.
+template <int D>
+struct FusedF32 {
+  static constexpr int kH = D == 128 ? 1 : 2;
+  static constexpr int kKeys = kH * kTile;    // keys a CTA
+  static constexpr int kCB = D / 4;           // 4-column blocks of a row
+  static constexpr int kRQ = D / 16;          // share rows a thread
+  static constexpr int kRStep = 256 / kCB;    // between a thread's rows
+};
+
+// The float32 scratch of the f32 fused backward's dQ shares, one (b, h,
+// sq, d) slice a kv-tile CTA of a (b, h), holds at most this many bytes,
+// or kFusedF32MinParts slices where they are larger (4 takes every sk <=
+// 512 up to head dim 64); the CTAs run in launches of as many ranks as
+// it holds
+constexpr size_t kFusedF32ScratchBytes = size_t{256} << 20;
+constexpr int kFusedF32MinParts = 4;
+
+// acc[i][e] += sum over the CTA's keys c of dS[qr + kRStep i][c] K[c][4 cb
+// + e], in the order (kv tile, position): per 4 keys RQ + 4 LDS.128 for
+// 16 RQ FFMAs (dS: [H][64][68] by position, K: [H][64][D + 4])
+template <int D>
+__device__ __forceinline__ void dq_share(const float* __restrict__ dss,
+                                         const float* __restrict__ ks,
+                                         float (&acc)[FusedF32<D>::kRQ][4],
+                                         int qr, int cb) {
+  using C = SplitF32<D>;
+  using F = FusedF32<D>;
+#pragma unroll
+  for (int h = 0; h < F::kH; ++h)
+#pragma unroll 4
+    for (int p = 0; p < kTile; p += 4) {
+      float4 dv[F::kRQ];
+#pragma unroll
+      for (int i = 0; i < F::kRQ; ++i)
+        dv[i] = *reinterpret_cast<const float4*>(
+            dss + h * C::kScoreF + (qr + F::kRStep * i) * C::kLS + p);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {   // position p + t: key p / 4 + 16 t
+        const float4 kv = *reinterpret_cast<const float4*>(
+            ks + h * C::kTileF + (p / 4 + 16 * t) * (D + 4) + 4 * cb);
+#pragma unroll
+        for (int i = 0; i < F::kRQ; ++i) {
+          const float x = t == 0 ? dv[i].x : t == 1 ? dv[i].y
+                        : t == 2 ? dv[i].z : dv[i].w;
+          acc[i][0] = fmaf(x, kv.x, acc[i][0]);
+          acc[i][1] = fmaf(x, kv.y, acc[i][1]);
+          acc[i][2] = fmaf(x, kv.z, acc[i][2]);
+          acc[i][3] = fmaf(x, kv.w, acc[i][3]);
+        }
+      }
+    }
+}
+
+// The fused backward: the dK/dV kernel's CTA (dkv_f32_ring, two groups
+// over 2-stage rings up to D = 64; at D = 128 one group with one slot for
+// Q, dO, lse and delta, refilled after the tile's products) plus, for each
+// q tile, the CTA's dQ share.  1-D grid: CTA r + n_part bh runs rank (kv
+// tile of F::kKeys keys) r0 + r.  Each CTA stores its share of every q
+// tile it sees to parts[r][b h][sq][d], which flash_dq_parts_sum_kernel
+// sums onto dQ in rank order, so every run gives the same bits; with one
+// rank in all (sk <= F::kKeys) parts is dQ itself.  Under causal masking
+// rank r has no share of the q tiles before its first (r H).
+template <int D, bool DROP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_fused_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ parts, float* __restrict__ dk,
+                           float* __restrict__ dv, int r0, int n_part,
+                           Attn a) {
+  using C = SplitF32<D>;
+  using F = FusedF32<D>;
+  constexpr int H = F::kH, ST = F::kH;   // groups, ring stages
+  constexpr int NT = 256, SQ = C::kSQ, AR = C::kAR, RQ = F::kRQ;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                       // [H][64][D + 4]
+  float* vs = ks + H * C::kTileF;         // [H][64][D + 4]
+  float* qs = vs + H * C::kTileF;         // [ST][64][D + 4]
+  float* dos = qs + ST * C::kTileF;       // [ST][64][D + 4]
+  float* ps = dos + ST * C::kTileF;       // [H] dropped P [query][position]
+  float* dss = ps + H * C::kScoreF;       // [H] dS [query][position]
+  float* lse_s = dss + H * C::kScoreF;    // [ST][64]
+  float* delta_s = lse_s + ST * kTile;    // [ST][64]
+  float* bias_s = delta_s + ST * kTile;   // [H][64]
+  const int part = blockIdx.x % n_part, bh = blockIdx.x / n_part;
+  const int bi = bh / a.h, grp = threadIdx.x / C::kNT;
+  const int cta0 = (r0 + part) * F::kKeys, col0 = cta0 + grp * kTile;
+  const float* bsg = bias_s + grp * kTile;
+  const float* ksg = ks + grp * C::kTileF;
+  const float* vsg = vs + grp * C::kTileF;
+  float* psg = ps + grp * C::kScoreF;
+  float* dssg = dss + grp * C::kScoreF;
+  const size_t qoff = (size_t)bh * a.sq * a.d, koff = (size_t)bh * a.sk * a.d;
+  float* share =
+      parts + (size_t)part * (gridDim.x / n_part) * a.sq * a.d + qoff;
+  const float* lse_h = lse + (size_t)bh * a.sq;
+  const float* delta_h = delta + (size_t)bh * a.sq;
+  const uint64_t seed = DROP ? (uint64_t)*a.seed : 0ull;
+  const int warp = (threadIdx.x % C::kNT) / 32, lane = threadIdx.x % 32;
+  const int g = 8 * (warp % 2) + lane % 8;
+  const int qb = 4 * SQ * (warp / 2) + lane / 8;
+  const int dc = 32 * (warp % C::kCW) + 4 * (lane % 8);
+  const int pb = (kTile / C::kRW) * (warp / C::kCW) + 4 * (lane / 8);
+  // dQ share: rows qr + kRStep i, columns 4 cb .. 4 cb + 3
+  const int cb = lane % 8 + 8 * ((threadIdx.x / 32) % (F::kCB / 8));
+  const int qr = lane / 8 + 4 * ((threadIdx.x / 32) / (F::kCB / 8));
+  const int n_q = (a.sq + kTile - 1) / kTile;
+  const int qt0 = first_q_tile(a, cta0);
+
+  // tile qt's Q, dO, lse and delta into stage st
+  auto load_q = [&](int qt, int st) {
+    cp_tile<D, NT>(qs + st * C::kTileF, q + qoff, qt * kTile, a.sq, a.d);
+    cp_tile<D, NT>(dos + st * C::kTileF, dout + qoff, qt * kTile, a.sq, a.d);
+    cp_row_vec(lse_s + st * kTile, lse_h, qt * kTile, a.sq);
+    cp_row_vec(delta_s + st * kTile, delta_h, qt * kTile, a.sq);
+  };
+  cp_tile<D, NT, H * kTile>(ks, k + koff, cta0, a.sk, a.d);
+  cp_tile<D, NT, H * kTile>(vs, v + koff, cta0, a.sk, a.d);
+  if (qt0 < n_q) load_q(qt0, 0);
+  hopper::cp_async_commit();
+  if (threadIdx.x % C::kNT < kTile) {   // the group's bias row
+    const int c = col0 + threadIdx.x % C::kNT;
+    bias_s[threadIdx.x % C::kNT + grp * kTile] =
+        (a.bias != nullptr && c < a.sk)
+            ? __ldg(a.bias + (size_t)bi * a.sk + c) : 0.f;
+  }
+  float dka[AR][4], dva[AR][4];
+#pragma unroll
+  for (int i = 0; i < AR; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  uint32_t keep =
+      DROP ? keep_bits<SQ>(a, seed, bh, qt0 * kTile, col0, qb, g) : 0u;
+
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int row0 = qt * kTile;
+    const int st = (qt - qt0) % ST;
+    const float* qst = qs + st * C::kTileF;
+    const float* dost = dos + st * C::kTileF;
+    const float* lst = lse_s + st * kTile;
+    const float* dlt = delta_s + st * kTile;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // tile qt has landed; every thread is past tile qt -
+                       // 1's products, so the other stage, P and dS are free
+    if (ST == 2 && qt + 1 < n_q) load_q(qt + 1, st ^ 1);
+    hopper::cp_async_commit();
+    float s[SQ][4], dp[SQ][4], lr[SQ], dr[SQ], bj[4];
+    score_tile<D, SQ>(qst, ksg, s, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) lr[i] = lst[score_row(qb, i)];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bj[j] = bsg[g + 16 * j];
+    if (edge_tile(a, row0, col0))
+      split_probs<SQ, true>(a, row0, col0, qb, g, s, lr, bj);
+    else
+      split_probs<SQ, false>(a, row0, col0, qb, g, s, lr, bj);
+    score_tile<D, SQ>(dost, vsg, dp, qb, g);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) dr[i] = dlt[score_row(qb, i)];
+    split_grads<SQ, DROP>(a, s, dp, dr, keep);
+#pragma unroll
+    for (int i = 0; i < SQ; ++i) {
+      const int r = score_row(qb, i) * C::kLS + 4 * g;
+      *reinterpret_cast<float4*>(psg + r) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      *reinterpret_cast<float4*>(dssg + r) =
+          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+    }
+    __syncthreads();   // every group's P and dS are whole (dQ reads all)
+    acc_tile<D, AR>(dssg, qst, dka, pb, dc, [](int) {});
+    keep = 0u;
+    acc_tile<D, AR>(psg, dost, dva, pb, dc, [&](int blk) {
+      if (DROP)
+        keep |= keep_bits<SQ>(a, seed, bh, row0 + kTile, col0, qb, g,
+                              blk * SQ / kAccBlocks, SQ / kAccBlocks);
+    });
+    float dqs[RQ][4];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqs[i][e] = 0.f;
+    dq_share<D>(dss, ks, dqs, qr, cb);
+    if (ST == 1 && qt + 1 < n_q) {
+      __syncthreads();   // every thread has read the slot
+      load_q(qt + 1, 0);
+      hopper::cp_async_commit();
+    }
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int r = row0 + qr + F::kRStep * i;
+      if (r < a.sq && 4 * cb < a.d)
+        *reinterpret_cast<float4*>(share + (size_t)r * a.d + 4 * cb) =
+            make_float4(dqs[i][0], dqs[i][1], dqs[i][2], dqs[i][3]);
+    }
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int m = 0; m < AR / 4; ++m)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int c = col0 + ((pb + 16 * m) >> 2) + 16 * t;
+      if (c >= a.sk || dc >= a.d) continue;
+      const size_t o = koff + (size_t)c * a.d + dc;
+      *reinterpret_cast<float4*>(dk + o) =
+          make_float4(dka[4 * m + t][0], dka[4 * m + t][1], dka[4 * m + t][2],
+                      dka[4 * m + t][3]);
+      *reinterpret_cast<float4*>(dv + o) =
+          make_float4(dva[4 * m + t][0], dva[4 * m + t][1], dva[4 * m + t][2],
+                      dva[4 * m + t][3]);
+    }
+}
+
+// dq[bh][i][j..j+3] (+)= parts[0] + parts[1] + ... over the launch's ranks
+// r0 .. r0 + n_part - 1 that hold a share of row i, in that order: rank 0's
+// launch stores the sum, a later one adds it to dQ's sum so far (rank
+// order whatever the launches).  One thread per 4 floats.
+__global__ void __launch_bounds__(256)
+flash_dq_parts_sum_kernel(const float* __restrict__ parts,
+                          float* __restrict__ dq, int r0, int n_part,
+                          int cta_tiles, size_t n4, Attn a) {
+  const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= n4) return;
+  const size_t o = 4 * x;               // into (b h, sq, d)
+  const int i = (int)(o / a.d % a.sq);
+  const int last = a.causal ? min(n_part - 1, i / kTile / cta_tiles - r0)
+                            : n_part - 1;
+  if (last < 0) return;
+  float4 sum = *reinterpret_cast<const float4*>(parts + o);
+  if (r0 > 0) {
+    const float4 y = *reinterpret_cast<const float4*>(dq + o);
+    sum = make_float4(y.x + sum.x, y.y + sum.y, y.z + sum.z, y.w + sum.w);
+  }
+  for (int r = 1; r <= last; ++r) {
+    const float4 y =
+        *reinterpret_cast<const float4*>(parts + (size_t)r * 4 * n4 + o);
+    sum.x += y.x;
+    sum.y += y.y;
+    sum.z += y.z;
+    sum.w += y.w;
+  }
+  *reinterpret_cast<float4*>(dq + o) = sum;
 }
 
 // ====================================== split backward on the tensor cores
@@ -2474,13 +2608,6 @@ flash_dropout_mask_kernel(unsigned char* __restrict__ keep, Attn a) {
   }
 }
 
-constexpr size_t fwd_smem(int d) {
-  return sizeof(float) * (3 * kTile * (d + 1) + kTile * kLP);
-}
-constexpr size_t bwd_smem(int d) {
-  return sizeof(float) * (4 * kTile * (d + 1) + 2 * kTile * kLP);
-}
-
 // Above 48 KB a kernel's dynamic shared memory must be allowed once.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -2506,29 +2633,87 @@ Attn make_attn(int h, int sq, int sk, int d, float scale, int causal,
   return a;
 }
 
-template <int D, typename T>
-cudaError_t launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse,
-                       int b, const Attn& a, cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, T>, smem);
+// the f32 forward's shared memory: Q of each group, two stages of K and
+// V, and each group's P^T and its row of alpha / 1 / l
+template <int D>
+constexpr size_t fwd_f32_smem() {
+  using C = SplitF32<D>;
+  constexpr int H = 256 / C::kNT;
+  return sizeof(float) * ((H + 4) * C::kTileF + H * C::kScoreF + H * kTile);
+}
+
+template <int D, bool DROP>
+cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v,
+                           float* out, float* lse, int b, const Attn& a,
+                           cudaStream_t stream) {
+  const int rows = (256 / SplitF32<D>::kNT) * kTile;
+  const size_t smem = fwd_f32_smem<D>();
+  cudaError_t err = allow_smem(flash_fwd_f32_kernel<D, DROP>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + kTile - 1) / kTile, b * a.h);
-  flash_fwd_kernel<D, T><<<grid, kThreads, smem, stream>>>(q, k, v, out, lse,
-                                                           a);
+  dim3 grid((a.sq + rows - 1) / rows, b * a.h);
+  flash_fwd_f32_kernel<D, DROP><<<grid, 256, smem, stream>>>(q, k, v, out,
+                                                             lse, a);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
-cudaError_t launch_fused(const T* q, const T* k, const T* v, const T* dout,
-                         const float* lse, const float* delta, float* dq_acc,
-                         T* dq, T* dk, T* dv, int b, const Attn& a,
-                         cudaStream_t stream) {
-  const size_t smem = bwd_smem(D);
-  cudaError_t err = allow_smem(flash_bwd_fused_kernel<D, T>, smem);
+// the f32 fused backward's shared memory: K, V, P, dS and the bias row of
+// each group, the stages of Q, dO, lse and delta
+template <int D>
+constexpr size_t fused_f32_smem() {
+  using C = SplitF32<D>;
+  constexpr int H = FusedF32<D>::kH;
+  return sizeof(float) *
+         (4 * H * C::kTileF + 2 * H * C::kScoreF + 3 * H * kTile);
+}
+
+// the (b, h, sq, d) slices of the f32 fused backward's dQ scratch: one a
+// kv-tile CTA of a (b, h), as many as kFusedF32ScratchBytes holds but at
+// least kFusedF32MinParts; none with one CTA, which stores dQ itself
+template <int D>
+int fused_f32_parts(int b, const Attn& a) {
+  const int n_cta = (a.sk + FusedF32<D>::kKeys - 1) / FusedF32<D>::kKeys;
+  const size_t slice = sizeof(float) * b * a.h * a.sq * a.d;
+  const size_t fit = kFusedF32ScratchBytes / (slice > 0 ? slice : 1);
+  const int parts = fit < (size_t)kFusedF32MinParts ? kFusedF32MinParts
+                    : fit < (size_t)n_cta            ? (int)fit
+                                                     : n_cta;
+  return n_cta == 1 ? 0 : parts < n_cta ? parts : n_cta;
+}
+
+// parts: a float32 scratch of fused_f32_parts<D>(b, a) b h sq d floats
+// (null when that is 0).  The kv-tile CTAs run as many ranks a launch,
+// each launch followed by the sum of its shares onto dQ.
+template <int D, bool DROP>
+cudaError_t launch_fused_f32(const float* q, const float* k, const float* v,
+                             const float* dout, const float* lse,
+                             const float* delta, float* parts, float* dq,
+                             float* dk, float* dv, int b, const Attn& a,
+                             cudaStream_t stream) {
+  const int bh = b * a.h;
+  const int n_cta = (a.sk + FusedF32<D>::kKeys - 1) / FusedF32<D>::kKeys;
+  const int n_parts = fused_f32_parts<D>(b, a);
+  const bool direct = n_parts == 0;
+  if (!direct && parts == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = fused_f32_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_fused_f32_kernel<D, DROP>, smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_fused_kernel<D, T><<<b * a.h, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq_acc, dq, dk, dv, a);
-  return cudaGetLastError();
+  const size_t n4 = (size_t)bh * a.sq * a.d / 4;
+  const int step = direct ? 1 : n_parts;
+  for (int r0 = 0; r0 < n_cta; r0 += step) {
+    const int n_part = n_cta - r0 < step ? n_cta - r0 : step;
+    flash_bwd_fused_f32_kernel<D, DROP>
+        <<<(unsigned)(n_part * bh), 256, smem, stream>>>(
+            q, k, v, dout, lse, delta, direct ? dq : parts, dk, dv, r0,
+            n_part, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || direct) return err;
+    flash_dq_parts_sum_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0,
+                                stream>>>(parts, dq, r0, n_part,
+                                          FusedF32<D>::kH, n4, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // the f32 split pair's shared memory: Q, dO, a 2-stage ring of K, V,
@@ -2762,26 +2947,14 @@ cudaError_t fused_tc_occupancy(int* blocks) {
 
 // The tile width a head dim runs at: the smallest of 32, 64, 128 that
 // holds it (0: not taken).  Any d % 8 == 0 up to 128 is taken, as by the
-// TPU kernels (pallas_kernels.py:702); above 128 the SIMT backward's
-// shared memory does not fit (bwd_smem(256) = 296,448 B > 227 KB).
+// TPU kernels (pallas_kernels.py:702); above 128 the f32 fused kernel's
+// tiles do not fit a CTA (fused_f32_smem<256>() = 367,360 B > 227 KB).
 int tile_width(int d) {
   if (d <= 0 || d % 8 != 0 || d > 128) return 0;
   return d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
-// The entry points' bodies, one per kernel, for any storage type.
-template <typename T>
-int fwd_entry(const T* q, const T* k, const T* v, T* out, float* lse, int b,
-              const Attn& a, cudaStream_t stream) {
-  switch (tile_width(a.d)) {
-    case 32: return launch_fwd<32>(q, k, v, out, lse, b, a, stream);
-    case 64: return launch_fwd<64>(q, k, v, out, lse, b, a, stream);
-    case 128: return launch_fwd<128>(q, k, v, out, lse, b, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// the f32 pair's instance: tile width x dropout
+// the f32 kernels' instance: tile width x dropout
 #define SPLIT_F32_CASES(LAUNCH, ...)                                      \
   switch (tile_width(a.d) * 2 + (a.seed != nullptr)) {                    \
     case 64: return LAUNCH<32, false>(__VA_ARGS__);                       \
@@ -2806,25 +2979,20 @@ int dkv_f32_entry(const float* q, const float* k, const float* v,
   SPLIT_F32_CASES(launch_dkv_f32, q, k, v, dout, lse, delta, dk, dv, b, a,
                   stream)
 }
-#undef SPLIT_F32_CASES
-
-template <typename T>
-int fused_entry(const T* q, const T* k, const T* v, const T* dout,
-                const float* lse, const float* delta, float* dq_acc, T* dq,
-                T* dk, T* dv, int b, const Attn& a, cudaStream_t stream) {
-  switch (tile_width(a.d)) {
-    case 32:
-      return launch_fused<32>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv,
-                              b, a, stream);
-    case 64:
-      return launch_fused<64>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv,
-                              b, a, stream);
-    case 128:
-      return launch_fused<128>(q, k, v, dout, lse, delta, dq_acc, dq, dk, dv,
-                               b, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+int fwd_f32_entry(const float* q, const float* k, const float* v,
+                  float* out, float* lse, int b, const Attn& a,
+                  cudaStream_t stream) {
+  SPLIT_F32_CASES(launch_fwd_f32, q, k, v, out, lse, b, a, stream)
 }
+
+int fused_f32_entry(const float* q, const float* k, const float* v,
+                    const float* dout, const float* lse, const float* delta,
+                    float* parts, float* dq, float* dk, float* dv, int b,
+                    const Attn& a, cudaStream_t stream) {
+  SPLIT_F32_CASES(launch_fused_f32, q, k, v, dout, lse, delta, parts, dq, dk,
+                  dv, b, a, stream)
+}
+#undef SPLIT_F32_CASES
 
 // the bf16 / fp16 kernels, on the tensor cores
 template <typename T>
@@ -2917,7 +3085,7 @@ extern "C" {
 int paddle_flash_fwd_f32(const float* q, const float* k, const float* v,
                          const float* bias, float* out, float* lse, int b,
                          ATTN_ARGS) {
-  return fwd_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
+  return fwd_f32_entry(q, k, v, out, lse, b, MAKE_ATTN, stream);
 }
 
 int paddle_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
@@ -2956,12 +3124,15 @@ int paddle_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                       stream);
 }
 
+// parts: a float32 scratch of n b h sq d floats, n from
+// paddle_flash_fused_f32_parts (null when n is 0)
 int paddle_flash_bwd_fused_f32(const float* q, const float* k, const float* v,
                                const float* bias, const float* dout,
-                               const float* lse, const float* delta, float* dq,
-                               float* dk, float* dv, int b, ATTN_ARGS) {
-  return fused_entry(q, k, v, dout, lse, delta, dq, dq, dk, dv, b, MAKE_ATTN,
-                     stream);
+                               const float* lse, const float* delta,
+                               float* parts, float* dq, float* dk, float* dv,
+                               int b, ATTN_ARGS) {
+  return fused_f32_entry(q, k, v, dout, lse, delta, parts, dq, dk, dv, b,
+                         MAKE_ATTN, stream);
 }
 
 // dq_acc: a float32 scratch of b h sq d floats (dQ's sums), then
@@ -3015,6 +3186,24 @@ int paddle_flash_fused_occupancy(int d, int is_fp16, int* blocks) {
     case 129: return fused_tc_occupancy<64, fp16>(blocks);
     case 256: return fused_tc_occupancy<128, bf16>(blocks);
     case 257: return fused_tc_occupancy<128, fp16>(blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// *parts: the (b, h, sq, d) float32 slices that the f32 fused backward's
+// scratch must hold (0: it takes none)
+int paddle_flash_fused_f32_parts(int b, int h, int sq, int sk, int d,
+                                 int* parts) {
+  Attn a = {};
+  a.h = h;
+  a.sq = sq;
+  a.sk = sk;
+  a.d = d;
+  if (b < 1 || h < 1 || sq < 1 || sk < 1) return cudaErrorInvalidValue;
+  switch (tile_width(d)) {
+    case 32: *parts = fused_f32_parts<32>(b, a); return cudaSuccess;
+    case 64: *parts = fused_f32_parts<64>(b, a); return cudaSuccess;
+    case 128: *parts = fused_f32_parts<128>(b, a); return cudaSuccess;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -89,7 +89,9 @@ FLASH = CudaKernel("flash_attention.cu", {
     "paddle_flash_fwd_f32": [_P] * 6 + _ATTN,
     "paddle_flash_bwd_dq_f32": [_P] * 8 + _ATTN,
     "paddle_flash_bwd_dkv_f32": [_P] * 9 + _ATTN,
-    "paddle_flash_bwd_fused_f32": [_P] * 10 + _ATTN,
+    # the f32 fused backward takes a float32 scratch for dQ's shares
+    # (None where it takes none: _fused_f32_parts)
+    "paddle_flash_bwd_fused_f32": [_P] * 11 + _ATTN,
     "paddle_flash_fwd_bf16": [_P] * 6 + _ATTN,
     "paddle_flash_bwd_dq_bf16": [_P] * 8 + _ATTN,
     "paddle_flash_bwd_dkv_bf16": [_P] * 9 + _ATTN,
@@ -100,8 +102,10 @@ FLASH = CudaKernel("flash_attention.cu", {
     "paddle_flash_bwd_dkv_fp16": [_P] * 9 + _ATTN,
     "paddle_flash_bwd_fused_fp16": [_P] * 11 + _ATTN,
     "paddle_flash_dropout_mask": [_P, _I, _I, _I, _I, _P, _U, _U, _P],
-    # not a launch: the bf16 / fp16 fused kernel's CTAs per SM, for reports
+    # not launches: the bf16 / fp16 fused kernel's CTAs per SM, for
+    # reports, and the size of the f32 fused kernel's scratch
     "paddle_flash_fused_occupancy": [_I, _I, _P],
+    "paddle_flash_fused_f32_parts": [_I] * 5 + [_P],
 })
 FLASH_FWD = KernelFunction(FLASH, "paddle_flash_fwd_f32", "flash_fwd_f32")
 FLASH_BWD_FUSED = KernelFunction(FLASH, "paddle_flash_bwd_fused_f32",
@@ -389,23 +393,47 @@ def _fused_scratch(b, h, sq, d, dev):
     return buf
 
 
+def _fused_f32_parts(b: int, h: int, sq: int, sk: int, d: int) -> int:
+    """The (b, h, sq, d) float32 slices that ``flash_bwd_fused_f32``'s
+    scratch holds, as ``launch_fused_f32`` in ``csrc/flash_attention.cu``
+    runs the kernel: one for each kv-tile CTA of a (b, h) (128 keys up to
+    head dim 64, 64 above), as many as 256 MiB holds but at least 4, the
+    CTAs running that many to a launch; 0 where one CTA takes every key
+    and stores dQ itself."""
+    n = ctypes.c_int(0)
+    err = FLASH.load().paddle_flash_fused_f32_parts(b, h, sq, sk, d,
+                                                    ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_fused_f32: no scratch size for b {b} "
+                           f"h {h} sq {sq} sk {sk} d {d} (cudaError_t {err})")
+    return n.value
+
+
 def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
               dropout_rate=0.0, seed=None):
     """Launch ``flash_bwd_fused_f32``, ``_bf16`` or ``_fp16``: ``(dq, dk,
-    dv)`` in one kernel.  The bf16 and fp16 kernels sum dQ in an f32
-    scratch allocated here, in kv order, and round it once."""
+    dv)`` in one kernel.  Every kernel sums dQ across its kv-tile CTAs in
+    float32 in kv order, in a scratch allocated here: the bf16 and fp16
+    kernels their sums (b h sq d floats, rounded once); the f32 kernel
+    each kv-tile CTA's share, which a second launch sums: up to 256 MiB,
+    or 4 x dQ where that is larger (277 MB at b 44, h 12, s 512, d 64),
+    the CTAs running as many shares to a launch
+    (:func:`_fused_f32_parts`)."""
     dev, (b, h, sq, sk, d) = _bwd_inputs("bwd_fused", q, k, v, bias, do, lse,
                                          delta, seed)
     q, k, v, do, lse, delta = _tma_ready(q, k, v, do, lse, delta)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dq_acc = (None if q.dtype == torch.float32 else
-              _fused_scratch(b, h, sq, d, dev))
-    scratch = [] if dq_acc is None else [dq_acc.data_ptr()]
+    if q.dtype != torch.float32:
+        buf = _fused_scratch(b, h, sq, d, dev)
+    else:
+        n = _fused_f32_parts(b, h, sq, sk, d)
+        buf = torch.empty(n * b * h * sq * d, dtype=torch.float32,
+                          device=dev) if n else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _KERNELS[q.dtype]["fused"](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), *scratch,
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(buf),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
             *_attn_args(h, sq, sk, d, scale, causal, dropout_rate, seed,
                         stream))
@@ -415,8 +443,8 @@ def bwd_fused(q, k, v, bias, do, lse, delta, scale, causal,
 def _tma_ready(*tensors):
     """The tensors, each copied if its address is not 16-byte aligned: the
     bf16 and fp16 kernels read them through TMA tensor maps, and the f32
-    split pair (``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32``) by 16-byte
-    ``cp.async`` copies, which need 16-byte-aligned rows."""
+    kernels by 16-byte ``cp.async`` copies, which need 16-byte-aligned
+    rows."""
     return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
 
 

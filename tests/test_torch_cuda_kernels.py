@@ -648,6 +648,93 @@ def test_flash_split_pair_low_matches_plain(cuda, dtype, sq, sk, d, causal,
         assert torch.equal(got, g2)
 
 
+# The f32 forward and fused backward at the edges of the fused kernel's
+# kv-tile CTAs (128 keys up to head dim 64, 64 above; one CTA stores dQ
+# itself, more sum their shares through a scratch and a second launch): sk
+# 65, 448, 512, 513 and 1024, ragged sq != sk, causal, head dims 40 / 96 /
+# 120 and dropout 0.1 against the dumped mask; f32 within ATOL (the
+# forward) and GRAD_TOL (the gradients), one launch of each kernel a call,
+# and a second call the same bits
+@pytest.mark.parametrize("sq,sk", [(65, 65), (448, 448), (512, 512),
+                                   (513, 513), (1024, 1024), (100, 513),
+                                   (513, 100), (300, 1024)])
+@pytest.mark.parametrize("d", [40, 64, 96, 120])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_f32_forward_and_fused_at_tile_edges(cuda, sq, sk, d, causal,
+                                                   rate):
+    b, h = 2, 3
+    q, k, v, do, bias = _flash_case(cuda, 7 * sq + sk + d, b, h, sq, sk, d,
+                                    True)
+    scale = d ** -0.5
+    seed = torch.tensor([31], dtype=torch.int64, device=cuda)
+    keep = tfa.flash_dropout_mask(b, h, sq, sk, rate, seed) if rate else None
+    sd = seed if rate else None
+    kernels = (tfa.FLASH_FWD, tfa.FLASH_BWD_FUSED)
+    before = [kf.launches for kf in kernels]
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, causal, rate, sd)
+    args = (q, k, v, bias, do, lse, (do * out).sum(-1), scale, causal, rate,
+            sd)
+    fused = tfa.bwd_fused(*args)
+    want_out, want_lse = tfa.flash_fwd_reference(q, k, v, bias, scale,
+                                                 causal, rate, keep)
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
+                                   causal, rate, keep)
+    torch.cuda.synchronize()
+    assert [kf.launches - n for kf, n in zip(kernels, before)] == [1, 1]
+    assert float((out - want_out).abs().max()) <= ATOL
+    assert float((lse - want_lse).abs().max()) <= ATOL
+    for got, w in zip(fused, want):
+        torch.testing.assert_close(got, w, **GRAD_TOL)
+    again = (*tfa.flash_fwd(q, k, v, bias, scale, causal, rate, sd),
+             *tfa.bwd_fused(*args))
+    torch.cuda.synchronize()
+    for got, g2 in zip((out, lse) + fused, again):
+        assert torch.equal(got, g2)
+
+
+# The f32 fused backward's scratch: one (b, h, sq, d) slice a kv-tile CTA
+# (128 keys up to head dim 64, 64 above), as many as 256 MiB holds but at
+# least 4, none for one CTA
+@pytest.mark.parametrize("b,h,sq,sk,d,parts", [
+    (2, 3, 512, 1, 8, 0), (2, 3, 512, 128, 64, 0), (2, 3, 512, 129, 64, 2),
+    (1, 1, 64, 65, 120, 2), (44, 12, 512, 512, 64, 4),
+    (44, 12, 512, 512, 128, 4), (2, 12, 2048, 2048, 64, 16),
+    (4, 16, 1024, 1024, 128, 8), (8, 12, 8192, 8192, 64, 4),
+    (2, 3, 100, 4096, 40, 32)])
+def test_fused_f32_scratch_parts(cuda, b, h, sq, sk, d, parts):
+    assert tfa._fused_f32_parts(b, h, sq, sk, d) == parts
+
+
+# Where the scratch holds fewer shares than a (b, h) has kv-tile CTAs,
+# they run in launches, each summed onto dQ: the plain version's
+# gradients within GRAD_TOL, and a second call the same bits
+@pytest.mark.parametrize("d", [120, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_f32_fused_in_launches(cuda, d, causal, rate):
+    b, h, s = 4, 16, 1024
+    assert tfa._fused_f32_parts(b, h, s, s, d) == 8   # of 16 CTAs
+    q, k, v, do, bias = _flash_case(cuda, 11 * d + causal, b, h, s, s, d,
+                                    True)
+    scale = d ** -0.5
+    seed = torch.tensor([5], dtype=torch.int64, device=cuda)
+    keep = tfa.flash_dropout_mask(b, h, s, s, rate, seed) if rate else None
+    sd = seed if rate else None
+    out, lse = tfa.flash_fwd(q, k, v, bias, scale, causal, rate, sd)
+    args = (q, k, v, bias, do, lse, (do * out).sum(-1), scale, causal, rate,
+            sd)
+    fused = tfa.bwd_fused(*args)
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, scale,
+                                   causal, rate, keep)
+    for got, w in zip(fused, want):
+        torch.testing.assert_close(got, w, **GRAD_TOL)
+    again = tfa.bwd_fused(*args)
+    torch.cuda.synchronize()
+    for got, g2 in zip(fused, again):
+        assert torch.equal(got, g2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=["f32", "bf16", "fp16"])
 def test_flash_split_pair_takes_unaligned_inputs(cuda, dtype):
