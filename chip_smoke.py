@@ -21,16 +21,23 @@ Phases (any failure exits non-zero and prints no result):
    them (``tensor_cores`` lines), nor for any instance of the four f32
    flash kernels, the forward, the fused backward and the split pair
    (each tile width, dropout on and off: ``simt_spills`` lines, with
-   their registers);
-3. paged decode, kernel vs plain version: the paged-decode kernel against
-   its plain PyTorch version on the card, at the serving shape and a GQA
-   shape;
+   their registers), nor for any instance of the paged-decode kernel
+   (each page dtype, width, GQA group bound and head dim: ``paged_spills``
+   lines, with their registers);
+3. paged decode over f32 pages, kernel vs plain version: the kernel
+   (``paged_decode_f32``) against its plain PyTorch version on the same
+   CUDA tensors, at the serving shape, a GQA shape and a wide batch (64
+   sequences), within KERNEL_ATOL; two calls bit-identical, a CUDA graph
+   of the call (warmed up on its capture stream) replayed three times
+   equal to the eager call bit for bit, the stream's tickets left zero;
 4. paged decode, times (calls captured in a CUDA graph, replayed between
    CUDA events after warm-up; inputs rotated through enough copies to
    keep the 50 MB L2 cold, as in a 12-layer decode step): kernel, plain
    version, the bound of the bytes the live K/V rows need, and
    ``scaled_dot_product_attention`` over gathered dense K/V as a library
-   yardstick (the port never calls it);
+   yardstick (the port never calls it); each row gives the split walk's
+   plan (``n_splits``, ``span_pages``), the achieved GB/s and the share
+   of the byte bound;
 5. flash attention, kernels vs plain versions: the forward (out and lse)
    and the fused and split backward kernels against the plain forward
    and autograd of the dense plain version on the same CUDA tensors, at
@@ -210,15 +217,9 @@ Phases (any failure exits non-zero and prints no result):
       (``paged_decode_bf16``, ``paged_decode_int8``) against their plain
       versions on the same CUDA tensors at the serving and GQA shapes of
       phase 3 (within KERNEL_ATOL: both dequantize as
-      ``code * (scale / 127)``), and timed as phase 4 (CUDA-graph replay,
-      enough input sets to keep the L2 cold) against the byte bound, the
-      plain versions and SDPA (bf16 over gathered bf16 K/V; for int8,
-      which no PyTorch call takes, over K/V dequantized to f32
-      beforehand); each row gives the split walk's plan (``n_splits``,
-      ``span_pages``), the achieved GB/s and the share of the byte bound;
-      two calls must be bit-identical, and a CUDA graph of the call
-      (warmed up on its capture stream) replayed three times must equal
-      the eager call bit for bit;
+      ``code * (scale / 127)``), checked and timed as phases 3-4 (SDPA in
+      bf16 over gathered bf16 K/V; for int8, which no PyTorch call takes,
+      over K/V dequantized to f32 beforehand);
    m. serving: phase 9's engine and trace with bf16 and with int8 pools
       bought by phase 9's byte budget (1,152 MiB: 2,048 and 4,096
       pages); each launches its own kernel layers x decode steps times
@@ -300,16 +301,16 @@ Phases (any failure exits non-zero and prints no result):
 
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
-    (``flash_fwd_f32`` replaces two), the two quantized rows of kernel 6
-    (launches from phase m), the five bf16 rows of kernels 1-5
-    (the bf16 launches from phase c, the AMP O1 main path), the three
-    bf16 rows of kernels 7-9 (launches from phases g and j), the three
-    fp16 rows of kernels 7-9 (launches from phases r and t), the four
-    fp16 rows of kernels 1-5 (launches from phase w, the fp16 O1 main
-    path), and the two bf16 and two fp16 gelu kernels of the AMP O2 paths
-    (launches from phases d and x; no Pallas kernel: their rows name the
-    JAX lowering XLA fuses), the card's name and power limit, and the
-    last line:
+    (``flash_fwd_f32`` replaces two; kernel 6 at the serving shape), the
+    two quantized rows of kernel 6 (launches from phase m), the five
+    bf16 rows of kernels 1-5 (the bf16 launches from phase c, the AMP O1
+    main path), the three bf16 rows of kernels 7-9 (launches from phases
+    g and j), the three fp16 rows of kernels 7-9 (launches from phases r
+    and t), the four fp16 rows of kernels 1-5 (launches from phase w, the
+    fp16 O1 main path), and the two bf16 and two fp16 gelu kernels of the
+    AMP O2 paths (launches from phases d and x; no Pallas kernel: their
+    rows name the JAX lowering XLA fuses), the card's name and power
+    limit, and the last line:
     ``{"ok": true, "device": {...}}``.
 
 Each phase's heading carries the seconds since the start.  The port is
@@ -471,22 +472,6 @@ def make_decode_case(rng, hq, hkv, d, ps, n_pages, ctx_lens, n_pad=0):
             torch.from_numpy(ctx).to(dev))
 
 
-def decode_bound(case):
-    """(bound_ms, bound_by): the bytes the live K/V rows, q, out, tables
-    and lengths need, over HBM bandwidth, against the f32 operations
-    over the f32 peak."""
-    q, k, _, tables, ctx = case
-    b, hq, d = q.shape
-    hkv = k.shape[0]
-    tokens = int(ctx.sum())
-    nbytes = (2 * tokens * hkv * d * 4 + 2 * q.numel() * 4
-              + tables.numel() * 4 + ctx.numel() * 4)
-    flops = 4 * d * hq * tokens
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def sdpa_inputs(case):
     """The library yardstick's inputs: each sequence's K/V gathered dense
     through its table, heads repeated for GQA, and a boolean mask of the
@@ -507,40 +492,200 @@ def sdpa_inputs(case):
     return q[:, :, None, :].contiguous(), kd, vd, mask
 
 
-def check_and_time_kernel(name, rng, hq, hkv, d, ps, n_pages, ctx_lens,
-                          n_pad=0, n_sets=4):
+def make_paged_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens,
+                    n_pad=0):
+    """``(case, scales)``: ``make_decode_case``'s f32 pools, or its
+    tables and lengths over bf16 pools, or int8 pools (codes in [-127,
+    127]) with their f32 scale pools."""
+    import torch
+
+    q, k, v, tables, ctx = make_decode_case(rng, hq, hkv, d, ps, n_pages,
+                                            ctx_lens, n_pad)
+    if dtype == "float32":
+        return (q, k, v, tables, ctx), ()
+    if dtype == "bfloat16":
+        return (q, k.bfloat16(), v.bfloat16(), tables, ctx), ()
+    del k, v
+    codes = [torch.randint(-127, 128, (hkv, n_pages, ps, d), device="cuda",
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(hkv, n_pages, device="cuda") * 2 + 0.1
+              for _ in range(2)]
+    return (q, *codes, tables, ctx), tuple(scales)
+
+
+def paged_bytes(case, scales):
+    """The bytes a call must move: the live K/V rows at the pool's element
+    size, the live pages' scales (int8), q, out, tables and lengths."""
+    q, k, _, tables, ctx = case
+    hkv, _, ps, d = k.shape
+    tokens = int(ctx.sum())
+    nbytes = (2 * tokens * hkv * d * k.element_size() + 2 * q.numel() * 4
+              + tables.numel() * 4 + ctx.numel() * 4)
+    if scales:
+        nbytes += 2 * hkv * 4 * int(((ctx + ps - 1) // ps).sum())
+    return nbytes
+
+
+def paged_bound(case, scales):
+    """(bound_ms, bound_by): :func:`paged_bytes` over HBM bandwidth,
+    against the f32 operations over the f32 peak."""
+    q, k, _, _, ctx = case
+    hq, d = q.shape[1], q.shape[2]
+    tokens = int(ctx.sum())
+    t_bytes = paged_bytes(case, scales) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * hq * tokens / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def paged_library_inputs(case, scales, dtype):
+    """SDPA's inputs: K and V gathered dense in the pool's dtype (q cast
+    to it) for f32 and bf16 pools; for int8 (no PyTorch call takes int8
+    pages and scales) the K/V dequantized to f32 beforehand, f32 q."""
+    import torch
+
+    q, k, v, tables, ctx = case
+    if scales:
+        flat = tables.reshape(-1).long()
+        k = torch.zeros(k.shape, device="cuda").index_copy_(
+            1, flat, k.index_select(1, flat).float()
+            * (scales[0].index_select(1, flat) / 127.0)[..., None, None])
+        v = torch.zeros(v.shape, device="cuda").index_copy_(
+            1, flat, v.index_select(1, flat).float()
+            * (scales[1].index_select(1, flat) / 127.0)[..., None, None])
+    qd, kd, vd, mask = sdpa_inputs((q, k, v, tables, ctx))
+    if dtype == "bfloat16":
+        qd = qd.bfloat16()
+    return qd, kd, vd, mask
+
+
+#: per pool dtype: the element size, the wrapper's name, the library row
+PAGED_DTYPES = {
+    "float32": (4, "paged_decode", "sdpa_f32_dense"),
+    "bfloat16": (2, "paged_decode_bf16", "sdpa_bf16_dense"),
+    "int8": (1, "paged_decode_int8", "sdpa_f32_dense_predequantized")}
+
+
+def tickets_zero(pa, q, stream):
+    """Whether the split walk left ``stream``'s tickets on q's device zero
+    (or made none: a walk of one split takes none)."""
+    t = pa._TICKETS.get((q.device.index, stream.cuda_stream))
+    return t is None or not bool(t.any())
+
+
+def check_and_time_paged(name, dtype, rng, hq, hkv, d, ps, n_pages,
+                         ctx_lens, n_pad=0):
+    """The paged-decode kernel over one pool dtype at one shape: against
+    its plain version on the same CUDA tensors (only the order of the sums
+    differs; both dequantize int8 as ``code * (scale / 127)``:
+    KERNEL_ATOL); two calls and a CUDA graph's replays equal bit for bit,
+    the tickets left zero; then timed by CUDA-graph replay over enough
+    input sets to keep the L2 cold."""
     import torch
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import paged_attention as pa
 
-    cases = [make_decode_case(rng, hq, hkv, d, ps, n_pages, ctx_lens, n_pad)
-             for _ in range(n_sets)]
+    esize, wrapper, library = PAGED_DTYPES[dtype]
+    live = 2 * sum(ctx_lens) * hkv * d * esize
+    n_sets = max(4, -(-COLD_BYTES // live) + 1)
+    cases = [make_paged_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens,
+                             n_pad) for _ in range(n_sets)]
     scale = d ** -0.5
+    kernel = getattr(pa, wrapper)
     err = 0.0
-    for c in cases:
-        got = pa.paged_decode(*c, scale)
-        want = pa.paged_attention_reference(*c, scale)
+    for c, sc in cases[:4]:
+        got = kernel(*c, scale, *sc)
+        want = pa.paged_attention_reference(*c, scale, *sc)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            fail(f"{name}: kernel output not finite")
+            fail(f"{dtype} {name}: kernel output not finite")
         err = max(err, float((got - want).abs().max()))
     if err > KERNEL_ATOL:
-        fail(f"{name}: kernel vs plain max |err| {err:.3e} > {KERNEL_ATOL}")
-    ms = time_ms(lambda *c: pa.paged_decode(*c, scale), cases)
-    plain_ms = time_ms(lambda *c: pa.paged_attention_reference(*c, scale),
-                       cases)
-    lib_sets = [sdpa_inputs(c) for c in cases]
+        fail(f"{dtype} {name}: kernel vs plain max |err| {err:.3e} > "
+             f"{KERNEL_ATOL}")
+    # the split walk's merge: two calls and a CUDA graph's replays (the
+    # call warmed up on its capture stream) equal bit for bit, the
+    # tickets left zero
+    c, sc = cases[0]
+    eager = kernel(*c, scale, *sc)
+    if not torch.equal(eager, kernel(*c, scale, *sc)):
+        fail(f"{dtype} {name}: two calls differ")
+    torch.cuda.synchronize()
+    if not tickets_zero(pa, c[0], torch.cuda.current_stream()):
+        fail(f"{dtype} {name}: the tickets are not left zero")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(*c, scale, *sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = kernel(*c, scale, *sc)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(captured, eager):
+            fail(f"{dtype} {name}: a CUDA graph replay differs from the "
+                 f"eager call")
+    if not tickets_zero(pa, c[0], side):
+        fail(f"{dtype} {name}: the replays left the tickets non-zero")
+    del graph, captured, eager
+    n_splits, span = pa.split_plan(c[0], c[1], c[3])
+    args = [(*c, *sc) for c, sc in cases]
+    ms = time_ms(lambda *a: kernel(*a[:5], scale, *a[5:]), args)
+    plain_ms = time_ms(lambda *a: pa.paged_attention_reference(
+        *a[:5], scale, *a[5:]), args)
+    lib_sets = [paged_library_inputs(c, sc, dtype) for c, sc in cases[:4]]
     lib_ms = time_ms(lambda q, kd, vd, m: F.scaled_dot_product_attention(
         q, kd, vd, attn_mask=m, scale=scale), lib_sets)
-    bound_ms, bound_by = decode_bound(cases[0])
-    row = {"shape": name, "B": len(cases[0][4]), "Hq": hq, "Hkv": hkv,
-           "D": d, "page_size": ps, "width": int(cases[0][3].shape[1]),
-           "ctx": [int(x) for x in cases[0][4].tolist()],
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    bound_ms, bound_by = paged_bound(*cases[0])
+    row = {"shape": name, "dtype": dtype, "B": len(cases[0][0][4]), "Hq": hq,
+           "Hkv": hkv, "D": d, "page_size": ps,
+           "width": int(cases[0][0][3].shape[1]), "input_sets": n_sets,
+           "ctx": [int(x) for x in cases[0][0][4].tolist()],
+           "max_abs_err": err, "tolerance": KERNEL_ATOL,
+           "n_splits": n_splits, "span_pages": span,
+           "repeatable": True, "graph_replay_equal": True,
+           "tickets_zero": True, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "gb_per_s": paged_bytes(*cases[0]) / ms / 1e6,
+           "bound_share": bound_ms / ms, "library_ms": lib_ms,
+           "library": library}
     print("kernel_case " + json.dumps(row), flush=True)
+    del cases, args, lib_sets
+    torch.cuda.empty_cache()
     return row
+
+
+PAGED_SHAPES = (  # (name, q heads, kv heads, head dim, pages, contexts, pad)
+    # the serving shape: GPT-2 small heads, 6 live sequences with ragged
+    # lengths (page boundaries among them) and 2 bucket-padding rows
+    ("serving", 12, 12, 64, 1024, (1024, 777, 512, 301, 64, 17), 2),
+    ("gqa", 32, 8, 128, 1024, (1, 16, 33, 250, 512, 700, 1000, 1024), 0),
+)
+
+
+def wide_batch_lens():
+    """64 contexts of 1-1,024 tokens: at the serving heads the planner
+    doubles the span to 32 pages (2 splits of a 64-page table)."""
+    lens = np.random.RandomState(3).randint(1, 1025, 64).tolist()
+    lens[:3] = [1024, 512, 513]
+    return lens
+
+
+def paged_kernel_phase(dtype):
+    """The kernel over ``dtype`` pages at the serving and GQA shapes (and,
+    over f32 pages, the wide batch): the serving row for the ``kernels``
+    line, with the largest error of them all."""
+    rng = np.random.RandomState(0)
+    shapes = list(PAGED_SHAPES)
+    if dtype == "float32":
+        shapes.append(("wide", 12, 12, 64, 4200, wide_batch_lens(), 0))
+    rows = [check_and_time_paged(name, dtype, rng, hq, hkv, d, 16, n_pages,
+                                 lens, n_pad)
+            for name, hq, hkv, d, n_pages, lens, n_pad in shapes]
+    return {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
 #: GPT-2 small widths (openai-community/gpt2 config.json)
@@ -773,19 +918,26 @@ SIMT_F32 = {"flash_fwd_f32": "flash_fwd_f32_kernel",
             "flash_bwd_dkv_f32": "flash_bwd_dkv_f32_kernel"}
 
 
-def simt_spill_check(flash):
-    """Every instance of the four f32 flash kernels: one per tile width
-    and dropout, and ptxas reported no spill stores for it.  Prints one
-    line each, with its registers."""
-    _, spills = sass_counts(flash)
+def ptxas_registers(lib):
+    """{function: registers} from ptxas's report in a library's build
+    log."""
     regs, fn = {}, None
-    for ln in flash.build_log.splitlines():
+    for ln in lib.build_log.splitlines():
         m = re.search(r"Compiling entry function '([A-Za-z0-9_]+)'", ln)
         if m:
             fn = m.group(1)
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn is not None:
             regs[fn] = int(m.group(1))
+    return regs
+
+
+def simt_spill_check(flash):
+    """Every instance of the four f32 flash kernels: one per tile width
+    and dropout, and ptxas reported no spill stores for it.  Prints one
+    line each, with its registers."""
+    _, spills = sass_counts(flash)
+    regs = ptxas_registers(flash)
     for entry, kernel in SIMT_F32.items():
         insts = {}
         for n in spills:
@@ -804,6 +956,48 @@ def simt_spill_check(flash):
             if spills[n] != 0:
                 fail(f"{entry} (tile width {width}, dropout {drop}): ptxas "
                      f"reports spill stores {spills[n]}")
+
+
+# the paged-decode kernel's instances: per page dtype (as mangled: f32,
+# bf16, int8), the (elements a word, words a lane) it takes at each width
+# 32, 64, 128, 256; each over GQA group bounds 1, 2, 4, 8, and FULL (the
+# head dim is the width) or not, except int8's 8-byte words (never FULL)
+PAGED_INSTANCES = {"f": ((4, 2),), "13__nv_bfloat16": ((8, 1),),
+                   "a": ((16, 1), (8, 1))}
+
+
+def paged_spill_check(paged):
+    """Every instance of the paged-decode kernel, and ptxas reported no
+    spill stores for it.  Prints one line each, with its registers."""
+    _, spills = sass_counts(paged)
+    regs = ptxas_registers(paged)
+    want = sorted(
+        (elem, epw, nv, d, g, full)
+        for elem, words in PAGED_INSTANCES.items() for epw, nv in words
+        for d in (32, 64, 128, 256) for g in (1, 2, 4, 8)
+        for full in ((False,) if elem == "a" and epw == 8 else
+                     (False, True)))
+    insts = {}
+    for n in spills:
+        m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16|a)Li(\d+)ELi"
+                      r"(\d+)ELi(\d+)ELi(\d+)ELb[01]ELb([01])E", n)
+        if m:
+            elem, epw, nv, d, g, full = m.groups()
+            insts[elem, int(epw), int(nv), int(d), int(g), full == "1"] = n
+    if sorted(insts) != want:
+        fail(f"paged_decode_kernel: {len(insts)} instances in the build "
+             f"log, expected {len(want)}: missing "
+             f"{sorted(set(want) - set(insts))[:4]}")
+    for key, n in sorted(insts.items()):
+        elem, epw, nv, d, g, full = key
+        print("paged_spills " + json.dumps({
+            "elem": elem, "elements_a_word": epw, "words_a_lane": nv,
+            "width": d, "max_group": g, "full": full,
+            "registers": regs.get(n), "spill_stores": spills[n]}),
+            flush=True)
+        if spills[n] != 0:
+            fail(f"paged_decode_kernel {key}: ptxas reports spill stores "
+                 f"{spills[n]}")
 
 
 def matmul_tensor_core_check(tc):
@@ -2977,162 +3171,6 @@ SCALE_RTOL = 1e-5
 SCALE_RTOL_DEEP = 1.0 / 127
 
 
-def make_quant_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens, n_pad=0):
-    """``make_decode_case``'s tables and lengths over bf16 pools, or int8
-    pools (codes in [-127, 127]) with their f32 scale pools."""
-    import torch
-
-    q, k, v, tables, ctx = make_decode_case(rng, hq, hkv, d, ps, n_pages,
-                                            ctx_lens, n_pad)
-    if dtype == "bfloat16":
-        return (q, k.bfloat16(), v.bfloat16(), tables, ctx), ()
-    del k, v
-    codes = [torch.randint(-127, 128, (hkv, n_pages, ps, d), device="cuda",
-                           dtype=torch.int8) for _ in range(2)]
-    scales = [torch.rand(hkv, n_pages, device="cuda") * 2 + 0.1
-              for _ in range(2)]
-    return (q, *codes, tables, ctx), tuple(scales)
-
-
-def quant_bytes(case, scales):
-    """The bytes a call must move: the live K/V rows at the pool's element
-    size, the live pages' scales (int8), q, out, tables and lengths."""
-    q, k, _, tables, ctx = case
-    hkv, _, ps, d = k.shape
-    tokens = int(ctx.sum())
-    nbytes = (2 * tokens * hkv * d * k.element_size() + 2 * q.numel() * 4
-              + tables.numel() * 4 + ctx.numel() * 4)
-    if scales:
-        nbytes += 2 * hkv * 4 * int(((ctx + ps - 1) // ps).sum())
-    return nbytes
-
-
-def quant_bound(case, scales):
-    """(bound_ms, bound_by): :func:`quant_bytes` over HBM bandwidth,
-    against the f32 operations over the f32 peak."""
-    q, k, _, _, ctx = case
-    hq, d = q.shape[1], q.shape[2]
-    tokens = int(ctx.sum())
-    t_bytes = quant_bytes(case, scales) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * d * hq * tokens / F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def quant_library_inputs(case, scales, dtype):
-    """SDPA's inputs: bf16 q, K and V gathered dense for a bf16 pool; for
-    int8 (no PyTorch call takes int8 pages and scales) the K/V
-    dequantized to f32 beforehand, f32 q."""
-    import torch
-
-    q, k, v, tables, ctx = case
-    if scales:
-        flat = tables.reshape(-1).long()
-        k = torch.zeros(k.shape, device="cuda").index_copy_(
-            1, flat, k.index_select(1, flat).float()
-            * (scales[0].index_select(1, flat) / 127.0)[..., None, None])
-        v = torch.zeros(v.shape, device="cuda").index_copy_(
-            1, flat, v.index_select(1, flat).float()
-            * (scales[1].index_select(1, flat) / 127.0)[..., None, None])
-    qd, kd, vd, mask = sdpa_inputs((q, k, v, tables, ctx))
-    if dtype == "bfloat16":
-        qd = qd.bfloat16()
-    return qd, kd, vd, mask
-
-
-def check_and_time_quant(name, dtype, rng, hq, hkv, d, ps, n_pages,
-                         ctx_lens, n_pad=0):
-    """One pool dtype's kernel at one shape: against its plain version on
-    the same CUDA tensors (both dequantize as ``code * (scale / 127)``,
-    so only the order of the sums differs: KERNEL_ATOL), then timed by
-    CUDA-graph replay over enough input sets to keep the L2 cold."""
-    import torch
-    import torch.nn.functional as F
-
-    from paddle_tpu_torch.ops import paged_attention as pa
-
-    esize = 2 if dtype == "bfloat16" else 1
-    live = 2 * sum(ctx_lens) * hkv * d * esize
-    n_sets = max(4, -(-COLD_BYTES // live) + 1)
-    cases = [make_quant_case(rng, dtype, hq, hkv, d, ps, n_pages, ctx_lens,
-                             n_pad) for _ in range(n_sets)]
-    scale = d ** -0.5
-    kernel = pa.paged_decode_bf16 if dtype == "bfloat16" else \
-        pa.paged_decode_int8
-    err = 0.0
-    for c, sc in cases[:4]:
-        got = kernel(*c, scale, *sc)
-        want = pa.paged_attention_reference(*c, scale, *sc)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"{dtype} {name}: kernel output not finite")
-        err = max(err, float((got - want).abs().max()))
-    if err > KERNEL_ATOL:
-        fail(f"{dtype} {name}: kernel vs plain max |err| {err:.3e} > "
-             f"{KERNEL_ATOL}")
-    # the split walk's merge: two calls and a CUDA graph's replays (the
-    # call warmed up on its capture stream) equal bit for bit
-    c, sc = cases[0]
-    eager = kernel(*c, scale, *sc)
-    if not torch.equal(eager, kernel(*c, scale, *sc)):
-        fail(f"{dtype} {name}: two calls differ")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        kernel(*c, scale, *sc)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        captured = kernel(*c, scale, *sc)
-    for _ in range(3):
-        captured.zero_()
-        graph.replay()
-        torch.cuda.synchronize()
-        if not torch.equal(captured, eager):
-            fail(f"{dtype} {name}: a CUDA graph replay differs from the "
-                 f"eager call")
-    del graph, captured, eager
-    n_splits, span = pa.split_plan(c[0], c[1], c[3])
-    args = [(*c, *sc) for c, sc in cases]
-    ms = time_ms(lambda *a: kernel(*a[:5], scale, *a[5:]), args)
-    plain_ms = time_ms(lambda *a: pa.paged_attention_reference(
-        *a[:5], scale, *a[5:]), args)
-    lib_sets = [quant_library_inputs(c, sc, dtype) for c, sc in cases[:4]]
-    lib_ms = time_ms(lambda q, kd, vd, m: F.scaled_dot_product_attention(
-        q, kd, vd, attn_mask=m, scale=scale), lib_sets)
-    bound_ms, bound_by = quant_bound(*cases[0])
-    row = {"shape": name, "dtype": dtype, "B": len(cases[0][0][4]), "Hq": hq,
-           "Hkv": hkv, "D": d, "page_size": ps,
-           "width": int(cases[0][0][3].shape[1]), "input_sets": n_sets,
-           "ctx": [int(x) for x in cases[0][0][4].tolist()],
-           "max_abs_err": err, "tolerance": KERNEL_ATOL,
-           "n_splits": n_splits, "span_pages": span,
-           "repeatable": True, "graph_replay_equal": True, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "gb_per_s": quant_bytes(*cases[0]) / ms / 1e6,
-           "bound_share": bound_ms / ms, "library_ms": lib_ms,
-           "library": ("sdpa_bf16_dense" if dtype == "bfloat16" else
-                       "sdpa_f32_dense_predequantized")}
-    print("kernel_case_quant " + json.dumps(row), flush=True)
-    del cases, args, lib_sets
-    torch.cuda.empty_cache()
-    return row
-
-
-def quant_kernel_phase():
-    rows = {}
-    for dtype, kname in QUANT_ROWS:
-        rng = np.random.RandomState(0)
-        serving = check_and_time_quant(
-            "serving", dtype, rng, hq=12, hkv=12, d=64, ps=16, n_pages=1024,
-            ctx_lens=[1024, 777, 512, 301, 64, 17], n_pad=2)
-        gqa = check_and_time_quant(
-            "gqa", dtype, rng, hq=32, hkv=8, d=128, ps=16, n_pages=1024,
-            ctx_lens=[1, 16, 33, 250, 512, 700, 1000, 1024])
-        rows[kname] = {**serving, "max_abs_err": max(serving["max_abs_err"],
-                                                     gqa["max_abs_err"])}
-    return rows
-
-
 def token_share(a, b):
     """Share of generated tokens equal position by position."""
     same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
@@ -3396,7 +3434,7 @@ def head_dim_phase():
         want = pa.paged_attention_reference(*case, d ** -0.5)
         errs["paged_decode_f32"] = float((got - want).abs().max())
         for dtype, kname in QUANT_ROWS:
-            c, sc = make_quant_case(rng, dtype, 8, 2, d, 16, 256, lens, 1)
+            c, sc = make_paged_case(rng, dtype, 8, 2, d, 16, 256, lens, 1)
             kernel = getattr(pa, kname)
             got = kernel(*c, d ** -0.5, *sc)
             want = pa.paged_attention_reference(*c, d ** -0.5, *sc)
@@ -3458,17 +3496,10 @@ def main():
     tensor_core_check(FLASH)
     simt_spill_check(FLASH)
     matmul_tensor_core_check(MATMUL_BIAS_ACT_TC)
+    paged_spill_check(PAGED_ATTENTION)
 
-    phase("paged decode: kernel vs plain version, times")
-    rng = np.random.RandomState(0)
-    # the serving shape: GPT-2 small heads, 6 live sequences with ragged
-    # lengths (page boundaries among them) and 2 bucket-padding rows
-    serving = check_and_time_kernel(
-        "serving", rng, hq=12, hkv=12, d=64, ps=16, n_pages=1024,
-        ctx_lens=[1024, 777, 512, 301, 64, 17], n_pad=2)
-    gqa = check_and_time_kernel(
-        "gqa", rng, hq=32, hkv=8, d=128, ps=16, n_pages=1024,
-        ctx_lens=[1, 16, 33, 250, 512, 700, 1000, 1024])
+    phase("paged decode f32: kernel vs plain version, times")
+    paged_f32 = paged_kernel_phase("float32")
 
     phase("flash attention: kernels vs plain versions, times")
     flash_errs, flash_times = flash_phase()
@@ -3543,7 +3574,8 @@ def main():
     lenet_amp_card_vs_cpu(torch, "bfloat16")
 
     phase("l. paged decode bf16 / int8: kernels vs plain versions, times")
-    quant_rows = quant_kernel_phase()
+    quant_rows = {kname: paged_kernel_phase(dtype)
+                  for dtype, kname in QUANT_ROWS}
 
     phase("m. serving, bf16 and int8 KV pools")
     quant_serving = {}
@@ -3612,11 +3644,10 @@ def main():
         "name": "paged_decode_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:845",
-        "launches": launches,
-        "max_abs_err": max(serving["max_abs_err"], gqa["max_abs_err"]),
-        "ms": serving["ms"], "plain_ms": serving["plain_ms"],
-        "bound_ms": serving["bound_ms"], "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"]}]
+        "launches": launches, "max_abs_err": paged_f32["max_abs_err"],
+        "ms": paged_f32["ms"], "plain_ms": paged_f32["plain_ms"],
+        "bound_ms": paged_f32["bound_ms"], "bound_by": paged_f32["bound_by"],
+        "library_ms": paged_f32["library_ms"]}]
     for _, name in QUANT_ROWS:
         t = quant_rows[name]
         rows.append({

@@ -1,308 +1,60 @@
-// Ragged paged-decode attention for Hopper (sm_90a): f32, bf16 and int8
-// KV pages.
+// Ragged paged-decode attention for Hopper (sm_90a): one kernel over f32,
+// bf16 and int8 KV pages, at any block-table width.
 //
 // Replaces the Pallas TPU kernel `_paged_decode_kernel` /
-// `_paged_decode_call` (paddle_tpu/ops/pallas_kernels.py:845-957).  The
-// f32 kernel comes first; the kernel for bf16 and int8 pages follows it
-// (`paged_decode_q_kernel`, with its own note).  Computes, for every
-// sequence b and query head h,
+// `_paged_decode_call` (paddle_tpu/ops/pallas_kernels.py:845-957).
+// Computes, for every sequence b and query head h,
 //
 //   out[b, h] = softmax_j(scale * q[b, h] . K[h / group, page(b, j), j % ps])
 //               . V[h / group, page(b, j), j % ps]        over j < ctx[b]
 //
 // where page(b, j) = block_tables[b, j / ps].  Only the ctx[b] live token
 // rows are read: pages past the context are never touched, the tail page
-// is read up to ctx[b], and a row with no live token (ctx 0) writes zeros
-// (the TPU kernel's l == 0 guard).
+// is read up to ctx[b], a length past the table is clamped to it, and a
+// row with no live token (ctx 0) writes zeros (the TPU kernel's l == 0
+// guard).  Over bf16 pages the TPU kernel casts each page tile to f32 in
+// the loop (pallas_kernels.py:886-888); over int8 pages it dequantizes as
+// `k * (scale / 127)` with the per-(kv head, page) f32 scale (:872-885).
+// Every dot accumulates in f32, p is never rounded, q and out are f32.
 //
-// Bound.  Decode attention does 4 * D flops per (head, token) on 8 * D
-// bytes of K/V (f32): about 0.5 flop per byte, so the kernel is bound by
-// device-memory bytes: every live K/V row read once, plus q and out.
+// Bound.  Decode attention does 4 * D flops per (query head, token) on
+// 8 * D bytes of K/V per kv head at f32 (4 * D at bf16, 2 * D plus 8
+// bytes of scales a page at int8): at most 2 flops per byte, so
+// device-memory bytes bound it, every live K/V row read once, plus q, out,
+// tables and lengths.  At the serving shape (12 heads, D 64, page 16,
+// 2,697 live tokens over 8 rows) the live f32 K/V are 16.6 MB, 4.96 us at
+// 3.35 TB/s; bf16 half that, int8 a quarter.
 //
-// Design.  The TPU grid walks pages in order and carries the online
-// softmax state in VMEM from one grid step to the next.  Here a CTA
-// serves one (sequence, kv head) pair and the whole GQA group of query
-// heads that reads it, so each K/V row is fetched from device memory
-// once per kv head, not once per query head; each warp keeps its own
-// online-softmax state (m, l, acc) in registers, and the states are
-// merged in a fixed order, so results are run-to-run deterministic.
-//   * f32 pages (`paged_decode_f32_kernel`): one CTA of 8 warps walks the
-//     whole context of its pair; the warps take the live tokens in
-//     interleaved chunks of kUnroll rows (all loads of a chunk issued
-//     before any arithmetic); lanes split D, so one row is one coalesced
-//     D * 4-byte read, and each q . k is a warp-shuffle reduction.
-//   * bf16 and int8 pages (`paged_decode_q_kernel`, its own note below):
-//     the walk is split into fixed spans of pages, one CTA of 4 warps
-//     each, with 16 rows in flight a warp, so that a small batch fills
-//     the card; the last split of a pair to finish merges the splits'
-//     states in split order, in the same launch.  At the serving shape
-//     that moved bf16 pages from 96 CTAs and 0.30 TB/s (0.0274 ms) to
-//     0.0108 ms and 0.77 TB/s.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
-constexpr int kThreads = kWarps * 32;
-
-template <int VEC>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&x)[VEC]) {
-  if constexpr (VEC == 1) {
-    x[0] = __ldg(p);
-  } else if constexpr (VEC == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    x[0] = t.x;
-    x[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
-      x[i] = t.x;
-      x[i + 1] = t.y;
-      x[i + 2] = t.z;
-      x[i + 3] = t.w;
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// VEC = D / 32 elements per lane; MAXG = compile-time bound on the GQA
-// group (the runtime `group` is <= MAXG); FULL: the head dim is D itself.
-template <int VEC, int MAXG, bool FULL>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k_pool,
-                        const float* __restrict__ v_pool,
-                        const int* __restrict__ block_tables,
-                        const int* __restrict__ context_lens,
-                        float* __restrict__ out,
-                        int n_q_heads, int n_pages, int page_size, int width,
-                        int group, float scale, int head_dim) {
-  constexpr int D = VEC * 32;
-  const int b = blockIdx.x;
-  const int hkv = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // hd <= D is the real head dim and the row stride of q, the pools and
-  // out (a compile-time D when FULL); lanes past it hold zeros (hd % 8 ==
-  // 0, so a lane's VEC elements lie all inside hd or all past it)
-  const int hd = FULL ? D : head_dim;
-  const bool live = FULL || lane * VEC < hd;
-  const int h0 = hkv * group;
-
-  float qr[MAXG][VEC];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < group && live) {
-      load_row<VEC>(q + ((size_t)b * n_q_heads + h0 + g) * hd + lane * VEC,
-                    qr[g]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) qr[g][i] = 0.f;
-    }
-  }
-
-  float m[MAXG], l[MAXG], acc[MAXG][VEC];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
-  }
-
-  // a context longer than the table covers cannot be read: clamp to it
-  const int n = min(context_lens[b], width * page_size);
-  const int* __restrict__ table = block_tables + (size_t)b * width;
-  const float* __restrict__ k_head = k_pool + (size_t)hkv * n_pages * page_size * hd;
-  const float* __restrict__ v_head = v_pool + (size_t)hkv * n_pages * page_size * hd;
-
-  for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
-    float kr[kUnroll][VEC], vr[kUnroll][VEC];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u;
-      if (j < n && live) {
-        const int page = table[j / page_size];
-        const size_t row = ((size_t)page * page_size + j % page_size) * hd + lane * VEC;
-        load_row<VEC>(k_head + row, kr[u]);
-        load_row<VEC>(v_head + row, vr[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) kr[u][i] = vr[u][i] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < group) {
-        float s[kUnroll];
-        float chunk_max = -INFINITY;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float d = 0.f;
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) d = fmaf(qr[g][i], kr[u][i], d);
-          d = warp_sum(d) * scale;
-          s[u] = (base + u < n) ? d : -INFINITY;
-          chunk_max = fmaxf(chunk_max, s[u]);
-        }
-        // base < n, so s[0] is live and m_new is finite
-        const float m_new = fmaxf(m[g], chunk_max);
-        const float alpha = expf(m[g] - m_new);  // 0 on the first chunk
-        float p_sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] *= alpha;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float p = expf(s[u] - m_new);  // 0 past the context
-          p_sum += p;
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vr[u][i], acc[g][i]);
-        }
-        l[g] = l[g] * alpha + p_sum;
-        m[g] = m_new;
-      }
-    }
-  }
-
-  // merge the warps' partial softmax states: [kWarps][MAXG] m and l,
-  // then [kWarps][MAXG][D] acc
-  extern __shared__ float smem[];
-  float* sm_m = smem;
-  float* sm_l = sm_m + kWarps * MAXG;
-  float* sm_acc = sm_l + kWarps * MAXG;
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (g < group) {
-      if (lane == 0) {
-        sm_m[warp * MAXG + g] = m[g];
-        sm_l[warp * MAXG + g] = l[g];
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        sm_acc[(warp * MAXG + g) * D + lane * VEC + i] = acc[g][i];
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
-    const int g = idx / hd;
-    const int d = idx % hd;
-    float m_all = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w * MAXG + g]);
-    float l_all = 0.f, a_all = 0.f;
-    if (m_all != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = sm_m[w * MAXG + g];
-        if (mw != -INFINITY) {
-          const float c = expf(mw - m_all);
-          l_all = fmaf(c, sm_l[w * MAXG + g], l_all);
-          a_all = fmaf(c, sm_acc[(w * MAXG + g) * D + d], a_all);
-        }
-      }
-    }
-    out[((size_t)b * n_q_heads + h0 + g) * hd + d] =
-        (l_all == 0.f) ? 0.f : a_all / l_all;
-  }
-}
-
-template <int VEC, int MAXG, bool FULL>
-cudaError_t launch(const float* q, const float* k_pool, const float* v_pool,
-                   const int* block_tables, const int* context_lens,
-                   float* out, int n_seqs, int n_q_heads, int n_kv_heads,
-                   int n_pages, int page_size, int width, float scale,
-                   int hd, cudaStream_t stream) {
-  auto kernel = paged_decode_f32_kernel<VEC, MAXG, FULL>;
-  const size_t smem = (size_t)kWarps * MAXG * (2 + VEC * 32) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(n_seqs, n_kv_heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q, k_pool, v_pool, block_tables, context_lens, out, n_q_heads, n_pages,
-      page_size, width, n_q_heads / n_kv_heads, scale, hd);
-  return cudaGetLastError();
-}
-
-template <int VEC>
-cudaError_t dispatch_group(int group, const float* q, const float* k_pool,
-                           const float* v_pool, const int* block_tables,
-                           const int* context_lens, float* out, int n_seqs,
-                           int n_q_heads, int n_kv_heads, int n_pages,
-                           int page_size, int width, float scale, int hd,
-                           cudaStream_t stream) {
-#define PD_LAUNCH(G)                                                        \
-  return hd == VEC * 32                                                    \
-             ? launch<VEC, G, true>(q, k_pool, v_pool, block_tables,       \
-                                    context_lens, out, n_seqs, n_q_heads,  \
-                                    n_kv_heads, n_pages, page_size, width, \
-                                    scale, hd, stream)                     \
-             : launch<VEC, G, false>(q, k_pool, v_pool, block_tables,      \
-                                     context_lens, out, n_seqs, n_q_heads, \
-                                     n_kv_heads, n_pages, page_size,       \
-                                     width, scale, hd, stream)
-  if (group <= 1) PD_LAUNCH(1);
-  if (group <= 2) PD_LAUNCH(2);
-  if (group <= 4) PD_LAUNCH(4);
-  if (group <= 8) PD_LAUNCH(8);
-#undef PD_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-// --------------------------------------------------------------------------
-// bf16 and int8 pages: a split page walk
-//
-// The same function over quantized pages: the TPU kernel's bf16 variant
-// casts each page tile to f32 in the loop (pallas_kernels.py:886-888); its
-// int8 variant dequantizes it as `k * (scale / 127)` with the per-(kv
-// head, page) f32 scale (:872-885).  Both dots accumulate in f32, p is
-// never rounded, and the output is f32.
-//
-// Bound.  About 1 flop per byte of K/V (bf16) or 2 (int8): device-memory
-// bytes bound it, half (bf16) or a quarter (int8, plus 8 bytes of scales a
-// page) of the f32 pages' bytes.  At the serving shape (12 heads, D 64,
-// page 16, 2,697 live tokens over 8 rows) the live bf16 K/V are 8.3 MB,
-// 2.5 us at 3.35 TB/s.
-//
-// The old limit.  One CTA of 8 warps per (sequence, kv head) walked the
-// whole context: 96 CTAs at the serving shape, fewer than the 132 SMs, and
-// the 1024-token sequence's 12 CTAs ran 32 dependent rounds of one
-// 16-byte load a lane (4 rows a warp in flight), each a cold latency,
-// while the other SMs sat idle: 27.4 us, 0.30 TB/s, 9% of HBM.
-//
-// The split.  The grid is (sequence, kv head, split).  Split s walks the
+// The split page walk.  One CTA per (sequence, kv head) walking the whole
+// context leaves most SMs idle at a small batch (96 CTAs at the serving
+// shape) while the longest sequence's CTAs run long chains of dependent
+// loads.  So the grid is (sequence, kv head, split): split s walks the
 // fixed span of pages [s * span, (s + 1) * span) of its table row; the
 // span comes from the host (ops/paged_attention.py:decode_splits) and
-// depends only on the table's width, the page size and the grid, never on
-// context_lens, which live on the card: no host sync, and the launch
+// depends only on the table's width, the page size and the grid, never
+// on context_lens, which live on the card: no host sync, and the launch
 // can be captured in a CUDA graph.  A split whose span starts at or past
-// ctx[b] returns at once.  Each CTA has 4 warps; a lane loads a 16-byte
-// (or 8-byte) slice of a K row and of its V row, LPR lanes a row, RPW = 32
-// / LPR rows a warp at once, and U of those loads per lane are issued
-// before any arithmetic, so a warp has 16 rows in flight (8 at bf16 D 256,
-// where the loads' registers cap U at 8).  The warps take the span's rows
-// in interleaved rounds of 4 x RPW x U.  (The other way to keep loads in
-// flight, one cp.async.bulk a page of K and of V into a ring of stages
-// with an mbarrier, was not built: this one met its targets.)  Spans hold
-// at least 128 tokens
-// and double until the grid is at most 12 CTAs an SM: at the serving
-// shape 8 pages, 768 CTAs of which 312 live (timed against spans of 1 to
-// 64 pages: 4 and 8 pages tie there, 8 wins at the GQA shape by 19%).
+// ctx[b] returns at once.  Spans hold at least 128 tokens and double
+// until the grid is at most 12 CTAs an SM, up to 8,192 pages (a span's
+// page ids, and int8's scales, sit in shared memory: at most 96 KB of
+// them); a wider table takes more splits, so every width runs.  At the
+// serving shape: 8 pages, 768 CTAs of which 312 live.
+//
+// Loads.  Each CTA has 4 warps.  A lane loads NV 16-byte words (or one
+// 8-byte word of int8 codes) of a K row and of its V row: EPW elements a
+// word (f32 4, bf16 8, int8 16 or 8), the lane's words strided across the
+// row (word w at element w * D / NV + lane * EPW), so that each load
+// instruction of a warp reads contiguous bytes.  LPR lanes a row, RPW =
+// 32 / LPR rows a warp at once, and U of those rows per lane are loaded
+// before any arithmetic, so that a warp has 16 rows in flight (8 at f32
+// D 128 and at bf16 D 256, 4 at f32 D 256, where 8 words of K and 8 of V
+// a lane cap U for the registers; 4 words each, so 8 rows, for int8's
+// 16-code words at D 256 and GQA group bound 8, whose acc takes 128).  f32 rows take two words a lane (EPL
+// 8): at D 64 that is 8 lanes a row and 4 rows a warp, whose dots share
+// each of 3 shuffle steps, where one word a lane would take 16 lanes and
+// 4 steps for 2 rows (measured: 3% slower at the serving shape, 16% at
+// the GQA one).  The warps take the span's rows in interleaved rounds of
+// 4 x RPW x U.
 //
 // The merge, one launch, in a fixed order.  Each warp keeps an online
 // softmax state per query head of its GQA group (m, l, acc) in registers;
@@ -315,31 +67,60 @@ cudaError_t dispatch_group(int group, const float* q, const float* k_pool,
 // merges all live splits of its (sequence, kv head) in split order,
 // writes `out`, and sets the ticket back to 0.  Which split comes last
 // does not change a bit: the result is run-to-run identical, and a graph
-// replay equals an eager call.  A context of 0 writes zeros (the TPU
-// kernel's l == 0 guard).
+// replay equals an eager call.
 //
 // Head dims.  The real head dim hd (any multiple of 8 up to 256) is the
 // row stride of q, the pools and out; the kernel runs at the next
-// instantiated width D in {32, 64, 128, 256}, and the lanes whose slice
-// lies past hd load nothing and hold zeros, which leave every dot product
-// and sum unchanged.  A slice lies wholly inside hd or wholly past it:
-// bf16 slices are 8 elements, and int8 pools whose hd is not a multiple
-// of 16 take 8-byte slices of 8 codes (EPL = 8), so that every load is
-// also aligned to its own size.  A head dim that is the width itself runs
-// an instance (FULL) whose row stride is the compile-time D.
+// instantiated width D in {32, 64, 128, 256}, and the words that lie past
+// hd load nothing and hold zeros, which leave every dot product and sum
+// unchanged.  A word lies wholly inside hd or wholly past it: f32 words
+// are 4 elements and bf16 words 8, and int8 pools whose hd is not a
+// multiple of 16 take 8-byte words of 8 codes, so that every load is also
+// aligned to its own size.  A head dim that is the width itself runs an
+// instance (FULL) whose row stride is the compile-time D.
 //
-// Measured (chip_smoke.py phase l; H100 80GB HBM3, 700 W): bf16 pages
-// 0.0108 ms at the serving shape, 771 GB/s, 23% of HBM's 3.35 TB/s (was
-// 0.0274), and 0.0229 at the GQA shape (32 / 8 heads, D 128), 644 GB/s,
-// 19% (was 0.0608); int8 pages 0.0109 / 0.0245, 386 / 306 GB/s, 12% / 9%
-// (was 0.0199 / 0.0811).  A call is a chain of dependent latencies
-// (lengths, table, K/V, ticket, partials), not yet its bytes.
-// --------------------------------------------------------------------------
-constexpr int kQWarps = 4;
-constexpr int kQThreads = kQWarps * 32;
+// Measured (chip_smoke.py phases 3-4 and l; NVIDIA H100 80GB HBM3,
+// 700 W; CUDA-graph replay, cold L2; the one-CTA-per-pair design in
+// brackets): f32 pages 0.0130 ms at the serving shape, 1.28 TB/s, 38% of
+// the bound (0.0432), 0.0251 at the GQA shape (32 / 8 heads, D 128),
+// 1.17 TB/s, 35% (0.0768), and 0.0885 over a wide batch of 64 sequences x
+// 12 heads, 2.66 TB/s, 79% (0.0997); bf16 pages 0.0111 / 0.0234, 750 /
+// 630 GB/s, 22% / 19% (0.0274 / 0.0608); int8 pages 0.0111 / 0.0247, 379
+// / 303 GB/s, 11% / 9% (0.0199 / 0.0811).  A call is a chain of dependent
+// latencies (lengths, table, K/V, ticket, partials), not yet its bytes.
+// (The other way to keep loads in flight, one cp.async.bulk a page of K
+// and of V into a ring of stages with an mbarrier, was not built: this
+// one met its targets over bf16, int8 and f32 pages.)
 
-template <typename T, int EPL>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+
+// one word of EPW page elements: `load` reads it from the pool, `unpack`
+// widens it to f32
+template <typename T, int EPW>
 struct PageVec;
+
+// 4 f32 in 16 bytes
+template <>
+struct PageVec<float, 4> {
+  __device__ __forceinline__ static uint4 load(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static void unpack(const uint4 r, float* x) {
+    x[0] = __uint_as_float(r.x);
+    x[1] = __uint_as_float(r.y);
+    x[2] = __uint_as_float(r.z);
+    x[3] = __uint_as_float(r.w);
+  }
+};
 
 // 8 bf16 in 16 bytes, low half of each 32-bit word first
 template <>
@@ -357,11 +138,11 @@ struct PageVec<__nv_bfloat16, 8> {
   }
 };
 
-// EPL int8 codes in EPL bytes (16, or 8 in .x and .y), lowest byte first
-template <int EPL>
+// EPW int8 codes in EPW bytes (16, or 8 in .x and .y), lowest byte first
+template <int EPW>
 struct Int8Vec {
   __device__ __forceinline__ static uint4 load(const int8_t* p) {
-    if constexpr (EPL == 16) {
+    if constexpr (EPW == 16) {
       return __ldg(reinterpret_cast<const uint4*>(p));
     } else {
       const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
@@ -371,7 +152,7 @@ struct Int8Vec {
   __device__ __forceinline__ static void unpack(const uint4 r, float* x) {
     const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-    for (int i = 0; i < EPL / 4; ++i) {
+    for (int i = 0; i < EPW / 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         x[4 * i + j] = __int2float_rn(static_cast<int>(w[i] << (24 - 8 * j)) >> 24);
@@ -383,27 +164,35 @@ struct PageVec<int8_t, 16> : Int8Vec<16> {};
 template <>
 struct PageVec<int8_t, 8> : Int8Vec<8> {};
 
-template <int EPL_, int D, int MAXG>
-struct QLayout {
-  static constexpr int EPL = EPL_;                // elements a lane loads
+template <int EPW_, int NV_, int D, int MAXG>
+struct Layout {
+  static constexpr int EPW = EPW_;                // elements a word
+  static constexpr int NV = NV_;                  // words a lane loads of a row
+  static constexpr int EPL = EPW * NV;            // elements a lane
+  static constexpr int STRIDE = D / NV;           // elements between its words
   static constexpr int LPR = D / EPL;             // lanes a row
   static constexpr int RPW = 32 / LPR;            // rows a warp loads at once
-  // loads in flight per lane: 16 rows a warp, at most 8 loads (registers)
-  static constexpr int U = RPW >= 16 ? 1 : (16 / RPW > 8 ? 8 : 16 / RPW);
+  // words of K (and of V) in flight per lane, for the registers: 8, or 4
+  // where acc takes 128 (int8's 16-code words at GQA group bound 8)
+  static constexpr int WORDS = MAXG * EPL > 64 ? 4 : 8;
+  // rows in flight per lane: 16 rows a warp, within WORDS
+  static constexpr int U =
+      RPW >= 16 ? 1 : (16 / RPW * NV > WORDS ? WORDS / NV : 16 / RPW);
   static constexpr int ROWS = RPW * U;            // rows a warp a round
-  static_assert(D % EPL == 0 && LPR >= 1 && LPR <= 32 && 32 % LPR == 0,
+  static_assert(D % EPL == 0 && LPR >= 1 && LPR <= 32 && 32 % LPR == 0 &&
+                    U >= 1,
                 "head_dim must be a multiple of 16 bytes, at most 32 lanes");
   // shared memory, in 4-byte words: q, the warps' m and l, their acc, the
   // span's page ids and (int8) its two scale rows, and the ticket's word
   static size_t words(int span, bool quant) {
-    return (size_t)MAXG * D + 2 * kQWarps * MAXG +
-           (size_t)kQWarps * MAXG * D + (size_t)span * (quant ? 3 : 1) + 1;
+    return (size_t)MAXG * D + 2 * kWarps * MAXG +
+           (size_t)kWarps * MAXG * D + (size_t)span * (quant ? 3 : 1) + 1;
   }
 };
 
-template <typename T, int EPL_, int D, int MAXG, bool QUANT, bool FULL>
-__global__ void __launch_bounds__(kQThreads)
-paged_decode_q_kernel(const float* __restrict__ q,
+template <typename T, int EPW, int NV, int D, int MAXG, bool QUANT, bool FULL>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const float* __restrict__ q,
                       const T* __restrict__ k_pool,
                       const T* __restrict__ v_pool,
                       const float* __restrict__ k_scale,
@@ -414,14 +203,17 @@ paged_decode_q_kernel(const float* __restrict__ q,
                       int* __restrict__ tickets, int n_q_heads, int n_pages,
                       int page_size, int width, int group, float scale,
                       int head_dim, int span) {
-  using L = QLayout<EPL_, D, MAXG>;
-  using V = PageVec<T, EPL_>;
-  constexpr int EPL = L::EPL, LPR = L::LPR, RPW = L::RPW, U = L::U;
+  using L = Layout<EPW, NV, D, MAXG>;
+  using V = PageVec<T, EPW>;
+  constexpr int EPL = L::EPL, STRIDE = L::STRIDE, LPR = L::LPR,
+                RPW = L::RPW, U = L::U;
   const int b = blockIdx.x;
   const int hkv = blockIdx.y;
   const int split = blockIdx.z;
   // a context longer than the table covers cannot be read: clamp to it
-  const int n = min(context_lens[b], width * page_size);
+  // (a table may cover more than 2^31 tokens, a context never does)
+  const int ctx = context_lens[b];
+  const int n = (long long)width * page_size < ctx ? width * page_size : ctx;
   const int span_tokens = span * page_size;
   const int n_live = max(1, (n + span_tokens - 1) / span_tokens);
   if (split >= n_live) return;   // the span starts past the context
@@ -432,29 +224,31 @@ paged_decode_q_kernel(const float* __restrict__ q,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int slot = lane / LPR;  // which of the warp's RPW rows
-  const int li = lane % LPR;    // which EPL-wide slice of that row
-  // the row stride (a compile-time D when FULL), and whether this lane's
-  // slice lies inside the head dim
+  const int li = lane % LPR;    // which EPW-wide word of each STRIDE
+  // the row stride (a compile-time D when FULL), and whether each of this
+  // lane's words lies inside the head dim
   const int hd = FULL ? D : head_dim;
-  const bool live = FULL || li * EPL < hd;
+  bool live[NV];
+#pragma unroll
+  for (int w = 0; w < NV; ++w) live[w] = FULL || w * STRIDE + li * EPW < hd;
   const int h0 = hkv * group;
 
-  extern __shared__ __align__(16) float qsmem[];
-  float* sm_q = qsmem;                        // [MAXG][D]
-  float* sm_m = sm_q + MAXG * D;              // [kQWarps][MAXG]
-  float* sm_l = sm_m + kQWarps * MAXG;        // [kQWarps][MAXG]
-  float* sm_acc = sm_l + kQWarps * MAXG;      // [kQWarps][MAXG][D]
-  int* sm_page = reinterpret_cast<int*>(sm_acc + kQWarps * MAXG * D);
+  extern __shared__ __align__(16) float shared[];
+  float* sm_q = shared;                       // [MAXG][D]
+  float* sm_m = sm_q + MAXG * D;              // [kWarps][MAXG]
+  float* sm_l = sm_m + kWarps * MAXG;         // [kWarps][MAXG]
+  float* sm_acc = sm_l + kWarps * MAXG;       // [kWarps][MAXG][D]
+  int* sm_page = reinterpret_cast<int*>(sm_acc + kWarps * MAXG * D);
   float* sm_ks = reinterpret_cast<float*>(sm_page + span);
   float* sm_vs = sm_ks + span;
   int* sm_last = sm_page + span * (QUANT ? 3 : 1);
 
   const float* qb = q + ((size_t)b * n_q_heads + h0) * hd;
-  for (int i = threadIdx.x; i < group * D; i += kQThreads)
+  for (int i = threadIdx.x; i < group * D; i += kThreads)
     sm_q[i] = i % D < hd ? qb[(i / D) * hd + i % D] : 0.f;
   const int* table = block_tables + (size_t)b * width + p0;
   const int n_used = t1 > t0 ? (t1 - t0 + page_size - 1) / page_size : 0;
-  for (int i = threadIdx.x; i < n_used; i += kQThreads) {
+  for (int i = threadIdx.x; i < n_used; i += kThreads) {
     const int page = table[i];
     sm_page[i] = page;
     if constexpr (QUANT) {
@@ -479,21 +273,26 @@ paged_decode_q_kernel(const float* __restrict__ q,
   const T* __restrict__ v_head = v_pool + head;
 
   for (int base = t0 + warp * L::ROWS; base < t1;
-       base += kQWarps * L::ROWS) {
+       base += kWarps * L::ROWS) {
     // every load of the round before any arithmetic
-    uint4 kraw[U], vraw[U];
+    uint4 kraw[U][NV], vraw[U][NV];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = base + u * RPW + slot;
-      if (j < t1 && live) {
+      size_t row = 0;
+      if (j < t1) {
         const int pj = j / page_size;
-        const size_t row =
-            ((size_t)sm_page[pj - p0] * page_size + (j - pj * page_size)) * hd +
-            li * EPL;
-        kraw[u] = V::load(k_head + row);
-        vraw[u] = V::load(v_head + row);
-      } else {
-        kraw[u] = vraw[u] = make_uint4(0u, 0u, 0u, 0u);
+        row = ((size_t)sm_page[pj - p0] * page_size + (j - pj * page_size)) * hd +
+              li * EPW;
+      }
+#pragma unroll
+      for (int w = 0; w < NV; ++w) {
+        if (j < t1 && live[w]) {
+          kraw[u][w] = V::load(k_head + row + w * STRIDE);
+          vraw[u][w] = V::load(v_head + row + w * STRIDE);
+        } else {
+          kraw[u][w] = vraw[u][w] = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
     float kd[U], vd[U];
@@ -509,25 +308,29 @@ paged_decode_q_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g < group) {
-        const float* qg = sm_q + g * D + li * EPL;
+        const float* qg = sm_q + g * D + li * EPW;
         float s[U];
         float chunk_max = -INFINITY;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          float kx[EPL];
-          V::unpack(kraw[u], kx);
-          if constexpr (QUANT) {
-#pragma unroll
-            for (int i = 0; i < EPL; ++i) kx[i] *= kd[u];
-          }
           float d = 0.f;
 #pragma unroll
-          for (int i = 0; i < EPL; i += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(qg + i);
-            d = fmaf(qv.x, kx[i], d);
-            d = fmaf(qv.y, kx[i + 1], d);
-            d = fmaf(qv.z, kx[i + 2], d);
-            d = fmaf(qv.w, kx[i + 3], d);
+          for (int w = 0; w < NV; ++w) {
+            float kx[EPW];
+            V::unpack(kraw[u][w], kx);
+            if constexpr (QUANT) {
+#pragma unroll
+              for (int i = 0; i < EPW; ++i) kx[i] *= kd[u];
+            }
+#pragma unroll
+            for (int i = 0; i < EPW; i += 4) {
+              const float4 qv =
+                  *reinterpret_cast<const float4*>(qg + w * STRIDE + i);
+              d = fmaf(qv.x, kx[i], d);
+              d = fmaf(qv.y, kx[i + 1], d);
+              d = fmaf(qv.z, kx[i + 2], d);
+              d = fmaf(qv.w, kx[i + 3], d);
+            }
           }
 #pragma unroll
           for (int o = LPR / 2; o > 0; o >>= 1)
@@ -549,14 +352,18 @@ paged_decode_q_kernel(const float* __restrict__ q,
         for (int u = 0; u < U; ++u) {
           const float p = expf(s[u] - m_new);  // 0 past the context
           p_sum += p;
-          float vx[EPL];
-          V::unpack(vraw[u], vx);
-          if constexpr (QUANT) {
 #pragma unroll
-            for (int i = 0; i < EPL; ++i) vx[i] *= vd[u];
+          for (int w = 0; w < NV; ++w) {
+            float vx[EPW];
+            V::unpack(vraw[u][w], vx);
+            if constexpr (QUANT) {
+#pragma unroll
+              for (int i = 0; i < EPW; ++i) vx[i] *= vd[u];
+            }
+#pragma unroll
+            for (int i = 0; i < EPW; ++i)
+              acc[g][w * EPW + i] = fmaf(p, vx[i], acc[g][w * EPW + i]);
           }
-#pragma unroll
-          for (int i = 0; i < EPL; ++i) acc[g][i] = fmaf(p, vx[i], acc[g][i]);
         }
         l[g] = l[g] * alpha + p_sum;
         m[g] = m_new;
@@ -564,7 +371,7 @@ paged_decode_q_kernel(const float* __restrict__ q,
     }
   }
 
-  // the warp's rows share m: sum their l and acc (lanes of one slice)
+  // the warp's rows share m: sum their l and acc (lanes of one word)
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < group) {
@@ -581,8 +388,12 @@ paged_decode_q_kernel(const float* __restrict__ q,
           sm_l[warp * MAXG + g] = l[g];
         }
 #pragma unroll
-        for (int i = 0; i < EPL; ++i)
-          sm_acc[(warp * MAXG + g) * D + li * EPL + i] = acc[g][i];
+        for (int w = 0; w < NV; ++w) {
+#pragma unroll
+          for (int i = 0; i < EPW; ++i)
+            sm_acc[(warp * MAXG + g) * D + w * STRIDE + li * EPW + i] =
+                acc[g][w * EPW + i];
+        }
       }
     }
   }
@@ -594,16 +405,16 @@ paged_decode_q_kernel(const float* __restrict__ q,
   const size_t pair = (size_t)b * gridDim.y + hkv;
   const int part_words = group * (hd + 2);
   float* my_part = part + (pair * gridDim.z + split) * part_words;
-  for (int idx = threadIdx.x; idx < group * hd; idx += kQThreads) {
+  for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
     const int g = idx / hd;
     const int d = idx % hd;
     float m_all = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kQWarps; ++w) m_all = fmaxf(m_all, sm_m[w * MAXG + g]);
+    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sm_m[w * MAXG + g]);
     float l_all = 0.f, a_all = 0.f;
     if (m_all != -INFINITY) {
 #pragma unroll
-      for (int w = 0; w < kQWarps; ++w) {
+      for (int w = 0; w < kWarps; ++w) {
         const float mw = sm_m[w * MAXG + g];
         if (mw != -INFINITY) {
           const float c = expf(mw - m_all);
@@ -634,7 +445,7 @@ paged_decode_q_kernel(const float* __restrict__ q,
   if (!*sm_last) return;
   __threadfence();
   const float* parts = part + pair * gridDim.z * part_words;
-  for (int idx = threadIdx.x; idx < group * hd; idx += kQThreads) {
+  for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
     const int g = idx / hd;
     float m_all = -INFINITY;
     for (int s = 0; s < n_live; ++s)
@@ -652,12 +463,14 @@ paged_decode_q_kernel(const float* __restrict__ q,
   if (threadIdx.x == 0) tickets[pair] = 0;
 }
 
-// the largest dynamic shared memory a block may use on Hopper
+// the largest dynamic shared memory a block may use on Hopper; a span
+// from decode_splits (at most 8,192 pages) needs at most 139,524 bytes
+// (int8, GQA group 8, D 256)
 constexpr size_t kMaxSmem = 232448;
 
-// what every instance of the quantized kernel takes
+// what every instance of the kernel takes
 template <typename T>
-struct QArgs {
+struct Args {
   const float* q;
   const T* k_pool;
   const T* v_pool;
@@ -673,11 +486,11 @@ struct QArgs {
   int n_splits, span;
 };
 
-template <typename T, int EPL, int D, int MAXG, bool FULL>
-cudaError_t launch_q(const QArgs<T>& a, cudaStream_t stream) {
+template <typename T, int EPW, int NV, int D, int MAXG, bool FULL>
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   constexpr bool kQuant = sizeof(T) == 1;
-  auto kernel = paged_decode_q_kernel<T, EPL, D, MAXG, kQuant, FULL>;
-  const size_t smem = QLayout<EPL, D, MAXG>::words(a.span, kQuant) * 4;
+  auto kernel = paged_decode_kernel<T, EPW, NV, D, MAXG, kQuant, FULL>;
+  const size_t smem = Layout<EPW, NV, D, MAXG>::words(a.span, kQuant) * 4;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -685,7 +498,7 @@ cudaError_t launch_q(const QArgs<T>& a, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(a.n_seqs, a.n_kv_heads, a.n_splits);
-  kernel<<<grid, kQThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       a.q, a.k_pool, a.v_pool, a.k_scale, a.v_scale, a.block_tables,
       a.context_lens, a.out, a.part, a.tickets, a.n_q_heads, a.n_pages,
       a.page_size, a.width, a.n_q_heads / a.n_kv_heads, a.scale, a.head_dim,
@@ -693,25 +506,25 @@ cudaError_t launch_q(const QArgs<T>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int EPL, int D>
-cudaError_t dispatch_q_group(const QArgs<T>& a, cudaStream_t stream) {
-  // int8 slices of 8 codes serve only head dims that are no multiple of
+template <typename T, int EPW, int NV, int D>
+cudaError_t dispatch_group(const Args<T>& a, cudaStream_t stream) {
+  // int8 words of 8 codes serve only head dims that are no multiple of
   // 16, never the full width: no FULL instance of those
-  constexpr bool kCanBeFull = !(sizeof(T) == 1 && EPL == 8);
+  constexpr bool kCanBeFull = !(sizeof(T) == 1 && EPW == 8);
   const int group = a.n_q_heads / a.n_kv_heads;
-#define PDQ_LAUNCH(G)                                                \
-  return a.head_dim == D ? launch_q<T, EPL, D, G, kCanBeFull>(a, stream) \
-                         : launch_q<T, EPL, D, G, false>(a, stream)
-  if (group <= 1) PDQ_LAUNCH(1);
-  if (group <= 2) PDQ_LAUNCH(2);
-  if (group <= 4) PDQ_LAUNCH(4);
-  if (group <= 8) PDQ_LAUNCH(8);
-#undef PDQ_LAUNCH
+#define PD_LAUNCH(G)                                                      \
+  return a.head_dim == D ? launch<T, EPW, NV, D, G, kCanBeFull>(a, stream) \
+                         : launch<T, EPW, NV, D, G, false>(a, stream)
+  if (group <= 1) PD_LAUNCH(1);
+  if (group <= 2) PD_LAUNCH(2);
+  if (group <= 4) PD_LAUNCH(4);
+  if (group <= 8) PD_LAUNCH(8);
+#undef PD_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-int paged_decode_q(const QArgs<T>& a, void* stream) {
+int paged_decode(const Args<T>& a, void* stream) {
   if (a.n_seqs <= 0 || a.n_kv_heads <= 0 ||
       a.n_q_heads % a.n_kv_heads != 0 || a.page_size <= 0 || a.width <= 0 ||
       a.span <= 0 || a.n_splits <= 0 || a.n_splits > 65535 ||
@@ -723,89 +536,70 @@ int paged_decode_q(const QArgs<T>& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hd = a.head_dim;
   if (hd <= 0 || hd % 8 != 0 || hd > 256) return (int)cudaErrorInvalidValue;
-  // the next instantiated width; int8 rows of 8 (mod 16) codes take
-  // 8-byte slices
+  // the next instantiated width; f32 rows take two words a lane; int8 rows
+  // of 8 (mod 16) codes take 8-byte words
   const int D = hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
-#define PDQ_D(EPL, DIM) \
-  if (D == DIM) return (int)dispatch_q_group<T, EPL, DIM>(a, s);
-#define PDQ_ALL_D(EPL) PDQ_D(EPL, 32) PDQ_D(EPL, 64) PDQ_D(EPL, 128) PDQ_D(EPL, 256)
-  if constexpr (sizeof(T) == 2) {
-    PDQ_ALL_D(8)
+#define PD_D(EPW, NV, DIM) \
+  if (D == DIM) return (int)dispatch_group<T, EPW, NV, DIM>(a, s);
+#define PD_ALL_D(EPW, NV) \
+  PD_D(EPW, NV, 32) PD_D(EPW, NV, 64) PD_D(EPW, NV, 128) PD_D(EPW, NV, 256)
+  if constexpr (sizeof(T) == 4) {
+    PD_ALL_D(4, 2)
+  } else if constexpr (sizeof(T) == 2) {
+    PD_ALL_D(8, 1)
   } else {
     if (hd % 16 != 0) {
-      PDQ_ALL_D(8)
+      PD_ALL_D(8, 1)
     } else {
-      PDQ_ALL_D(16)
+      PD_ALL_D(16, 1)
     }
   }
-#undef PDQ_ALL_D
-#undef PDQ_D
+#undef PD_ALL_D
+#undef PD_D
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The C entry point bound with ctypes.  Every tensor is contiguous f32
-// (int32 for the tables and lengths) on the current device; the caller
-// allocates `out` (n_seqs, n_q_heads, head_dim).  Supported: head_dim a
-// multiple of 8 up to 256, q_heads / kv_heads in 1..8.  Returns the launch's
-// cudaError_t (0 on success); nothing is synchronised.
+// The C entry points bound with ctypes.  q and out are contiguous f32
+// (n_seqs, n_q_heads, head_dim), the pools (n_kv_heads, n_pages,
+// page_size, head_dim) in the page dtype, tables and lengths int32, all
+// on the current device; the caller allocates `out`.  Supported: head_dim
+// a multiple of 8 up to 256, q_heads / kv_heads in 1..8.  The walk is
+// split into n_splits spans of `span` pages
+// (ops/paged_attention.py:decode_splits: (n_splits - 1) * span < width <=
+// n_splits * span); with more than one split, `part` is an f32 scratch of
+// n_seqs * n_kv_heads * n_splits * group * (head_dim + 2) words and
+// `tickets` n_seqs * n_kv_heads int32 zeros, which the kernel leaves zero
+// (one launch at a time on them).  A span's page ids (and int8's scales)
+// sit in shared memory: an invalid value is returned when they do not
+// fit.  Each returns the launch's cudaError_t (0 on success); nothing is
+// synchronised.
 extern "C" int paddle_paged_decode_f32(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* context_lens, void* out,
-    int n_seqs, int n_q_heads, int n_kv_heads, int n_pages, int page_size,
-    int width, int head_dim, float scale, void* stream) {
-  if (n_seqs <= 0 || n_kv_heads <= 0 || n_q_heads % n_kv_heads != 0 ||
-      page_size <= 0 || width <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int group = n_q_heads / n_kv_heads;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k_pool);
-  const float* vf = static_cast<const float*>(v_pool);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* cl = static_cast<const int*>(context_lens);
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the narrowest lane layout that holds the row: VEC = D / 32
-  cudaError_t e;
-  if (head_dim <= 0 || head_dim % 8 != 0 || head_dim > 256) {
-    e = cudaErrorInvalidValue;
-  } else if (head_dim <= 32) {
-    e = dispatch_group<1>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                          n_kv_heads, n_pages, page_size, width, scale,
-                          head_dim, s);
-  } else if (head_dim <= 64) {
-    e = dispatch_group<2>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                          n_kv_heads, n_pages, page_size, width, scale,
-                          head_dim, s);
-  } else if (head_dim <= 128) {
-    e = dispatch_group<4>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                          n_kv_heads, n_pages, page_size, width, scale,
-                          head_dim, s);
-  } else {
-    e = dispatch_group<8>(group, qf, kf, vf, bt, cl, of, n_seqs, n_q_heads,
-                          n_kv_heads, n_pages, page_size, width, scale,
-                          head_dim, s);
-  }
-  return (int)e;
+    void* part, void* tickets, int n_seqs, int n_q_heads, int n_kv_heads,
+    int n_pages, int page_size, int width, int head_dim, float scale,
+    int n_splits, int span, void* stream) {
+  const Args<float> a{
+      static_cast<const float*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), nullptr, nullptr,
+      static_cast<const int*>(block_tables),
+      static_cast<const int*>(context_lens), static_cast<float*>(out),
+      static_cast<float*>(part), static_cast<int*>(tickets), n_seqs,
+      n_q_heads, n_kv_heads, n_pages, page_size, width, head_dim, scale,
+      n_splits, span};
+  return paged_decode(a, stream);
 }
 
-// bf16 pages: q and out f32, pools bf16, tables and lengths int32; the same
-// shapes and limits as the f32 entry point.  The walk is split into
-// n_splits spans of `span` pages (ops/paged_attention.py:decode_splits:
-// (n_splits - 1) * span < width <= n_splits * span); with more than one
-// split, `part` is an f32 scratch of n_seqs * n_kv_heads * n_splits *
-// group * (head_dim + 2) words and `tickets` n_seqs * n_kv_heads int32
-// zeros, which the kernel leaves zero (one launch at a time on them).  A
-// span's page ids (and int8's scales) sit in shared memory, so `span` is
-// bounded: an invalid value is returned when they do not fit.
+// bf16 pages, widened to f32 exactly
 extern "C" int paddle_paged_decode_bf16(
     const void* q, const void* k_pool, const void* v_pool,
     const void* block_tables, const void* context_lens, void* out,
     void* part, void* tickets, int n_seqs, int n_q_heads, int n_kv_heads,
     int n_pages, int page_size, int width, int head_dim, float scale,
     int n_splits, int span, void* stream) {
-  const QArgs<__nv_bfloat16> a{
+  const Args<__nv_bfloat16> a{
       static_cast<const float*>(q),
       static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool), nullptr, nullptr,
@@ -814,7 +608,7 @@ extern "C" int paddle_paged_decode_bf16(
       static_cast<float*>(part), static_cast<int*>(tickets), n_seqs,
       n_q_heads, n_kv_heads, n_pages, page_size, width, head_dim, scale,
       n_splits, span};
-  return paged_decode_q(a, stream);
+  return paged_decode(a, stream);
 }
 
 // int8 pages with their (n_kv_heads, n_pages) f32 scale pools: the page
@@ -828,7 +622,7 @@ extern "C" int paddle_paged_decode_int8(
     void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
-  const QArgs<int8_t> a{
+  const Args<int8_t> a{
       static_cast<const float*>(q), static_cast<const int8_t*>(k_pool),
       static_cast<const int8_t*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale),
@@ -837,5 +631,5 @@ extern "C" int paddle_paged_decode_int8(
       static_cast<float*>(part), static_cast<int*>(tickets), n_seqs,
       n_q_heads, n_kv_heads, n_pages, page_size, width, head_dim, scale,
       n_splits, span};
-  return paged_decode_q(a, stream);
+  return paged_decode(a, stream);
 }

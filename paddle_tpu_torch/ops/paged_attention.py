@@ -1,4 +1,4 @@
-"""Ragged paged decode attention: the CUDA kernels' wrapper and their plain
+"""Ragged paged decode attention: the CUDA kernel's wrappers and its plain
 PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas_kernels.py`` ``_gqa_group``,
@@ -26,10 +26,15 @@ takes the kernel's order in both its CUDA kernel and its plain version,
 so those two differ only in the order of their sums.
 
 Dispatch (:func:`paged_attention`): a tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel of its pool dtype
-(``paged_decode_f32``, ``paged_decode_bf16``, ``paged_decode_int8``),
-or raises when no kernel takes its dtype, scales or shape.  A quantized
-pool is never widened to reach the f32 kernel.
+version; a CUDA tensor launches the kernel (``csrc/paged_attention.cu``)
+for its pool dtype, or raises when the kernel does not take its dtype,
+scales or shape.  One kernel serves the three page dtypes, each through
+its own entry point and launch count (``paged_decode_f32``,
+``paged_decode_bf16``, ``paged_decode_int8``), at any table width: it
+walks each (sequence, kv head) pair's table row in spans of pages that
+:func:`decode_splits` plans from shapes alone, and the last span of a
+pair to finish merges the spans' states in a fixed order, in the same
+launch.  A quantized pool is never widened to f32.
 """
 from __future__ import annotations
 
@@ -51,16 +56,15 @@ INT8_QMAX = 127.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SHAPE = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-#: the quantized kernels' shape arguments: ``_SHAPE`` and the split
-_Q_SHAPE = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
-#: the hand-written Hopper kernels' library (csrc/paged_attention.cu)
+#: the entry points' shape arguments, the split plan and the stream
+_SHAPE = [_I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+#: the hand-written Hopper kernel's library (csrc/paged_attention.cu)
 PAGED_ATTENTION = CudaKernel("paged_attention.cu", {
-    "paddle_paged_decode_f32": [_P] * 6 + _SHAPE,
-    "paddle_paged_decode_bf16": [_P] * 8 + _Q_SHAPE,
-    "paddle_paged_decode_int8": [_P] * 10 + _Q_SHAPE,
+    "paddle_paged_decode_f32": [_P] * 8 + _SHAPE,
+    "paddle_paged_decode_bf16": [_P] * 8 + _SHAPE,
+    "paddle_paged_decode_int8": [_P] * 10 + _SHAPE,
 })
-#: its kernels, one per pool dtype; each ``launches`` counts every launch
+#: its entry points, one per pool dtype; each ``launches`` counts every launch
 #: made by :func:`paged_decode`, :func:`paged_decode_bf16` and
 #: :func:`paged_decode_int8`
 PAGED_DECODE = KernelFunction(PAGED_ATTENTION, "paddle_paged_decode_f32",
@@ -71,41 +75,50 @@ PAGED_DECODE_BF16 = KernelFunction(PAGED_ATTENTION,
 PAGED_DECODE_INT8 = KernelFunction(PAGED_ATTENTION,
                                    "paddle_paged_decode_int8",
                                    "paged_decode_int8")
-#: the kernels take any head dim that is a multiple of 8 up to this (JAX's
-#: kernel engages for any multiple of 8, ``pallas_kernels.py:1257``); they
-#: run at the next of 32, 64, 128, 256 with the real dim as the row stride
+#: the kernel takes any head dim that is a multiple of 8 up to this (JAX's
+#: kernel engages for any multiple of 8, ``pallas_kernels.py:1257``); it
+#: runs at the next of 32, 64, 128, 256 with the real dim as the row stride
 _MAX_HEAD_DIM = 256
 _MAX_GROUP = 8
-#: the quantized kernels keep a sequence's page ids (and scales) in
-#: shared memory: the table widths they take
-_MAX_WIDTH = 8192
 
 
-#: the quantized kernels' split of the page walk: a split takes at least
-#: this many tokens, two rounds of its CTA's loads (4 warps x 16 rows) ...
+#: the kernel's split of the page walk: a split takes at least this many
+#: tokens, two rounds of its CTA's loads (4 warps x 16 rows) ...
 _SPLIT_TOKENS = 128
 #: ... and spans double until the grid is at most this many CTAs (12 an
 #: SM; both chosen by timing spans of 1 to 64 pages at page 16 on the H100)
 _SMS = 132   # the H100's streaming multiprocessors
 _MAX_CTAS = 12 * _SMS
+#: a span's page ids (and int8's two scale rows) sit in shared memory: at
+#: most this many pages a span (96 KB at int8); a wider table takes more
+#: splits
+_MAX_SPAN = 8192
+#: the grid's third dimension
+_MAX_SPLITS = 65535
 
 
 def decode_splits(n_seqs: int, n_kv_heads: int, width: int,
                   page_size: int) -> tuple:
-    """``(n_splits, span)``: the quantized kernels walk each (sequence, kv
-    head) pair's block-table row in ``n_splits`` spans of ``span`` pages,
-    one CTA each.  A span holds at least ``_SPLIT_TOKENS`` tokens, and
+    """``(n_splits, span)``: the kernel walks each (sequence, kv head)
+    pair's block-table row in ``n_splits`` spans of ``span`` pages, one
+    CTA each.  A span holds at least ``_SPLIT_TOKENS`` tokens, and
     doubles while the grid ``n_seqs * n_kv_heads * n_splits`` is larger
-    than ``_MAX_CTAS``.  It depends on shapes the host holds, never on
-    the context lengths, which live on the card: the launch needs no
-    host sync and can be captured in a CUDA graph.  Splits that start
-    past a sequence's context return at once."""
-    span = min(width, -(-_SPLIT_TOKENS // page_size))
-    while span < width and n_seqs * n_kv_heads * -(-width // span) \
+    than ``_MAX_CTAS``, up to ``_MAX_SPAN`` pages: a wider table takes
+    more splits.  It depends on shapes the host holds, never on the
+    context lengths, which live on the card: the launch needs no host
+    sync and can be captured in a CUDA graph.  Splits that start past a
+    sequence's context return at once."""
+    cap = min(width, _MAX_SPAN)
+    span = min(cap, -(-_SPLIT_TOKENS // page_size))
+    while span < cap and n_seqs * n_kv_heads * -(-width // span) \
             > _MAX_CTAS:
-        span *= 2
-    span = min(span, width)
-    return -(-width // span), span
+        span = min(2 * span, cap)
+    n_splits = -(-width // span)
+    if n_splits > _MAX_SPLITS:
+        raise ValueError(f"paged_decode: a table of {width} pages needs "
+                         f"{n_splits} spans of {span}; the grid takes "
+                         f"{_MAX_SPLITS}")
+    return n_splits, span
 
 
 def decode_scratch_numel(n_seqs: int, n_kv_heads: int, group: int,
@@ -131,7 +144,7 @@ _TICKETS = {}
 
 
 def _tickets(dev, stream: int, count: int):
-    """The split kernels' ticket buffer for ``stream`` on ``dev``, at least
+    """The split walk's ticket buffer for ``stream`` on ``dev``, at least
     ``count`` long: one per stream, so that two streams never share a
     ticket.  It is made (zeroed, on that stream) outside a CUDA graph
     capture: run the decode once on the capture stream before capturing."""
@@ -195,12 +208,11 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables,
 
 def _check(name, q, k_pages, v_pages, block_tables, context_lens,
            pool_dtype, scales=()):
-    """The kernels' contract, checked before a launch: contiguous tensors
+    """The kernel's contract, checked before a launch: contiguous tensors
     on q's CUDA device, f32 q, pools of ``pool_dtype``, f32 scales of
     shape ``(kv_heads, num_pages)``, int32 tables and lengths, 16-byte
-    aligned q and pools, consistent shapes, a head dim and GQA group the
-    kernels are built for, and for bf16 and int8 pools a table at most
-    ``_MAX_WIDTH`` pages wide."""
+    aligned q and pools, consistent shapes, and a head dim and GQA group
+    the kernel is built for."""
     n_seqs, n_heads, d = q.shape
     n_kv, n_pages, page_size, dk = k_pages.shape
     group = gqa_group(n_heads, n_kv)
@@ -215,7 +227,7 @@ def _check(name, q, k_pages, v_pages, block_tables, context_lens,
         if not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be contiguous")
     if q.dtype != torch.float32:
-        raise ValueError(f"{name}: q is {q.dtype}; the kernels take "
+        raise ValueError(f"{name}: q is {q.dtype}; the kernel takes "
                          f"float32 queries")
     for nm in ("k_pages", "v_pages"):
         if tensors[nm].dtype != pool_dtype:
@@ -248,29 +260,12 @@ def _check(name, q, k_pages, v_pages, block_tables, context_lens,
     width = block_tables.shape[1]
     if n_seqs == 0 or width == 0:
         raise ValueError(f"{name}: no sequences or an empty block table")
-    if pool_dtype != torch.float32 and width > _MAX_WIDTH:
-        raise ValueError(f"{name}: table width {width} > {_MAX_WIDTH}")
-
-
-def _launch(kernel, q, k_pages, v_pages, scales, block_tables, context_lens,
-            scale):
-    n_seqs, n_heads, d = q.shape
-    n_kv, n_pages, page_size, _ = k_pages.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-               *(t.data_ptr() for t in scales), block_tables.data_ptr(),
-               context_lens.data_ptr(), out.data_ptr(), n_seqs, n_heads,
-               n_kv, n_pages, page_size, block_tables.shape[1], d,
-               float(scale), stream)
-    return out
 
 
 def _launch_split(kernel, q, k_pages, v_pages, scales, block_tables,
                   context_lens, scale):
-    """Launch a quantized kernel over its split walk (:func:`split_plan`),
-    with its partials' scratch and its stream's tickets."""
+    """Launch the kernel over its split walk (:func:`split_plan`), with
+    its partials' scratch and its stream's tickets."""
     n_seqs, n_heads, d = q.shape
     n_kv, n_pages, page_size, _ = k_pages.shape
     n_splits, span = split_plan(q, k_pages, block_tables)
@@ -293,24 +288,24 @@ def _launch_split(kernel, q, k_pages, v_pages, scales, block_tables,
 
 
 def paged_decode(q, k_pages, v_pages, block_tables, context_lens, scale):
-    """Launch the f32 kernel on ``torch.cuda.current_stream()`` and
-    return its output ``(num_seqs, q_heads, head_dim)`` f32.
+    """Launch the kernel over f32 pages on ``torch.cuda.current_stream()``
+    and return its output ``(num_seqs, q_heads, head_dim)`` f32.
 
     Takes f32 q and pools, int32 tables and lengths, all contiguous on one
     CUDA device; head_dim a multiple of 8 up to 256; q_heads / kv_heads
-    at most 8.  Raises on anything else.  A row with context length 0
-    yields zeros; a length past the table's reach is clamped to it."""
+    at most 8; a table of any width.  Raises on anything else.  A row
+    with context length 0 yields zeros; a length past the table's reach
+    is clamped to it."""
     _check("paged_decode", q, k_pages, v_pages, block_tables, context_lens,
            torch.float32)
-    return _launch(PAGED_DECODE, q, k_pages, v_pages, (), block_tables,
-                   context_lens, scale)
+    return _launch_split(PAGED_DECODE, q, k_pages, v_pages, (),
+                         block_tables, context_lens, scale)
 
 
 def paged_decode_bf16(q, k_pages, v_pages, block_tables, context_lens,
                       scale):
-    """The bf16-page kernel: as :func:`paged_decode`, with bf16 pools
-    (widened to f32 exactly in the kernel), and a table at most
-    8,192 pages wide."""
+    """The kernel over bf16 pages: as :func:`paged_decode`, with bf16
+    pools (widened to f32 exactly in the kernel)."""
     _check("paged_decode_bf16", q, k_pages, v_pages, block_tables,
            context_lens, torch.bfloat16)
     return _launch_split(PAGED_DECODE_BF16, q, k_pages, v_pages, (),
@@ -319,7 +314,7 @@ def paged_decode_bf16(q, k_pages, v_pages, block_tables, context_lens,
 
 def paged_decode_int8(q, k_pages, v_pages, block_tables, context_lens,
                       scale, k_scale, v_scale):
-    """The int8-page kernel: as :func:`paged_decode_bf16`, with int8
+    """The kernel over int8 pages: as :func:`paged_decode_bf16`, with int8
     pools and their f32 ``(kv_heads, num_pages)`` scale pools (a page
     dequantizes as ``code * (scale / 127)`` in the kernel)."""
     _check("paged_decode_int8", q, k_pages, v_pages, block_tables,
@@ -333,7 +328,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None, k_scale=None, v_scale=None):
     """Ragged paged attention for decode (one query token per sequence).
     CPU tensors take :func:`paged_attention_reference`; CUDA tensors
-    launch the kernel of the pool's dtype or raise.  ``k_scale`` /
+    launch the kernel over the pool's dtype or raise.  ``k_scale`` /
     ``v_scale`` go with int8 pools and with no other."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -362,5 +357,5 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     if dt == torch.float32:
         return paged_decode(q, k_pages, v_pages, block_tables, context_lens,
                             scale)
-    raise ValueError(f"paged_attention: k_pages is {dt}; the kernels take "
+    raise ValueError(f"paged_attention: k_pages is {dt}; the kernel takes "
                      f"float32, bfloat16 and int8 pools")

@@ -1903,24 +1903,29 @@ def test_matmul_bias_act_f32_wide_copies_refuse_unaligned_w(cuda):
 
 
 # ==========================================================================
-# paged decode over bf16 / int8 pages, split walk: contexts around the
+# paged decode, split walk, over every page dtype: contexts around the
 # split boundaries, head dims 8-256 and groups 1-8 against the plain
-# version; bit-identical calls, the tickets left zero, graph replay
+# version; bit-identical calls, the tickets left zero, graph replay;
+# tables wider than 8,192 pages
 # ==========================================================================
 # (hq, hkv, d): groups 1, 2, 3, 4 and 8 over head dims 8 to 256
 SPLIT_HEADS = [(2, 2, 8), (4, 2, 64), (12, 4, 96), (8, 2, 128), (8, 1, 256),
                (16, 2, 40), (6, 6, 64)]
+PAGE_DTYPES = dict(argnames="dtype",
+                   argvalues=[torch.float32, torch.bfloat16, torch.int8],
+                   ids=["f32", "bf16", "int8"])
+#: each page dtype's wrapper and its launch count
+WRAPPERS = {torch.float32: (tpa.paged_decode, tpa.PAGED_DECODE),
+            torch.bfloat16: (tpa.paged_decode_bf16, tpa.PAGED_DECODE_BF16),
+            torch.int8: (tpa.paged_decode_int8, tpa.PAGED_DECODE_INT8)}
 
 
 def _run_q(dtype, case, scales):
-    fn = tpa.paged_decode_int8 if dtype == torch.int8 else \
-        tpa.paged_decode_bf16
     d = case[0].shape[-1]
-    return fn(*case, d ** -0.5, *scales)
+    return WRAPPERS[dtype][0](*case, d ** -0.5, *scales)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
-                         ids=["bf16", "int8"])
+@pytest.mark.parametrize(**PAGE_DTYPES)
 @pytest.mark.parametrize("hq,hkv,d", SPLIT_HEADS)
 def test_paged_decode_split_boundaries_match_plain(cuda, dtype, hq, hkv, d):
     """Page 16, a table 32 pages wide: spans of 8 pages (128 tokens), 4
@@ -1929,8 +1934,7 @@ def test_paged_decode_split_boundaries_match_plain(cuda, dtype, hq, hkv, d):
     case, scales = _q_case(cuda, 7, dtype, hq, hkv, d, 16, 64, lens)
     assert case[3].shape[1] == 32
     assert tpa.split_plan(case[0], case[1], case[3]) == (4, 8)
-    fn = (tpa.PAGED_DECODE_INT8 if dtype == torch.int8
-          else tpa.PAGED_DECODE_BF16)
+    fn = WRAPPERS[dtype][1]
     before = fn.launches
     got = _run_q(dtype, case, scales)
     torch.cuda.synchronize()
@@ -1942,8 +1946,7 @@ def test_paged_decode_split_boundaries_match_plain(cuda, dtype, hq, hkv, d):
     assert float(got[~live].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
-                         ids=["bf16", "int8"])
+@pytest.mark.parametrize(**PAGE_DTYPES)
 def test_paged_decode_split_wide_batch_matches_plain(cuda, dtype):
     """64 sequences x 12 kv heads: the span doubles to 32 pages (2 splits
     of a 64-page table) to keep the grid within 12 CTAs an SM."""
@@ -1958,8 +1961,7 @@ def test_paged_decode_split_wide_batch_matches_plain(cuda, dtype):
     assert float((got - want).abs().max()) <= ATOL
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
-                         ids=["bf16", "int8"])
+@pytest.mark.parametrize(**PAGE_DTYPES)
 def test_paged_decode_split_is_deterministic_and_replays(cuda, dtype):
     """At the serving shape: two calls equal bit for bit, the stream's
     tickets all zero after them, and a CUDA graph of the call (warmed up
@@ -1989,3 +1991,42 @@ def test_paged_decode_split_is_deterministic_and_replays(cuda, dtype):
     assert int(tpa._TICKETS[(cuda.index or 0, side.cuda_stream)]
                .abs().sum()) == 0
 
+
+@pytest.mark.parametrize(**PAGE_DTYPES)
+def test_paged_decode_takes_a_table_wider_than_8192_pages(cuda, dtype):
+    """16,384 one-token pages, d 8: a 9,000-token context walks 71 of 128
+    spans of 128 pages, against the plain version; the wrappers no
+    longer refuse such a width."""
+    case, scales = _q_case(cuda, 10, dtype, 4, 2, 8, 1, 16384, [9000, 3])
+    assert case[3].shape[1] == 16384
+    assert tpa.split_plan(case[0], case[1], case[3]) == (128, 128)
+    fn = WRAPPERS[dtype][1]
+    before = fn.launches
+    got = _run_q(dtype, case, scales)
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize(**PAGE_DTYPES)
+def test_paged_decode_capped_span_matches_plain(cuda, dtype, monkeypatch):
+    """With the span's cap at 2 pages, a 32-page table takes 16 splits
+    (the path a table wider than 8,192 x 12 CTAs an SM takes): contexts
+    of 0 to the whole table against the plain version, bit-identical
+    calls, the tickets left zero."""
+    monkeypatch.setattr(tpa, "_MAX_SPAN", 2)
+    case, scales = _q_case(cuda, 11, dtype, 8, 2, 64, 16, 64,
+                           [1, 31, 32, 33, 127, 512, 0])
+    assert tpa.split_plan(case[0], case[1], case[3]) == (16, 2)
+    got = _run_q(dtype, case, scales)
+    again = _run_q(dtype, case, scales)
+    want = tpa.paged_attention_reference(*case, None, *scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    key = (cuda.index or 0, torch.cuda.current_stream().cuda_stream)
+    assert int(tpa._TICKETS[key].abs().sum()) == 0
+    live = case[4] > 0
+    assert float((got[live] - want[live]).abs().max()) <= ATOL
+    assert float(got[~live].abs().max()) == 0.0

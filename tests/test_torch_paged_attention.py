@@ -206,7 +206,7 @@ def test_head_dims_match_pallas_kernel_interpret(monkeypatch, d, pool):
 
 
 # ==========================================================================
-# the quantized kernels' split walk: the planner, and a plain model of the
+# the kernel's split walk: the planner, and a plain model of the
 # split-and-merge held to the plain version and to JAX's kernel
 # ==========================================================================
 @pytest.mark.parametrize("shape,want", [
@@ -230,6 +230,41 @@ def test_decode_splits_plan(shape, want):
     n_seqs, n_kv, width, ps = shape
     n_splits, span = want
     assert (n_splits - 1) * span < width <= n_splits * span
+
+
+def _largest_smem_bytes(span):
+    """The kernel's shared memory at its largest instance (int8 pages:
+    the span's page ids and two scale rows; GQA group bound 8, width 256):
+    q, the 4 warps' m and l, their acc, the span's words, the ticket's
+    word (``Layout::words`` in csrc/paged_attention.cu)."""
+    maxg, d, warps = 8, 256, 4
+    return 4 * (maxg * d + 2 * warps * maxg + warps * maxg * d + 3 * span
+                + 1)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # one sequence over 16,384 one-token pages: 128-page spans
+    ((1, 1, 16384, 1), (128, 128)),
+    ((2, 2, 16384, 1), (128, 128)),
+    # a wide batch over a million-page table: the span stops at its cap
+    # of 8,192 pages, and the width takes more splits
+    ((64, 12, 1 << 20, 16), (128, 8192)),
+    ((8, 8, 100_000, 16), (13, 8192)),
+    # the widest table the grid takes
+    ((1, 1, 65535 * 8192, 1), (65535, 8192)),
+])
+def test_decode_splits_any_width(shape, want):
+    """Tables wider than 8,192 pages: the plan covers the table, the span
+    stays within its cap, so that the largest instance's shared memory
+    fits the H100's 227 KB, and the grid within 65,535 splits."""
+    assert tpa.decode_splits(*shape) == want
+    width = shape[2]
+    n_splits, span = want
+    assert (n_splits - 1) * span < width <= n_splits * span
+    assert span <= tpa._MAX_SPAN and n_splits <= 65535
+    assert _largest_smem_bytes(tpa._MAX_SPAN) <= 232448
+    with pytest.raises(ValueError, match="spans"):
+        tpa.decode_splits(1, 1, 65535 * 8192 + 1, 1)
 
 
 @pytest.mark.parametrize("shape,group,d,want", [
@@ -356,15 +391,34 @@ def test_split_merge_model_matches_plain(pool, hq, hkv):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
-def test_split_merge_model_matches_pallas_kernel_interpret(monkeypatch):
-    """The model against JAX's kernel, int8 pages, in interpret mode (2
-    spans of 128 tokens)."""
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8"])
+def test_split_merge_model_at_a_wide_table_matches_plain(pool):
+    """A table of 16,384 one-token pages (wider than 8,192), contexts of
+    9,000 and 3 tokens: 128 spans of 128 pages, 71 of them live."""
+    d, ps, n_pages, hkv = 8, 1, 16384, 2
+    q, kp, vp, tables, lens = _case(13, 2, 4, hkv, d, ps, n_pages,
+                                    [9000, 3], width=16384)
+    rng = np.random.RandomState(13)
+    k, v, scales = _pools(pool, kp, vp, rng, hkv, n_pages)
+    args = (torch.from_numpy(q), k, v, torch.from_numpy(tables),
+            torch.from_numpy(lens))
+    assert tpa.split_plan(args[0], k, args[3]) == (128, 128)
+    got = _split_merge(*args, d ** -0.5, *scales.values())
+    want = tpa.paged_attention_reference(*args, d ** -0.5, **scales)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("pool", ["int8", "float32"])
+def test_split_merge_model_matches_pallas_kernel_interpret(monkeypatch,
+                                                           pool):
+    """The model against JAX's kernel, int8 and f32 pages, in interpret
+    mode (2 spans of 128 tokens)."""
     monkeypatch.setenv("PT_PALLAS_INTERPRET", "1")
     d, ps, n_pages, hkv = 16, 16, 48, 2
     q, kp, vp, tables, lens = _case(12, 3, 4, hkv, d, ps, n_pages,
                                     [129, 1, 256], width=16)
     rng = np.random.RandomState(12)
-    k, v, scales = _pools("int8", kp, vp, rng, hkv, n_pages)
+    k, v, scales = _pools(pool, kp, vp, rng, hkv, n_pages)
     assert tpa.split_plan(torch.from_numpy(q), k,
                           torch.from_numpy(tables)) == (2, 8)
     ker = np.asarray(pk._paged_decode_call(
