@@ -299,6 +299,31 @@ Phases (any failure exits non-zero and prints no result):
       decode kernels over f32, bf16 and int8 pages at d 40, 96, 120 and
       160, against their plain versions;
 
+   Every phase above runs its steps op by op
+   (``FLAGS_cuda_step_session=0``), as they count kernel launches per
+   step and a replayed CUDA graph calls no wrapper;
+
+16b. the compiled step (``FLAGS_cuda_step_session`` at auto: a static
+    step or a decode step captured in a CUDA graph; the checks are
+    ``paddle_tpu_torch/tools/check_step_capture.py``'s): 4 steps of
+    ResNet-18 (batch 4, 32x32) in f32, bf16 and fp16 (a step finds an
+    Inf), LeNet and word2vec, eager and captured from one startup state,
+    bit for bit (every fetch, every scope tensor after), one graph each;
+    decode over f32, bf16 and int8 pools at GPT-2 small's widths (4
+    layers, 8 requests, 12 new tokens) eager and captured: the same token
+    streams, pools and scales, graphs at most the buckets; a
+    ``scope.set`` drops the graph and the step after the next captures
+    again, a new batch size adds a graph; a dropout program draws a new
+    mask on every replay, equal to the eager step's; a fixed-seed random
+    op raises ``StepCaptureError`` (``step_capture_check`` lines); then
+    wall and busy ms per step and the idle share with the session off
+    and on, in turns (off, on, on, off), of AMP ResNet-50 bf16 at batch
+    128, LeNet f32 and AMP bf16 and word2vec at batch 256, and the decode
+    step at batch 8 of phase 9's engine in each KV dtype
+    (``step_capture_time`` lines, each with its graph count); every
+    kernel of these paths launched in the phase
+    (``step_capture_launches``);
+
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
     (``flash_fwd_f32`` replaces two; kernel 6 at the serving shape), the
@@ -3447,6 +3472,209 @@ def head_dim_phase():
             fail(f"paged decode at head dim {d}: {errs} > {KERNEL_ATOL}")
 
 
+# ==========================================================================
+# the compiled step: static steps and the decode step as CUDA graphs
+# ==========================================================================
+#: the decode check's model: GPT-2 small's widths, depth cut to 4 layers
+DECODE_CHECK = dict(GPT2_SMALL, num_layers=4)
+#: steps a session turn times, and steps it then traces for busy time
+TURN_STEPS = {"resnet50_amp_bf16": 3, "lenet_f32": 10, "lenet_amp_bf16": 10,
+              "word2vec_f32": 10, "decode": 6}
+TRACED_STEPS = {"resnet50_amp_bf16": 1, "lenet_f32": 3, "lenet_amp_bf16": 3,
+                "word2vec_f32": 3, "decode": 2}
+
+
+def step_kernels():
+    """{name: KernelFunction} of the kernels the compiled step's timed
+    paths launch: kernels 7-8 in bf16 (AMP ResNet-50), kernel 9 in f32
+    and bf16 (LeNet, word2vec), the paged decode over each page dtype."""
+    from paddle_tpu_torch.ops import bn_act as ba
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+
+    out = {"bn_act_apply_bf16": ba.BN_ACT_APPLY_BF16,
+           "bn_act_bwd_bf16": ba.BN_ACT_BWD_BF16,
+           "matmul_bias_act_f32": me.MATMUL_BIAS_ACT_F32,
+           "matmul_bias_act_bf16": me.MATMUL_BIAS_ACT_BF16}
+    out.update({k.name: k for k in decode_kernels().values()})
+    return out
+
+
+def step_launches(name, step, kernels):
+    """``{kernel: [eager, replayed]}`` launches per step of ``step``'s
+    path (the kernels it launches at all); fails unless a replayed step
+    launches each of ``kernels`` as often as an eager step and the path
+    launches at least one."""
+    from paddle_tpu_torch.tools.check_step_capture import launches_per_step
+
+    eager = launches_per_step(step, kernels, "0")
+    replayed = launches_per_step(step, kernels, "1")
+    out = {n: [eager[n], replayed[n]] for n in kernels
+           if eager[n] or replayed[n]}
+    if not out or any(a != b for a, b in out.values()):
+        fail(f"compiled step {name}: kernel launches per step, eager vs "
+             f"replayed: {out}")
+    return out
+
+
+def compiled_static_times(torch, name, run, kernels, host_feeds=None):
+    """Session turns (off, on, on, off) of a :func:`train` result's step:
+    wall and busy ms per step and the idle share, the graphs its
+    executor captured (one signature: one) and the kernels' launches per
+    step, eager and replayed.  ``host_feeds``: numpy batches for
+    ``feed_turns`` (host feeds straight, and staged with the double
+    buffer off and on)."""
+    from paddle_tpu_torch.tools.step_timing import feed_turns, session_turns
+
+    exe, prog, feed, scope, fetch = (run["executor"], run["program"],
+                                     run["feed"], run["scope"], run["fetch"])
+
+    def step():
+        exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+
+    t = time.perf_counter()
+    turns = session_turns(step, TURN_STEPS[name],
+                          traced=TRACED_STEPS[name])
+    if exe.graphs_captured != 1:
+        fail(f"compiled step {name}: {exe.graphs_captured} graphs for one "
+             f"signature")
+    row = {"path": name, "graphs": exe.graphs_captured, **turns,
+           "launches_per_step": step_launches(name, step, kernels)}
+    if host_feeds is not None:
+        row["host_feeds"] = feed_turns(exe, prog, scope, fetch, host_feeds,
+                                       TURN_STEPS[name])
+        if exe.graphs_captured != 1:
+            fail(f"compiled step {name}: {exe.graphs_captured} graphs "
+                 f"after staged feeds")
+    row["seconds"] = time.perf_counter() - t
+    print("step_capture_time " + json.dumps(row), flush=True)
+    return row
+
+
+def compiled_decode_times(torch, kv_dtype, kernels):
+    """The decode step at batch 8 of ``serve()``'s engine (GPT-2 small;
+    f32 pools of 1,024 pages, bf16 / int8 from 1,152 MiB), 8 requests of
+    32-512 prompt tokens decoding: session turns of ``eng.step``, the
+    graphs captured against the buckets used, and the kernels' launches
+    per step, eager and replayed."""
+    from paddle_tpu_torch.inference.serving import (
+        DecoderConfig, Request, ServingEngine, init_decoder_weights)
+    from paddle_tpu_torch.tools.step_timing import session_turns
+
+    cfg = DecoderConfig(**GPT2_SMALL)
+    pool = dict(num_pages=1024) if kv_dtype == "float32" else \
+        dict(kv_budget_mb=KV_BUDGET_MB)
+    t = time.perf_counter()
+    eng = ServingEngine(cfg, init_decoder_weights(cfg, 0), page_size=16,
+                        max_batch=8, token_budget=4096, device="cuda",
+                        kv_dtype=kv_dtype, **pool)
+    steps = TURN_STEPS["decode"]
+    rng = np.random.RandomState(0)
+    for i, n in enumerate(rng.randint(32, 513, size=8)):
+        eng.submit(Request(i, rng.randint(0, cfg.vocab_size,
+                                          size=int(n)).tolist(),
+                           max_new_tokens=10 * steps + 26))
+    while eng.waiting or eng._prefill_job is not None:
+        eng.step()
+    turns = session_turns(eng.step, steps, traced=TRACED_STEPS["decode"])
+    launches = step_launches(f"decode {kv_dtype}", eng.step, kernels)
+    if len(eng.running) != 8:
+        fail(f"compiled decode {kv_dtype}: {len(eng.running)} of 8 "
+             f"requests still decoding")
+    buckets = len(eng.core._buckets)
+    if not 0 < eng.graphs_captured <= buckets:
+        fail(f"compiled decode {kv_dtype}: {eng.graphs_captured} graphs for "
+             f"{buckets} buckets")
+    row = {"path": f"decode_{kv_dtype}", "batch": 8,
+           "pages": eng.core.kv_config.num_pages,
+           "graphs": eng.graphs_captured, "buckets": buckets, **turns,
+           "launches_per_step": launches,
+           "seconds": time.perf_counter() - t}
+    print("step_capture_time " + json.dumps(row), flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def compiled_step_phase(torch):
+    """The compiled step (``FLAGS_cuda_step_session`` at auto: on): the
+    equality, invalidation, dropout and raise checks of
+    ``tools/check_step_capture.py`` (ResNet-18 in f32, bf16 and fp16 with
+    an Inf step, LeNet and word2vec, 4 steps each; decode over f32, bf16
+    and int8 pools at GPT-2 small's widths cut to 4 layers), then wall
+    and busy ms per step and the idle share with the session off and
+    on, in turns, of AMP ResNet-50 bf16 at batch 128 (and its host feeds
+    straight and staged), LeNet f32 and AMP, word2vec and the decode
+    step at batch 8 in each KV dtype; on each timed path a replayed step
+    launches every kernel as often as an eager step (a capture records
+    launches, a replay counts them), and every kernel of these paths
+    launched in the phase."""
+    from paddle_tpu_torch.tools import check_step_capture as csc
+    from paddle_tpu_torch.tools import train_book as tb
+    from paddle_tpu_torch.tools.train_resnet import (make_batch,
+                                                     set_card_precision,
+                                                     train)
+    from paddle_tpu_torch.utils import flags
+
+    set_card_precision()
+    flags.set_flags({"FLAGS_cuda_step_session": "auto"})
+    kernels = step_kernels()
+    reset_counts(kernels)
+    rows = []
+
+    def check(fn, *args, **kw):
+        t = time.perf_counter()
+        row = dict(fn(*args, **kw), seconds=time.perf_counter() - t)
+        print("step_capture_check " + json.dumps(row), flush=True)
+        rows.append(row)
+
+    for n in csc.STATIC_CASES:
+        check(csc.compare_static, n, steps=4)
+    for dt in ("float32", "bfloat16", "int8"):
+        pool = dict(num_pages=1024) if dt == "float32" else \
+            dict(kv_budget_mb=KV_BUDGET_MB)
+        check(csc.compare_decode, dt, DECODE_CHECK, n_requests=8,
+              max_new=12, max_batch=8, **pool)
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(csc.check_bucket_switch, "int8", DECODE_CHECK)
+    for fn in (csc.check_invalidation, csc.check_dropout, csc.check_raises):
+        check(fn)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"compiled step: {len(bad)} checks failed: {bad}")
+    times = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = train(depth=50, batch=128, image=224, classes=1000, steps=1,
+                lr=RESNET_LR, device="cuda", warmup=0, log_every=0,
+                amp=True, amp_dtype="bfloat16")
+    host = [dict(zip(("img", "label"), make_batch(128, 224, 1000, seed=i)))
+            for i in range(2)]
+    times.append(compiled_static_times(torch, "resnet50_amp_bf16", run,
+                                       kernels, host))
+    del run, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, model, amp in (("lenet_f32", "lenet", False),
+                             ("lenet_amp_bf16", "lenet", True),
+                             ("word2vec_f32", "word2vec", False)):
+        run = tb.train(model, tb.DEFAULTS[model], steps=1, device="cuda",
+                       log_every=0, amp=amp)
+        times.append(compiled_static_times(torch, name, run, kernels))
+        del run
+    for dt in ("float32", "bfloat16", "int8"):
+        times.append(compiled_decode_times(torch, dt, kernels))
+    torch.cuda.synchronize()
+    launched = {n: k.launches for n, k in kernels.items()}
+    if not all(launched.values()):
+        fail(f"compiled step: a kernel of its paths never launched: "
+             f"{launched}")
+    print("step_capture_launches " + json.dumps(launched), flush=True)
+    flags.set_flags({"FLAGS_cuda_step_session": "0"})
+    return times
+
+
 def main():
     import torch
 
@@ -3476,6 +3704,13 @@ def main():
 
     from paddle_tpu_torch import kernel_build
     from paddle_tpu_torch.ops.bn_act import BN_ACT
+    from paddle_tpu_torch.utils import flags
+
+    # every phase before the compiled step's runs its steps op by op,
+    # the path its launch counts and per-op profiles were first taken on;
+    # the compiled step's phase holds a replay's launches to an eager
+    # step's
+    flags.set_flags({"FLAGS_cuda_step_session": "0"})
     from paddle_tpu_torch.ops.flash_attention import FLASH
 
     from paddle_tpu_torch.ops.gelu import GELU
@@ -3639,6 +3874,9 @@ def main():
 
     phase("z. head dims 40-160: flash and paged decode kernels vs plain")
     head_dim_phase()
+
+    phase("compiled step: captured vs eager, graphs, times in turns")
+    compiled_step_phase(torch)
 
     rows = [{
         "name": "paged_decode_f32", "route": "cuda",

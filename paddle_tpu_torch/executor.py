@@ -31,28 +31,54 @@ executor's device and launches its own kernels.
   startup scope.)
 * **Fetches** are copies: numpy arrays by default, or tensors that no
   later step overwrites.
+* **The compiled step** (``FLAGS_cuda_step_session``, ``auto``: on for a
+  CUDA executor; JAX's step session, :75, and its one executable per
+  signature): a step session per plan and scope.  The first run of a
+  signature runs eagerly on the capture stream (a warm-up: cuBLAS,
+  cuDNN's plans, the gelu tables and the paged kernel's tickets); the
+  second records the op list into a CUDA graph and replays it; later
+  runs copy the feeds into the session's static buffers, replay and
+  fetch.  The state is the scope's own tensors, whose addresses the
+  in-place writeback keeps; a scope write since the capture
+  (``Scope.mutation_counter``) drops the graph, and the step warms up
+  and captures again.  The program's generator is registered with each
+  graph, so a replay draws fresh numbers.  A session goes when its scope
+  dies.  An op that cannot be captured
+  raises :class:`~.framework.cuda_graph.StepCaptureError` with its type;
+  nothing falls back to an eager run.  ``FLAGS_cuda_step_session=0``
+  runs every step op by op, as before; ``trace_ops`` needs that.
+* **Feed staging** (:class:`FeedStager`, :func:`double_buffered_feeds`,
+  JAX :149-222): batch k+1 is cast into pinned host memory and copied to
+  the card on a side stream while step k runs
+  (``FLAGS_cuda_double_buffer``).
 
 Not ported (ROADMAP.md): the hybrid host-op path, data-parallel and
-pipeline runners, ``fuse_optimizer_ops_pass``, the memory plan, the numerics probes and ``check_nan_inf``, CUDA-graph
-capture of the step.
+pipeline runners, ``fuse_optimizer_ops_pass``, the memory plan, the
+numerics probes and ``check_nan_inf``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import time
-from typing import Any, Dict, List, Optional, Sequence
+import weakref
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .framework.core import (EMPTY_VAR_NAME, Program, Variable,
                              default_main_program)
+from .framework.cuda_graph import GraphSet, StepCaptureError
 from .framework.dtype import VarType, to_torch_dtype
 from .framework.place import resolve_place
 from .framework.scope import Scope, global_scope
 from .ops import registry
-from .utils.flags import cuda_fuse_enabled, cuda_nhwc_enabled
+from .utils.flags import (cuda_fuse_enabled, cuda_nhwc_enabled,
+                          cuda_step_session_enabled, flag_bool)
 
-__all__ = ["Executor", "analyze_state", "build_feed_plan", "as_numpy"]
+__all__ = ["Executor", "analyze_state", "build_feed_plan", "as_numpy",
+           "FeedStager", "StagedFeed", "double_buffered_feeds",
+           "StepCaptureError"]
 
 
 def analyze_state(ops, block, feed_names, scope):
@@ -85,6 +111,18 @@ def build_feed_plan(block, feed):
     return plan
 
 
+def _dtype_key(v) -> str:
+    """A feed value's dtype as torch names it: a numpy array and a tensor
+    of one dtype and shape are one feed signature (one plan, one graph)."""
+    dt = getattr(v, "dtype", None)
+    if isinstance(dt, np.dtype):
+        try:
+            dt = torch.from_numpy(np.empty(0, dt)).dtype
+        except TypeError:           # no torch counterpart: keep numpy's
+            pass
+    return str(dt)
+
+
 def _fetch_name(f) -> str:
     if isinstance(f, Variable):
         return f.name
@@ -109,11 +147,12 @@ class _Plan:
     """One compiled program: the rewritten op list, its state in/out, the
     feed plan, and per op the intermediates it is the last reader of."""
 
-    __slots__ = ("program", "ops", "state_in", "state_out", "feed_plan",
-                 "fetch_names", "free_after", "fused")
+    __slots__ = ("key", "program", "ops", "state_in", "state_out",
+                 "feed_plan", "fetch_names", "free_after", "fused")
 
-    def __init__(self, program, ops, state_in, state_out, feed_plan,
+    def __init__(self, key, program, ops, state_in, state_out, feed_plan,
                  fetch_names, free_after, fused):
+        self.key = key
         self.program = program
         self.ops = ops
         self.state_in = state_in
@@ -151,6 +190,33 @@ def _free_schedule(ops, keep) -> List[List[str]]:
     return free
 
 
+
+
+class _StepSession:
+    """The compiled step of one (plan, scope) pair: the feeds' static
+    device buffers (and the pinned host buffers numpy feeds are cast
+    into), the scope stamp after the last eager warm-up, and once
+    captured the CUDA graph, the stamp it was captured at, the fetched
+    tensors it writes and the state tensors it reads and writes (held,
+    so that their memory outlives the graph)."""
+
+    __slots__ = ("scope_ref", "feeds", "staging", "warm_stamp", "stamp",
+                 "graph", "fetches", "bound")
+
+    def __init__(self, scope: Scope, on_dead=None):
+        self.scope_ref = weakref.ref(scope, on_dead)
+        self.feeds: Dict[str, torch.Tensor] = {}
+        self.staging: Dict[str, list] = {}
+        self.warm_stamp: Optional[int] = None
+        self.stamp: Optional[int] = None
+        self.graph = None
+        self.fetches: Optional[list] = None
+        self.bound: Optional[list] = None
+
+    def drop_graph(self):
+        self.graph = self.fetches = self.bound = None
+
+
 class Executor:
     """reference: python/paddle/fluid/executor.py:461 Executor.
 
@@ -163,12 +229,17 @@ class Executor:
         self.place = place
         self._cache: Dict[tuple, _Plan] = {}
         self._generators: Dict[int, torch.Generator] = {}
+        self._sessions: Dict[tuple, _StepSession] = {}
+        self._graphs: Optional[GraphSet] = None
         self._closed = False
         #: host seconds of the last ``run`` (ends in the fetches' copy)
         self.last_run_s: Optional[float] = None
         #: wrap each op in a ``torch.profiler.record_function("op:<type>")``
-        #: range, so a trace attributes device time to op types
+        #: range, so a trace attributes device time to op types (the eager
+        #: path only: ``FLAGS_cuda_step_session=0``)
         self.trace_ops = False
+        #: captured graphs dropped because a scope was written since
+        self.session_invalidations = 0
 
     def fuse_enabled(self) -> bool:
         """FLAGS_cuda_fuse resolved against this executor's device."""
@@ -179,6 +250,16 @@ class Executor:
         ``program``'s convolutions (``auto``: NHWC where they read bf16 or
         fp16)."""
         return cuda_nhwc_enabled(self.device, _low_precision_convs(program))
+
+    def session_enabled(self) -> bool:
+        """FLAGS_cuda_step_session resolved against this executor's
+        device (``"1"`` on the CPU raises)."""
+        return cuda_step_session_enabled(self.device)
+
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs this executor has captured so far."""
+        return self._graphs.captured if self._graphs is not None else 0
 
     # ------------------------------------------------------------------
     def run(self, program: Optional[Program] = None,
@@ -192,23 +273,33 @@ class Executor:
         t0 = time.perf_counter()
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
+        ready = getattr(feed, "ready", None)
         feed = dict(feed or {})
         fetch_names = [_fetch_name(f) for f in (fetch_list or [])]
         plan = self._compile(program, feed, fetch_names, scope)
-        out = self._execute(plan, program, feed, scope, return_numpy)
+        if self.session_enabled():
+            fetched = self._run_session(plan, program, feed, ready, scope)
+        else:
+            if ready is not None:
+                _consume_staged(feed, ready, torch.cuda.current_stream(
+                    self.device))
+            fetched = self._execute(plan, program, feed, scope)
+        out = ([as_numpy(v) for v in fetched] if return_numpy else
+               [v.clone() if isinstance(v, torch.Tensor) else v
+                for v in fetched])
         self.last_run_s = time.perf_counter() - t0
         return out
 
     def close(self):
         self._closed = True
         self._cache.clear()
+        self._sessions.clear()
 
     # ------------------------------------------------------------------
     def _compile(self, program: Program, feed, fetch_names, scope) -> _Plan:
         fuse, nhwc = self.fuse_enabled(), self.nhwc_enabled(program)
         feed_spec = tuple(sorted(
-            (k, tuple(np.shape(v)), str(getattr(v, "dtype", None)))
-            for k, v in feed.items()))
+            (k, tuple(np.shape(v)), _dtype_key(v)) for k, v in feed.items()))
         key = (program._uid, program._version, feed_spec,
                tuple(fetch_names), fuse, nhwc)
         plan = self._cache.get(key)
@@ -219,7 +310,7 @@ class Executor:
         ops = list(block.ops)
         state_in, state_out = analyze_state(ops, block, feed, scope)
         keep = set(state_in) | set(state_out) | set(fetch_names)
-        plan = _Plan(rewritten, ops, state_in, state_out,
+        plan = _Plan(key, rewritten, ops, state_in, state_out,
                      build_feed_plan(block, feed), list(fetch_names),
                      _free_schedule(ops, keep), fuse)
         self._cache[key] = plan
@@ -280,8 +371,11 @@ class Executor:
             scope.set(name, val)
         return val
 
-    def _execute(self, plan: _Plan, program: Program, feed, scope: Scope,
-                 return_numpy: bool):
+
+    # -- the eager path --------------------------------------------------
+    def _execute(self, plan: _Plan, program: Program, feed, scope: Scope):
+        """One step op by op (the CPU's path, and the card's with the
+        session off): the fetched values."""
         dev = self.device
         env: Dict[str, Any] = {}
         for k, v in feed.items():
@@ -289,13 +383,32 @@ class Executor:
             t = (v if isinstance(v, torch.Tensor)
                  else torch.from_numpy(np.ascontiguousarray(v)))
             env[k] = t.to(device=dev, dtype=want or t.dtype)
+        return self._run_ops(plan, program, env, scope)
+
+    def _run_ops(self, plan: _Plan, program: Program, env, scope: Scope,
+                 capturing: bool = False):
+        """Bind the state, run the op list over ``env`` and write the
+        state back into the scope: in place where the scope's tensor
+        takes the value (same shape, dtype and device), else by a
+        ``scope.set``, which a capture may not do.  Returns the fetched
+        values."""
         for n in plan.state_in:
             env[n] = self._state_value(scope, n)
         block = plan.program.global_block()
         gen = self._generator(program)
+        dev = self.device
         with torch.no_grad():
             for op_, dead in zip(plan.ops, plan.free_after):
-                if self.trace_ops:
+                if capturing:
+                    try:
+                        registry.run_op(op_, env, block, gen, dev)
+                    except Exception as e:
+                        raise StepCaptureError(
+                            f"op {op_.type!r} cannot run inside a CUDA graph "
+                            f"capture ({type(e).__name__}: {e}); "
+                            f"FLAGS_cuda_step_session=0 runs the step op by "
+                            f"op") from e
+                elif self.trace_ops:
                     with torch.profiler.record_function("op:" + op_.type):
                         registry.run_op(op_, env, block, gen, dev)
                 else:
@@ -310,10 +423,200 @@ class Executor:
                         and cur.shape == val.shape and cur.dtype == val.dtype
                         and cur.device == val.device):
                     cur.copy_(val)
-                else:
+                elif capturing and cur is not val:
+                    raise StepCaptureError(
+                        f"state var {n!r} would be rebound in the scope "
+                        f"inside a CUDA graph capture")
+                elif cur is not val:
                     scope.set(n, val)
-        fetched = [env[n] for n in plan.fetch_names]
-        if return_numpy:
-            return [as_numpy(v) for v in fetched]
-        return [v.clone() if isinstance(v, torch.Tensor) else v
-                for v in fetched]
+        return [env[n] for n in plan.fetch_names]
+
+    # -- the compiled step -----------------------------------------------
+    def _run_session(self, plan: _Plan, program: Program, feed, ready,
+                     scope: Scope):
+        """One step through the (plan, scope) pair's step session: an
+        eager warm-up on the capture stream when the scope was written
+        since the last one (or none ran yet), else a capture of the step
+        when there is no valid graph, then a replay.  Returns the fetched
+        tensors (the graph's own on a replay)."""
+        if self.trace_ops:
+            raise ValueError("Executor.trace_ops needs the eager path: set "
+                             "FLAGS_cuda_step_session=0 to trace op ranges")
+        if self._graphs is None:
+            self._graphs = GraphSet(self.device)
+        graphs = self._graphs
+        key = (plan.key, id(scope))
+        sess = self._sessions.get(key)
+        if sess is None or sess.scope_ref() is not scope:
+            sess = self._sessions[key] = _StepSession(
+                scope, _forget_session(self._sessions, key))
+        with graphs.on_stream():
+            if ready is not None:
+                _consume_staged(feed, ready, graphs.stream)
+            env = self._load_feeds(sess, plan, feed)
+            stamp = Scope.mutation_counter
+            if sess.graph is not None and sess.stamp != stamp:
+                # a scope write since the capture: the bound state may
+                # no longer be the scope's (JAX :979-996)
+                sess.drop_graph()
+                self.session_invalidations += 1
+            if sess.graph is None and sess.warm_stamp != stamp:
+                fetched = self._run_ops(plan, program, env, scope)
+                sess.warm_stamp = Scope.mutation_counter
+                return fetched
+            if sess.graph is None:
+                self._capture(sess, plan, program, env, scope)
+            sess.graph.replay()
+            return sess.fetches
+
+    def _load_feeds(self, sess: _StepSession, plan: _Plan, feed):
+        """Copy this run's feeds into the session's static device buffers
+        (of the signature's shapes and the program's dtypes), on the
+        current stream: a device tensor directly, a host value cast into
+        a pinned buffer first (cast on the host, as the eager path's
+        ``.to`` does) and copied without blocking."""
+        for k, v in feed.items():
+            want = plan.feed_plan.get(k)
+            t = (v if isinstance(v, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(v)))
+            dt = want or t.dtype
+            buf = sess.feeds.get(k)
+            if buf is None:
+                buf = sess.feeds[k] = torch.empty(
+                    t.shape, dtype=dt, device=self.device)
+            if t.device.type == "cuda":
+                buf.copy_(t)
+                continue
+            slot = sess.staging.get(k)
+            if slot is None:
+                slot = sess.staging[k] = [
+                    torch.empty(t.shape, dtype=dt, pin_memory=True), None]
+            host, done = slot
+            if done is not None:
+                done.synchronize()      # the last copy out of it is over
+            host.copy_(t)
+            buf.copy_(host, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record()
+        return dict(sess.feeds)
+
+    def _capture(self, sess: _StepSession, plan: _Plan, program: Program,
+                 env, scope: Scope):
+        """Record the op list over the session's static feeds and the
+        scope's state tensors into a CUDA graph (nothing runs), with the
+        program's generator registered."""
+        stamp = Scope.mutation_counter
+        state = {n: self._state_value(scope, n) for n in plan.state_in}
+        if Scope.mutation_counter != stamp:
+            raise StepCaptureError("the scope was written while binding "
+                                   "the step's state for a capture")
+        env.update(state)
+        outs = [scope.get(n) for n in plan.state_out]
+        graph, fetched = self._graphs.capture(
+            lambda: self._run_ops(plan, program, env, scope, capturing=True),
+            generators=[self._generator(program)])
+        sess.graph, sess.fetches = graph, fetched
+        sess.bound = list(state.values()) + outs
+        sess.stamp = Scope.mutation_counter
+
+
+def _forget_session(sessions: Dict[tuple, _StepSession], key: tuple):
+    """The callback of a session's scope reference: when the scope dies,
+    its session (graph, feed buffers, bound state) leaves ``sessions``."""
+    def forget(ref):
+        sess = sessions.get(key)
+        if sess is not None and sess.scope_ref is ref:
+            del sessions[key]
+    return forget
+
+
+def _consume_staged(feed, ready, stream) -> None:
+    """``stream`` waits for a :class:`StagedFeed`'s copies, and the
+    staged tensors are marked as used on it (the caching allocator then
+    keeps their memory until that stream's work is done)."""
+    stream.wait_event(ready)
+    for v in feed.values():
+        if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+            v.record_stream(stream)
+
+
+# ==========================================================================
+# Feed staging (JAX :149-222)
+# ==========================================================================
+class StagedFeed(dict):
+    """A feed dict whose values already sit on the executor's device in
+    the program's dtypes (:meth:`FeedStager.stage`).  On the card,
+    ``ready`` is the CUDA event that ends their copies: ``Executor.run``
+    makes the step wait on it.  None on the CPU."""
+
+    ready = None
+
+
+class FeedStager:
+    """Feed staging for the step loop: each value is cast to its feed
+    var's dtype (``build_feed_plan``, the executor's rules) and put on
+    ``place``.  On the card a host value is cast into pinned host memory
+    and copied without blocking on a stream of the stager's own, which
+    an event closes; the staged values are the stager's own memory, so a
+    data loader may reuse its host buffers at once."""
+
+    def __init__(self, program: Program, feed_names: Iterable[str],
+                 place=None):
+        self.plan = build_feed_plan(program.global_block(), list(feed_names))
+        self.device = resolve_place(place)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    def stage(self, feed: Dict[str, Any]) -> StagedFeed:
+        out = StagedFeed()
+        if self._stream is None:
+            for k, v in feed.items():
+                t = (v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.ascontiguousarray(v)))
+                out[k] = t.to(device=self.device,
+                              dtype=self.plan.get(k) or t.dtype, copy=True)
+            return out
+        # a device value may still be in the making on the caller's stream
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            for k, v in feed.items():
+                want = self.plan.get(k)
+                if isinstance(v, torch.Tensor) and v.device == self.device:
+                    out[k] = v.to(dtype=want or v.dtype, copy=True)
+                    continue
+                t = (v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.ascontiguousarray(v)))
+                host = torch.empty(t.shape, dtype=want or t.dtype,
+                                   pin_memory=True)
+                host.copy_(t)
+                out[k] = host.to(self.device, non_blocking=True)
+            out.ready = torch.cuda.Event()
+            out.ready.record(self._stream)
+        return out
+
+
+def double_buffered_feeds(feeds: Iterable[Dict[str, Any]],
+                          stager: FeedStager) -> Iterator[StagedFeed]:
+    """Staged feed dicts, batch k+1 staged on a background thread while
+    the caller runs step k (JAX ``double_buffered_feeds``).
+    ``FLAGS_cuda_double_buffer=0`` stages each batch on the caller's
+    thread when it is asked for: the same values, no overlap.  A staging
+    error surfaces on the caller's thread at its batch."""
+    it = iter(feeds)
+    if not flag_bool("FLAGS_cuda_double_buffer"):
+        for f in it:
+            yield stager.stage(f)
+        return
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="feed-stage")
+    try:
+        fut = None
+        for f in it:
+            nxt = pool.submit(stager.stage, f)
+            if fut is not None:
+                yield fut.result()      # batch k out while k+1 stages
+            fut = nxt
+        if fut is not None:
+            yield fut.result()
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)

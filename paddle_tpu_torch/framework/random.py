@@ -11,7 +11,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["default_generator"]
+__all__ = ["default_generator", "seeded_generator"]
 
 _GENERATORS: Dict[torch.device, torch.Generator] = {}
 
@@ -24,4 +24,18 @@ def default_generator(device) -> torch.Generator:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         _GENERATORS[dev] = gen
+    return gen
+
+
+def seeded_generator(device, seed: int) -> torch.Generator:
+    """A new generator of ``device`` seeded with ``seed``: a random op with
+    a fixed seed draws the same numbers on every run.  Raises inside a
+    CUDA graph capture, whose replays could not re-seed it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"a random op with a fixed seed ({seed}) re-seeds a generator "
+            f"of its own on every run, which a CUDA graph cannot replay")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
     return gen

@@ -5,6 +5,14 @@ A slot holds a torch tensor on the executor's device (or any Python
 value).  The executor updates parameters, optimizer state and BatchNorm
 statistics in place, so a tensor taken from the scope keeps tracking
 its variable across steps; copy it to keep a snapshot.
+
+:attr:`Scope.mutation_counter` is a process-wide write stamp (JAX
+``Scope.mutation_counter``): creating a name, every ``set`` (through a
+slot too) and every ``erase`` bump it.  The executor's step session
+(``executor.py``) records it when it captures a step and captures again
+once it has moved.  The executor's own in-place writeback
+(``cur.copy_(val)``) writes no slot and leaves it alone; its
+replacement writeback is a ``set`` and bumps it.
 """
 from __future__ import annotations
 
@@ -21,6 +29,10 @@ __all__ = ["Scope", "global_scope", "scope_guard", "load_numpy_state",
 
 
 class Scope:
+    #: process-wide write stamp: every slot write of ANY scope bumps it
+    #: (process-wide, because ``set`` writes through the parent chain)
+    mutation_counter: int = 0
+
     def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, Any] = {}
         self._parent = parent
@@ -29,6 +41,7 @@ class Scope:
     def var(self, name: str) -> "_ScopeSlot":
         if name not in self._vars:
             self._vars[name] = None
+            Scope.mutation_counter += 1
         return _ScopeSlot(self, name)
 
     def find_var(self, name: str) -> Optional["_ScopeSlot"]:
@@ -69,6 +82,7 @@ class Scope:
     def set(self, name: str, value):
         """Bind ``name`` where it already lives (parent chain), else
         locally."""
+        Scope.mutation_counter += 1
         s = self
         while s is not None:
             if name in s._vars:
@@ -78,6 +92,7 @@ class Scope:
         self._vars[name] = value
 
     def erase(self, names):
+        Scope.mutation_counter += 1
         for n in names:
             self._vars.pop(n, None)
 

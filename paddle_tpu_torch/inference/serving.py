@@ -25,6 +25,16 @@ Counterpart of ``paddle_tpu/inference/serving.py``: greedy decoding,
   its own pages at its true length: the hand-written CUDA kernel of the
   pool's dtype on the card, their plain PyTorch version for CPU
   tensors.
+* **The captured decode step** (``FLAGS_cuda_step_session``, ``auto``:
+  on for a CUDA engine; JAX jits the decode form once per bucket) — a
+  bucket's first decode step runs eagerly on the engine's capture
+  stream, its second records the decode form and the greedy argmax into
+  a CUDA graph, and from then on a step copies the bucket's inputs from
+  pinned host memory in one copy, replays, and reads the tokens back in
+  one small copy.  The KV write has static shapes
+  (``ops/paged_ops.write_plan``), so the pools update inside the graph.
+  The prefix cache's forks run eagerly ahead of the replay; prefill and
+  chunked prefill run eagerly.
 
 The JAX package builds its decoder as Programs run by its Executor.
 Here the forms (``reference``, ``prefill``, ``decode``, ``chunk``) are
@@ -46,12 +56,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..framework.cuda_graph import GraphSet, StepCaptureError
 from ..framework.place import resolve_device
 from ..ops.decoder_ops import (attention_reference, layer_norm,
                                lookup_table_v2, matmul)
-from ..ops.paged_ops import (kv_dequant, live_slots, paged_attention,
-                             quant_plan, scatter_rows)
-from ..utils.flags import get_flag
+from ..ops.paged_ops import (kv_dequant, paged_attention, scatter_rows,
+                             write_plan)
+from ..utils.flags import cuda_step_session_enabled, get_flag
 from .admission import RequestRejected, get_policy
 from .kv_cache import KV_DTYPES, KVCacheConfig, PagedKVCache
 
@@ -217,19 +228,22 @@ class DecoderLM(nn.Module):
     def _last(self, hid, last_index):
         return self._head(hid.reshape(-1, self.cfg.hidden)[last_index.long()])
 
-    def _writer(self, slot_mapping, kv_pools, kv_scales):
+    def _writer(self, slot_mapping, kv_pools, kv_scales, touched=None):
         """``write(i, k, v)``: layer i's K/V rows into its pools at the
-        step's live slots (the sentinel filtered, and int8's page plan
-        computed, once for all layers)."""
-        live = live_slots(slot_mapping, _pad_slot(kv_pools))
-        plan = None if kv_scales is None else \
-            quant_plan(live[1], kv_pools[0][0].shape[2])
+        step's slots (the static-shape write plan, the pad sentinel's rows
+        dropped, made once for all layers; row 0 is always live: every
+        form writes at least one token, padding comes after).
+        ``touched``: int8 only, the pages the slots fall in (prefill and
+        chunk forms: :func:`touched_pages`), requantized once each."""
+        plan = write_plan(slot_mapping, _pad_slot(kv_pools),
+                          kv_pools[0][0].shape[2], kv_scales is not None,
+                          live_row=0, touched=touched)
         H, D = self.cfg.num_heads, self.cfg.head_dim
 
         def write(i, k, v):
             scatter_rows(*kv_pools[i], k.reshape(-1, H, D),
-                         v.reshape(-1, H, D), live,
-                         None if kv_scales is None else kv_scales[i], plan)
+                         v.reshape(-1, H, D), plan,
+                         None if kv_scales is None else kv_scales[i])
         return write
 
     def _dense(self, tokens, positions, attn_mask, last_index, write=None):
@@ -253,12 +267,13 @@ class DecoderLM(nn.Module):
         return self._dense(tokens, positions, attn_mask, last_index)
 
     def prefill(self, tokens, positions, attn_mask, last_index,
-                slot_mapping, kv_pools, kv_scales=None):
+                slot_mapping, kv_pools, kv_scales=None, touched=None):
         return self._dense(tokens, positions, attn_mask, last_index,
-                           self._writer(slot_mapping, kv_pools, kv_scales))
+                           self._writer(slot_mapping, kv_pools, kv_scales,
+                                        touched))
 
     def chunk(self, tokens, positions, attn_mask, last_index, slot_mapping,
-              chunk_tables, kv_pools, kv_scales=None):
+              chunk_tables, kv_pools, kv_scales=None, touched=None):
         """JAX ``build_decoder_program(mode="chunk")``: the slice's K/V
         enter the pool first; then it attends over the pool window its
         block table ``chunk_tables`` ``(W,)`` gathers, widened to f32
@@ -268,7 +283,7 @@ class DecoderLM(nn.Module):
         positions are read back from the pool after quantization."""
         cfg = self.cfg
         H, D, h = cfg.num_heads, cfg.head_dim, cfg.hidden
-        write = self._writer(slot_mapping, kv_pools, kv_scales)
+        write = self._writer(slot_mapping, kv_pools, kv_scales, touched)
         tables = chunk_tables.long()
         hid = self._embed(tokens, positions)                  # (1, S, h)
         for i in range(cfg.num_layers):
@@ -301,6 +316,18 @@ class DecoderLM(nn.Module):
                                   *scales)
             hid = self._out_mlp(i, hid, att.reshape(-1, h))
         return self._head(hid)
+
+
+def touched_pages(slots, S: int, page_size: int) -> np.ndarray:
+    """The pages that a slice's ``slots`` (one sequence's, in token order)
+    fall in, as an int32 array of one length per bucket length ``S``
+    (``ceil(S / page_size) + 1``: the most pages S consecutive tokens can
+    touch), padded with the first page: the int8 write requantizes each
+    listed page once, and a repeat keeps its bits."""
+    pages = np.unique(np.asarray(slots, np.int64) // page_size)
+    out = np.full(-(-S // page_size) + 1, pages[0], np.int32)
+    out[:pages.size] = pages
+    return out
 
 
 def _greedy(logits: torch.Tensor) -> List[int]:
@@ -402,6 +429,36 @@ class _PrefillJob:
     first_token: Optional[int] = None
 
 
+class _DecodeBucket:
+    """One (batch, table width) bucket's decode step on the card: its
+    inputs as one int32 block on the device and its pinned host twin
+    (tokens, positions, context lengths, slots, then the block table),
+    the greedy tokens on the device and their pinned host copy, the
+    event that copy ends with, and from the bucket's second step on its
+    CUDA graph."""
+
+    __slots__ = ("batch", "width", "host", "dev", "out", "host_out", "done",
+                 "graph", "warm")
+
+    def __init__(self, batch: int, width: int, device: torch.device):
+        n = batch * (4 + width)
+        self.batch, self.width = batch, width
+        self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        self.dev = torch.empty(n, dtype=torch.int32, device=device)
+        self.host_out = torch.empty(batch, dtype=torch.int64,
+                                    pin_memory=True)
+        self.done = torch.cuda.Event()
+        self.out = self.graph = None
+        self.warm = False
+
+    def split(self, t: torch.Tensor):
+        """``(tokens, positions, context_lens, slot_mapping, tables)``
+        views of a block laid out as :attr:`host`."""
+        b = self.batch
+        return (t[:b], t[b:2 * b], t[2 * b:3 * b], t[3 * b:4 * b],
+                t[4 * b:].reshape(b, self.width))
+
+
 class _EngineCore:
     """The model, its KV pools and the allocator: one decoder on one
     device.
@@ -459,6 +516,16 @@ class _EngineCore:
             for _ in range(cfg.num_layers)] \
             if self.kv_config.quantized else None
         self._masks: Dict[int, torch.Tensor] = {}
+        #: the captured decode steps, one per (batch, width) bucket (the
+        #: KV dtype is the engine's), sharing one capture stream and pool
+        self._buckets: Dict[Tuple[int, int], _DecodeBucket] = {}
+        self._graphs: Optional[GraphSet] = None
+
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs of the decode step captured so far (at most one
+        per bucket)."""
+        return self._graphs.captured if self._graphs is not None else 0
 
     @classmethod
     def from_model_dir(cls, model_dir: str, **kw) -> "_EngineCore":
@@ -467,6 +534,14 @@ class _EngineCore:
 
     def _t(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a)).to(self.device)
+
+    def _touched(self, slots, S: int) -> Optional[torch.Tensor]:
+        """int8 pools: the device list of the pages a prefill or chunk
+        slice of bucket length ``S`` writes (:func:`touched_pages`);
+        None for f32 and bf16 pools."""
+        if self.kv_scales is None:
+            return None
+        return self._t(touched_pages(slots, S, self.kv_config.page_size))
 
     def _mask(self, s: int) -> torch.Tensor:
         # memoized per bucket: prefill and the oracle re-feed the same
@@ -545,7 +620,8 @@ class _EngineCore:
             slot_map = np.full(S, self.kv_config.pad_slot, np.int32)
             slot_map[:L] = slots
             logits = self.model.prefill(*feed, self._t(slot_map),
-                                        self.kv_pools, self.kv_scales)
+                                        self.kv_pools, self.kv_scales,
+                                        self._touched(slots, S))
             tok = _greedy(logits)[0]
         else:
             tok = self._run_chunk(req, job.pos, chunk, slots)
@@ -581,7 +657,8 @@ class _EngineCore:
         logits = self.model.chunk(
             self._t(toks), self._t(posf), self._t(mask),
             self._t(np.array([n - 1], np.int32)), self._t(slot_map),
-            self._t(tables), self.kv_pools, self.kv_scales)
+            self._t(tables), self.kv_pools, self.kv_scales,
+            self._touched(slots, S))
         return _greedy(logits)[0]
 
     def abort_prefill(self, job: _PrefillJob):
@@ -631,10 +708,61 @@ class _EngineCore:
         tables = np.zeros((Bp, W), np.int32)
         for i, st in enumerate(states):
             tables[i] = self.kv.block_table(st.req.req_id, W)
+        if cuda_step_session_enabled(self.device):
+            return self._decode_captured(toks, pos, ctx, slot_map,
+                                         tables)[:B]
         logits = self.model.decode(
             self._t(toks), self._t(pos), self._t(tables), self._t(ctx),
             self._t(slot_map), self.kv_pools, self.kv_scales)
         return _greedy(logits)[:B]
+
+    def _decode_tokens(self, bucket: _DecodeBucket) -> torch.Tensor:
+        """The decode form and the greedy argmax over a bucket's device
+        inputs: the step a bucket's graph holds."""
+        toks, pos, ctx, slots, tables = bucket.split(bucket.dev)
+        logits = self.model.decode(toks, pos, tables, ctx, slots,
+                                   self.kv_pools, self.kv_scales)
+        return torch.argmax(logits, dim=-1)
+
+    def _decode_captured(self, toks, pos, ctx, slot_map, tables
+                         ) -> List[int]:
+        """One decode step through its bucket: the inputs in one copy
+        from pinned memory, then the bucket's first step eagerly on the
+        capture stream (the warm-up), its second captured and replayed,
+        later ones replayed; the tokens back in one small copy."""
+        Bp, W = tables.shape
+        bucket = self._buckets.get((Bp, W))
+        if bucket is None:
+            bucket = self._buckets[(Bp, W)] = _DecodeBucket(Bp, W,
+                                                            self.device)
+        for view, arr in zip(bucket.split(bucket.host.numpy()),
+                             (toks, pos, ctx, slot_map, tables)):
+            view[...] = arr
+        if self._graphs is None:
+            self._graphs = GraphSet(self.device)
+        graphs = self._graphs
+        with graphs.on_stream():
+            bucket.dev.copy_(bucket.host, non_blocking=True)
+            if not bucket.warm:
+                bucket.out = self._decode_tokens(bucket)
+                bucket.warm = True
+            else:
+                if bucket.graph is None:
+                    try:
+                        bucket.graph, bucket.out = graphs.capture(
+                            lambda: self._decode_tokens(bucket))
+                    except Exception as e:
+                        raise StepCaptureError(
+                            f"the decode step (batch {Bp}, table width {W}, "
+                            f"{self.kv_dtype} pools) cannot be captured in a "
+                            f"CUDA graph ({type(e).__name__}: {e}); "
+                            f"FLAGS_cuda_step_session=0 runs it eagerly"
+                        ) from e
+                bucket.graph.replay()
+            bucket.host_out.copy_(bucket.out, non_blocking=True)
+            bucket.done.record()
+        bucket.done.synchronize()
+        return bucket.host_out.tolist()
 
     def reference_logits(self, seq: Sequence[int]) -> torch.Tensor:
         """Next-token logits ``(vocab,)`` of the reference form after
@@ -749,6 +877,11 @@ class ServingEngine:
                       "shed": 0, "decode_steps": 0, "prefill_tokens": 0,
                       "decode_tokens": 0, "prefill_hit_tokens": 0,
                       "prefill_chunks": 0, "max_prefill_step_tokens": 0}
+
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs of the decode step captured so far."""
+        return self.core.graphs_captured
 
     # -- API ---------------------------------------------------------------
     def submit(self, req: Request):

@@ -19,11 +19,14 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
-from typing import Dict, Iterable, List, Optional
+from collections import Counter
+from contextlib import contextmanager
+from typing import Dict, Iterable, Iterator, List, Optional
 
 __all__ = ["CudaKernel", "KernelFunction", "build_all", "nvcc_path",
-           "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS"]
+           "recorded_launches", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS"]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -156,11 +159,30 @@ class CudaKernel:
         return self._lib
 
 
+_RECORDING = threading.local()
+
+
+@contextmanager
+def recorded_launches() -> Iterator[Counter]:
+    """Inside the block, a :class:`KernelFunction` called on this thread
+    is recorded, not launched (a CUDA graph capture): it adds one to the
+    yielded ``Counter`` under itself instead of to its ``launches``.
+    Whoever replays the recording adds the counter to the kernels'
+    counts at each replay, where the kernels run."""
+    prev = getattr(_RECORDING, "tally", None)
+    _RECORDING.tally = tally = Counter()
+    try:
+        yield tally
+    finally:
+        _RECORDING.tally = prev
+
+
 class KernelFunction:
     """One ``__global__`` kernel of a :class:`CudaKernel` library: its C
     entry point and its own launch count.  Calling it
     loads the library, runs the entry point, raises if the launch's
-    ``cudaError_t`` is not 0, and only then adds one to ``launches``."""
+    ``cudaError_t`` is not 0, and only then adds one to ``launches``
+    (or, inside :func:`recorded_launches`, to the recording's count)."""
 
     def __init__(self, library: CudaKernel, symbol: str, name: str):
         if symbol not in library.functions:
@@ -175,7 +197,11 @@ class KernelFunction:
         if err != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with "
                                f"cudaError_t {err}")
-        self.launches += 1
+        tally = getattr(_RECORDING, "tally", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self] += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> None:

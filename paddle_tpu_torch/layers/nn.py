@@ -2,7 +2,8 @@
 ``paddle_tpu/layers/nn.py``: ``fc`` :22, ``embedding`` :60, ``conv2d``
 :93, ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
 ``sigmoid`` :409-410, ``elementwise_add`` :522, ``elementwise_mul`` :524,
-``mean`` :558, ``scale`` :565, ``softmax_with_cross_entropy`` :614,
+``dropout`` :356, ``mean`` :558, ``scale`` :565,
+``softmax_with_cross_entropy`` :614,
 ``reshape`` :718, ``topk`` :870, ``cast`` :955, ``concat`` :964,
 ``accuracy`` :980).  Each builds vars and ops through
 ``LayerHelper`` with the JAX package's op types, slots and attrs, so both
@@ -19,7 +20,7 @@ from ..param_attr import ParamAttr
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
            "relu", "sigmoid", "elementwise_add", "elementwise_mul", "mean",
            "scale", "softmax_with_cross_entropy", "reshape", "topk", "cast",
-           "concat", "accuracy"]
+           "concat", "accuracy", "dropout"]
 
 
 def _single(x, n=2):
@@ -173,6 +174,20 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                "data_layout": data_layout,
                "use_global_stats": use_global_stats})
     return helper.append_activation(y, act)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        "dropout", inputs={"X": [x]}, outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "fix_seed": seed is not None, "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
+    return out
 
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):

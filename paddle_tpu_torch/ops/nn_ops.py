@@ -32,7 +32,8 @@ The static path's op lowerings (registered in :mod:`.registry`) follow
 below: ``conv2d`` (``conv_forward`` :45, ``_conv_lower`` :81), ``pool2d``
 (:161), ``batch_norm`` (``bn_shapes`` :296, ``bn_train_stats`` :310,
 :341, its grad maker :374), ``softmax_with_cross_entropy`` (:471, its
-closed-form grad :509), ``accuracy`` (:858), ``softmax`` (:460) and
+closed-form grad :509), ``accuracy`` (:858), ``dropout`` (:784, its
+mask-reading grad :813-850), ``softmax`` (:460) and
 ``lookup_table`` (:692-708: ids with a trailing unit axis squeezed, the
 dense gradient of the default grad maker; ``is_sparse`` raises, its
 SelectedRows gradient is not ported).  conv2d, pool2d and
@@ -48,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX
+from ..framework.random import default_generator, seeded_generator
 from .registry import default_grad_maker, grad_maker, op
 
 __all__ = ["lookup_table_v2", "activation", "layer_norm_lowp", "unsqueeze2",
@@ -207,15 +209,20 @@ def dropout(x: torch.Tensor, p: float, is_test: bool = False,
     if p == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return _dropout_apply(x, keep, p, implementation)
+
+
+def _dropout_apply(x: torch.Tensor, keep: torch.Tensor, p: float,
+                   implementation: str) -> torch.Tensor:
+    """Training dropout of ``x`` under the boolean ``keep`` mask."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if implementation == "upscale_in_train":
         scale = 0.0 if p >= 1.0 else 1.0 / (1.0 - p)
         if x.dtype != torch.float32:
             # the factor in x's dtype, as JAX's jnp.asarray(scale, x.dtype)
             scale = torch.full((), scale, dtype=x.dtype, device=x.device)
-        return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
-                                            device=x.device))
+        return torch.where(keep, x * scale, zero)
+    return torch.where(keep, x, zero)
 
 
 class _SoftmaxCE(torch.autograd.Function):
@@ -703,10 +710,64 @@ def _accuracy(ctx):
         label = label[:, None]
     correct = (indices == label.to(indices.dtype)).any(dim=-1)
     num_correct = correct.float().sum()
-    total = torch.tensor(float(indices.shape[0]), device=indices.device)
+    # a fill, not a host tensor copied over: capturable in a CUDA graph
+    total = torch.full((), float(indices.shape[0]), device=indices.device)
     ctx.set_out("Accuracy", (num_correct / total).float())
     ctx.set_out("Correct", num_correct.int())
     ctx.set_out("Total", total.long())
+
+
+# -- dropout (reference: dropout_op.cc; JAX ops/nn_ops.py:784-850) ------------
+@op("dropout")
+def _dropout_op(ctx):
+    """The static ``dropout``: ``Out`` as :func:`dropout`, and ``Mask``
+    the uint8 keep mask (ones in x's dtype when ``is_test``), which
+    ``dropout_grad`` reads; the mask is drawn from the executor's
+    generator, or from one seeded with ``seed`` when ``fix_seed``."""
+    x = ctx.in_("X")
+    p = float(ctx.attr("dropout_prob", 0.5))
+    impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
+    if ctx.attr("is_test", False):
+        ctx.set_out("Out", dropout(x, p, True, impl))
+        if ctx.has_output("Mask"):
+            ctx.set_out("Mask", torch.ones_like(x))
+        return
+    if x.device.type == "meta":
+        keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    else:
+        gen = (seeded_generator(x.device, ctx.attr("seed", 0))
+               if ctx.attr("fix_seed", False) else
+               ctx.rng() or default_generator(x.device))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    ctx.set_out("Out", _dropout_apply(x, keep, p, impl))
+    ctx.set_out("Mask", keep.to(torch.uint8))
+
+
+@grad_maker("dropout")
+def _dropout_grad_maker(op_, no_grad_names=frozenset()):
+    return [dict(
+        type="dropout_grad",
+        inputs={"Mask": op_.output("Mask"),
+                "Out" + GRAD_SUFFIX: [n + GRAD_SUFFIX
+                                      for n in op_.output("Out")]},
+        outputs={"X" + GRAD_SUFFIX: [
+            (n + GRAD_SUFFIX) if n not in no_grad_names else EMPTY_VAR_NAME
+            for n in op_.input("X")]},
+        attrs=dict(op_.attrs))]
+
+
+@op("dropout_grad", no_grad=True)
+def _dropout_grad(ctx):
+    """``dOut`` under the forward's mask (and its upscale); at test the
+    forward's identity or ``* (1 - p)``."""
+    dout = ctx.in_("Out" + GRAD_SUFFIX)
+    p = float(ctx.attr("dropout_prob", 0.5))
+    impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
+    if ctx.attr("is_test", False):
+        ctx.set_out("X" + GRAD_SUFFIX, dropout(dout, p, True, impl))
+        return
+    keep = ctx.in_("Mask") > 0
+    ctx.set_out("X" + GRAD_SUFFIX, _dropout_apply(dout, keep, p, impl))
 
 
 # -- softmax and the embedding lookup -----------------------------------------

@@ -141,6 +141,9 @@ def split_plan(q, k_pages, block_tables) -> tuple:
 #: {(device index, stream): int32 tickets}, zeroed once; each launch
 #: leaves its tickets zero again
 _TICKETS = {}
+#: buffers a longer one replaced: kept, since a CUDA graph captured
+#: earlier may still launch with them
+_RETIRED = []
 
 
 def _tickets(dev, stream: int, count: int):
@@ -156,6 +159,8 @@ def _tickets(dev, stream: int, count: int):
                 "paged_decode: no ticket buffer for this stream yet; run the "
                 "decode once on the capture stream before capturing it in "
                 "a CUDA graph")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(count, 4096), dtype=torch.int32, device=dev)
         _TICKETS[key] = buf
     return buf

@@ -21,7 +21,7 @@ import math
 import torch
 
 from ..framework.dtype import VarType, convert_dtype, to_torch_dtype
-from ..framework.random import default_generator
+from ..framework.random import default_generator, seeded_generator
 from .registry import infer_for, op
 
 __all__ = []
@@ -63,11 +63,8 @@ def _random_f32(ctx, draw) -> torch.Tensor:
     if dev.type == "meta":
         return out
     seed = ctx.attr("seed", 0)
-    if seed:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-    else:
-        gen = ctx.rng() or default_generator(dev)
+    gen = (seeded_generator(dev, seed) if seed else
+           ctx.rng() or default_generator(dev))
     draw(out, gen)
     return out
 

@@ -14,7 +14,10 @@ line holding:
   kernels do not overlap) and the idle share of the unprofiled step;
 - the kernels launched per step;
 - the kernels that take the most device time, with the paged-decode
-  kernel's share.
+  kernel's share;
+- under ``step_session``, the wall and busy ms per step and the idle
+  share with the compiled step off and on, in turns (the lines above are
+  the decode step's op-by-op form, ``FLAGS_cuda_step_session=0``).
 
 Run from the root of a checkout on a machine with an NVIDIA GPU:
 
@@ -29,11 +32,9 @@ import time
 import numpy as np
 import torch
 
-
-def _self_device_us(evt) -> float:
-    # the attribute was renamed from self_cuda_time_total
-    t = getattr(evt, "self_device_time_total", None)
-    return float(t if t is not None else evt.self_cuda_time_total)
+from paddle_tpu_torch.tools.step_timing import (
+    self_device_us as _self_device_us, session_turns)
+from paddle_tpu_torch.utils.flags import set_flags
 
 
 def main():
@@ -66,7 +67,8 @@ def main():
     for i, n in enumerate(rng.randint(32, 513, size=8)):
         eng.submit(Request(i, rng.randint(0, cfg.vocab_size,
                                           size=int(n)).tolist(),
-                           max_new_tokens=2 * args.steps + 8))
+                           max_new_tokens=10 * args.steps + 16))
+    set_flags({"FLAGS_cuda_step_session": "0"})   # the op-by-op form
     while eng.waiting or eng._prefill_job is not None:
         eng.step()               # admit (prefill) every request
     for _ in range(3):           # warm decode steps
@@ -97,6 +99,10 @@ def main():
         raise SystemExit("profile_decode: the trace holds no device time "
                          "(device time not measured)")
     steps = args.steps
+    turns = session_turns(eng.step, steps)
+    if len(eng.running) != 8:
+        raise SystemExit("profile_decode: a request finished before the "
+                         "last turn; raise max_new_tokens")
     top = sorted(kernels, key=_self_device_us, reverse=True)[:12]
     paged_us = sum(_self_device_us(e) for e in kernels
                    if "paged_decode" in e.key)
@@ -115,7 +121,9 @@ def main():
         "top_kernels": [{"name": e.key[:90],
                          "ms_per_step": _self_device_us(e) / steps / 1e3,
                          "calls_per_step": e.count / steps}
-                        for e in top]}))
+                        for e in top],
+        "step_session": turns,
+        "graphs_captured": eng.graphs_captured}))
 
 
 if __name__ == "__main__":

@@ -31,11 +31,13 @@ On the card the fusion flag is ``auto``: every fc -> bias -> act chain
 (LeNet's two relu layers, word2vec's sigmoid layer) runs as
 ``fused_matmul_bias_act``, whose epilogue is the hand-written kernel 9 of
 the operands' dtype.
-``--profile N`` runs N more steps, traces N more with ``torch.profiler``
-and prints one JSON line: wall and device-busy ms per step, the idle
-share, kernel 9's, cuBLAS's GEMMs', cuDNN's convolutions' and the other
-kernels' ms per step, and the kernels that take the most device time (a
-GPU is needed); in float16 one more line gives the steps that found an
+``--profile N`` runs N more steps op by op, traces N more with
+``torch.profiler`` and prints one JSON line: wall and device-busy ms per
+step, the idle share, kernel 9's, cuBLAS's GEMMs', cuDNN's convolutions'
+and the other kernels' ms per step, and the kernels that take the most
+device time, all with ``FLAGS_cuda_step_session=0``; under
+``step_session`` the wall and busy ms per step and the idle share with
+the compiled step off and on, in turns (a GPU is needed); in float16 one more line gives the steps that found an
 Inf and the scale after each step of the run.
 """
 from __future__ import annotations

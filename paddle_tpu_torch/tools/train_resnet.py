@@ -31,13 +31,16 @@ matrix products on the card.  ``--tiny`` is ResNet-18 at batch 4,
 the f32 one stays NCHW, where cuDNN's f32 convolutions are faster) and
 every conv -> BN (-> add) -> relu chain runs as ``fused_conv_bn_act``,
 whose epilogue is the hand-written ``bn_act`` kernels of the activations'
-dtype.  ``--profile N`` runs N more steps, traces N more with
+dtype.  ``--profile N`` runs N more steps op by op, traces N more with
 ``torch.profiler`` and prints one JSON line: wall and device-busy ms per
 step, the idle share, the device ms per step of the convolutions, the
 two epilogue kernels, the BN reductions, the copy kernels (casts and
 layout transposes) and everything else, each program op type's span on
 the device timeline per step, and the kernels that take the most device
-time (a GPU is needed); in float16 one more line gives the steps that
+time, all with ``FLAGS_cuda_step_session=0`` (the per-op ranges need the
+eager path); under ``step_session`` the wall and busy ms per step and
+the idle share with the compiled step off and on, in turns (a GPU is
+needed); in float16 one more line gives the steps that
 found an Inf and the scale after each step of the run.
 """
 from __future__ import annotations
@@ -54,6 +57,9 @@ from ..framework import unique_name
 from ..framework.place import resolve_device
 from ..framework.scope import Scope
 from ..models.resnet import build_resnet
+from ..utils.flags import get_flag, set_flags
+from .step_timing import self_device_us as _self_device_us
+from .step_timing import session_turns
 
 __all__ = ["AMP_DTYPES", "build_program", "make_batch", "train",
            "loss_scaling_state", "print_loss_scaling", "profile_steps",
@@ -166,12 +172,6 @@ def train(depth=50, batch=128, image=224, classes=1000, steps=100, lr=0.1,
     return run
 
 
-def _self_device_us(evt) -> float:
-    # the attribute was renamed from self_cuda_time_total
-    t = getattr(evt, "self_device_time_total", None)
-    return float(t if t is not None else evt.self_cuda_time_total)
-
-
 def _is_conv(name: str) -> bool:
     n = name.lower()
     return any(k in n for k in ("conv", "wgrad", "dgrad", "fprop", "implicit",
@@ -197,13 +197,17 @@ RESNET_GROUPS = {
 
 
 def profile_steps(run: dict, steps: int, groups=None) -> dict:
-    """Run ``steps`` warm steps of a :func:`train` result, then trace as
-    many again with ``torch.profiler``: host wall ms per step without and
-    under the profiler, device busy ms per step (one stream: kernels do
-    not overlap), the idle share of the unprofiled step, device ms per
-    step of each of ``groups``' kernels (default: the convolutions,
-    cuDNN's kernels by name, the classifier's two small GEMMs falling in
-    too, and the two epilogue kernels) and of everything else."""
+    """Run ``steps`` warm steps of a :func:`train` result op by op
+    (``FLAGS_cuda_step_session=0``: the per-op ranges need the eager
+    path), then trace as many again with ``torch.profiler``: host wall ms
+    per step without and under the profiler, device busy ms per step (one
+    stream: kernels do not overlap), the idle share of the unprofiled
+    step, device ms per step of each of ``groups``' kernels (default: the
+    convolutions, cuDNN's kernels by name, the classifier's two small
+    GEMMs falling in too, and the two epilogue kernels) and of everything
+    else.  Then ``step_session``: wall and busy ms per step and the idle
+    share with the compiled step off and on, in turns
+    (:func:`~.step_timing.session_turns`)."""
     groups = RESNET_GROUPS if groups is None else groups
     exe, prog, feed, scope, fetch = (run["executor"], run["program"],
                                      run["feed"], run["scope"], run["fetch"])
@@ -211,6 +215,17 @@ def profile_steps(run: dict, steps: int, groups=None) -> dict:
     def step():
         exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
 
+    prev = get_flag("FLAGS_cuda_step_session")
+    set_flags({"FLAGS_cuda_step_session": "0"})
+    try:
+        report = _profile_eager(exe, step, steps, groups)
+    finally:
+        set_flags({"FLAGS_cuda_step_session": prev})
+    report["step_session"] = session_turns(step, steps)
+    return report
+
+
+def _profile_eager(exe, step, steps: int, groups) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):

@@ -16,6 +16,19 @@ default below.  The TPU-named flags get CUDA names here:
   f32 ones are not (an f32 ResNet-50 step
   takes 199.8 ms NHWC against 185.8 ms NCHW on an H100 80GB HBM3 at
   700 W, ``tools/train_resnet.py --profile``; ``PERF.md`` section 5).
+* ``FLAGS_cuda_step_session`` (JAX ``FLAGS_tpu_step_session``): the
+  compiled step.  On, a steady-state ``Executor.run`` and a steady-state
+  ``ServingEngine`` decode step each replay one CUDA graph (captured on
+  the second run of a feed signature or bucket, the first running
+  eagerly to warm up; ``executor.py``, ``inference/serving.py``).
+  ``"auto"`` turns it on for a CUDA executor or engine and off on the
+  CPU; ``"0"`` runs every step op by op, as the CPU does; ``"1"`` forces
+  it on and raises on the CPU, where there is no graph to capture.
+* ``FLAGS_cuda_double_buffer`` (JAX ``FLAGS_tpu_double_buffer``):
+  ``executor.double_buffered_feeds`` stages batch k+1 (the cast into
+  pinned host memory and the copy to the card on a side stream) on a
+  background thread while step k runs.  ``"0"`` stages each batch on
+  the caller's thread when it is asked for: the same values, no overlap.
 
 The serving flags keep the JAX names and defaults and are read where the
 JAX engine reads them (``inference/serving.py``, ``inference/kv_cache.py``):
@@ -31,11 +44,14 @@ import os
 from typing import Any, Dict
 
 __all__ = ["DEFAULTS", "UNPORTED", "set_flags", "get_flag", "flag_bool",
-           "cuda_fuse_enabled", "cuda_nhwc_enabled"]
+           "cuda_fuse_enabled", "cuda_nhwc_enabled",
+           "cuda_step_session_enabled"]
 
 DEFAULTS: Dict[str, Any] = {
     "FLAGS_cuda_fuse": "auto",
     "FLAGS_cuda_nhwc": "auto",
+    "FLAGS_cuda_step_session": "auto",
+    "FLAGS_cuda_double_buffer": True,
     "FLAGS_kv_cache_dtype": "float32",
     "FLAGS_kv_prefix_cache": False,
     "FLAGS_prefill_chunk_tokens": 0,
@@ -99,3 +115,16 @@ def cuda_nhwc_enabled(device, low_precision_convs: bool) -> bool:
     if str(get_flag("FLAGS_cuda_nhwc")).strip().lower() == "auto":
         return device.type == "cuda" and low_precision_convs
     return _on_for("FLAGS_cuda_nhwc", device)
+
+
+def cuda_step_session_enabled(device) -> bool:
+    """FLAGS_cuda_step_session resolved against a ``torch.device``:
+    ``"auto"`` is on for a CUDA device only; ``"1"`` on any other device
+    raises, since there is no graph to capture there."""
+    on = _on_for("FLAGS_cuda_step_session", device)
+    if on and device.type != "cuda":
+        raise ValueError(
+            f"FLAGS_cuda_step_session={get_flag('FLAGS_cuda_step_session')!r} "
+            f"captures the step in a CUDA graph: it needs a CUDA device, "
+            f"not {device}")
+    return on

@@ -2,8 +2,9 @@
 
 Each test builds the kernel with ``nvcc`` from the sources in this
 checkout and holds it against its plain PyTorch version on CUDA
-tensors.  On a host without a CUDA device the tests skip.  Run them on
-the GPU, where JAX need not be installed, without the JAX-side
+tensors.  On a host without a CUDA device the tests skip.  The last
+section holds the compiled step (CUDA-graph capture of a static step and
+of the decode step) to its eager run.  Run them on the GPU, where JAX need not be installed, without the JAX-side
 ``conftest.py``: ``python -m pytest --noconftest
 tests/test_torch_cuda_kernels.py``.
 """
@@ -12,8 +13,21 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.utils import flags as tflags
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _eager_steps():
+    """The kernel tests hold the eager path, op by op
+    (``FLAGS_cuda_step_session=0``), on which their launch counts and
+    per-op traces were first taken.  The compiled step's own tests (at
+    the end) set the flag themselves, and hold a replayed step's launches
+    to an eager step's."""
+    tflags.set_flags({"FLAGS_cuda_step_session": "0"})
+    yield
+    tflags._SET.pop("FLAGS_cuda_step_session", None)
 
 # f32 kernel vs plain version: the same sums in another order
 ATOL = 1e-4
@@ -2030,3 +2044,212 @@ def test_paged_decode_capped_span_matches_plain(cuda, dtype, monkeypatch):
     live = case[4] > 0
     assert float((got[live] - want[live]).abs().max()) <= ATOL
     assert float(got[~live].abs().max()) == 0.0
+
+
+# ==========================================================================
+# the compiled step (FLAGS_cuda_step_session): a static step and the
+# decode step captured in CUDA graphs, held to their eager runs bit for
+# bit (paddle_tpu_torch/tools/check_step_capture.py)
+# ==========================================================================
+@pytest.fixture
+def capture(cuda):
+    from paddle_tpu_torch.tools import check_step_capture as csc
+    from paddle_tpu_torch.tools.train_resnet import set_card_precision
+
+    set_card_precision()
+    tflags._SET.pop("FLAGS_cuda_step_session", None)     # auto: on
+    return csc
+
+
+@pytest.mark.parametrize("case", ["resnet18-f32", "resnet18-bf16",
+                                  "resnet18-fp16", "lenet", "word2vec"])
+def test_captured_static_steps_equal_eager_steps(capture, case):
+    """Four steps from one startup state, op by op and through the step
+    session (warm-up, capture, two replays): the same fetches and scope
+    state bit for bit, one graph; fp16 finds an Inf in a step."""
+    row = capture.compare_static(case, steps=4)
+    assert row["ok"], row
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_captured_decode_equals_eager_decode(capture, kv_dtype):
+    row = capture.compare_decode(kv_dtype)
+    assert row["ok"], row
+
+
+def test_captured_decode_with_prefix_cache_and_chunks(capture):
+    """Forks stay eager ahead of the replay; chunked prefill stays eager."""
+    row = capture.compare_decode("int8", n_requests=5, prefix_cache=True,
+                                 prefill_chunk=8)
+    assert row["ok"], row
+
+
+def test_scope_set_recaptures_and_a_new_shape_adds_a_graph(capture):
+    """Also switches back to the first shape's graph (A, B, A)."""
+    row = capture.check_invalidation()
+    assert row["ok"], row
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_decode_buckets_8_then_4_then_8_equal_eager(capture, kv_dtype):
+    """Graphs of one pool, replayed out of their capture order."""
+    row = capture.check_bucket_switch(kv_dtype)
+    assert row["ok"], row
+
+
+def test_a_replay_launches_each_kernel_as_an_eager_step(capture):
+    """LeNet f32 (kernel 9) and the f32 decode step (kernel 6): the
+    launch counts per step, op by op and replayed, are equal and not 0."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.inference.serving import (DecoderConfig, Request,
+                                                    ServingEngine,
+                                                    init_decoder_weights)
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+
+    main, startup, fetch, feed = capture._build(
+        capture.STATIC_CASES["lenet"])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = Scope()
+    exe.run(startup, scope=scope)
+
+    def static_step():
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+    kernels = {"mm": me.MATMUL_BIAS_ACT_F32, "paged": tpa.PAGED_DECODE}
+    eager = capture.launches_per_step(static_step, kernels, "0")
+    replayed = capture.launches_per_step(static_step, kernels, "1")
+    assert eager == replayed and eager["mm"] > 0 and eager["paged"] == 0
+    assert exe.graphs_captured == 1
+
+    cfg = DecoderConfig(**capture.SMALL_DECODER)
+    eng = ServingEngine(cfg, init_decoder_weights(cfg, 0), num_pages=64,
+                        page_size=8, max_batch=4, device="cuda")
+    for i in range(3):
+        eng.submit(Request(i, list(range(1, 10 + i)), 30))
+    eng.step()                                   # prefill
+    eager = capture.launches_per_step(eng.step, kernels, "0")
+    replayed = capture.launches_per_step(eng.step, kernels, "1")
+    assert eager == replayed == {"mm": 0, "paged": cfg.num_layers}
+
+
+def test_a_dead_scopes_session_is_dropped(capture):
+    """One executor, a new scope per run: the sessions of dead scopes
+    (their graphs and bound state) leave the executor."""
+    import gc
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import Scope, load_numpy_state
+
+    main, startup, fetch, feed = capture._build(
+        capture.STATIC_CASES["lenet"])
+    state = capture._startup_state(startup)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    for _ in range(3):
+        scope = Scope()
+        load_numpy_state(scope, state, "cuda")
+        for _ in range(3):                       # warm-up, capture, replay
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        assert len(exe._sessions) == 1
+        del scope
+        gc.collect()
+        assert len(exe._sessions) == 0
+    assert exe.graphs_captured == 3
+
+
+def test_dropout_draws_a_new_mask_on_each_replay(capture):
+    row = capture.check_dropout()
+    assert row["ok"], row
+
+
+def test_seeded_random_op_raises_under_capture(capture):
+    row = capture.check_raises()
+    assert row["ok"], row
+
+
+def test_host_sync_op_raises_under_capture_and_the_card_recovers(capture):
+    """An op whose lowering reads a value back (``.item()``) cannot be
+    captured: the second run raises StepCaptureError naming its type,
+    and nothing runs eagerly in its place; afterwards the card runs
+    other steps, eagerly and captured."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.cuda_graph import StepCaptureError
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.ops import registry
+
+    def host_read(ctx):
+        x = ctx.in_("X")
+        ctx.set_out("Out", x * float(x.sum().item()))
+
+    registry.op("test_host_read")(host_read)
+    try:
+        with unique_name.guard():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                x = fluid.layers.data("x", [4])
+                blk = main.global_block()
+                out = blk.create_var(name="read_out", dtype="float32")
+                blk.append_op("test_host_read", inputs={"X": [x]},
+                              outputs={"Out": [out]})
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = Scope()
+        feed = {"x": np.ones((2, 4), np.float32)}
+        first = exe.run(main, feed=feed, fetch_list=[out], scope=scope)[0]
+        assert (first == 8.0).all()
+        with pytest.raises(StepCaptureError, match="test_host_read"):
+            exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+        assert exe.graphs_captured == 0
+    finally:
+        registry.OPS.pop("test_host_read", None)
+    torch.cuda.synchronize()
+    assert capture.compare_static("lenet", steps=3)["ok"]
+
+
+def test_trace_ops_needs_the_eager_path(capture):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import Scope
+
+    main, startup, fetch, feed = capture._build(
+        capture.STATIC_CASES["lenet"])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    exe.trace_ops = True
+    with pytest.raises(ValueError, match="FLAGS_cuda_step_session=0"):
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+
+@pytest.mark.parametrize("double_buffer", [True, False])
+def test_staged_feeds_drive_captured_steps(capture, double_buffer):
+    """LeNet over four batches staged by ``double_buffered_feeds`` (pinned
+    memory, the stager's stream) through the step session: the same
+    losses and state, bit for bit, as eager steps on the raw batches."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.executor import FeedStager, double_buffered_feeds
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools import train_book as tb
+
+    main, startup, fetch, _ = capture._build(capture.STATIC_CASES["lenet"])
+    state = capture._startup_state(startup)
+    cfg = dict(tb.DEFAULTS["lenet"], batch=16)
+    batches = [tb.make_batch("lenet", cfg, seed=i) for i in range(4)]
+    with capture.deterministic():
+        want, want_state, _ = capture._steps(main, state, batches, fetch, "0")
+        tflags.set_flags({"FLAGS_cuda_double_buffer": double_buffer})
+        scope = Scope()
+        load_numpy_state(scope, state, "cuda")
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        stager = FeedStager(main, batches[0], fluid.CUDAPlace(0))
+        got = [exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+               for f in double_buffered_feeds(batches, stager)]
+        torch.cuda.synchronize()
+    tflags._SET.pop("FLAGS_cuda_double_buffer", None)
+    assert exe.graphs_captured == 1
+    for a, b in zip(want, got):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    got_state = numpy_state(scope, [n for n, _ in scope.items()])
+    for n, v in want_state.items():
+        np.testing.assert_array_equal(got_state[n], v, err_msg=n)

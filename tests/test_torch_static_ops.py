@@ -412,6 +412,45 @@ CASES.update({
     "update_loss_scaling-decr": lambda: _update_loss_scaling(True, 2, 1),
 })
 
+def _dropout_train(impl, p=0.3, seed=7):
+    """Training dropout: the two packages draw different masks, so each
+    package's mask is held to its keep rate (5 standard errors) and its
+    output to the mask (x, upscaled or not, where kept, else 0); then
+    both grad ops run on JAX's mask with the same cotangent."""
+    x = _r(0, 64, 50) + 3.0
+    attrs = {"dropout_prob": p, "is_test": False, "fix_seed": True,
+             "seed": seed, "dropout_implementation": impl}
+    scale = np.float32(1.0 / (1.0 - p) if impl == "upscale_in_train" else 1)
+    masks = {}
+    for name, run in (("jax", _jax), ("port", _port)):
+        r = run("dropout", {"X": [("x", x)]}, {"Out": ["o"], "Mask": ["m"]},
+                attrs, {})
+        m = np.asarray(r["m"])
+        assert m.dtype == np.uint8 and m.shape == x.shape, name
+        keep = m.astype(bool)
+        assert abs(keep.mean() - (1 - p)) < 5 * (p * (1 - p) / x.size) ** 0.5
+        np.testing.assert_allclose(np.asarray(r["o"]),
+                                   np.where(keep, x * scale, 0), **TIGHT)
+        masks[name] = m
+    ins = {"Mask": [("m", masks["jax"])], "Out@GRAD": [("g", _r(3, 64, 50))]}
+    j = _jax("dropout_grad", ins, {"X@GRAD": ["dx"]}, attrs, {})
+    t = _port("dropout_grad", ins, {"X@GRAD": ["dx"]}, attrs, {})
+    np.testing.assert_allclose(t["dx"], j["dx"], **TIGHT)
+
+
+CASES.update({
+    "dropout-upscale": lambda: _dropout_train("upscale_in_train"),
+    "dropout-downgrade": lambda: _dropout_train("downgrade_in_infer"),
+    "dropout-test-upscale": lambda: _check(
+        "dropout", {"X": [("x", _r(0, 5, 6))]}, {"Out": ["o"], "Mask": ["m"]},
+        {"dropout_prob": 0.3, "is_test": True,
+         "dropout_implementation": "upscale_in_train"}, cot_of=["o"]),
+    "dropout-test-downgrade": lambda: _check(
+        "dropout", {"X": [("x", _r(0, 5, 6))]}, {"Out": ["o"], "Mask": ["m"]},
+        {"dropout_prob": 0.3, "is_test": True,
+         "dropout_implementation": "downgrade_in_infer"}, cot_of=["o"]),
+})
+
 for _t in ("fused_batch_norm_act", "fused_bn_add_activation"):
     for _f in ("NCHW", "NHWC"):
         CASES[f"{_t}-{_f.lower()}"] = (
