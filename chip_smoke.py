@@ -301,13 +301,38 @@ Phases (any failure exits non-zero and prints no result):
 
    Every phase above runs its steps op by op
    (``FLAGS_cuda_step_session=0``), as they count kernel launches per
-   step and a replayed CUDA graph calls no wrapper;
+   step and a replayed CUDA graph calls no wrapper (phase 16a's profiles
+   and NHWC turns turn the session on for their timed turns);
+
+16a. MobileNetV3-large static training on the PaddleClas recipe
+    (``tools/train_mobilenet.py``: batch 128, 224x224, 1000 classes,
+    Momentum 0.9, ``L2Decay(2e-5)``, a linear warm-up into a cosine, the
+    rate computed in the program), op by op: in f32 (NCHW), under
+    ``decorate`` in bf16 and in fp16 (NHWC by auto; fp16 run on until
+    FP16_CLEAN_STEPS are clean), 2 + MOBILENET_STEPS steps each; every
+    loss finite and the last below the first (clean steps), kernels 7, 8
+    and 9 of the dtype launched MOBILENET_PER_STEP times a step (12, 12,
+    16: a fused fc launches kernel 9 for its forward and its grad's
+    replay) and no other one, the plan's 12 fused convs (6 depthwise) and
+    8 fused fcs; ms/step, images/s, peak memory, casts and transposes a
+    step, a 1-step profile (busy ms, idle share, the convolutions', the
+    epilogue kernels', the BN reductions' and the copies' device ms, and
+    each op type's, the plain BatchNorms' among them) with the compiled
+    step off and on in turns (``mobilenet_training_*`` lines); the bf16
+    step captured with NHWC 0 and 1 in turns
+    (``mobilenet_nhwc_turns_bf16``); 5 bf16 steps at full size eager and
+    captured, bit for bit, fetches (the rate, new at every step) and
+    state (its counter) (``mobilenet_step_capture``); MobileNetV3-small
+    f32 at batch 4, 32x32 on the card and the CPU port from one startup
+    scope, step 1 within MOBILENET_STEP1_RTOL (``mobilenet_card_vs_cpu``);
 
 16b. the compiled step (``FLAGS_cuda_step_session`` at auto: a static
     step or a decode step captured in a CUDA graph; the checks are
     ``paddle_tpu_torch/tools/check_step_capture.py``'s): 4 steps of
     ResNet-18 (batch 4, 32x32) in f32, bf16 and fp16 (a step finds an
-    Inf), LeNet and word2vec, eager and captured from one startup state,
+    Inf), LeNet, word2vec and MobileNetV3-small under bf16 ``decorate``
+    (batch 4, 32x32, its rate new at every step), eager and captured from
+    one startup state,
     bit for bit (every fetch, every scope tensor after), one graph each;
     decode over f32, bf16 and int8 pools at GPT-2 small's widths (4
     layers, 8 requests, 12 new tokens) eager and captured: the same token
@@ -3478,6 +3503,230 @@ def head_dim_phase():
 #: the decode check's model: GPT-2 small's widths, depth cut to 4 layers
 DECODE_CHECK = dict(GPT2_SMALL, num_layers=4)
 #: steps a session turn times, and steps it then traces for busy time
+# ==========================================================================
+# MobileNetV3 static training (phase 16a): kernels 7-9 on its path
+# ==========================================================================
+# MobileNetV3-large at the PaddleClas ImageNet size; the recipe's rate is
+# train_mobilenet.RECIPE's (0.05, at which the loss falls on the repeated
+# batch), its warm-up and cosine computed in the program
+MOBILENET = dict(scale="large", batch=128, image=224, classes=1000)
+# launches per step: kernels 7 and 8 once for each relu bottleneck's
+# expand and depthwise chain (6 x 2), kernel 9 twice for each
+# squeeze-excite block's first fc (8: its forward, and its grad's replay
+# of the pre-activation, as in LeNet)
+MOBILENET_PER_STEP = {"bn_act_apply": 12, "bn_act_bwd": 12,
+                      "matmul_bias_act": 16}
+# the f32 step-1 loss at the test size (small, batch 4, 32x32, 10
+# classes) on the card vs on the CPU port: the forward alone, cuDNN's and
+# oneDNN's f32 sums in other orders
+MOBILENET_STEP1_RTOL = 1e-5
+MOBILENET_STEPS, MOBILENET_TURN_STEPS = 6, 3
+
+
+def mobilenet_kernels():
+    """{name: KernelFunction} of kernels 7-9 in every dtype."""
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+
+    out = epilogue_kernels()
+    out.update({"matmul_bias_act_f32": me.MATMUL_BIAS_ACT_F32,
+                "matmul_bias_act_bf16": me.MATMUL_BIAS_ACT_BF16,
+                "matmul_bias_act_fp16": me.MATMUL_BIAS_ACT_FP16})
+    return out
+
+
+def nhwc_turns(torch, step, steps):
+    """Wall and busy ms per step of ``step`` with ``FLAGS_cuda_nhwc`` 0
+    and 1 in turns (0, 1, 1, 0) and the compiled step on: each turn warms
+    up (the first steps of a layout build its plan and capture its
+    graph), times ``steps`` steps and traces 1."""
+    from paddle_tpu_torch.tools.step_timing import device_busy_ms
+    from paddle_tpu_torch.utils import flags
+
+    prev = {n: flags.get_flag(n) for n in ("FLAGS_cuda_step_session",
+                                           "FLAGS_cuda_nhwc")}
+    rows = []
+    try:
+        flags.set_flags({"FLAGS_cuda_step_session": "1"})
+        for value in ("0", "1", "1", "0"):
+            flags.set_flags({"FLAGS_cuda_nhwc": value})
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            rows.append({"nhwc": value, "wall_ms": wall,
+                         "busy_ms": device_busy_ms(step, 1)})
+    finally:
+        flags.set_flags(prev)
+    return rows
+
+
+def mobilenet_run(torch, amp_dtype=None):
+    """MobileNetV3-large (``MOBILENET``) in f32 or under ``decorate`` in
+    ``amp_dtype``: 2 + MOBILENET_STEPS steps op by op (fp16: on until
+    FP16_CLEAN_STEPS are clean); every loss finite and the last below the
+    first over the clean steps; kernels 7-9 of the dtype launched
+    MOBILENET_PER_STEP times a step and no other one; the plan's fused
+    convs (half of them depthwise) and fcs; then a profile of 1 step
+    (wall and busy ms, the idle share, device ms of the convolutions, the
+    epilogue kernels, the BN reductions and the copies, and of each op
+    type's kernels) with the compiled step off and on in turns, 1 step a
+    turn.  Returns the
+    ``mobilenet_training_<tag>`` report and the run."""
+    from paddle_tpu_torch.tools.train_mobilenet import train
+    from paddle_tpu_torch.tools.train_resnet import profile_steps
+
+    t0 = time.perf_counter()
+    tag = AMP[amp_dtype]["tag"] if amp_dtype else "f32"
+    kernels = mobilenet_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    run = train(**MOBILENET, steps=MOBILENET_STEPS, device="cuda", warmup=2,
+                log_every=0, amp=amp_dtype is not None,
+                amp_dtype=amp_dtype or "bfloat16")
+    scaled = "found_inf" in run
+    if scaled:
+        more_clean_steps(run, FP16_MAX_STEPS)
+    torch.cuda.synchronize()
+    launches = {n: kf.launches for n, kf in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    n_steps = len(losses)
+    clean = ([i for i, f in enumerate(run["found_inf"]) if not f]
+             if scaled else list(range(n_steps)))
+    what = f"MobileNetV3-large {tag}"
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what} losses not finite: {losses}")
+    if len(clean) < 2 or not losses[clean[-1]] < losses[clean[0]]:
+        fail(f"{what}: the loss did not fall over the clean steps {clean}: "
+             f"{losses}")
+    want = {k: (MOBILENET_PER_STEP[k.rsplit("_", 1)[0]] * n_steps
+                if k.endswith("_" + tag) else 0) for k in kernels}
+    if launches != want:
+        fail(f"{what} kernel launches {launches}: expected {want}")
+    plan = next(p for key, p in run["executor"]._cache.items()
+                if key[0] == run["program"]._uid)
+    types = [o.type for o in plan.ops]
+    fused = [o for o in plan.ops if o.type == "fused_conv_bn_act"]
+    n_dw = sum(bool(o.attrs.get("depthwise")) for o in fused)
+    if (len(fused), n_dw, types.count("fused_matmul_bias_act")) != \
+            (12, 6, 8):
+        fail(f"{what} plan: {len(fused)} fused convs ({n_dw} depthwise), "
+             f"{types.count('fused_matmul_bias_act')} fused fcs")
+    prof = profile_steps(run, 1)
+    report = {
+        "model": what + (" (decorate" + (", use_fp16=True)" if scaled
+                                         else ")") if amp_dtype else ""),
+        **MOBILENET, "recipe": "Momentum 0.9, L2Decay(2e-5), "
+        "linear_lr_warmup(cosine_decay(0.05, 10, 120), 2, 0, 0.05)",
+        "layout": ("NHWC" if fused[0].attrs.get("data_format") == "NHWC"
+                   else "NCHW"),
+        "steps": n_steps, "losses": losses, "acc1": run["acc1"],
+        "ms_per_step": run["ms_per_step"],
+        "images_per_s": run["images_per_s"],
+        "max_memory_allocated": peak,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()
+                              if v},
+        "ops": len(types), "casts": types.count("cast"),
+        "transposes": types.count("transpose2"),
+        "profile": {k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "kernels_per_step", "conv_ms_per_step",
+            "bn_act_apply_ms_per_step", "bn_act_bwd_ms_per_step",
+            "bn_reduce_ms_per_step", "copy_ms_per_step",
+            "other_ms_per_step")},
+        "op_type_device_ms_per_step": prof["op_type_device_ms_per_step"],
+        "step_session": prof["step_session"],
+        "seconds": time.perf_counter() - t0}
+    if scaled:
+        report.update(
+            found_inf_steps=[i for i, f in enumerate(run["found_inf"]) if f],
+            loss_scaling=run["loss_scaling"])
+    print(f"mobilenet_training_{tag} " + json.dumps(report), flush=True)
+    return report, run
+
+
+def mobilenet_card_vs_cpu(torch):
+    """MobileNetV3-small f32 at the test size (batch 4, 32x32, 10 classes)
+    from one startup scope, 3 steps on the card (kernels) and on the CPU
+    port (plain ops): step 1 within MOBILENET_STEP1_RTOL, every step
+    finite."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools.train_mobilenet import build_program
+    from paddle_tpu_torch.tools.train_resnet import make_batch
+
+    main, startup, loss, _ = build_program("small", 32, 10, amp=False)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    img, label = make_batch(4, 32, 10)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = [float(exe.run(main, feed={"img": img, "label": label},
+                                     fetch_list=[loss], scope=scope)[0])
+                       for _ in range(3)]
+    rel = abs(losses["cpu"][0] - losses["cuda"][0]) / abs(losses["cpu"][0])
+    print("mobilenet_card_vs_cpu " + json.dumps({
+        **losses, "step1_rel_diff": rel, "rtol": MOBILENET_STEP1_RTOL}),
+        flush=True)
+    if not np.all(np.isfinite(losses["cuda"])):
+        fail(f"MobileNet card vs CPU: card losses not finite {losses}")
+    if not rel <= MOBILENET_STEP1_RTOL:
+        fail(f"MobileNet card vs CPU step-1 losses differ by {rel:.3e} > "
+             f"{MOBILENET_STEP1_RTOL}")
+
+
+def mobilenet_phase(torch):
+    """Phase 16a: MobileNetV3-large in f32 (NCHW), bf16 and fp16 under
+    ``decorate`` (NHWC by auto), each checked, profiled and timed with the
+    compiled step off and on (:func:`mobilenet_run`); the bf16 step with
+    NHWC 0 and 1 in turns, captured; 5 bf16 steps at full size captured
+    and eager, bit for bit, the rate and its counter among them; the
+    small model card vs CPU.  Returns the launches per step by dtype."""
+    from paddle_tpu_torch.tools import check_step_capture as csc
+
+    out = {}
+    for amp_dtype in (None, "bfloat16", "float16"):
+        report, run = mobilenet_run(torch, amp_dtype)
+        out[report["model"]] = report["launches_per_step"]
+        if amp_dtype == "bfloat16":
+            exe, prog, feed, scope, fetch = (
+                run["executor"], run["program"], run["feed"], run["scope"],
+                run["fetch"])
+            t = time.perf_counter()
+            rows = nhwc_turns(torch, lambda: exe.run(
+                prog, feed=feed, fetch_list=fetch, scope=scope),
+                MOBILENET_TURN_STEPS)
+            rows.append({"seconds": time.perf_counter() - t})
+            print("mobilenet_nhwc_turns_bf16 " + json.dumps(rows),
+                  flush=True)
+        del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row = csc.compare_static("mobilenet-bf16", steps=5, **MOBILENET)
+    row["seconds"] = time.perf_counter() - t
+    print("mobilenet_step_capture " + json.dumps(row), flush=True)
+    if not row["ok"]:
+        fail(f"MobileNetV3-large bf16: captured steps differ from eager "
+             f"ones: {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mobilenet_card_vs_cpu(torch)
+    return out
+
+
 TURN_STEPS = {"resnet50_amp_bf16": 3, "lenet_f32": 10, "lenet_amp_bf16": 10,
               "word2vec_f32": 10, "decode": 6}
 TRACED_STEPS = {"resnet50_amp_bf16": 1, "lenet_f32": 3, "lenet_amp_bf16": 3,
@@ -3874,6 +4123,9 @@ def main():
 
     phase("z. head dims 40-160: flash and paged decode kernels vs plain")
     head_dim_phase()
+
+    phase("16a. MobileNetV3-large static training: f32, bf16, fp16")
+    mobilenet_phase(torch)
 
     phase("compiled step: captured vs eager, graphs, times in turns")
     compiled_step_phase(torch)

@@ -42,7 +42,10 @@ def create_parameter(attr, shape, is_bias=False, default_initializer=None,
                        device=dev)
     init(data, generator if generator is not None
          else default_generator(dev))
-    return nn.Parameter(data, requires_grad=attr.trainable)
+    param = nn.Parameter(data, requires_grad=attr.trainable)
+    if attr.regularizer is not None:
+        param.regularizer = attr.regularizer
+    return param
 
 
 def _as_tensor(x) -> torch.Tensor:

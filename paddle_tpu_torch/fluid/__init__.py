@@ -1,10 +1,12 @@
 """The ``fluid`` namespace of the port (counterpart of
 ``paddle_tpu/fluid/__init__.py``), for the static path: a reference-era
 script runs with ``import paddle_tpu_torch.fluid as fluid``.  Ported:
-what a ResNet training script uses, with
+what a ResNet or MobileNetV3 training script uses (weight decay from
+``fluid.regularizer``, the schedules of ``fluid.layers``), with
 ``fluid.contrib.mixed_precision.decorate`` for bf16 AMP, or fp16 AMP with
 loss scaling (``use_fp16=True``)."""
-from .. import contrib, initializer, layers, optimizer  # noqa: F401
+from .. import (contrib, initializer, layers, optimizer,  # noqa: F401
+                regularizer)
 from ..backward import append_backward, gradients  # noqa: F401
 from ..executor import Executor  # noqa: F401
 from ..framework import unique_name  # noqa: F401

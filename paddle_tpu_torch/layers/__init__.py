@@ -1,6 +1,8 @@
 """fluid.layers for the static path (counterpart of
-``paddle_tpu/layers/``): the layers the ResNet, LeNet and word2vec
-training programs use.
+``paddle_tpu/layers/``): the layers the ResNet, MobileNetV3, LeNet and
+word2vec training programs use, the learning-rate schedules
+(:mod:`.learning_rate_scheduler`) and the Python operators on
+``Variable`` (:mod:`.math_op_patch`).
 Each builds vars and ops through ``LayerHelper``; the ops lower to
 PyTorch in ``ops/``."""
 from __future__ import annotations
@@ -8,12 +10,23 @@ from __future__ import annotations
 from ..framework.core import default_main_program
 from ..framework.dtype import VarType, convert_dtype
 from . import nn, tensor
-from .nn import (accuracy, batch_norm, cast, concat, conv2d,  # noqa: F401
-                 dropout, elementwise_add, elementwise_mul, embedding, fc, mean,
-                 pool2d, relu, reshape, scale, sigmoid, softmax,
-                 softmax_with_cross_entropy, topk)
+from .math_op_patch import monkey_patch_variable
+from .nn import (accuracy, batch_norm, cast, ceil, concat,  # noqa: F401
+                 conv2d, cos, dropout, elementwise_add, elementwise_div,
+                 elementwise_floordiv, elementwise_max, elementwise_min,
+                 elementwise_mod, elementwise_mul, elementwise_pow,
+                 elementwise_sub, embedding, exp, fc, floor, hard_sigmoid,
+                 hard_swish, mean, pool2d, relu, reshape, scale, sigmoid,
+                 softmax, softmax_with_cross_entropy, topk, where)
 from .tensor import (create_global_var, create_parameter,  # noqa: F401
                      fill_constant)
+
+monkey_patch_variable()
+
+from . import learning_rate_scheduler  # noqa: E402
+from .learning_rate_scheduler import (  # noqa: E402,F401
+    cosine_decay, exponential_decay, inverse_time_decay, linear_lr_warmup,
+    natural_exp_decay, noam_decay, piecewise_decay, polynomial_decay)
 
 
 def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,

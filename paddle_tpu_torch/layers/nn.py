@@ -1,11 +1,14 @@
 """fluid.layers NN graph builders (counterpart of
 ``paddle_tpu/layers/nn.py``: ``fc`` :22, ``embedding`` :60, ``conv2d``
-:93, ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
-``sigmoid`` :409-410, ``elementwise_add`` :522, ``elementwise_mul`` :524,
+:93 (a ``depthwise_conv2d`` where groups equal the channels, :125-129),
+``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
+``sigmoid`` :409-410, ``exp``, ``ceil``, ``floor`` and ``cos`` :414-421,
+``hard_swish`` :463, the ``elementwise_*`` family :522-530,
 ``dropout`` :356, ``mean`` :558, ``scale`` :565,
 ``softmax_with_cross_entropy`` :614,
 ``reshape`` :718, ``topk`` :870, ``cast`` :955, ``concat`` :964,
-``accuracy`` :980).  Each builds vars and ops through
+``accuracy`` :980, ``where`` :908; ``hard_sigmoid``:
+``paddle_tpu/layers/nn_tail.py:59``).  Each builds vars and ops through
 ``LayerHelper`` with the JAX package's op types, slots and attrs, so both
 packages build the same program."""
 from __future__ import annotations
@@ -18,8 +21,12 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
-           "relu", "sigmoid", "elementwise_add", "elementwise_mul", "mean",
-           "scale", "softmax_with_cross_entropy", "reshape", "topk", "cast",
+           "relu", "sigmoid", "exp", "ceil", "floor", "cos", "hard_swish",
+           "hard_sigmoid", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_pow", "elementwise_mod",
+           "elementwise_floordiv", "where", "mean", "scale",
+           "softmax_with_cross_entropy", "reshape", "topk", "cast",
            "concat", "accuracy", "dropout"]
 
 
@@ -94,9 +101,9 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
         padding = [0, 0]
     else:
         padding = _single(padding)
-    if groups == num_channels and num_filters % num_channels == 0 \
-            and groups != 1:
-        raise NotImplementedError("depthwise_conv2d is not ported")
+    op_type = ("depthwise_conv2d" if groups == num_channels
+               and num_filters % num_channels == 0 and groups != 1
+               else "conv2d")
     filter_shape = [num_filters, num_channels // groups] + fsize
     fan_in = (num_channels // groups) * fsize[0] * fsize[1]
     default_init = NormalInitializer(0.0, (2.0 / fan_in) ** 0.5)
@@ -104,7 +111,7 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
                                 default_initializer=default_init)
     out = helper.create_variable_for_type_inference(dtype)
     helper.append_op(
-        "conv2d", inputs={"Input": [input], "Filter": [w]},
+        op_type, inputs={"Input": [input], "Filter": [w]},
         outputs={"Output": [out]},
         attrs={"strides": stride, "paddings": padding,
                "dilations": dilation, "groups": groups,
@@ -211,6 +218,28 @@ def _simple_unary(op_type):
 
 relu = _simple_unary("relu")
 sigmoid = _simple_unary("sigmoid")
+exp = _simple_unary("exp")
+ceil = _simple_unary("ceil")
+floor = _simple_unary("floor")
+cos = _simple_unary("cos")
+
+
+def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
+    helper = LayerHelper("hard_swish", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("hard_swish", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"threshold": threshold, "scale": scale,
+                            "offset": offset})
+    return out
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    helper = LayerHelper("hard_sigmoid", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("hard_sigmoid", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"slope": slope, "offset": offset})
+    return out
 
 
 def _elementwise(op_type):
@@ -226,7 +255,23 @@ def _elementwise(op_type):
 
 
 elementwise_add = _elementwise("elementwise_add")
+elementwise_sub = _elementwise("elementwise_sub")
 elementwise_mul = _elementwise("elementwise_mul")
+elementwise_div = _elementwise("elementwise_div")
+elementwise_max = _elementwise("elementwise_max")
+elementwise_min = _elementwise("elementwise_min")
+elementwise_pow = _elementwise("elementwise_pow")
+elementwise_mod = _elementwise("elementwise_mod")
+elementwise_floordiv = _elementwise("elementwise_floordiv")
+
+
+def where(condition, x, y=None, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where", inputs={"Condition": [condition], "X": [x],
+                                      "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def mean(x, name=None):

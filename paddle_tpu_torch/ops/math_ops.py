@@ -1,11 +1,14 @@
 """Math op lowerings of the static path (counterpart of
-``paddle_tpu/ops/math_ops.py``: ``elementwise_add`` and
-``elementwise_mul`` :50-52, ``relu`` :72, ``sigmoid`` :74, ``reciprocal``
-:99, ``scale`` :154, ``sum`` (gradient accumulation), ``mean`` :222,
-``top_k`` :318 and ``mul`` :423).
+``paddle_tpu/ops/math_ops.py``: the ``elementwise_*`` family :49-59,
+``relu`` :72, ``sigmoid`` :74, ``ceil`` / ``floor`` / ``cos`` / ``exp``
+:81-92, ``reciprocal`` :99, ``sign`` :102, ``hard_sigmoid`` and
+``hard_swish`` :114-125, ``scale`` :154, ``sum`` (gradient
+accumulation), ``mean`` :222, ``top_k`` :318, the comparisons :351-356,
+``mul`` :423 and ``increment`` :494).
 
-``mul`` has an explicit grad lowering (two matrix products); the others
-take the registry's generic vjp replay, whose forward is one cheap pass.
+``mul``, ``hard_swish`` and ``hard_sigmoid`` have explicit grad
+lowerings; the others take the registry's generic vjp replay, whose
+forward is one cheap pass.  The comparisons have no grad, as in JAX.
 """
 from __future__ import annotations
 
@@ -33,21 +36,47 @@ def align(x, y, axis):
     return x, y
 
 
-@op("elementwise_add")
-def _elementwise_add(ctx):
-    x, y = align(ctx.in_("X"), ctx.in_("Y"), ctx.attr("axis", -1))
-    ctx.set_out("Out", x + y)
+def _elementwise(fn):
+    def lower(ctx):
+        x, y = align(ctx.in_("X"), ctx.in_("Y"), ctx.attr("axis", -1))
+        ctx.set_out("Out", fn(x, y))
+
+    return lower
 
 
-@op("elementwise_mul")
-def _elementwise_mul(ctx):
-    x, y = align(ctx.in_("X"), ctx.in_("Y"), ctx.attr("axis", -1))
-    ctx.set_out("Out", x * y)
+# jnp.mod and jnp.floor_divide round toward -inf, as torch.remainder and
+# torch.floor_divide do; jnp.maximum / minimum and torch's split a tied
+# gradient in halves
+for _name, _fn in (("elementwise_add", torch.add),
+                   ("elementwise_sub", torch.sub),
+                   ("elementwise_mul", torch.mul),
+                   ("elementwise_div", torch.div),
+                   ("elementwise_max", torch.maximum),
+                   ("elementwise_min", torch.minimum),
+                   ("elementwise_pow", torch.pow),
+                   ("elementwise_mod", torch.remainder),
+                   ("elementwise_floordiv", torch.floor_divide)):
+    op(_name)(_elementwise(_fn))
+
+for _name, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
+                   ("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt),
+                   ("greater_equal", torch.ge)):
+    op(_name, no_grad=True)(_elementwise(_fn))
 
 
-@op("reciprocal")
-def _reciprocal(ctx):
-    ctx.set_out("Out", torch.reciprocal(ctx.in_("X")))
+def _unary(fn):
+    def lower(ctx):
+        ctx.set_out("Out", fn(ctx.in_("X")))
+
+    return lower
+
+
+for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
+                   ("reciprocal", torch.reciprocal), ("ceil", torch.ceil),
+                   ("floor", torch.floor), ("cos", torch.cos),
+                   ("exp", torch.exp), ("sign", torch.sign)):
+    op(_name)(_unary(_fn))
 
 
 def _in_dtype(v: float, x: torch.Tensor) -> float:
@@ -81,14 +110,96 @@ def _scale(ctx):
     ctx.set_out("Out", out)
 
 
-@op("relu")
-def _relu(ctx):
-    ctx.set_out("Out", torch.relu(ctx.in_("X")))
+def _reciprocal_of(v: float, x: torch.Tensor) -> float:
+    """``1 / v`` as XLA's CPU compiles JAX's ``/ v``: a product with the
+    reciprocal, which is float32's in an f32 or bf16 computation (XLA
+    computes bf16 in f32 and rounds each op) and float16's in fp16."""
+    r = 1.0 / v
+    if x.dtype == torch.float16:
+        return _in_dtype(r, x)
+    return float(torch.tensor(r, dtype=torch.float32))
 
 
-@op("sigmoid")
-def _sigmoid(ctx):
-    ctx.set_out("Out", torch.sigmoid(ctx.in_("X")))
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to a's dtype where XLA's CPU contracts
+    the product and the sum into one fused multiply-add (f32, computed
+    here in float64, and fp16, in float32, where its products are
+    exact), and rounded after each op in bf16, which XLA computes in f32
+    and rounds op by op."""
+    if a.dtype == torch.bfloat16:
+        return a * b + c
+    wide = torch.float32 if a.dtype == torch.float16 else torch.float64
+    b = b.to(wide) if isinstance(b, torch.Tensor) else b
+    c = c.to(wide) if isinstance(c, torch.Tensor) else c
+    return (a.to(wide) * b + c).to(a.dtype)
+
+
+def _clip_factor(u, lo, hi):
+    """d clip(u, lo, hi) / du as JAX's vjp of ``jnp.clip`` (a maximum,
+    then a minimum) gives it: 1 inside, 0 outside, and half at each tie,
+    where the max and the min split the gradient between their operands
+    (``F.hardswish``'s grad has no such halves)."""
+    m = torch.clamp(u, min=lo)
+    a = (u > lo).to(u.dtype) + 0.5 * (u == lo).to(u.dtype)
+    b = (m < hi).to(u.dtype) + 0.5 * (m == hi).to(u.dtype)
+    return a * b
+
+
+def _hard_swish_parts(ctx):
+    x = ctx.in_("X")
+    t = _in_dtype(float(ctx.attr("threshold", 6.0)), x)
+    u = x + _in_dtype(float(ctx.attr("offset", 3.0)), x)
+    return x, u, t, _reciprocal_of(float(ctx.attr("scale", 6.0)), x)
+
+
+@op("hard_swish")
+def _hard_swish(ctx):
+    """``x * clip(x + offset, 0, threshold) / scale`` (JAX
+    ``math_ops.py:120``), in x's dtype, each op rounded as XLA's CPU
+    rounds it."""
+    x, u, t, r = _hard_swish_parts(ctx)
+    ctx.set_out("Out", x * torch.clamp(u, 0.0, t) * r)
+
+
+@op("hard_swish_grad", no_grad=True)
+def _hard_swish_grad(ctx):
+    """JAX's vjp: ``g/scale * c + g/scale * x * dc/du`` with ``c`` the
+    clip and JAX's half gradient at each edge of the clip."""
+    x, u, t, r = _hard_swish_parts(ctx)
+    gs = ctx.in_("Out" + GRAD_SUFFIX).to(x.dtype) * r
+    ctx.set_out("X" + GRAD_SUFFIX, _fma(torch.clamp(u, 0.0, t), gs,
+                                         x * gs * _clip_factor(u, 0.0, t)))
+
+
+def _hard_sigmoid_parts(ctx):
+    x = ctx.in_("X")
+    slope = _in_dtype(float(ctx.attr("slope", 0.2)), x)
+    return x, _fma(x, slope, _in_dtype(float(ctx.attr("offset", 0.5)),
+                                       x)), slope
+
+
+@op("hard_sigmoid")
+def _hard_sigmoid(ctx):
+    """``clip(slope * x + offset, 0, 1)`` (JAX ``math_ops.py:114``)."""
+    _, u, _ = _hard_sigmoid_parts(ctx)
+    ctx.set_out("Out", torch.clamp(u, 0.0, 1.0))
+
+
+@op("hard_sigmoid_grad", no_grad=True)
+def _hard_sigmoid_grad(ctx):
+    x, u, slope = _hard_sigmoid_parts(ctx)
+    g = ctx.in_("Out" + GRAD_SUFFIX).to(x.dtype)
+    ctx.set_out("X" + GRAD_SUFFIX, g * _clip_factor(u, 0.0, 1.0) * slope)
+
+
+@op("increment")
+def _increment(ctx):
+    """``x + step`` in x's dtype: a new tensor, which the executor copies
+    into the scope's own (``@LR_DECAY_COUNTER@`` advances in place, so a
+    captured step's replays advance it too)."""
+    x, step = ctx.in_("X"), float(ctx.attr("step", 1.0))
+    ctx.set_out("Out", x + (_in_dtype(step, x) if x.is_floating_point()
+                            else int(step)))
 
 
 @op("sum")

@@ -29,7 +29,8 @@ decoder forms' (:mod:`.decoder_ops`); ``einsum`` is ``torch.einsum`` of
 operands promoted as jnp promotes them (``models/bert.py``).
 
 The static path's op lowerings (registered in :mod:`.registry`) follow
-below: ``conv2d`` (``conv_forward`` :45, ``_conv_lower`` :81), ``pool2d``
+below: ``conv2d`` and ``depthwise_conv2d`` (``conv_forward`` :45,
+``_conv_lower`` :81, :150-151), ``pool2d``
 (:161), ``batch_norm`` (``bn_shapes`` :296, ``bn_train_stats`` :310,
 :341, its grad maker :374), ``softmax_with_cross_entropy`` (:471, its
 closed-form grad :509), ``accuracy`` (:858), ``dropout`` (:784, its
@@ -378,8 +379,10 @@ def conv_backward(x, w, dout, *, strides, paddings, dilations, groups=1,
     return dx, dw
 
 
-def conv_attrs(ctx) -> dict:
-    """The conv attrs a conv2d (or fused conv) op carries."""
+def conv_attrs(ctx, depthwise=False) -> dict:
+    """The conv attrs a conv2d (or fused conv) op carries;
+    ``depthwise``: a ``depthwise_conv2d`` op, one group per input
+    channel."""
     return dict(
         strides=list(ctx.attr("strides", [1, 1])),
         paddings=list(ctx.attr("paddings", [0, 0])),
@@ -387,28 +390,35 @@ def conv_attrs(ctx) -> dict:
         groups=ctx.attr("groups", 1) or 1,
         data_format=ctx.attr("data_format", "NCHW"),
         padding_algorithm=ctx.attr("padding_algorithm", "EXPLICIT"),
-        depthwise=bool(ctx.attr("depthwise", False)),
+        depthwise=depthwise or bool(ctx.attr("depthwise", False)),
     )
 
 
-@op("conv2d")
-def _conv2d(ctx):
+def _conv_lower(ctx, depthwise=False):
     ctx.set_out("Output", conv_forward(ctx.in_("Input"), ctx.in_("Filter"),
-                                       **conv_attrs(ctx)))
+                                       **conv_attrs(ctx, depthwise)))
 
 
-@op("conv2d_grad", no_grad=True)
-def _conv2d_grad(ctx):
+def _conv_grad_lower(ctx, depthwise=False):
     need_x = ctx.has_output("Input" + GRAD_SUFFIX)
     need_w = ctx.has_output("Filter" + GRAD_SUFFIX)
     dx, dw = conv_backward(ctx.in_("Input"), ctx.in_("Filter"),
                            ctx.in_("Output" + GRAD_SUFFIX),
                            need_input=need_x, need_filter=need_w,
-                           **conv_attrs(ctx))
+                           **conv_attrs(ctx, depthwise))
     if need_x:
         ctx.set_out("Input" + GRAD_SUFFIX, dx)
     if need_w:
         ctx.set_out("Filter" + GRAD_SUFFIX, dw)
+
+
+# depthwise_conv2d (JAX nn_ops.py:151): the conv2d lowering with one group
+# per input channel, cuDNN's grouped convolution in both directions
+op("conv2d")(_conv_lower)
+op("conv2d_grad", no_grad=True)(_conv_grad_lower)
+op("depthwise_conv2d")(lambda ctx: _conv_lower(ctx, depthwise=True))
+op("depthwise_conv2d_grad", no_grad=True)(
+    lambda ctx: _conv_grad_lower(ctx, depthwise=True))
 
 
 # -- pool2d (reference: pool_op.cc) -----------------------------------------

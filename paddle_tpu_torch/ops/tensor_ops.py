@@ -2,7 +2,7 @@
 (counterpart of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant`` :36,
 ``gaussian_random`` :70, ``uniform_random`` :81, ``cast`` :192,
 ``reshape2`` :214 with its shape inference :228, ``transpose2`` :254,
-``concat`` :332).  The shape ops' and ``cast``'s grads are the registry's
+``concat`` :332, ``where`` :525).  The shape ops' and ``cast``'s grads are the registry's
 generic vjp replay, as in JAX: a cast's cotangent is cast back to the
 input's dtype, so an f32 parameter read through a bf16 cast gets an f32
 gradient.
@@ -158,3 +158,9 @@ def _concat(ctx):
                                   "ported")
     xs = [v for v in ctx.ins("X") if v is not None]
     ctx.set_out("Out", torch.cat(xs, dim=ctx.attr("axis", 0)))
+
+
+@op("where")
+def _where(ctx):
+    ctx.set_out("Out", torch.where(ctx.in_("Condition"), ctx.in_("X"),
+                                   ctx.in_("Y")))

@@ -2,12 +2,16 @@
 dygraph.
 
 Static (``optimizer.py:108-351``): ``Optimizer.minimize(loss)`` on a
-program ``Variable`` runs ``append_backward`` and appends one update op
-per parameter (``sgd``, ``momentum``; ``ops/optimizer_ops.py``), with
-the learning rate as a persistable ``[1]`` var and the accumulators
-(Momentum's velocity) initialized in the startup program, as in JAX.
-``SGDOptimizer`` and ``MomentumOptimizer`` have this form; the other
-optimizers' static forms are not ported.
+program ``Variable`` runs ``append_backward``, then the weight decay
+(``regularization=``, or a parameter's ``ParamAttr(regularizer=)``,
+which takes precedence: ``regularizer.py``'s ops, parameters in name
+order, ``optimizer.py:196-220``), and appends one update op per
+parameter (``sgd``, ``momentum``; ``ops/optimizer_ops.py``), with the
+learning rate a persistable ``[1]`` var, or the var a schedule of
+``layers/learning_rate_scheduler.py`` computes in the program, and the
+accumulators (Momentum's velocity) initialized in the startup program,
+as in JAX.  ``SGDOptimizer`` and ``MomentumOptimizer`` have this form;
+the other optimizers' static forms are not ported.
 
 Dygraph: ``minimize(loss)`` on a tensor applies one update from each
 parameter's ``.grad``.  Ported: :class:`AdamOptimizer`
@@ -24,7 +28,9 @@ multiplied after each update, and epsilon is added to the *uncorrected*
     b1p *= beta1;  b2p *= beta2
 
 Each parameter keeps its own accumulators and is updated only on a step
-that gave it a gradient, as in JAX.  Parameters whose beta powers agree
+that gave it a gradient, as in JAX.  The weight decay adds ``coeff * p``
+(L2) or ``coeff * sign(p)`` (L1) to the gradient first
+(``optimizer.py:266-274``).  Parameters whose beta powers agree
 are updated together by ``torch._foreach_*`` ops, in place (this takes
 the place of the JAX package's flattened multi-tensor update, a speed
 detail).
@@ -38,8 +44,8 @@ master, and the parameter becomes the bf16 cast of the master after
 every step.  JAX
 packs the masters into one flat buffer, a TPU layout; the per-parameter
 ``_foreach`` update over the masters computes the same elementwise
-update.  LAMB, AdamW and the other optimizers, regularization and
-gradient clipping are not ported.
+update.  LAMB, AdamW and the other optimizers and gradient clipping are
+not ported.
 """
 from __future__ import annotations
 
@@ -61,10 +67,11 @@ __all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
 class Optimizer:
     def __init__(self, learning_rate, parameter_list=None,
                  regularization=None, grad_clip=None, name=None):
-        if regularization is not None or grad_clip is not None:
+        if grad_clip is not None:
             raise NotImplementedError(
-                "regularization and grad_clip are not ported (ROADMAP.md)")
+                "grad_clip is not ported (ROADMAP.md)")
         self._learning_rate = learning_rate
+        self.regularization = regularization
         self._parameter_list = (list(parameter_list)
                                 if parameter_list is not None else None)
         self._name = name
@@ -138,6 +145,7 @@ class Optimizer:
 
     def apply_gradients(self, params_grads):
         params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        params_grads = self._append_regularization_ops(params_grads)
         main_block = default_main_program().global_block()
         self._create_global_learning_rate()
         self._create_accumulators(
@@ -151,6 +159,30 @@ class Optimizer:
             op.attrs[OP_ROLE_VAR_KEY] = [p.name, g.name]
             optimize_ops.append(op)
         return optimize_ops
+
+    def _regularizer(self, param):
+        """The parameter's own regularizer, else the optimizer's."""
+        return getattr(param, "regularizer", None) or self.regularization
+
+    def _append_regularization_ops(self, params_grads):
+        block = default_main_program().global_block()
+        out = []
+        for p, g in params_grads:
+            reg = self._regularizer(p)
+            out.append((p, g) if g is None or reg is None
+                       else (p, reg(p, g, block)))
+        return out
+
+    def _eager_regularize(self, p, g):
+        """The dygraph form of the weight decay, on tensors."""
+        from .regularizer import L1DecayRegularizer, L2DecayRegularizer
+
+        reg = self._regularizer(p)
+        if isinstance(reg, L2DecayRegularizer):
+            return g + reg.regularization_coeff * p
+        if isinstance(reg, L1DecayRegularizer):
+            return g + reg.regularization_coeff * torch.sign(p)
+        return g
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -167,7 +199,8 @@ class Optimizer:
         params = parameter_list or self._parameter_list or []
         params_grads = [(p, p.grad) for p in params if p.grad is not None]
         with torch.no_grad():
-            self._apply(params_grads)
+            self._apply([(p, self._eager_regularize(p, g))
+                         for p, g in params_grads])
         return None, params_grads
 
     def _apply(self, params_grads):

@@ -12,13 +12,12 @@ class ParamAttr:
     need no gradient.  ``learning_rate`` scales the static optimizers'
     rate for this parameter (the ``optimize_attr`` of the program's
     Parameter); the dygraph optimizers use the global rate, as the JAX
-    package's eager path does.  A ``regularizer`` is not ported."""
+    package's eager path does.  ``regularizer`` (``regularizer.L1Decay``
+    or ``L2Decay``) decays this parameter in place of the optimizer's
+    ``regularization``."""
 
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True):
-        if regularizer is not None:
-            raise NotImplementedError(
-                "ParamAttr(regularizer=...) is not ported (ROADMAP.md)")
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate

@@ -8,10 +8,14 @@ Each check prints one JSON line; the run exits 1 when one fails.
 * ``static``: for ResNet-18 (batch 4, 32x32, 10 classes) in f32, under
   ``decorate`` in bf16 and in fp16 (its default loss scale of 2^15 finds
   an Inf in the first steps at this size, and the check requires one),
-  LeNet and word2vec (batch 16): the same steps from one startup state,
-  once op by op and once through the step session (a warm-up, a capture,
-  then replays), give the same fetches at every step and the same scope
-  state after, bit for bit;
+  LeNet and word2vec (batch 16), and MobileNetV3-small under ``decorate``
+  in bf16 (batch 4, 32x32, 10 classes) on the PaddleClas recipe, whose
+  rate (a linear warm-up into a cosine per step) is computed in the
+  program from the persistable step counter: the same steps from one
+  startup state, once op by op and once through the step session (a
+  warm-up, a capture, then replays), give the same fetches at every step
+  (the MobileNet's rate among them, a new rate on every step) and the
+  same scope state after (its counter among them), bit for bit;
 * ``decode``: one small engine per KV dtype (f32, bf16, int8) serves the
   same requests op by op and captured: the same token streams, and the
   same pools and scales after, bit for bit; the graphs captured are at
@@ -67,7 +71,14 @@ STATIC_CASES = {
     "resnet18-fp16": dict(model="resnet", amp=True, amp_dtype="float16"),
     "lenet": dict(model="lenet"),
     "word2vec": dict(model="word2vec"),
+    "mobilenet-bf16": dict(model="mobilenet", amp=True,
+                           amp_dtype="bfloat16"),
 }
+#: the MobileNet case's size (``compare_static`` takes others) and its
+#: recipe: a warm-up of 3 steps, then a cosine step by step
+MOBILENET_CASE = dict(scale="small", image=32, classes=10, batch=4)
+MOBILENET_RECIPE = dict(lr=0.05, warmup_steps=3, steps_per_epoch=1,
+                        epochs=8)
 
 
 @contextlib.contextmanager
@@ -91,10 +102,23 @@ def deterministic():
         torch.backends.cudnn.deterministic = prev
 
 
-def _build(case: dict, batch: Optional[int] = None):
+def _build(case: dict, batch: Optional[int] = None, **size):
     """(main, startup, fetch names, feed) of a :data:`STATIC_CASES`
-    entry."""
-    if case["model"] == "resnet":
+    entry; ``size`` overrides :data:`MOBILENET_CASE`."""
+    if case["model"] == "mobilenet":
+        from .train_mobilenet import build_program as build_mobilenet
+
+        sz = dict(MOBILENET_CASE, **size)
+        main, startup, loss, acc = build_mobilenet(
+            sz["scale"], sz["image"], sz["classes"], amp=case["amp"],
+            amp_dtype=case["amp_dtype"], **MOBILENET_RECIPE)
+        rate = next(o.input("LearningRate")[0]
+                    for o in main.global_block().ops if o.type == "momentum")
+        img, label = make_batch(batch or sz["batch"], sz["image"],
+                                sz["classes"])
+        fetch = [loss.name, acc.name, rate]
+        feed = {"img": img, "label": label}
+    elif case["model"] == "resnet":
         main, startup, loss, acc = build_program(
             18, 32, 10, 0.1, amp=case["amp"],
             amp_dtype=case.get("amp_dtype", "bfloat16"))
@@ -151,11 +175,12 @@ def _diff(eager, captured):
     return fetches, state
 
 
-def compare_static(name: str, steps: int = 4) -> dict:
+def compare_static(name: str, steps: int = 4, **size) -> dict:
     """One :data:`STATIC_CASES` entry, ``steps`` steps op by op and
-    captured from one startup state."""
+    captured from one startup state; ``size``: the MobileNet case's
+    (:data:`MOBILENET_CASE`)."""
     case = STATIC_CASES[name]
-    main, startup, fetch, feed = _build(case)
+    main, startup, fetch, feed = _build(case, **size)
     state = _startup_state(startup)
     with deterministic():
         e_out, e_state, _ = _steps(main, state, [feed] * steps, fetch, "0")
@@ -168,6 +193,10 @@ def compare_static(name: str, steps: int = 4) -> dict:
            "fetch_mismatches": bad_fetch, "state_mismatches": bad_state[:8],
            "ok": not bad_fetch and not bad_state and
            exe.graphs_captured == 1}
+    if case["model"] == "mobilenet":
+        row.update(size, rates=[float(np.asarray(o[2]).reshape(-1)[0])
+                                for o in c_out])
+        row["ok"] = row["ok"] and len(set(row["rates"])) == steps
     if loss_scaling_state(main):
         found = [bool(np.asarray(o[-1]).reshape(-1)[0]) for o in e_out]
         row["found_inf_steps"] = [i for i, f in enumerate(found) if f]

@@ -62,8 +62,8 @@ from .step_timing import self_device_us as _self_device_us
 from .step_timing import session_turns
 
 __all__ = ["AMP_DTYPES", "build_program", "make_batch", "train",
-           "loss_scaling_state", "print_loss_scaling", "profile_steps",
-           "set_card_precision", "main"]
+           "run_steps", "loss_scaling_state", "print_loss_scaling",
+           "profile_steps", "set_card_precision", "main"]
 
 #: ``--amp-dtype`` choices; float16 is ``decorate(use_fp16=True)``
 AMP_DTYPES = ("bfloat16", "float16")
@@ -124,16 +124,25 @@ def make_batch(batch, image, classes, seed=0):
 def train(depth=50, batch=128, image=224, classes=1000, steps=100, lr=0.1,
           device="cuda", warmup=0, log_every=10, amp=True,
           amp_dtype="bfloat16") -> dict:
-    """Train ``warmup + steps`` steps on one repeated batch; time the last
-    ``steps`` (host wall time around steps that each end in a host read
-    of the loss).  Returns the per-step losses and acc1, ms/step,
-    images/s, and what a profiler needs (executor, program, feed,
-    scope, fetches); under dynamic loss scaling also each step's
-    found-Inf flag and the scale after it (``found_inf``,
-    ``loss_scaling``), fetched with the loss."""
-    dev = resolve_device(device)
+    """Train ``warmup + steps`` steps of the example's program on one
+    repeated batch (:func:`run_steps`)."""
     main_prog, startup, loss, acc1 = build_program(
         depth, image, classes, lr, amp=amp, amp_dtype=amp_dtype)
+    return run_steps(main_prog, startup, loss, acc1, batch, image, classes,
+                     steps, device, warmup, log_every)
+
+
+def run_steps(main_prog, startup, loss, acc1, batch, image, classes, steps,
+              device="cuda", warmup=0, log_every=10) -> dict:
+    """Run the startup program, then ``warmup + steps`` steps of an image
+    classifier's train program (feeds ``img`` and ``label``) on one
+    repeated batch; time the last ``steps`` (host wall time around steps
+    that each end in a host read of the loss).  Returns the per-step
+    losses and acc1, ms/step, images/s, and what a profiler needs
+    (executor, program, feed, scope, fetches); under dynamic loss scaling
+    also each step's found-Inf flag and the scale after it
+    (``found_inf``, ``loss_scaling``), fetched with the loss."""
+    dev = resolve_device(device)
     exe = fluid.Executor(dev)
     scope = Scope()
     exe.run(startup, scope=scope)
@@ -205,7 +214,9 @@ def profile_steps(run: dict, steps: int, groups=None) -> dict:
     step, device ms per step of each of ``groups``' kernels (default: the
     convolutions, cuDNN's kernels by name, the classifier's two small
     GEMMs falling in too, and the two epilogue kernels) and of everything
-    else.  Then ``step_session``: wall and busy ms per step and the idle
+    else, and per program op type its kernels' device ms and their span
+    on the timeline (gaps included).  Then ``step_session``: wall and busy
+    ms per step and the idle
     share with the compiled step off and on, in turns
     (:func:`~.step_timing.session_turns`)."""
     groups = RESNET_GROUPS if groups is None else groups
@@ -250,6 +261,10 @@ def _profile_eager(exe, step, steps: int, groups) -> dict:
                and _self_device_us(e) > 0 and not e.key.startswith("op:")]
     by_op = {e.key[3:]: _self_device_us(e) / steps / 1e3 for e in events
              if e.device_type == cuda and e.key.startswith("op:")}
+    # per program op type: the device time of the kernels its ops launch
+    # (the host-side range's children), without the gaps a span holds
+    op_kernels = {e.key[3:]: _device_us(e) / steps / 1e3 for e in events
+                  if e.device_type != cuda and e.key.startswith("op:")}
     busy_us = sum(_self_device_us(e) for e in kernels)
     if busy_us == 0:
         raise SystemExit("profile_steps: the trace holds no device time "
@@ -272,11 +287,22 @@ def _profile_eager(exe, step, steps: int, groups) -> dict:
             "op_type_span_ms_per_step": {
                 k: v for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])
                 if v > 0} or "not measured",
+            "op_type_device_ms_per_step": {
+                k: v for k, v in sorted(op_kernels.items(),
+                                        key=lambda kv: -kv[1])
+                if v > 0} or "not measured",
             "top_kernels": [{"name": e.key[:90],
                              "ms_per_step": _self_device_us(e) / steps / 1e3,
                              "share": _self_device_us(e) / busy_us,
                              "calls_per_step": e.count / steps}
                             for e in top]}
+
+
+def _device_us(evt) -> float:
+    """A profiler event's device time in us, its children's included
+    (the attribute was renamed from ``cuda_time_total``)."""
+    t = getattr(evt, "device_time_total", None)
+    return float(t if t is not None else evt.cuda_time_total)
 
 
 def set_card_precision():

@@ -381,7 +381,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 def test_left_out_options_raise():
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.dygraph import Embedding, jit
-    from paddle_tpu_torch.param_attr import ParamAttr
+    from paddle_tpu_torch.nn import functional as nn_functional
     m = Linear(2, 2, device="cpu")
     opt = AdamOptimizer(1e-3, parameter_list=m.parameters())
     # AMP runs in bf16 or fp16 (tests/test_torch_amp.py); no other dtype
@@ -394,7 +394,10 @@ def test_left_out_options_raise():
                   lambda: jit.TracedLayer(),
                   lambda: jit.compiled_forward(m),
                   lambda: Embedding([4, 2], is_sparse=True, device="cpu"),
-                  lambda: ParamAttr(regularizer=object())):
+                  # a ParamAttr regularizer is ported
+                  # (tests/test_torch_lr_regularizer.py); gelu in
+                  # nn.functional is not
+                  lambda: nn_functional.gelu(None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             build()
 

@@ -936,6 +936,49 @@ def test_resnet18_on_the_card_launches_the_epilogue_kernels(cuda):
     assert all(t.device.type == "cuda" for _, t in scope.items())
 
 
+def test_mobilenet_small_on_the_card_matches_the_cpu_port(cuda):
+    """MobileNetV3-small f32 on the PaddleClas recipe (L2 decay, the
+    warm-up into a cosine in the program) at 32x32, batch 4, 10 classes:
+    3 steps on the card (fused: per step kernels 7-8 once for each of
+    the 6 relu chains, kernel 9 twice for each of the 9 squeeze-excite
+    fcs, its forward and its grad's replay of the pre-activation) and on
+    the CPU port (plain ops) from one startup scope; step 1's
+    loss within 1e-5 relative (the forward alone: cuDNN's and oneDNN's
+    f32 sums in other orders), every loss finite."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools.train_mobilenet import build_program
+    from paddle_tpu_torch.tools.train_resnet import (make_batch,
+                                                     set_card_precision)
+
+    set_card_precision()
+    main, startup, loss, _ = build_program("small", 32, 10, amp=False)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    img, label = make_batch(4, 32, 10)
+    before = (tba.BN_ACT_APPLY.launches, tba.BN_ACT_BWD.launches,
+              tme.MATMUL_BIAS_ACT_F32.launches)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = [float(exe.run(main, feed={"img": img,
+                                                 "label": label},
+                                     fetch_list=[loss], scope=scope)[0])
+                       for _ in range(3)]
+    torch.cuda.synchronize()
+    assert np.isfinite(losses["cuda"]).all()
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= \
+        1e-5 * abs(losses["cpu"][0]), losses
+    assert (tba.BN_ACT_APPLY.launches - before[0],
+            tba.BN_ACT_BWD.launches - before[1],
+            tme.MATMUL_BIAS_ACT_F32.launches - before[2]) == (18, 18, 54)
+
+
 # ==========================================================================
 # the fc epilogue (csrc/matmul_bias_act.cu): kernel 9 against its plain
 # version within the tolerance of JAX's own kernel test
@@ -2069,6 +2112,17 @@ def test_captured_static_steps_equal_eager_steps(capture, case):
     state bit for bit, one graph; fp16 finds an Inf in a step."""
     row = capture.compare_static(case, steps=4)
     assert row["ok"], row
+
+
+def test_captured_mobilenet_steps_equal_eager_with_the_schedule(capture):
+    """MobileNetV3-small under ``decorate`` (bf16): three steps op by op
+    and captured (warm-up, capture, replay) give the same fetches and
+    state bit for bit, the rate (computed in the program from the step
+    counter) among the fetches and new at every step, the counter among
+    the state."""
+    row = capture.compare_static("mobilenet-bf16", steps=3)
+    assert row["ok"], row
+    assert len(set(row["rates"])) == 3
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])

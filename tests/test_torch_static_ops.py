@@ -412,6 +412,91 @@ CASES.update({
     "update_loss_scaling-decr": lambda: _update_loss_scaling(True, 2, 1),
 })
 
+def _unary(op_type, x, attrs=None, grad=True, tol=TIGHT):
+    return _check(op_type, {"X": [("x", x)]}, {"Out": ["o"]}, attrs,
+                  cot_of=["o"] if grad else (), tol=tol)
+
+
+def _binary(op_type, x, y, axis=-1, grad=True):
+    return _check(op_type, {"X": [("x", x)], "Y": [("y", y)]},
+                  {"Out": ["o"]}, {"axis": axis},
+                  cot_of=["o"] if grad else ())
+
+
+def _edges(*points):
+    """Random inputs with the clip edges of an activation among them."""
+    x = _r(0, 6, 7) * 4
+    x.flat[:len(points)] = points
+    return x
+
+
+# the ops of MobileNetV3 and its training recipe: depthwise convs, the
+# hard activations (their grads at the clip edges: the mobilenet tests),
+# L1 decay's sign, and the schedules' counter, arithmetic, comparisons
+# and selects (tests/test_torch_lr_regularizer.py runs them in programs)
+_POS = np.abs(_r(1, 3, 4)) + 0.5
+CASES.update({
+    "depthwise_conv2d": lambda: _check(
+        "depthwise_conv2d",
+        {"Input": [("x", _r(1, 2, 6, 9, 9))],
+         "Filter": [("w", _r(2, 12, 1, 3, 3) * 0.3)]},
+        {"Output": ["o"]}, dict(_CONV, groups=6), cot_of=["o"], tol=SUMS),
+    "hard_swish": lambda: _unary(
+        "hard_swish", _edges(-3.0, 3.0, 0.0, -4.0, 4.0),
+        {"threshold": 6.0, "scale": 6.0, "offset": 3.0}),
+    # edges where slope * x + offset is exact: the JAX run here is op by
+    # op, where jit contracts it into one fused multiply-add (the port's
+    # rounding; tests/test_torch_mobilenet.py holds it to jax.jit)
+    "hard_sigmoid": lambda: _unary(
+        "hard_sigmoid", _edges(-2.0, 2.0, 0.0),
+        {"slope": 0.25, "offset": 0.5}),
+    "hard_sigmoid-slope-1667": lambda: _unary(
+        "hard_sigmoid", _r(0, 6, 7) * 4, {"slope": 0.1667, "offset": 0.5}),
+    "sign": lambda: _unary("sign", _edges(0.0, -0.0, 1.0)),
+    "floor": lambda: _unary("floor", _edges(1.0, -1.0, 0.5)),
+    "ceil": lambda: _unary("ceil", _edges(1.0, -1.0, 0.5)),
+    "cos": lambda: _unary("cos", _r(0, 6, 7) * 3),
+    "exp": lambda: _unary("exp", _r(0, 6, 7)),
+    "increment": lambda: _unary("increment",
+                                np.array([3.0], np.float32), {"step": 1.0}),
+    "increment-int": lambda: _unary(
+        "increment", np.array([3], np.int32), {"step": 2.0}, grad=False),
+    "elementwise_sub": lambda: _binary("elementwise_sub", _r(0, 3, 4),
+                                       _r(1, 3, 4)),
+    "elementwise_sub-axis": lambda: _binary("elementwise_sub",
+                                            _r(0, 2, 3, 4), _r(1, 3), 1),
+    "elementwise_div": lambda: _binary("elementwise_div", _r(0, 3, 4),
+                                       _POS),
+    "elementwise_max": lambda: _binary(
+        "elementwise_max", _r(0, 3, 4),
+        np.where(np.arange(12).reshape(3, 4) % 3 == 0, _r(0, 3, 4),
+                 _r(1, 3, 4))),
+    "elementwise_min": lambda: _binary(
+        "elementwise_min", _r(0, 3, 4),
+        np.where(np.arange(12).reshape(3, 4) % 3 == 0, _r(0, 3, 4),
+                 _r(1, 3, 4))),
+    "elementwise_pow": lambda: _binary("elementwise_pow", _POS,
+                                       _r(2, 3, 4)),
+    "elementwise_pow-scalar-base": lambda: _binary(
+        "elementwise_pow", np.array([0.9], np.float32), _POS),
+    "elementwise_mod": lambda: _binary("elementwise_mod", _r(0, 3, 4) * 5,
+                                       _POS * np.sign(_r(2, 3, 4)),
+                                       grad=False),
+    "elementwise_floordiv": lambda: _binary(
+        "elementwise_floordiv", _r(0, 3, 4) * 5,
+        _POS * np.sign(_r(2, 3, 4)), grad=False),
+    "where": lambda: _check(
+        "where", {"Condition": [("c", _r(3, 3, 4) > 0)],
+                  "X": [("x", _r(0, 3, 4))], "Y": [("y", _r(1, 3, 4))]},
+        {"Out": ["o"]}, cot_of=["o"], int_slots=("Condition",)),
+})
+for _c in ("equal", "not_equal", "less_than", "less_equal", "greater_than",
+           "greater_equal"):
+    CASES[_c] = (lambda c=_c: _binary(
+        c, np.array([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]], np.float32),
+        np.array([2.0, 2.0, 7.0], np.float32), grad=False))
+
+
 def _dropout_train(impl, p=0.3, seed=7):
     """Training dropout: the two packages draw different masks, so each
     package's mask is held to its keep rate (5 standard errors) and its
