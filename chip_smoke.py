@@ -240,6 +240,28 @@ Phases (any failure exits non-zero and prints no result):
       int8 codes within 1, layer 0's scales within SCALE_RTOL and the
       deeper layers' within SCALE_RTOL_DEEP;
 
+9b. serving completeness (after phase o; phase 9's GPT-2-small engine
+    and trace, the compiled step on): phase 9's 16 requests sampled
+    (``SAMPLED``: temperature 0.8, top-k 50, top-p 0.95) by two fresh
+    engines and once eagerly, all bit-identical, kernel 6 launched layers
+    x decode steps, ``top_k=1`` sampling equal to phase 9's greedy
+    streams, decode ms/step sampled beside greedy (``serving_sampled``);
+    ``StaticBatchingEngine(core, 8)`` against the continuous engine,
+    tokens equal up to a near-tie, both tokens/s (``serving_static``);
+    greedy speculative decoding (``SPEC_K`` 4, the n-gram proposer) over
+    16 self-similar prompts (``poisson_trace(repeat_frac=0.5)``) on f32
+    pools and int8 pools of phase 9's byte budget, each stream equal to
+    the same engine's plain one or parting first where the f32
+    reference's top-2 margin is below TIE_MARGIN (f32) or phase n's
+    quantized tie (int8: a page keeps the scale its rejected drafts
+    raised); proposed and accepted counts, verify calls against plain
+    decode steps, verify ms per call, tokens/s with spec on and off
+    (``serving_spec``); the overload bench's quick trace on the card,
+    ``slo_aware`` goodput strictly above fifo's and no request hung
+    (``serving_overload``); telemetry and request tracing on against off
+    in turns: the same streams, spans and counters reconciled with the
+    engine's stats, the wall overhead (``serving_telemetry``);
+
    static AMP in fp16 with dynamic loss scaling
    (``decorate(use_fp16=True)``, the reference's AMP), headed p-u:
 
@@ -3498,6 +3520,278 @@ def head_dim_phase():
 
 
 # ==========================================================================
+# serving completeness (phase 9b): sampled and speculative decoding, static
+# batching, slo_aware admission, telemetry and request tracing
+# ==========================================================================
+#: phase 9b's sampled decoding (top-k 50 then the 0.95 nucleus)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+#: drafted tokens a speculative step (the n-gram proposer)
+SPEC_K = 4
+
+
+def phase9_prompts(vocab):
+    """``serve()``'s 16 prompts (32-512 tokens, numpy seed 0)."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, 513, size=16)
+    return [rng.randint(0, vocab, size=int(n)).tolist() for n in lens]
+
+
+def self_similar_prompts(vocab):
+    """16 prompts of 32-512 tokens from ``loadgen.poisson_trace`` with
+    ``repeat_frac=0.5``: half of each prompt copies spans of its start,
+    which the n-gram proposer drafts from."""
+    from paddle_tpu_torch.utils.loadgen import poisson_trace
+
+    return [e.prompt for e in poisson_trace(
+        16, 100.0, vocab, prompt_len_range=(32, 512),
+        max_new_range=(64, 64), seed=0, repeat_frac=0.5)]
+
+
+def run_trace(torch, eng, prompts, max_new=64):
+    """Serve ``prompts`` to the end on ``eng`` (a ``ServingEngine`` or
+    ``StaticBatchingEngine``): tokens, wall seconds, the decode (or
+    verify) calls and their wall ms per call, and kernel 6's launches."""
+    from paddle_tpu_torch.inference.serving import Request
+
+    core = eng.core
+    name = "verify_batch" if getattr(eng, "spec_k", 0) else "decode_batch"
+    fn = getattr(core, name)
+    wall = {"calls": 0, "s": 0.0}
+
+    def timed(*a):
+        t = time.perf_counter()
+        out = fn(*a)            # ends in a host read of the tokens
+        wall["s"] += time.perf_counter() - t
+        wall["calls"] += 1
+        return out
+
+    setattr(core, name, timed)
+    kernel = decode_kernels()[core.kv_dtype]
+    reqs = [Request(i, list(p), max_new) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    delattr(core, name)
+    if any(r.finished_at is None for r in reqs):
+        fail(f"{type(eng).__name__}: a request did not finish")
+    tokens = [r.out_tokens for r in reqs]
+    n_tok = sum(len(t) for t in tokens)
+    return {"tokens": tokens, "wall_s": elapsed,
+            "tokens_per_s": n_tok / elapsed, "generated_tokens": n_tok,
+            "calls": wall["calls"],
+            "ms_per_call": wall["s"] / max(wall["calls"], 1) * 1e3,
+            "launches": kernel.launches, "reqs": reqs}
+
+
+def check_divergences(core, prompts, want, got, tie, what):
+    """``first_divergence`` of each request; the rows where one parts."""
+    return [d for d in (first_divergence(core, p, w, g, tie,
+                                         f"{what} req {i}")
+                        for i, (p, w, g) in enumerate(zip(prompts, want,
+                                                          got)))
+            if d is not None]
+
+
+def serving_completeness_phase(torch, f32_tokens, ties):
+    """Sampled decoding captured and replayed bit for bit, kernel 6
+    launched layers x steps; greedy speculative decoding equal to plain
+    decoding up to near-ties, on f32 and int8 pools; the static-batching
+    engine equal to the continuous one; ``slo_aware`` above ``fifo`` on
+    the overload bench's quick trace; telemetry and tracing on giving the
+    same streams, with spans that reconcile with the counters."""
+    from paddle_tpu_torch.inference.serving import (
+        DecoderConfig, SamplingParams, ServingEngine, StaticBatchingEngine,
+        init_decoder_weights)
+    from paddle_tpu_torch.tools import overload_bench
+    from paddle_tpu_torch.utils import flags, telemetry, tracing
+
+    t_phase = time.perf_counter()
+    cfg = DecoderConfig(**GPT2_SMALL)
+    weights = init_decoder_weights(cfg, 0)
+    prompts = phase9_prompts(cfg.vocab_size)
+    flags.set_flags({"FLAGS_cuda_step_session": "1"})
+
+    def engine(kv_dtype="float32", **kw):
+        pool = dict(num_pages=1024) if kv_dtype == "float32" else \
+            dict(kv_budget_mb=KV_BUDGET_MB)
+        return ServingEngine(cfg, weights, page_size=16, max_batch=8,
+                             token_budget=1024, device="cuda",
+                             kv_dtype=kv_dtype, **pool, **kw)
+
+    def strip(run):
+        return {k: v for k, v in run.items() if k not in ("tokens", "reqs")}
+
+    # -- sampled decoding -------------------------------------------------
+    sp = SamplingParams(**SAMPLED)
+    greedy = run_trace(torch, engine(), prompts)
+    sampled = [run_trace(torch, engine(sampling=sp), prompts)
+               for _ in range(2)]
+    flags.set_flags({"FLAGS_cuda_step_session": "0"})
+    eager = run_trace(torch, engine(sampling=sp), prompts)
+    flags.set_flags({"FLAGS_cuda_step_session": "1"})
+    top1 = run_trace(torch, engine(sampling=SamplingParams(
+        temperature=0.8, top_k=1)), prompts)
+    steps = sampled[0]["calls"]
+    report = {"sampling": SAMPLED, "runs": {
+        "greedy_captured": strip(greedy),
+        "sampled_captured": strip(sampled[0]),
+        "sampled_captured_again": strip(sampled[1]),
+        "sampled_eager": strip(eager), "top_k_1_captured": strip(top1)}}
+    report["sampled_replay_bit_identical"] = \
+        sampled[0]["tokens"] == sampled[1]["tokens"]
+    report["captured_equals_eager"] = \
+        sampled[0]["tokens"] == eager["tokens"]
+    report["top_k_1_equals_phase9_greedy"] = top1["tokens"] == f32_tokens
+    report["greedy_captured_equals_phase9"] = greedy["tokens"] == f32_tokens
+    report["sampled_share_equal_to_greedy"] = token_share(
+        sampled[0]["tokens"], greedy["tokens"])
+    report["decode_ms_per_step"] = {"sampled": sampled[0]["ms_per_call"],
+                                    "greedy": greedy["ms_per_call"]}
+    print("serving_sampled " + json.dumps(report), flush=True)
+    if not report["sampled_replay_bit_identical"]:
+        fail("sampled decoding: two fresh engines with one seed differ")
+    if not report["captured_equals_eager"]:
+        fail("sampled decoding: the captured steps differ from eager ones")
+    if not report["top_k_1_equals_phase9_greedy"]:
+        fail("top_k=1 sampling differs from phase 9's greedy streams")
+    if sampled[0]["tokens"] == greedy["tokens"]:
+        fail("sampled decoding gave the greedy streams: the sampler did "
+             "not engage")
+    for run in (greedy, sampled[0], top1):
+        if run["launches"] != cfg.num_layers * run["calls"]:
+            fail(f"kernel 6 launches {run['launches']} != layers "
+                 f"{cfg.num_layers} x decode steps {run['calls']}")
+
+    # -- static batching ---------------------------------------------------
+    static = run_trace(torch, StaticBatchingEngine(engine().core, 8),
+                       prompts)
+    row = {"static_tokens_per_s": static["tokens_per_s"],
+           "continuous_tokens_per_s": greedy["tokens_per_s"],
+           "static_decode_steps": static["calls"],
+           "continuous_decode_steps": greedy["calls"],
+           "static_wall_s": static["wall_s"],
+           "continuous_wall_s": greedy["wall_s"],
+           "tokens_equal": static["tokens"] == greedy["tokens"],
+           "tie_margin": TIE_MARGIN}
+    ref_core = engine().core
+    row["divergences"] = check_divergences(
+        ref_core, prompts, greedy["tokens"], static["tokens"], TIE_MARGIN,
+        "static vs continuous")
+    print("serving_static " + json.dumps(row), flush=True)
+
+    # -- speculative decoding ----------------------------------------------
+    spec_prompts = self_similar_prompts(cfg.vocab_size)
+    for kv_dtype in ("float32", "int8"):
+        plain = run_trace(torch, engine(kv_dtype), spec_prompts)
+        eng = engine(kv_dtype, spec_k=SPEC_K, proposer="ngram")
+        spec = run_trace(torch, eng, spec_prompts)
+        # an int8 page keeps the scale its rejected drafts raised (as the
+        # JAX package's pools do), so the codes after it differ from plain
+        # decoding's by up to an int8 step: phase n's quantized tie holds
+        tie = TIE_MARGIN if kv_dtype == "float32" else \
+            max(TIE_MARGIN, ties["int8"])
+        row = {"kv_dtype": kv_dtype, "spec_k": SPEC_K,
+               "proposed": eng.stats["spec_proposed"],
+               "accepted": eng.stats["spec_accepted"],
+               "verify_calls": spec["calls"],
+               "plain_decode_steps": plain["calls"],
+               "verify_ms_per_call": spec["ms_per_call"],
+               "plain_decode_ms_per_step": plain["ms_per_call"],
+               "tokens_per_s_spec": spec["tokens_per_s"],
+               "tokens_per_s_plain": plain["tokens_per_s"],
+               "kernel6_launches_spec": spec["launches"],
+               "tokens_equal": spec["tokens"] == plain["tokens"],
+               "tie_margin": tie}
+        row["divergences"] = check_divergences(
+            ref_core, spec_prompts, plain["tokens"], spec["tokens"], tie,
+            f"{kv_dtype} spec vs plain")
+        print("serving_spec " + json.dumps(row), flush=True)
+        del eng
+    del ref_core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- admission: the overload bench's quick trace on the card ----------
+    payload, ok = overload_bench.run(["--quick", "--json", "--device",
+                                      "cuda"])
+    flags.set_flags({"FLAGS_chaos": "", "FLAGS_trace_requests": False})
+    comp = payload["comparison"]
+    hung = {f"{tag}:{p}": r["outcomes"]["hung"]
+            for tag, sec in (("plain", payload),
+                             ("prefix", payload["prefix_trace"]),
+                             ("kv", payload["kv_quant"]))
+            for p, r in sec["policies"].items()}
+    print("serving_overload " + json.dumps({
+        "ok": ok, "comparison": comp, "hung": hung,
+        "shed": {p: r["outcomes"]["shed"]
+                 for p, r in payload["policies"].items()},
+        "kv_quant": payload["kv_quant"]["comparison"]}), flush=True)
+    if not ok or not comp["slo_aware_strictly_better"] or any(
+            hung.values()):
+        fail(f"overload bench on the card: ok={ok}, {comp}, hung {hung}")
+
+    # -- telemetry and tracing on against off, in turns -------------------
+    turns = []
+    for on in (False, True, True, False):
+        flags.set_flags({"FLAGS_telemetry": on, "FLAGS_trace_requests": on})
+        telemetry.registry().clear()
+        tracing.reset()
+        eng = engine()
+        run = run_trace(torch, eng, prompts)
+        turns.append((on, run))
+        if on:
+            traces = tracing.store().finished_traces()
+            snap = telemetry.snapshot()
+            count = {n: snap[n]["series"][0]["value"] for n in (
+                "serving_admitted_total", "serving_finished_total",
+                "serving_decode_steps_total")}
+            spans = {
+                "prefill": sum(len(t.spans_named("prefill"))
+                               for t in traces),
+                "finished": len(traces),
+                "decode_step": sum(len(t.spans_named("decode_step"))
+                                   for t in traces)}
+            want = {"prefill": eng.stats["admitted"],
+                    "finished": eng.stats["finished"],
+                    "decode_step": eng.stats["decode_tokens"]}
+            if spans != want or count != {
+                    "serving_admitted_total": eng.stats["admitted"],
+                    "serving_finished_total": eng.stats["finished"],
+                    "serving_decode_steps_total":
+                        eng.stats["decode_steps"]}:
+                fail(f"spans {spans} / counters {count} do not reconcile "
+                     f"with the engine's stats {eng.stats}")
+        del eng
+    flags.set_flags({"FLAGS_telemetry": True,
+                     "FLAGS_trace_requests": False})
+    telemetry.registry().clear()
+    tracing.reset()
+    off = [r for on, r in turns if not on]
+    on = [r for on_, r in turns if on_]
+    if any(r["tokens"] != greedy["tokens"] for _, r in turns):
+        fail("telemetry / tracing on changed the token streams")
+    print("serving_telemetry " + json.dumps({
+        "wall_s_off": [r["wall_s"] for r in off],
+        "wall_s_on": [r["wall_s"] for r in on],
+        "decode_ms_per_step_off": [r["ms_per_call"] for r in off],
+        "decode_ms_per_step_on": [r["ms_per_call"] for r in on],
+        "wall_overhead_on_vs_off": sum(r["wall_s"] for r in on)
+        / sum(r["wall_s"] for r in off) - 1.0,
+        "streams_equal": True}), flush=True)
+    flags.set_flags({"FLAGS_cuda_step_session": "0"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serving_completeness_seconds "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return sampled[0]["launches"], steps
+
+
+# ==========================================================================
 # the compiled step: static steps and the decode step as CUDA graphs
 # ==========================================================================
 #: the decode check's model: GPT-2 small's widths, depth cut to 4 layers
@@ -4074,6 +4368,10 @@ def main():
 
     phase("o. serving card vs CPU, 2 layers, bf16 and int8 KV pools")
     quant_card_vs_cpu(torch, ties)
+
+    phase("9b. serving completeness: sampled and speculative decoding, "
+          "static batching, slo_aware admission, telemetry")
+    serving_completeness_phase(torch, f32_tokens, ties)
 
     phase("p. conv epilogue fp16: kernels vs plain versions, times")
     epi_h_errs, epi_h_sets, layout = check_epilogue_low("float16")

@@ -6,8 +6,11 @@ ported slices so far:
 
 * decode serving: ``ServingEngine`` over a paged KV cache in float32,
   bfloat16 or int8, with a copy-on-write prefix cache and chunked
-  prefill, whose paged-decode attention is a hand-written CUDA kernel for
-  Hopper, one per pool dtype (``csrc/paged_attention.cu``);
+  prefill, greedy, sampled (``SamplingParams``) and speculative decoding,
+  ``fifo`` and ``slo_aware`` admission, the ``StaticBatchingEngine``
+  baseline, telemetry, request tracing and serving chaos faults, whose
+  paged-decode attention is a hand-written CUDA kernel for Hopper
+  (``csrc/paged_attention.cu``);
 * BERT/ERNIE-base dygraph pretraining in float32: ``BertForPretraining``,
   ``AdamOptimizer`` and ``dygraph.jit_train_step``, whose attention runs in
   hand-written flash-attention kernels, forward and backward
@@ -18,9 +21,9 @@ none, unless the caller passes ``device="cpu"``; CPU tensors take each
 kernel's plain PyTorch version.
 """
 from .inference.serving import (  # noqa: F401
-    DecoderConfig, DecoderLM, Request, RequestRejected, ServingEngine,
-    StepEvent, decoder_param_specs, init_decoder_weights,
-    load_decoder_config, load_decoder_weights,
+    DecoderConfig, DecoderLM, Request, RequestRejected, SamplingParams,
+    ServingEngine, StaticBatchingEngine, StepEvent, decoder_param_specs,
+    init_decoder_weights, load_decoder_config, load_decoder_weights,
 )
 from .models.bert import (  # noqa: F401
     BertConfig, BertForPretraining, BertModel, ErnieConfig, ErnieModel,

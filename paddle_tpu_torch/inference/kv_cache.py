@@ -1,9 +1,10 @@
 """Paged KV-cache allocator for the serving runtime (host bookkeeping).
 
-Counterpart of ``paddle_tpu/inference/kv_cache.py``, prefix cache and
-quantized pool sizes included, without its telemetry gauges and counters
-(``_publish_gauges`` and the ``tm.counter`` calls: the port has no
-telemetry registry yet).  The device pools are laid out ``(kv_heads,
+Counterpart of ``paddle_tpu/inference/kv_cache.py``, whole: the prefix
+cache, quantized pool sizes, speculative decoding's rollback
+(:meth:`PagedKVCache.truncate_tokens`) and the telemetry gauges and
+counters (``utils/telemetry.py``; every mutation republishes the pool
+gauges, as the JAX allocator does).  The device pools are laid out ``(kv_heads,
 num_pages, page_size, head_dim)`` per layer (the layout the paged-decode
 kernels read), in the storage dtype of :attr:`KVCacheConfig.dtype`;
 int8 pools carry ``(kv_heads, num_pages)`` f32 scale pools beside them.
@@ -36,9 +37,6 @@ behaves exactly as without it):
   the engine to copy on the device before the step that writes;
 * refcount-0 cached pages are evicted only when the free list is dry,
   oldest free first, ``crc32(seed:page)`` breaking ties.
-
-:meth:`truncate_tokens` (speculative decoding's rollback) is not ported
-and raises.
 """
 from __future__ import annotations
 
@@ -49,6 +47,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..utils import telemetry as tm
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "KV_DTYPES"]
 
@@ -207,6 +207,35 @@ class PagedKVCache:
                 + self.cow_fork_need(seq_id, n_tokens)
                 <= self.num_free_pages)
 
+    def _publish_gauges(self):
+        """Pool state into the telemetry registry, at every allocator
+        mutation, so a mid-run snapshot is never stale."""
+        tm.gauge("kv_pool_pages_in_use",
+                 "KV pages currently owned by live sequences").set(
+                     self.pages_in_use)
+        tm.gauge("kv_pool_utilization",
+                 "fraction of KV pool pages in use").set(self.utilization())
+        tm.gauge("kv_pool_fragmentation",
+                 "fraction of owned KV slots holding no token "
+                 "(tail-of-page waste)").set(self.fragmentation())
+        if self.prefix_cache:
+            tm.gauge("kv_prefix_cached_pages",
+                     "refcount-0 pages kept as evictable prefix-cache "
+                     "entries").set(len(self._cached_free))
+            tm.gauge("kv_prefix_shared_pages",
+                     "pages currently mapped by more than one live "
+                     "sequence").set(
+                         sum(1 for r in self._refs.values() if r > 1))
+        if self.config.dtype != "float32":
+            # published only for a quantized pool
+            tm.gauge("kv_quant_scale_bytes",
+                     "per-side per-layer scale-pool bytes backing the "
+                     "quantized KV pool").set(self.config.scale_bytes())
+            tm.gauge("kv_quant_capacity_tokens",
+                     "token slots the quantized pool holds at its fixed "
+                     "byte budget").set(
+                         self.config.num_pages * self.config.page_size)
+
     # -- page pool internals ----------------------------------------------
     def _evict_key(self, page: int):
         """Seeded eviction order of refcount-0 cached pages: oldest free
@@ -224,6 +253,9 @@ class PagedKVCache:
         self._drop_index(page)
         self._used.pop(page, None)
         self.evicted_pages += 1
+        tm.counter("kv_prefix_evicted_total",
+                   "cached prefix pages evicted to satisfy fresh "
+                   "allocations").inc()
         return page
 
     def _drop_index(self, page: int):
@@ -308,6 +340,9 @@ class PagedKVCache:
                 self._pending_forks.append((src, dst, keep))
                 self.forked_pages += 1
                 self.alloc_count += 1
+                tm.counter("kv_prefix_forked_total",
+                           "shared partial pages forked on first write "
+                           "(copy-on-write)").inc()
             elif (n_tokens and s.pages and s.length % ps
                     and not s.opaque):
                 # exclusive tail about to change: retire the stale entry
@@ -318,6 +353,9 @@ class PagedKVCache:
             self._refs[page] = 1
             self.alloc_count += 1
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        if need:
+            tm.counter("kv_pool_pages_alloc_total",
+                       "KV pages handed out").inc(need)
         pos = s.length + np.arange(n_tokens)
         pages = np.asarray(s.pages, np.int64)
         slots = (pages[pos // ps] * ps + pos % ps).astype(np.int32) \
@@ -333,6 +371,8 @@ class PagedKVCache:
             if tokens is not None and not s.opaque and n_tokens:
                 s.tokens.extend(int(t) for t in tokens)
                 self._register_chain(s, tokens)
+        # on every append: a within-page append changes fragmentation
+        self._publish_gauges()
         return slots
 
     # -- prefix cache ------------------------------------------------------
@@ -393,6 +433,7 @@ class PagedKVCache:
         s.digest = self._full_key[pages[n_full - 1]] if n_full else b""
         s.tail = [int(t) for t in tokens[n_full * ps:]]
         self.peak_pages = max(self.peak_pages, self.pages_in_use)
+        self._publish_gauges()
         return hit
 
     def commit_prefix_hit(self, seq_id):
@@ -406,13 +447,79 @@ class PagedKVCache:
         shared, s.pending_shared = s.pending_shared, 0
         self.hit_tokens += hit
         self.shared_acquires += shared
+        tm.counter("kv_prefix_hit_tokens_total",
+                   "prompt tokens served from cached prefix pages "
+                   "(prefill skipped)").inc(hit)
+
+    def _release(self, pages) -> int:
+        """Drop one reference to each page; a page at refcount zero parks
+        as an evictable cached page if indexed, else returns to the free
+        list.  Returns the pages released."""
+        released = 0
+        for page in pages:
+            self._refs[page] = self._refs.get(page, 1) - 1
+            if self._refs[page] <= 0:
+                self._refs.pop(page, None)
+                released += 1
+                if self.prefix_cache and (page in self._full_key
+                                          or page in self._page_partial):
+                    self._free_gen += 1
+                    self._cached_free[page] = self._free_gen
+                else:
+                    self._free.append(page)
+                    if self.prefix_cache:
+                        self._used.pop(page, None)
+        if released:
+            self.free_count += released
+            tm.counter("kv_pool_pages_freed_total",
+                       "KV pages returned to the pool").inc(released)
+        return released
 
     def truncate_tokens(self, seq_id, n_tokens: int):
-        """Speculative decoding's rollback: not ported."""
-        raise NotImplementedError(
-            "truncate_tokens (speculative decoding's rollback) is not "
-            "ported to paddle_tpu_torch yet (ROADMAP.md, serving "
-            "completeness)")
+        """Roll back the last ``n_tokens`` of ``seq_id`` (JAX
+        ``truncate_tokens``): speculative decoding's rejected drafts are
+        un-appended, so the next append writes their slots again.  The
+        device pools are untouched (an int8 page keeps the scale the
+        rejected values raised, as JAX's pools do); host-side, now-empty
+        pages are popped under :meth:`free_sequence`'s refcount rules and
+        the prefix chain and index rewind to the kept length from the
+        sequence's token history.  A kept partial tail page owned by this
+        sequence alone drops its stale index entries and re-registers its
+        kept content; a shared one stays frozen (the next write forks
+        it)."""
+        if n_tokens <= 0:
+            return
+        s = self._seqs[seq_id]
+        if n_tokens > s.length:
+            raise ValueError(
+                f"truncate_tokens: {n_tokens} > length {s.length} of "
+                f"sequence {seq_id!r}")
+        ps = self.config.page_size
+        new_len = s.length - n_tokens
+        keep = -(-new_len // ps)  # ceil
+        dropped, s.pages = s.pages[keep:], s.pages[:keep]
+        self._release(dropped)
+        s.length = new_len
+        if self.prefix_cache and not s.opaque:
+            s.tokens = s.tokens[:new_len]
+            n_full = new_len // ps
+            digest = b""
+            for i in range(n_full):
+                digest = _chain(digest, s.tokens[i * ps:(i + 1) * ps])
+            s.digest = digest
+            s.tail = list(s.tokens[n_full * ps:])
+            if s.tail and self._refs.get(s.pages[-1], 0) == 1:
+                page = s.pages[-1]
+                self._drop_index(page)
+                tup = tuple(s.tail)
+                self._partials.setdefault(s.digest, {})[page] = tup
+                self._page_partial[page] = (s.digest, tup)
+                self._used[page] = len(s.tail)
+        elif self.prefix_cache and s.opaque:
+            if s.pages and new_len % ps \
+                    and self._refs.get(s.pages[-1], 0) == 1:
+                self._used[s.pages[-1]] = new_len % ps
+        self._publish_gauges()
 
     def take_forks(self) -> List[Tuple[int, int, int]]:
         """Drain pending CoW forks as ``(src_page, dst_page, used)``
@@ -428,19 +535,8 @@ class PagedKVCache:
         s = self._seqs.pop(seq_id, None)
         if s is None:
             return
-        for page in s.pages:
-            self._refs[page] = self._refs.get(page, 1) - 1
-            if self._refs[page] <= 0:
-                self._refs.pop(page, None)
-                self.free_count += 1
-                if self.prefix_cache and (page in self._full_key
-                                          or page in self._page_partial):
-                    self._free_gen += 1
-                    self._cached_free[page] = self._free_gen
-                else:
-                    self._free.append(page)
-                    if self.prefix_cache:
-                        self._used.pop(page, None)
+        if self._release(s.pages):
+            self._publish_gauges()
 
     # -- views for the decode step ----------------------------------------
     def context_len(self, seq_id) -> int:

@@ -1,7 +1,9 @@
 """Continuous-batching decode serving runtime (PyTorch port).
 
-Counterpart of ``paddle_tpu/inference/serving.py``: greedy decoding,
-``fifo`` admission, no tensor parallelism, no speculative decoding.
+Counterpart of ``paddle_tpu/inference/serving.py`` at tp=1: greedy,
+sampled and speculative decoding, ``fifo`` and ``slo_aware`` admission,
+the static-batching baseline, and the engine's telemetry, request
+tracing and chaos hooks.
 
 * **Paged KV cache** — the allocator of :mod:`.kv_cache` hands out pages
   of per-layer device pools that ``kv_cache_append`` updates in place.
@@ -19,8 +21,19 @@ Counterpart of ``paddle_tpu/inference/serving.py``: greedy decoding,
   step, so decode never stalls behind it.
 * **Continuous batching** — requests are admitted at every step up to a
   token budget, finished sequences free their pages at once, and pool
-  exhaustion preempts the youngest sequence back to the waiting queue
-  (recompute on resume).
+  exhaustion preempts a sequence back to the waiting queue (recompute
+  on resume).  The admission policy (``admission_policy`` /
+  ``FLAGS_admission_policy``, :mod:`.admission`) orders the queue, sheds
+  requests whose SLO can no longer be met, and picks the victim.
+* **Sampled decoding** (``sampling`` / ``FLAGS_sample_temperature``) —
+  every form ends in ``ops/sampling_ops.sample_token`` under per-row RNG
+  lanes computed on the host (``spec_decode.rng_lane``); greedy engines
+  end in argmax exactly as before.
+* **Speculative decoding** (``spec_k`` / ``FLAGS_spec_decode_k``,
+  ``proposer``) — a proposer drafts up to ``spec_k`` tokens per sequence,
+  the verify form scores every draft position of the batch in one call,
+  the agreeing prefix and one bonus token are emitted, and the rejected
+  drafts are truncated back out of the pool.
 * **Ragged paged attention** — the decode form attends each query over
   its own pages at its true length: the hand-written CUDA kernel of the
   pool's dtype on the card, their plain PyTorch version for CPU
@@ -28,26 +41,33 @@ Counterpart of ``paddle_tpu/inference/serving.py``: greedy decoding,
 * **The captured decode step** (``FLAGS_cuda_step_session``, ``auto``:
   on for a CUDA engine; JAX jits the decode form once per bucket) — a
   bucket's first decode step runs eagerly on the engine's capture
-  stream, its second records the decode form and the greedy argmax into
-  a CUDA graph, and from then on a step copies the bucket's inputs from
+  stream, its second records the decode form and its head (argmax, or
+  the sampled head with the lanes in the bucket's input block) into a
+  CUDA graph, and from then on a step copies the bucket's inputs from
   pinned host memory in one copy, replays, and reads the tokens back in
   one small copy.  The KV write has static shapes
   (``ops/paged_ops.write_plan``), so the pools update inside the graph.
-  The prefix cache's forks run eagerly ahead of the replay; prefill and
-  chunked prefill run eagerly.
+  The prefix cache's forks run eagerly ahead of the replay; prefill,
+  chunked prefill and verify run eagerly.
+* **Observability** — ``utils/telemetry.py`` counters, gauges and
+  histograms (``FLAGS_telemetry``), the SLO tracker, request span trees
+  (``utils/tracing.py``, ``FLAGS_trace_requests``), serving chaos faults
+  (``utils/chaos.py``, ``FLAGS_chaos``) and host profiler events
+  (``profiler.py``).  All of it is host-side and off the captured graph.
 
 The JAX package builds its decoder as Programs run by its Executor.
-Here the forms (``reference``, ``prefill``, ``decode``, ``chunk``) are
-methods of one ``nn.Module`` holding the same parameter names
-(:func:`decoder_param_specs`), and feed shapes are bucketed exactly as
-there (powers of two in prompt length, batch and block-table width), so
-both packages compute on the same padded shapes.  Left out: the JAX
-engine's telemetry, tracing and chaos hooks.
+Here the forms (``reference``, ``prefill``, ``decode``, ``chunk``,
+``verify``) are methods of one ``nn.Module`` holding the same parameter
+names (:func:`decoder_param_specs`), and feed shapes are bucketed
+exactly as there (powers of two in prompt length, batch, chunk length
+and block-table width), so both packages compute on the same padded
+shapes.
 """
 from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,14 +82,22 @@ from ..ops.decoder_ops import (attention_reference, layer_norm,
                                lookup_table_v2, matmul)
 from ..ops.paged_ops import (kv_dequant, paged_attention, scatter_rows,
                              write_plan)
-from ..utils.flags import cuda_step_session_enabled, get_flag
+from ..ops.sampling_ops import sample_token
+from ..profiler import RecordEvent, instant_event, is_profiler_enabled
+from ..utils import chaos
+from ..utils import telemetry as tm
+from ..utils import tracing
+from ..utils.flags import cuda_step_session_enabled, flag_float, get_flag
 from .admission import RequestRejected, get_policy
 from .kv_cache import KV_DTYPES, KVCacheConfig, PagedKVCache
+from .spec_decode import (NGramProposer, Proposer, SamplingParams,
+                          get_proposer, rng_lane)
 
 __all__ = [
     "DecoderConfig", "DecoderLM", "Request", "StepEvent", "ServingEngine",
-    "RequestRejected", "decoder_param_specs", "init_decoder_weights",
-    "load_decoder_config", "load_decoder_weights", "NEG_INF",
+    "StaticBatchingEngine", "RequestRejected", "SamplingParams",
+    "decoder_param_specs", "init_decoder_weights", "load_decoder_config",
+    "load_decoder_weights", "emit_head", "NEG_INF",
 ]
 
 NEG_INF = -1e9  # additive causal-mask value (finite: no NaN in padded rows)
@@ -165,17 +193,19 @@ def load_decoder_weights(model_dir: str
 
 
 class DecoderLM(nn.Module):
-    """The pre-LN decoder LM in its four forms.
+    """The pre-LN decoder LM in its five forms.
 
     ``reference``: full-sequence next-token logits (the oracle).
     ``prefill``: the reference body, plus every prompt position's K/V
     written into the pools.  ``decode``: one token per sequence over the
     paged pools.  ``chunk``: a slice of one prompt at an offset, its K/V
     written first, then attending over the pool pages gathered through
-    its block table (the prefix-hit suffix and chunked prefill).  Every
-    form returns the logits of one position per row: ``(1, vocab)`` for
-    the dense forms (the row ``last_index`` names), ``(batch, vocab)``
-    for decode.
+    its block table (the prefix-hit suffix and chunked prefill).
+    ``verify``: the chunk form batched over sequences, every position
+    scored (speculative decoding's accept-prefix check).  The dense
+    forms return the logits of the row ``last_index`` names, ``(1,
+    vocab)``; decode ``(batch, vocab)``; verify ``(batch * S, vocab)``.
+    :func:`emit_head` turns logits into tokens.
 
     ``kv_pools`` is a list, one ``(k_pool, v_pool)`` pair per layer, of
     ``(kv_heads, num_pages, page_size, head_dim)`` tensors in the storage
@@ -272,34 +302,66 @@ class DecoderLM(nn.Module):
                            self._writer(slot_mapping, kv_pools, kv_scales,
                                         touched))
 
+    def _pool_window(self, i: int, tables: torch.Tensor, kv_pools,
+                     kv_scales):
+        """Layer i's K and V over the pool windows the ``(B, W)`` block
+        ``tables`` gather, widened to f32 (JAX ``_kv_gather_deq``: a bf16
+        cast, or int8 codes times their page's gathered scale / 127):
+        ``(B, H, W * page_size, D)`` each."""
+        H, D = self.cfg.num_heads, self.cfg.head_dim
+        out = []
+        for j, pool in enumerate(kv_pools[i]):
+            g = pool[:, tables]                           # (H, B, W, ps, D)
+            if pool.dtype != torch.float32:
+                g = kv_dequant(g, None if kv_scales is None else
+                               kv_scales[i][j][:, tables])
+            out.append(g.transpose(0, 1).reshape(tables.shape[0], H, -1, D))
+        return out
+
+    def _windowed(self, tokens, positions, attn_mask, slot_mapping, tables,
+                  kv_pools, kv_scales, touched):
+        """The chunk and verify body on ``(B, S)`` tokens: each layer's
+        K/V enter the pools first, then every position attends over its
+        row's pool window under the host-built causal and context mask
+        ``(B, 1, S, W * page_size)``, so a slice reads its own positions
+        back from the pool after quantization.  Returns the hidden rows
+        ``(B, S, hidden)``."""
+        cfg = self.cfg
+        H, D, h = cfg.num_heads, cfg.head_dim, cfg.hidden
+        write = self._writer(slot_mapping, kv_pools, kv_scales, touched)
+        tables = tables.long()
+        B, S = tokens.shape
+        hid = self._embed(tokens, positions)                  # (B, S, h)
+        for i in range(cfg.num_layers):
+            q, k, v = self._qkv(i, hid)
+            write(i, k, v)
+            q4 = q.reshape(B, S, H, D).transpose(1, 2)        # (B, H, S, D)
+            av = attention_reference(
+                q4, *self._pool_window(i, tables, kv_pools, kv_scales),
+                attn_mask, D ** -0.5)
+            hid = self._out_mlp(i, hid, av.transpose(1, 2).reshape(B, S, h))
+        return hid
+
     def chunk(self, tokens, positions, attn_mask, last_index, slot_mapping,
               chunk_tables, kv_pools, kv_scales=None, touched=None):
         """JAX ``build_decoder_program(mode="chunk")``: the slice's K/V
         enter the pool first; then it attends over the pool window its
-        block table ``chunk_tables`` ``(W,)`` gathers, widened to f32
-        (``_kv_gather_deq``: a bf16 cast, or int8 codes times their
-        page's gathered scale / 127), under the host-built causal and
-        context mask ``(1, 1, S, W * page_size)``.  So the slice's own
-        positions are read back from the pool after quantization."""
-        cfg = self.cfg
-        H, D, h = cfg.num_heads, cfg.head_dim, cfg.hidden
-        write = self._writer(slot_mapping, kv_pools, kv_scales, touched)
-        tables = chunk_tables.long()
-        hid = self._embed(tokens, positions)                  # (1, S, h)
-        for i in range(cfg.num_layers):
-            q, k, v = self._qkv(i, hid)
-            write(i, k, v)
-            q4 = q.reshape(1, -1, H, D).transpose(1, 2)       # (1, H, S, D)
-            gathered = []
-            for j, pool in enumerate(kv_pools[i]):
-                g = pool.index_select(1, tables)              # (H, W, ps, D)
-                if pool.dtype != torch.float32:
-                    g = kv_dequant(g, None if kv_scales is None else
-                                   kv_scales[i][j].index_select(1, tables))
-                gathered.append(g.reshape(1, H, -1, D))       # (1, H, C, D)
-            av = attention_reference(q4, *gathered, attn_mask, D ** -0.5)
-            hid = self._out_mlp(i, hid, av.transpose(1, 2).reshape(1, -1, h))
-        return self._last(hid, last_index)
+        block table ``chunk_tables`` ``(W,)`` gathers, under the mask
+        ``(1, 1, S, W * page_size)``."""
+        return self._last(self._windowed(
+            tokens, positions, attn_mask, slot_mapping, chunk_tables[None],
+            kv_pools, kv_scales, touched), last_index)
+
+    def verify(self, tokens, positions, attn_mask, slot_mapping,
+               verify_tables, kv_pools, kv_scales=None):
+        """JAX ``build_decoder_program(mode="verify")``: the chunk form
+        over ``(B, S)`` rows, one sequence's ``[last_token, draft...]``
+        each, with ``(B, W)`` block tables and the ``(B * S,)`` slot map;
+        the logits of every position, ``(B * S, vocab)``: row ``b * S +
+        j`` is the model's next token after row b's position j."""
+        hid = self._windowed(tokens, positions, attn_mask, slot_mapping,
+                             verify_tables, kv_pools, kv_scales, None)
+        return self._head(hid.reshape(-1, self.cfg.hidden))
 
     def decode(self, tokens, positions, block_tables, context_lens,
                slot_mapping, kv_pools, kv_scales=None):
@@ -336,6 +398,22 @@ def _greedy(logits: torch.Tensor) -> List[int]:
     return torch.argmax(logits, dim=-1).tolist()
 
 
+def _sampled(sampling) -> bool:
+    return sampling is not None and not sampling.greedy
+
+
+def emit_head(logits: torch.Tensor, sampling=None,
+              lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX ``_emit_head``, the token head of every form: the argmax by
+    default (and for greedy ``sampling``), ``sample_token`` with the
+    sampling params and the per-row RNG ``lanes`` when sampling is
+    armed.  ``(rows,)`` int64 tokens on the logits' device."""
+    if not _sampled(sampling):
+        return torch.argmax(logits, dim=-1)
+    return sample_token(logits, lanes, sampling.temperature, sampling.top_k,
+                        sampling.top_p)
+
+
 def _pad_slot(kv_pools) -> int:
     _, n_pages, page_size, _ = kv_pools[0][0].shape
     return n_pages * page_size
@@ -354,7 +432,20 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     admitted_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # set when the admission policy shed this queued request: a third
+    # terminal outcome beside finish and the submit rejection
+    shed_at: Optional[float] = None
     preemptions: int = 0
+    # submit sequence number: slo_aware ordering's tie-breaker
+    _seq: int = field(default=0, repr=False)
+    # telemetry: previous emit time and per-token gaps (gaps[0] = TTFT)
+    # of the current run, reset with out_tokens on preemption
+    _tm_last: Optional[float] = field(default=None, repr=False)
+    _tm_gaps: List[float] = field(default_factory=list, repr=False)
+    # the request's span tree (utils/tracing.Trace) when it was
+    # head-sampled under FLAGS_trace_requests, else None
+    trace: Optional[object] = field(default=None, repr=False)
+    # prompt tokens the last prefill took from cached prefix pages
     _prefix_hit: int = field(default=0, repr=False)
 
 
@@ -370,6 +461,152 @@ class StepEvent:
 class _SeqState:
     req: Request
     last_token: int = 0
+
+
+def _observe_token(req: Request, now: float):
+    """Per-token latency into the registry with loadgen's convention:
+    each token's gap from the previous one, the first from arrival (also
+    the TTFT observation).  After a preemption only the final run's
+    tokens are observed.  A traced request's observation carries its
+    trace id as the bucket's exemplar."""
+    first = len(req.out_tokens) == 1
+    prev = req.arrival_time if first or req._tm_last is None \
+        else req._tm_last
+    gap = max(now - prev, 0.0)
+    req._tm_gaps.append(gap)
+    ex = req.trace.trace_id if req.trace is not None else None
+    tm.histogram("serving_token_latency_s",
+                 "per-token latency (inter-token gap; first token from "
+                 "arrival)").observe(gap, exemplar=ex)
+    if first:
+        tm.histogram("serving_ttft_s",
+                     "time to first token from arrival").observe(
+                         gap, exemplar=ex)
+    req._tm_last = now
+
+
+# ==========================================================================
+# request tracing hooks (utils/tracing.py), shared by both schedulers;
+# each returns at once when the request carries no trace
+# ==========================================================================
+def _trace_submit(req: Request):
+    """Root and queue_wait spans at submit (head-sampled: deterministic
+    in (FLAGS_trace_seed, req_id))."""
+    if not tracing.enabled() or not tracing.sampled(req.req_id):
+        return
+    tr = tracing.new_trace(req.req_id)
+    req.trace = tr
+    tr._root = tr.start("request", t=req.arrival_time, attrs={
+        "req": str(req.req_id), "prompt_tokens": len(req.prompt),
+        "max_new_tokens": req.max_new_tokens})
+    tr._wait = tr.start("queue_wait", t=req.arrival_time, parent=tr._root)
+
+
+def _trace_reject(req: Request, reason: str, reason_code: str = "unservable"):
+    """A request rejected at submit gets a one-span trace, its reason
+    code beside the ``serving_rejects_total{reason=}`` count."""
+    if not tracing.enabled() or not tracing.sampled(req.req_id):
+        return
+    tr = tracing.new_trace(req.req_id)
+    root = tr.start("request", t=req.arrival_time,
+                    attrs={"req": str(req.req_id),
+                           "prompt_tokens": len(req.prompt)})
+    tr.end(root, t=req.arrival_time,
+           attrs={"status": "rejected", "reason": reason,
+                  "reject_reason": reason_code})
+    tr.finish()
+
+
+def _trace_shed(req: Request, now: float):
+    """A shed request closes its open wait span and its root with
+    ``status="shed"``; the SLO tracker is not fed (shed requests are out
+    of the goodput denominators)."""
+    tr = req.trace
+    if tr is None:
+        return
+    tr.end(tr._wait, t=now)
+    tr._wait = None
+    tr.end(tr._root, t=now, attrs={
+        "status": "shed", "reject_reason": "shed",
+        "waited_s": round(now - req.arrival_time, 9),
+        "preemptions": req.preemptions})
+    tr.finish()
+
+
+def _trace_backpressure(req: Request, kind: str):
+    """Pool backpressure repeats every step the head request waits: a
+    counter attr on the open wait span keeps it bounded."""
+    tr = req.trace
+    if tr is not None and tr._wait is not None:
+        tr._wait.attrs[kind] = tr._wait.attrs.get(kind, 0) + 1
+
+
+def _trace_admit(req: Request, now: float, wall0: float, wall1: float,
+                 cached: int = 0, chunks: int = 0):
+    """A finished prefill: close the open wait span and record the
+    prefill span; ``cached`` / ``chunks`` appear only when the prefix
+    cache or chunking engaged."""
+    tr = req.trace
+    if tr is None:
+        return
+    tr.end(tr._wait, t=now)
+    tr._wait = None
+    attrs = {"prompt_tokens": len(req.prompt), "resume": req.preemptions}
+    if cached:
+        attrs["cached_tokens"] = cached
+    if chunks > 1:
+        attrs["chunks"] = chunks
+    tr.add("prefill", t0=now, wall0=wall0, wall1=wall1, parent=tr._root,
+           attrs=attrs)
+
+
+def _trace_decode(states: Sequence[_SeqState], toks: Sequence[int],
+                  now: float, wall0: float, wall1: float, step_no: int,
+                  spec: Optional[Sequence[tuple]] = None):
+    """One decode_step span per traced request of the batch;
+    ``spec`` (speculative steps only) adds each request's ``(proposed,
+    accepted)`` draft counts."""
+    for i, (st, tok) in enumerate(zip(states, toks)):
+        tr = st.req.trace
+        if tr is not None:
+            attrs = {"step": step_no, "batch": len(states),
+                     "token": int(tok)}
+            if spec is not None:
+                attrs["proposed"] = int(spec[i][0])
+                attrs["accepted"] = int(spec[i][1])
+            tr.add("decode_step", t0=now, wall0=wall0, wall1=wall1,
+                   parent=tr._root, attrs=attrs)
+
+
+def _trace_preempt(req: Request, now: float):
+    """A preemption opens a ``preempted`` wait span; the resume's prefill
+    closes it."""
+    tr = req.trace
+    if tr is None:
+        return
+    tr._wait = tr.start("preempted", t=now, parent=tr._root,
+                        attrs={"cycle": req.preemptions})
+
+
+def _trace_finish(req: Request, now: float):
+    """Close the root span with the outcome and feed the SLO tracker
+    (which sees every finished request, sampled or not)."""
+    tr = req.trace
+    if tr is not None:
+        attrs = {"status": "finished", "tokens": len(req.out_tokens),
+                 "preemptions": req.preemptions}
+        if req._tm_gaps:
+            attrs["ttft_s"] = round(req._tm_gaps[0], 9)
+        tr.end(tr._root, t=now, attrs=attrs)
+        tr.finish()
+    if tm.enabled():
+        tm.slo_tracker().observe_request(
+            req.req_id,
+            ttft_s=req._tm_gaps[0] if req._tm_gaps else float("nan"),
+            decode_gaps=req._tm_gaps[1:],
+            trace_id=tr.trace_id if tr is not None else None,
+            prefix_hit_tokens=req._prefix_hit,
+            prompt_tokens=len(req.prompt))
 
 
 def _pow2_bucket(n: int, lo: int = 1, hi: Optional[int] = None) -> int:
@@ -408,6 +645,17 @@ def _reject_unservable(req: Request, cfg: DecoderConfig,
             "pool")
 
 
+def _count_reject(e: ValueError):
+    """One rejection: the aggregate counter and the by-reason family."""
+    tm.counter("serving_rejected_total",
+               "requests rejected at submit (unservable)").inc()
+    tm.counter("serving_rejects_total",
+               "requests refused, by reason (pool / budget / "
+               "max_seq_len at submit; shed by the admission policy)",
+               labels=("reason",)).labels(
+                   reason=getattr(e, "reason", "unservable")).inc()
+
+
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported to paddle_tpu_torch yet (see ROADMAP.md)")
@@ -421,27 +669,31 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class _PrefillJob:
     """In-flight prefill of one request: ``pos`` tokens are already in
     the pool (prefix-cache hit plus completed slices); ``first_token`` is
-    set when the final slice ran."""
+    set when the final slice ran; ``wall_s`` sums every slice's wall
+    time (the prefill span covers all chunks)."""
     req: Request
     pos: int = 0
     hit: int = 0
     chunks: int = 0
     first_token: Optional[int] = None
+    wall_s: float = 0.0
 
 
 class _DecodeBucket:
     """One (batch, table width) bucket's decode step on the card: its
     inputs as one int32 block on the device and its pinned host twin
-    (tokens, positions, context lengths, slots, then the block table),
-    the greedy tokens on the device and their pinned host copy, the
-    event that copy ends with, and from the bucket's second step on its
-    CUDA graph."""
+    (tokens, positions, context lengths, slots, for a sampled engine the
+    RNG lanes, then the block table), the tokens on the device and their
+    pinned host copy, the event that copy ends with, and from the
+    bucket's second step on its CUDA graph."""
 
-    __slots__ = ("batch", "width", "host", "dev", "out", "host_out", "done",
-                 "graph", "warm")
+    __slots__ = ("batch", "width", "rows", "host", "dev", "out", "host_out",
+                 "done", "graph", "warm")
 
-    def __init__(self, batch: int, width: int, device: torch.device):
-        n = batch * (4 + width)
+    def __init__(self, batch: int, width: int, device: torch.device,
+                 sampled: bool = False):
+        self.rows = 5 if sampled else 4
+        n = batch * (self.rows + width)
         self.batch, self.width = batch, width
         self.host = torch.empty(n, dtype=torch.int32, pin_memory=True)
         self.dev = torch.empty(n, dtype=torch.int32, device=device)
@@ -452,11 +704,13 @@ class _DecodeBucket:
         self.warm = False
 
     def split(self, t: torch.Tensor):
-        """``(tokens, positions, context_lens, slot_mapping, tables)``
-        views of a block laid out as :attr:`host`."""
-        b = self.batch
+        """``(tokens, positions, context_lens, slot_mapping, tables,
+        lanes)`` views of a block laid out as :attr:`host` (lanes None
+        for a greedy engine)."""
+        b, r = self.batch, self.rows
+        lanes = t[4 * b:5 * b] if r == 5 else None
         return (t[:b], t[b:2 * b], t[2 * b:3 * b], t[3 * b:4 * b],
-                t[4 * b:].reshape(b, self.width))
+                t[r * b:].reshape(b, self.width), lanes)
 
 
 class _EngineCore:
@@ -468,7 +722,9 @@ class _EngineCore:
     of ``num_pages`` (JAX's formula: the scale pools are charged on top,
     not in the divisor, so int8 buys exactly 4x the f32 pages);
     ``prefix_cache`` (None: ``FLAGS_kv_prefix_cache``) and
-    ``prefix_seed`` configure the allocator's prefix cache."""
+    ``prefix_seed`` configure the allocator's prefix cache.  ``sampling``
+    (a :class:`SamplingParams`; None or greedy: the argmax head) arms the
+    sampled head of every form, its lanes keyed on ``sample_seed``."""
 
     def __init__(self, cfg: DecoderConfig, weights: Dict[str, np.ndarray],
                  num_pages: int = 64, page_size: int = 16, device="cuda",
@@ -476,11 +732,13 @@ class _EngineCore:
                  kv_dtype: Optional[str] = None, kv_budget_mb: float = 0.0,
                  tp: Optional[int] = None,
                  prefix_cache: Optional[bool] = None, prefix_seed: int = 0,
-                 sampling=None):
+                 sampling: Optional[SamplingParams] = None,
+                 sample_seed: int = 0):
         if tp not in (None, 1):
             _not_ported(f"tensor-parallel serving (tp={tp})")
-        if sampling is not None:
-            _not_ported("sampled decoding")
+        # greedy normalizes to None: the forms then end in the argmax
+        self.sampling = sampling if _sampled(sampling) else None
+        self.sample_seed = int(sample_seed)
         if kv_dtype is None:
             kv_dtype = str(get_flag("FLAGS_kv_cache_dtype") or "float32")
         if kv_dtype not in KV_DTYPES:
@@ -563,6 +821,22 @@ class _EngineCore:
         return (self._t(toks), self._t(pos), self._mask(S),
                 self._t(np.array([L - 1], np.int32))), S
 
+    def _lane(self, req: Request, offset: int = 0) -> int:
+        """RNG lane of the token ``offset`` positions past the request's
+        next emission: ``len(prompt) + len(out_tokens)`` is the absolute
+        index of the next token drawn, so lanes are the same after a
+        preemption and between plain and speculative decoding."""
+        return rng_lane(self.sample_seed, req.req_id,
+                        len(req.prompt) + len(req.out_tokens) + offset)
+
+    def _tokens(self, logits: torch.Tensor, lanes=None) -> List[int]:
+        """The head over an eager form's logits, as host ints; ``lanes``
+        (a sampled engine's, one per row) is a host sequence."""
+        if self.sampling is None:
+            return _greedy(logits)
+        return emit_head(logits, self.sampling,
+                         self._t(np.asarray(lanes, np.int32))).tolist()
+
     # -- model steps -------------------------------------------------------
     def _apply_forks(self):
         """Replay pending CoW forks as device page copies in every
@@ -612,6 +886,7 @@ class _EngineCore:
         if job.chunks == 0:
             # the first slice that lands confirms the hit
             self.kv.commit_prefix_hit(req.req_id)
+        wall_t0 = time.perf_counter()
         self._apply_forks()
         final = job.pos + n == L
         if job.pos == 0 and final:
@@ -619,12 +894,15 @@ class _EngineCore:
             feed, S = self._dense_feed(req.prompt)
             slot_map = np.full(S, self.kv_config.pad_slot, np.int32)
             slot_map[:L] = slots
-            logits = self.model.prefill(*feed, self._t(slot_map),
-                                        self.kv_pools, self.kv_scales,
-                                        self._touched(slots, S))
-            tok = _greedy(logits)[0]
+            with RecordEvent("prefill", cat="serving"):
+                logits = self.model.prefill(*feed, self._t(slot_map),
+                                            self.kv_pools, self.kv_scales,
+                                            self._touched(slots, S))
+                tok = self._tokens(logits, None if self.sampling is None
+                                   else [self._lane(req)])[0]
         else:
             tok = self._run_chunk(req, job.pos, chunk, slots)
+        job.wall_s += time.perf_counter() - wall_t0
         job.pos += n
         job.chunks += 1
         if final:
@@ -654,12 +932,17 @@ class _EngineCore:
         rows = np.arange(S, dtype=np.int64)[:, None]
         mask = np.where(cols <= pos + rows, 0.0, NEG_INF) \
             .astype(np.float32)[None, None]
-        logits = self.model.chunk(
-            self._t(toks), self._t(posf), self._t(mask),
-            self._t(np.array([n - 1], np.int32)), self._t(slot_map),
-            self._t(tables), self.kv_pools, self.kv_scales,
-            self._touched(slots, S))
-        return _greedy(logits)[0]
+        with RecordEvent("prefill_chunk", cat="serving"):
+            logits = self.model.chunk(
+                self._t(toks), self._t(posf), self._t(mask),
+                self._t(np.array([n - 1], np.int32)), self._t(slot_map),
+                self._t(tables), self.kv_pools, self.kv_scales,
+                self._touched(slots, S))
+            # the slice's token lands at position pos+n; only the final
+            # slice's draw is kept, whose lane is the whole prefill's
+            return self._tokens(logits, None if self.sampling is None else
+                                [rng_lane(self.sample_seed, req.req_id,
+                                          pos + n)])[0]
 
     def abort_prefill(self, job: _PrefillJob):
         """Release a job's pages (backpressure mid-prefill); with the
@@ -708,24 +991,30 @@ class _EngineCore:
         tables = np.zeros((Bp, W), np.int32)
         for i, st in enumerate(states):
             tables[i] = self.kv.block_table(st.req.req_id, W)
-        if cuda_step_session_enabled(self.device):
-            return self._decode_captured(toks, pos, ctx, slot_map,
-                                         tables)[:B]
-        logits = self.model.decode(
-            self._t(toks), self._t(pos), self._t(tables), self._t(ctx),
-            self._t(slot_map), self.kv_pools, self.kv_scales)
-        return _greedy(logits)[:B]
+        lanes = None
+        if self.sampling is not None:
+            lanes = np.zeros(Bp, np.int32)
+            for i, st in enumerate(states):
+                lanes[i] = self._lane(st.req)
+        with RecordEvent("decode_batch", cat="serving"):
+            if cuda_step_session_enabled(self.device):
+                return self._decode_captured(toks, pos, ctx, slot_map,
+                                             tables, lanes)[:B]
+            logits = self.model.decode(
+                self._t(toks), self._t(pos), self._t(tables), self._t(ctx),
+                self._t(slot_map), self.kv_pools, self.kv_scales)
+            return self._tokens(logits, lanes)[:B]
 
     def _decode_tokens(self, bucket: _DecodeBucket) -> torch.Tensor:
-        """The decode form and the greedy argmax over a bucket's device
-        inputs: the step a bucket's graph holds."""
-        toks, pos, ctx, slots, tables = bucket.split(bucket.dev)
+        """The decode form and its head over a bucket's device inputs:
+        the step a bucket's graph holds."""
+        toks, pos, ctx, slots, tables, lanes = bucket.split(bucket.dev)
         logits = self.model.decode(toks, pos, tables, ctx, slots,
                                    self.kv_pools, self.kv_scales)
-        return torch.argmax(logits, dim=-1)
+        return emit_head(logits, self.sampling, lanes)
 
-    def _decode_captured(self, toks, pos, ctx, slot_map, tables
-                         ) -> List[int]:
+    def _decode_captured(self, toks, pos, ctx, slot_map, tables,
+                         lanes=None) -> List[int]:
         """One decode step through its bucket: the inputs in one copy
         from pinned memory, then the bucket's first step eagerly on the
         capture stream (the warm-up), its second captured and replayed,
@@ -733,11 +1022,12 @@ class _EngineCore:
         Bp, W = tables.shape
         bucket = self._buckets.get((Bp, W))
         if bucket is None:
-            bucket = self._buckets[(Bp, W)] = _DecodeBucket(Bp, W,
-                                                            self.device)
+            bucket = self._buckets[(Bp, W)] = _DecodeBucket(
+                Bp, W, self.device, self.sampling is not None)
         for view, arr in zip(bucket.split(bucket.host.numpy()),
-                             (toks, pos, ctx, slot_map, tables)):
-            view[...] = arr
+                             (toks, pos, ctx, slot_map, tables, lanes)):
+            if view is not None:
+                view[...] = arr
         if self._graphs is None:
             self._graphs = GraphSet(self.device)
         graphs = self._graphs
@@ -763,6 +1053,71 @@ class _EngineCore:
             bucket.done.record()
         bucket.done.synchronize()
         return bucket.host_out.tolist()
+
+    def verify_batch(self, items) -> List[List[int]]:
+        """One speculative verify step (JAX ``verify_batch``): ``items``
+        are ``(_SeqState, draft_tokens)`` pairs.  Each sequence's chunk
+        ``[last_token] + draft`` enters the pool (the caller reserved the
+        pages), then one verify-form call scores every chunk position of
+        every sequence.  Returns, per item, the model's next token after
+        each chunk position (``len(draft) + 1`` tokens): row j is what
+        plain decoding would emit after accepting j draft tokens.  Batch,
+        chunk length and table width are bucketed to powers of two; the
+        form runs eagerly, as chunk does."""
+        B = len(items)
+        Bp = _pow2_bucket(max(B, 1))
+        S = _pow2_bucket(max(1 + len(d) for _, d in items))
+        toks = np.zeros((Bp, S), np.int32)
+        posf = np.zeros((Bp, S), np.int32)
+        slot_map = np.full(Bp * S, self.kv_config.pad_slot, np.int32)
+        pos0 = []
+        for i, (st, draft) in enumerate(items):
+            rid = st.req.req_id
+            chunk = [int(st.last_token)] + [int(t) for t in draft]
+            n = len(chunk)
+            p0 = self.kv.context_len(rid)
+            pos0.append(p0)
+            slots = self.kv.append_tokens(rid, n, tokens=chunk)
+            if slots is None:
+                raise RuntimeError("verify_batch: the caller must reserve "
+                                   "the pages of every chunk")
+            toks[i, :n] = chunk
+            posf[i] = np.minimum(p0 + np.arange(S, dtype=np.int32),
+                                 self.cfg.max_seq_len - 1)
+            slot_map[i * S:i * S + n] = slots
+        self._apply_forks()
+        W = _pow2_bucket(max(
+            (self.kv.num_pages_of(st.req.req_id) for st, _ in items),
+            default=1))
+        C = W * self.kv_config.page_size
+        tables = np.zeros((Bp, W), np.int32)
+        for i, (st, _d) in enumerate(items):
+            tables[i] = self.kv.block_table(st.req.req_id, W)
+        # per-row causal + context mask (the chunk form's rule, a slice
+        # per batch row); padded rows are fully masked, and softmax over
+        # the finite NEG_INF stays NaN-free
+        cols = np.arange(C, dtype=np.int64)[None, None, :]
+        rows = np.arange(S, dtype=np.int64)[None, :, None]
+        base = np.asarray(pos0 + [-1] * (Bp - B),
+                          dtype=np.int64)[:, None, None]
+        mask = np.where(cols <= base + rows, 0.0, NEG_INF) \
+            .astype(np.float32)[:, None]
+        lanes = None
+        if self.sampling is not None:
+            lanes = np.zeros(Bp * S, np.int32)
+            for i, (st, draft) in enumerate(items):
+                for j in range(len(draft) + 1):
+                    # row j draws the token of absolute position
+                    # len(prompt) + len(out) + j: plain decoding's lane
+                    lanes[i * S + j] = self._lane(st.req, j)
+        with RecordEvent("verify_batch", cat="serving"):
+            logits = self.model.verify(
+                self._t(toks), self._t(posf), self._t(mask),
+                self._t(slot_map), self._t(tables), self.kv_pools,
+                self.kv_scales)
+            flat = self._tokens(logits, lanes)
+        return [flat[i * S:i * S + len(d) + 1]
+                for i, (_st, d) in enumerate(items)]
 
     def reference_logits(self, seq: Sequence[int]) -> torch.Tensor:
         """Next-token logits ``(vocab,)`` of the reference form after
@@ -832,14 +1187,23 @@ class _EngineCore:
 class ServingEngine:
     """Continuous (inflight) batching over one :class:`_EngineCore`.
 
-    Scheduling is deterministic for a fixed request sequence: ``fifo``
-    admission in submit order (head-of-line blocking, no reordering, no
-    shedding), eviction on finish, and youngest-first preemption on pool
-    exhaustion, so a seeded trace replays identically and matches the
-    JAX engine's event stream.  With the prefix cache on, a hit shrinks
-    the admission's cost to the computed suffix; with ``prefill_chunk``
-    (None: ``FLAGS_prefill_chunk_tokens``) a long remainder prefills one
-    slice per step ahead of new admissions while decode goes on.
+    Scheduling is deterministic for a fixed request sequence: the
+    admission policy (``admission_policy`` / ``FLAGS_admission_policy``,
+    :mod:`.admission`) decides admission order, shedding and the
+    preemption victim as pure functions of the queue and the SLO
+    tracker; the default ``fifo`` admits in submit order (head-of-line
+    blocking, no shedding) and preempts the youngest, so a seeded trace
+    replays identically and matches the JAX engine's event stream.  With
+    the prefix cache on, a hit shrinks the admission's cost to the
+    computed suffix; with ``prefill_chunk`` (None:
+    ``FLAGS_prefill_chunk_tokens``) a long remainder prefills one slice
+    per step ahead of new admissions while decode goes on.
+
+    ``sampling`` (None: ``FLAGS_sample_temperature`` > 0 arms
+    ``SamplingParams(temperature)``) samples every token under lanes
+    keyed on ``seed``; ``spec_k`` (None: ``FLAGS_spec_decode_k``) > 0
+    decodes speculatively with ``proposer`` (a :class:`Proposer` or its
+    name; the n-gram proposer by default).
 
     ``device`` defaults to ``"cuda"``; without a CUDA device the engine
     raises unless the caller passes ``device="cpu"``."""
@@ -851,9 +1215,14 @@ class ServingEngine:
                  seed: int = 0, admission_policy=None,
                  prefill_chunk: Optional[int] = None,
                  spec_k: Optional[int] = None, proposer=None,
-                 **core_kw):
-        if spec_k or proposer is not None:
-            _not_ported("speculative decoding")
+                 sampling: Optional[SamplingParams] = None, **core_kw):
+        if sampling is None:
+            temp = flag_float("FLAGS_sample_temperature")
+            if temp > 0.0:
+                sampling = SamplingParams(temperature=temp)
+        self.sampling = sampling if _sampled(sampling) else None
+        core_kw.setdefault("sampling", self.sampling)
+        core_kw.setdefault("sample_seed", seed)
         self.policy = get_policy(admission_policy)
         if model_dir is not None:
             self.core = _EngineCore.from_model_dir(model_dir, **core_kw)
@@ -870,13 +1239,29 @@ class ServingEngine:
         if prefill_chunk is None:
             prefill_chunk = int(get_flag("FLAGS_prefill_chunk_tokens") or 0)
         self.prefill_chunk = max(int(prefill_chunk), 0)
+        if spec_k is None:
+            spec_k = int(get_flag("FLAGS_spec_decode_k") or 0)
+        self.spec_k = max(int(spec_k), 0)
+        if isinstance(proposer, str):
+            proposer = get_proposer(proposer)
+        self.proposer: Optional[Proposer] = \
+            proposer if proposer is not None else \
+            (NGramProposer() if self.spec_k else None)
+        # verify-call budget debt: tokens a verify emitted beyond the one
+        # per sequence this step's budget charged, settled against the
+        # next step's budget, so a verify charges accepted+1 tokens as
+        # plain decoding does (0 with spec off, and at zero acceptance)
+        self._spec_debt = 0
         self._prefill_job: Optional[_PrefillJob] = None
         self.waiting: List[Request] = []
         self.running: List[_SeqState] = []   # admission order
         self.stats = {"admitted": 0, "finished": 0, "preempted": 0,
                       "shed": 0, "decode_steps": 0, "prefill_tokens": 0,
                       "decode_tokens": 0, "prefill_hit_tokens": 0,
-                      "prefill_chunks": 0, "max_prefill_step_tokens": 0}
+                      "prefill_chunks": 0, "max_prefill_step_tokens": 0,
+                      "spec_proposed": 0, "spec_accepted": 0}
+        self._step_no = 0
+        self._submit_seq = 0
 
     @property
     def graphs_captured(self) -> int:
@@ -885,15 +1270,24 @@ class ServingEngine:
 
     # -- API ---------------------------------------------------------------
     def submit(self, req: Request):
-        _reject_unservable(req, self.cfg, self.core.kv_config)
-        if len(req.prompt) + 1 > self.token_budget and not self.prefill_chunk:
-            # admission needs prompt+1 tokens inside the budget; a larger
-            # prompt would block the FIFO head forever, unless chunked
-            # prefill serves it one budget-sized slice per step
-            raise RequestRejected(
-                f"request {req.req_id!r}: prompt of {len(req.prompt)} "
-                f"tokens can never fit token_budget {self.token_budget}",
-                "budget")
+        try:
+            _reject_unservable(req, self.cfg, self.core.kv_config)
+            if len(req.prompt) + 1 > self.token_budget \
+                    and not self.prefill_chunk:
+                # admission needs prompt+1 tokens inside the budget; a
+                # larger prompt would block the queue head forever, unless
+                # chunked prefill serves it one budget-sized slice a step
+                raise RequestRejected(
+                    f"request {req.req_id!r}: prompt of "
+                    f"{len(req.prompt)} tokens can never fit "
+                    f"token_budget {self.token_budget}", "budget")
+        except ValueError as e:
+            _count_reject(e)
+            _trace_reject(req, str(e), getattr(e, "reason", "unservable"))
+            raise
+        req._seq = self._submit_seq
+        self._submit_seq += 1
+        _trace_submit(req)
         self.waiting.append(req)
 
     def has_work(self) -> bool:
@@ -901,14 +1295,22 @@ class ServingEngine:
                     or self._prefill_job is not None)
 
     def step(self, now: float = 0.0) -> List[StepEvent]:
-        """One serving iteration: the in-flight chunked prefill's next
-        slice, then admission (in submit order, up to the token budget
-        and pool capacity) and the admissions' prefill, preemption while
-        the pool cannot grow every running sequence by one token, one
-        decode of every running sequence, eviction of finishes.  Returns
-        this step's emitted tokens."""
+        """One serving iteration: the policy's sheds, then the in-flight
+        chunked prefill's next slice, admission (in policy order, up to
+        the token budget and pool capacity) and the admissions' prefill,
+        preemption while the pool cannot grow every running sequence by
+        one token, one decode (or speculative verify) of every running
+        sequence, eviction of finishes.  Returns this step's emitted
+        tokens."""
         events: List[StepEvent] = []
-        budget = self.token_budget - len(self.running)
+        self._step_no += 1
+        chaos.on_serving_step(self, self._step_no)
+        for req in self.policy.shed(self, now):
+            self._shed(req, now)
+        self.policy.order(self, now)
+        # last step's verify debt charges this step's budget
+        budget = self.token_budget - len(self.running) - self._spec_debt
+        self._spec_debt = 0
         prefilled_this_step = 0
         # --- in-flight chunked prefill: one budget-sized slice per step,
         # ahead of new admissions (it reached the head first) -------------
@@ -924,6 +1326,7 @@ class ServingEngine:
                     self.core.abort_prefill(job)
                     self.waiting.insert(0, job.req)
                     self._prefill_job = None
+                    _trace_backpressure(job.req, "prefill_backpressure")
                 else:
                     # the completing slice also emits the first token
                     budget -= n + (1 if r else 0)
@@ -938,18 +1341,24 @@ class ServingEngine:
             cost = len(req.prompt) + 1
             if not self.prefill_chunk and not self.kv.prefix_cache:
                 # both features off: the plain admission path
-                if cost > budget or not self._admission_fits(req):
+                if cost > budget:
                     break
+                if not self._admission_fits(req):
+                    _trace_backpressure(req, "admission_backpressure")
+                    break
+                wall0 = time.perf_counter()
                 tok = self.core.prefill(req)
                 if tok is None:
+                    _trace_backpressure(req, "prefill_backpressure")
                     break  # pool backpressure: retry next step
+                _trace_admit(req, now, wall0, time.perf_counter())
                 self.waiting.pop(0)
                 budget -= cost
                 prefilled_this_step += len(req.prompt)
-                if req.admitted_at is None:
-                    req.admitted_at = now
-                self.stats["admitted"] += 1
                 self.stats["prefill_tokens"] += len(req.prompt)
+                tm.counter("serving_prefill_tokens_total",
+                           "prompt tokens prefilled").inc(len(req.prompt))
+                self._admitted(req, now)
                 self._start(_SeqState(req, tok), tok, now, events)
                 continue
             # a prefix-cache hit shrinks the admission to the computed
@@ -958,6 +1367,7 @@ class ServingEngine:
             est_hit = self.kv.match_prefix(req.prompt[:-1])[0] \
                 if self.kv.prefix_cache and len(req.prompt) > 1 else 0
             if not self._admission_fits(req, len(req.prompt) - est_hit):
+                _trace_backpressure(req, "admission_backpressure")
                 break
             job = self.core.start_prefill(req)
             remaining = len(req.prompt) - job.pos
@@ -972,6 +1382,7 @@ class ServingEngine:
                 r = self.core.advance_prefill(job, n)
                 if r is None:
                     self.core.abort_prefill(job)
+                    _trace_backpressure(req, "prefill_backpressure")
                     break
                 self.waiting.pop(0)
                 budget -= n + (1 if r else 0)   # +1: first output token
@@ -989,6 +1400,7 @@ class ServingEngine:
                 r = self.core.advance_prefill(job)
                 if r is None:
                     self.core.abort_prefill(job)
+                    _trace_backpressure(req, "prefill_backpressure")
                     break
                 self.waiting.pop(0)
                 budget -= remaining + 1
@@ -997,21 +1409,43 @@ class ServingEngine:
                 self._admit_job(job, now, events)
         # --- preemption: decoding adds one token per running seq ----------
         while self.running and not self._can_grow_all():
+            # fifo: the youngest; slo_aware: the least lost work
             victim = self.running.pop(self.policy.victim_index(self.running))
             self.kv.free_sequence(victim.req.req_id)
             victim.req.out_tokens = []
+            victim.req._tm_last = None
+            victim.req._tm_gaps = []
             victim.req.preemptions += 1
+            _trace_preempt(victim.req, now)
             self.waiting.insert(0, victim.req)
             self.stats["preempted"] += 1
+            tm.counter("serving_preempted_total",
+                       "sequences preempted to the waiting queue on "
+                       "pool exhaustion").inc()
+            if is_profiler_enabled():
+                instant_event("preempt", cat="serving",
+                              args={"req": str(victim.req.req_id)})
         # --- decode -------------------------------------------------------
-        if self.running:
+        if self.running and self.spec_k:
+            events.extend(self._spec_decode_step(now))
+        elif self.running:
+            chaos.on_decode_step()
+            wall0 = time.perf_counter()
             toks = self.core.decode_batch(self.running)
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += len(self.running)
+            _trace_decode(self.running, toks, now, wall0,
+                          time.perf_counter(), self.stats["decode_steps"])
+            tm.counter("serving_decode_steps_total",
+                       "batched decode steps run").inc()
+            tm.counter("serving_decode_tokens_total",
+                       "tokens produced by decode steps").inc(
+                           len(self.running))
             still = []
             for st, tok in zip(self.running, toks):
                 st.req.out_tokens.append(tok)
                 st.last_token = tok
+                _observe_token(st.req, now)
                 if self.core._finished(st.req, tok):
                     events.append(self._finish(st, tok, now))
                 else:
@@ -1022,10 +1456,124 @@ class ServingEngine:
             self.stats["max_prefill_step_tokens"], prefilled_this_step)
         return events
 
+    def _spec_decode_step(self, now: float) -> List[StepEvent]:
+        """One speculative decode iteration (JAX ``_spec_decode_step``):
+        draft up to ``spec_k`` tokens per running sequence, verify every
+        chunk in one call, emit each sequence's longest agreeing draft
+        prefix and the verify's own next token, truncate the rejected
+        drafts back out of the pool.  Greedy acceptance is exact-argmax
+        match, so the greedy stream is plain decoding's up to the two
+        forms' rounding; sampled row j draws under the lane plain
+        decoding uses there.  A zero-accept step emits one token per
+        sequence: plain decoding's steps and budget."""
+        events: List[StepEvent] = []
+        chaos.on_decode_step()
+        batch = self.running
+        # page capacity: preemption guaranteed one token of growth per
+        # sequence; drafts spend only what remains after those, each
+        # shrinking until it fits
+        bases = [self.kv.pages_needed(st.req.req_id, 1)
+                 + self.kv.cow_fork_need(st.req.req_id, 1)
+                 for st in batch]
+        avail = self.kv.num_free_pages - sum(bases)
+        drafts: List[List[int]] = []
+        for st, base in zip(batch, bases):
+            req = st.req
+            # never draft past max_new_tokens - 1: the bonus token always
+            # lands, so a full accept finishes exactly at the cap
+            cap = min(self.spec_k,
+                      req.max_new_tokens - len(req.out_tokens) - 1)
+            d = [int(t) for t in self.proposer.propose(req, cap)][:cap] \
+                if cap > 0 else []
+            while d:
+                extra = (self.kv.pages_needed(req.req_id, 1 + len(d))
+                         + self.kv.cow_fork_need(req.req_id, 1 + len(d))
+                         - base)
+                if extra <= avail:
+                    avail -= extra
+                    break
+                d.pop()
+            drafts.append(d)
+        wall0 = time.perf_counter()
+        targets = self.core.verify_batch(list(zip(batch, drafts)))
+        wall1 = time.perf_counter()
+        self.stats["decode_steps"] += 1
+        tm.counter("serving_decode_steps_total",
+                   "batched decode steps run").inc()
+        # accept while the target agrees with the draft, then cut the
+        # emission at max_new_tokens / EOS, where plain decoding stops
+        accepts, emits = [], []
+        for st, d, tgt in zip(batch, drafts, targets):
+            a = 0
+            while a < len(d) and tgt[a] == d[a]:
+                a += 1
+            accepts.append(a)
+            room = st.req.max_new_tokens - len(st.req.out_tokens)
+            emit = tgt[:min(a + 1, room)]
+            if self.cfg.eos_id in emit:
+                emit = emit[:emit.index(self.cfg.eos_id) + 1]
+            emits.append(emit)
+        _trace_decode(batch, [e[-1] for e in emits], now, wall0, wall1,
+                      self.stats["decode_steps"],
+                      spec=[(len(d), a) for d, a in zip(drafts, accepts)])
+        still = []
+        for st, d, a, emit in zip(batch, drafts, accepts, emits):
+            req = st.req
+            fin = False
+            for tok in emit:
+                req.out_tokens.append(tok)
+                _observe_token(req, now)
+                if self.core._finished(req, tok):
+                    events.append(self._finish(st, tok, now))
+                    fin = True
+                    break
+                events.append(StepEvent(req.req_id, tok, False, now))
+            if not fin:
+                # roll the rejected drafts back out of the pool (a
+                # finished sequence was freed whole)
+                if len(d) > a:
+                    self.kv.truncate_tokens(req.req_id, len(d) - a)
+                st.last_token = emit[-1]
+                still.append(st)
+        self.running = still
+        n_prop = sum(len(d) for d in drafts)
+        n_acc = sum(accepts)
+        used = sum(len(e) for e in emits)
+        self.stats["decode_tokens"] += used
+        self.stats["spec_proposed"] += n_prop
+        self.stats["spec_accepted"] += n_acc
+        self._spec_debt = used - len(batch)
+        tm.counter("serving_decode_tokens_total",
+                   "tokens produced by decode steps").inc(used)
+        tm.counter("spec_proposed_total",
+                   "draft tokens proposed to spec-decode verify").inc(n_prop)
+        tm.counter("spec_accepted_total",
+                   "draft tokens accepted by spec-decode verify").inc(n_acc)
+        if self.stats["spec_proposed"]:
+            tm.gauge("spec_accept_rate",
+                     "cumulative spec-decode draft acceptance rate").set(
+                         self.stats["spec_accepted"]
+                         / self.stats["spec_proposed"])
+        return events
+
+    def _admitted(self, req: Request, now: float):
+        """An admission's bookkeeping: its time, the counters, the
+        profiler's ``admit`` instant."""
+        if req.admitted_at is None:
+            req.admitted_at = now
+        self.stats["admitted"] += 1
+        tm.counter("serving_admitted_total",
+                   "requests admitted (prefilled)").inc()
+        if is_profiler_enabled():
+            instant_event("admit", cat="serving",
+                          args={"req": str(req.req_id),
+                                "prompt": len(req.prompt)})
+
     def _start(self, st: _SeqState, tok: int, now: float, events: list):
         """An admitted sequence's first token: finished at once, or
         running from here."""
         st.req.out_tokens.append(tok)
+        _observe_token(st.req, now)
         if self.core._finished(st.req, tok):
             events.append(self._finish(st, tok, now))
         else:
@@ -1039,13 +1587,17 @@ class ServingEngine:
         self.stats["prefill_chunks"] += 1
         if job.chunks == 1 and job.hit:
             self.stats["prefill_hit_tokens"] += job.hit
+        tm.counter("serving_prefill_tokens_total",
+                   "prompt tokens prefilled").inc(n)
 
     def _admit_job(self, job: _PrefillJob, now: float, events: list):
-        """A completed prefill job becomes a running sequence."""
+        """A completed prefill job becomes a running sequence; its span's
+        wall bounds cover every slice."""
         req = job.req
-        if req.admitted_at is None:
-            req.admitted_at = now
-        self.stats["admitted"] += 1
+        wall1 = time.perf_counter()
+        _trace_admit(req, now, wall1 - job.wall_s, wall1,
+                     cached=job.hit, chunks=job.chunks)
+        self._admitted(req, now)
         self._start(_SeqState(req, job.first_token), job.first_token, now,
                     events)
 
@@ -1076,11 +1628,47 @@ class ServingEngine:
             growth += -(-(P + 1) // ps) - -(-P // ps)
         return prompt_pages + growth <= self.kv.num_free_pages
 
+    def _shed(self, req: Request, now: float):
+        """Terminal ``shed`` outcome of a queued request whose SLO the
+        policy judged unreachable: traced (root status "shed") and
+        counted (``serving_shed_total``, ``serving_rejects_total
+        {reason="shed"}``), never fed to the SLO tracker."""
+        try:
+            self.waiting.remove(req)
+        except ValueError:
+            return
+        req.shed_at = now
+        self.stats["shed"] += 1
+        tm.counter("serving_shed_total",
+                   "queued requests shed by the admission policy "
+                   "(predicted TTFT can no longer meet the SLO)").inc()
+        tm.counter("serving_rejects_total",
+                   "requests refused, by reason (pool / budget / "
+                   "max_seq_len at submit; shed by the admission policy)",
+                   labels=("reason",)).labels(reason="shed").inc()
+        _trace_shed(req, now)
+        if is_profiler_enabled():
+            instant_event("shed", cat="serving",
+                          args={"req": str(req.req_id),
+                                "waited": round(now - req.arrival_time, 6)})
+
     def _finish(self, st: _SeqState, tok: int, now: float) -> StepEvent:
         self.kv.free_sequence(st.req.req_id)
         st.req.finished_at = now
         self.stats["finished"] += 1
+        tm.counter("serving_finished_total",
+                   "requests finished (pages evicted on finish)").inc()
+        _trace_finish(st.req, now)
+        if is_profiler_enabled():
+            instant_event("evict", cat="serving",
+                          args={"req": str(st.req.req_id)})
         return StepEvent(st.req.req_id, tok, True, now)
+
+    def slo_hint(self) -> dict:
+        """The SLO tracker's burn rate, goodput and targets: what the
+        ``slo_aware`` policy orders and sheds by (``fifo`` never reads
+        it)."""
+        return tm.slo_tracker().admission_hint()
 
     def run_to_completion(self, now: float = 0.0) -> List[StepEvent]:
         events = []
@@ -1098,3 +1686,96 @@ class ServingEngine:
             self.submit(r)
         self.run_to_completion()
         return [r.out_tokens for r in reqs]
+
+
+class StaticBatchingEngine:
+    """The A/B baseline (JAX ``StaticBatchingEngine``): fixed batches run
+    to completion before the next batch forms, with no admission
+    mid-decode.  It shares an :class:`_EngineCore` (the same model and
+    kernels); only the policy differs.  Group formation reserves each
+    member's worst-case pages (prompt + max_new_tokens), so mid-decode
+    growth can never exhaust the pool."""
+
+    def __init__(self, core: _EngineCore, batch_size: int = 8):
+        self.core = core
+        self.batch_size = batch_size
+        self.waiting: List[Request] = []
+        self.group: List[_SeqState] = []
+        self._reserved_pages = 0
+        self.stats = {"admitted": 0, "finished": 0, "decode_steps": 0,
+                      "decode_tokens": 0, "prefill_tokens": 0}
+
+    def submit(self, req: Request):
+        try:
+            _reject_unservable(req, self.core.cfg, self.core.kv_config)
+        except ValueError as e:
+            _count_reject(e)
+            _trace_reject(req, str(e), getattr(e, "reason", "unservable"))
+            raise
+        _trace_submit(req)
+        self.waiting.append(req)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.group)
+
+    def _end(self, st: _SeqState, tok: int, now: float,
+             events: list) -> bool:
+        """Record ``tok``; True when the request finished (its pages
+        freed)."""
+        if self.core._finished(st.req, tok):
+            self.core.kv.free_sequence(st.req.req_id)
+            st.req.finished_at = now
+            self.stats["finished"] += 1
+            _trace_finish(st.req, now)
+            events.append(StepEvent(st.req.req_id, tok, True, now))
+            return True
+        events.append(StepEvent(st.req.req_id, tok, False, now))
+        return False
+
+    def step(self, now: float = 0.0) -> List[StepEvent]:
+        events: List[StepEvent] = []
+        if not self.group:
+            self._reserved_pages = 0
+            while self.waiting and len(self.group) < self.batch_size:
+                req = self.waiting[0]
+                worst = _worst_case_pages(req, self.core.kv_config)
+                if self._reserved_pages + worst \
+                        > self.core.kv_config.num_pages:
+                    break  # the group is as large as worst cases allow
+                self._reserved_pages += worst
+                wall0 = time.perf_counter()
+                tok = self.core.prefill(req)
+                if tok is None:
+                    break
+                _trace_admit(req, now, wall0, time.perf_counter())
+                self.waiting.pop(0)
+                req.admitted_at = now
+                self.stats["admitted"] += 1
+                self.stats["prefill_tokens"] += len(req.prompt)
+                st = _SeqState(req, tok)
+                req.out_tokens.append(tok)
+                _observe_token(req, now)
+                if not self._end(st, tok, now, events):
+                    self.group.append(st)
+            return events
+        wall0 = time.perf_counter()
+        toks = self.core.decode_batch(self.group)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_tokens"] += len(self.group)
+        _trace_decode(self.group, toks, now, wall0, time.perf_counter(),
+                      self.stats["decode_steps"])
+        still = []
+        for st, tok in zip(self.group, toks):
+            st.req.out_tokens.append(tok)
+            st.last_token = tok
+            _observe_token(st.req, now)
+            if not self._end(st, tok, now, events):
+                still.append(st)
+        self.group = still
+        return events
+
+    def run_to_completion(self, now: float = 0.0) -> List[StepEvent]:
+        events = []
+        while self.has_work():
+            events.extend(self.step(now))
+        return events

@@ -36,7 +36,25 @@ JAX engine reads them (``inference/serving.py``, ``inference/kv_cache.py``):
 * ``FLAGS_kv_cache_dtype`` ("float32"): the KV pools' storage dtype,
   "float32", "bfloat16" or "int8";
 * ``FLAGS_kv_prefix_cache`` (False): the copy-on-write prefix cache;
-* ``FLAGS_prefill_chunk_tokens`` (0): the chunked-prefill slice.
+* ``FLAGS_prefill_chunk_tokens`` (0): the chunked-prefill slice;
+* ``FLAGS_sample_temperature`` (0.0): > 0 arms sampled decoding with
+  that temperature (``inference/spec_decode.SamplingParams``);
+* ``FLAGS_spec_decode_k`` (0): > 0 arms speculative decoding with that
+  many drafted tokens a step (the n-gram proposer);
+* ``FLAGS_admission_policy`` ("fifo"): "fifo" or "slo_aware"
+  (``inference/admission.py``).
+
+The observability flags keep the JAX names and defaults too, read where
+the JAX package reads them:
+
+* ``FLAGS_telemetry`` (True): the metrics registry of
+  ``utils/telemetry.py``; off, every instrument is the shared no-op;
+* ``FLAGS_slo_ttft_ms``, ``FLAGS_slo_token_ms`` (0.0: unset),
+  ``FLAGS_slo_objective`` (0.99), ``FLAGS_slo_window`` (256): the SLO
+  tracker's targets;
+* ``FLAGS_trace_requests`` (False), ``FLAGS_trace_sample_rate`` (1.0),
+  ``FLAGS_trace_seed`` (0): request span trees (``utils/tracing.py``);
+* ``FLAGS_chaos`` (""): the serving fault schedule (``utils/chaos.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +62,7 @@ import os
 from typing import Any, Dict
 
 __all__ = ["DEFAULTS", "UNPORTED", "set_flags", "get_flag", "flag_bool",
+           "flag_float",
            "cuda_fuse_enabled", "cuda_nhwc_enabled",
            "cuda_step_session_enabled"]
 
@@ -55,6 +74,18 @@ DEFAULTS: Dict[str, Any] = {
     "FLAGS_kv_cache_dtype": "float32",
     "FLAGS_kv_prefix_cache": False,
     "FLAGS_prefill_chunk_tokens": 0,
+    "FLAGS_sample_temperature": 0.0,
+    "FLAGS_spec_decode_k": 0,
+    "FLAGS_admission_policy": "fifo",
+    "FLAGS_telemetry": True,
+    "FLAGS_slo_ttft_ms": 0.0,
+    "FLAGS_slo_token_ms": 0.0,
+    "FLAGS_slo_objective": 0.99,
+    "FLAGS_slo_window": 256,
+    "FLAGS_trace_requests": False,
+    "FLAGS_trace_sample_rate": 1.0,
+    "FLAGS_trace_seed": 0,
+    "FLAGS_chaos": "",
 }
 #: JAX-package flags whose machinery the port has not taken yet
 #: (ROADMAP.md): setting one raises ``NotImplementedError``
@@ -85,6 +116,11 @@ def get_flag(name: str):
     if name in os.environ:
         return os.environ[name]
     return DEFAULTS[name]
+
+
+def flag_float(name: str) -> float:
+    """A numeric flag as a float (an environment string parsed)."""
+    return float(get_flag(name) or 0.0)
 
 
 def flag_bool(name: str) -> bool:

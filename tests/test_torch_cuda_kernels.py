@@ -2307,3 +2307,36 @@ def test_staged_feeds_drive_captured_steps(capture, double_buffer):
     got_state = numpy_state(scope, [n for n, _ in scope.items()])
     for n, v in want_state.items():
         np.testing.assert_array_equal(got_state[n], v, err_msg=n)
+
+
+# ==========================================================================
+# sampled decoding on the card: the hash draws and the captured head
+# ==========================================================================
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_captured_sampled_decode_equals_eager(capture, kv_dtype):
+    """A sampled engine's decode steps captured (the lanes in the bucket's
+    input block, ``sample_token`` in the graph) equal its eager steps:
+    tokens, pools and scales bit for bit."""
+    from paddle_tpu_torch.inference.spec_decode import SamplingParams
+
+    row = capture.compare_decode(kv_dtype, sampling=SamplingParams(
+        temperature=0.8, top_k=50, top_p=0.95))
+    assert row["ok"], row
+
+
+def test_sample_token_draws_on_the_card_equal_the_cpu(cuda):
+    """The hash of (lane, column) is the same bits on both devices, and so
+    are the draws at GPT-2's vocabulary under every filter."""
+    from paddle_tpu_torch.ops.sampling_ops import lane_hash, sample_token
+
+    rng = np.random.RandomState(0)
+    logits = torch.from_numpy((rng.randn(16, 50257) * 3).astype(np.float32))
+    lanes = torch.from_numpy(rng.randint(0, 2 ** 31 - 1, size=16)
+                             .astype(np.int32))
+    assert torch.equal(lane_hash(lanes.to(cuda), 50257).cpu(),
+                       lane_hash(lanes, 50257))
+    for params in ((0.8, 50, 0.95), (1.0, 0, 1.0), (0.7, 0, 0.9),
+                   (1.3, 5, 1.0), (0.6, 1, 1.0), (0.0, 0, 1.0)):
+        want = sample_token(logits, lanes, *params)
+        got = sample_token(logits.to(cuda), lanes.to(cuda), *params)
+        assert torch.equal(got.cpu(), want), params

@@ -351,18 +351,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(tp=2), dict(spec_k=2), dict(sampling=object()),
-    dict(admission_policy="slo_aware"), "truncate_tokens"])
+@pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
-        if kw == "truncate_tokens":   # speculative decoding's rollback
-            kv = PagedKVCache(KVCacheConfig(num_pages=4, page_size=4,
-                                            num_kv_heads=1, head_dim=8))
-            kv.append_tokens("a", 5)
-            kv.truncate_tokens("a", 2)
-        else:
-            T.ServingEngine(TCFG, device="cpu", **kw)
+        T.ServingEngine(TCFG, device="cpu", **kw)
 
 
 def test_unknown_admission_policy_raises():
@@ -408,5 +400,6 @@ def test_port_sources_import_no_jax_or_paddle_tpu():
 
 def test_package_exports_the_entry_points():
     for name in ("DecoderConfig", "Request", "ServingEngine", "StepEvent",
-                 "init_decoder_weights", "load_decoder_weights"):
+                 "init_decoder_weights", "load_decoder_weights",
+                 "SamplingParams", "StaticBatchingEngine"):
         assert getattr(ptt, name) is getattr(T, name)

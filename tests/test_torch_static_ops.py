@@ -546,6 +546,24 @@ for _f in ("NCHW", "NHWC"):
             lambda f=_f, z=_z: _fused_conv(f, z, 2 if z else 1))
 
 
+def _sample_token(attrs):
+    """``sample_token`` where both packages' draws are the argmax: at
+    temperature 0, and at top_k 1 (the only token left).  Its sampled
+    draws differ by design (the port's hash against
+    ``jax.random.categorical``; tests/test_torch_spec_decode.py)."""
+    ins = {"Logits": [("lg", _r(3, 6, 40))],
+           "Seeds": [("sd", np.arange(6, dtype=np.int32) * 977)]}
+    _check("sample_token", ins, {"Out": ["o"]}, attrs, int_slots=("Seeds",))
+
+
+CASES.update({
+    "sample_token-greedy": lambda: _sample_token(
+        {"temperature": 0.0, "top_k": 0, "top_p": 1.0}),
+    "sample_token-top1": lambda: _sample_token(
+        {"temperature": 0.8, "top_k": 1, "top_p": 0.9}),
+})
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_op_matches_jax(case):
     CASES[case]()
