@@ -348,6 +348,32 @@ Phases (any failure exits non-zero and prints no result):
     f32 at batch 4, 32x32 on the card and the CPU port from one startup
     scope, step 1 within MOBILENET_STEP1_RTOL (``mobilenet_card_vs_cpu``);
 
+16c. the optimizer family, op by op: ResNet-50 under
+    ``LarsMomentumOptimizer`` at Paddle's defaults on the recipe's rate
+    (:data:`LARS`, computed in the program), built through
+    ``models.build_resnet50`` and ``fluid.optimizer.LarsMomentum`` under
+    bf16 ``decorate`` (NHWC by auto), batch 128, 224x224, 1000 classes,
+    2 + LARS_STEPS steps: losses finite and falling, kernels 7-8 in bf16
+    launched 49 times each a step and no other hand-written kernel,
+    ms/step, images/s, peak memory, a 1-step profile (busy, idle, the
+    ``lars_momentum`` ops' device ms) with the compiled step off and on
+    in turns (``optimizer_lars_resnet50``); LARS_CAPTURE_STEPS steps
+    eager and captured from one state, bit for bit, the rate among the
+    fetches (``optimizer_lars_step_capture``); on the program's 161
+    parameter shapes and one step's gradients, one ``fused_momentum``
+    against 161 ``momentum`` ops and one ``fused_adam`` against 161
+    ``adam`` ops (with the executor's writeback copies): the outputs
+    within FUSED_ULPS, then each side's device ms by graph replay, in
+    turns (``optimizer_fused_update``); ResNet-18 under LARS in f32 on
+    the card and the CPU port, step 1 within RESNET_STEP1_RTOL
+    (``optimizer_lars_card_vs_cpu``); every case of :data:`SWEEP` on
+    LeNet-5 (batch 256, f32: every static optimizer under
+    ``GradientClipByGlobalNorm(1.0)``, the value and norm clips, a
+    per-parameter rate, EMA and ModelAverage with ``apply`` /
+    ``restore``, Lookahead) for SWEEP_STEPS steps card vs CPU within
+    LeNet's tolerances, kernel 9 f32 launched 4 times a step
+    (``optimizer_sweep`` lines);
+
 16b. the compiled step (``FLAGS_cuda_step_session`` at auto: a static
     step or a decode step captured in a CUDA graph; the checks are
     ``paddle_tpu_torch/tools/check_step_capture.py``'s): 4 steps of
@@ -4021,6 +4047,509 @@ def mobilenet_phase(torch):
     return out
 
 
+# ==========================================================================
+# the optimizer family (phase 16c): ResNet-50 under LARS on kernels 7-8,
+# the fused update ops against the per-parameter ones, and every static
+# optimizer on LeNet-5, card vs CPU
+# ==========================================================================
+# LARS (You, Gitman and Ginsburg, arXiv:1708.03888) at Paddle's defaults
+# (trust coefficient 0.001, weight decay 5e-4), momentum 0.9, on the
+# recipe's rate computed in the program: a linear warm-up to ``lr0`` over
+# ``warmup`` steps, then a power-2 polynomial decay to ``end_lr`` over
+# ``decay_steps``.  lr0 is a smoke rate for one repeated batch (the
+# paper's large-batch rates are for 8k-image batches over many epochs)
+LARS = dict(lr0=2.0, warmup=2, decay_steps=20, end_lr=1e-4, power=2.0)
+LARS_STEPS, LARS_CAPTURE_STEPS = 10, 5
+# the ResNet-50 run's size: ImageNet's, at the example's batch
+LARS_RESNET50 = dict(batch=128, image=224, classes=1000)
+# ResNet-50's trainable parameters: one lars_momentum op each
+RESNET50_PARAMS = 161
+# the fused update against the per-parameter ops on the card: the
+# largest difference allowed, in f32 ulps (each does the same roundings,
+# so 0 is expected; a kernel that contracted a multiply-add would show)
+FUSED_ULPS = 0
+# the optimizer sweep on LeNet-5 (batch 256, f32): steps on the card and
+# on the CPU from one startup scope
+SWEEP_STEPS, SWEEP_BATCH = 12, 256
+
+
+def all_kernel_functions():
+    """{name: KernelFunction} of every hand-written kernel of the port."""
+    from paddle_tpu_torch.kernel_build import KernelFunction
+    from paddle_tpu_torch.ops import (bn_act, flash_attention, gelu,
+                                      matmul_epilogue, paged_attention)
+
+    return {v.name: v for m in (bn_act, flash_attention, gelu,
+                                matmul_epilogue, paged_attention)
+            for v in vars(m).values() if isinstance(v, KernelFunction)}
+
+
+def lars_resnet_program(depth, image, classes, amp):
+    """(main, startup, loss, acc1, rate) of ResNet-``depth`` under
+    ``LarsMomentumOptimizer(rate, 0.9)`` (:data:`LARS`), through the
+    public API: ``models.build_resnet50`` (or ``build_resnet``),
+    ``fluid.layers`` schedules, ``fluid.optimizer.LarsMomentum``, and
+    bf16 ``decorate`` with ``amp``."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.framework import unique_name
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 1
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", [3, image, image])
+            label = fluid.layers.data("label", [1], dtype="int64")
+            loss, acc1, _, _ = (
+                models.build_resnet50(img, label, class_num=classes)
+                if depth == 50 else
+                models.build_resnet(img, label, depth, classes))
+            L = fluid.layers
+            rate = L.linear_lr_warmup(
+                L.polynomial_decay(LARS["lr0"], LARS["decay_steps"],
+                                   LARS["end_lr"], power=LARS["power"]),
+                LARS["warmup"], 0.0, LARS["lr0"])
+            opt = fluid.optimizer.LarsMomentum(rate, 0.9)
+            if amp:
+                opt = fluid.contrib.mixed_precision.decorate(opt)
+            opt.minimize(loss)
+    return main, startup, loss, acc1, rate
+
+
+def lars_resnet50_phase(torch):
+    """ResNet-50 under LARS, bf16 ``decorate`` (NHWC by auto), batch 128,
+    224x224, 1,000 classes: 2 + LARS_STEPS steps op by op (losses finite
+    and falling; kernels 7-8 in bf16 launched 49 times each a step and no
+    other hand-written kernel; ms/step, images/s, peak memory), a 1-step
+    profile with the compiled step off and on in turns (busy ms, idle
+    share, the lars_momentum ops' device ms), then LARS_CAPTURE_STEPS
+    steps eager and captured from one state, bit for bit (fetches, the
+    rate among them, and every scope tensor after).  Returns the
+    parameters, velocities and one step's gradients for the fused
+    update's check."""
+    from paddle_tpu_torch.tools import check_step_capture as csc
+    from paddle_tpu_torch.tools.train_resnet import profile_steps, run_steps
+
+    t0 = time.perf_counter()
+    kernels = all_kernel_functions()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    size = LARS_RESNET50
+    main, startup, loss, acc1, rate = lars_resnet_program(
+        50, size["image"], size["classes"], amp=True)
+    reset_counts(kernels)
+    warmup = 2
+    run = run_steps(main, startup, loss, acc1, size["batch"], size["image"],
+                    size["classes"], LARS_STEPS, "cuda", warmup=warmup,
+                    log_every=1)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    n_steps = len(losses)
+    what = "ResNet-50 LARS bf16"
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what} losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{what}: the loss did not fall: {losses}")
+    want = {n: (49 * n_steps if n in ("bn_act_apply_bf16", "bn_act_bwd_bf16")
+                else 0) for n in kernels}
+    if launches != want:
+        fail(f"{what} kernel launches "
+             f"{ {k: v for k, v in launches.items() if v} }: expected "
+             f"{ {k: v for k, v in want.items() if v} } and no other")
+    plan = next(p for key, p in run["executor"]._cache.items()
+                if key[0] == main._uid)
+    types = [o.type for o in plan.ops]
+    if (types.count("lars_momentum"), types.count("fused_conv_bn_act")) != \
+            (RESNET50_PARAMS, 49) or "momentum" in types:
+        fail(f"{what} plan: {types.count('lars_momentum')} lars_momentum, "
+             f"{types.count('fused_conv_bn_act')} fused convs")
+    prof = profile_steps(run, 1)
+    lars_ms = prof["op_type_device_ms_per_step"]
+    report = {
+        "model": what + " (decorate)", **size, "optimizer": "LarsMomentum(rate, 0.9), "
+        "lars_coeff 0.001, lars_weight_decay 0.0005",
+        "rate": f"linear_lr_warmup(polynomial_decay({LARS['lr0']}, "
+                f"{LARS['decay_steps']}, {LARS['end_lr']}, power="
+                f"{LARS['power']}), {LARS['warmup']}, 0, {LARS['lr0']})",
+        "layout": "NHWC", "warmup_steps": warmup, "timed_steps": LARS_STEPS,
+        "losses": losses, "acc1": run["acc1"],
+        "ms_per_step": run["ms_per_step"],
+        "images_per_s": run["images_per_s"], "max_memory_allocated": peak,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()
+                              if v},
+        "ops": len(types),
+        "profile": {k: prof[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "kernels_per_step",
+            "bn_act_apply_ms_per_step", "bn_act_bwd_ms_per_step")},
+        "lars_momentum_device_ms_per_step": (
+            lars_ms.get("lars_momentum", "not measured")
+            if isinstance(lars_ms, dict) else lars_ms),
+        "op_type_device_ms_per_step": lars_ms,
+        "step_session": prof["step_session"]}
+    # one more step, fetching every parameter's gradient (f32: the
+    # masters' grads of the bf16 step)
+    upd = [o for o in main.global_block().ops if o.type == "lars_momentum"]
+    grads = run["executor"].run(
+        main, feed=run["feed"], fetch_list=[o.input("Grad")[0] for o in upd],
+        scope=run["scope"], return_numpy=False)
+    scope = run["scope"]
+    params = [scope.get(o.input("Param")[0]).clone() for o in upd]
+    vels = [scope.get(o.input("Velocity")[0]).clone() for o in upd]
+    feed = run["feed"]
+    report["seconds"] = time.perf_counter() - t0
+    print("optimizer_lars_resnet50 " + json.dumps(report), flush=True)
+    del run, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    row, _, captured = csc.compare_program(
+        "resnet50-lars-bf16", main, startup,
+        [loss.name, acc1.name, rate.name], feed, LARS_CAPTURE_STEPS)
+    rates = [float(np.asarray(o[2]).reshape(-1)[0]) for o in captured]
+    row.update(rates=rates, seconds=time.perf_counter() - t)
+    print("optimizer_lars_step_capture " + json.dumps(row), flush=True)
+    if not row["ok"] or len(set(rates)) != LARS_CAPTURE_STEPS:
+        fail(f"{what}: captured steps differ from eager ones: {row}")
+    return params, vels, grads
+
+
+def lars_resnet18_card_vs_cpu(torch):
+    """ResNet-18 (batch 4, 32x32, 100 classes) under LARS in f32 from one
+    startup scope, 3 steps on the card (kernels 7-8 f32, 17 each a step)
+    and on the CPU port: step 1 within RESNET_STEP1_RTOL."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.ops import bn_act as ba
+    from paddle_tpu_torch.tools.train_resnet import make_batch
+
+    main, startup, loss, _, rate = lars_resnet_program(18, 32, 100,
+                                                       amp=False)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    img, label = make_batch(4, 32, 100)
+    out = {}
+    launched = ba.BN_ACT_APPLY.launches
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        out[dev] = [[float(np.asarray(v).reshape(-1)[0]) for v in exe.run(
+            main, feed={"img": img, "label": label}, fetch_list=[loss, rate],
+            scope=scope)] for _ in range(3)]
+    if ba.BN_ACT_APPLY.launches != launched + 17 * 3:
+        fail("ResNet-18 LARS card vs CPU: the card's run did not launch "
+             "kernel 7 17 times a step")
+    cpu = [s[0] for s in out["cpu"]]
+    card = [s[0] for s in out["cuda"]]
+    rel = abs(cpu[0] - card[0]) / abs(cpu[0])
+    print("optimizer_lars_card_vs_cpu " + json.dumps({
+        "model": "ResNet-18 LARS f32, batch 4, 32x32, 100 classes",
+        "cpu": cpu, "cuda": card, "rates": [s[1] for s in out["cuda"]],
+        "step1_rel_diff": rel, "rtol": RESNET_STEP1_RTOL}), flush=True)
+    if not np.all(np.isfinite(card)):
+        fail(f"ResNet-18 LARS card vs CPU: card losses not finite {card}")
+    if not rel <= RESNET_STEP1_RTOL:
+        fail(f"ResNet-18 LARS card vs CPU step-1 losses differ by "
+             f"{rel:.3e} > {RESNET_STEP1_RTOL}")
+
+
+def ulps_apart(torch, a, b) -> int:
+    """The largest distance in ulps between two f32 tensors (their bit
+    patterns ordered as integers)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def fused_update_phase(torch, params, vels, grads):
+    """The 161 parameters of the ResNet-50 program with one bf16 step's
+    gradients: one ``fused_momentum`` against 161 ``momentum`` ops (each
+    followed by the executor's writeback copies), and one ``fused_adam``
+    against 161 ``adam`` ops, from the same values: the outputs equal
+    (or FUSED_ULPS apart), then the device ms of each by CUDA-graph
+    replay, in turns (unfused, fused, fused, unfused)."""
+    from paddle_tpu_torch.ops.registry import eager_call
+
+    n = len(params)
+    lr = torch.full((1,), 0.1, device="cuda")
+    nbytes = sum(p.numel() for p in params) * 4
+    mom_attrs = {"mu": 0.9, "use_nesterov": False}
+    adam_attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                  "lazy_mode": False}
+
+    def momentum_state():
+        return {"Param": [p.clone() for p in params], "Grad": grads,
+                "Velocity": [v.clone() for v in vels], "LearningRate": [lr]}
+
+    def adam_state():
+        return {"Param": [p.clone() for p in params], "Grad": grads,
+                "Moment1": [v.clone() for v in vels],
+                "Moment2": [v * v for v in vels],
+                "Beta1Pow": [torch.full((1,), 0.9 ** 3, device="cuda")
+                             for _ in params],
+                "Beta2Pow": [torch.full((1,), 0.999 ** 3, device="cuda")
+                             for _ in params],
+                "LearningRate": [lr]}
+
+    kinds = {"momentum": (momentum_state, mom_attrs,
+                          {"Param": "ParamOut", "Velocity": "VelocityOut"}),
+             "adam": (adam_state, adam_attrs,
+                      {"Param": "ParamOut", "Moment1": "Moment1Out",
+                       "Moment2": "Moment2Out", "Beta1Pow": "Beta1PowOut",
+                       "Beta2Pow": "Beta2PowOut"})}
+    out = {}
+    for kind, (make, attrs, slots) in kinds.items():
+        def unfused(st, kind=kind, attrs=attrs, slots=slots):
+            # as the executor runs them: each op, then its state
+            # outputs copied back into the scope's tensors
+            for i in range(n):
+                res = eager_call(kind, {s: [v[i]] if s != "LearningRate"
+                                        else v for s, v in st.items()},
+                                 attrs, {o: 1 for o in slots.values()})
+                for s, o in slots.items():
+                    st[s][i].copy_(res[o][0])
+
+        def fused(st, kind=kind, attrs=attrs, slots=slots):
+            eager_call("fused_" + kind, st, attrs,
+                       {o: n for o in slots.values()})
+
+        a, b = make(), make()
+        unfused(a)
+        fused(b)
+        torch.cuda.synchronize()
+        ulps = max(ulps_apart(torch, x, y) for s in slots
+                   for x, y in zip(a[s], b[s]))
+        equal = all(torch.equal(x, y) for s in slots
+                    for x, y in zip(a[s], b[s]))
+        st_u, st_f = make(), make()
+        times = {"unfused": [], "fused": []}
+        for side in ("unfused", "fused", "fused", "unfused"):
+            st = st_u if side == "unfused" else st_f
+            fn = unfused if side == "unfused" else fused
+            times[side].append(time_ms(fn, [(st,)], per_graph=2,
+                                       replays=10))
+        out[kind] = {"params": n, "elements": nbytes // 4,
+                     "equal": equal, "max_ulps": ulps,
+                     "unfused_ms": times["unfused"],
+                     "fused_ms": times["fused"]}
+        if ulps > FUSED_ULPS:
+            fail(f"fused_{kind} differs from {n} {kind} ops by {ulps} ulps "
+                 f"(> {FUSED_ULPS})")
+    print("optimizer_fused_update " + json.dumps(out), flush=True)
+    return out
+
+
+def lenet_sweep_program(make):
+    """(main, startup, fetch, handle) of LeNet-5's training program (the
+    port's ``build_lenet``) with ``make(fluid, loss)`` adding the
+    optimizer (and returning what the case checks)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.models.lenet import build_lenet
+
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 5
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", [1, 28, 28])
+            label = fluid.layers.data("label", [1], dtype="int64")
+            loss, acc, _ = build_lenet(img, label)
+            handle = make(fluid, loss)
+    return main, startup, [loss, acc], handle
+
+
+def _clipped(name, *args, **kw):
+    """``make`` of optimizer ``name`` under GradientClipByGlobalNorm(1.0)."""
+    def make(fluid, loss):
+        getattr(fluid.optimizer, name)(
+            *args, grad_clip=fluid.GradientClipByGlobalNorm(1.0),
+            **kw).minimize(loss)
+    return make
+
+
+def _momentum_then(wrap):
+    """``make`` of Momentum(0.01, 0.9) followed by ``wrap(fluid)``'s
+    averaging object (returned)."""
+    def make(fluid, loss):
+        fluid.optimizer.Momentum(0.01, 0.9).minimize(loss)
+        return wrap(fluid)
+    return make
+
+
+def _per_param_rate(fluid, loss):
+    """Momentum with the first fc's weight at half the rate (its
+    ``optimize_attr``, as ``ParamAttr(learning_rate=0.5)`` sets it)."""
+    prog = loss.block.program
+    prog.global_block().var("fc_0.w_0").optimize_attr = {
+        "learning_rate": 0.5}
+    fluid.optimizer.Momentum(0.01, 0.9).minimize(loss)
+
+
+def _ema(fluid):
+    ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+    ema.update()
+    return ema
+
+
+def _lookahead(fluid, loss):
+    fluid.optimizer.LookaheadOptimizer(
+        fluid.optimizer.Momentum(0.01, 0.9), alpha=0.5, k=2).minimize(loss)
+
+
+#: the sweep: every static optimizer under GradientClipByGlobalNorm(1.0),
+#: then the other clips, a per-parameter rate and the wrappers
+SWEEP = {
+    "SGD": _clipped("SGD", 0.02),
+    "Momentum": _clipped("Momentum", 0.01, 0.9),
+    "LarsMomentum": _clipped("LarsMomentum", 0.5, 0.9),
+    "Adam": _clipped("Adam", 1e-3),
+    "AdamW": _clipped("AdamW", 1e-3, weight_decay=0.01),
+    "Adagrad": _clipped("Adagrad", 0.01),
+    "DecayedAdagrad": _clipped("DecayedAdagradOptimizer", 0.001),
+    "Adadelta": _clipped("Adadelta", 1.0),
+    "Adamax": _clipped("Adamax", 1e-3),
+    "RMSProp": _clipped("RMSProp", 1e-3, momentum=0.9, centered=True),
+    # Ftrl's l1 threshold makes LeNet's trajectory chaotic at larger
+    # rates: on the CPU alone, 1e-6 relative noise on the initial weights
+    # moves step 12's loss by 0.034 at (lr 0.005, l1 1e-4), 8.5e-4 at
+    # (5e-4, 1e-4) and 1e-4 at (5e-4, 0); l1's shrink is held to JAX on
+    # the CPU (tests/torch_optimizer_cases.py, "ftrl-shrink")
+    "Ftrl": _clipped("Ftrl", 5e-4, l1=0.0, l2=1e-4),
+    "Lamb": _clipped("Lamb", 1e-3),
+    "Dpsgd": _clipped("Dpsgd", 0.02, clip=1.0, batch_size=1.0, sigma=0.0),
+    "ClipByValue": lambda f, loss: f.optimizer.Momentum(
+        0.01, 0.9, grad_clip=f.GradientClipByValue(0.01)).minimize(loss),
+    "ClipByNorm": lambda f, loss: f.optimizer.Momentum(
+        0.01, 0.9, grad_clip=f.GradientClipByNorm(0.5)).minimize(loss),
+    "per-parameter rate": _per_param_rate,
+    "ExponentialMovingAverage": _momentum_then(_ema),
+    "ModelAverage": _momentum_then(
+        lambda f: f.optimizer.ModelAverage(0.5, min_average_window=2,
+                                           max_average_window=5)),
+    "Lookahead": _lookahead,
+}
+
+
+def _averaged_loss(fluid, kind, handle, test_prog, exe, scope, feed,
+                   fetch):
+    """The test program's loss with the averaged parameters swapped in
+    (EMA: into the global scope; ModelAverage: ``apply(scope=)``), and
+    whether ``restore`` brought the trained parameters back bit for
+    bit."""
+    from paddle_tpu_torch.framework.scope import scope_guard
+
+    names = [p.name for p in test_prog.all_parameters()]
+    before = {n: scope.get(n).clone() for n in names}
+    with fluid.program_guard(test_prog), scope_guard(scope):
+        guard = (handle.apply() if kind == "ExponentialMovingAverage"
+                 else handle.apply(scope=scope))
+        with guard:
+            loss = float(exe.run(test_prog, feed=feed, fetch_list=fetch[:1],
+                                 scope=scope)[0])
+    restored = all(bool((scope.get(n) == before[n]).all()) for n in names)
+    return loss, restored
+
+
+def optimizer_sweep_phase(torch):
+    """Every case of :data:`SWEEP` on LeNet-5 (batch 256, f32) for
+    SWEEP_STEPS steps on the card and on the CPU port from one startup
+    scope: the losses within LeNet's card-vs-CPU tolerances (step 1
+    relative, every step absolute), kernel 9 in f32 launched 4 times a
+    step on the card; EMA and ModelAverage also evaluate the test program
+    with the averages applied (the same tolerance) and restore the
+    trained parameters."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT_F32
+
+    rng = np.random.RandomState(7)
+    feed = {"img": rng.rand(SWEEP_BATCH, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (SWEEP_BATCH, 1)).astype(np.int64)}
+    rows = {}
+    for name, make in SWEEP.items():
+        t = time.perf_counter()
+        main, startup, fetch, handle = lenet_sweep_program(make)
+        if name not in ("ExponentialMovingAverage", "ModelAverage"):
+            handle = None
+        test_prog = main.clone(for_test=True)
+        start = Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+        state = numpy_state(start, [n for n, _ in start.items()])
+        losses, averaged = {}, {}
+        launched = MATMUL_BIAS_ACT_F32.launches
+        for dev in ("cpu", "cuda"):
+            scope = Scope()
+            load_numpy_state(scope, state, dev)
+            exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                                 else fluid.CUDAPlace(0))
+            if dev == "cuda":
+                launched = MATMUL_BIAS_ACT_F32.launches
+            losses[dev] = [float(exe.run(main, feed=feed,
+                                         fetch_list=fetch[:1],
+                                         scope=scope)[0])
+                           for _ in range(SWEEP_STEPS)]
+            if dev == "cuda":
+                launched = MATMUL_BIAS_ACT_F32.launches - launched
+            if handle is not None:
+                averaged[dev] = _averaged_loss(fluid, name, handle,
+                                               test_prog, exe, scope, feed,
+                                               fetch)
+        cpu, card = np.asarray(losses["cpu"]), np.asarray(losses["cuda"])
+        rel1 = abs(card[0] - cpu[0]) / abs(cpu[0])
+        worst = float(np.abs(card - cpu).max())
+        row = {"cpu": losses["cpu"], "cuda": losses["cuda"],
+               "step1_rel_diff": rel1, "max_abs_diff": worst,
+               "kernel9_launches_per_step": launched / SWEEP_STEPS,
+               "update_ops": sorted({o.type for o in main.global_block().ops
+                                     if o.attrs.get("op_role") == 2}),
+               "seconds": time.perf_counter() - t}
+        if averaged:
+            row["averaged_loss"] = {d: v[0] for d, v in averaged.items()}
+            row["restored"] = {d: v[1] for d, v in averaged.items()}
+        rows[name] = row
+        print("optimizer_sweep " + json.dumps({"case": name, **row}),
+              flush=True)
+        if not np.all(np.isfinite(card)):
+            fail(f"optimizer sweep {name}: card losses not finite {card}")
+        if not (rel1 <= LENET_STEP1_RTOL and worst <= LENET_LOSS_ATOL):
+            fail(f"optimizer sweep {name}: step 1 {rel1:.3e} relative "
+                 f"(tolerance {LENET_STEP1_RTOL}), worst step {worst:.3e} "
+                 f"absolute (tolerance {LENET_LOSS_ATOL})")
+        if launched != 4 * SWEEP_STEPS:
+            fail(f"optimizer sweep {name}: kernel 9 launched {launched} "
+                 f"times in {SWEEP_STEPS} steps, expected 4 a step")
+        if averaged:
+            a = averaged
+            if not (abs(a["cuda"][0] - a["cpu"][0]) <= LENET_LOSS_ATOL
+                    and a["cuda"][1] and a["cpu"][1]):
+                fail(f"optimizer sweep {name}: the averaged parameters' "
+                     f"loss or their restore differs: {a}")
+    return rows
+
+
+def optimizer_phase(torch):
+    """Phase 16c: ResNet-50 under LARS (:func:`lars_resnet50_phase`),
+    ResNet-18 under LARS card vs CPU, the fused update ops against the
+    per-parameter ones, and the LeNet optimizer sweep."""
+    params, vels, grads = lars_resnet50_phase(torch)
+    fused_update_phase(torch, params, vels, grads)
+    del params, vels, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    lars_resnet18_card_vs_cpu(torch)
+    optimizer_sweep_phase(torch)
+
+
 TURN_STEPS = {"resnet50_amp_bf16": 3, "lenet_f32": 10, "lenet_amp_bf16": 10,
               "word2vec_f32": 10, "decode": 6}
 TRACED_STEPS = {"resnet50_amp_bf16": 1, "lenet_f32": 3, "lenet_amp_bf16": 3,
@@ -4424,6 +4953,10 @@ def main():
 
     phase("16a. MobileNetV3-large static training: f32, bf16, fp16")
     mobilenet_phase(torch)
+
+    phase("16c. the optimizer family: ResNet-50 under LARS, the fused "
+          "update ops, every optimizer on LeNet card vs CPU")
+    optimizer_phase(torch)
 
     phase("compiled step: captured vs eager, graphs, times in turns")
     compiled_step_phase(torch)

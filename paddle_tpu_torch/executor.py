@@ -8,10 +8,11 @@ one interprets it eagerly, as the reference's Executor does
 executor's device and launches its own kernels.
 
 * **The plan** (``_compile``): the IR pass pipeline (the two BatchNorm
-  fusions always, the NHWC layout pass under ``FLAGS_cuda_nhwc``, whose
-  ``auto`` takes only programs with bf16 or fp16 convolutions, then
-  the epilogue fusion under ``FLAGS_cuda_fuse``, in the JAX order,
-  :797-799, :807-810, :811-820) on a clone of the program, the
+  fusions and ``fuse_optimizer_ops_pass`` always, the NHWC layout pass
+  under ``FLAGS_cuda_nhwc``, whose ``auto`` takes only programs with
+  bf16 or fp16 convolutions, then the epilogue fusion under
+  ``FLAGS_cuda_fuse``, in the JAX order, :797-820) on a clone of the
+  program, the
   state analysis (``analyze_state``: what the op list reads before it
   writes, and which persistable vars it writes), the feed-conversion
   plan, and the last reader of every intermediate.  A plan is cached per
@@ -21,7 +22,8 @@ executor's device and launches its own kernels.
   them, runs the ops, and writes every state output back *into the
   scope's own tensor* (``copy_``): parameters, velocities and BatchNorm
   statistics are updated in place, and a tensor taken from the scope
-  keeps tracking its variable.
+  keeps tracking its variable.  (The fused update ops write into the
+  scope's tensors themselves, so the writeback finds them current.)
 * **Memory**: each intermediate is dropped after its last reader, so the
   step holds what the backward still needs and little else.
 * **Random ops** draw from a ``torch.Generator`` of the executor, one
@@ -53,8 +55,8 @@ executor's device and launches its own kernels.
   (``FLAGS_cuda_double_buffer``).
 
 Not ported (ROADMAP.md): the hybrid host-op path, data-parallel and
-pipeline runners, ``fuse_optimizer_ops_pass``, the memory plan, the
-numerics probes and ``check_nan_inf``.
+pipeline runners, the memory plan, the numerics probes and
+``check_nan_inf``.
 """
 from __future__ import annotations
 
@@ -322,12 +324,13 @@ class Executor:
         """The training-time pass pipeline on a clone of ``program``
         (the user's program stays as built): fuse_bn_add_act_pass and
         fuse_bn_act_pass when the program has a batch_norm, then
-        layout_transform_pass when NHWC is on and it has a conv2d (after
+        fuse_optimizer_ops_pass when it has an sgd, momentum or adam op,
+        then layout_transform_pass when NHWC is on and it has a conv2d (after
         the BN fusions, so it sees the fused forms), then
         fuse_epilogue_pass when fusion is on and it has a conv2d or a
         matrix product (after the layout pass, so the chains it matches
         are in their final layout)."""
-        from .framework.ir import PassManager, get_pass
+        from .framework.ir import _FUSABLE_OPT, PassManager, get_pass
 
         fuse = self.fuse_enabled() if fuse is None else fuse
         nhwc = self.nhwc_enabled(program) if nhwc is None else nhwc
@@ -337,6 +340,10 @@ class Executor:
         if "batch_norm" in types:
             passes += [get_pass("fuse_bn_add_act_pass", protected=protected),
                        get_pass("fuse_bn_act_pass", protected=protected)]
+        if types & set(_FUSABLE_OPT):
+            # JAX keeps per-parameter updates under FLAGS_dp_sharding on
+            # its collective path; the port has no collectives yet
+            passes.append(get_pass("fuse_optimizer_ops_pass"))
         if nhwc and types & {"conv2d", "depthwise_conv2d"}:
             passes.append(get_pass("layout_transform_pass",
                                    protected=protected))

@@ -2,12 +2,15 @@
 ``paddle_tpu/fluid/__init__.py``), for the static path: a reference-era
 script runs with ``import paddle_tpu_torch.fluid as fluid``.  Ported:
 what a ResNet or MobileNetV3 training script uses (weight decay from
-``fluid.regularizer``, the schedules of ``fluid.layers``), with
-``fluid.contrib.mixed_precision.decorate`` for bf16 AMP, or fp16 AMP with
-loss scaling (``use_fp16=True``)."""
-from .. import (contrib, initializer, layers, optimizer,  # noqa: F401
-                regularizer)
+``fluid.regularizer``, the schedules of ``fluid.layers``, every static
+optimizer of ``fluid.optimizer``, gradient clipping from ``fluid.clip``),
+with ``fluid.contrib.mixed_precision.decorate`` for bf16 AMP, or fp16 AMP
+with loss scaling (``use_fp16=True``)."""
+from .. import (clip, contrib, initializer, layers,  # noqa: F401
+                optimizer, regularizer)
 from ..backward import append_backward, gradients  # noqa: F401
+from ..clip import (GradientClipByGlobalNorm,  # noqa: F401
+                    GradientClipByNorm, GradientClipByValue)
 from ..executor import Executor  # noqa: F401
 from ..framework import unique_name  # noqa: F401
 from ..framework.core import (Block, Operator, Program,  # noqa: F401

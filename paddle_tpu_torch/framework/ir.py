@@ -12,24 +12,28 @@ fusions ``fuse_bn_act_pass`` (:489) and ``fuse_bn_add_act_pass`` (:570),
 conv -> BN (-> add) -> relu chains onto ``fused_conv_bn_act`` and mul /
 matmul -> bias add -> act chains onto ``fused_matmul_bias_act``, forward
 and backward together; their epilogues are the hand-written kernels of
-``ops/bn_act.py`` and ``ops/matmul_epilogue.py``.  The rewrites are the
-JAX package's, op for op, so both packages compile a program to the same
-op list.
+``ops/bn_act.py`` and ``ops/matmul_epilogue.py``; and
+``fuse_optimizer_ops_pass`` (:2445-2488, with ``_FUSABLE_OPT``
+:1316-1327), which merges the per-parameter ``sgd``, ``momentum`` and
+``adam`` ops into ``fused_sgd`` / ``fused_momentum`` / ``fused_adam``.
+The rewrites are the JAX package's, op for op, so both packages compile
+a program to the same op list.
 
 Not ported (ROADMAP.md): the static verifier that brackets every pass
-under ``FLAGS_verify_passes``, ``fuse_optimizer_ops_pass`` and the
-other passes of the JAX module.
+under ``FLAGS_verify_passes``, ``memory_relief_pass`` and the other
+passes of the JAX module.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 from .core import Block, Operator, Program
+from .dtype import VarType
 
 __all__ = ["PASS_REGISTRY", "Pass", "register_pass", "get_pass",
            "PassManager", "producer_map", "consumer_count", "remove_ops",
            "FuseBNActPass", "FuseBNAddActPass", "LayoutTransformPass",
-           "FuseEpiloguePass"]
+           "FuseEpiloguePass", "FuseOptimizerOpsPass"]
 
 # --------------------------------------------------------------------------
 # pass registry (reference: pass.h REGISTER_PASS)
@@ -83,8 +87,8 @@ class _NotPorted(Pass):
         raise NotImplementedError(f"{self.name} is not ported (ROADMAP.md)")
 
 
-for _name in ("fuse_optimizer_ops_pass", "memory_relief_pass"):
-    register_pass(_name)(type(_name, (_NotPorted,), {}))
+register_pass("memory_relief_pass")(
+    type("memory_relief_pass", (_NotPorted,), {}))
 
 
 class PassManager:
@@ -854,3 +858,65 @@ class FuseEpiloguePass(Pass):
             block._insert_op(gidx, "fused_matmul_bias_act_grad",
                              inputs=ginputs, outputs=goutputs, attrs=gattrs)
         return True
+
+
+# --------------------------------------------------------------------------
+# fused optimizer ops (reference: ir/fuse_optimizer_ops_pass/ --
+# fuse_sgd_op_pass.cc, fuse_momentum_op_pass.cc, fuse_adam_op_pass.cc):
+# merge the per-parameter update ops that share one rate var and their
+# hyperparameters into one multi-slot fused op (ops/optimizer_ops.py)
+# --------------------------------------------------------------------------
+_FUSABLE_OPT = {
+    "sgd": (("Param", "Grad"), ("ParamOut",)),
+    "momentum": (("Param", "Grad", "Velocity"), ("ParamOut", "VelocityOut")),
+    "adam": (("Param", "Grad", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow"),
+             ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+              "Beta2PowOut")),
+}
+
+
+@register_pass("fuse_optimizer_ops_pass")
+class FuseOptimizerOpsPass(Pass):
+    """Group the ``sgd`` / ``momentum`` / ``adam`` ops of the global block
+    by (type, LearningRate var, attrs other than the op_role ones); each
+    group of two or more becomes one ``fused_<type>`` op where its last
+    member was.  An op whose gradient is SELECTED_ROWS keeps its own."""
+
+    def apply_impl(self, program):
+        fused = 0
+        block = program.global_block()
+        groups: Dict[tuple, List[Operator]] = {}
+        for op_ in block.ops:
+            if op_.type not in _FUSABLE_OPT:
+                continue
+            gname = op_.inputs.get("Grad", [None])[0]
+            gvar = block._find_var_recursive(gname) if gname else None
+            if gvar is not None and gvar.type == VarType.SELECTED_ROWS:
+                continue
+            attr_key = frozenset(
+                (k, tuple(v) if isinstance(v, list) else v)
+                for k, v in op_.attrs.items()
+                if k not in ("op_role", "op_namescope", "op_callstack",
+                             "op_role_var"))
+            key = (op_.type, op_.inputs["LearningRate"][0], attr_key)
+            groups.setdefault(key, []).append(op_)
+        for (otype, lr, _), ops_ in groups.items():
+            if len(ops_) < 2:
+                continue
+            in_slots, out_slots = _FUSABLE_OPT[otype]
+            inputs = {"LearningRate": [lr]}
+            for s in in_slots:
+                inputs[s] = [o.inputs[s][0] for o in ops_]
+            outputs = {s: [o.outputs[s][0] for o in ops_] for s in out_slots}
+            # where the last member was: every grad is made by then, and
+            # the updates are the program's tail
+            last = max(block.ops.index(o) for o in ops_)
+            last -= sum(1 for o in ops_ if block.ops.index(o) < last)
+            remove_ops(block, ops_)
+            block._insert_op(last, "fused_" + otype, inputs=inputs,
+                             outputs=outputs, attrs=dict(ops_[0].attrs))
+            fused += 1
+        self.fused_count = fused
+        if fused:
+            program._bump_version()
+        return program

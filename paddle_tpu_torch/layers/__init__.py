@@ -11,15 +11,16 @@ from ..framework.core import default_main_program
 from ..framework.dtype import VarType, convert_dtype
 from . import nn, tensor
 from .math_op_patch import monkey_patch_variable
-from .nn import (accuracy, batch_norm, cast, ceil, concat,  # noqa: F401
-                 conv2d, cos, dropout, elementwise_add, elementwise_div,
+from .nn import (accuracy, batch_norm, cast, ceil, clip,  # noqa: F401
+                 clip_by_norm, concat, conv2d, cos, dropout,
+                 elementwise_add, elementwise_div,
                  elementwise_floordiv, elementwise_max, elementwise_min,
                  elementwise_mod, elementwise_mul, elementwise_pow,
                  elementwise_sub, embedding, exp, fc, floor, hard_sigmoid,
                  hard_swish, mean, pool2d, relu, reshape, scale, sigmoid,
                  softmax, softmax_with_cross_entropy, topk, where)
-from .tensor import (create_global_var, create_parameter,  # noqa: F401
-                     fill_constant)
+from .tensor import (assign, create_global_var,  # noqa: F401
+                     create_parameter, fill_constant)
 
 monkey_patch_variable()
 

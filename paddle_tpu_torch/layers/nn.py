@@ -4,8 +4,8 @@
 ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
 ``sigmoid`` :409-410, ``exp``, ``ceil``, ``floor`` and ``cos`` :414-421,
 ``hard_swish`` :463, the ``elementwise_*`` family :522-530,
-``dropout`` :356, ``mean`` :558, ``scale`` :565,
-``softmax_with_cross_entropy`` :614,
+``dropout`` :356, ``mean`` :558, ``scale`` :565, ``clip`` and
+``clip_by_norm`` :574-590, ``softmax_with_cross_entropy`` :614,
 ``reshape`` :718, ``topk`` :870, ``cast`` :955, ``concat`` :964,
 ``accuracy`` :980, ``where`` :908; ``hard_sigmoid``:
 ``paddle_tpu/layers/nn_tail.py:59``).  Each builds vars and ops through
@@ -25,8 +25,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
            "hard_sigmoid", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "elementwise_mod",
-           "elementwise_floordiv", "where", "mean", "scale",
-           "softmax_with_cross_entropy", "reshape", "topk", "cast",
+           "elementwise_floordiv", "where", "mean", "scale", "clip",
+           "clip_by_norm", "softmax_with_cross_entropy", "reshape", "topk", "cast",
            "concat", "accuracy", "dropout"]
 
 
@@ -289,6 +289,23 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out, act)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -1,14 +1,15 @@
 """Tensor-creation layers (counterpart of ``paddle_tpu/layers/tensor.py``:
 ``create_parameter`` :18, ``create_global_var`` :30, ``fill_constant``
-:49, ``cast`` :130, ``concat`` :136)."""
+:49, ``assign`` :100, ``cast`` :130, ``concat`` :136)."""
 from __future__ import annotations
 
+from ..framework.core import Variable
 from ..framework.dtype import convert_dtype
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 __all__ = ["create_parameter", "create_global_var", "fill_constant",
-           "cast", "concat"]
+           "assign", "cast", "concat"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -49,6 +50,21 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         attrs={"shape": list(shape), "value": float(value),
                "dtype": int(dtype)})
     return out
+
+
+def assign(input, output=None):
+    """``output`` (a new var by default) := ``input``, a Variable (the
+    ``assign`` op).  A numpy ``input`` (the ``assign_value`` op) is not
+    ported."""
+    if not isinstance(input, Variable):
+        raise NotImplementedError("assign of a numpy array (the "
+                                  "assign_value op) is not ported")
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("assign", inputs={"X": [input]},
+                     outputs={"Out": [output]})
+    return output
 
 
 def cast(x, dtype):

@@ -116,3 +116,7 @@ def build_resnet(img, label=None, depth=50, class_num=1000, is_test=False):
     acc1 = layers.accuracy(logits, label, k=1)
     acc5 = layers.accuracy(logits, label, k=5)
     return loss, acc1, acc5, logits
+
+
+def build_resnet50(img, label=None, class_num=1000, is_test=False):
+    return build_resnet(img, label, 50, class_num, is_test)

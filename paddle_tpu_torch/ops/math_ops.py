@@ -1,9 +1,10 @@
 """Math op lowerings of the static path (counterpart of
 ``paddle_tpu/ops/math_ops.py``: the ``elementwise_*`` family :49-59,
-``relu`` :72, ``sigmoid`` :74, ``ceil`` / ``floor`` / ``cos`` / ``exp``
-:81-92, ``reciprocal`` :99, ``sign`` :102, ``hard_sigmoid`` and
-``hard_swish`` :114-125, ``scale`` :154, ``sum`` (gradient
-accumulation), ``mean`` :222, ``top_k`` :318, the comparisons :351-356,
+``relu`` :72, ``sigmoid`` :74, ``sqrt`` :78, ``ceil`` / ``floor`` /
+``cos`` / ``exp`` :81-92, ``reciprocal`` :99, ``sign`` :102,
+``hard_sigmoid`` and ``hard_swish`` :114-125, ``scale`` :154, ``clip``
+and ``clip_by_norm`` :185-205 (dense), ``sum`` (gradient accumulation),
+``mean`` :222, ``top_k`` :318, the comparisons :351-356,
 ``mul`` :423 and ``increment`` :494).
 
 ``mul``, ``hard_swish`` and ``hard_sigmoid`` have explicit grad
@@ -75,8 +76,29 @@ def _unary(fn):
 for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
                    ("reciprocal", torch.reciprocal), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
-                   ("exp", torch.exp), ("sign", torch.sign)):
+                   ("exp", torch.exp), ("sign", torch.sign),
+                   ("sqrt", torch.sqrt)):
     op(_name)(_unary(_fn))
+
+
+@op("clip")
+def _clip(ctx):
+    """``X`` clamped into [min, max] (the attrs, or the ``Min`` /
+    ``Max`` tensors)."""
+    lo = ctx.in_("Min") if ctx.has_input("Min") else ctx.attr("min", 0.0)
+    hi = ctx.in_("Max") if ctx.has_input("Max") else ctx.attr("max", 0.0)
+    ctx.set_out("Out", torch.clamp(ctx.in_("X"), lo, hi))
+
+
+@op("clip_by_norm")
+def _clip_by_norm(ctx):
+    """``X * (max_norm / |X|)`` where the whole tensor's L2 norm exceeds
+    ``max_norm``, else ``X`` (a ``torch.where``: no host read)."""
+    x = ctx.in_("X")
+    max_norm = ctx.attr("max_norm", 1.0)
+    norm = torch.sqrt((x * x).sum())
+    ctx.set_out("Out", torch.where(norm > max_norm, x * (max_norm / norm),
+                                   x))
 
 
 def _in_dtype(v: float, x: torch.Tensor) -> float:

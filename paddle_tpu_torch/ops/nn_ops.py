@@ -34,7 +34,8 @@ below: ``conv2d`` and ``depthwise_conv2d`` (``conv_forward`` :45,
 (:161), ``batch_norm`` (``bn_shapes`` :296, ``bn_train_stats`` :310,
 :341, its grad maker :374), ``softmax_with_cross_entropy`` (:471, its
 closed-form grad :509), ``accuracy`` (:858), ``dropout`` (:784, its
-mask-reading grad :813-850), ``softmax`` (:460) and
+mask-reading grad :813-850), ``softmax`` (:460), ``squared_l2_norm``
+(:597, the global-norm clip's) and
 ``lookup_table`` (:692-708: ids with a trailing unit axis squeezed, the
 dense gradient of the default grad maker; ``is_sparse`` raises, its
 SelectedRows gradient is not ported).  conv2d, pool2d and
@@ -778,6 +779,14 @@ def _dropout_grad(ctx):
         return
     keep = ctx.in_("Mask") > 0
     ctx.set_out("X" + GRAD_SUFFIX, _dropout_apply(dout, keep, p, impl))
+
+
+# -- the squared L2 norm of gradient clipping (JAX nn_ops.py:597) ------------
+@op("squared_l2_norm")
+def _squared_l2_norm(ctx):
+    """``sum(x^2)`` over the whole tensor, as a ``[1]`` tensor."""
+    x = ctx.in_("X")
+    ctx.set_out("Out", (x * x).sum().reshape(1))
 
 
 # -- softmax and the embedding lookup -----------------------------------------

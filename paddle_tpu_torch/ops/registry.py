@@ -32,8 +32,8 @@ from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX, Block, Operator
 from ..framework.dtype import canonical_dtype, to_torch_dtype
 
 __all__ = ["OPS", "OpDef", "op", "grad_maker", "infer_for", "resolve",
-           "LowerCtx", "infer_shape", "run_op", "has_grad", "make_grad_ops",
-           "default_grad_maker", "generic_grad_lower"]
+           "LowerCtx", "infer_shape", "run_op", "eager_call", "has_grad",
+           "make_grad_ops", "default_grad_maker", "generic_grad_lower"]
 
 _SENTINEL_DIM = 97  # stands in for -1 (dynamic batch) during inference
 _META = torch.device("meta")
@@ -322,6 +322,21 @@ def _raise_with_callstack(op: Operator, e: Exception):
         where = "\n  op built at:\n    " + "\n    ".join(stack)
     e.add_note(f"[operator {op.type!r} error]{where}")
     raise e
+
+
+def eager_call(type: str, ins: Dict[str, List[Any]],
+               attrs: Optional[Dict[str, Any]] = None,
+               out_arity: Optional[Dict[str, int]] = None,
+               generator: Optional[torch.Generator] = None,
+               device: Optional[torch.device] = None) -> Dict[str, List[Any]]:
+    """Run ``type``'s lowering on tensors outside a program (JAX
+    ``eager_call``): ``ins`` maps slots to values, ``out_arity`` slots to
+    their number of outputs; returns ``{slot: [values]}``.  The dygraph
+    optimizers update through the static ops' lowerings this way."""
+    ctx = _ReplayCtx(ins, dict(attrs or {}), dict(out_arity or {}),
+                     generator, device)
+    resolve(type).lower(ctx)
+    return ctx.outs
 
 
 # --------------------------------------------------------------------------

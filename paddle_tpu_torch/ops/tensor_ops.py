@@ -1,11 +1,11 @@
 """Creation, random and shape op lowerings of the static path
 (counterpart of ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant`` :36,
-``gaussian_random`` :70, ``uniform_random`` :81, ``cast`` :192,
-``reshape2`` :214 with its shape inference :228, ``transpose2`` :254,
-``concat`` :332, ``where`` :525).  The shape ops' and ``cast``'s grads are the registry's
-generic vjp replay, as in JAX: a cast's cotangent is cast back to the
-input's dtype, so an f32 parameter read through a bf16 cast gets an f32
-gradient.
+``gaussian_random`` :70, ``uniform_random`` :81, ``assign`` :164,
+``cast`` :192, ``reshape2`` :214 with its shape inference :228,
+``transpose2`` :254, ``concat`` :332, ``where`` :525).  The shape ops'
+and ``cast``'s grads are the registry's generic vjp replay, as in JAX:
+a cast's cotangent is cast back to the input's dtype, so an f32
+parameter read through a bf16 cast gets an f32 gradient.
 
 Random ops draw from the executor's ``torch.Generator`` (seeded from the
 program's ``random_seed``), or from a generator of their own when the op
@@ -158,6 +158,14 @@ def _concat(ctx):
                                   "ported")
     xs = [v for v in ctx.ins("X") if v is not None]
     ctx.set_out("Out", torch.cat(xs, dim=ctx.attr("axis", 0)))
+
+
+@op("assign")
+def _assign(ctx):
+    """A copy of ``X``: the output may be state of its own (an
+    ``@EMA`` or ``@SLOW`` var seeded from a parameter), which must not
+    share the parameter's memory."""
+    ctx.set_out("Out", ctx.in_("X").clone())
 
 
 @op("where")

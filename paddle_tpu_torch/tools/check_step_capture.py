@@ -60,9 +60,10 @@ from . import train_book as tb
 from .train_resnet import (build_program, loss_scaling_state, make_batch,
                            set_card_precision)
 
-__all__ = ["STATIC_CASES", "compare_static", "compare_decode",
-           "check_bucket_switch", "check_invalidation", "check_dropout",
-           "check_raises", "launches_per_step", "session", "main"]
+__all__ = ["STATIC_CASES", "compare_program", "compare_static",
+           "compare_decode", "check_bucket_switch", "check_invalidation",
+           "check_dropout", "check_raises", "launches_per_step", "session",
+           "main"]
 
 #: name -> the program and batch of a static equality case
 STATIC_CASES = {
@@ -175,24 +176,36 @@ def _diff(eager, captured):
     return fetches, state
 
 
-def compare_static(name: str, steps: int = 4, **size) -> dict:
-    """One :data:`STATIC_CASES` entry, ``steps`` steps op by op and
-    captured from one startup state; ``size``: the MobileNet case's
-    (:data:`MOBILENET_CASE`)."""
-    case = STATIC_CASES[name]
-    main, startup, fetch, feed = _build(case, **size)
+def compare_program(name: str, main, startup, fetch, feed,
+                    steps: int = 4):
+    """``steps`` steps of ``main`` (fetching ``fetch``, the loss first) on
+    one ``feed``, op by op and captured, from one state of ``startup``.
+    Returns the row, whose ``ok`` says every fetch of every step and
+    every scope tensor after are equal bit for bit and one graph was
+    captured, and the two runs' fetches per step (eager, captured)."""
     state = _startup_state(startup)
     with deterministic():
         e_out, e_state, _ = _steps(main, state, [feed] * steps, fetch, "0")
         c_out, c_state, exe = _steps(main, state, [feed] * steps, fetch, "1")
     bad_fetch, bad_state = _diff((e_out, e_state), (c_out, c_state))
-    row = {"check": "static", "case": name, "steps": steps,
-           "state_tensors": len(e_state), "graphs": exe.graphs_captured,
-           "losses": [float(np.asarray(o[0]).reshape(-1)[0])
-                      for o in c_out],
-           "fetch_mismatches": bad_fetch, "state_mismatches": bad_state[:8],
-           "ok": not bad_fetch and not bad_state and
-           exe.graphs_captured == 1}
+    return {"check": "static", "case": name, "steps": steps,
+            "state_tensors": len(e_state), "graphs": exe.graphs_captured,
+            "losses": [float(np.asarray(o[0]).reshape(-1)[0])
+                       for o in c_out],
+            "fetch_mismatches": bad_fetch,
+            "state_mismatches": bad_state[:8],
+            "ok": not bad_fetch and not bad_state and
+            exe.graphs_captured == 1}, e_out, c_out
+
+
+def compare_static(name: str, steps: int = 4, **size) -> dict:
+    """One :data:`STATIC_CASES` entry, ``steps`` steps op by op and
+    captured from one startup state (:func:`compare_program`); ``size``:
+    the MobileNet case's (:data:`MOBILENET_CASE`)."""
+    case = STATIC_CASES[name]
+    main, startup, fetch, feed = _build(case, **size)
+    row, e_out, c_out = compare_program(name, main, startup, fetch, feed,
+                                        steps)
     if case["model"] == "mobilenet":
         row.update(size, rates=[float(np.asarray(o[2]).reshape(-1)[0])
                                 for o in c_out])

@@ -4,9 +4,9 @@ package's, the pass pipeline, the executor's contract.
 * IR: a ResNet train program the JAX package serialized parses in the
   port with an equal ``desc_dict``; the port's own ``fluid`` layers build
   the same program (main and startup), before and after ``minimize``.
-* Passes: with the epilogue fusion forced on, the port's pipeline leaves
-  the same op types as JAX's, apart from the optimizer ops JAX's
-  ``fuse_optimizer_ops_pass`` rewrites (not ported); ResNet-50 gets 49
+* Passes: with the epilogue fusion forced on or off, the port's pipeline
+  leaves the same op types as JAX's, ``fuse_optimizer_ops_pass`` included
+  (one ``fused_momentum``, no ``momentum``); ResNet-50 gets 49
   ``fused_conv_bn_act`` (+ 49 grads), 4 ``conv2d`` and 4 ``batch_norm``.
 * Executor: state updated in place, fetches that do not alias it, no
   card means an error, the plan cache.
@@ -114,10 +114,6 @@ def test_clone_keeps_random_seed_and_prunes_backward():
 # ==========================================================================
 # the pass pipeline
 # ==========================================================================
-#: optimizer ops the JAX pipeline's fuse_optimizer_ops_pass rewrites
-_OPT_TYPES = ("momentum", "fused_momentum", "sgd", "fused_sgd")
-
-
 def _pipeline_types(depth, fuse):
     jflags._flags["FLAGS_tpu_fuse"] = "1" if fuse else "0"
     jflags._flags["FLAGS_tpu_nhwc"] = "0"
@@ -134,11 +130,9 @@ def _pipeline_types(depth, fuse):
 @pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
 def test_pass_pipeline_matches_jax(fuse_flags, depth, fuse):
     jtypes, ttypes, trew = _pipeline_types(depth, fuse)
-    assert ([t for t in ttypes if t not in _OPT_TYPES]
-            == [t for t in jtypes if t not in _OPT_TYPES])
-    # one momentum op per trainable parameter (JAX fuses them into one)
-    assert ttypes.count("momentum") == sum(
-        p.trainable for p in trew.all_parameters())
+    assert ttypes == jtypes
+    # every parameter's momentum op went into one fused_momentum
+    assert ttypes.count("fused_momentum") == 1 and "momentum" not in ttypes
     if depth == 50 and fuse:
         assert ttypes.count("fused_conv_bn_act") == 49
         assert ttypes.count("fused_conv_bn_act_grad") == 49
@@ -253,11 +247,11 @@ def test_unported_pieces_raise():
     main, _, loss = _tiny_fc_program()
     with pytest.raises(NotImplementedError, match="not ported"):
         tfluid.gradients(loss, [main.global_block().var("x")])
-    with pytest.raises(NotImplementedError, match="no static form"):
-        with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
-            x = tfluid.layers.data("x", [4])
-            topt.AdamOptimizer(0.1).minimize(tfluid.layers.mean(
-                tfluid.layers.fc(x, 2)))
+    # every static optimizer is ported (tests/test_torch_optimizers.py)
+    # but the two that need collectives
+    for opt in (topt.DGCMomentumOptimizer, topt.PipelineOptimizer):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            opt(0.1, 0.9)
     # a depthwise conv2d is ported (tests/test_torch_mobilenet.py);
     # indexing a static Variable is not
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -266,8 +260,7 @@ def test_unported_pieces_raise():
             x[0]
 
 
-@pytest.mark.parametrize("name", ["fuse_optimizer_ops_pass",
-                                  "memory_relief_pass"])
+@pytest.mark.parametrize("name", ["memory_relief_pass"])
 def test_unported_passes_raise(name):
     from paddle_tpu_torch.framework.ir import get_pass
     main, _, _ = _tiny_fc_program()

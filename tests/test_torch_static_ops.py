@@ -7,7 +7,8 @@ ops have explicit grad lowerings), with the same cotangents.
 
 Tolerances, f32 throughout: rtol 1e-5 / atol 1e-5 for elementwise and
 reduction results; rtol 1e-4 / atol 1e-4 where a convolution or matrix
-product sums hundreds of products in another order (oneDNN against XLA).
+product sums hundreds of products in another order (oneDNN against XLA);
+the optimizer ops' cases state their own (``torch_optimizer_cases.py``).
 """
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ import paddle_tpu_torch.ops.registry as treg
 
 import jax.numpy as jnp
 import torch
+
+from torch_optimizer_cases import CASES as OPT_CASES, first_cases
 
 TIGHT = dict(rtol=1e-5, atol=1e-5)
 SUMS = dict(rtol=1e-4, atol=1e-4)
@@ -562,6 +565,18 @@ CASES.update({
     "sample_token-top1": lambda: _sample_token(
         {"temperature": 0.8, "top_k": 1, "top_p": 0.9}),
 })
+
+
+def _optimizer_case(name):
+    op_type, ins, outs, attrs, grad_of, tol = OPT_CASES[name]
+    _check(op_type, ins, outs, attrs, cot_of=grad_of, tol=tol)
+
+
+# the update, clip and fused optimizer ops: each op type's plain case at
+# its stated tolerance (tests/torch_optimizer_cases.py; the variants are
+# tests/test_torch_optimizer_ops.py's)
+CASES.update({name: (lambda n=name: _optimizer_case(n))
+              for name in first_cases()})
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -27,7 +27,9 @@ the card: ``tests/test_torch_cuda_kernels.py``).
   under every value;
 * ``FeedStager`` / ``double_buffered_feeds``: identical staged values
   with ``FLAGS_cuda_double_buffer`` on and off, equal to the executor's
-  own feed conversion; a staging error surfaces at its batch.
+  own feed conversion; a staging error surfaces at its batch;
+* ``tools/check_step_capture.py`` finds MobileNet's rate on the program
+  as built, which the executor's ``fuse_optimizer_ops_pass`` rewrites.
 
 Every comparison is exact (bit for bit); the only tolerance is the
 training-loss one of the staged-feed run (none: the same program on the
@@ -632,3 +634,24 @@ def test_the_global_scope_guard_still_routes_runs():
         exe.run(start)
         out = exe.run(main, feed=_feed(), fetch_list=[loss])
     assert np.isfinite(out[0]).all()
+
+
+def test_step_capture_tool_reads_the_rate_from_the_built_program():
+    """``tools/check_step_capture.py`` fetches MobileNet's rate var, which
+    it finds on the ``momentum`` ops of the program as built; the
+    executor's plan has one ``fused_momentum`` reading that var."""
+    from paddle_tpu_torch.tools import check_step_capture as csc
+
+    main, startup, fetch, feed = csc._build(csc.STATIC_CASES[
+        "mobilenet-bf16"])
+    rate = fetch[2]
+    assert {o.input("LearningRate")[0] for o in main.global_block().ops
+            if o.type == "momentum"} == {rate}
+    exe, scope = fluid.Executor(fluid.CPUPlace()), Scope()
+    exe.run(startup, scope=scope)
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    assert 0 < float(out[2][0]) <= csc.MOBILENET_RECIPE["lr"]
+    plan = next(p for k, p in exe._cache.items() if k[0] == main._uid)
+    fused = [o for o in plan.ops if o.type == "fused_momentum"]
+    assert [o.input("LearningRate") for o in fused] == [[rate]]
+    assert "momentum" not in [o.type for o in plan.ops]

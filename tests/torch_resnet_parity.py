@@ -42,10 +42,11 @@ AFTER1_TOL = {(18, 32): 2e-3}
 NOISE = 1e-6
 
 
-def build(pkg, depth, image, lr=0.01, classes=100):
+def build(pkg, depth, image, lr=0.01, classes=100, opt=None):
     """(main, startup, loss, acc1) of the ResNet train program in the
     package ``pkg`` = (fluid, unique_name, build_resnet), from a fresh
-    name generator."""
+    name generator; the optimizer is ``opt(fluid)``, by default
+    Momentum 0.9 at ``lr``."""
     fluid, un, build_resnet = pkg
     prev = un.switch()
     try:
@@ -56,7 +57,8 @@ def build(pkg, depth, image, lr=0.01, classes=100):
             label = fluid.layers.data("label", [1], dtype="int64")
             loss, acc1, _, _ = build_resnet(img, label, depth=depth,
                                             class_num=classes)
-            fluid.optimizer.MomentumOptimizer(lr, 0.9).minimize(loss)
+            (opt(fluid) if opt is not None else
+             fluid.optimizer.MomentumOptimizer(lr, 0.9)).minimize(loss)
     finally:
         un.switch(prev)
     return main, startup, loss, acc1
@@ -74,13 +76,13 @@ def rel_errs(got, want):
             / max(float(np.abs(w).max()), 1e-12) for n, w in want.items()}
 
 
-def train_both(depth, image, envelope):
+def train_both(depth, image, envelope, opt=None):
     """Losses of STEPS steps in each package, the relative errors of the
     port's state after step 1, and the port's compiled op types; with
     ``envelope`` also the errors of a JAX twin whose step-1 images carry
-    ``NOISE`` relative noise."""
-    jmain, jstart, jloss, jacc = build(JAX, depth, image)
-    tmain, _, tloss, tacc = build(PORT, depth, image)
+    ``NOISE`` relative noise.  ``opt`` as :func:`build`'s."""
+    jmain, jstart, jloss, jacc = build(JAX, depth, image, opt=opt)
+    tmain, _, tloss, tacc = build(PORT, depth, image, opt=opt)
     jexe = pt.Executor(pt.CPUPlace())
     jscope = JScope()
     jexe.run(jstart, scope=jscope)
@@ -116,16 +118,18 @@ def train_both(depth, image, envelope):
     return losses, errs, [o.type for o in plan.ops]
 
 
-def check_training(depth, image, fuse, monkeypatch):
+def check_training(depth, image, fuse, monkeypatch, opt=None):
     """Train both packages with the fusion forced on or off (the JAX
     Pallas kernels in interpret mode) and hold the port to the
-    tolerances above."""
+    tolerances above; ``opt`` as :func:`build`'s.  Returns the port's
+    compiled op types."""
     if fuse:
         monkeypatch.setenv("PT_PALLAS_INTERPRET", "1")
     monkeypatch.setitem(jflags._flags, "FLAGS_tpu_fuse", "1" if fuse else "0")
     monkeypatch.setitem(tflags._SET, "FLAGS_cuda_fuse", "1" if fuse else "0")
     tol = AFTER1_TOL.get((depth, image))
-    losses, errs, types = train_both(depth, image, envelope=tol is None)
+    losses, errs, types = train_both(depth, image, envelope=tol is None,
+                                     opt=opt)
     n_chains = {18: 17, 50: 49}[depth]
     assert types.count("fused_conv_bn_act") == (n_chains if fuse else 0)
     assert types.count("fused_conv_bn_act_grad") == (n_chains if fuse else 0)
@@ -140,6 +144,7 @@ def check_training(depth, image, fuse, monkeypatch):
     worst = max(errs["port"], key=errs["port"].get)
     bound = tol if tol is not None else 2 * max(errs["noise"].values())
     assert errs["port"][worst] <= bound, (worst, errs["port"][worst], bound)
+    return types
 
 
 def trajectories(depth, batch, image, classes, lr, steps):
