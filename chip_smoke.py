@@ -374,6 +374,31 @@ Phases (any failure exits non-zero and prints no result):
     LeNet's tolerances, kernel 9 f32 launched 4 times a step
     (``optimizer_sweep`` lines);
 
+21. the static BERT-base encoder (``tests/torch_static_encoder.py``:
+    ``fluid.data``, ``fluid.embedding``, ``layer_norm``,
+    ``fc(num_flatten_dims=2)``, ``layers.fused_multihead_attention`` with
+    the padding bias made in the program, the MLM head over every
+    position, Adam), batch 44 x seq 512, dropout 0.1, op by op: in f32,
+    under bf16 ``decorate`` and under fp16 ``decorate`` with loss scaling
+    (run on until ENCODER_FP16_CLEAN steps are clean), ENCODER_WARMUP +
+    ENCODER_STEPS steps each; the loss falling over the clean steps, the
+    f32 flash forward and fused backward 12 times a step in every dtype
+    (the attention runs in f32 under ``decorate``, as in JAX's program)
+    and kernel 9 of the run's dtype 24 times (ENCODER_PER_STEP), no other
+    flash or fc kernel; ms/step, tokens/s, peak memory, wall and busy ms
+    a step and the idle share with the compiled step off and on in turns,
+    and the first layer's dropout seed new at every step, replays among
+    them (``encoder_training_*`` lines); ENCODER_CAPTURE_STEPS steps of
+    each dtype at dropout 0 eager and captured from one state, bit for
+    bit (``encoder_step_capture_*``); 2 layers at full width, batch 2 x
+    seq 128, 3 steps on the card and the CPU port within ENCODER_CPU_RTOL
+    (``encoder_card_vs_cpu``); ``fused_multihead_attention`` and its grad
+    as static ops at ENCODER_OP_SHAPE (padding bias, dropout 0.1) in each
+    dtype on the forward and the split pair, against the plain versions
+    (``encoder_op_*``); one layer's naive attention chain through
+    ``fuse_multihead_attention_pass`` against the layer's op, forward and
+    backward bit for bit (``encoder_pass``);
+
 16b. the compiled step (``FLAGS_cuda_step_session`` at auto: a static
     step or a decode step captured in a CUDA graph; the checks are
     ``paddle_tpu_torch/tools/check_step_capture.py``'s): 4 steps of
@@ -4747,6 +4772,444 @@ def compiled_step_phase(torch):
     return times
 
 
+# ==========================================================================
+# phase 21: the static BERT-base encoder (``tests/torch_static_encoder.py``
+# builds it through ``fluid.layers``), kernels 1-3 and 9 on the static
+# executor's path, kernels 4-5 through the static op at seq 2048
+# ==========================================================================
+ENCODER_BATCH, ENCODER_SEQ = 44, 512
+ENCODER_WARMUP, ENCODER_STEPS = 2, 3
+# fp16: run on until this many steps found no Inf, or this many in all
+ENCODER_FP16_CLEAN, ENCODER_FP16_MAX = 3, 12
+ENCODER_PROFILE_STEPS, ENCODER_CAPTURE_STEPS = 1, 3
+# the encoder profile's kernel groups by kernel name (disjoint; the rest
+# is ``other_ms_per_step``): cuBLAS's GEMMs (its SIMT, xmma, CUTLASS and
+# nvjet kernels), the flash kernels, kernel 9 (f32, and the tensor-core
+# TMA and cp.async variants), the copy kernels (casts, transposes)
+KERNEL9_NAMES = ("matmul_bias_act_kernel", "mm_tma_kernel",
+                 "mm_cpasync_kernel")
+ENCODER_GROUPS = {
+    "gemm_ms_per_step": lambda k: any(g in k.lower() for g in (
+        "gemm", "xmma", "cutlass", "nvjet")) and not any(
+        n in k for n in KERNEL9_NAMES),
+    "flash_ms_per_step": lambda k: "flash_" in k,
+    "matmul_bias_act_ms_per_step": lambda k: any(n in k
+                                                 for n in KERNEL9_NAMES),
+    "copy_ms_per_step": lambda k: "copy" in k.lower(),
+}
+# per step: the forward and the fused backward once a layer (seq 512),
+# and kernel 9 twice for each layer's FFN-in fc (mul -> add -> gelu, the
+# one fused chain: its forward and its grad's replay of the
+# pre-activation); in the kernel's dtype, the attention's f32 under
+# decorate too (the fc's f32 bias add promotes the 16-bit product)
+ENCODER_PER_STEP = {"flash_fwd": 1, "flash_bwd_fused": 1,
+                    "matmul_bias_act": 2}
+# the f32 encoder, 2 layers at full width (batch 2 x seq 128, dropout
+# off), on the card and on the CPU port from one startup scope: every
+# step's loss, f32 sums in other orders (cuBLAS, the flash kernels and
+# ATen's layer norm against oneDNN and the plain versions)
+ENCODER_CPU_RTOL = 1e-5
+# the static op at the long shape, in each dtype: kernels 4-5
+ENCODER_OP_SHAPE = (2, 12, 2048, 64)
+
+
+def encoder_module():
+    """``tests/torch_static_encoder.py`` (imports no JAX)."""
+    import sys
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_static_encoder
+
+    return torch_static_encoder
+
+
+def encoder_kernels():
+    """{name: KernelFunction} of kernels 1-5 and 9 in every dtype."""
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+
+    out = flash_kernels("all")
+    out.update({"matmul_bias_act_f32": me.MATMUL_BIAS_ACT_F32,
+                "matmul_bias_act_bf16": me.MATMUL_BIAS_ACT_BF16,
+                "matmul_bias_act_fp16": me.MATMUL_BIAS_ACT_FP16})
+    return out
+
+
+def encoder_program(amp, cfg=None, seq=ENCODER_SEQ, dropout=True):
+    """(main, startup, fetch names) of the encoder train program at
+    BERT-base widths (or ``cfg``); fetch: the loss, then under fp16 the
+    loss scale and the found-Inf flag."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.tools.train_resnet import loss_scaling_state
+
+    enc = encoder_module()
+    cfg = dict(cfg or enc.BERT_BASE)
+    if not dropout:
+        cfg.update(hidden_dropout=0.0, attn_dropout=0.0)
+    main, startup, loss = enc.build_encoder(fluid, unique_name, cfg, seq,
+                                            lr=1e-4, amp=amp)
+    return main, startup, [loss.name] + list(loss_scaling_state(main) or ())
+
+
+def encoder_run(torch, amp_dtype, card):
+    """The encoder at BERT-base width and depth, batch 44 x seq 512,
+    dropout 0.1, op by op: ENCODER_WARMUP + ENCODER_STEPS steps (fp16
+    on until ENCODER_FP16_CLEAN are clean); losses finite and falling
+    over the clean steps; kernels 1-3 (f32) and kernel 9 of the dtype
+    launched ENCODER_PER_STEP times a layer and step, no other; ms/step,
+    tokens/s, peak memory; then a profile of ENCODER_PROFILE_STEPS steps
+    op by op (busy ms, idle share, device ms of ENCODER_GROUPS' kernels
+    and of each program op type) and wall and busy ms a step and the
+    idle share with the compiled step off and on in turns; and, with the
+    session on, the first layer's dropout Seed new at every step, the
+    replays among them.  Returns the ``encoder_training_<tag>`` report."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.tools.train_resnet import profile_steps
+    from paddle_tpu_torch.utils import flags
+
+    enc = encoder_module()
+    tag = AMP[amp_dtype]["tag"] if amp_dtype else "f32"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    main, startup, fetch = encoder_program(amp_dtype)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    feed = enc.encoder_feed(enc.BERT_BASE, ENCODER_BATCH, ENCODER_SEQ)
+    kernels = encoder_kernels()
+    reset_counts(kernels)
+    losses, scales, found, walls = [], [], [], []
+    scaled = len(fetch) > 1
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+    def clean():
+        return [i for i, f in enumerate(found) if not f] if scaled else \
+            list(range(len(losses)))
+
+    while True:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(out[0]))
+        if scaled:
+            scales.append(float(np.asarray(out[1]).reshape(-1)[0]))
+            found.append(bool(np.asarray(out[2]).reshape(-1)[0]))
+        n = len(losses)
+        if n >= ENCODER_WARMUP + ENCODER_STEPS and (
+                not scaled or len(clean()) >= ENCODER_FP16_CLEAN
+                or n >= ENCODER_FP16_MAX):
+            break
+    torch.cuda.synchronize()
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    what = f"static BERT-base encoder {tag}"
+    ok = clean()
+    if not np.all(np.isfinite([losses[i] for i in ok])):
+        fail(f"{what}: losses not finite {losses}")
+    if len(ok) < 2 or not losses[ok[-1]] < losses[ok[0]]:
+        fail(f"{what}: the loss did not fall over the clean steps {ok}: "
+             f"{losses}")
+    layers = enc.BERT_BASE["layers"]
+    want = {k: 0 for k in kernels}
+    for k, per in ENCODER_PER_STEP.items():
+        dt = tag if k == "matmul_bias_act" else "f32"
+        want[f"{k}_{dt}"] = per * layers * n
+    if launches != want:
+        fail(f"{what}: kernel launches {launches}, expected {want}")
+    plan = next(p for key, p in exe._cache.items() if key[0] == main._uid)
+    types = [o.type for o in plan.ops]
+    if (types.count("fused_matmul_bias_act"),
+            types.count("fused_multihead_attention")) != (layers, layers):
+        fail(f"{what}: plan holds {types.count('fused_matmul_bias_act')} "
+             f"fused fcs and {types.count('fused_multihead_attention')} "
+             f"attention ops, expected {layers} each")
+    timed = walls[ENCODER_WARMUP:]
+    ms = float(np.mean(timed)) * 1e3
+    # each timing turn on a new executor: a captured step's graph pool
+    # holds as much as the step, which the card cannot hold twice
+    run = {"executor": exe, "program": main, "feed": feed, "scope": scope,
+           "fetch": fetch}
+
+    def fresh():
+        run["executor"] = fluid.Executor(fluid.CUDAPlace(0))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    del exe
+    prof = profile_steps(run, ENCODER_PROFILE_STEPS, ENCODER_GROUPS,
+                         between=fresh)
+    seeds = []
+    seed_var = next(o.output("Seed")[0] for o in plan.ops
+                    if o.type == "fused_multihead_attention")
+    prev = flags.get_flag("FLAGS_cuda_step_session")
+    flags.set_flags({"FLAGS_cuda_step_session": "1"})
+    try:
+        for _ in range(4):
+            seeds.append(float(np.asarray(run["executor"].run(
+                main, feed=feed, fetch_list=[fetch[0], seed_var],
+                scope=scope)[1]).reshape(-1)[0]))
+    finally:
+        flags.set_flags({"FLAGS_cuda_step_session": prev})
+    if len(set(seeds)) != len(seeds):
+        fail(f"{what}: the attention dropout seed repeated across steps "
+             f"(the last two replayed): {seeds}")
+    report = {
+        "model": what + (f" (decorate{', use_fp16=True' if scaled else ''})"
+                         if amp_dtype else ""), "card": card,
+        "batch": ENCODER_BATCH, "seq": ENCODER_SEQ, "dropout": 0.1,
+        "steps": n, "warmup": ENCODER_WARMUP, "losses": losses,
+        "ms_per_step": ms,
+        "tokens_per_s": ENCODER_BATCH * ENCODER_SEQ / ms * 1e3,
+        "max_memory_allocated": peak, "max_memory_reserved": reserved,
+        "launches_per_step": {k: v / n for k, v in launches.items() if v},
+        "ops": len(types), "casts": types.count("cast"),
+        "profile": {k: v for k, v in prof.items() if k != "step_session"},
+        "session_turns": prof["step_session"], "seeds": seeds,
+        "seconds": time.perf_counter() - t0}
+    if scaled:
+        report.update(found_inf_steps=[i for i, f in enumerate(found) if f],
+                      loss_scaling=scales)
+    print(f"encoder_training_{tag} " + json.dumps(report), flush=True)
+    del run, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def encoder_capture(torch, amp_dtype):
+    """ENCODER_CAPTURE_STEPS steps of the full encoder at dropout 0, op
+    by op and captured from one startup state: every fetch and every
+    scope tensor after equal bit for bit, one graph."""
+    from paddle_tpu_torch.tools import check_step_capture as csc
+
+    enc = encoder_module()
+    tag = AMP[amp_dtype]["tag"] if amp_dtype else "f32"
+    gc.collect()
+    torch.cuda.empty_cache()
+    main, startup, fetch = encoder_program(amp_dtype, dropout=False)
+    feed = enc.encoder_feed(enc.BERT_BASE, ENCODER_BATCH, ENCODER_SEQ)
+    t = time.perf_counter()
+    row, _, _ = csc.compare_program(f"encoder-{tag}", main, startup, fetch,
+                                    feed, steps=ENCODER_CAPTURE_STEPS)
+    row["seconds"] = time.perf_counter() - t
+    print(f"encoder_step_capture_{tag} " + json.dumps(row), flush=True)
+    if not row["ok"]:
+        fail(f"static encoder {tag}: captured steps differ from eager "
+             f"ones: {row}")
+
+
+def encoder_card_vs_cpu(torch):
+    """The f32 encoder, 2 layers at full width (batch 2 x seq 128,
+    dropout off), 3 Adam steps on the card (kernels) and on the CPU port
+    (plain versions) from one startup scope: every step within
+    ENCODER_CPU_RTOL."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+
+    enc = encoder_module()
+    cfg = dict(enc.BERT_BASE, layers=2, hidden_dropout=0.0,
+               attn_dropout=0.0)
+    main, startup, fetch = encoder_program(None, cfg, seq=128)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    feed = enc.encoder_feed(cfg, 2, 128, seed=3)
+    fwd = flash_kernels()["flash_fwd_f32"]
+    before = fwd.launches
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        losses[dev] = [float(exe.run(main, feed=feed, fetch_list=fetch,
+                                     scope=scope)[0]) for _ in range(3)]
+    if fwd.launches != before + 2 * 3:
+        fail("encoder card vs CPU: the card's run did not launch the "
+             "flash forward once a layer and step")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(losses["cpu"],
+                                                  losses["cuda"]))
+    print("encoder_card_vs_cpu " + json.dumps({
+        **losses, "max_rel_diff": rel, "rtol": ENCODER_CPU_RTOL}),
+        flush=True)
+    if not rel <= ENCODER_CPU_RTOL:
+        fail(f"encoder card vs CPU losses differ by {rel:.3e} > "
+             f"{ENCODER_CPU_RTOL}")
+
+
+def encoder_op_phase(torch):
+    """``fused_multihead_attention`` and its grad as static ops at
+    ENCODER_OP_SHAPE (padding bias, dropout 0.1) in each dtype: the
+    forward kernel, then the split dQ and dK/dV pair (kernels 4-5) from
+    the saved Lse, once each, against the plain versions on the same
+    tensors under the kernels' own mask (``encoder_op`` lines)."""
+    import paddle_tpu_torch.ops.registry as reg
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = ENCODER_OP_SHAPE
+    attrs = {"scale": d ** -0.5, "causal": False, "dropout_rate": 0.1}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
+                       (torch.float16, "fp16")):
+        case = make_flash_case(21, b, h, s, d, True)
+        q, k, v, do = (t.to(dtype) for t in case[:4])
+        bias = case[4]
+        kernels = flash_kernels(tag)
+        reset_counts(kernels)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        dev = torch.device("cuda")
+        ins = {"Q": [q], "K": [k], "V": [v],
+               "BiasQK": [bias.reshape(b, 1, 1, s)]}
+        fwd = reg.eager_call("fused_multihead_attention", ins, attrs,
+                             {"Out": 1, "Lse": 1, "Seed": 1}, gen, dev)
+        out, lse, seed = fwd["Out"][0], fwd["Lse"][0], fwd["Seed"][0]
+        grads = reg.eager_call(
+            "fused_multihead_attention_grad",
+            dict(ins, Out=[out], Lse=[lse], Seed=[seed], **{
+                "Out@GRAD": [do]}), attrs,
+            {"Q@GRAD": 1, "K@GRAD": 1, "V@GRAD": 1, "BiasQK@GRAD": 1},
+            gen, dev)
+        torch.cuda.synchronize()
+        launched = {n: kf.launches for n, kf in kernels.items()}
+        want = {f"flash_{x}_{tag}": int(x != "bwd_fused")
+                for x in ("fwd", "bwd_fused", "bwd_dq", "bwd_dkv")}
+        if launched != want:
+            fail(f"static attention op {tag} at s {s}: launches {launched},"
+                 f" expected {want}")
+        keep = fa.flash_dropout_mask(b, h, s, s, 0.1,
+                                     seed.to(torch.int64))
+        ref_out, ref_lse = fa.flash_fwd_reference(q, k, v, bias, d ** -0.5,
+                                                  False, 0.1, keep)
+        ref = fa.flash_bwd_reference(q, k, v, bias, out, lse, do, d ** -0.5,
+                                     False, 0.1, keep)
+        got = [grads[n + "@GRAD"][0] for n in ("Q", "K", "V")]
+        errs = {"lse": float((lse - ref_lse).abs().max())}
+        limit = {"lse": KERNEL_ATOL}
+        if tag == "f32":
+            # the gradients: within GRAD_ATOL + GRAD_RTOL |want| elementwise
+            # (grad_err's None where not), their largest differences shown
+            errs["out"] = float((out - ref_out).abs().max())
+            limit["out"] = KERNEL_ATOL
+            for n, g, w in zip("qkv", got, ref):
+                errs[f"d{n}"] = grad_err(g, w)
+                limit[f"d{n}"] = "atol GRAD_ATOL + rtol GRAD_RTOL"
+        else:
+            # 16-bit: in ulps of each tensor's largest magnitude, as the
+            # flash_check_bf16 / _fp16 lines
+            unit, ulps = FLASH_LOW[{"bf16": "bfloat16",
+                                    "fp16": "float16"}[tag]][1:]
+            for n, g, w in (("out", out, ref_out),
+                            *((f"d{n}", g, w)
+                              for n, g, w in zip("qkv", got, ref))):
+                errs[n] = ulps_off(g, w, unit)
+                limit[n] = ulps
+        print(f"encoder_op_{tag} " + json.dumps({
+            "shape": ENCODER_OP_SHAPE, "dropout": 0.1, "seed": float(seed),
+            "launches": launched, "errors": errs,
+            "limits": limit, "bias_grad_zero": not bool(
+                grads["BiasQK@GRAD"][0].any())}), flush=True)
+        bad = {n: e for n, e in errs.items() if e is None or (
+            not isinstance(limit[n], str) and not e <= limit[n])}
+        if bad or grads["BiasQK@GRAD"][0].any():
+            fail(f"static attention op {tag}: errors {errs} over {limit}")
+        del q, k, v, do, out, lse, grads, ref, got, keep
+        torch.cuda.empty_cache()
+
+
+def encoder_pass_phase(torch):
+    """One encoder layer's attention at batch 4 x seq 512, 12 heads of
+    64, with a padding mask: the naive chain (matmul, scale, add,
+    softmax, matmul) through ``fuse_multihead_attention_pass`` against
+    the ``fused_multihead_attention`` layer's op, forward and backward
+    on the card: Out and the Q / K / V gradients bit for bit (the pass's
+    op has no Lse, so its grad runs the forward kernel again for lse),
+    and the unfused chain within KERNEL_ATOL / GRAD_RTOL of them."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework import unique_name
+    from paddle_tpu_torch.framework.ir import get_pass
+    from paddle_tpu_torch.framework.scope import Scope, load_numpy_state
+
+    b, h, s, d = 4, 12, ENCODER_SEQ, 64
+    rng = np.random.RandomState(7)
+    params = {n: rng.randn(b, h, s, d).astype(np.float32)
+              for n in ("q", "k", "v")}
+    lens = rng.randint(s // 2, s + 1, b)
+    mask = np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -10000.0)
+    feed = {"mask": mask.astype(np.float32).reshape(b, 1, 1, s)}
+    L = fluid.layers
+    results = {}
+    for how in ("layer", "pass", "unfused"):
+        with unique_name.guard():
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup):
+                q, k, v = (L.create_parameter([b, h, s, d], "float32",
+                                              name=n) for n in "qkv")
+                m = fluid.data("mask", [b, 1, 1, s])
+                if how == "layer":
+                    out = L.fused_multihead_attention(q, k, v, m,
+                                                      scale=d ** -0.5)
+                else:
+                    sc = L.scale(L.matmul(q, k, transpose_y=True),
+                                 scale=d ** -0.5)
+                    out = L.matmul(L.softmax(L.elementwise_add(sc, m)), v)
+                    if how == "pass":
+                        p = get_pass("fuse_multihead_attention_pass")
+                        p.apply(main)
+                        if p.fused_count != 1:
+                            fail("fuse_multihead_attention_pass did not "
+                                 "fuse the encoder layer's chain")
+                loss = L.reduce_mean(out)
+                fluid.append_backward(loss)
+        scope = Scope()
+        load_numpy_state(scope, params, "cuda")
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        results[how] = exe.run(main, feed=feed, scope=scope,
+                               fetch_list=[out.name, "q@GRAD", "k@GRAD",
+                                           "v@GRAD"])
+    same = all(np.array_equal(a, c) for a, c in zip(results["layer"],
+                                                    results["pass"]))
+    errs = [float(np.abs(a - c).max() / max(np.abs(c).max(), 1e-30))
+            for a, c in zip(results["pass"], results["unfused"])]
+    print("encoder_pass " + json.dumps({
+        "shape": [b, h, s, d], "pass_equals_layer": same,
+        "rel_err_vs_unfused": dict(zip(("out", "dq", "dk", "dv"), errs))}),
+        flush=True)
+    if not same or max(errs) > GRAD_RTOL:
+        fail(f"the pass's fused attention: equal to the layer's {same}, "
+             f"relative errors against the unfused chain {errs}")
+
+
+def encoder_phase(torch, card):
+    """Phase 21: the static BERT-base encoder in f32, bf16 and fp16
+    (:func:`encoder_run`), each dtype's captured steps against eager ones
+    at dropout 0 (:func:`encoder_capture`), the f32 encoder card vs CPU,
+    the static op at seq 2048 on kernels 4-5 and the pass's fused op
+    against the layer's; ``card``: the nvidia-smi name and power limit,
+    printed with every timing.  Returns the reports."""
+    from paddle_tpu_torch.tools.train_resnet import set_card_precision
+
+    set_card_precision()
+    reports = {}
+    for amp_dtype in (None, "bfloat16", "float16"):
+        reports[amp_dtype or "float32"] = encoder_run(torch, amp_dtype, card)
+        encoder_capture(torch, amp_dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoder_card_vs_cpu(torch)
+    encoder_op_phase(torch)
+    encoder_pass_phase(torch)
+    return reports
+
+
 def main():
     import torch
 
@@ -4957,6 +5420,10 @@ def main():
     phase("16c. the optimizer family: ResNet-50 under LARS, the fused "
           "update ops, every optimizer on LeNet card vs CPU")
     optimizer_phase(torch)
+
+    phase("21. the static BERT-base encoder: f32, bf16, fp16; the static "
+          "attention op at seq 2048; the pass")
+    encoder_phase(torch, smi_line)
 
     phase("compiled step: captured vs eager, graphs, times in turns")
     compiled_step_phase(torch)

@@ -96,6 +96,11 @@ class GraphSet:
             buf = torch.zeros(1, device=self.device)
             keeper.capture_end()
             self._keeper = (keeper, buf)
+        # the capture allocates from the set's own pool, which cannot
+        # take the regular pool's cached free blocks, and no block can be
+        # freed while a capture runs: a step as large as the card
+        # (BERT-base at batch 44) needs that memory released first
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)

@@ -5,7 +5,11 @@ ir/fuse_pass_base.h.  The Program's op list is the graph (vars link ops
 by name), so a pass is a Python function over Blocks.
 
 Ported: the registry (``Pass``, ``register_pass``, ``get_pass``,
-``PassManager``, :30-98), the graph helpers (:99-126), the BatchNorm
+``PassManager``, :30-98), the graph helpers (:99-126), the pattern
+matcher (``OpTemplate``, ``match_pattern``, :127-231),
+``fuse_multihead_attention_pass`` (:336-443: the naive attention chain,
+in four variants, onto one ``fused_multihead_attention`` op; it is no
+part of the executor's default pipeline, as in JAX), the BatchNorm
 fusions ``fuse_bn_act_pass`` (:489) and ``fuse_bn_add_act_pass`` (:570),
 ``layout_transform_pass`` (:1470-1743, the NHWC propagation under
 ``FLAGS_cuda_nhwc``) and ``fuse_epilogue_pass`` (:711-912), which maps
@@ -25,13 +29,14 @@ passes of the JAX module.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 from .core import Block, Operator, Program
 from .dtype import VarType
 
 __all__ = ["PASS_REGISTRY", "Pass", "register_pass", "get_pass",
            "PassManager", "producer_map", "consumer_count", "remove_ops",
+           "OpTemplate", "match_pattern", "FuseMultiheadAttentionPass",
            "FuseBNActPass", "FuseBNAddActPass", "LayoutTransformPass",
            "FuseEpiloguePass", "FuseOptimizerOpsPass"]
 
@@ -131,6 +136,202 @@ def remove_ops(block: Block, ops: Sequence[Operator]):
     dead = set(id(o) for o in ops)
     block.ops[:] = [o for o in block.ops if id(o) not in dead]
     block.program._bump_version()
+
+
+# --------------------------------------------------------------------------
+# pattern matcher (reference: graph_pattern_detector.cc)
+# --------------------------------------------------------------------------
+class OpTemplate:
+    """One PDNode: an op of ``type`` whose given input slots are fed by
+    the named output of an earlier template (``"producer.Slot"``)."""
+
+    def __init__(self, name: str, type: str,
+                 inputs: Optional[Dict[str, str]] = None,
+                 predicate: Optional[Callable[[Operator], bool]] = None):
+        self.name = name
+        self.type = type
+        self.inputs = inputs or {}
+        self.predicate = predicate
+
+
+def match_pattern(block: Block, templates: Sequence[OpTemplate],
+                  allow_shared_intermediates: bool = False
+                  ) -> List[Dict[str, Operator]]:
+    """Non-overlapping matches of the template DAG, as the reference's
+    GraphPatternDetector finds them: templates match in order, each
+    non-root template's constrained input slots fed by the var an
+    earlier template's op produced (and nothing wrote since); the first
+    match of a root wins.  Unless ``allow_shared_intermediates``, a
+    match whose intermediate vars (produced and consumed inside it) have
+    a consumer outside it is dropped (the detector's IsIntermediate()
+    rule, which keeps a rewrite from deleting a value someone reads)."""
+    prod = producer_map(block)
+    cons = consumer_count(block)
+    by_type: Dict[str, List[Operator]] = {}
+    for op_ in block.ops:
+        by_type.setdefault(op_.type, []).append(op_)
+    matches: List[Dict[str, Operator]] = []
+    used: set = set()
+
+    def fed(t: OpTemplate, cand: Operator, bound) -> bool:
+        for slot, src in t.inputs.items():
+            src_name, src_slot = src.split(".")
+            src_op = bound.get(src_name)
+            if src_op is None:
+                return False
+            in_names = cand.inputs.get(slot, [])
+            out_names = src_op.outputs.get(src_slot, [])
+            if not in_names or not out_names or in_names[0] not in out_names:
+                return False
+            if prod.get(in_names[0]) is not src_op:
+                return False  # someone overwrote the var in between
+        return True
+
+    def backtrack(i: int, bound: Dict[str, Operator]) -> bool:
+        if i == len(templates):
+            matches.append(dict(bound))
+            return True
+        t = templates[i]
+        for cand in by_type.get(t.type, []):
+            if id(cand) in used or any(cand is o for o in bound.values()):
+                continue
+            if t.predicate is not None and not t.predicate(cand):
+                continue
+            if not fed(t, cand, bound):
+                continue
+            bound[t.name] = cand
+            if backtrack(i + 1, bound):
+                return True
+            del bound[t.name]
+        return False
+
+    root_t = templates[0]
+    for root in list(by_type.get(root_t.type, [])):
+        if id(root) in used:
+            continue
+        if root_t.predicate is not None and not root_t.predicate(root):
+            continue
+        if backtrack(1, {root_t.name: root}):
+            m = matches[-1]
+            if not allow_shared_intermediates and not _intermediates_private(
+                    m, cons):
+                matches.pop()
+                continue
+            used.update(id(o) for o in m.values())
+    return matches
+
+
+def _intermediates_private(match: Dict[str, Operator],
+                           cons: Dict[str, int]) -> bool:
+    """Whether every var a match's ops produce and read is read by those
+    ops only."""
+    ops = list(match.values())
+    produced = {n for o in ops for names in o.outputs.values()
+                for n in names}
+    internal: Dict[str, int] = {}
+    for o in ops:
+        for names in o.inputs.values():
+            for n in names:
+                if n in produced:
+                    internal[n] = internal.get(n, 0) + 1
+    return all(cons.get(n, 0) == k for n, k in internal.items())
+
+
+# --------------------------------------------------------------------------
+# fuse_multihead_attention_pass (reference intent:
+# ir/multihead_matmul_fuse_pass.cc)
+# --------------------------------------------------------------------------
+def _is_scale_like(op_):
+    return op_.type == "scale" and op_.attrs.get("bias", 0.0) in (0, 0.0)
+
+
+def _is_qk_matmul(op_):
+    """Q @ K^T with a plain Q; its alpha folds into the fused scale."""
+    return (op_.attrs.get("transpose_Y", False)
+            and not op_.attrs.get("transpose_X", False))
+
+
+def _is_av_matmul(op_):
+    """probs @ V, untransposed and unscaled: the fused op has no epilogue
+    scale."""
+    return (not op_.attrs.get("transpose_Y", False)
+            and not op_.attrs.get("transpose_X", False)
+            and op_.attrs.get("alpha", 1.0) in (1, 1.0))
+
+
+def _is_last_axis_softmax(op_):
+    return op_.attrs.get("axis", -1) in (-1, 3)
+
+
+def _is_default_axis_add(op_):
+    """BiasQK broadcasts as numpy does in the fused op; an add with an
+    explicit paddle axis would be reinterpreted, so only the default
+    (trailing-aligned) form fuses."""
+    return op_.attrs.get("axis", -1) == -1
+
+
+@register_pass("fuse_multihead_attention_pass")
+class FuseMultiheadAttentionPass(Pass):
+    """The naive attention chain over (batch, heads, seq, head_dim) Q, K,
+    V::
+
+        qk  = matmul(Q, K, transpose_Y=True)   [any alpha]
+        s   = scale(qk)                        [optional, bias 0]
+        m   = elementwise_add(s, mask)         [optional, axis -1]
+        sm  = softmax(m)                       [last axis]
+        out = matmul(sm, V)
+
+    becomes one ``fused_multihead_attention`` op (scale = alpha times the
+    scale op's factor; the mask its BiasQK; no Lse output, so its grad
+    runs the forward for lse).  The longest variant is tried first, so
+    optional ops are claimed when present; ``fused_count`` counts the
+    rewrites."""
+
+    def apply_impl(self, program):
+        block = program.global_block()
+        qk = OpTemplate("qk", "matmul", predicate=_is_qk_matmul)
+        sm = ("softmax", "softmax")
+        av = OpTemplate("av", "matmul", {"X": "softmax.Out"},
+                        predicate=_is_av_matmul)
+
+        def chain(*mid):
+            ts, prev = [qk], "qk"
+            for name, typ, pred in mid + (sm + (_is_last_axis_softmax,),):
+                ts.append(OpTemplate(name, typ, {"X": prev + ".Out"},
+                                     predicate=pred))
+                prev = name
+            return ts + [av]
+
+        scale = ("scale", "scale", _is_scale_like)
+        mask = ("mask", "elementwise_add", _is_default_axis_add)
+        fused = 0
+        for templates in (chain(scale, mask), chain(scale), chain(mask),
+                          chain()):
+            for m in match_pattern(block, templates):
+                self._rewrite(block, m)
+                fused += 1
+        self.fused_count = fused
+        return program
+
+    @staticmethod
+    def _rewrite(block, m):
+        qk, av = m["qk"], m["av"]
+        scale = qk.attrs.get("alpha", 1.0)
+        if "scale" in m:
+            scale = scale * m["scale"].attrs.get("scale", 1.0)
+        inputs = {"Q": [qk.inputs["X"][0]], "K": [qk.inputs["Y"][0]],
+                  "V": [av.inputs["Y"][0]]}
+        if "mask" in m:
+            inputs["BiasQK"] = [m["mask"].inputs["Y"][0]]
+        # at the av matmul's place: every value the fused op reads (Q, K,
+        # V and the mask) exists there, which is not sure at qk's (the
+        # mask may be computed after it)
+        idx = block.ops.index(av)
+        idx -= sum(1 for o in m.values() if block.ops.index(o) < idx)
+        remove_ops(block, list(m.values()))
+        block._insert_op(idx, "fused_multihead_attention", inputs=inputs,
+                         outputs={"Out": av.outputs["Out"]},
+                         attrs={"scale": float(scale), "causal": False})
 
 
 # --------------------------------------------------------------------------

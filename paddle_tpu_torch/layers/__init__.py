@@ -1,7 +1,8 @@
 """fluid.layers for the static path (counterpart of
-``paddle_tpu/layers/``): the layers the ResNet, MobileNetV3, LeNet and
-word2vec training programs use, the learning-rate schedules
-(:mod:`.learning_rate_scheduler`) and the Python operators on
+``paddle_tpu/layers/``): the layers the ResNet, MobileNetV3, LeNet,
+word2vec and static BERT encoder training programs use, the
+learning-rate schedules (:mod:`.learning_rate_scheduler`) and the
+Python operators on
 ``Variable`` (:mod:`.math_op_patch`).
 Each builds vars and ops through ``LayerHelper``; the ops lower to
 PyTorch in ``ops/``."""
@@ -12,15 +13,22 @@ from ..framework.dtype import VarType, convert_dtype
 from . import nn, tensor
 from .math_op_patch import monkey_patch_variable
 from .nn import (accuracy, batch_norm, cast, ceil, clip,  # noqa: F401
-                 clip_by_norm, concat, conv2d, cos, dropout,
+                 clip_by_norm, concat, conv2d, cos, cross_entropy, dropout,
                  elementwise_add, elementwise_div,
                  elementwise_floordiv, elementwise_max, elementwise_min,
                  elementwise_mod, elementwise_mul, elementwise_pow,
-                 elementwise_sub, embedding, exp, fc, floor, hard_sigmoid,
-                 hard_swish, mean, pool2d, relu, reshape, scale, sigmoid,
-                 softmax, softmax_with_cross_entropy, topk, where)
+                 elementwise_sub, embedding, erf, exp, expand, fc, flatten,
+                 floor, fused_multihead_attention, gather, gelu,
+                 hard_sigmoid, hard_swish, layer_norm, log_softmax, matmul,
+                 mean, mul, one_hot, pool2d, reduce_all, reduce_any,
+                 reduce_max, reduce_mean, reduce_min, reduce_prod,
+                 reduce_sum, relu, reshape, rsqrt, scale, shape, sigmoid,
+                 slice, softmax, softmax_with_cross_entropy, split, square,
+                 squeeze, stack, tanh, topk, transpose, unsqueeze, unstack,
+                 where)
 from .tensor import (assign, create_global_var,  # noqa: F401
-                     create_parameter, fill_constant)
+                     create_parameter, fill_constant,
+                     fill_constant_batch_size_like, range, zeros_like)
 
 monkey_patch_variable()
 

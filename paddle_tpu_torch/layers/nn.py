@@ -4,13 +4,19 @@
 ``pool2d`` :201, ``batch_norm`` :257, ``softmax`` :382, ``relu`` and
 ``sigmoid`` :409-410, ``exp``, ``ceil``, ``floor`` and ``cos`` :414-421,
 ``hard_swish`` :463, the ``elementwise_*`` family :522-530,
-``dropout`` :356, ``mean`` :558, ``scale`` :565, ``clip`` and
-``clip_by_norm`` :574-590, ``softmax_with_cross_entropy`` :614,
-``reshape`` :718, ``topk`` :870, ``cast`` :955, ``concat`` :964,
-``accuracy`` :980, ``where`` :908; ``hard_sigmoid``:
-``paddle_tpu/layers/nn_tail.py:59``).  Each builds vars and ops through
-``LayerHelper`` with the JAX package's op types, slots and attrs, so both
-packages build the same program."""
+``layer_norm`` :318, ``dropout`` :356, ``log_softmax`` :390, the unary
+``tanh``, ``square``, ``rsqrt`` and ``erf`` :411-427, ``gelu`` :447,
+``mul`` :489, ``matmul`` :499, the ``reduce_*`` layers :533-555,
+``mean`` :558, ``scale`` :565, ``clip`` and ``clip_by_norm`` :574-590,
+``cross_entropy`` :603, ``softmax_with_cross_entropy`` :614,
+``reshape`` :718, ``squeeze`` :728, ``unsqueeze`` :738, ``flatten``
+:748, ``transpose`` :758, ``stack`` :768, ``unstack`` :777, ``split``
+:787, ``expand`` :802, ``gather`` :810, ``slice`` :835, ``one_hot``
+:862, ``topk`` :870, ``where`` :908, ``shape`` :948, ``cast`` :955,
+``concat`` :964, ``accuracy`` :980, ``fused_multihead_attention``
+:1105; ``hard_sigmoid``: ``paddle_tpu/layers/nn_tail.py:59``).  Each
+builds vars and ops through ``LayerHelper`` with the JAX package's op
+types, slots and attrs, so both packages build the same program."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,8 +32,14 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "elementwise_mod",
            "elementwise_floordiv", "where", "mean", "scale", "clip",
-           "clip_by_norm", "softmax_with_cross_entropy", "reshape", "topk", "cast",
-           "concat", "accuracy", "dropout"]
+           "clip_by_norm", "softmax_with_cross_entropy", "reshape", "topk",
+           "cast", "concat", "accuracy", "dropout", "layer_norm",
+           "log_softmax", "tanh", "square", "rsqrt", "erf", "gelu", "mul",
+           "matmul", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod", "reduce_all", "reduce_any", "cross_entropy",
+           "squeeze", "unsqueeze", "flatten", "transpose", "stack",
+           "unstack", "split", "expand", "gather", "slice", "one_hot",
+           "shape", "fused_multihead_attention"]
 
 
 def _single(x, n=2):
@@ -216,12 +228,108 @@ def _simple_unary(op_type):
     return fn
 
 
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """LayerNorm over the axes from ``begin_norm_axis``, with a Scale
+    (ones) and a Bias (zeros) of their flattened size."""
+    helper = LayerHelper("layer_norm", name=name, act=act)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        inputs["Scale"] = [helper.create_parameter(
+            param_attr, shape=norm_shape, dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if shift:
+        inputs["Bias"] = [helper.create_parameter(
+            bias_attr, shape=norm_shape, dtype=dtype, is_bias=True)]
+    y = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference(dtype,
+                                                     stop_gradient=True)
+    var = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    helper.append_op(
+        "layer_norm", inputs=inputs,
+        outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+        attrs={"begin_norm_axis": begin_norm_axis, "epsilon": epsilon})
+    return helper.append_activation(y, act)
+
+
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("log_softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 relu = _simple_unary("relu")
 sigmoid = _simple_unary("sigmoid")
 exp = _simple_unary("exp")
 ceil = _simple_unary("ceil")
 floor = _simple_unary("floor")
 cos = _simple_unary("cos")
+tanh = _simple_unary("tanh")
+square = _simple_unary("square")
+rsqrt = _simple_unary("rsqrt")
+erf = _simple_unary("erf")
+
+
+def gelu(x, approximate=False):
+    helper = LayerHelper("gelu")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("gelu", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"approximate": approximate})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
+    return out
+
+
+def _reduce_layer(op_type):
+    def fn(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"reduce_all": False, "dim": list(dims),
+                     "keep_dim": keep_dim}
+        helper.append_op(op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+reduce_all = _reduce_layer("reduce_all")
+reduce_any = _reduce_layer("reduce_any")
 
 
 def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
@@ -308,6 +416,16 @@ def clip_by_norm(x, max_norm, name=None):
     return out
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, numeric_stable_mode=True,
                                return_softmax=False, axis=-1):
@@ -334,6 +452,136 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"shape": list(shape)})
     return helper.append_activation(out, act)
+
+
+def _with_xshape(op_type, x, attrs, name=None):
+    """An op of ``op_type`` on ``x`` with an Out and an XShape."""
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(op_type, inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]}, attrs=attrs)
+    return out
+
+
+def squeeze(input, axes, name=None):
+    return _with_xshape("squeeze2", input, {"axes": list(axes)}, name)
+
+
+def unsqueeze(input, axes, name=None):
+    return _with_xshape("unsqueeze2", input, {"axes": list(axes)}, name)
+
+
+def flatten(x, axis=1, name=None):
+    return _with_xshape("flatten2", x, {"axis": axis}, name)
+
+
+def transpose(x, perm, name=None):
+    return _with_xshape("transpose2", x, {"axis": list(perm)}, name)
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack", name=name)
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    helper.append_op("stack", inputs={"X": xs}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def unstack(x, axis=0, num=None, name=None):
+    helper = LayerHelper("unstack", name=name)
+    if num is None:
+        num = x.shape[axis]
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
+                     attrs=attrs)
+    return outs
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "decrease_axis": []})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(VarType.FP32)
+    helper.append_op("one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(VarType.INT32,
+                                                    stop_gradient=True)
+    helper.append_op("shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def fused_multihead_attention(q, k, v, bias_qk=None, scale=0.0, causal=False,
+                              dropout_rate=0.0, name=None):
+    """Scaled dot-product attention over (b, heads, seq, head_dim) q, k, v
+    (``ops/fused_ops.py``: kernels 1-5 for no bias or a padding bias).
+    ``dropout_rate > 0`` drops attention probabilities inside the kernels
+    from a per-step seed, the ``Seed`` output; ``Lse`` saves the
+    forward's log-sum-exp for the grad."""
+    helper = LayerHelper("fused_multihead_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if bias_qk is not None:
+        inputs["BiasQK"] = [bias_qk]
+    outputs = {"Out": [out]}
+    if dropout_rate > 0.0:
+        outputs["Seed"] = [
+            helper.create_variable_for_type_inference("float32")]
+    outputs["Lse"] = [helper.create_variable_for_type_inference("float32")]
+    helper.append_op("fused_multihead_attention", inputs=inputs,
+                     outputs=outputs,
+                     attrs={"scale": float(scale), "causal": bool(causal),
+                            "dropout_rate": float(dropout_rate)})
+    return out
 
 
 def cast(x, dtype):

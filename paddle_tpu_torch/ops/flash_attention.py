@@ -70,7 +70,8 @@ __all__ = [
     "is_padding_bias", "normalize_bias", "seeded_keep", "attention_reference",
     "flash_fwd_reference", "flash_bwd_reference", "attention_dtype",
     "flash_fwd", "flash_bwd", "bwd_fused", "bwd_dq", "bwd_dkv",
-    "flash_dropout_mask", "flash_attention",
+    "flash_dropout_mask", "attention_forward", "attention_backward",
+    "flash_attention",
 ]
 
 #: the kernels take every head dim that is a multiple of 8 up to this one;
@@ -512,7 +513,10 @@ def flash_dropout_mask(b, h, sq, sk, dropout_rate, seed) -> torch.Tensor:
 # ==========================================================================
 # the autograd front
 # ==========================================================================
-def _fwd(q, k, v, bias, scale, causal, dropout_rate, seed):
+def attention_forward(q, k, v, bias, scale, causal, dropout_rate, seed):
+    """``(out, lse)``: the plain forward for CPU tensors (its dropout mask
+    :func:`seeded_keep` of ``seed``), :func:`flash_fwd` for CUDA ones.
+    ``bias`` is None or (b, kv) f32."""
     if q.device.type == "cpu":
         keep = (seeded_keep((*q.shape[:3], k.shape[2]), dropout_rate, seed,
                             q.device) if dropout_rate > 0.0 else None)
@@ -523,7 +527,10 @@ def _fwd(q, k, v, bias, scale, causal, dropout_rate, seed):
     raise ValueError(f"flash_attention: no path for device {q.device}")
 
 
-def _bwd(q, k, v, bias, out, lse, do, scale, causal, dropout_rate, seed):
+def attention_backward(q, k, v, bias, out, lse, do, scale, causal,
+                       dropout_rate, seed):
+    """``(dq, dk, dv)`` from the saved ``lse``: the plain backward for CPU
+    tensors (the forward's mask), :func:`flash_bwd` for CUDA ones."""
     if q.device.type == "cpu":
         keep = (seeded_keep((*q.shape[:3], k.shape[2]), dropout_rate, seed,
                             q.device) if dropout_rate > 0.0 else None)
@@ -539,7 +546,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, causal, dropout_rate):
-        out, lse = _fwd(q, k, v, bias, scale, causal, dropout_rate, seed)
+        out, lse = attention_forward(q, k, v, bias, scale, causal,
+                                     dropout_rate, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse, seed)
         ctx.attrs = (scale, causal, dropout_rate)
         return out
@@ -548,8 +556,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, out, lse, seed = ctx.saved_tensors
         scale, causal, dropout_rate = ctx.attrs
-        dq, dk, dv = _bwd(q, k, v, bias, out, lse, do, scale, causal,
-                          dropout_rate, seed)
+        dq, dk, dv = attention_backward(q, k, v, bias, out, lse, do, scale,
+                                        causal, dropout_rate, seed)
         dbias = (torch.zeros_like(bias)
                  if bias is not None and ctx.needs_input_grad[3] else None)
         return dq, dk, dv, dbias, None, None, None, None

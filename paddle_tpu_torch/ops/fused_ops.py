@@ -1,17 +1,34 @@
 """``fused_multihead_attention``: counterpart of the JAX package's op
-(``paddle_tpu/ops/fused_ops.py:26-135``).
+(``paddle_tpu/ops/fused_ops.py:26-135``, its grad maker :379-409), as a
+function of tensors (dygraph BERT) and as the static op with its grad.
 
 q, k, v are ``(batch, heads, seq, head_dim)``.  A padding bias
-(``(b, kv)``, ``(b, 1, kv)``, ``(b, 1, 1, kv)``) or no bias takes
-:func:`~.flash_attention.flash_attention`: the hand-written kernels on the
-card, their plain versions on the CPU, the padding bias a constant.  A
-full-matrix bias (``(b, 1, q, kv)`` / ``(b, h, q, kv)``) takes the dense
+(``(b, kv)``, ``(b, 1, kv)``, ``(b, 1, 1, kv)``) or no bias takes the
+flash path (``ops/flash_attention.py``): the hand-written kernels 1-5 on
+the card, their plain versions on the CPU, the padding bias a constant
+(zero gradient).  A full-matrix bias (``(b, 1, q, kv)`` /
+``(b, h, q, kv)``) takes the dense
 :func:`~.flash_attention.attention_reference` under autograd, outside
-any kernel, as in JAX (:30-35).
+any kernel, with a bias gradient, as JAX's ``attention_reference``
+branch does (:30-35).
 
 With ``dropout_rate > 0`` a per-call seed is drawn from the caller's
-``torch.Generator`` (in ``[0, 2**23)``, as JAX draws it, :60-69) and is
-saved by the autograd function, so the backward regenerates the mask.
+``torch.Generator`` (in ``[0, 2**23)``, as JAX draws it, :60-69).  The
+dygraph function's autograd saves it; the static op stores it as its
+``Seed`` output, a float32 ``(1,)`` tensor holding the integer as JAX's
+does, which the grad op reads and converts to the kernels' int64 on the
+device (no host sync, so a captured step stays capturable), so the
+backward regenerates the forward's mask.
+
+The static op saves ``Lse``, the flash forward's (b, h, sq) float32
+log-sum-exp, and its grad runs the backward kernels from it with no
+forward replay.  JAX's ``Lse`` is the TPU kernel's lane-broadcast (b, h,
+sq, 128) layout, or a ``(1,)`` zero sentinel where its kernel does not
+engage (every CPU run); the port's rule: an ``Lse`` input of three dims
+is a saved lse, anything else (the dense path's ``(1,)`` sentinel, or no
+``Lse`` at all, as on the op ``fuse_multihead_attention_pass`` builds)
+makes the grad run the forward (kernel 1-2 on the card) for lse, then
+the backward kernel.
 
 The static path's fused BN ops follow (``fused_ops.py:152-254`` and
 :442-567): ``fused_batch_norm_act`` and ``fused_bn_add_activation`` with
@@ -49,8 +66,9 @@ from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX
 from ..framework.random import default_generator
 from . import bn_act
 from .matmul_epilogue import matmul_bias_act
-from .flash_attention import (attention_reference, flash_attention,
-                              is_padding_bias)
+from .flash_attention import (attention_backward, attention_forward,
+                              attention_reference, flash_attention,
+                              is_padding_bias, normalize_bias)
 from .nn_ops import (amp_cast, bn_backward, bn_fold, bn_forward_stats,
                      bn_is_test, bn_shapes, conv_attrs, conv_backward,
                      conv_forward)
@@ -89,6 +107,122 @@ def fused_multihead_attention(q, k, v, bias_qk=None, scale=0.0,
                                    dropout_seed=seed)
     return flash_attention(q, k, v, bias=bias_qk, causal=causal, scale=scale,
                            dropout_rate=dropout_rate, dropout_seed=seed)
+
+
+# ==========================================================================
+# the static fused_multihead_attention op and its grad
+# ==========================================================================
+def _mha_attrs(ctx, q):
+    """(bias or None, scale, causal, dropout_rate) of the op on ``q``."""
+    bias = ctx.in_("BiasQK") if ctx.has_input("BiasQK") else None
+    scale = float(ctx.attr("scale", 0.0) or 0.0) or 1.0 / math.sqrt(
+        q.shape[-1])
+    return (bias, scale, bool(ctx.attr("causal", False)),
+            float(ctx.attr("dropout_rate", 0.0) or 0.0))
+
+
+def _flash_bias(bias):
+    """A padding bias as the flash path takes it: (b, kv) f32,
+    contiguous."""
+    if bias is None:
+        return None
+    return normalize_bias(bias).float().contiguous()
+
+
+def _mha_out_lse(q, k, v, bias, scale, causal, rate, seed):
+    """The flash forward ``(out, lse)``: kernels 1-2 on the card, the
+    plain version on the CPU, empty tensors of the right shapes under
+    shape inference."""
+    if q.device.type == "meta":
+        return (torch.empty_like(q),
+                torch.empty(tuple(q.shape[:3]), dtype=torch.float32,
+                            device=q.device))
+    return attention_forward(q, k, v, _flash_bias(bias), scale, causal, rate,
+                             seed)
+
+
+@op("fused_multihead_attention")
+def _fused_mha_op(ctx):
+    """Out (and Lse, Seed) of the static op; see the module docstring."""
+    q, k, v = ctx.in_("Q"), ctx.in_("K"), ctx.in_("V")
+    bias, scale, causal, rate = _mha_attrs(ctx, q)
+    seed = None
+    if rate > 0.0:
+        gen = ctx.rng()
+        seed = (torch.zeros((1,), dtype=torch.int64, device=q.device)
+                if q.device.type == "meta" else
+                _draw_seed(gen if gen is not None
+                           else default_generator(q.device), q.device))
+        ctx.set_out("Seed", seed.to(torch.float32))
+    if bias is not None and not is_padding_bias(bias):
+        if ctx.has_output("Lse"):
+            ctx.set_out("Lse", torch.zeros((1,), dtype=torch.float32,
+                                           device=q.device))
+        ctx.set_out("Out", attention_reference(
+            q, k, v, bias, causal, scale, dropout_rate=rate,
+            dropout_seed=seed))
+        return
+    out, lse = _mha_out_lse(q, k, v, bias, scale, causal, rate, seed)
+    ctx.set_out("Out", out)
+    if ctx.has_output("Lse"):
+        ctx.set_out("Lse", lse)
+
+
+@op("fused_multihead_attention_grad", no_grad=True)
+def _fused_mha_grad_op(ctx):
+    """dQ, dK, dV (and dBiasQK): from the saved lse when ``Lse`` has
+    three dims, else after a forward for lse (kernels 3 or 4-5 on the
+    card, the padding bias's gradient zeros); a full-matrix bias's
+    gradients by autograd through the dense path."""
+    q, k, v = ctx.in_("Q"), ctx.in_("K"), ctx.in_("V")
+    bias, scale, causal, rate = _mha_attrs(ctx, q)
+    seed = (ctx.in_("Seed").to(torch.int64) if ctx.has_input("Seed")
+            else None)
+    dout = ctx.in_("Out" + GRAD_SUFFIX).to(q.dtype)
+    slots = ("Q", "K", "V")
+    if bias is not None and not is_padding_bias(bias):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+        with torch.enable_grad():
+            out = attention_reference(*leaves, causal, scale,
+                                      dropout_rate=rate, dropout_seed=seed)
+            grads = torch.autograd.grad(out, leaves, dout.to(out.dtype))
+        for slot, g in zip(slots + ("BiasQK",), grads):
+            ctx.set_out(slot + GRAD_SUFFIX, g)
+        return
+    lse = ctx.in_("Lse") if ctx.has_input("Lse") else None
+    out = ctx.in_("Out") if ctx.has_input("Out") else None
+    if lse is None or lse.dim() != 3 or out is None:
+        out, lse = _mha_out_lse(q, k, v, bias, scale, causal, rate, seed)
+    grads = attention_backward(q, k, v, _flash_bias(bias), out, lse, dout,
+                               scale, causal, rate, seed)
+    for slot, g in zip(slots, grads):
+        ctx.set_out(slot + GRAD_SUFFIX, g)
+    if bias is not None and ctx.has_output("BiasQK" + GRAD_SUFFIX):
+        ctx.set_out("BiasQK" + GRAD_SUFFIX, torch.zeros_like(bias))
+
+
+@grad_maker("fused_multihead_attention")
+def _fused_mha_grad_maker(op_, no_grad_names=frozenset()):
+    """JAX's grad desc (:379-409): the forward's Seed, and Lse with Out
+    when saved, feed the grad op."""
+    inputs = {
+        "Q": op_.input("Q"), "K": op_.input("K"), "V": op_.input("V"),
+        "Out" + GRAD_SUFFIX: [n + GRAD_SUFFIX for n in op_.output("Out")],
+    }
+    if op_.input("BiasQK"):
+        inputs["BiasQK"] = op_.input("BiasQK")
+    if op_.output("Seed"):
+        inputs["Seed"] = op_.output("Seed")
+    if op_.output("Lse"):
+        inputs["Lse"] = op_.output("Lse")
+        inputs["Out"] = op_.output("Out")
+    outputs = {s + GRAD_SUFFIX: _grad_names(op_.input(s), no_grad_names)
+               for s in ("Q", "K", "V")}
+    if op_.input("BiasQK"):
+        outputs["BiasQK" + GRAD_SUFFIX] = _grad_names(op_.input("BiasQK"),
+                                                      no_grad_names)
+    return [dict(type="fused_multihead_attention_grad", inputs=inputs,
+                 outputs=outputs, attrs=dict(op_.attrs))]
 
 
 # ==========================================================================

@@ -51,8 +51,8 @@ __all__ = ["erfc_xla", "gelu_bf16_reference", "gelu_bf16_grad_reference",
            "gelu_table_reference", "gelu_xterms_reference", "gelu_tables",
            "GELU_BANDS",
            "gelu_fwd_bf16", "gelu_bwd_bf16", "gelu_fwd_fp16",
-           "gelu_bwd_fp16", "gelu_lowp", "GELU", "GELU_FWD_BF16",
-           "GELU_BWD_BF16", "GELU_FWD_FP16", "GELU_BWD_FP16",
+           "gelu_bwd_fp16", "gelu_lowp", "gelu_lowp_grad", "GELU",
+           "GELU_FWD_BF16", "GELU_BWD_BF16", "GELU_FWD_FP16", "GELU_BWD_FP16",
            "GELU_TABLES_BF16", "GELU_TABLES_FP16"]
 
 _P = ctypes.c_void_p
@@ -378,3 +378,16 @@ def gelu_lowp(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gelu_lowp takes bfloat16 or float16, not "
                          f"{x.dtype}")
     return _GeluLowp.apply(x.contiguous())
+
+
+def gelu_lowp_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`gelu_lowp` at ``x`` for the cotangent ``dy``
+    (in x's dtype): the backward kernel for a CUDA tensor, the plain
+    version on the CPU (the static ``gelu_grad`` op)."""
+    if x.dtype not in _KERNELS:
+        raise ValueError(f"gelu_lowp_grad takes bfloat16 or float16, not "
+                         f"{x.dtype}")
+    x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+    if _on_card(x):
+        return _bwd(x.dtype, x, dy)
+    return _PLAIN[x.dtype][1](x, dy)

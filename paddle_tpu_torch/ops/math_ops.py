@@ -2,14 +2,23 @@
 ``paddle_tpu/ops/math_ops.py``: the ``elementwise_*`` family :49-59,
 ``relu`` :72, ``sigmoid`` :74, ``sqrt`` :78, ``ceil`` / ``floor`` /
 ``cos`` / ``exp`` :81-92, ``reciprocal`` :99, ``sign`` :102,
-``hard_sigmoid`` and ``hard_swish`` :114-125, ``scale`` :154, ``clip``
-and ``clip_by_norm`` :185-205 (dense), ``sum`` (gradient accumulation),
-``mean`` :222, ``top_k`` :318, the comparisons :351-356,
-``mul`` :423 and ``increment`` :494).
+``tanh`` :76, ``rsqrt`` :79, ``square`` :98, ``erf`` :103, ``gelu``
+:109-110 (exact or ``approximate``), ``hard_sigmoid`` and ``hard_swish``
+:114-125, ``scale`` :154, ``clip`` and ``clip_by_norm`` :185-205
+(dense), ``sum`` (gradient accumulation), ``mean`` :222, the
+``reduce_*`` family :231-250 (``dim`` / ``keep_dim`` / ``reduce_all``),
+``top_k`` :318, the comparisons :351-356, ``matmul`` :394 (``transpose_X``
+/ ``transpose_Y``, ``alpha``, 1-D operands), ``matmul_v2`` :413, ``mul``
+:423, ``bmm`` :438, ``fc`` :443 and ``increment`` :494).
 
-``mul``, ``hard_swish`` and ``hard_sigmoid`` have explicit grad
+``mul``, ``gelu``, ``hard_swish`` and ``hard_sigmoid`` have explicit grad
 lowerings; the others take the registry's generic vjp replay, whose
-forward is one cheap pass.  The comparisons have no grad, as in JAX.
+forward is one cheap pass (the products of ``matmul``, ``matmul_v2``,
+``bmm`` and ``fc`` are ``torch.matmul``, outside any kernel: no Pallas
+kernel computes them in JAX either).  A bf16 or fp16 exact ``gelu`` is
+:func:`.gelu.gelu_lowp`'s: the kernels of ``csrc/gelu_lowp.cu`` on the
+card, their plain versions on the CPU, as dygraph's gelu.  The
+comparisons have no grad, as in JAX.
 """
 from __future__ import annotations
 
@@ -77,8 +86,43 @@ for _name, _fn in (("relu", torch.relu), ("sigmoid", torch.sigmoid),
                    ("reciprocal", torch.reciprocal), ("ceil", torch.ceil),
                    ("floor", torch.floor), ("cos", torch.cos),
                    ("exp", torch.exp), ("sign", torch.sign),
-                   ("sqrt", torch.sqrt)):
+                   ("sqrt", torch.sqrt), ("tanh", torch.tanh),
+                   ("rsqrt", torch.rsqrt), ("square", torch.square),
+                   ("erf", torch.erf)):
     op(_name)(_unary(_fn))
+
+
+def _exact_gelu_lowp(ctx, x) -> bool:
+    return (not ctx.attr("approximate", False)
+            and x.dtype in (torch.bfloat16, torch.float16))
+
+
+@op("gelu")
+def _gelu(ctx):
+    """``jax.nn.gelu(x, approximate)`` in x's dtype: exact erf (bf16 /
+    fp16 through :func:`.gelu.gelu_lowp`) or the tanh form."""
+    x = ctx.in_("X")
+    if _exact_gelu_lowp(ctx, x):
+        from .gelu import gelu_lowp
+        ctx.set_out("Out", gelu_lowp(x))
+        return
+    ctx.set_out("Out", torch.nn.functional.gelu(
+        x, approximate="tanh" if ctx.attr("approximate", False) else "none"))
+
+
+@op("gelu_grad", no_grad=True)
+def _gelu_grad(ctx):
+    """``gelu'(x) * dOut`` (the bf16 / fp16 exact form through
+    :func:`.gelu.gelu_lowp_grad`, which rounds where JAX's vjp does)."""
+    x = ctx.in_("X")
+    dy = ctx.in_("Out" + GRAD_SUFFIX).to(x.dtype)
+    if _exact_gelu_lowp(ctx, x):
+        from .gelu import gelu_lowp_grad
+        ctx.set_out("X" + GRAD_SUFFIX, gelu_lowp_grad(x, dy))
+        return
+    ctx.set_out("X" + GRAD_SUFFIX, torch.ops.aten.gelu_backward(
+        dy, x, approximate="tanh" if ctx.attr("approximate", False)
+        else "none"))
 
 
 @op("clip")
@@ -238,6 +282,57 @@ def _mean(ctx):
     ctx.set_out("Out", torch.mean(ctx.in_("X")))
 
 
+def _reduce(fn, bool_out=False):
+    """A ``reduce_*`` lowering: over ``dim`` (each taken modulo x's rank)
+    or every axis under ``reduce_all``, keeping the reduced axes as 1
+    under ``keep_dim``; an integer sum or product keeps x's dtype and a
+    boolean one gives int32, as jnp does."""
+    def lower(ctx):
+        x = ctx.in_("X")
+        if ctx.attr("reduce_all", False):
+            dims = tuple(range(x.dim()))
+        else:
+            dim = ctx.attr("dim", [0])
+            dims = tuple(d % max(x.dim(), 1) for d in (
+                dim if isinstance(dim, (list, tuple)) else [dim]))
+        keep = bool(ctx.attr("keep_dim", False))
+        if bool_out:
+            x = x.bool()
+        elif x.dtype == torch.bool:
+            x = x.to(torch.int32)
+        ctx.set_out("Out", fn(x, dims, keep))
+
+    return lower
+
+
+def _prod(x, dims, keep):
+    for d in sorted(dims, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=True)
+    return x if keep else x.reshape([s for i, s in enumerate(x.shape)
+                                     if i not in dims])
+
+
+def _mean(x, dims, keep):
+    if not x.is_floating_point():
+        x = x.float()
+    return torch.mean(x, dim=dims, keepdim=keep)
+
+
+for _name, _fn, _bool in (
+        ("reduce_sum", lambda x, d, k: torch.sum(x, dim=d, keepdim=k,
+                                                 dtype=x.dtype), False),
+        ("reduce_mean", _mean, False),
+        ("reduce_max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k),
+         False),
+        ("reduce_min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
+         False),
+        ("reduce_prod", _prod, False),
+        ("reduce_any", lambda x, d, k: torch.any(x, dim=d, keepdim=k), True),
+        ("reduce_all", lambda x, d, k: torch.all(x, dim=d, keepdim=k),
+         True)):
+    op(_name, no_grad=_bool)(_reduce(_fn, _bool))
+
+
 @op("top_k", no_grad=True)
 def _top_k(ctx):
     x = ctx.in_("X")
@@ -246,6 +341,65 @@ def _top_k(ctx):
     vals, idxs = torch.topk(x, int(ctx.attr("k", 1)), dim=-1)
     ctx.set_out("Out", vals)
     ctx.set_out("Indices", idxs)
+
+
+def _times(out, alpha):
+    """``out * alpha`` with the python scalar in out's dtype (skipped at
+    1), as JAX's weakly typed product computes it."""
+    if alpha == 1.0:
+        return out
+    return out * (_in_dtype(alpha, out) if out.is_floating_point()
+                  else alpha)
+
+
+@op("matmul")
+def _matmul(ctx):
+    """``alpha * X' @ Y'`` with X' and Y' transposed on their last two
+    axes when asked; a 1-D X is a row (a column when transposed) and a
+    1-D Y a column (a row), and the unit axis stays in the result, as in
+    JAX."""
+    x, y = ctx.in_("X"), ctx.in_("Y")
+    tx, ty = ctx.attr("transpose_X", False), ctx.attr("transpose_Y", False)
+    if x.dim() == 1:
+        x = x[:, None] if tx else x[None, :]
+    if y.dim() == 1:
+        y = y[None, :] if ty else y[:, None]
+    if tx:
+        x = x.transpose(-1, -2)
+    if ty:
+        y = y.transpose(-1, -2)
+    ctx.set_out("Out", _times(torch.matmul(x, y),
+                              float(ctx.attr("alpha", 1.0))))
+
+
+@op("matmul_v2")
+def _matmul_v2(ctx):
+    x, y = ctx.in_("X"), ctx.in_("Y")
+    if ctx.attr("trans_x", False):
+        x = x.transpose(-1, -2)
+    if ctx.attr("trans_y", False):
+        y = y.transpose(-1, -2)
+    ctx.set_out("Out", torch.matmul(x, y))
+
+
+@op("bmm")
+def _bmm(ctx):
+    ctx.set_out("Out", torch.matmul(ctx.in_("X"), ctx.in_("Y")))
+
+
+@op("fc")
+def _fc(ctx):
+    """The fused fully-connected op of the inference passes: ``Input``
+    flattened at ``in_num_col_dims``, ``@ W``, ``+ Bias`` and a ``relu``
+    when ``activation_type`` names it."""
+    x, w = ctx.in_("Input"), ctx.in_("W")
+    ncd = ctx.attr("in_num_col_dims", 1)
+    out = torch.matmul(x.reshape(math.prod(x.shape[:ncd]), -1), w)
+    if ctx.has_input("Bias"):
+        out = out + ctx.in_("Bias").reshape(1, -1)
+    if ctx.attr("activation_type", "") == "relu":
+        out = torch.relu(out)
+    ctx.set_out("Out", out.reshape(tuple(x.shape[:ncd]) + (w.shape[1],)))
 
 
 def _mul_2d(x, y, xnc, ync):

@@ -38,7 +38,14 @@ mask-reading grad :813-850), ``softmax`` (:460), ``squared_l2_norm``
 (:597, the global-norm clip's) and
 ``lookup_table`` (:692-708: ids with a trailing unit axis squeezed, the
 dense gradient of the default grad maker; ``is_sparse`` raises, its
-SelectedRows gradient is not ported).  conv2d, pool2d and
+SelectedRows gradient is not ported), ``lookup_table_v2`` and its alias
+``embedding`` (:706-707, ids as given), ``layer_norm`` (:388: statistics
+in f32, y in x's dtype; a bf16 or fp16 x with Scale and Bias rounds where
+:func:`layer_norm_lowp` does), ``log_softmax`` (:465), ``cross_entropy``
+and ``cross_entropy2`` (:544, :567: probabilities in, the label's picked
+probability clipped at 1e-20, ignored labels 0), ``one_hot`` and
+``one_hot_v2`` (:764, :773: f32 rows, an id outside [0, depth) a row of
+zeros).  conv2d, pool2d, layer_norm and
 batch_norm carry explicit grad lowerings: the convolution's through
 ``aten.convolution_backward``, max pooling's through the indices of a
 recomputed ``max_pool2d_with_indices``, batch_norm's in closed form.
@@ -698,12 +705,16 @@ def _softmax_ce_grad_lower(ctx):
     else:
         lbl = label.squeeze(axis) if label.dim() == softmax.dim() else label
         lbl = lbl.long().unsqueeze(axis)
-        ax = axis % softmax.dim()
-        iota_shape = [1] * softmax.dim()
-        iota_shape[ax] = softmax.shape[ax]
-        iota = torch.arange(softmax.shape[ax],
-                            device=softmax.device).reshape(iota_shape)
-        dx = (p - (iota == lbl).float()) * dl
+        # p - onehot(label) without a one-hot tensor: -1 added at each
+        # row's label (-0.0, which changes nothing, where the label lies
+        # outside the classes and the one-hot row would be zeros), so a
+        # vocabulary-wide loss holds one copy of p, not three
+        n = softmax.shape[axis]
+        inside = (lbl >= 0) & (lbl < n)
+        dx = p.clone().scatter_add_(
+            axis, torch.where(inside, lbl, torch.zeros_like(lbl)),
+            -inside.float())
+        dx.mul_(dl)
         if ignore_index >= 0:
             dx = torch.where(lbl == ignore_index,
                              torch.zeros((), device=dx.device), dx)
@@ -811,3 +822,190 @@ def _lookup_table_grad_maker(op_, no_grad_names=frozenset()):
                                   "SelectedRows gradient is not ported "
                                   "(ROADMAP.md)")
     return default_grad_maker(op_, no_grad_names)
+
+
+def _lookup_grad(ctx, squeeze_last):
+    """The dense W gradient of an embedding lookup: each row of dOut added
+    into its id's row (ids clipped as the forward clips them, the
+    ``padding_idx`` rows' cotangents dropped), by ``index_put_`` with
+    ``accumulate``, which on the card sorts the ids and sums each id's
+    rows in one order, so every run gives the same bits (a captured step
+    equals an eager one); ATen's embedding backward does not on the card
+    once an id repeats across thousands of rows."""
+    if not ctx.has_output("W" + GRAD_SUFFIX):
+        return
+    w, ids = ctx.in_("W"), ctx.in_("Ids")
+    if squeeze_last and ids.dim() > 1 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    ids = ids.long().clamp(0, w.shape[0] - 1).reshape(-1)
+    g = ctx.in_("Out" + GRAD_SUFFIX).reshape(-1, w.shape[-1]).to(w.dtype)
+    pad = ctx.attr("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        g = g * (ids != pad).unsqueeze(-1).to(g.dtype)
+    ctx.set_out("W" + GRAD_SUFFIX, torch.zeros_like(w).index_put_(
+        (ids,), g, accumulate=True))
+
+
+op("lookup_table_grad", no_grad=True)(
+    lambda ctx: _lookup_grad(ctx, squeeze_last=True))
+
+
+
+@grad_maker("lookup_table_v2")
+def _lookup_table_v2_grad_maker(op_, no_grad_names=frozenset()):
+    return _lookup_table_grad_maker(op_, no_grad_names)
+
+
+def _lookup_v2(ctx):
+    ctx.set_out("Out", lookup_table_v2(ctx.in_("W"), ctx.in_("Ids"),
+                                       ctx.attr("padding_idx", -1)))
+
+
+op("lookup_table_v2")(_lookup_v2)
+op("embedding")(_lookup_v2)
+grad_maker("embedding")(_lookup_table_v2_grad_maker)
+for _t in ("lookup_table_v2_grad", "embedding_grad"):
+    op(_t, no_grad=True)(lambda ctx: _lookup_grad(ctx, squeeze_last=False))
+
+
+# -- layer_norm (reference: layer_norm_op.cc; JAX nn_ops.py:388) ------------
+def _ln_parts(ctx):
+    """(x, Scale, Bias, the normalized shape, eps)."""
+    x = ctx.in_("X")
+    begin = ctx.attr("begin_norm_axis", 1)
+    scale = ctx.in_("Scale") if ctx.has_input("Scale") else None
+    bias = ctx.in_("Bias") if ctx.has_input("Bias") else None
+    return x, scale, bias, tuple(x.shape[begin:]), ctx.attr("epsilon", 1e-5)
+
+
+def _ln_lowp(x, scale, bias) -> bool:
+    return (x.dtype in (torch.bfloat16, torch.float16) and scale is not None
+            and bias is not None)
+
+
+def _ln_y(x, scale, bias, shape, eps):
+    """Y as JAX computes it: the normalized value in f32 rounded to x's
+    dtype, then ``* Scale`` and ``+ Bias`` in x's dtype (bf16 and fp16
+    with both: :func:`layer_norm_lowp`'s rounding points)."""
+    if _ln_lowp(x, scale, bias):
+        return layer_norm_lowp(x, scale, bias, shape, eps)
+    if x.dtype == torch.float32:
+        return F.layer_norm(x, shape, None if scale is None else
+                            scale.reshape(shape),
+                            None if bias is None else bias.reshape(shape),
+                            eps)
+    y = F.layer_norm(x.float(), shape, None, None, eps).to(x.dtype)
+    if scale is not None:
+        y = y * scale.reshape(shape).to(x.dtype)
+    if bias is not None:
+        y = y + bias.reshape(shape).to(x.dtype)
+    return y
+
+
+@op("layer_norm")
+def _layer_norm(ctx):
+    """Y over the trailing axes from ``begin_norm_axis``, and Mean and
+    Variance (biased) over them in f32, shaped as the leading axes."""
+    x, scale, bias, shape, eps = _ln_parts(ctx)
+    axes = tuple(range(x.dim() - len(shape), x.dim()))
+    var, mean = torch.var_mean(x.float(), dim=axes, unbiased=False)
+    ctx.set_out("Y", _ln_y(x, scale, bias, shape, eps))
+    ctx.set_out("Mean", mean)
+    ctx.set_out("Variance", var)
+
+
+@op("layer_norm_grad", no_grad=True)
+def _layer_norm_grad(ctx):
+    """f32: ATen's one-pass layer-norm backward from the forward's Mean
+    and ``rsqrt(Variance + eps)``; bf16 / fp16: autograd through the
+    forward's rounding points (:func:`layer_norm_lowp`'s backward)."""
+    x, scale, bias, shape, eps = _ln_parts(ctx)
+    dys = ctx.ins("Y" + GRAD_SUFFIX, missing_ok=True)
+    dy = dys[0] if dys and dys[0] is not None else torch.zeros_like(x)
+    need = [ctx.has_output(s + GRAD_SUFFIX) and (s == "X" or v is not None)
+            for s, v in (("X", x), ("Scale", scale), ("Bias", bias))]
+    if x.dtype == torch.float32:
+        stat = tuple(x.shape[:x.dim() - len(shape)]) + (1,) * len(shape)
+        mean = ctx.in_("Mean").reshape(stat)
+        rstd = torch.rsqrt(ctx.in_("Variance").reshape(stat) + eps)
+        grads = torch.ops.aten.native_layer_norm_backward(
+            dy.to(x.dtype).contiguous(), x.contiguous(), list(shape), mean,
+            rstd, None if scale is None else scale.reshape(shape),
+            None if bias is None else bias.reshape(shape), need)
+    else:
+        leaves = [t.detach().requires_grad_(True) if t is not None else None
+                  for t in (x, scale, bias)]
+        with torch.enable_grad():
+            y = _ln_y(*leaves, shape, eps)
+            want = [t for t, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(y, want, dy.to(y.dtype)))
+        grads = [next(got) if n else None for n in need]
+    for (slot, src), g, n in zip((("X", x), ("Scale", scale),
+                                  ("Bias", bias)), grads, need):
+        if n:
+            ctx.set_out(slot + GRAD_SUFFIX, g.reshape(src.shape).to(
+                src.dtype))
+
+
+# -- log_softmax and the cross entropies (JAX nn_ops.py:465, :544, :567) -----
+@op("log_softmax")
+def _log_softmax(ctx):
+    ctx.set_out("Out", torch.log_softmax(ctx.in_("X"),
+                                         dim=ctx.attr("axis", -1)))
+
+
+def _picked(x, label, ignore_index):
+    """(-log(clip(p[label], 1e-20)) with ignored labels 0, the picked
+    probability): the hard-label terms of both cross entropies."""
+    lbl = label.long()
+    if lbl.dim() == x.dim():
+        lbl = lbl.squeeze(-1)
+    mask = (lbl != ignore_index).unsqueeze(-1)
+    safe = torch.where(mask.squeeze(-1), lbl, torch.zeros_like(lbl))
+    picked = torch.take_along_dim(x, safe.unsqueeze(-1), dim=-1)
+    loss = -torch.log(torch.clamp(picked, min=1e-20))
+    return torch.where(mask, loss, torch.zeros((), dtype=loss.dtype,
+                                               device=loss.device)), picked
+
+
+@op("cross_entropy")
+def _cross_entropy(ctx):
+    """``-sum(label * log(clip(X, 1e-20)))`` over the last axis for soft
+    labels, else ``-log(clip(X[label], 1e-20))``, kept dims."""
+    x, label = ctx.in_("X"), ctx.in_("Label")
+    if ctx.attr("soft_label", False):
+        ctx.set_out("Y", -(label * torch.log(torch.clamp(x, min=1e-20))).sum(
+            dim=-1, keepdim=True))
+        return
+    ctx.set_out("Y", _picked(x, label, ctx.attr("ignore_index", -100))[0])
+
+
+@op("cross_entropy2")
+def _cross_entropy2(ctx):
+    x = ctx.in_("X")
+    y, picked = _picked(x, ctx.in_("Label"), ctx.attr("ignore_index", -100))
+    ctx.set_out("Y", y)
+    ctx.set_out("XShape", torch.zeros((0,), dtype=x.dtype, device=x.device))
+    ctx.set_out("MatchX", picked)
+
+
+# -- one_hot (JAX nn_ops.py:764, :773) ---------------------------------------
+def _one_hot(x, depth):
+    """f32 rows with a 1 at each id; an id outside [0, depth) gives a row
+    of zeros, as ``jax.nn.one_hot``."""
+    cols = torch.arange(depth, device=x.device)
+    return (x.long().unsqueeze(-1) == cols).to(torch.float32)
+
+
+@op("one_hot", no_grad=True)
+def _one_hot_op(ctx):
+    """Ids with a trailing unit axis squeezed first."""
+    x = ctx.in_("X")
+    if x.dim() > 1 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    ctx.set_out("Out", _one_hot(x, ctx.attr("depth", 1)))
+
+
+@op("one_hot_v2", no_grad=True)
+def _one_hot_v2(ctx):
+    ctx.set_out("Out", _one_hot(ctx.in_("X"), ctx.attr("depth", 1)))

@@ -193,7 +193,11 @@ def compare_program(name: str, main, startup, fetch, feed,
             "losses": [float(np.asarray(o[0]).reshape(-1)[0])
                        for o in c_out],
             "fetch_mismatches": bad_fetch,
-            "state_mismatches": bad_state[:8],
+            "state_mismatch_count": len(bad_state),
+            "state_mismatches": {
+                n: float(np.abs(np.asarray(e_state[n], np.float64)
+                                - np.asarray(c_state[n], np.float64)).max())
+                if n in c_state else None for n in bad_state[:8]},
             "ok": not bad_fetch and not bad_state and
             exe.graphs_captured == 1}, e_out, c_out
 

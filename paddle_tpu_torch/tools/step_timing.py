@@ -22,7 +22,7 @@ background thread while step k runs).  A GPU is needed.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -59,11 +59,15 @@ def device_busy_ms(step: Callable[[], object], steps: int) -> float:
 
 def session_turns(step: Callable[[], object], steps: int,
                   turns: Sequence[str] = ("0", "1", "1", "0"),
-                  warmup: int = 2, traced: int = 0) -> Dict[str, object]:
+                  warmup: int = 2, traced: int = 0,
+                  between: Optional[Callable[[], None]] = None
+                  ) -> Dict[str, object]:
     """``{"turns": [...], "off": {...}, "on": {...}}``: per turn the
     session setting, wall and busy ms per step and the idle share; under
     ``off`` and ``on`` the lowest wall and busy of that setting's turns
-    and the idle share between them."""
+    and the idle share between them.  ``between`` runs after each turn
+    (to drop a turn's graph, whose pool would otherwise hold a step's
+    memory through the next turn)."""
     prev = get_flag("FLAGS_cuda_step_session")
     rows = []
     try:
@@ -82,6 +86,8 @@ def session_turns(step: Callable[[], object], steps: int,
                          "wall_ms": wall, "busy_ms": busy or "not measured",
                          "idle_share": 1.0 - busy / wall if busy else
                          "not measured"})
+            if between is not None:
+                between()
     finally:
         set_flags({"FLAGS_cuda_step_session": prev})
     out: Dict[str, object] = {"turns": rows}

@@ -205,7 +205,8 @@ RESNET_GROUPS = {
 }
 
 
-def profile_steps(run: dict, steps: int, groups=None) -> dict:
+def profile_steps(run: dict, steps: int, groups=None,
+                  between=None) -> dict:
     """Run ``steps`` warm steps of a :func:`train` result op by op
     (``FLAGS_cuda_step_session=0``: the per-op ranges need the eager
     path), then trace as many again with ``torch.profiler``: host wall ms
@@ -218,21 +219,22 @@ def profile_steps(run: dict, steps: int, groups=None) -> dict:
     on the timeline (gaps included).  Then ``step_session``: wall and busy
     ms per step and the idle
     share with the compiled step off and on, in turns
-    (:func:`~.step_timing.session_turns`)."""
+    (:func:`~.step_timing.session_turns`; ``between`` runs after each
+    turn and may put a new executor in ``run["executor"]``)."""
     groups = RESNET_GROUPS if groups is None else groups
-    exe, prog, feed, scope, fetch = (run["executor"], run["program"],
-                                     run["feed"], run["scope"], run["fetch"])
+    prog, feed, scope, fetch = (run["program"], run["feed"], run["scope"],
+                                run["fetch"])
 
     def step():
-        exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+        run["executor"].run(prog, feed=feed, fetch_list=fetch, scope=scope)
 
     prev = get_flag("FLAGS_cuda_step_session")
     set_flags({"FLAGS_cuda_step_session": "0"})
     try:
-        report = _profile_eager(exe, step, steps, groups)
+        report = _profile_eager(run["executor"], step, steps, groups)
     finally:
         set_flags({"FLAGS_cuda_step_session": prev})
-    report["step_session"] = session_turns(step, steps)
+    report["step_session"] = session_turns(step, steps, between=between)
     return report
 
 

@@ -2340,3 +2340,141 @@ def test_sample_token_draws_on_the_card_equal_the_cpu(cuda):
         want = sample_token(logits, lanes, *params)
         got = sample_token(logits.to(cuda), lanes.to(cuda), *params)
         assert torch.equal(got.cpu(), want), params
+
+
+# ==========================================================================
+# the update ops one step on the card, against the CPU port
+# ==========================================================================
+def _run_port_op(device, op_type, ins, outs, attrs, grad_of, seed=0):
+    """One op (and its grad ops, with seeded cotangents for ``grad_of``)
+    through the port's registry on ``device``: {var name: tensor}."""
+    import paddle_tpu_torch.framework.core as tcore
+    import paddle_tpu_torch.ops.registry as treg
+
+    blk = tcore.Program().global_block()
+    env = {}
+    for items in ins.values():
+        for name, arr in items:
+            blk.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype))
+            env[name] = torch.from_numpy(np.array(arr)).to(device)
+    for names in outs.values():
+        for n in names:
+            if not blk.has_var(n):
+                blk.create_var(name=n)
+    op = blk.append_op(op_type, inputs={s: [n for n, _ in v]
+                                        for s, v in ins.items()},
+                       outputs=outs, attrs=dict(attrs))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    treg.run_op(op, env, blk, gen, torch.device(device))
+    result = {n: env[n] for names in outs.values() for n in names}
+    rng = np.random.RandomState(seed)
+    cots = {n + "@GRAD": torch.from_numpy(
+        rng.randn(*result[n].shape).astype(np.float32)).to(device)
+        for n in grad_of}
+    for desc in (treg.make_grad_ops(op) if cots else []):
+        for names in list(desc["inputs"].values()) + \
+                list(desc["outputs"].values()):
+            for n in names:
+                if n != "@EMPTY@" and not blk.has_var(n):
+                    blk.create_var(name=n)
+        gop = blk.append_op(desc["type"], inputs=desc["inputs"],
+                            outputs=desc["outputs"], attrs=desc["attrs"])
+        env.update(cots)
+        treg.run_op(gop, env, blk, gen, torch.device(device))
+        for names in desc["outputs"].values():
+            result.update({n: env[n] for n in names if n in env})
+    return result
+
+
+def _optimizer_case_names():
+    from torch_optimizer_cases import CASES
+    return sorted(CASES)
+
+
+@pytest.mark.parametrize("case", _optimizer_case_names())
+def test_update_op_one_step_on_the_card_equals_the_cpu(cuda, case):
+    """Every case of ``tests/torch_optimizer_cases.py`` (the update, clip
+    and fused optimizer ops, Ftrl's l1 shrink among them), one step on
+    the card against the same step of the CPU port, at the tolerance the
+    case states against JAX."""
+    from torch_optimizer_cases import CASES
+
+    op_type, ins, outs, attrs, grad_of, tol = CASES[case]
+    want = _run_port_op("cpu", op_type, ins, outs, attrs, grad_of)
+    got = _run_port_op("cuda", op_type, ins, outs, attrs, grad_of)
+    assert set(got) == set(want)
+    for n, w in want.items():
+        g = got[n]
+        assert g.device.type == "cuda" and g.dtype == w.dtype, n
+        np.testing.assert_allclose(g.cpu().double().numpy(),
+                                   w.double().numpy(), err_msg=n, **tol)
+
+
+# ==========================================================================
+# the static fused_multihead_attention op and its grad on kernels 1-5
+# ==========================================================================
+MHA_KERNELS = {dt: [tfa._KERNELS[dt][k] for k in ("fwd", "fused", "dq",
+                                                   "dkv")]
+               for dt in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16",
+                                                        "fp16"])
+@pytest.mark.parametrize("s,b", [(512, 4), (2048, 1)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_static_mha_op_launches_kernels_and_matches_plain(cuda, dtype, s, b,
+                                                          rate):
+    """The op (Out, Lse, Seed) and its grad op from the saved Lse, on
+    (b, 12, s, 64) CUDA tensors with a padding bias: the forward kernel
+    once, then the fused backward kernel at s 512 or the split pair at s
+    2048, once each; Out and the gradients against the plain versions on
+    the same tensors (under dropout, the kernels' own mask for the op's
+    Seed), the padding bias's gradient zeros."""
+    import paddle_tpu_torch.ops.registry as treg
+
+    q, k, v, do, bias = _flash_case(cuda, s + int(rate * 10), b, 12, s, s,
+                                    64, True)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    bias4 = bias.reshape(b, 1, 1, s)
+    attrs = {"scale": 0.125, "causal": False, "dropout_rate": rate}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kernels = MHA_KERNELS[dtype]
+    before = [kf.launches for kf in kernels]
+    outs = {"Out": 1, "Lse": 1}
+    if rate:
+        outs["Seed"] = 1
+    fwd = treg.eager_call("fused_multihead_attention",
+                          {"Q": [q], "K": [k], "V": [v], "BiasQK": [bias4]},
+                          attrs, outs, gen, cuda)
+    out, lse = fwd["Out"][0], fwd["Lse"][0]
+    ins = {"Q": [q], "K": [k], "V": [v], "BiasQK": [bias4], "Out": [out],
+           "Lse": [lse], "Out@GRAD": [do]}
+    seed = None
+    if rate:
+        ins["Seed"] = fwd["Seed"]
+        seed = fwd["Seed"][0].to(torch.int64)
+        assert fwd["Seed"][0].dtype == torch.float32
+    grads = treg.eager_call("fused_multihead_attention_grad", ins, attrs,
+                            {"Q@GRAD": 1, "K@GRAD": 1, "V@GRAD": 1,
+                             "BiasQK@GRAD": 1}, gen, cuda)
+    torch.cuda.synchronize()
+    split = s > tfa.FUSED_BWD_MAX_SEQ
+    assert [kf.launches - n for kf, n in zip(kernels, before)] == (
+        [1, 0, 1, 1] if split else [1, 1, 0, 0])
+    keep = tfa.flash_dropout_mask(b, 12, s, s, rate, seed) if rate else None
+    want_out, want_lse = tfa.flash_fwd_reference(q, k, v, bias, 0.125, False,
+                                                 rate, keep)
+    want = tfa.flash_bwd_reference(q, k, v, bias, out, lse, do, 0.125, False,
+                                   rate, keep)
+    assert float((lse - want_lse).abs().max()) <= ATOL
+    ok = {torch.float32: lambda g, w: float((g - w).abs().max()) <= ATOL,
+          torch.bfloat16: _bf16_ok, torch.float16: _fp16_ok}[dtype]
+    assert ok(out, want_out)
+    for slot, w in zip(("Q", "K", "V"), want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(grads[slot + "@GRAD"][0], w,
+                                       **GRAD_TOL)
+        else:
+            assert ok(grads[slot + "@GRAD"][0], w), slot
+    assert not grads["BiasQK@GRAD"][0].any()

@@ -567,6 +567,231 @@ CASES.update({
 })
 
 
+# the static encoder's op surface (tests/test_torch_static_encoder*.py run
+# them in programs): the unary, gelu, reduce and matmul families, the
+# shape and fill ops, layer_norm, the losses, the embeddings, one_hot and
+# fused_multihead_attention (its bias, causal and long-sequence variants:
+# test_torch_static_encoder_ops.py)
+def _ln(x, begin, scale=True, shift=True):
+    n = int(np.prod(x.shape[begin:]))
+    ins = {"X": [("x", x)]}
+    if scale:
+        ins["Scale"] = [("s", 1 + 0.1 * _r(7, n))]
+    if shift:
+        ins["Bias"] = [("b", _r(8, n))]
+    return _check("layer_norm", ins,
+                  {"Y": ["y"], "Mean": ["m"], "Variance": ["v"]},
+                  {"begin_norm_axis": begin, "epsilon": 1e-5}, cot_of=["y"])
+
+
+def _reduce(op_type, x, grad=True, **attrs):
+    attrs = dict({"dim": [1], "keep_dim": False, "reduce_all": False},
+                 **attrs)
+    return _check(op_type, {"X": [("x", x)]}, {"Out": ["o"]}, attrs,
+                  cot_of=["o"] if grad else ())
+
+
+def _probs(seed, *shape):
+    e = np.exp(_r(seed, *shape))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def _labels(seed, n, depth, ignore=None):
+    lbl = np.random.RandomState(seed).randint(0, depth, (n, 1))
+    if ignore is not None:
+        lbl[::4] = ignore
+    return lbl.astype(np.int64)
+
+
+_MHA_OUTS = {"Out": ["o"], "Lse": ["lse"]}
+
+
+def _mha_case(bias=None):
+    """fused_multihead_attention at b 2, h 3, s 16, d 8 (JAX's dense CPU
+    path against the port's plain flash versions); Lse is each
+    package's own (JAX's a (1,) sentinel here), so it is not compared,
+    nor is a padding bias's gradient: the flash path's is zeros in both
+    packages, JAX's dense CPU path differentiates it
+    (test_torch_static_encoder_ops.py holds both)."""
+    ins = {"Q": [("q", _r(0, 2, 3, 16, 8))], "K": [("k", _r(1, 2, 3, 16, 8))],
+           "V": [("v", _r(2, 2, 3, 16, 8))]}
+    if bias is not None:
+        ins["BiasQK"] = [("bias", bias)]
+    return _check("fused_multihead_attention", ins, _MHA_OUTS,
+                  {"scale": 0.25, "causal": False, "dropout_rate": 0.0},
+                  cot_of=["o"], tol=SUMS,
+                  skip=("lse",) if bias is None or bias.shape[2] > 1
+                  else ("lse", "bias@GRAD"))
+
+
+_PAD = np.where(np.arange(16)[None, :] < np.array([[16], [9]]), 0.0,
+                -10000.0).astype(np.float32).reshape(2, 1, 1, 16)
+CASES.update({
+    "tanh": lambda: _unary("tanh", _r(0, 6, 7) * 2),
+    "rsqrt": lambda: _unary("rsqrt", np.abs(_r(0, 6, 7)) + 0.3),
+    "square": lambda: _unary("square", _r(0, 6, 7)),
+    "erf": lambda: _unary("erf", _r(0, 6, 7)),
+    "gelu": lambda: _unary("gelu", _r(0, 6, 7) * 3,
+                           {"approximate": False}),
+    "gelu-approximate": lambda: _unary("gelu", _r(0, 6, 7) * 3,
+                                       {"approximate": True}),
+    "reduce_sum": lambda: _reduce("reduce_sum", _r(0, 3, 4, 5)),
+    "reduce_sum-all-keep": lambda: _reduce("reduce_sum", _r(0, 3, 4, 5),
+                                           reduce_all=True, keep_dim=True),
+    "reduce_mean": lambda: _reduce("reduce_mean", _r(0, 3, 4, 5),
+                                   dim=[0, -1], keep_dim=True),
+    "reduce_max": lambda: _reduce("reduce_max", np.round(_r(0, 3, 4, 5))),
+    "reduce_min": lambda: _reduce("reduce_min", np.round(_r(0, 3, 4, 5)),
+                                  dim=[2]),
+    "reduce_prod": lambda: _reduce("reduce_prod", _r(0, 3, 4, 5),
+                                   dim=[0, 2]),
+    "reduce_any": lambda: _reduce("reduce_any", _r(0, 3, 4, 5) > 1.2,
+                                  grad=False),
+    "reduce_all": lambda: _reduce("reduce_all", _r(0, 3, 4, 5) > -1.5,
+                                  grad=False, dim=[-1], keep_dim=True),
+    "matmul": lambda: _check(
+        "matmul", {"X": [("x", _r(0, 2, 3, 5, 4))],
+                   "Y": [("y", _r(1, 2, 3, 6, 4))]}, {"Out": ["o"]},
+        {"transpose_X": False, "transpose_Y": True, "alpha": 0.125},
+        cot_of=["o"], tol=SUMS),
+    "matmul-transpose-x-broadcast": lambda: _check(
+        "matmul", {"X": [("x", _r(0, 2, 4, 5))], "Y": [("y", _r(1, 4, 3))]},
+        {"Out": ["o"]}, {"transpose_X": True, "transpose_Y": False,
+                         "alpha": 1.0}, cot_of=["o"], tol=SUMS),
+    "matmul-1d": lambda: _check(
+        "matmul", {"X": [("x", _r(0, 5))], "Y": [("y", _r(1, 5, 3))]},
+        {"Out": ["o"]}, {"transpose_X": False, "transpose_Y": False,
+                         "alpha": 1.0}, cot_of=["o"], tol=SUMS),
+    "matmul_v2": lambda: _check(
+        "matmul_v2", {"X": [("x", _r(0, 2, 4, 5))],
+                      "Y": [("y", _r(1, 2, 3, 5))]}, {"Out": ["o"]},
+        {"trans_x": False, "trans_y": True}, cot_of=["o"], tol=SUMS),
+    "bmm": lambda: _check(
+        "bmm", {"X": [("x", _r(0, 3, 4, 5))], "Y": [("y", _r(1, 3, 5, 2))]},
+        {"Out": ["o"]}, cot_of=["o"], tol=SUMS),
+    "fc": lambda: _check(
+        "fc", {"Input": [("x", _r(0, 2, 3, 5))], "W": [("w", _r(1, 5, 4))],
+               "Bias": [("b", _r(2, 4))]}, {"Out": ["o"]},
+        {"in_num_col_dims": 2, "activation_type": "relu"}, cot_of=["o"],
+        tol=SUMS),
+    "fill_any_like": lambda: _check(
+        "fill_any_like", {"X": [("x", _r(0, 3, 4))]}, {"Out": ["o"]},
+        {"value": 2.5, "dtype": -1}),
+    "fill_zeros_like": lambda: _check(
+        "fill_zeros_like", {"X": [("x", _r(0, 3, 4))]}, {"Out": ["o"]}),
+    "fill_constant_batch_size_like": lambda: _check(
+        "fill_constant_batch_size_like", {"Input": [("x", _r(0, 5, 4))]},
+        {"Out": ["o"]}, {"shape": [-1, 3], "value": 1.5, "dtype": 5,
+                         "input_dim_idx": 0, "output_dim_idx": 0}),
+    "range": lambda: _check(
+        "range", {"Start": [("a", np.array([1.0], np.float32))],
+                  "End": [("e", np.array([7.5], np.float32))],
+                  "Step": [("st", np.array([1.5], np.float32))]},
+        {"Out": ["o"]}, int_slots=("Start", "End", "Step")),
+    "shape": lambda: _check("shape", {"Input": [("x", _r(0, 3, 4, 5))]},
+                            {"Out": ["o"]}),
+    "squeeze2": lambda: _check(
+        "squeeze2", {"X": [("x", _r(0, 3, 1, 4, 1))]},
+        {"Out": ["o"], "XShape": ["xs"]}, {"axes": [1, -1]}, cot_of=["o"],
+        skip=("xs",)),
+    "squeeze": lambda: _check(
+        "squeeze", {"X": [("x", _r(0, 1, 4, 1))]}, {"Out": ["o"]},
+        {"axes": []}, cot_of=["o"]),
+    "unsqueeze2": lambda: _check(
+        "unsqueeze2", {"X": [("x", _r(0, 3, 4))]},
+        {"Out": ["o"], "XShape": ["xs"]}, {"axes": [1, 2]}, cot_of=["o"],
+        skip=("xs",)),
+    "unsqueeze": lambda: _check(
+        "unsqueeze", {"X": [("x", _r(0, 3, 4))]}, {"Out": ["o"]},
+        {"axes": [0]}, cot_of=["o"]),
+    "flatten2": lambda: _check(
+        "flatten2", {"X": [("x", _r(0, 2, 3, 4))]},
+        {"Out": ["o"], "XShape": ["xs"]}, {"axis": 2}, cot_of=["o"],
+        skip=("xs",)),
+    "flatten": lambda: _check(
+        "flatten", {"X": [("x", _r(0, 2, 3, 4))]}, {"Out": ["o"]},
+        {"axis": 0}, cot_of=["o"]),
+    "split": lambda: _check(
+        "split", {"X": [("x", _r(0, 3, 6))]}, {"Out": ["a", "b", "c"]},
+        {"num": 3, "sections": [], "axis": 1}, cot_of=["a", "c"]),
+    "split-sections": lambda: _check(
+        "split", {"X": [("x", _r(0, 5, 4))]}, {"Out": ["a", "b"]},
+        {"num": 0, "sections": [2, 3], "axis": 0}, cot_of=["a", "b"]),
+    "stack": lambda: _check(
+        "stack", {"X": [("a", _r(0, 3, 4)), ("b", _r(1, 3, 4))]},
+        {"Y": ["o"]}, {"axis": 1}, cot_of=["o"]),
+    "unstack": lambda: _check(
+        "unstack", {"X": [("x", _r(0, 3, 2, 4))]}, {"Y": ["a", "b"]},
+        {"axis": 1, "num": 2}, cot_of=["a", "b"]),
+    "slice": lambda: _check(
+        "slice", {"Input": [("x", _r(0, 4, 6, 5))]}, {"Out": ["o"]},
+        {"axes": [0, 1, 2], "starts": [1, -4, 0], "ends": [3, 100, -1],
+         "decrease_axis": []}, cot_of=["o"]),
+    "slice-decrease": lambda: _check(
+        "slice", {"Input": [("x", _r(0, 4, 6))]}, {"Out": ["o"]},
+        {"axes": [0], "starts": [2], "ends": [3], "decrease_axis": [0]},
+        cot_of=["o"]),
+    "strided_slice": lambda: _check(
+        "strided_slice", {"Input": [("x", _r(0, 6, 7))]}, {"Out": ["o"]},
+        {"axes": [0, 1], "starts": [1, 6], "ends": [6, 0],
+         "strides": [2, -2]}, cot_of=["o"]),
+    "gather": lambda: _check(
+        "gather", {"X": [("x", _r(0, 6, 4))],
+                   "Index": [("i", np.array([4, 0, 4, 2], np.int64))]},
+        {"Out": ["o"]}, cot_of=["o"], int_slots=("Index",)),
+    "gather-axis1": lambda: _check(
+        "gather", {"X": [("x", _r(0, 3, 5, 2))],
+                   "Index": [("i", np.array([1, 3], np.int32))]},
+        {"Out": ["o"]}, {"axis": 1}, cot_of=["o"], int_slots=("Index",)),
+    "expand": lambda: _check(
+        "expand", {"X": [("x", _r(0, 2, 3))]}, {"Out": ["o"]},
+        {"expand_times": [2, 3]}, cot_of=["o"]),
+    "expand_v2": lambda: _check(
+        "expand_v2", {"X": [("x", _r(0, 3, 1))]}, {"Out": ["o"]},
+        {"shape": [2, -1, 4]}, cot_of=["o"]),
+    "layer_norm": lambda: _ln(_r(0, 2, 5, 8) * 3 + 1, 2),
+    "layer_norm-axis1-no-shift": lambda: _ln(_r(0, 4, 3, 5), 1, shift=False),
+    "log_softmax": lambda: _unary("log_softmax", _r(0, 4, 7) * 2,
+                                  {"axis": -1}),
+    "cross_entropy": lambda: _check(
+        "cross_entropy", {"X": [("x", _probs(0, 8, 5))],
+                          "Label": [("l", _labels(1, 8, 5, ignore=-100))]},
+        {"Y": ["y"]}, {"soft_label": False, "ignore_index": -100},
+        cot_of=["y"], int_slots=("Label",)),
+    "cross_entropy-soft": lambda: _check(
+        "cross_entropy", {"X": [("x", _probs(0, 8, 5))],
+                          "Label": [("l", _probs(2, 8, 5))]},
+        {"Y": ["y"]}, {"soft_label": True, "ignore_index": -100},
+        cot_of=["y"]),
+    "cross_entropy2": lambda: _check(
+        "cross_entropy2", {"X": [("x", _probs(0, 8, 5))],
+                           "Label": [("l", _labels(1, 8, 5, ignore=3))]},
+        {"Y": ["y"], "XShape": ["xs"], "MatchX": ["mx"]},
+        {"ignore_index": 3}, cot_of=["y"], int_slots=("Label",)),
+    "lookup_table_v2": lambda: _check(
+        "lookup_table_v2", {"W": [("w", _r(0, 11, 5))],
+                            "Ids": [("ids", _ids(1, 9, 11).reshape(3, 3))]},
+        {"Out": ["o"]}, {"padding_idx": 2, "is_sparse": False},
+        cot_of=["o"], int_slots=("Ids",)),
+    "embedding": lambda: _check(
+        "embedding", {"W": [("w", _r(0, 11, 5))],
+                      "Ids": [("ids", _ids(1, 6, 11))]},
+        {"Out": ["o"]}, {"padding_idx": -1, "is_sparse": False},
+        cot_of=["o"], int_slots=("Ids",)),
+    "one_hot": lambda: _check(
+        "one_hot", {"X": [("x", np.array([[1], [0], [4], [7], [-1]],
+                                         np.int64))]},
+        {"Out": ["o"]}, {"depth": 5}),
+    "one_hot_v2": lambda: _check(
+        "one_hot_v2", {"X": [("x", np.array([[1, 3], [0, 2]], np.int64))]},
+        {"Out": ["o"]}, {"depth": 4}),
+    "fused_multihead_attention": lambda: _mha_case(_PAD),
+    "fused_multihead_attention-no-bias": lambda: _mha_case(),
+    "fused_multihead_attention-full-bias": lambda: _mha_case(
+        _r(5, 2, 1, 16, 16)),
+})
+
+
 def _optimizer_case(name):
     op_type, ins, outs, attrs, grad_of, tol = OPT_CASES[name]
     _check(op_type, ins, outs, attrs, cot_of=grad_of, tol=tol)
@@ -612,7 +837,7 @@ def test_op_coverage_tool_counts_the_port_against_jax():
     assert rep["ported_count"] == len(port) and rep["extra"] == []
     assert rep["ported_count"] + len(rep["missing"]) == rep["jax_count"]
     assert "fused_matmul_bias_act" in rep["ported"]
-    assert "lookup_table_v2" in rep["missing"]
+    assert "conv3d" in rep["missing"]
 
 
 def test_fused_conv_matches_the_jax_pallas_kernels(monkeypatch):
