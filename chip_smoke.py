@@ -1841,8 +1841,10 @@ def amp_card_vs_cpu(torch, f32_losses, amp_dtype="bfloat16"):
                      attention_probs_dropout_prob=0.0)
     # fp16 GEMMs on a host CPU without fp16 arithmetic run PyTorch's slow
     # fallback, most of this phase's time at phase 8's batch: fp16 takes
-    # 1 x 64 tokens, and its own f32 card run for the f32 comparison
-    b, s = (2, 128) if amp_dtype == "bfloat16" else (1, 64)
+    # 1 x 32 tokens (the masked-LM head's products over the vocabulary
+    # take most of it, so half the tokens take about half the time), and
+    # its own f32 card run for the f32 comparison
+    b, s = (2, 128) if amp_dtype == "bfloat16" else (1, 32)
     batch = make_batch(cfg, b, s, seed=3, pad=True)
     weights = BertForPretraining(cfg, device="cpu", seed=0).state_dict()
     if (b, s) != (2, 128):
@@ -2484,6 +2486,11 @@ AMP_RESNET_STEP1_RTOL = 2e-2
 # the card-vs-CPU state check runs a second time from this scale, where
 # the CPU's first three steps find none
 FP16_CLEAN_SCALE = 128.0
+# the AMP ResNet card-vs-CPU checks (phases h and s) at ResNet-18: the
+# CPU side of ResNet-50 took 150 s of the script's 1,200 s limit, given
+# to the PSPNet phase; ResNet-18's fused conv chains a step
+AMP_CPU_DEPTH = 18
+AMP_CPU_CHAINS = 17
 # AMP LeNet on the card vs on the CPU from one startup scope, 12 steps:
 # step 1 relative, every step absolute (bf16 products in two orders; on
 # the CPU JAX and the port differ by 2.1e-4 at step 1, 6.4e-3 by step 4;
@@ -3051,8 +3058,8 @@ def rel_errs(got, want):
 
 
 def resnet_amp_card_vs_cpu(torch, amp_dtype, init_loss_scaling=None):
-    """The AMP ResNet-50 step at the oracle size (batch 4, 32x32, 100
-    classes) in ``amp_dtype`` from one startup scope, 3 steps on the card
+    """The AMP ResNet-AMP_CPU_DEPTH step at the oracle size (batch 4, 32x32,
+    100 classes) in ``amp_dtype`` from one startup scope, 3 steps on the card
     (NHWC, kernels) and on the CPU (NCHW, plain versions): every step
     finite; step 1 within AMP_RESNET_STEP1_RTOL (bf16) or, under loss
     scaling (fp16), within twice the step-1 change of two CPU twins on
@@ -3071,7 +3078,7 @@ def resnet_amp_card_vs_cpu(torch, amp_dtype, init_loss_scaling=None):
     tag = AMP[amp_dtype]["tag"]
     kf = epilogue_kernels()[f"bn_act_apply_{tag}"]
     main, startup, loss, _ = build_program(
-        50, 32, 100, 0.01, amp=True, amp_dtype=amp_dtype,
+        AMP_CPU_DEPTH, 32, 100, 0.01, amp=True, amp_dtype=amp_dtype,
         init_loss_scaling=init_loss_scaling)
     scaling = list(loss_scaling_state(main) or ())
     start = Scope()
@@ -3095,7 +3102,7 @@ def resnet_amp_card_vs_cpu(torch, amp_dtype, init_loss_scaling=None):
                 history[dev].append([float(out[1][0]), bool(out[2][0])])
             if step == 0:
                 after1[dev] = numpy_state(scope, names)
-    if kf.launches != launched + 49 * 3:
+    if kf.launches != launched + AMP_CPU_CHAINS * 3:
         fail(f"ResNet AMP {tag} card vs CPU: the card's run did not launch "
              f"the {tag} epilogue kernels")
     clean1 = not (scaling and history["cpu"][0][1])
@@ -3117,7 +3124,8 @@ def resnet_amp_card_vs_cpu(torch, amp_dtype, init_loss_scaling=None):
     rtol = (2 * max(t for t, _ in twins) if scaling
             else AMP_RESNET_STEP1_RTOL)
     rel = abs(cpu1 - losses["cuda"][0]) / abs(cpu1)
-    report = {**losses, "init_loss_scaling": init_loss_scaling,
+    report = {"depth": AMP_CPU_DEPTH, **losses,
+              "init_loss_scaling": init_loss_scaling,
               "history": history, "step1_rel_diff": rel, "rtol": rtol,
               "cpu_noise_step1_rel": [t for t, _ in twins]}
     groups = {}
@@ -5210,6 +5218,357 @@ def encoder_phase(torch, card):
     return reports
 
 
+# --------------------------------------------------------------------------
+# Phase 22: static PSPNet-ResNet-50 segmentation training
+# --------------------------------------------------------------------------
+PSPNET_BATCH = 8                 # the paper's 16 crops, cut for one card
+PSPNET_STEPS = 4                 # op by op, then as many captured
+PSPNET_CAPTURE_STEPS = 3         # captured == eager at dropout 0
+# fused conv -> BN (+ add) -> ReLU chains of PSPNet-ResNet-50: ResNet-50's
+# 49, the four pyramid branches', the head's and the auxiliary head's;
+# kernels 7 and 8 launch once each per chain and step
+PSPNET_CHAINS = 55
+# card vs CPU: TINY at the paper's head widths, batch 4, dropout off, 3
+# Momentum steps from one startup state; f32 sums in other orders
+# (cuDNN against oneDNN, BatchNorm over the 1x1 bin of 4 crops)
+PSPNET_CPU_BATCH = 4
+PSPNET_CPU_RTOL = 1e-4
+# the new cuDNN ops (transposed and 3-D convolutions) on the card vs the
+# CPU port, forward and grad: f32 sums in other orders, TF32 off; each
+# tensor's largest error over 1 + its largest magnitude (at these shapes
+# inputs rounded as TF32 rounds them exceed it, f32's other summation
+# orders stay far below it)
+CUDNN_OP_RTOL = 1e-4
+
+
+def tests_module(name):
+    """The helper module ``tests/<name>.py`` (``torch_static_pspnet``,
+    ``torch_port_op``: they import no JAX)."""
+    import importlib
+    import sys
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    return importlib.import_module(name)
+
+
+def pspnet_program(amp, cfg=None, dropout=True):
+    """(main, startup, [loss, mean IoU]) of the PSPNet train program at
+    PSPNet-ResNet-50's widths (or ``cfg``), poly rate over 1,000 steps."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework import unique_name
+
+    psp = tests_module("torch_static_pspnet")
+    cfg = dict(cfg or psp.PSPNET_R50)
+    if not dropout:
+        cfg["dropout"] = 0.0
+    main, startup, loss, miou = psp.build_pspnet(fluid, unique_name, cfg,
+                                                 amp=amp)
+    return main, startup, [loss.name, miou.name]
+
+
+def pspnet_chain_shapes(amp_dtype):
+    """[(conv-output shape, has z)] of the fused_conv_bn_act ops of the
+    PSPNet-ResNet-50 program at batch PSPNET_BATCH as the card's pass
+    pipeline leaves them (NHWC under bf16 ``decorate``), and the channel
+    axis."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.utils import flags
+
+    nhwc, c_axis = path_layout(amp_dtype)
+    names = ("FLAGS_cuda_fuse", "FLAGS_cuda_nhwc")
+    prev = {k: flags.get_flag(k) for k in names}
+    flags.set_flags({"FLAGS_cuda_fuse": "1",
+                     "FLAGS_cuda_nhwc": "1" if nhwc else "0"})
+    try:
+        main, _, fetch = pspnet_program(amp_dtype)
+        rew = fluid.Executor("cpu")._apply_ir_passes(main, fetch)
+    finally:
+        flags.set_flags(prev)
+    blk = rew.global_block()
+    return [(tuple(PSPNET_BATCH if d == -1 else d
+                   for d in blk.var(op.output("ConvOut")[0]).shape),
+             bool(op.input("Z")))
+            for op in blk.ops if op.type == "fused_conv_bn_act"], c_axis
+
+
+def pspnet_epilogue_check(amp_dtype):
+    """Kernels 7 and 8 (relu, the path's act) against their plain
+    versions, bit for bit, at every distinct shape the PSPNet step gives
+    them (dilated 90x90 maps up to 2,048 channels, the pyramid's 1x1 to
+    6x6 bins) in the path's dtype and layout; the byte bound of the
+    PSPNET_CHAINS calls a step.  Returns {kernel: bound ms a step}."""
+    import torch
+
+    from paddle_tpu_torch.ops import bn_act as ba
+
+    dt = torch.bfloat16
+    tag = AMP[amp_dtype]["tag"] if amp_dtype else "f32"
+    shapes, c_axis = pspnet_chain_shapes(amp_dtype)
+    if len(shapes) != PSPNET_CHAINS:
+        fail(f"the PSPNet program ({tag}) has {len(shapes)} fused conv "
+             f"chains, expected {PSPNET_CHAINS}")
+    for i, (shape, with_z) in enumerate(sorted(set(shapes))):
+        if amp_dtype:
+            (x, z, a, b, mean, cx), c0 = epilogue_low_inputs(
+                shape, with_z, 200 + i, c_axis, dt)
+        else:
+            x, z, (a, b, mean, cx) = epilogue_inputs(shape, with_z, 200 + i,
+                                                     c_axis)
+            c0 = b
+        got = ba.bn_act_apply(x, a, b, z, "relu", c_axis)
+        if not torch.equal(got, ba.bn_act_apply_reference(x, a, b, z,
+                                                           "relu", c_axis)):
+            fail(f"bn_act_apply_{tag} differs from its plain version at "
+                 f"the PSPNet shape {shape} z {with_z}")
+        y, dy = torch.relu(x), torch.randn_like(x)
+        dx, g = ba.bn_act_bwd_apply(y, dy, x, a, mean, cx, c0, "relu",
+                                    c_axis, with_z)
+        rdx, rg = ba.bn_act_bwd_reference(y, dy, x, a, mean, cx, c0, "relu",
+                                          c_axis, with_z)
+        if not torch.equal(dx, rdx) or (with_z and not torch.equal(g, rg)):
+            fail(f"bn_act_bwd_{tag} differs from its plain version at the "
+                 f"PSPNet shape {shape} z {with_z}")
+        del x, z, got, y, dy, dx, g, rdx, rg, c0
+    torch.cuda.empty_cache()
+    size = 2 if amp_dtype else 4
+    bound = {f"bn_act_apply_{tag}": sum(
+        epilogue_low_bytes(s, z, False, s[c_axis]) if amp_dtype
+        else epilogue_bytes(s, z, False, c_axis) for s, z in shapes),
+        f"bn_act_bwd_{tag}": sum(
+        epilogue_low_bytes(s, z, True, s[c_axis]) if amp_dtype
+        else epilogue_bytes(s, z, True, c_axis) for s, z in shapes)}
+    bound = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in bound.items()}
+    print("pspnet_epilogue_check " + json.dumps({
+        "dtype": tag, "element_bytes": size, "c_axis": c_axis,
+        "chains": len(shapes), "distinct_shapes": len(set(shapes)),
+        "bit_exact": True, "bound_ms_per_step": bound}), flush=True)
+    return bound
+
+
+def pspnet_run(torch, amp_dtype, card, bound):
+    """PSPNet-ResNet-50 at 713x713, batch PSPNET_BATCH, dropout 0.1:
+    PSPNET_STEPS steps op by op (kernels 7-8 of the dtype PSPNET_CHAINS
+    times a step each, no other; losses finite, mean IoU in [0, 1]), a
+    one-step profile op by op (busy ms, idle share, device ms per kernel
+    group and program op type), then PSPNET_STEPS steps with the compiled
+    step on, on a new executor (the first two eager and captured, the
+    rest replays: their wall ms, one replay's busy ms).  Prints and
+    returns the ``pspnet_training_<tag>`` report."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import Scope
+    from paddle_tpu_torch.tools.step_timing import device_busy_ms
+    from paddle_tpu_torch.tools.train_resnet import (RESNET_GROUPS,
+                                                     _profile_eager)
+    from paddle_tpu_torch.utils import flags
+
+    psp = tests_module("torch_static_pspnet")
+    tag = AMP[amp_dtype]["tag"] if amp_dtype else "f32"
+    what = f"PSPNet-ResNet-50 {tag}"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    main, startup, fetch = pspnet_program(amp_dtype)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    feed = psp.pspnet_feed(psp.PSPNET_R50, PSPNET_BATCH)
+    kernels = epilogue_kernels()
+    reset_counts(kernels)
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+
+    losses, mious, walls = [], [], []
+    for _ in range(PSPNET_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(out[0]))
+        mious.append(float(out[1]))
+    launches = {k: kf.launches for k, kf in kernels.items()}
+    want = {k: (PSPNET_CHAINS * PSPNET_STEPS if k.endswith("_" + tag)
+                else 0) for k in kernels}
+    if launches != want:
+        fail(f"{what}: kernel launches {launches}, expected {want}")
+    plan = next(p for key, p in exe._cache.items() if key[0] == main._uid)
+    types = [o.type for o in plan.ops]
+    prof = _profile_eager(exe, step, 1, RESNET_GROUPS)
+    del exe
+    gc.collect()
+    torch.cuda.empty_cache()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    cap_walls = []
+    flags.set_flags({"FLAGS_cuda_step_session": "1"})
+    try:
+        for _ in range(PSPNET_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            cap_walls.append(time.perf_counter() - t)
+            losses.append(float(out[0]))
+            mious.append(float(out[1]))
+        cap_busy = device_busy_ms(step, 1)
+        losses.append(float(step()[0]))
+    finally:
+        flags.set_flags({"FLAGS_cuda_step_session": "0"})
+    if exe.graphs_captured != 1:
+        fail(f"{what}: {exe.graphs_captured} graphs captured for one "
+             f"signature")
+    peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(losses)):
+        fail(f"{what}: losses not finite {losses}")
+    if not all(0.0 <= m <= 1.0 for m in mious):
+        fail(f"{what}: mean IoU outside [0, 1]: {mious}")
+    eager_ms = float(np.mean(walls[1:])) * 1e3
+    replay_ms = float(np.mean(cap_walls[2:])) * 1e3
+    kernel_ms = {k: prof[k.rsplit("_", 1)[0] + "_ms_per_step"]
+                 for k in bound}
+    report = {
+        "model": what + (" (decorate, NHWC)" if amp_dtype else ""),
+        "card": card, "batch": PSPNET_BATCH, "crop": 713, "dropout": 0.1,
+        "losses": losses, "mean_iou": mious,
+        "eager_ms_per_step": eager_ms, "eager_walls_ms": [
+            w * 1e3 for w in walls],
+        "images_per_s_eager": PSPNET_BATCH / eager_ms * 1e3,
+        "captured_ms_per_step": replay_ms,
+        "captured_walls_ms": [w * 1e3 for w in cap_walls],
+        "images_per_s_captured": PSPNET_BATCH / replay_ms * 1e3,
+        "captured_busy_ms": cap_busy or "not measured",
+        "captured_idle_share": (1.0 - cap_busy / replay_ms) if cap_busy
+        else "not measured",
+        "max_memory_allocated": peak,
+        "launches_per_step": {k: v / PSPNET_STEPS for k, v in
+                              launches.items() if v},
+        "kernel_ms_per_step": kernel_ms, "kernel_bound_ms_per_step": bound,
+        "ops": len(types), "casts": types.count("cast"),
+        "transposes": types.count("transpose2"),
+        "profile": prof, "seconds": time.perf_counter() - t0}
+    print(f"pspnet_training_{tag} " + json.dumps(report), flush=True)
+    del exe, scope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def pspnet_capture(torch, amp_dtype):
+    """PSPNET_CAPTURE_STEPS steps of the full PSPNet at dropout 0, op by
+    op and captured, from one startup state: every fetch and every scope
+    tensor after equal bit for bit, one graph."""
+    from paddle_tpu_torch.tools import check_step_capture as csc
+
+    psp = tests_module("torch_static_pspnet")
+    tag = AMP[amp_dtype]["tag"] if amp_dtype else "f32"
+    gc.collect()
+    torch.cuda.empty_cache()
+    main, startup, fetch = pspnet_program(amp_dtype, dropout=False)
+    feed = psp.pspnet_feed(psp.PSPNET_R50, PSPNET_BATCH)
+    t = time.perf_counter()
+    row, _, _ = csc.compare_program(f"pspnet-{tag}", main, startup, fetch,
+                                    feed, steps=PSPNET_CAPTURE_STEPS)
+    row["seconds"] = time.perf_counter() - t
+    print(f"pspnet_step_capture_{tag} " + json.dumps(row), flush=True)
+    if not row["ok"]:
+        fail(f"PSPNet {tag}: captured steps differ from eager ones: {row}")
+
+
+def pspnet_card_vs_cpu(torch):
+    """TINY PSPNet at the paper's head widths (bins 512 wide, heads 512
+    and 256), batch PSPNET_CPU_BATCH, dropout off, 3 steps in f32 on the
+    card (fused chains, kernels 7-8) and on the CPU port from one startup
+    state: every step's loss within PSPNET_CPU_RTOL, the mean IoUs within
+    1e-3 (an argmax may flip where two logits nearly tie)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+
+    psp = tests_module("torch_static_pspnet")
+    cfg = dict(psp.TINY, ppm_width=512, head_width=512, aux_width=256)
+    main, startup, fetch = pspnet_program(None, cfg, dropout=False)
+    start = Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+    state = numpy_state(start, [n for n, _ in start.items()])
+    kf = epilogue_kernels()["bn_act_apply_f32"]
+    before = kf.launches
+    out = {}
+    for dev in ("cpu", "cuda"):
+        scope = Scope()
+        load_numpy_state(scope, state, dev)
+        exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                             else fluid.CUDAPlace(0))
+        runs = [exe.run(main, feed=psp.pspnet_feed(cfg, PSPNET_CPU_BATCH,
+                                                   seed=s),
+                        fetch_list=fetch, scope=scope) for s in range(3)]
+        out[dev] = {"losses": [float(r[0]) for r in runs],
+                    "mean_iou": [float(r[1]) for r in runs]}
+    chains = 3 * sum(cfg["blocks"]) + 1 + len(cfg["bins"]) + 2
+    if kf.launches != before + chains * 3:
+        fail(f"PSPNet card vs CPU: the card's run launched kernel 7 "
+             f"{kf.launches - before} times, expected {chains * 3}")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(out["cpu"]["losses"],
+                                                  out["cuda"]["losses"]))
+    miou = max(abs(a - b) for a, b in zip(out["cpu"]["mean_iou"],
+                                          out["cuda"]["mean_iou"]))
+    print("pspnet_card_vs_cpu " + json.dumps({
+        **out, "max_rel_diff": rel, "rtol": PSPNET_CPU_RTOL,
+        "mean_iou_max_diff": miou}), flush=True)
+    if not rel <= PSPNET_CPU_RTOL or not miou <= 1e-3:
+        fail(f"PSPNet card vs CPU: losses differ by {rel:.3e} (rtol "
+             f"{PSPNET_CPU_RTOL}), mean IoUs by {miou:.3e}")
+
+
+def cudnn_ops_check(torch):
+    """The ops of this slice that lower to cuDNN (conv2d_transpose,
+    depthwise_conv2d_transpose, conv3d, conv3d_transpose): the card
+    tests' cases (``tests/torch_port_op.py``) at PSPNet's scale, forward
+    and grad once on the card against the CPU port, each tensor within
+    CUDNN_OP_RTOL of its own largest magnitude (``cudnn_op`` lines)."""
+    ops = tests_module("torch_port_op")
+    cases = ops.conv_op_cases((8, 64, 45, 45), (4, 16, 8, 32, 32),
+                              (4, 16, 8, 16, 16))
+    for case, (op_type, ins, outs, attrs, grad_of) in sorted(cases.items()):
+        want = ops.run_port_op("cpu", op_type, ins, outs, attrs, grad_of)
+        got = ops.run_port_op("cuda", op_type, ins, outs, attrs, grad_of)
+        torch.cuda.synchronize()
+        errs, rel = {}, {}
+        for n, w in want.items():
+            errs[n] = float((got[n].cpu() - w).abs().max())
+            rel[n] = errs[n] / (1 + float(w.abs().max()))
+        print("cudnn_op " + json.dumps({
+            "op": op_type, "input": list(ins["Input"][0][1].shape),
+            "filter": list(ins["Filter"][0][1].shape),
+            "max_abs_err": errs, "rel_err": rel, "rtol": CUDNN_OP_RTOL}),
+            flush=True)
+        if not max(rel.values()) <= CUDNN_OP_RTOL:
+            fail(f"{op_type} on the card differs from the CPU port: {rel}")
+
+
+def pspnet_phase(torch, card):
+    """Phase 22: PSPNet-ResNet-50 segmentation training in f32 and under
+    bf16 ``decorate`` (:func:`pspnet_run`; kernels 7-8 checked at its
+    shapes first), captured == eager at dropout 0, TINY card vs CPU, and
+    the slice's cuDNN ops on the card vs the CPU port.  Returns the
+    reports."""
+    from paddle_tpu_torch.tools.train_resnet import set_card_precision
+
+    set_card_precision()
+    reports = {}
+    for amp_dtype in (None, "bfloat16"):
+        bound = pspnet_epilogue_check(amp_dtype)
+        reports[amp_dtype or "float32"] = pspnet_run(torch, amp_dtype, card,
+                                                     bound)
+        pspnet_capture(torch, amp_dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pspnet_card_vs_cpu(torch)
+    cudnn_ops_check(torch)
+    return reports
+
+
 def main():
     import torch
 
@@ -5329,7 +5688,7 @@ def main():
     phase("g. training: ResNet-50 static AMP (bf16, NHWC), batch 128")
     epi16_launches = resnet_amp_phase(torch, "bfloat16")
 
-    phase("h. training: ResNet-50 AMP card vs CPU, batch 4, 32x32")
+    phase("h. training: ResNet-18 AMP card vs CPU, batch 4, 32x32")
     resnet_amp_card_vs_cpu(torch, "bfloat16")
 
     phase("i. matmul epilogue bf16: kernel vs plain version, times")
@@ -5378,11 +5737,11 @@ def main():
           "batch 128")
     epi_h_launches = resnet_amp_phase(torch, "float16")
 
-    phase("s. training: ResNet-50 fp16 AMP card vs CPU, batch 4, 32x32")
+    phase("s. training: ResNet-18 fp16 AMP card vs CPU, batch 4, 32x32")
     resnet_amp_card_vs_cpu(torch, "float16")
     if not resnet_amp_card_vs_cpu(torch, "float16", FP16_CLEAN_SCALE):
-        fail(f"fp16 ResNet-50 at the oracle size found an Inf at step 1 "
-             f"from a scale of {FP16_CLEAN_SCALE}")
+        fail(f"fp16 ResNet-{AMP_CPU_DEPTH} at the oracle size found an Inf "
+             f"at step 1 from a scale of {FP16_CLEAN_SCALE}")
 
     phase("t. training: LeNet and word2vec static AMP (fp16), batch 256")
     mm_h_launches = book_amp_phase(torch, "lenet", 2, "relu", "float16")
@@ -5424,6 +5783,10 @@ def main():
     phase("21. the static BERT-base encoder: f32, bf16, fp16; the static "
           "attention op at seq 2048; the pass")
     encoder_phase(torch, smi_line)
+
+    phase("22. static PSPNet-ResNet-50 segmentation training: f32, bf16; "
+          "card vs CPU; the cuDNN ops")
+    pspnet_phase(torch, smi_line)
 
     phase("compiled step: captured vs eager, graphs, times in turns")
     compiled_step_phase(torch)

@@ -1,6 +1,8 @@
 """fluid.layers for the static path (counterpart of
 ``paddle_tpu/layers/``): the layers the ResNet, MobileNetV3, LeNet,
-word2vec and static BERT encoder training programs use, the
+word2vec, static BERT encoder and PSPNet training programs use and the
+other layers of the activation, norm, pad, interpolation and loss ops,
+the
 learning-rate schedules (:mod:`.learning_rate_scheduler`) and the
 Python operators on
 ``Variable`` (:mod:`.math_op_patch`).
@@ -12,19 +14,26 @@ from ..framework.core import default_main_program
 from ..framework.dtype import VarType, convert_dtype
 from . import nn, tensor
 from .math_op_patch import monkey_patch_variable
-from .nn import (accuracy, batch_norm, cast, ceil, clip,  # noqa: F401
-                 clip_by_norm, concat, conv2d, cos, cross_entropy, dropout,
-                 elementwise_add, elementwise_div,
-                 elementwise_floordiv, elementwise_max, elementwise_min,
-                 elementwise_mod, elementwise_mul, elementwise_pow,
-                 elementwise_sub, embedding, erf, exp, expand, fc, flatten,
-                 floor, fused_multihead_attention, gather, gelu,
-                 hard_sigmoid, hard_swish, layer_norm, log_softmax, matmul,
-                 mean, mul, one_hot, pool2d, reduce_all, reduce_any,
+from .nn import (abs, accuracy, adaptive_pool2d, argmax,  # noqa: F401
+                 argmin, argsort, batch_norm, cast, ceil, clip,
+                 clip_by_norm, concat, conv2d, conv2d_transpose, cos,
+                 cos_sim, cross_entropy, dropout, elementwise_add,
+                 elementwise_div, elementwise_floordiv, elementwise_max,
+                 elementwise_min, elementwise_mod, elementwise_mul,
+                 elementwise_pow, elementwise_sub, embedding, erf, exp,
+                 expand, fc, flatten, floor, fused_multihead_attention,
+                 gather, gelu, hard_sigmoid, hard_swish, huber_loss,
+                 increment, kldiv_loss, l2_normalize, label_smooth,
+                 layer_norm, leaky_relu, log, log_loss, log_softmax, mean_iou,
+                 logsigmoid, matmul, mean, mse_loss, mul, one_hot, pad,
+                 pad2d, pool2d, prelu, reciprocal, reduce_all, reduce_any,
                  reduce_max, reduce_mean, reduce_min, reduce_prod,
-                 reduce_sum, relu, reshape, rsqrt, scale, shape, sigmoid,
-                 slice, softmax, softmax_with_cross_entropy, split, square,
-                 squeeze, stack, tanh, topk, transpose, unsqueeze, unstack,
+                 reduce_sum, relu, relu6, reshape, resize_bilinear,
+                 resize_nearest, round, rsqrt, scale, shape, sigmoid,
+                 sigmoid_cross_entropy_with_logits, sign, sin, slice,
+                 smooth_l1, softmax, softmax_with_cross_entropy, softplus,
+                 softsign, split, sqrt, square, square_error_cost, squeeze,
+                 stack, swish, tanh, topk, transpose, unsqueeze, unstack,
                  where)
 from .tensor import (assign, create_global_var,  # noqa: F401
                      create_parameter, fill_constant,

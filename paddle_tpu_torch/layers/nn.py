@@ -14,7 +14,19 @@
 :787, ``expand`` :802, ``gather`` :810, ``slice`` :835, ``one_hot``
 :862, ``topk`` :870, ``where`` :908, ``shape`` :948, ``cast`` :955,
 ``concat`` :964, ``accuracy`` :980, ``fused_multihead_attention``
-:1105; ``hard_sigmoid``: ``paddle_tpu/layers/nn_tail.py:59``).  Each
+:1105; ``hard_sigmoid``: ``paddle_tpu/layers/nn_tail.py:59``; and the
+layers of the activation, norm, pad, interpolation and loss ops:
+``conv2d_transpose`` :155, ``adaptive_pool2d`` :239, the unary
+``sqrt``, ``abs``, ``log``, ``round``, ``sin``, ``softplus``,
+``softsign``, ``reciprocal``, ``logsigmoid`` and ``sign`` :412-428,
+``relu6`` :431, ``leaky_relu`` :439, ``swish`` :455, ``prelu`` :471,
+``l2_normalize`` :590, ``sigmoid_cross_entropy_with_logits`` :638,
+``square_error_cost`` :651, ``smooth_l1`` :661, ``huber_loss`` :676,
+``log_loss`` :686, ``mse_loss`` :694, ``kldiv_loss`` :698,
+``label_smooth`` :706, ``pad`` :844, ``pad2d`` :852, ``argmax`` /
+``argmin`` / ``argsort`` :882-905, ``resize_bilinear`` :920,
+``resize_nearest`` :934, ``increment`` :1034, ``cos_sim`` :1042;
+``mean_iou``: ``paddle_tpu/layers/nn_tail.py:708``).  Each
 builds vars and ops through ``LayerHelper`` with the JAX package's op
 types, slots and attrs, so both packages build the same program."""
 from __future__ import annotations
@@ -39,7 +51,15 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "softmax",
            "reduce_prod", "reduce_all", "reduce_any", "cross_entropy",
            "squeeze", "unsqueeze", "flatten", "transpose", "stack",
            "unstack", "split", "expand", "gather", "slice", "one_hot",
-           "shape", "fused_multihead_attention"]
+           "shape", "fused_multihead_attention", "conv2d_transpose",
+           "adaptive_pool2d", "sqrt", "abs", "log", "round", "sin",
+           "softplus", "softsign", "reciprocal", "logsigmoid", "sign",
+           "relu6", "leaky_relu", "swish", "prelu", "l2_normalize",
+           "sigmoid_cross_entropy_with_logits", "square_error_cost",
+           "smooth_l1", "huber_loss", "log_loss", "mse_loss", "kldiv_loss",
+           "label_smooth", "pad", "pad2d", "argmax", "argmin", "argsort",
+           "resize_bilinear", "resize_nearest", "increment", "cos_sim",
+           "mean_iou"]
 
 
 def _single(x, n=2):
@@ -152,6 +172,46 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
                "global_pooling": global_pooling, "ceil_mode": ceil_mode,
                "exclusive": exclusive, "data_format": data_format,
                "padding_algorithm": padding_algorithm})
+    return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None, data_format="NCHW"):
+    """A ``conv2d_transpose`` op with a (C_in, num_filters / groups, *k)
+    filter, + bias + act; ``filter_size`` is required, as in JAX
+    (``output_size`` alone raises ``ValueError``)."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    if filter_size is None:
+        raise ValueError("filter_size required (output_size-only not "
+                         "supported yet)")
+    w = helper.create_parameter(
+        param_attr, shape=[input.shape[1], num_filters // groups]
+        + _single(filter_size), dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        "conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _single(stride), "paddings": _single(padding),
+               "dilations": _single(dilation), "groups": groups,
+               "data_format": data_format})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2,
+                                    bias_attr=bias_attr)
+    return helper.append_activation(pre_act, act)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    """A ``pool2d`` op with ``adaptive``: ``pool_size`` is the output
+    size, which must divide the input's (as in JAX)."""
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _single(pool_size),
+               "adaptive": True, "strides": [1, 1], "paddings": [0, 0]})
     return out
 
 
@@ -274,6 +334,55 @@ tanh = _simple_unary("tanh")
 square = _simple_unary("square")
 rsqrt = _simple_unary("rsqrt")
 erf = _simple_unary("erf")
+sqrt = _simple_unary("sqrt")
+abs = _simple_unary("abs")
+log = _simple_unary("log")
+round = _simple_unary("round")
+sin = _simple_unary("sin")
+softplus = _simple_unary("softplus")
+softsign = _simple_unary("softsign")
+reciprocal = _simple_unary("reciprocal")
+logsigmoid = _simple_unary("logsigmoid")
+sign = _simple_unary("sign")
+
+
+def _unary_with(op_type, x, attrs, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _unary_with("relu6", x, {"threshold": threshold}, name)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary_with("leaky_relu", x, {"alpha": alpha}, name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary_with("swish", x, {"beta": beta}, name)
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """``where(x > 0, x, alpha * x)`` with a learnt alpha (0.25 at
+    start): one scalar, one per channel or one per element."""
+    helper = LayerHelper("prelu", name=name)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [1, x.shape[1], 1, 1]
+    else:
+        alpha_shape = [1] + list(x.shape[1:])
+    alpha = helper.create_parameter(
+        param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
 
 
 def gelu(x, approximate=False):
@@ -630,3 +739,183 @@ def accuracy(input, label, k=1, correct=None, total=None):
                  "Total": [total]})
     acc_out.stop_gradient = True
     return acc_out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x / sqrt(reduce_sum(x * x, axis))`` as JAX builds it (its
+    ``epsilon`` is not read)."""
+    s = reduce_sum(square(x), dim=axis, keep_dim=True)
+    helper = LayerHelper("l2_normalize", name=name)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sqrt", inputs={"X": [s]}, outputs={"Out": [norm]})
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("elementwise_div", inputs={"X": [x], "Y": [norm]},
+                     outputs={"Out": [out]}, attrs={"axis": -1})
+    return out
+
+
+def cos_sim(X, Y):
+    xn = l2_normalize(X, axis=-1)
+    yn = l2_normalize(Y, axis=-1)
+    helper = LayerHelper("cos_sim")
+    prod = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("elementwise_mul", inputs={"X": [xn], "Y": [yn]},
+                     outputs={"Out": [prod]}, attrs={"axis": -1})
+    return reduce_sum(prod, dim=-1, keep_dim=True)
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return out
+
+
+# -- losses ------------------------------------------------------------------
+def _loss(op_type, inputs, out_slot, attrs, dtype, extra_outs=(),
+          name=None):
+    """One loss op: its ``out_slot`` var, and a var for each of
+    ``extra_outs`` (the residual-like outputs JAX's layers also bind)."""
+    helper = LayerHelper(op_type, name=name)
+    outs = {slot: [helper.create_variable_for_type_inference(dtype)]
+            for slot in tuple(extra_outs) + (out_slot,)}
+    helper.append_op(op_type, inputs=inputs, outputs=outs, attrs=attrs)
+    return outs[out_slot][0]
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None,
+                                      normalize=False):
+    return _loss("sigmoid_cross_entropy_with_logits",
+                 {"X": [x], "Label": [label]}, "Out",
+                 {"ignore_index": ignore_index, "normalize": normalize},
+                 x.dtype, name=name)
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    diff = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("elementwise_sub", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [diff]}, attrs={"axis": -1})
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square", inputs={"X": [diff]}, outputs={"Out": [out]})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    return _loss("smooth_l1_loss", inputs, "Out", {"sigma": sigma or 1.0},
+                 x.dtype, extra_outs=("Diff",))
+
+
+def huber_loss(input, label, delta):
+    return _loss("huber_loss", {"X": [input], "Y": [label]}, "Out",
+                 {"delta": delta}, input.dtype, extra_outs=("Residual",))
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _loss("log_loss", {"Predicted": [input], "Labels": [label]},
+                 "Loss", {"epsilon": epsilon}, input.dtype, name=name)
+
+
+def mse_loss(input, label):
+    return mean(square_error_cost(input, label))
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    return _loss("kldiv_loss", {"X": [x], "Target": [target]}, "Loss",
+                 {"reduction": reduction}, x.dtype, name=name)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    return _loss("label_smooth", inputs, "Out", {"epsilon": float(epsilon)},
+                 dtype, name=name)
+
+
+# -- pads, arg ops and resizes ------------------------------------------------
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _unary_with("pad", x, {"paddings": list(paddings),
+                                  "pad_value": float(pad_value)}, name)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _unary_with("pad2d", input, {
+        "paddings": list(paddings), "mode": mode,
+        "pad_value": float(pad_value), "data_format": data_format}, name)
+
+
+def _arg(op_type, x, axis, name):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(VarType.INT64,
+                                                    stop_gradient=True)
+    helper.append_op(op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argmax(x, axis=0, name=None):
+    return _arg("arg_max", x, axis, name)
+
+
+def argmin(x, axis=0, name=None):
+    return _arg("arg_min", x, axis, name)
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype,
+                                                    stop_gradient=True)
+    ids = helper.create_variable_for_type_inference(VarType.INT64,
+                                                    stop_gradient=True)
+    helper.append_op("argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis, "descending": descending})
+    return out, ids
+
+
+def _resize(op_type, input, out_shape, scale, name, attrs):
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    return _unary_with(op_type, input, attrs, name)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True, align_mode=1, data_format="NCHW"):
+    """A ``bilinear_interp`` op; its lowering resizes as JAX's does
+    (half-pixel centres whatever ``align_corners``)."""
+    return _resize("bilinear_interp", input, out_shape, scale, name,
+                   {"align_corners": align_corners,
+                    "align_mode": align_mode})
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True, data_format="NCHW"):
+    return _resize("nearest_interp", input, out_shape, scale, name,
+                   {"align_corners": align_corners})
+
+
+def mean_iou(input, label, num_classes):
+    """(mean IoU f32, wrong and correct counts per class) of the
+    predicted class ids ``input`` against ``label``."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference(VarType.FP32)
+    wrong = helper.create_variable_for_type_inference(VarType.INT32)
+    correct = helper.create_variable_for_type_inference(VarType.INT32)
+    helper.append_op("mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [miou], "OutWrong": [wrong],
+                              "OutCorrect": [correct]},
+                     attrs={"num_classes": num_classes})
+    return miou, wrong, correct

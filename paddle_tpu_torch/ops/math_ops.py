@@ -19,6 +19,19 @@ kernel computes them in JAX either).  A bf16 or fp16 exact ``gelu`` is
 :func:`.gelu.gelu_lowp`'s: the kernels of ``csrc/gelu_lowp.cu`` on the
 card, their plain versions on the CPU, as dygraph's gelu.  The
 comparisons have no grad, as in JAX.
+
+The rest of JAX's ``math_ops`` follows below: the activations and unary
+math :66-135 (``abs`` ... ``stanh``), ``pow`` :138, ``frobenius_norm``
+:255, ``p_norm`` :265, ``logsumexp`` :274, ``arg_max`` / ``arg_min`` /
+``argsort`` :288-317, ``top_k_v2`` :337, the logical ops and the ``is*``
+predicates :351-395, ``dot``, ``addmm``, ``cumsum``, ``maximum``,
+``minimum``, ``kron``, ``trace`` and ``matmul_with_flatten`` :462-543.
+Their grads are the registry's vjp replay of forwards written as JAX
+writes them, so the gradient at an edge is JAX's, not torch's: ``abs``
+is ``where(x >= 0, x, -x)`` (gradient 1 at 0), the clips are a maximum
+then a minimum (half the gradient at each edge), ``leaky_relu`` and
+``elu`` take JAX's branch at 0, and ``p_norm``'s 2-norm is
+``sqrt(sum(x * x))`` (NaN gradient at the zero vector, as in JAX).
 """
 from __future__ import annotations
 
@@ -333,14 +346,39 @@ for _name, _fn, _bool in (
     op(_name, no_grad=_bool)(_reduce(_fn, _bool))
 
 
-@op("top_k", no_grad=True)
-def _top_k(ctx):
+_SORT_BITS = {torch.float32: torch.int32, torch.float64: torch.int64,
+              torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _sort_key(x):
+    """A key whose integer order is XLA's total order of ``x``'s floats
+    (``lax.sort``, ``lax.top_k``): -0 below +0, NaN above every number;
+    an integer ``x`` is its own key."""
+    if not x.is_floating_point():
+        return x
+    bits = x.contiguous().view(_SORT_BITS[x.dtype])
+    return torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
+
+
+def _topk(ctx):
+    """The ``k`` largest (or smallest) along ``axis`` in XLA's total
+    order, ties in index order, as ``lax.top_k``: a stable sort of the
+    keys, then the first ``k``.  A ``K`` tensor is read on the host (as
+    JAX reads it at trace time), so a step with one cannot be
+    captured."""
     x = ctx.in_("X")
-    if ctx.has_input("K"):
-        raise NotImplementedError("top_k with a K input is not ported")
-    vals, idxs = torch.topk(x, int(ctx.attr("k", 1)), dim=-1)
-    ctx.set_out("Out", vals)
+    k = int(ctx.in_("K")) if ctx.has_input("K") else int(ctx.attr("k", 1))
+    axis = ctx.attr("axis", -1)
+    largest = bool(ctx.attr("largest", True))
+    key = _sort_key(x) if largest else _sort_key(-x)
+    idxs = torch.sort(key, dim=axis, stable=True, descending=True)[1]
+    idxs = idxs.narrow(axis, 0, k)
+    ctx.set_out("Out", torch.take_along_dim(x, idxs, dim=axis))
     ctx.set_out("Indices", idxs)
+
+
+op("top_k", no_grad=True)(_topk)
+op("top_k_v2", no_grad=True)(_topk)
 
 
 def _times(out, alpha):
@@ -430,3 +468,246 @@ def _mul_grad(ctx):
         ctx.set_out("X" + GRAD_SUFFIX, (dm @ ym.t()).reshape(x.shape))
     if ctx.has_output("Y" + GRAD_SUFFIX):
         ctx.set_out("Y" + GRAD_SUFFIX, (xm.t() @ dm).reshape(y.shape))
+
+
+@op("matmul_with_flatten")
+def _matmul_with_flatten(ctx):
+    _mul(ctx)
+
+
+op("matmul_with_flatten_grad", no_grad=True)(_mul_grad)
+
+
+# -- the activations and unary math (JAX math_ops.py:66-135) ---------------
+def _const(v, x):
+    """The python scalar ``v`` as a 0-d tensor of x's dtype and device
+    (the operand of a maximum / minimum, whose tie halves the gradient)."""
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def jax_abs(x):
+    """``|x|`` with JAX's gradient, 1 at 0 (+0 at -0, as ``jnp.abs``)."""
+    return torch.where(x >= 0, x + 0.0, -x)
+
+
+def jax_clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``: a maximum, then a minimum, so each edge
+    takes half the gradient, as in JAX."""
+    return torch.minimum(torch.maximum(x, _const(lo, x)), _const(hi, x))
+
+
+def _elu(x, alpha):
+    return torch.where(x > 0, x, alpha * torch.expm1(
+        torch.where(x > 0, torch.zeros_like(x), x)))
+
+
+def _softplus(x):
+    """``jnn.softplus``: ``logaddexp(x, 0)`` (torch's ``softplus``
+    returns x itself above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+_UNARY_ATTR = {
+    "relu6": lambda x, c: jax_clip(x, 0.0, c.attr("threshold", 6.0)),
+    "logsigmoid": lambda x, c: -_softplus(-x),
+    "tanh_shrink": lambda x, c: x - torch.tanh(x),
+    "abs": lambda x, c: jax_abs(x),
+    "round": lambda x, c: torch.round(x),
+    "sin": lambda x, c: torch.sin(x),
+    "tan": lambda x, c: torch.tan(x),
+    "acos": lambda x, c: torch.acos(x),
+    "asin": lambda x, c: torch.asin(x),
+    "atan": lambda x, c: torch.atan(x),
+    "cosh": lambda x, c: torch.cosh(x),
+    "sinh": lambda x, c: torch.sinh(x),
+    "log": lambda x, c: torch.log(x),
+    "log2": lambda x, c: torch.log2(x),
+    "log10": lambda x, c: torch.log10(x),
+    "log1p": lambda x, c: torch.log1p(x),
+    "expm1": lambda x, c: torch.expm1(x),
+    "softplus": lambda x, c: _softplus(x),
+    "softsign": lambda x, c: x / (1.0 + jax_abs(x)),
+    "leaky_relu": lambda x, c: torch.where(x >= 0, x,
+                                           c.attr("alpha", 0.02) * x),
+    "elu": lambda x, c: _elu(x, c.attr("alpha", 1.0)),
+    "swish": lambda x, c: x * torch.sigmoid(c.attr("beta", 1.0) * x),
+    "silu": lambda x, c: x * torch.sigmoid(x),
+    "hard_shrink": lambda x, c: torch.where(
+        jax_abs(x) > c.attr("threshold", 0.5), x, torch.zeros_like(x)),
+    "soft_relu": lambda x, c: torch.log1p(torch.exp(jax_clip(
+        x, -c.attr("threshold", 40.0), c.attr("threshold", 40.0)))),
+    "thresholded_relu": lambda x, c: torch.where(
+        x > c.attr("threshold", 1.0), x, torch.zeros_like(x)),
+    "brelu": lambda x, c: jax_clip(x, c.attr("t_min", 0.0),
+                                   c.attr("t_max", 24.0)),
+    "stanh": lambda x, c: c.attr("scale_b", 1.7159) * torch.tanh(
+        c.attr("scale_a", 0.67) * x),
+}
+
+
+def _unary_attr(fn):
+    def lower(ctx):
+        ctx.set_out("Out", fn(ctx.in_("X"), ctx))
+
+    return lower
+
+
+for _name, _fn in _UNARY_ATTR.items():
+    op(_name)(_unary_attr(_fn))
+
+@op("pow")
+def _pow(ctx):
+    """``x ** factor`` (the attr, or the ``FactorTensor``), in x's
+    dtype."""
+    f = (ctx.in_("FactorTensor") if ctx.has_input("FactorTensor")
+         else float(ctx.attr("factor", 1.0)))
+    ctx.set_out("Out", torch.pow(ctx.in_("X"), f))
+
+
+# -- norms and the log-sum-exp (JAX math_ops.py:255-285) --------------------
+def _dims(ctx, x, name, default):
+    """The reduced axes of a ``dim`` / ``axis`` attr, all of x's under
+    ``reduce_all``."""
+    if ctx.attr("reduce_all", False):
+        return tuple(range(x.dim()))
+    d = ctx.attr(name, default)
+    return tuple(d) if isinstance(d, (list, tuple)) else (d,)
+
+
+@op("frobenius_norm")
+def _frobenius_norm(ctx):
+    x = ctx.in_("X")
+    ctx.set_out("Out", torch.sqrt(torch.sum(
+        torch.square(x), dim=_dims(ctx, x, "dim", [0]),
+        keepdim=bool(ctx.attr("keep_dim", False)))))
+
+
+@op("p_norm")
+def _p_norm(ctx):
+    """``jnp.linalg.norm(x, ord=porder, axis=axis)``, a vector norm, in
+    its terms: the 2-norm ``sqrt(sum(x * x))``, the infinities
+    ``max`` / ``min`` of ``|x|``, 0 the count of nonzeros, else
+    ``sum(|x| ** p) ** (1 / p)``."""
+    x = ctx.in_("X")
+    p = float(ctx.attr("porder", 2.0))
+    axis = ctx.attr("axis", -1)
+    keep = bool(ctx.attr("keepdim", False))
+    if p == 2.0:
+        out = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=keep))
+    elif p == math.inf:
+        out = torch.amax(jax_abs(x), dim=axis, keepdim=keep)
+    elif p == -math.inf:
+        out = torch.amin(jax_abs(x), dim=axis, keepdim=keep)
+    elif p == 0.0:
+        out = torch.sum((x != 0).to(x.dtype), dim=axis, keepdim=keep)
+    elif p == 1.0:
+        out = torch.sum(jax_abs(x), dim=axis, keepdim=keep)
+    else:
+        out = torch.pow(torch.sum(torch.pow(jax_abs(x), p), dim=axis,
+                                  keepdim=keep), 1.0 / p)
+    ctx.set_out("Out", out)
+
+
+@op("logsumexp")
+def _logsumexp(ctx):
+    x = ctx.in_("X")
+    ctx.set_out("Out", torch.logsumexp(
+        x, dim=_dims(ctx, x, "axis", [0]),
+        keepdim=bool(ctx.attr("keepdim", False))))
+
+
+# -- arg_max / arg_min / argsort (JAX math_ops.py:288-317; no grads) --------
+def _arg(fn):
+    def lower(ctx):
+        x = ctx.in_("X")
+        ax = ctx.attr("axis", -1)
+        if ctx.attr("flatten", False):
+            out = fn(x.reshape(-1), dim=0)
+        else:
+            out = fn(x, dim=ax)
+        if ctx.attr("keepdims", False):
+            out = out.unsqueeze(ax)
+        ctx.set_out("Out", out.to(torch.int64))
+
+    return lower
+
+
+op("arg_max", no_grad=True)(_arg(torch.argmax))
+op("arg_min", no_grad=True)(_arg(torch.argmin))
+
+
+@op("argsort", no_grad=True)
+def _argsort(ctx):
+    """A stable sort of ``x`` (of ``-x`` when ``descending``), as
+    ``jnp.argsort``: -0 equal to +0, NaN last (``top_k``'s total order
+    is not this one)."""
+    x = ctx.in_("X")
+    ax = ctx.attr("axis", -1)
+    idx = torch.argsort(-x if ctx.attr("descending", False) else x, dim=ax,
+                        stable=True)
+    ctx.set_out("Indices", idx)
+    ctx.set_out("Out", torch.take_along_dim(x, idx, dim=ax))
+
+
+# -- logical ops and predicates (JAX math_ops.py:351-395; no grads) ---------
+for _name, _fn in (("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    op(_name, no_grad=True)(_elementwise(_fn))
+
+for _name, _fn in (
+        ("logical_not", torch.logical_not),
+        ("isfinite", lambda x: torch.all(torch.isfinite(x))),
+        ("isfinite_v2", torch.isfinite), ("isnan_v2", torch.isnan),
+        ("isinf_v2", torch.isinf),
+        ("isinf", lambda x: torch.any(torch.isinf(x))),
+        ("isnan", lambda x: torch.any(torch.isnan(x)))):
+    op(_name, no_grad=True)(_unary(_fn))
+
+
+# -- dot, addmm, cumsum, maximum, minimum, kron, trace (JAX :462-534) -------
+@op("dot")
+def _dot(ctx):
+    ctx.set_out("Out", torch.sum(ctx.in_("X") * ctx.in_("Y"), dim=-1))
+
+
+@op("addmm")
+def _addmm(ctx):
+    i, x, y = ctx.in_("Input"), ctx.in_("X"), ctx.in_("Y")
+    ctx.set_out("Out", ctx.attr("Beta", 1.0) * i
+                + ctx.attr("Alpha", 1.0) * torch.matmul(x, y))
+
+
+@op("cumsum")
+def _cumsum(ctx):
+    """JAX's lowering term for term: ``reverse`` sums from the end, and
+    ``exclusive`` then shifts the sums one place toward the end along
+    the axis, a zero first."""
+    x = ctx.in_("X")
+    ax = ctx.attr("axis", -1)
+    if ctx.attr("flatten", False):
+        x, ax = x.reshape(-1), 0
+    if ctx.attr("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (ax,)), dim=ax), (ax,))
+    else:
+        out = torch.cumsum(x, dim=ax)
+    if ctx.attr("exclusive", False):
+        n = out.shape[ax]
+        out = torch.cat([torch.zeros_like(out.narrow(ax, 0, 1)),
+                         out.narrow(ax, 0, n - 1)], dim=ax)
+    ctx.set_out("Out", out)
+
+
+op("maximum")(lambda ctx: ctx.set_out("Out", torch.maximum(ctx.in_("X"),
+                                                           ctx.in_("Y"))))
+op("minimum")(lambda ctx: ctx.set_out("Out", torch.minimum(ctx.in_("X"),
+                                                           ctx.in_("Y"))))
+op("kron")(lambda ctx: ctx.set_out("Out", torch.kron(ctx.in_("X"),
+                                                     ctx.in_("Y"))))
+
+
+@op("trace")
+def _trace(ctx):
+    ctx.set_out("Out", torch.diagonal(
+        ctx.in_("Input"), offset=ctx.attr("offset", 0),
+        dim1=ctx.attr("axis1", 0), dim2=ctx.attr("axis2", 1)).sum(-1))

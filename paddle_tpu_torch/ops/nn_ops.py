@@ -11,8 +11,8 @@ Counterparts of the JAX package's lowerings, with its semantics:
 * ``dropout`` (``ops/nn_ops.py:784-810``): ``upscale_in_train`` or
   ``downgrade_in_infer``, identity (or the downgrade) when ``is_test``;
   the keep mask is drawn from the caller's ``torch.Generator``;
-* the activations ``gelu`` (exact erf) and ``tanh`` (``math_ops.py:76,
-  109``) by name, and ``unsqueeze2`` (``tensor_ops.py:284``);
+* the activations by name (:func:`activation`: the lowering of the op
+  an ``act=`` appends), and ``unsqueeze2`` (``tensor_ops.py:284``);
 * the dygraph fronts ``mean`` and ``softmax`` (black-list ops under AMP).
 
 Under AMP (``paddle_tpu_torch.dygraph.amp_guard``) the fronts cast their
@@ -85,21 +85,15 @@ def lookup_table_v2(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-# exact-erf GELU (the JAX lowering's approximate=False) and tanh
-_ACTS = {"gelu": F.gelu, "tanh": torch.tanh}
-
-
 def activation(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """``act`` by its Paddle name, or ``x`` when None.  A bf16 or fp16
-    gelu rounds where JAX's compiled gelu rounds (:func:`.gelu.gelu_lowp`)."""
+    """``act`` by its Paddle name, or ``x`` when None: the op an ``act=``
+    appends (any unary activation op, at its default attrs) run through
+    its lowering, so a bf16 or fp16 gelu rounds where JAX's compiled
+    gelu rounds (:func:`.gelu.gelu_lowp`)."""
     if act is None:
         return x
-    if act not in _ACTS:
-        raise NotImplementedError(f"activation {act!r} is not ported")
-    if act == "gelu" and x.dtype in (torch.bfloat16, torch.float16):
-        from .gelu import gelu_lowp
-        return gelu_lowp(x)
-    return _ACTS[act](x)
+    from .registry import eager_call
+    return eager_call(act, {"X": [x]}, out_arity={"Out": 1})["Out"][0]
 
 
 class _LayerNormLowp(torch.autograd.Function):
@@ -313,17 +307,26 @@ def _conv_padding(paddings, algo, in_shape, k_shape, strides, dilations):
     return [(0, 0)] * nd
 
 
+_CHANNELS_FIRST = ("NCHW", "NCDHW", "AnyLayout")
+
+
 def _nchw(x, data_format):
-    """``x`` as an NCHW view (an NHWC tensor is permuted, not copied)."""
-    if data_format in ("NCHW", "AnyLayout"):
+    """``x`` as a channels-first view (an NHWC or NDHWC tensor is
+    permuted, not copied)."""
+    if data_format in _CHANNELS_FIRST:
         return x
-    return x.permute(0, 3, 1, 2)
+    return x.permute(0, x.dim() - 1, *range(1, x.dim() - 1))
 
 
 def _from_nchw(x, data_format):
-    if data_format in ("NCHW", "AnyLayout"):
+    if data_format in _CHANNELS_FIRST:
         return x
-    return x.permute(0, 2, 3, 1)
+    return x.permute(0, *range(2, x.dim()), 1)
+
+
+def _pad_widths(pads):
+    """[(lo, hi)] per spatial dim -> F.pad's widths (last dim first)."""
+    return tuple(v for lo, hi in reversed(pads) for v in (lo, hi))
 
 
 def _split_pads(pads):
@@ -331,13 +334,11 @@ def _split_pads(pads):
     None)."""
     if all(lo == hi for lo, hi in pads):
         return [lo for lo, _ in pads], None
-    return [0] * len(pads), (pads[1][0], pads[1][1], pads[0][0], pads[0][1])
+    return [0] * len(pads), _pad_widths(pads)
 
 
 def _conv_geometry(x_nchw, w, strides, paddings, dilations, groups,
                    padding_algorithm, depthwise):
-    if x_nchw.dim() != 4:
-        raise NotImplementedError("only 2-D convolutions are ported")
     pads = _conv_padding(list(paddings), padding_algorithm,
                          list(x_nchw.shape[2:]), list(w.shape[2:]),
                          list(strides), list(dilations))
@@ -349,17 +350,18 @@ def _conv_geometry(x_nchw, w, strides, paddings, dilations, groups,
 def conv_forward(x, w, *, strides, paddings, dilations, groups=1,
                  data_format="NCHW", padding_algorithm="EXPLICIT",
                  depthwise=False):
-    """The conv2d forward as a pure function — the exact computation the
-    ``conv2d`` lowering runs, shared with ``fused_conv_bn_act``
-    (``fused_ops.py``) so fusing the epilogue never changes the conv.
-    Filters are OIHW in both layouts."""
+    """The conv2d / conv3d forward as a pure function — the exact
+    computation the ``conv2d`` lowering runs, shared with
+    ``fused_conv_bn_act`` (``fused_ops.py``) so fusing the epilogue never
+    changes the conv.  Filters are OIHW (OIDHW) in both layouts."""
     xc = _nchw(x, data_format)
     pads, groups = _conv_geometry(xc, w, strides, paddings, dilations,
                                   groups, padding_algorithm, depthwise)
     sym, explicit = _split_pads(pads)
     if explicit is not None:
         xc = F.pad(xc, explicit)
-    out = F.conv2d(xc, w, None, list(strides), sym, list(dilations), groups)
+    conv = F.conv3d if xc.dim() == 5 else F.conv2d
+    out = conv(xc, w, None, list(strides), sym, list(dilations), groups)
     return _from_nchw(out, data_format)
 
 
@@ -369,7 +371,7 @@ def conv_backward(x, w, dout, *, strides, paddings, dilations, groups=1,
     """(dInput, dFilter) of :func:`conv_forward` for the cotangent
     ``dout`` (either may be None when not asked for)."""
     xc = _nchw(x, data_format)
-    h, wd = xc.shape[2:]
+    spatial = xc.shape[2:]
     pads, groups = _conv_geometry(xc, w, strides, paddings, dilations,
                                   groups, padding_algorithm, depthwise)
     sym, explicit = _split_pads(pads)
@@ -377,11 +379,11 @@ def conv_backward(x, w, dout, *, strides, paddings, dilations, groups=1,
         xc = F.pad(xc, explicit)
     dx, dw, _ = torch.ops.aten.convolution_backward(
         _nchw(dout, data_format), xc, w, None, list(strides), sym,
-        list(dilations), False, [0, 0], groups,
+        list(dilations), False, [0] * len(spatial), groups,
         [need_input, need_filter, False])
     if dx is not None and explicit is not None:
-        (h_lo, _), (w_lo, _) = pads
-        dx = dx[:, :, h_lo:h_lo + h, w_lo:w_lo + wd]
+        dx = dx[(slice(None), slice(None)) + tuple(
+            slice(lo, lo + n) for (lo, _), n in zip(pads, spatial))]
     if dx is not None:
         dx = _from_nchw(dx, data_format)
     return dx, dw
@@ -421,12 +423,63 @@ def _conv_grad_lower(ctx, depthwise=False):
 
 
 # depthwise_conv2d (JAX nn_ops.py:151): the conv2d lowering with one group
-# per input channel, cuDNN's grouped convolution in both directions
+# per input channel, cuDNN's grouped convolution in both directions;
+# conv3d (:152) the same over NCDHW / NDHWC
 op("conv2d")(_conv_lower)
 op("conv2d_grad", no_grad=True)(_conv_grad_lower)
 op("depthwise_conv2d")(lambda ctx: _conv_lower(ctx, depthwise=True))
 op("depthwise_conv2d_grad", no_grad=True)(
     lambda ctx: _conv_grad_lower(ctx, depthwise=True))
+op("conv3d")(_conv_lower)
+op("conv3d_grad", no_grad=True)(_conv_grad_lower)
+
+
+def conv_transpose_forward(x, w, *, strides, paddings, dilations, groups=1,
+                           data_format="NCHW", padding_algorithm="EXPLICIT",
+                           output_padding=()):
+    """The transposed convolution as JAX lowers it (``_conv_lower``
+    :118-146: a conv over the input dilated by ``strides``, with the
+    flipped, transposed filter, padded ``eff_k - 1 - pad`` on each side
+    and ``output_padding`` more at the end), which is cuDNN's transposed
+    convolution at padding 0 cropped by (lo, hi - output_padding) on each
+    spatial dim (a negative crop pads zeros).  The pads come from
+    ``paddings`` / ``padding_algorithm`` over the *input* size, as in JAX;
+    its ``output_size`` attr is not read, as in JAX.  Filters are
+    (C_in, C_out / groups, *k)."""
+    xc = _nchw(x, data_format)
+    nd = xc.dim() - 2
+    strides, dilations = list(strides), list(dilations)
+    pads = _conv_padding(list(paddings), padding_algorithm,
+                         list(xc.shape[2:]), list(w.shape[2:]), strides,
+                         dilations)
+    op_ = list(output_padding) or [0] * nd
+    conv = F.conv_transpose3d if nd == 3 else F.conv_transpose2d
+    full = conv(xc, w, None, strides, 0, 0, groups or 1, dilations)
+    crop = _pad_widths([(-lo, op_[i] - hi) for i, (lo, hi) in
+                        enumerate(pads)])
+    if any(crop):
+        full = F.pad(full, crop)
+    return _from_nchw(full, data_format)
+
+
+def _conv_transpose_lower(ctx):
+    ctx.set_out("Output", conv_transpose_forward(
+        ctx.in_("Input"), ctx.in_("Filter"),
+        strides=ctx.attr("strides", [1, 1]),
+        paddings=ctx.attr("paddings", [0, 0]),
+        dilations=ctx.attr("dilations", [1, 1]),
+        groups=ctx.attr("groups", 1) or 1,
+        data_format=ctx.attr("data_format", "NCHW"),
+        padding_algorithm=ctx.attr("padding_algorithm", "EXPLICIT"),
+        output_padding=ctx.attr("output_padding", []) or ()))
+
+
+# conv2d_transpose, depthwise_conv2d_transpose (its ``groups`` as given,
+# as JAX reads it) and conv3d_transpose (JAX nn_ops.py:153-155); their
+# grads replay the forward under the registry's vjp
+for _t in ("conv2d_transpose", "depthwise_conv2d_transpose",
+           "conv3d_transpose"):
+    op(_t)(_conv_transpose_lower)
 
 
 # -- pool2d (reference: pool_op.cc) -----------------------------------------
@@ -443,7 +496,12 @@ def _pool_setup(ctx, x):
                                              and ksize == [1, 1]):
         return "global", xc, None
     if ctx.attr("adaptive", False):
-        raise NotImplementedError("adaptive pool2d is not ported")
+        (oh, ow), (h, w) = ksize, xc.shape[2:]
+        if h % oh or w % ow:
+            raise NotImplementedError(
+                f"adaptive pool2d to {ksize} from ({h}, {w}): only "
+                f"divisible sizes, as in the JAX package (ROADMAP.md)")
+        return "adaptive", xc, (oh, ow)
     in_sp = list(xc.shape[2:])
     algo = ctx.attr("padding_algorithm", "EXPLICIT")
     if algo == "SAME":
@@ -462,12 +520,42 @@ def _pool_setup(ctx, x):
         pads = [(lo, hi + strides[i] - 1) for i, (lo, hi) in enumerate(pads)]
     sym, explicit = _split_pads(pads)
     if explicit is None and any(2 * p > k for p, k in zip(sym, ksize)):
-        sym, explicit = [0, 0], (pads[1][0], pads[1][1], pads[0][0],
-                                 pads[0][1])
-    if ptype != "max" and explicit is not None:
-        raise NotImplementedError("average pool2d with asymmetric or "
-                                  "ceil-mode padding is not ported")
+        sym, explicit = [0, 0], _pad_widths(pads)
     return "window", xc, (ksize, strides, sym, explicit)
+
+
+def _pool_forward(ctx, kind, xc, args, is_max):
+    """The pooled NCHW tensor.  Adaptive (divisible): each output cell
+    the max or mean of its (h / oh, w / ow) block, as JAX's reshape
+    (ties of a max share its gradient).  Average pooling over explicit
+    (asymmetric or ceil-mode) pads: window sums over the zero-padded
+    input divided by the window size, or with ``exclusive`` by the
+    count of real elements in the window, as JAX's ``reduce_window``
+    sums."""
+    if kind == "global":
+        return (xc.amax(dim=(2, 3), keepdim=True) if is_max
+                else xc.mean(dim=(2, 3), keepdim=True))
+    if kind == "adaptive":
+        (oh, ow), (n, c, h, w) = args, xc.shape
+        r = xc.reshape(n, c, oh, h // oh, ow, w // ow)
+        return r.amax(dim=(3, 5)) if is_max else r.mean(dim=(3, 5))
+    ksize, strides, sym, explicit = args
+    if is_max:
+        if explicit is not None:
+            xc = F.pad(xc, explicit, value=float("-inf"))
+        return F.max_pool2d(xc, ksize, strides, sym)
+    exclusive = ctx.attr("exclusive", True)
+    if explicit is None:
+        return F.avg_pool2d(xc, ksize, strides, sym,
+                            count_include_pad=not exclusive)
+    total = F.avg_pool2d(F.pad(xc, explicit), ksize, strides, 0,
+                         divisor_override=1)
+    if not exclusive:
+        return total / (ksize[0] * ksize[1])
+    ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                      device=xc.device)
+    return total / F.avg_pool2d(F.pad(ones, explicit), ksize, strides, 0,
+                                divisor_override=1)
 
 
 @op("pool2d")
@@ -476,20 +564,8 @@ def _pool2d(ctx):
     fmt = ctx.attr("data_format", "NCHW")
     is_max = ctx.attr("pooling_type", "max") == "max"
     kind, xc, args = _pool_setup(ctx, x)
-    if kind == "global":
-        out = (xc.amax(dim=(2, 3), keepdim=True) if is_max
-               else xc.mean(dim=(2, 3), keepdim=True))
-    else:
-        ksize, strides, sym, explicit = args
-        if is_max:
-            if explicit is not None:
-                xc = F.pad(xc, explicit, value=float("-inf"))
-            out = F.max_pool2d(xc, ksize, strides, sym)
-        else:
-            out = F.avg_pool2d(xc, ksize, strides, sym,
-                               count_include_pad=not ctx.attr("exclusive",
-                                                              True))
-    ctx.set_out("Out", _from_nchw(out, fmt))
+    ctx.set_out("Out", _from_nchw(_pool_forward(ctx, kind, xc, args,
+                                                is_max), fmt))
 
 
 @op("pool2d_grad", no_grad=True)
@@ -498,7 +574,8 @@ def _pool2d_grad(ctx):
     reduce-max rule); window max: to the first maximum of each window in
     row-major order (JAX's select_and_scatter with ``ge``), through the
     indices of a recomputed ``max_pool2d_with_indices``; average: spread
-    over the window (``avg_pool2d_backward``)."""
+    over the window (``avg_pool2d_backward``); adaptive, and average
+    over explicit pads: the vjp of :func:`_pool_forward`."""
     if not ctx.has_output("X" + GRAD_SUFFIX):
         return
     x = ctx.in_("X")
@@ -512,6 +589,10 @@ def _pool2d_grad(ctx):
             dx = dout * hit / hit.sum(dim=(2, 3), keepdim=True)
         else:
             dx = (dout / (xc.shape[2] * xc.shape[3])).expand(xc.shape)
+    elif kind == "adaptive" or (not is_max and args[3] is not None):
+        _, pull = torch.func.vjp(
+            lambda t: _pool_forward(ctx, kind, t, args, is_max), xc)
+        (dx,) = pull(dout.to(xc.dtype))
     else:
         ksize, strides, sym, explicit = args
         if is_max:
@@ -682,7 +763,16 @@ def _softmax_ce_lower(ctx):
     else:
         lbl = label.squeeze(axis) if label.dim() == logits.dim() else label
         lbl = lbl.long().unsqueeze(axis)
-        loss = lse - torch.take_along_dim(x32, lbl, dim=axis)
+        # JAX's take_along_axis: a negative label counts from the end, one
+        # still outside the classes (an ignore label such as 255) picks
+        # NaN; the gather itself never leaves the row
+        n = logits.shape[axis]
+        at = torch.where(lbl < 0, lbl + n, lbl)
+        inside = (at >= 0) & (at < n)
+        picked = torch.take_along_dim(
+            x32, torch.where(inside, at, torch.zeros_like(at)), dim=axis)
+        loss = lse - torch.where(inside, picked, torch.full_like(
+            picked, float("nan")))
         if ignore_index >= 0:
             loss = torch.where(lbl != ignore_index, loss,
                                torch.zeros((), device=loss.device))
@@ -1009,3 +1099,432 @@ def _one_hot_op(ctx):
 @op("one_hot_v2", no_grad=True)
 def _one_hot_v2(ctx):
     ctx.set_out("Out", _one_hot(ctx.in_("X"), ctx.attr("depth", 1)))
+
+
+# ==========================================================================
+# The rest of JAX's nn_ops: norms, prelu, pads, interpolation, sampling,
+# metrics and the simple losses.  Their grads are the registry's vjp
+# replay of forwards written as JAX writes them (``cvm`` has JAX's grad
+# maker and closed-form grad).
+# ==========================================================================
+def _channel_shape(x, c):
+    return (1, c) + (1,) * (x.dim() - 2)
+
+
+@op("instance_norm")
+def _instance_norm(ctx):
+    """Per sample and channel over the spatial axes, in x's dtype (JAX
+    :415); SavedMean and SavedVariance (inv-std) shaped (N, C)."""
+    x = ctx.in_("X")
+    axes = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=axes, unbiased=False, keepdim=True)
+    inv = torch.rsqrt(var + ctx.attr("epsilon", 1e-5))
+    y = (x - mean) * inv
+    if ctx.has_input("Scale"):
+        y = y * ctx.in_("Scale").reshape(_channel_shape(x, -1))
+    if ctx.has_input("Bias"):
+        y = y + ctx.in_("Bias").reshape(_channel_shape(x, -1))
+    ctx.set_out("Y", y)
+    ctx.set_out("SavedMean", mean.reshape(x.shape[:2]))
+    ctx.set_out("SavedVariance", inv.reshape(x.shape[:2]))
+
+
+@op("group_norm")
+def _group_norm(ctx):
+    """Over each sample's ``groups`` channel groups, in x's dtype, x
+    channels-first as JAX reads it (:435); Mean and Variance (N, G)."""
+    x = ctx.in_("X")
+    g = ctx.attr("groups", 1)
+    n, c = x.shape[:2]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    var, mean = torch.var_mean(xg, dim=tuple(range(2, xg.dim())),
+                               unbiased=False, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + ctx.attr("epsilon", 1e-5))
+         ).reshape(x.shape)
+    if ctx.has_input("Scale"):
+        y = y * ctx.in_("Scale").reshape(_channel_shape(x, c))
+    if ctx.has_input("Bias"):
+        y = y + ctx.in_("Bias").reshape(_channel_shape(x, c))
+    ctx.set_out("Y", y)
+    ctx.set_out("Mean", mean.reshape(n, g))
+    ctx.set_out("Variance", var.reshape(n, g))
+
+
+@op("prelu")
+def _prelu(ctx):
+    """``where(x > 0, x, alpha * x)``, alpha one scalar (``all``), one a
+    channel or one an element (JAX :1021)."""
+    x, alpha = ctx.in_("X"), ctx.in_("Alpha")
+    mode = ctx.attr("mode", "all")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "channel":
+        a = alpha.reshape(_channel_shape(x, -1))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    ctx.set_out("Out", torch.where(x > 0, x, a * x))
+
+
+# -- pads (JAX nn_ops.py:891-935) --------------------------------------------
+def _pad_modes(x, pads, mode, value):
+    """``jnp.pad`` of ``x`` by [(lo, hi)] per axis: constant, reflect, or
+    edge (any other mode, as JAX's lowering reads it); reflect and edge
+    gather each padded axis's source indices."""
+    if mode == "constant":
+        return F.pad(x, _pad_widths(pads), value=value)
+    for ax, (lo, hi) in enumerate(pads):
+        if lo or hi:
+            n = x.shape[ax]
+            i = torch.arange(-lo, n + hi, device=x.device)
+            if mode == "reflect":
+                i = torch.where(i < 0, -i, torch.where(i >= n,
+                                                       2 * (n - 1) - i, i))
+            x = x.index_select(ax, i.clamp(0, n - 1))
+    return x
+
+
+@op("pad")
+def _pad(ctx):
+    x = ctx.in_("X")
+    p = ctx.attr("paddings", [])
+    ctx.set_out("Out", _pad_modes(
+        x, [(p[2 * i], p[2 * i + 1]) for i in range(x.dim())], "constant",
+        float(ctx.attr("pad_value", 0.0))))
+
+
+@op("pad2d")
+def _pad2d(ctx):
+    x = ctx.in_("X")
+    p = ctx.attr("paddings", [0, 0, 0, 0])
+    if ctx.attr("data_format", "NCHW") == "NCHW":
+        pads = [(0, 0), (0, 0), (p[0], p[1]), (p[2], p[3])]
+    else:
+        pads = [(0, 0), (p[0], p[1]), (p[2], p[3]), (0, 0)]
+    ctx.set_out("Out", _pad_modes(x, pads, ctx.attr("mode", "constant"),
+                                  float(ctx.attr("pad_value", 0.0))))
+
+
+@op("pad3d")
+def _pad3d(ctx):
+    x = ctx.in_("X")
+    p = ctx.attr("paddings", [0] * 6)
+    if ctx.attr("data_format", "NCDHW") == "NCDHW":
+        pads = [(0, 0), (0, 0), (p[4], p[5]), (p[2], p[3]), (p[0], p[1])]
+    else:
+        pads = [(0, 0), (p[4], p[5]), (p[2], p[3]), (p[0], p[1]), (0, 0)]
+    ctx.set_out("Out", _pad_modes(x, pads, ctx.attr("mode", "constant"),
+                                  float(ctx.attr("value", 0.0))))
+
+
+# -- interpolation (JAX nn_ops.py:938-956) -----------------------------------
+def _triangle(d):
+    return torch.clamp_min(1 - d, 0)
+
+
+def _keys_cubic(d):
+    """Keys' cubic kernel with a = -0.5, as ``jax.image``'s."""
+    out = ((1.5 * d - 2.5) * d) * d + 1.0
+    out = torch.where(d >= 1.0, ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0, out)
+    return torch.where(d >= 2.0, torch.zeros_like(out), out)
+
+
+def resize_weights(m: int, n: int, method: str, dtype, device):
+    """The (m, n) matrix that resizes an axis of m samples to n as
+    ``jax.image.resize`` does (``compute_weight_mat``, in f32, cast to
+    the input's dtype): half-pixel centres, the kernel widened by the
+    down-scale factor (antialiasing), each column normalized; nearest
+    picks ``floor((j + 0.5) * m / n)``."""
+    j = torch.arange(n, dtype=torch.float32, device=device)
+    if method == "nearest":
+        src = torch.floor((j + 0.5) * m / n).long()
+        w = (torch.arange(m, device=device)[:, None] == src).float()
+        return w.to(dtype)
+    inv = 1.0 / (n / m)
+    sample = (j + 0.5) * inv - 0.5
+    d = (sample[None, :] - torch.arange(m, dtype=torch.float32,
+                                        device=device)[:, None]).abs()
+    d = d / max(inv, 1.0)
+    w = _triangle(d) if method == "bilinear" else _keys_cubic(d)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(dtype)
+
+
+def resize(x, out_h: int, out_w: int, method: str):
+    """``jax.image.resize`` of an NCHW ``x`` over its last two axes: one
+    product with each axis's :func:`resize_weights` in x's dtype (an axis
+    that keeps its size is left alone, as in JAX), so the forward and the
+    backward are GEMMs, the same bits on every run."""
+    h, w = x.shape[2:]
+    if out_h != h:
+        x = torch.matmul(resize_weights(h, out_h, method, x.dtype,
+                                        x.device).t(), x)
+    if out_w != w:
+        x = torch.matmul(x, resize_weights(w, out_w, method, x.dtype,
+                                           x.device))
+    return x
+
+
+def _interp(ctx, method):
+    """:func:`resize` of an NCHW ``X`` to (``out_h``, ``out_w``), or by
+    ``scale`` when it is positive.  ``align_corners`` and ``align_mode``
+    are not read, as in the JAX lowering (a known divergence from
+    Paddle, ROADMAP.md); an ``OutSize`` input raises, as in JAX."""
+    x = ctx.in_("X")
+    if ctx.has_input("OutSize"):
+        raise NotImplementedError("an OutSize input is not supported, as "
+                                  "in the JAX package (ROADMAP.md)")
+    out_h, out_w = ctx.attr("out_h", -1), ctx.attr("out_w", -1)
+    scale = ctx.attr("scale", 0.0)
+    if scale and scale > 0:
+        out_h, out_w = int(x.shape[2] * scale), int(x.shape[3] * scale)
+    ctx.set_out("Out", resize(x, out_h, out_w, method))
+
+
+for _m in ("bilinear", "nearest", "bicubic"):
+    op(_m + "_interp")(lambda ctx, m=_m: _interp(ctx, m))
+
+
+@op("grid_sampler")
+def _grid_sampler(ctx):
+    """Bilinear or nearest sampling of an NCHW ``X`` at ``Grid``'s
+    (N, Ho, Wo, 2) points in [-1, 1] (JAX :959), by ``F.grid_sample``:
+    the same zeros / border / reflection padding and ``align_corners``
+    mapping."""
+    ctx.set_out("Output", F.grid_sample(
+        ctx.in_("X"), ctx.in_("Grid"), mode=ctx.attr("mode", "bilinear"),
+        padding_mode=ctx.attr("padding_mode", "zeros"),
+        align_corners=bool(ctx.attr("align_corners", True))))
+
+
+@op("temporal_shift")
+def _temporal_shift(ctx):
+    """A quarter (``shift_ratio``) of the channels from the next segment,
+    the next quarter from the previous, zeros at the ends (JAX :1046)."""
+    x = ctx.in_("X")
+    seg = ctx.attr("seg_num", 1)
+    ratio = ctx.attr("shift_ratio", 0.25)
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // seg, seg, c, h, w)
+    c1, c2 = int(c * ratio), int(c * 2 * ratio)
+    pre = F.pad(xr[:, 1:, :c1], (0, 0, 0, 0, 0, 0, 0, 1))
+    post = F.pad(xr[:, :-1, c1:c2], (0, 0, 0, 0, 0, 0, 1, 0))
+    ctx.set_out("Out", torch.cat([pre, post, xr[:, :, c2:]], dim=2)
+                .reshape(nt, c, h, w))
+
+
+@op("max_pool2d_with_index")
+def _max_pool2d_with_index(ctx):
+    """Max pooling with the flat argmax of each window in the unpadded
+    plane (JAX :239): the windows padded with the dtype's lowest finite
+    value and stacked, the max over them (ties share the gradient, as
+    JAX's reduce-max) and the first argmax in row-major window order."""
+    x = ctx.in_("X")
+    ksize = list(ctx.attr("ksize", [2, 2]))
+    strides = list(ctx.attr("strides", ksize))
+    pads = list(ctx.attr("paddings", [0, 0]))
+    n, c, h, w = x.shape
+    if ctx.attr("global_pooling", False):
+        ksize, strides, pads = [h, w], [h, w], [0, 0]
+    elif ctx.attr("adaptive", False):
+        oh_t, ow_t = ksize
+        if (oh_t, ow_t) == (1, 1):
+            ksize, strides, pads = [h, w], [h, w], [0, 0]
+        elif h % oh_t == 0 and w % ow_t == 0:
+            ksize = [h // oh_t, w // ow_t]
+            strides, pads = list(ksize), [0, 0]
+        else:
+            raise NotImplementedError(
+                f"max_pool2d_with_index adaptive output {ksize} does not "
+                f"divide input plane ({h}, {w}), as in the JAX package "
+                f"(ROADMAP.md)")
+    xp = F.pad(x, (pads[1], pads[1], pads[0], pads[0]),
+               value=torch.finfo(x.dtype).min)
+    win = xp.unfold(2, ksize[0], strides[0]).unfold(3, ksize[1], strides[1])
+    oh, ow = win.shape[2:4]
+    win = win.reshape(n, c, oh, ow, ksize[0] * ksize[1])
+    ctx.set_out("Out", win.amax(dim=-1))
+    if ctx.has_output("Mask"):
+        k_arg = win.argmax(dim=-1)
+        hi = (torch.arange(oh, device=x.device)[:, None] * strides[0]
+              + k_arg // ksize[1] - pads[0])
+        wi = (torch.arange(ow, device=x.device)[None, :] * strides[1]
+              + k_arg % ksize[1] - pads[1])
+        ctx.set_out("Mask", (hi * w + wi).to(torch.int32))
+
+
+# -- metrics (JAX nn_ops.py:873) ---------------------------------------------
+@op("mean_iou", no_grad=True)
+def _mean_iou(ctx):
+    """The confusion matrix of (label, prediction) pairs as JAX's
+    ``.at[label, pred].add(1.0)`` builds it: a negative index counts from
+    the end, and a pair still outside [0, n) (an ignore label such as
+    255) is dropped, here by sending it to a spare bin, so no index ever
+    leaves the matrix on the card.  Then the per-class IoU over the
+    classes that occur, in f32."""
+    n = ctx.attr("num_classes", 2)
+    pred = ctx.in_("Predictions").reshape(-1).long()
+    label = ctx.in_("Labels").reshape(-1).long()
+    pred = torch.where(pred < 0, pred + n, pred)
+    label = torch.where(label < 0, label + n, label)
+    inside = (pred >= 0) & (pred < n) & (label >= 0) & (label < n)
+    cell = torch.where(inside, label * n + pred, torch.full_like(pred, n * n))
+    cm = torch.zeros(n * n + 1, dtype=torch.float32, device=pred.device
+                     ).index_add_(0, cell, torch.ones_like(
+                         cell, dtype=torch.float32))[:n * n].reshape(n, n)
+    inter = torch.diagonal(cm)
+    union = cm.sum(0) + cm.sum(1) - inter
+    iou = torch.where(union > 0, inter / torch.clamp_min(union, 1e-9),
+                      torch.zeros_like(union))
+    valid = (union > 0).float().sum()
+    ctx.set_out("OutMeanIou", iou.sum() / torch.clamp_min(valid, 1.0))
+    ctx.set_out("OutWrong", cm.sum(1) - inter)
+    ctx.set_out("OutCorrect", inter)
+
+
+@op("cvm")
+def _cvm(ctx):
+    """Show / click columns log-transformed (``use_cvm``) or dropped (JAX
+    :1062)."""
+    x = ctx.in_("X")
+    if ctx.attr("use_cvm", True):
+        c0 = torch.log(x[:, :1] + 1.0)
+        c1 = torch.log(x[:, 1:2] + 1.0) - c0
+        ctx.set_out("Y", torch.cat([c0, c1, x[:, 2:]], dim=1))
+    else:
+        ctx.set_out("Y", x[:, 2:])
+
+
+@grad_maker("cvm")
+def _cvm_grad_maker(op_, no_grad_names=frozenset()):
+    return [dict(type="cvm_grad",
+                 inputs={"X": list(op_.inputs["X"]),
+                         "Y" + GRAD_SUFFIX: [n + GRAD_SUFFIX
+                                             for n in op_.outputs["Y"]]},
+                 outputs={"X" + GRAD_SUFFIX: [
+                     n + GRAD_SUFFIX if n not in no_grad_names
+                     else EMPTY_VAR_NAME for n in op_.inputs["X"]]},
+                 attrs=dict(op_.attrs))]
+
+
+@op("cvm_grad", no_grad=True)
+def _cvm_grad(ctx):
+    """dY straight through, zero for the dropped columns (JAX :1089)."""
+    x, dy = ctx.in_("X"), ctx.in_("Y" + GRAD_SUFFIX)
+    if ctx.attr("use_cvm", True):
+        ctx.set_out("X" + GRAD_SUFFIX, dy)
+    else:
+        ctx.set_out("X" + GRAD_SUFFIX, torch.cat(
+            [torch.zeros((x.shape[0], 2), dtype=x.dtype, device=x.device),
+             dy], dim=1))
+
+
+# -- the simple losses (JAX nn_ops.py:584-686, :1035) -------------------------
+@op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx):
+    from .math_ops import jax_abs
+    x, label = ctx.in_("X"), ctx.in_("Label")
+    loss = (torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+            - x * label + torch.logaddexp(-jax_abs(x), torch.zeros_like(x)))
+    mask = label != ctx.attr("ignore_index", -100)
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if ctx.attr("normalize", False):
+        loss = loss / torch.clamp_min(mask.to(loss.dtype).sum(), 1.0)
+    ctx.set_out("Out", loss)
+
+
+@op("squared_l2_distance")
+def _squared_l2_distance(ctx):
+    d = ctx.in_("X") - ctx.in_("Y")
+    ctx.set_out("sub_result", d)
+    ctx.set_out("Out", torch.sum(torch.square(d), dim=-1, keepdim=True))
+
+
+@op("smooth_l1_loss")
+def _smooth_l1(ctx):
+    from .math_ops import jax_abs
+    sigma = ctx.attr("sigma", 1.0)
+    s2 = sigma * sigma
+    d = ctx.in_("X") - ctx.in_("Y")
+    if ctx.has_input("InsideWeight"):
+        d = d * ctx.in_("InsideWeight")
+    ad = jax_abs(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if ctx.has_input("OutsideWeight"):
+        loss = loss * ctx.in_("OutsideWeight")
+    ctx.set_out("Diff", d)
+    ctx.set_out("Out", torch.sum(loss, dim=tuple(range(1, loss.dim())))
+                .reshape(-1, 1))
+
+
+@op("huber_loss")
+def _huber(ctx):
+    from .math_ops import jax_abs
+    delta = ctx.attr("delta", 1.0)
+    r = ctx.in_("Y") - ctx.in_("X")
+    ar = jax_abs(r)
+    ctx.set_out("Residual", r)
+    ctx.set_out("Out", torch.where(ar <= delta, 0.5 * r * r,
+                                   delta * (ar - 0.5 * delta)))
+
+
+@op("mse_loss")
+def _mse(ctx):
+    ctx.set_out("Out", torch.square(ctx.in_("X") - ctx.in_("Y")))
+
+
+@op("kldiv_loss")
+def _kldiv(ctx):
+    x, t = ctx.in_("X"), ctx.in_("Target")
+    loss = t * (torch.log(torch.clamp_min(t, 1e-20)) - x)
+    loss = torch.where(t > 0, loss, torch.zeros_like(loss))
+    red = ctx.attr("reduction", "mean")
+    if red == "mean":
+        loss = torch.mean(loss)
+    elif red == "sum":
+        loss = torch.sum(loss)
+    elif red == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    ctx.set_out("Loss", loss)
+
+
+@op("bce_loss")
+def _bce(ctx):
+    x, label = ctx.in_("X"), ctx.in_("Label")
+    ctx.set_out("Out", -(label * torch.log(torch.clamp_min(x, 1e-12))
+                         + (1 - label) * torch.log(torch.clamp_min(1 - x,
+                                                                   1e-12))))
+
+
+@op("rank_loss")
+def _rank_loss(ctx):
+    d = ctx.in_("Left") - ctx.in_("Right")
+    ctx.set_out("Out", torch.logaddexp(d, torch.zeros_like(d))
+                - ctx.in_("Label") * d)
+
+
+@op("log_loss")
+def _log_loss(ctx):
+    p, label = ctx.in_("Predicted"), ctx.in_("Labels")
+    eps = ctx.attr("epsilon", 1e-4)
+    ctx.set_out("Loss", -label * torch.log(p + eps)
+                - (1 - label) * torch.log(1 - p + eps))
+
+
+@op("hinge_loss")
+def _hinge_loss(ctx):
+    logits, labels = ctx.in_("Logits"), ctx.in_("Labels")
+    ctx.set_out("Loss", torch.relu(1.0 - (2.0 * labels - 1.0) * logits))
+
+
+@op("label_smooth")
+def _label_smooth(ctx):
+    x = ctx.in_("X")
+    eps = ctx.attr("epsilon", 0.0)
+    if ctx.has_input("PriorDist"):
+        ctx.set_out("Out", (1 - eps) * x + eps * ctx.in_("PriorDist"))
+    else:
+        ctx.set_out("Out", (1 - eps) * x + eps / x.shape[-1])

@@ -449,6 +449,8 @@ def generic_grad_lower(ctx):
         probe[:] = [_is_diff(o) for o in outs]
         return tuple(o for o in outs if _is_diff(o))
 
+    if not flat:
+        return  # no float input: nothing to differentiate
     primal, vjp_fn = torch.func.vjp(f, *flat)
     cots = []
     k = 0
@@ -464,7 +466,7 @@ def generic_grad_lower(ctx):
                             else g.to(p.dtype))
                 j += 1
             k += 1
-    grads = vjp_fn(tuple(cots)) if flat else ()
+    grads = vjp_fn(tuple(cots))
     by_slot: Dict[str, Dict[int, Any]] = {}
     for (s, i), g in zip(spec, grads):
         by_slot.setdefault(s, {})[i] = g

@@ -7,11 +7,11 @@
 ``transpose2`` :254, ``squeeze2`` / ``squeeze`` :272, ``unsqueeze2`` /
 ``unsqueeze`` :284, ``flatten2`` / ``flatten`` :298, ``concat`` :332,
 ``split`` :341, ``stack`` :378, ``unstack`` :384, ``slice`` :393,
-``strided_slice`` :412, ``gather`` :425, ``expand`` :473, ``expand_v2``
-:489, ``where`` :525).  The shape ops' and ``cast``'s grads are the
-registry's generic vjp replay, as in JAX: a cast's cotangent is cast
-back to the input's dtype, so an f32 parameter read through a bf16 cast
-gets an f32 gradient.  ``range``'s bounds, ``shape``'s result and a
+``strided_slice`` :412, ``gather`` :425, ``index_sample`` :467,
+``expand`` :473, ``expand_v2`` :489, ``where`` :525).  The shape ops'
+and ``cast``'s grads are the registry's generic vjp replay, as in JAX: a
+cast's cotangent is cast back to the input's dtype, so an f32 parameter
+read through a bf16 cast gets an f32 gradient.  ``range``'s bounds, ``shape``'s result and a
 ``gather`` ``Axis`` tensor cross to the host (their shapes or values
 decide the result's shape), so a step holding them cannot be captured.
 
@@ -320,6 +320,13 @@ def _strided_slice(ctx):
                                                    dtype=torch.long,
                                                    device=x.device))
     ctx.set_out("Out", out)
+
+
+@op("index_sample")
+def _index_sample(ctx):
+    """``take_along_axis(X, Index, axis=1)``: each row's own picks."""
+    ctx.set_out("Out", torch.take_along_dim(
+        ctx.in_("X"), ctx.in_("Index").long(), dim=1))
 
 
 @op("gather")

@@ -14,6 +14,7 @@ import torch
 
 from paddle_tpu_torch.ops import paged_attention as tpa
 from paddle_tpu_torch.utils import flags as tflags
+from torch_port_op import conv_op_cases, r32, run_port_op
 
 pytestmark = pytest.mark.cuda
 
@@ -2345,47 +2346,6 @@ def test_sample_token_draws_on_the_card_equal_the_cpu(cuda):
 # ==========================================================================
 # the update ops one step on the card, against the CPU port
 # ==========================================================================
-def _run_port_op(device, op_type, ins, outs, attrs, grad_of, seed=0):
-    """One op (and its grad ops, with seeded cotangents for ``grad_of``)
-    through the port's registry on ``device``: {var name: tensor}."""
-    import paddle_tpu_torch.framework.core as tcore
-    import paddle_tpu_torch.ops.registry as treg
-
-    blk = tcore.Program().global_block()
-    env = {}
-    for items in ins.values():
-        for name, arr in items:
-            blk.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype))
-            env[name] = torch.from_numpy(np.array(arr)).to(device)
-    for names in outs.values():
-        for n in names:
-            if not blk.has_var(n):
-                blk.create_var(name=n)
-    op = blk.append_op(op_type, inputs={s: [n for n, _ in v]
-                                        for s, v in ins.items()},
-                       outputs=outs, attrs=dict(attrs))
-    gen = torch.Generator(device=device).manual_seed(seed)
-    treg.run_op(op, env, blk, gen, torch.device(device))
-    result = {n: env[n] for names in outs.values() for n in names}
-    rng = np.random.RandomState(seed)
-    cots = {n + "@GRAD": torch.from_numpy(
-        rng.randn(*result[n].shape).astype(np.float32)).to(device)
-        for n in grad_of}
-    for desc in (treg.make_grad_ops(op) if cots else []):
-        for names in list(desc["inputs"].values()) + \
-                list(desc["outputs"].values()):
-            for n in names:
-                if n != "@EMPTY@" and not blk.has_var(n):
-                    blk.create_var(name=n)
-        gop = blk.append_op(desc["type"], inputs=desc["inputs"],
-                            outputs=desc["outputs"], attrs=desc["attrs"])
-        env.update(cots)
-        treg.run_op(gop, env, blk, gen, torch.device(device))
-        for names in desc["outputs"].values():
-            result.update({n: env[n] for n in names if n in env})
-    return result
-
-
 def _optimizer_case_names():
     from torch_optimizer_cases import CASES
     return sorted(CASES)
@@ -2400,8 +2360,8 @@ def test_update_op_one_step_on_the_card_equals_the_cpu(cuda, case):
     from torch_optimizer_cases import CASES
 
     op_type, ins, outs, attrs, grad_of, tol = CASES[case]
-    want = _run_port_op("cpu", op_type, ins, outs, attrs, grad_of)
-    got = _run_port_op("cuda", op_type, ins, outs, attrs, grad_of)
+    want = run_port_op("cpu", op_type, ins, outs, attrs, grad_of)
+    got = run_port_op("cuda", op_type, ins, outs, attrs, grad_of)
     assert set(got) == set(want)
     for n, w in want.items():
         g = got[n]
@@ -2478,3 +2438,83 @@ def test_static_mha_op_launches_kernels_and_matches_plain(cuda, dtype, s, b,
         else:
             assert ok(grads[slot + "@GRAD"][0], w), slot
     assert not grads["BiasQK@GRAD"][0].any()
+
+
+# ==========================================================================
+# the compute ops of math_ops / nn_ops that lower to cuDNN or to products
+# on the card: the transposed and 3-D convolutions, the resizes (GEMMs
+# with jax.image's weights), mean_iou with ignore labels, adaptive and
+# explicitly padded average pooling, the softmax CE over 255-labels
+# ==========================================================================
+CARD_OPS = {
+    **conv_op_cases((2, 8, 9, 9), (2, 4, 6, 7, 6), (2, 4, 4, 5, 4)),
+    "bilinear_interp-up": (
+        "bilinear_interp", {"X": [("x", r32(3, 2, 19, 90, 90))]},
+        {"Out": ["o"]}, {"out_h": 713, "out_w": 713}, ["o"]),
+    "bilinear_interp-down": (
+        "bilinear_interp", {"X": [("x", r32(3, 2, 4, 90, 90))]},
+        {"Out": ["o"]}, {"out_h": 31, "out_w": 17}, ["o"]),
+    "bicubic_interp": (
+        "bicubic_interp", {"X": [("x", r32(3, 2, 4, 20, 30))]},
+        {"Out": ["o"]}, {"out_h": 41, "out_w": 11}, ["o"]),
+    "nearest_interp": (
+        "nearest_interp", {"X": [("x", r32(3, 2, 4, 20, 30))]},
+        {"Out": ["o"]}, {"out_h": 41, "out_w": 11}, ["o"]),
+    "pool2d-adaptive": (
+        "pool2d", {"X": [("x", r32(4, 8, 64, 90, 90))]}, {"Out": ["o"]},
+        {"pooling_type": "avg", "ksize": [6, 6], "adaptive": True,
+         "strides": [1, 1], "paddings": [0, 0]}, ["o"]),
+    "pool2d-avg-ceil": (
+        "pool2d", {"X": [("x", r32(4, 2, 8, 17, 17))]}, {"Out": ["o"]},
+        {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+         "paddings": [1, 1], "ceil_mode": True, "exclusive": True}, ["o"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CARD_OPS))
+def test_compute_op_on_the_card_equals_the_cpu(cuda, case):
+    """The op and its grad on the card (cuDNN's transposed and 3-D
+    convolutions, cuBLAS's resize products, ATen's pooling) against the
+    CPU port on the same inputs and cotangents: f32 sums in other orders
+    (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    op_type, ins, outs, attrs, grad_of = CARD_OPS[case]
+    want = run_port_op("cpu", op_type, ins, outs, attrs, grad_of)
+    got = run_port_op("cuda", op_type, ins, outs, attrs, grad_of)
+    assert set(got) == set(want)
+    for n, w in want.items():
+        g = got[n]
+        assert g.device.type == "cuda" and g.dtype == w.dtype, n
+        np.testing.assert_allclose(g.cpu().double().numpy(),
+                                   w.double().numpy(), err_msg=n,
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_mean_iou_and_ignored_softmax_ce_on_the_card(cuda):
+    """PSPNet's metric and loss on labels of 255 (outside 19 classes) and
+    -1: no index leaves its tensor on the card (a device assert would end
+    the process), and the results equal the CPU port's."""
+    rng = np.random.RandomState(0)
+    label = rng.randint(0, 19, (4, 64, 64)).astype(np.int64)
+    label[rng.rand(4, 64, 64) < 0.1] = 255
+    label[rng.rand(4, 64, 64) < 0.02] = -1
+    pred = rng.randint(0, 19, (4, 64, 64)).astype(np.int64)
+    cases = [("mean_iou", {"Predictions": [("p", pred)],
+                           "Labels": [("l", label)]},
+              {"OutMeanIou": ["m"], "OutWrong": ["w"], "OutCorrect": ["c"]},
+              {"num_classes": 19}, []),
+             ("softmax_with_cross_entropy",
+              {"Logits": [("x", r32(5, 4 * 64 * 64, 19))],
+               "Label": [("l", label.reshape(-1, 1))]},
+              {"Softmax": ["s"], "Loss": ["loss"]},
+              {"soft_label": False, "ignore_index": 255, "axis": -1},
+              ["s", "loss"])]
+    for op_type, ins, outs, attrs, grad_of in cases:
+        want = run_port_op("cpu", op_type, ins, outs, attrs, grad_of)
+        got = run_port_op("cuda", op_type, ins, outs, attrs, grad_of)
+        torch.cuda.synchronize()
+        for n, w in want.items():
+            np.testing.assert_allclose(got[n].cpu().double().numpy(),
+                                       w.double().numpy(), err_msg=n,
+                                       rtol=1e-5, atol=1e-6)

@@ -811,11 +811,14 @@ def test_op_matches_jax(case):
 
 def test_every_registered_op_has_a_parity_case():
     """The port's op-coverage meter: no forward op lands in the registry
-    without a case above (a case's name is its op type, then an optional
+    without a case above or in ``test_torch_static_ops_math_nn.py``'s
+    table (a case's name is its op type, then an optional
     ``-variant``)."""
+    from test_torch_static_ops_math_nn import CASES as MATH_NN_CASES
     forward = {t for t, d in treg.OPS.items()
                if d.lower is not None and not t.endswith("_grad")}
-    covered = {case.split("-")[0] for case in CASES}
+    covered = {case.split("-")[0] for case in list(CASES)
+               + list(MATH_NN_CASES)}
     assert sorted(forward - covered) == []
     assert sorted(covered - forward) == []
 
@@ -837,7 +840,7 @@ def test_op_coverage_tool_counts_the_port_against_jax():
     assert rep["ported_count"] == len(port) and rep["extra"] == []
     assert rep["ported_count"] + len(rep["missing"]) == rep["jax_count"]
     assert "fused_matmul_bias_act" in rep["ported"]
-    assert "conv3d" in rep["missing"]
+    assert "gather_nd" in rep["missing"]
 
 
 def test_fused_conv_matches_the_jax_pallas_kernels(monkeypatch):
