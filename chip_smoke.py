@@ -399,6 +399,30 @@ Phases (any failure exits non-zero and prints no result):
     ``fuse_multihead_attention_pass`` against the layer's op, forward and
     backward bit for bit (``encoder_pass``);
 
+23. the book text models (``paddle_tpu_torch/tools/train_text.py``), op
+    by op: kernel 9 (tanh) against its plain version at the seq2seq
+    path's two shapes, TEXT_K9_SHAPES, and its times
+    (``text_matmul_case``); the explicit grads of ``dynamic_lstm``,
+    ``gru_unit`` and ``sequence_conv`` against the registry's vjp replay
+    at the book shapes, and their times (``text_grad_lowering``);
+    seq2seq at the book's chapter-8 widths (vocabulary 30,000, 512 / 512,
+    batch 64 x 32 tokens, sparse embeddings, Adagrad with L2Decay):
+    1 + TEXT_STEPS steps, the loss falling, kernel 9 TEXT_K9_PER_STEP
+    times a step, ms/step, tokens/s, peak memory, a 1-step profile (busy
+    ms, idle share, the recurrences' share) with the compiled step off
+    and on (``text_training_seq2seq``), TEXT_CAPTURE_STEPS steps eager
+    and captured from one state, bit for bit (``text_step_capture_*``),
+    the beam decode (beam 4, 32 steps) of the batch's sources on the
+    trained scope, op by op (``beam_search_decode`` is a host op), kernel
+    9 TEXT_K9_PER_DECODE times (``text_decode_seq2seq``); both sentiment
+    nets at the chapter-6 widths (vocabulary 5,147, 128 / 512, 3 LSTM
+    layers, batch 128 x 128, lengths 32-128) for 1 +
+    TEXT_SENTIMENT_STEPS steps, the loss falling, with the same profile
+    (``text_training_stacked_lstm`` / ``_conv``); the three programs at
+    ``train_text.TINY`` on the card and the CPU port, 3 steps from one
+    state, the seq2seq decode too (``text_card_vs_cpu``); the phase's
+    seconds by part (``text_phase_seconds``);
+
 16b. the compiled step (``FLAGS_cuda_step_session`` at auto: a static
     step or a decode step captured in a CUDA graph; the checks are
     ``paddle_tpu_torch/tools/check_step_capture.py``'s): 4 steps of
@@ -424,7 +448,9 @@ Phases (any failure exits non-zero and prints no result):
 
 17. the ``kernels`` line, one row per TPU kernel of
     ``paddle_tpu/ops/pallas_kernels.py`` and dtype: the nine f32 rows
-    (``flash_fwd_f32`` replaces two; kernel 6 at the serving shape), the
+    (``flash_fwd_f32`` replaces two; kernel 6 at the serving shape;
+    kernel 9's launches from the LeNet, word2vec and phase 23 seq2seq
+    runs), the
     two quantized rows of kernel 6 (launches from phase m), the five
     bf16 rows of kernels 1-5 (the bf16 launches from phase c, the AMP O1
     main path), the three bf16 rows of kernels 7-9 (launches from phases
@@ -5569,6 +5595,461 @@ def pspnet_phase(torch, card):
     return reports
 
 
+# --------------------------------------------------------------------------
+# Phase 23: the book text models (seq2seq translation, the sentiment nets)
+# --------------------------------------------------------------------------
+TEXT_STEPS = 3                   # op by op, after one warm-up step
+# the sentiment nets' steps: Adagrad's first steps at the book's rate
+# (each about lr per weight) overshoot at these widths, stacked_lstm_net's
+# loss going 0.693, 0.653, 0.714, 0.694 over the first four, then it
+# falls (``tools/train_text.py --against-cpu`` runs the CPU port from the
+# card's startup state as a second witness of that trajectory)
+TEXT_SENTIMENT_STEPS = 7
+TEXT_CAPTURE_STEPS = 3           # seq2seq captured == eager
+# kernel 9 on the seq2seq path: the encoder's fc(tanh, num_flatten_dims=2)
+# and the decoder's initial-state fc(tanh), forward and grad in a step,
+# forward only in a decode
+TEXT_K9_PER_STEP = 4
+TEXT_K9_PER_DECODE = 2
+# kernel 9's shapes there, (M, K, N): 64 x 32 tokens, 512 -> 2,048; and
+# 64 rows, 512 -> 512
+TEXT_K9_SHAPES = {"encoder_fc": (64 * 32, 512, 2048),
+                  "dec_init": (64, 512, 512)}
+# card vs CPU: train_text.TINY, 3 steps from one startup state; f32 sums
+# in other orders carried through recurrences of 5-6 steps: the losses
+# within TEXT_CPU_LOSS_RTOL, every state tensor within TEXT_CPU_STATE_TOL
+# of its own largest magnitude (plus one)
+TEXT_CPU_LOSS_RTOL = 1e-5
+TEXT_CPU_STATE_TOL = 1e-4
+# the beam decode card vs CPU: a source's hypotheses equal wherever the
+# CPU's top-2 final-score margin of that source exceeds this, and their
+# scores within it
+TEXT_DECODE_MARGIN = 1e-3
+# the text profiles: one traced step op by op, then one turn with the
+# compiled step on (warm-up, capture, a timed and a traced replay), not
+# profile_steps' default four: an eager turn of stacked_lstm_net runs
+# 12,852 kernels, and the default turns took phase 23 from 29 s to 60 s
+# of its 60 on an H100
+TEXT_PROFILE_TURNS = ("1",)
+# the recurrences' op types (the plain T-step loops and their grads)
+TEXT_RECURRENT_OPS = ("dynamic_lstm", "dynamic_lstm_grad", "gru_unit",
+                      "gru_unit_grad")
+
+
+def text_kernel9_check():
+    """Kernel 9 (tanh) against its plain version at the seq2seq path's two
+    shapes, two calls bit-equal, and its times against the bound, the
+    plain version and ``addmm`` + tanh (``text_matmul_case`` lines).
+    Returns {shape: row}."""
+    import torch
+
+    from paddle_tpu_torch.ops import matmul_epilogue as me
+    from paddle_tpu_torch.ops.bn_act import apply_act
+
+    rows = {}
+    for name, (m, k, n) in TEXT_K9_SHAPES.items():
+        nbytes = 4 * (m * k + k * n + n + m * n)
+        sets = [matmul_inputs(m, k, n, 300 + i)
+                for i in range(max(2, min(200, -(-COLD_BYTES // nbytes))))]
+        x, w, b = sets[0]
+        got = me.matmul_bias_act(x, w, b, "tanh")
+        again = me.matmul_bias_act(x, w, b, "tanh")
+        want = me.matmul_bias_act_reference(x, w, b, "tanh")
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not (torch.isfinite(got).all() and bool(
+                (diff <= MATMUL_ATOL + MATMUL_RTOL * want.abs()).all())):
+            fail(f"matmul_bias_act_f32 at seq2seq's {name} {(m, k, n)}: "
+                 f"max |err| {float(diff.max()):.3e}")
+        if not torch.equal(got, again):
+            fail(f"matmul_bias_act_f32 at seq2seq's {name}: two calls "
+                 f"differ")
+        bound_ms, nb, flops = matmul_bound(m, k, n)
+        per_graph = max(len(sets), 4)
+        row = {"shape": name, "M": m, "K": k, "N": n, "act": "tanh",
+               "variant": me.f32_variant(m, n, k, w.data_ptr() % 16 == 0),
+               "max_abs_err": float(diff.max()), "repeatable": True,
+               "ms": time_ms(lambda x, w, b: me.matmul_bias_act(
+                   x, w, b, "tanh"), sets, per_graph),
+               "plain_ms": time_ms(lambda x, w, b:
+                                   me.matmul_bias_act_reference(
+                                       x, w, b, "tanh"), sets, per_graph),
+               "library_ms": time_ms(lambda x, w, b: apply_act(
+                   torch.addmm(b, x, w), "tanh"), sets, per_graph),
+               "bound_ms": bound_ms,
+               "bound_by": ("bytes" if nb / HBM_BYTES_PER_S
+                            >= flops / F32_FLOP_PER_S else "operations")}
+        row["bound_share"] = bound_ms / row["ms"]
+        print("text_matmul_case " + json.dumps(row), flush=True)
+        rows[name] = row
+        del sets, got, again, want, diff
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _grad_case_ops():
+    """(op type, inputs, outputs, attrs, cotangent slots) at the book
+    shapes: dynamic_lstm as stacked_lstm_net runs it (128 rows x 128
+    steps, H 512, lengths 32-128), gru_unit as seq2seq's decoder (64 rows,
+    H 512), sequence_conv as convolution_net's window 3 (128 x 128 x 128
+    -> 512)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    lengths = torch.randint(32, 129, (128,), device="cuda", generator=gen)
+    return [
+        ("dynamic_lstm",
+         {"Input": rnd(128, 128, 2048), "Weight": rnd(512, 2048, scale=0.04),
+          "Bias": rnd(1, 2048, scale=0.1), "SequenceLength": lengths},
+         ("Hidden", "Cell", "LastH", "LastC"),
+         {"is_reverse": False, "use_peepholes": False}, ("Hidden",)),
+        ("gru_unit",
+         {"Input": rnd(64, 1536), "HiddenPrev": rnd(64, 512),
+          "Weight": rnd(512, 1536, scale=0.04)},
+         ("Gate", "ResetHiddenPrev", "Hidden"), {}, ("Hidden",)),
+        ("sequence_conv",
+         {"X": rnd(128, 128, 128), "Filter": rnd(384, 512, scale=0.05),
+          "Length": lengths},
+         ("Out",), {"contextLength": 3, "contextStart": -1,
+                    "contextStride": 1}, ("Out",)),
+    ]
+
+
+def text_grad_lowerings(torch):
+    """The three explicit grad lowerings of ``ops/sequence_ops.py``
+    against the registry's generic vjp replay on the same op at the book
+    shapes: the largest difference over each gradient's largest
+    magnitude, and each one's device ms (CUDA events, 3 calls after one)
+    (``text_grad_lowering`` lines)."""
+    import paddle_tpu_torch.framework.core as tcore
+    from paddle_tpu_torch.framework.core import EMPTY_VAR_NAME
+    from paddle_tpu_torch.ops import registry as reg
+
+    dev = torch.device("cuda")
+    rows = {}
+    for op_type, ins, out_slots, attrs, cot_slots in _grad_case_ops():
+        blk = tcore.Program().global_block()
+        env = {}
+        for slot, v in ins.items():
+            blk.create_var(name=slot)
+            env[slot] = v
+        outs = {s: [s + "_out"] for s in out_slots}
+        for (n,) in outs.values():
+            blk.create_var(name=n)
+        op = blk.append_op(op_type, inputs={s: [s] for s in ins},
+                           outputs=outs, attrs=attrs)
+        reg.run_op(op, env, blk, None, dev)
+        (desc,) = reg.make_grad_ops(op, frozenset({"SequenceLength",
+                                                   "Length"}))
+        for names in list(desc["inputs"].values()) + \
+                list(desc["outputs"].values()):
+            for n in names:
+                if n != EMPTY_VAR_NAME and not blk.has_var(n):
+                    blk.create_var(name=n)
+        gop = blk.append_op(desc["type"], inputs=desc["inputs"],
+                            outputs=desc["outputs"], attrs=desc["attrs"])
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for s in cot_slots:
+            o = env[outs[s][0]]
+            env[outs[s][0] + "@GRAD"] = torch.randn(
+                o.shape, device="cuda", generator=gen)
+        grad_names = [n for ns in desc["outputs"].values() for n in ns
+                      if n != EMPTY_VAR_NAME]
+        ctx = reg.LowerCtx(gop, env, blk, None, dev)
+        row = {"op": op_type, "inputs": {s: list(v.shape)
+                                         for s, v in ins.items()}}
+        t0 = time.perf_counter()
+        got = {}
+        for kind, fn in (("explicit", reg.OPS[desc["type"]].lower),
+                         ("generic", reg.generic_grad_lower)):
+            fn(ctx)
+            torch.cuda.synchronize()
+            got[kind] = {n: env[n].clone() for n in grad_names}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                fn(ctx)
+            end.record()
+            torch.cuda.synchronize()
+            row[f"{kind}_ms"] = start.elapsed_time(end) / 3
+        row["rel_diff"] = {
+            n: float((got["explicit"][n] - got["generic"][n]).abs().max()
+                     / (1.0 + got["generic"][n].abs().max()))
+            for n in grad_names}
+        row["speedup"] = row["generic_ms"] / row["explicit_ms"]
+        row["seconds"] = time.perf_counter() - t0
+        print("text_grad_lowering " + json.dumps(row), flush=True)
+        if not max(row["rel_diff"].values()) <= TEXT_CPU_STATE_TOL:
+            fail(f"{op_type}'s explicit grad differs from the vjp replay: "
+                 f"{row['rel_diff']}")
+        rows[op_type] = row
+        del env, got, ctx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _text_plan(run):
+    return next(p for key, p in run["executor"]._cache.items()
+                if key[0] == run["program"]._uid)
+
+
+def _recurrent_share(prof):
+    by_op = prof.get("op_type_device_ms_per_step")
+    if not isinstance(by_op, dict):
+        return "not measured"
+    ms = sum(by_op.get(t, 0.0) for t in TEXT_RECURRENT_OPS)
+    return {"ms_per_step": ms,
+            "share_of_busy": ms / prof["device_busy_ms_per_step"]}
+
+
+def text_seq2seq(torch, card):
+    """seq2seq at the book's chapter-8 widths: TEXT_STEPS steps op by op
+    (after one), kernel 9 TEXT_K9_PER_STEP times a step; a 1-step profile
+    with the compiled step off and on; TEXT_CAPTURE_STEPS steps eager and
+    captured from one state, bit for bit; the beam decode of the batch's
+    sources on the trained scope, op by op (``text_*`` lines).  Returns
+    (kernel 9's launches in the run, the decode's)."""
+    from paddle_tpu_torch.ops.matmul_epilogue import MATMUL_BIAS_ACT_F32
+    from paddle_tpu_torch.tools import check_step_capture as csc
+    from paddle_tpu_torch.tools import train_text as tt
+    from paddle_tpu_torch.tools.train_book import BOOK_GROUPS
+    from paddle_tpu_torch.tools.train_resnet import profile_steps
+
+    cfg = tt.DEFAULTS["seq2seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k9 = MATMUL_BIAS_ACT_F32
+    k9.launches = 0
+    run = tt.train("seq2seq", cfg, steps=TEXT_STEPS, device="cuda",
+                   warmup=1, log_every=1)
+    torch.cuda.synchronize()
+    launches, peak = k9.launches, torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"seq2seq losses not finite or not falling: {losses}")
+    plan = _text_plan(run)
+    types = [o.type for o in plan.ops]
+    fused = [o for o in plan.ops if o.type == "fused_matmul_bias_act"]
+    if (len(fused), types.count("fused_matmul_bias_act_grad")) != (2, 2) \
+            or any(o.attrs["act_type"] != "tanh" for o in fused):
+        fail(f"seq2seq: {len(fused)} fused tanh chains and "
+             f"{types.count('fused_matmul_bias_act_grad')} grads, "
+             f"expected 2 and 2")
+    if types.count("lookup_table_sparse_grad") != 2:
+        fail("seq2seq: the two embeddings' gradients are not SelectedRows")
+    n_steps = 1 + TEXT_STEPS
+    if launches != TEXT_K9_PER_STEP * n_steps:
+        fail(f"seq2seq: kernel 9 launched {launches} times in {n_steps} "
+             f"steps, expected {TEXT_K9_PER_STEP} a step")
+    prof = profile_steps(run, 1, BOOK_GROUPS, turns=TEXT_PROFILE_TURNS)
+    sess = prof["step_session"]
+    print("text_training_seq2seq " + json.dumps({
+        "model": "seq2seq f32 (book ch. 8 widths)", "card": card, **{
+            k: v for k, v in cfg.items()}, "is_sparse": True,
+        "warmup_steps": 1, "timed_steps": TEXT_STEPS, "losses": losses,
+        "ms_per_step": run["ms_per_step"],
+        "tokens_per_s": run["tokens_per_s"],
+        "ms_per_step_captured": sess["on"]["wall_ms"],
+        "tokens_per_s_captured": cfg["batch"] * cfg["seq"]
+        / sess["on"]["wall_ms"] * 1e3,
+        "max_memory_allocated": peak,
+        "kernel9_launches_per_step": launches / n_steps,
+        "ops_per_step": len(plan.ops),
+        "recurrences": _recurrent_share(prof), "profile": prof}),
+        flush=True)
+
+    k9.launches = 0
+    row, _, _ = csc.compare_program(
+        "seq2seq", run["program"], run["startup"],
+        [f.name for f in run["fetch"]],
+        tt.make_batch("seq2seq", cfg), steps=TEXT_CAPTURE_STEPS)
+    row["kernel9_launches"] = k9.launches
+    print("text_step_capture_seq2seq " + json.dumps(row), flush=True)
+    if not row["ok"]:
+        fail(f"seq2seq: the captured steps differ from the eager ones: "
+             f"{row}")
+    if k9.launches != 2 * TEXT_CAPTURE_STEPS * TEXT_K9_PER_STEP:
+        fail(f"seq2seq capture check: kernel 9 launched {k9.launches} "
+             f"times, expected {TEXT_K9_PER_STEP} a step, eager and "
+             f"replayed")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    k9.launches = 0
+    dec = tt.decode(run, repeats=2)
+    dec_launches = k9.launches
+    ids, lens = np.asarray(dec["ids"]), np.asarray(dec["lengths"])
+    nb = cfg["batch"] * cfg["beam"]
+    if ids.shape != (nb, cfg["max_length"]) or not (
+            (lens >= 1) & (lens <= cfg["max_length"])).all() or not \
+            np.isfinite(dec["scores"]).all():
+        fail(f"seq2seq decode: ids {ids.shape}, lengths {lens.min()}-"
+             f"{lens.max()}")
+    if dec_launches != 2 * TEXT_K9_PER_DECODE:
+        fail(f"seq2seq decode: kernel 9 launched {dec_launches} times in 2 "
+             f"decodes, expected {TEXT_K9_PER_DECODE} each")
+    print("text_decode_seq2seq " + json.dumps({
+        "beam": cfg["beam"], "max_length": cfg["max_length"],
+        "sources": cfg["batch"], "path": "op by op (a host op)",
+        "ms_per_decode": dec["ms"],
+        "ops": len(dec["program"].global_block().ops),
+        "kernel9_launches_per_decode": dec_launches / 2,
+        "mean_length": float(lens.mean())}), flush=True)
+    del run, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dec_launches
+
+
+def text_sentiment(torch, card, model):
+    """One sentiment net at the book's chapter-6 widths:
+    TEXT_SENTIMENT_STEPS steps op by op (after one), the loss falling; a
+    1-step profile with the
+    compiled step off and on (``text_training_<model>``)."""
+    from paddle_tpu_torch.tools import train_text as tt
+    from paddle_tpu_torch.tools.train_book import BOOK_GROUPS
+    from paddle_tpu_torch.tools.train_resnet import profile_steps
+
+    cfg = tt.DEFAULTS[model]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = tt.train(model, cfg, steps=TEXT_SENTIMENT_STEPS, device="cuda",
+                   warmup=1, log_every=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"{model} losses not finite or not falling: {losses}")
+    if [o.type for o in _text_plan(run).ops].count(
+            "lookup_table_sparse_grad") != 1:
+        fail(f"{model}: the embedding's gradient is not a SelectedRows")
+    prof = profile_steps(run, 1, BOOK_GROUPS, turns=TEXT_PROFILE_TURNS)
+    sess = prof["step_session"]
+    print(f"text_training_{model} " + json.dumps({
+        "model": f"{model} f32 (book ch. 6 widths)", "card": card, **cfg,
+        "is_sparse": True, "warmup_steps": 1,
+        "timed_steps": TEXT_SENTIMENT_STEPS, "losses": losses,
+        "acc": run["acc"],
+        "ms_per_step": run["ms_per_step"],
+        "tokens_per_s": run["tokens_per_s"],
+        "ms_per_step_captured": sess["on"]["wall_ms"],
+        "max_memory_allocated": peak,
+        "ops_per_step": len(_text_plan(run).ops),
+        "recurrences": _recurrent_share(prof), "profile": prof}),
+        flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def text_card_vs_cpu(torch):
+    """Each text model at ``train_text.TINY`` 3 steps on the card (fused
+    chains, kernel 9) and on the CPU port from one startup state: losses
+    within TEXT_CPU_LOSS_RTOL, the state after within TEXT_CPU_STATE_TOL;
+    then seq2seq's beam decode on both trained scopes, hypotheses equal
+    wherever the CPU's top-2 margin exceeds TEXT_DECODE_MARGIN
+    (``text_card_vs_cpu`` lines)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.framework.scope import (Scope, load_numpy_state,
+                                                  numpy_state)
+    from paddle_tpu_torch.tools import train_text as tt
+
+    for model in ("seq2seq", "stacked_lstm", "conv"):
+        cfg = tt.TINY[model]
+        main, startup, fetch = tt.build_program(model, cfg)
+        start = Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=start)
+        names = [n for n, _ in start.items()]
+        state = numpy_state(start, names)
+        feed = tt.make_batch(model, cfg)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            scope = Scope()
+            load_numpy_state(scope, state, dev)
+            exe = fluid.Executor(fluid.CPUPlace() if dev == "cpu"
+                                 else fluid.CUDAPlace(0))
+            losses = [float(exe.run(main, feed=feed, fetch_list=fetch[:1],
+                                    scope=scope)[0]) for _ in range(3)]
+            res[dev] = (losses, numpy_state(scope, names), exe, scope)
+        (cl, cs, cexe, cscope), (gl, gs, gexe, gscope) = res["cpu"], \
+            res["cuda"]
+        loss_rel = max(abs(a - b) / abs(a) for a, b in zip(cl, gl))
+        state_rel = max(float(np.abs(np.asarray(gs[n], np.float64)
+                                     - cs[n]).max()
+                              / (1.0 + np.abs(cs[n]).max()))
+                        for n in names if cs[n].size)
+        row = {"model": model, "cpu": cl, "card": gl,
+               "loss_max_rel_diff": loss_rel,
+               "state_max_rel_diff": state_rel,
+               "loss_rtol": TEXT_CPU_LOSS_RTOL,
+               "state_tol": TEXT_CPU_STATE_TOL}
+        if model == "seq2seq":
+            prog, _, dfetch = tt.build_decode_program(cfg)
+            src = tt.make_batch(model, cfg, seed=1)["src"]
+            dfeed = tt.decode_feed(cfg, src)
+            cids, csc_, _ = cexe.run(prog, feed=dfeed, fetch_list=dfetch,
+                                     scope=cscope)
+            gids, gsc, _ = gexe.run(prog, feed=dfeed, fetch_list=dfetch,
+                                    scope=gscope)
+            beam = cfg["beam"]
+            top = csc_.reshape(-1, beam)
+            clear = top[:, 0] - top[:, 1] > TEXT_DECODE_MARGIN
+            rows = np.repeat(clear, beam)
+            row.update(decode_sources=int(len(clear)),
+                       decode_compared=int(clear.sum()),
+                       decode_ids_equal=bool(
+                           (cids[rows] == gids[rows]).all()),
+                       decode_score_max_diff=float(
+                           np.abs(csc_[rows] - gsc[rows]).max())
+                       if rows.any() else 0.0)
+            if not (row["decode_ids_equal"] and row["decode_score_max_diff"]
+                    <= TEXT_DECODE_MARGIN):
+                fail(f"seq2seq decode card vs CPU: {row}")
+        print("text_card_vs_cpu " + json.dumps(row), flush=True)
+        if not (loss_rel <= TEXT_CPU_LOSS_RTOL
+                and state_rel <= TEXT_CPU_STATE_TOL):
+            fail(f"{model} card vs CPU: losses {loss_rel:.3e}, state "
+                 f"{state_rel:.3e}")
+
+
+def text_phase(torch, card):
+    """Phase 23: kernel 9 at the seq2seq shapes; the three explicit grad
+    lowerings against the vjp replay; seq2seq at book widths (train,
+    captured == eager, the beam decode); both sentiment nets; the three
+    programs card vs CPU.  Returns (kernel 9's launches on the train
+    path, its max |err| at the seq2seq shapes)."""
+    from paddle_tpu_torch.tools.train_resnet import set_card_precision
+
+    set_card_precision()
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[-1]
+        clock.append(now)
+
+    k9_rows = text_kernel9_check()
+    lap("kernel9")
+    text_grad_lowerings(torch)
+    lap("grad_lowerings")
+    launches, _ = text_seq2seq(torch, card)
+    lap("seq2seq")
+    for model in ("stacked_lstm", "conv"):
+        text_sentiment(torch, card, model)
+        lap(model)
+    text_card_vs_cpu(torch)
+    lap("card_vs_cpu")
+    seconds["total"] = clock[-1] - clock[0]
+    print("text_phase_seconds " + json.dumps(seconds), flush=True)
+    return launches, max(r["max_abs_err"] for r in k9_rows.values())
+
+
 def main():
     import torch
 
@@ -5788,6 +6269,10 @@ def main():
           "card vs CPU; the cuDNN ops")
     pspnet_phase(torch, smi_line)
 
+    phase("23. the book text models: seq2seq translation (train, "
+          "captured, beam decode) and the sentiment nets; card vs CPU")
+    text_launches, text_k9_err = text_phase(torch, smi_line)
+
     phase("compiled step: captured vs eager, graphs, times in turns")
     compiled_step_phase(torch)
 
@@ -5842,12 +6327,14 @@ def main():
             "max_abs_err": epi_errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
-    # kernel 9 per LeNet training step (its four calls)
+    # kernel 9 per LeNet training step (its four calls); launched on the
+    # LeNet, word2vec and seq2seq training paths
     rows.append({
         "name": "matmul_bias_act_f32", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/matmul_bias_act.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:1186",
-        "launches": mm_launches, "max_abs_err": mm_err, "ms": mm_step["ms"],
+        "launches": mm_launches + text_launches,
+        "max_abs_err": max(mm_err, text_k9_err), "ms": mm_step["ms"],
         "plain_ms": mm_step["plain_ms"], "bound_ms": mm_step["bound_ms"],
         "bound_by": mm_step["bound_by"],
         "library_ms": mm_step["library_ms"]})

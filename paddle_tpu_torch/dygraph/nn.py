@@ -54,8 +54,10 @@ class Embedding(Layer):
                  device="cuda", generator=None):
         super().__init__()
         if is_sparse or is_distributed:
-            raise NotImplementedError("Embedding(is_sparse/is_distributed) "
-                                      "is not ported (ROADMAP.md)")
+            raise NotImplementedError(
+                "Embedding(is_sparse/is_distributed) is not ported to "
+                "dygraph (ROADMAP.md item 2); the static "
+                "layers.embedding(is_sparse=True) is")
         self._padding_idx = -1 if padding_idx is None else padding_idx
         self.weight = create_parameter(param_attr, list(size), dtype=dtype,
                                        device=device, generator=generator)

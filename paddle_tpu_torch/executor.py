@@ -48,7 +48,13 @@ executor's device and launches its own kernels.
   dies.  An op that cannot be captured
   raises :class:`~.framework.cuda_graph.StepCaptureError` with its type;
   nothing falls back to an eager run.  ``FLAGS_cuda_step_session=0``
-  runs every step op by op, as before; ``trace_ops`` needs that.
+  runs every step op by op, as before; ``trace_ops`` needs that.  A
+  program that holds a host op (``beam_search_decode``, whose output
+  comes from a backtrack on the host) runs op by op whatever the flag.
+* **SelectedRows** (``framework/selected_rows.py``): a sparse
+  embedding's gradient lives in the step's env between its grad op and
+  its update; a fetch of one is its dense value (JAX :236-238,
+  :1077-1081).
 * **Feed staging** (:class:`FeedStager`, :func:`double_buffered_feeds`,
   JAX :149-222): batch k+1 is cast into pinned host memory and copied to
   the card on a side stream while step k runs
@@ -74,6 +80,7 @@ from .framework.cuda_graph import GraphSet, StepCaptureError
 from .framework.dtype import VarType, to_torch_dtype
 from .framework.place import resolve_place
 from .framework.scope import Scope, global_scope
+from .framework.selected_rows import maybe_dense
 from .ops import registry
 from .utils.flags import (cuda_fuse_enabled, cuda_nhwc_enabled,
                           cuda_step_session_enabled, flag_bool)
@@ -150,7 +157,7 @@ class _Plan:
     feed plan, and per op the intermediates it is the last reader of."""
 
     __slots__ = ("key", "program", "ops", "state_in", "state_out",
-                 "feed_plan", "fetch_names", "free_after", "fused")
+                 "feed_plan", "fetch_names", "free_after", "fused", "host")
 
     def __init__(self, key, program, ops, state_in, state_out, feed_plan,
                  fetch_names, free_after, fused):
@@ -163,6 +170,10 @@ class _Plan:
         self.fetch_names = fetch_names
         self.free_after = free_after
         self.fused = fused
+        #: a host op (``registry.op(host=True)``) is in the op list: the
+        #: step runs op by op, never captured
+        self.host = any(registry.OPS[o.type].host for o in ops
+                        if o.type in registry.OPS)
 
 
 def _low_precision_convs(program: Program) -> bool:
@@ -279,7 +290,7 @@ class Executor:
         feed = dict(feed or {})
         fetch_names = [_fetch_name(f) for f in (fetch_list or [])]
         plan = self._compile(program, feed, fetch_names, scope)
-        if self.session_enabled():
+        if self.session_enabled() and not plan.host:
             fetched = self._run_session(plan, program, feed, ready, scope)
         else:
             if ready is not None:
@@ -436,7 +447,7 @@ class Executor:
                         f"inside a CUDA graph capture")
                 elif cur is not val:
                     scope.set(n, val)
-        return [env[n] for n in plan.fetch_names]
+        return [maybe_dense(env[n]) for n in plan.fetch_names]
 
     # -- the compiled step -----------------------------------------------
     def _run_session(self, plan: _Plan, program: Program, feed, ready,

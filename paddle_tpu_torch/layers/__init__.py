@@ -1,8 +1,9 @@
 """fluid.layers for the static path (counterpart of
 ``paddle_tpu/layers/``): the layers the ResNet, MobileNetV3, LeNet,
-word2vec, static BERT encoder and PSPNet training programs use and the
-other layers of the activation, norm, pad, interpolation and loss ops,
-the
+word2vec, static BERT encoder, PSPNet and book text models' training
+programs use and the other layers of the activation, norm, pad,
+interpolation and loss ops, the RNN cells, ``rnn`` and the recurrent,
+sequence and beam-search layers (:mod:`.rnn`, :mod:`.sequence_lod`), the
 learning-rate schedules (:mod:`.learning_rate_scheduler`) and the
 Python operators on
 ``Variable`` (:mod:`.math_op_patch`).
@@ -38,6 +39,15 @@ from .nn import (abs, accuracy, adaptive_pool2d, argmax,  # noqa: F401
 from .tensor import (assign, create_global_var,  # noqa: F401
                      create_parameter, fill_constant,
                      fill_constant_batch_size_like, range, zeros_like)
+from . import sequence_lod
+from .sequence_lod import (sequence_conv, sequence_first_step,  # noqa: F401
+                           sequence_last_step, sequence_mask, sequence_pool,
+                           sequence_reverse, sequence_softmax)
+from . import rnn as rnn_module
+from .rnn import (GRUCell, LSTMCell, RNNCell, StaticRNN,  # noqa: F401
+                  beam_search, beam_search_decode, birnn, dynamic_gru,
+                  dynamic_lstm, gru, lstm)
+from .rnn import rnn  # noqa: F401  (the function, as in JAX)
 
 monkey_patch_variable()
 

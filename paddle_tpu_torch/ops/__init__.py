@@ -5,4 +5,4 @@ Importing the package registers the static path's op lowerings with
 :mod:`.registry`."""
 from . import registry  # noqa: F401
 from . import (extra_ops, fused_ops, math_ops, nn_ops,  # noqa: F401
-               optimizer_ops, sampling_ops, tensor_ops)
+               optimizer_ops, sampling_ops, sequence_ops, tensor_ops)

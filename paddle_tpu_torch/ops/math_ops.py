@@ -40,6 +40,7 @@ import math
 import torch
 
 from ..framework.core import GRAD_SUFFIX
+from ..framework.selected_rows import SelectedRows
 from .registry import op
 
 __all__ = ["align"]
@@ -153,6 +154,16 @@ def _clip_by_norm(ctx):
     ``max_norm``, else ``X`` (a ``torch.where``: no host read)."""
     x = ctx.in_("X")
     max_norm = ctx.attr("max_norm", 1.0)
+    if isinstance(x, SelectedRows):
+        # duplicates summed before the norm, as the reference's
+        # SelectedRows kernel does (JAX math_ops.py:198-207)
+        x = x.merge_rows()
+        norm = torch.sqrt((x.values * x.values).sum())
+        scaled = torch.where(norm > max_norm, max_norm / norm,
+                             torch.ones_like(norm))
+        ctx.set_out("Out", SelectedRows(x.rows, x.values * scaled,
+                                        x.height))
+        return
     norm = torch.sqrt((x * x).sum())
     ctx.set_out("Out", torch.where(norm > max_norm, x * (max_norm / norm),
                                    x))
@@ -175,6 +186,16 @@ def _scale(ctx):
     s = (ctx.in_("ScaleTensor") if ctx.has_input("ScaleTensor")
          else float(ctx.attr("scale", 1.0)))
     b = float(ctx.attr("bias", 0.0))
+    if isinstance(x, SelectedRows):
+        # a sparse scale touches the values only; a bias densifies
+        # (JAX math_ops.py:161-167)
+        if b == 0.0:
+            if not isinstance(s, torch.Tensor):
+                s = _in_dtype(s, x.values)
+            ctx.set_out("Out", SelectedRows(x.rows, x.values * s,
+                                            x.height))
+            return
+        x = x.to_dense()
     if x.is_floating_point():
         b = _in_dtype(b, x)
         if not isinstance(s, torch.Tensor):
@@ -283,10 +304,13 @@ def _increment(ctx):
 
 @op("sum")
 def _sum(ctx):
+    """The inputs added in order.  SelectedRows + SelectedRows
+    concatenates their rows; a SelectedRows and a dense value give the
+    dense sum (``framework/selected_rows.py``)."""
     xs = [v for v in ctx.ins("X") if v is not None]
     out = xs[0]
     for v in xs[1:]:
-        out = out + v
+        out = v.__radd__(out) if isinstance(v, SelectedRows) else out + v
     ctx.set_out("Out", out)
 
 
@@ -360,20 +384,24 @@ def _sort_key(x):
     return torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
 
 
-def _topk(ctx):
-    """The ``k`` largest (or smallest) along ``axis`` in XLA's total
-    order, ties in index order, as ``lax.top_k``: a stable sort of the
-    keys, then the first ``k``.  A ``K`` tensor is read on the host (as
-    JAX reads it at trace time), so a step with one cannot be
-    captured."""
-    x = ctx.in_("X")
-    k = int(ctx.in_("K")) if ctx.has_input("K") else int(ctx.attr("k", 1))
-    axis = ctx.attr("axis", -1)
-    largest = bool(ctx.attr("largest", True))
+def xla_top_k(x, k, axis=-1, largest=True):
+    """The ``k`` largest (or smallest) of ``x`` along ``axis`` in XLA's
+    total order, ties in index order, as ``lax.top_k``: a stable sort of
+    the keys, then the first ``k``.  (values, int64 indices)."""
     key = _sort_key(x) if largest else _sort_key(-x)
     idxs = torch.sort(key, dim=axis, stable=True, descending=True)[1]
     idxs = idxs.narrow(axis, 0, k)
-    ctx.set_out("Out", torch.take_along_dim(x, idxs, dim=axis))
+    return torch.take_along_dim(x, idxs, dim=axis), idxs
+
+
+def _topk(ctx):
+    """:func:`xla_top_k`.  A ``K`` tensor is read on the host (as JAX
+    reads it at trace time), so a step with one cannot be captured."""
+    x = ctx.in_("X")
+    k = int(ctx.in_("K")) if ctx.has_input("K") else int(ctx.attr("k", 1))
+    out, idxs = xla_top_k(x, k, ctx.attr("axis", -1),
+                          bool(ctx.attr("largest", True)))
+    ctx.set_out("Out", out)
     ctx.set_out("Indices", idxs)
 
 

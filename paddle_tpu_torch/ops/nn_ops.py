@@ -37,9 +37,10 @@ closed-form grad :509), ``accuracy`` (:858), ``dropout`` (:784, its
 mask-reading grad :813-850), ``softmax`` (:460), ``squared_l2_norm``
 (:597, the global-norm clip's) and
 ``lookup_table`` (:692-708: ids with a trailing unit axis squeezed, the
-dense gradient of the default grad maker; ``is_sparse`` raises, its
-SelectedRows gradient is not ported), ``lookup_table_v2`` and its alias
-``embedding`` (:706-707, ids as given), ``layer_norm`` (:388: statistics
+dense gradient of the default grad maker; under ``is_sparse`` the
+SelectedRows gradient of ``lookup_table_sparse_grad``, :711-761),
+``lookup_table_v2`` and its alias ``embedding`` (:706-707, ids as
+given), ``layer_norm`` (:388: statistics
 in f32, y in x's dtype; a bf16 or fp16 x with Scale and Bias rounds where
 :func:`layer_norm_lowp` does), ``log_softmax`` (:465), ``cross_entropy``
 and ``cross_entropy2`` (:544, :567: probabilities in, the label's picked
@@ -59,6 +60,7 @@ import torch.nn.functional as F
 
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX
 from ..framework.random import default_generator, seeded_generator
+from ..framework.selected_rows import SelectedRows
 from .registry import default_grad_maker, grad_maker, op
 
 __all__ = ["lookup_table_v2", "activation", "layer_norm_lowp", "unsqueeze2",
@@ -905,13 +907,52 @@ def _lookup_table(ctx):
                                        ctx.attr("padding_idx", -1)))
 
 
-@grad_maker("lookup_table")
-def _lookup_table_grad_maker(op_, no_grad_names=frozenset()):
-    if op_.attrs.get("is_sparse", False):
-        raise NotImplementedError("lookup_table with is_sparse=True: the "
-                                  "SelectedRows gradient is not ported "
-                                  "(ROADMAP.md)")
-    return default_grad_maker(op_, no_grad_names)
+def _lookup_sparse_grad_maker(fwd_type, squeeze_last):
+    """An ``is_sparse`` lookup's W gradient is a SelectedRows made in
+    O(batch) by ``lookup_table_sparse_grad`` (JAX ``nn_ops.py:711-737``;
+    reference: lookup_table_op.cc's SelectedRows grad kernel); a dense
+    one takes the default grad maker.  Ids get no gradient."""
+
+    @grad_maker(fwd_type)
+    def maker(op_, no_grad_names=frozenset()):
+        if not op_.attrs.get("is_sparse", False):
+            return default_grad_maker(op_, no_grad_names)
+        w = op_.input("W")[0]
+        out = op_.output("Out")[0]
+        w_grad = (EMPTY_VAR_NAME if w in no_grad_names
+                  else w + GRAD_SUFFIX)
+        return [dict(
+            type="lookup_table_sparse_grad",
+            inputs={"W": list(op_.input("W")),
+                    "Ids": list(op_.input("Ids")),
+                    "Out" + GRAD_SUFFIX: [out + GRAD_SUFFIX]},
+            outputs={"W" + GRAD_SUFFIX: [w_grad]},
+            attrs={**dict(op_.attrs), "__squeeze_last__": squeeze_last})]
+    return maker
+
+
+_lookup_sparse_grad_maker("lookup_table", True)
+_lookup_sparse_grad_maker("lookup_table_v2", False)
+_lookup_sparse_grad_maker("embedding", False)
+
+
+@op("lookup_table_sparse_grad", no_grad=True)
+def _lookup_table_sparse_grad(ctx):
+    """The SelectedRows W gradient: rows are the ids as the forward
+    clips them (duplicates kept), values dOut's rows, a ``padding_idx``
+    row's value zeroed (JAX ``nn_ops.py:740-761``)."""
+    w, ids = ctx.in_("W"), ctx.in_("Ids")
+    if (ctx.attr("__squeeze_last__", False) and ids.dim() > 1
+            and ids.shape[-1] == 1):
+        ids = ids.squeeze(-1)
+    rows = ids.long().reshape(-1)
+    g = ctx.in_("Out" + GRAD_SUFFIX).reshape(rows.shape[0], w.shape[-1])
+    pad = ctx.attr("padding_idx", -1)
+    if pad is not None and pad >= 0:
+        g = torch.where((rows != pad).unsqueeze(-1), g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+    ctx.set_out("W" + GRAD_SUFFIX, SelectedRows(
+        rows.clamp(0, w.shape[0] - 1), g, w.shape[0]))
 
 
 def _lookup_grad(ctx, squeeze_last):
@@ -941,11 +982,6 @@ op("lookup_table_grad", no_grad=True)(
 
 
 
-@grad_maker("lookup_table_v2")
-def _lookup_table_v2_grad_maker(op_, no_grad_names=frozenset()):
-    return _lookup_table_grad_maker(op_, no_grad_names)
-
-
 def _lookup_v2(ctx):
     ctx.set_out("Out", lookup_table_v2(ctx.in_("W"), ctx.in_("Ids"),
                                        ctx.attr("padding_idx", -1)))
@@ -953,7 +989,6 @@ def _lookup_v2(ctx):
 
 op("lookup_table_v2")(_lookup_v2)
 op("embedding")(_lookup_v2)
-grad_maker("embedding")(_lookup_table_v2_grad_maker)
 for _t in ("lookup_table_v2_grad", "embedding_grad"):
     op(_t, no_grad=True)(lambda ctx: _lookup_grad(ctx, squeeze_last=False))
 

@@ -1,7 +1,7 @@
 """Optimizer update-op lowerings of the static path (counterpart of
 ``paddle_tpu/ops/optimizer_ops.py``): ``sgd`` :60, ``momentum`` :74,
-``lars_momentum`` :106, ``adam`` :127 (dense), ``adamw`` :171,
-``adamax`` :197, ``adagrad`` :213 (dense), ``decayed_adagrad`` :234,
+``lars_momentum`` :106, ``adam`` :127, ``adamw`` :171,
+``adamax`` :197, ``adagrad`` :213, ``decayed_adagrad`` :234,
 ``adadelta`` :246, ``rmsprop`` :261, ``ftrl`` :283, ``lamb`` :302,
 ``dpsgd`` :330, ``average_accumulates`` :352, and the multi-parameter
 forms ``fused_sgd``, ``fused_momentum`` and ``fused_adam`` :405-466 that
@@ -23,9 +23,14 @@ value back to the host, so a step can be captured in a CUDA graph.
 ``dpsgd`` draws its noise from the executor's generator (the numbers are
 not JAX's, as with ``dropout``).  The norms are whole-parameter norms:
 JAX's cross-shard ``psum`` (:23-56) belongs to the data-parallel path,
-which the port does not have.  A SelectedRows gradient (sparse
-embeddings) is not ported, so the sparse forms of ``sgd``, ``momentum``,
-``adam`` and ``adagrad`` are not either.  All are no_grad.
+which the port does not have.  ``sgd``, ``momentum``, ``adam`` and
+``adagrad`` also take a SelectedRows gradient (a sparse embedding's,
+``framework/selected_rows.py``): ``sgd`` adds into the selected rows
+(duplicates summed); ``momentum``, ``adagrad`` and ``adam`` under
+``lazy_mode`` merge the duplicates first and update only the touched
+rows of the parameter and its accumulators; ``adam`` without
+``lazy_mode`` decays every row's moments, so it takes the dense
+gradient (JAX :60-160, :213-229).  All are no_grad.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ from typing import List
 
 import torch
 
+from ..framework.selected_rows import (SelectedRows, add_rows, gather_rows,
+                                       scatter_rows)
 from .registry import op
 
 __all__ = []
@@ -56,9 +63,22 @@ def _param_norm(x):
     return torch.sqrt((x * x).sum())
 
 
+def _sparse_grad(ctx, p):
+    """A SelectedRows ``Grad`` merged (duplicates summed) and in p's
+    dtype: (the merged rows, their values)."""
+    m = ctx.in_("Grad").merge_rows()
+    return m, m.values.to(p.dtype)
+
+
 @_opt("sgd")
 def _sgd(ctx):
     p = ctx.in_("Param")
+    g = ctx.in_("Grad")
+    if isinstance(g, SelectedRows):
+        # only the selected rows move; duplicates add in turn
+        ctx.set_out("ParamOut", add_rows(
+            p.clone(), g, -_lr(ctx, p.dtype) * g.values.to(p.dtype)))
+        return
     ctx.set_out("ParamOut", p - _lr(ctx, p.dtype) * _grad(ctx, p))
 
 
@@ -67,8 +87,20 @@ def _momentum(ctx):
     """``v = mu * v + g``; ``p -= lr * v`` (or, Nesterov,
     ``p -= (g + mu * v) * lr``)."""
     p, v = ctx.in_("Param"), ctx.in_("Velocity")
-    g, lr = _grad(ctx, p), _lr(ctx, p.dtype)
     mu = ctx.attr("mu", 0.9)
+    if isinstance(ctx.in_("Grad"), SelectedRows):
+        # lazy: the untouched rows keep their velocity
+        m, g = _sparse_grad(ctx, p)
+        lr = _lr(ctx, p.dtype)
+        v_rows = mu * gather_rows(v, m) + g
+        if ctx.attr("use_nesterov", False):
+            upd = (g + mu * v_rows) * lr
+        else:
+            upd = lr * v_rows
+        ctx.set_out("ParamOut", scatter_rows(p, m, gather_rows(p, m) - upd))
+        ctx.set_out("VelocityOut", scatter_rows(v, m, v_rows))
+        return
+    g, lr = _grad(ctx, p), _lr(ctx, p.dtype)
     v_new = mu * v + g
     if ctx.attr("use_nesterov", False):
         p_new = p - (g + mu * v_new) * lr
@@ -121,11 +153,29 @@ def _set_adam_outs(ctx, p_new, m1_new, m2_new):
 @_opt("adam")
 def _adam(ctx):
     """Paddle's Adam: epsilon added to the uncorrected ``sqrt(v)``, the
-    beta powers advanced after the update.  Dense gradients only (Adam's
-    ``lazy_mode`` is the SelectedRows path)."""
+    beta powers advanced after the update.  A SelectedRows gradient is
+    densified (every row's moments decay) unless ``lazy_mode``, where
+    only the touched rows' moments and values change."""
     p = ctx.in_("Param")
-    g = _grad(ctx, p)
     eps = ctx.attr("epsilon", 1e-8)
+    g = ctx.in_("Grad")
+    if isinstance(g, SelectedRows) and not ctx.attr("lazy_mode", False):
+        g = g.to_dense()
+    if isinstance(g, SelectedRows):
+        m, gv = _sparse_grad(ctx, p)
+        b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
+        b1p, b2p = ctx.in_("Beta1Pow"), ctx.in_("Beta2Pow")
+        lr_t = (_lr(ctx, p.dtype) * torch.sqrt(
+            1 - b2p.reshape(()).to(p.dtype) * b2)
+            / (1 - b1p.reshape(()).to(p.dtype) * b1))
+        m1_r = b1 * gather_rows(ctx.in_("Moment1"), m) + (1 - b1) * gv
+        m2_r = b2 * gather_rows(ctx.in_("Moment2"), m) + (1 - b2) * (gv * gv)
+        upd = lr_t * m1_r / (torch.sqrt(m2_r) + eps)
+        _set_adam_outs(ctx, scatter_rows(p, m, gather_rows(p, m) - upd),
+                       scatter_rows(ctx.in_("Moment1"), m, m1_r),
+                       scatter_rows(ctx.in_("Moment2"), m, m2_r))
+        return
+    g = g if g.dtype == p.dtype else g.to(p.dtype)
     lr_t, m1_new, m2_new = _adam_moments(ctx, p, g)
     _set_adam_outs(ctx, p - lr_t * m1_new / (torch.sqrt(m2_new) + eps),
                    m1_new, m2_new)
@@ -162,8 +212,17 @@ def _adamax(ctx):
 
 @_opt("adagrad")
 def _adagrad(ctx):
-    """``m += g^2``; ``p -= lr * g / (sqrt(m) + eps)`` (dense)."""
+    """``m += g^2``; ``p -= lr * g / (sqrt(m) + eps)`` (on the touched
+    rows only for a SelectedRows gradient)."""
     p = ctx.in_("Param")
+    if isinstance(ctx.in_("Grad"), SelectedRows):
+        m, g = _sparse_grad(ctx, p)
+        m_r = gather_rows(ctx.in_("Moment"), m) + g * g
+        upd = _lr(ctx, p.dtype) * g / (torch.sqrt(m_r)
+                                       + ctx.attr("epsilon", 1e-6))
+        ctx.set_out("ParamOut", scatter_rows(p, m, gather_rows(p, m) - upd))
+        ctx.set_out("MomentOut", scatter_rows(ctx.in_("Moment"), m, m_r))
+        return
     g = _grad(ctx, p)
     m_new = ctx.in_("Moment") + g * g
     ctx.set_out("ParamOut", p - _lr(ctx, p.dtype) * g

@@ -30,6 +30,7 @@ import torch
 
 from ..framework.core import EMPTY_VAR_NAME, GRAD_SUFFIX, Block, Operator
 from ..framework.dtype import canonical_dtype, to_torch_dtype
+from ..framework.selected_rows import SelectedRows
 
 __all__ = ["OPS", "OpDef", "op", "grad_maker", "infer_for", "resolve",
            "LowerCtx", "infer_shape", "run_op", "eager_call", "has_grad",
@@ -43,7 +44,7 @@ OPS: Dict[str, "OpDef"] = {}
 
 class OpDef:
     __slots__ = ("type", "lower", "grad_maker", "infer_shape", "no_grad",
-                 "_generic_grad")
+                 "host", "_generic_grad")
 
     def __init__(self, type):
         self.type = type
@@ -51,16 +52,21 @@ class OpDef:
         self.grad_maker: Optional[Callable] = None
         self.infer_shape: Optional[Callable] = None
         self.no_grad = False
+        self.host = False
         self._generic_grad = False
 
 
-def op(type: str, *, no_grad: bool = False):
-    """Decorator registering a forward lowering for ``type``."""
+def op(type: str, *, no_grad: bool = False, host: bool = False):
+    """Decorator registering a forward lowering for ``type``.  A ``host``
+    op reads its inputs back to the host (its output's shape or values
+    come from the data), so a program that holds one runs op by op,
+    never as a captured step (JAX's ``host=True`` ops)."""
 
     def deco(fn):
         d = OPS.setdefault(type, OpDef(type))
         d.lower = fn
         d.no_grad = no_grad
+        d.host = host
         return fn
 
     return deco
@@ -122,8 +128,18 @@ class LowerCtx:
         self.generator = generator
         self.device = device
 
+    #: the registered ops that take a SelectedRows input as it is (JAX
+    #: ``ops/registry.py:193-201``; reference: the optimizers'
+    #: SelectedRows kernels); every other op sees it densified, so no
+    #: result depends on an op's sparse support
+    SPARSE_AWARE = frozenset({
+        "sgd", "momentum", "adam", "adagrad", "sum", "scale",
+        "clip_by_norm",
+    })
+
     # inputs ---------------------------------------------------------------
     def ins(self, slot: str, missing_ok: bool = False) -> List[Any]:
+        sparse_ok = self.op.type in self.SPARSE_AWARE
         out = []
         for n in self.op.inputs.get(slot, []):
             if n == EMPTY_VAR_NAME:
@@ -136,7 +152,10 @@ class LowerCtx:
                 raise KeyError(
                     f"op {self.op.type}: input var {n!r} (slot {slot}) "
                     f"has no value — not initialized or not fed")
-            out.append(self.env[n])
+            v = self.env[n]
+            if not sparse_ok and isinstance(v, SelectedRows):
+                v = v.to_dense()
+            out.append(v)
         return out
 
     def in_(self, slot: str):

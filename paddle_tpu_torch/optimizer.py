@@ -382,11 +382,15 @@ class LarsMomentumOptimizer(Optimizer):
 
 
 class AdamOptimizer(Optimizer):
+    """Adam.  ``lazy_mode`` updates only the rows a SelectedRows gradient
+    touches, and acts only on an ``adam`` op that
+    ``fuse_optimizer_ops_pass`` leaves alone: the pass, as JAX's, groups
+    a sparse update with the dense ones sharing its rate and attributes
+    into ``fused_adam``, which sees the densified gradient, so with two
+    or more such parameters every row's moments decay."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
-        if lazy_mode:
-            raise NotImplementedError("Adam lazy_mode (sparse rows) is not "
-                                      "ported")
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._lazy_mode = lazy_mode

@@ -206,7 +206,7 @@ RESNET_GROUPS = {
 
 
 def profile_steps(run: dict, steps: int, groups=None,
-                  between=None) -> dict:
+                  between=None, turns=("0", "1", "1", "0")) -> dict:
     """Run ``steps`` warm steps of a :func:`train` result op by op
     (``FLAGS_cuda_step_session=0``: the per-op ranges need the eager
     path), then trace as many again with ``torch.profiler``: host wall ms
@@ -218,7 +218,7 @@ def profile_steps(run: dict, steps: int, groups=None,
     else, and per program op type its kernels' device ms and their span
     on the timeline (gaps included).  Then ``step_session``: wall and busy
     ms per step and the idle
-    share with the compiled step off and on, in turns
+    share with the compiled step off and on, in ``turns``
     (:func:`~.step_timing.session_turns`; ``between`` runs after each
     turn and may put a new executor in ``run["executor"]``)."""
     groups = RESNET_GROUPS if groups is None else groups
@@ -234,7 +234,8 @@ def profile_steps(run: dict, steps: int, groups=None,
         report = _profile_eager(run["executor"], step, steps, groups)
     finally:
         set_flags({"FLAGS_cuda_step_session": prev})
-    report["step_session"] = session_turns(step, steps, between=between)
+    report["step_session"] = session_turns(step, steps, turns,
+                                           between=between)
     return report
 
 

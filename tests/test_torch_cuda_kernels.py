@@ -2518,3 +2518,96 @@ def test_mean_iou_and_ignored_softmax_ce_on_the_card(cuda):
             np.testing.assert_allclose(got[n].cpu().double().numpy(),
                                        w.double().numpy(), err_msg=n,
                                        rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the book text models: seq2seq's step captured, the SelectedRows updates
+# --------------------------------------------------------------------------
+def test_captured_seq2seq_steps_equal_eager_steps(capture):
+    """seq2seq at a small size (``train_text.TINY``; two sparse embeddings
+    and L2Decay, so SelectedRows gradients go through ``sum``; kernel 9
+    on its two tanh chains): three steps op by op and captured give the
+    same fetches and scope state bit for bit, one graph."""
+    from paddle_tpu_torch.tools import train_text as tt
+
+    cfg = tt.TINY["seq2seq"]
+    main, startup, fetch = tt.build_program("seq2seq", cfg)
+    row, _, _ = capture.compare_program(
+        "seq2seq", main, startup, [f.name for f in fetch],
+        tt.make_batch("seq2seq", cfg), steps=3)
+    assert row["ok"], row
+
+
+def _sr_update(dev, op_type, lazy):
+    """One update op with a SelectedRows gradient of duplicate ids on
+    ``dev``: {output: numpy}."""
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
+
+    rng = np.random.RandomState(0)
+    vocab, dim = 50, 16
+    p = rng.randn(vocab, dim).astype(np.float32)
+    rows = rng.randint(0, vocab, 40).astype(np.int64)
+    rows[:8] = 7                              # one id eight times
+    vals = rng.randn(40, dim).astype(np.float32)
+    grad = SelectedRows(torch.from_numpy(rows).to(dev),
+                        torch.from_numpy(vals).to(dev), vocab)
+    t = {"p": p, "lr": np.array([0.1], np.float32)}
+    ins = {"Param": ["p"], "Grad": ["g"], "LearningRate": ["lr"]}
+    outs = {"ParamOut": ["p"]}
+    attrs = {}
+    if op_type == "adam":
+        t.update(m1=0.1 * rng.randn(vocab, dim).astype(np.float32),
+                 m2=(rng.rand(vocab, dim) + 0.1).astype(np.float32),
+                 b1p=np.array([0.729], np.float32),
+                 b2p=np.array([0.997], np.float32))
+        for slot, n in (("Moment1", "m1"), ("Moment2", "m2"),
+                        ("Beta1Pow", "b1p"), ("Beta2Pow", "b2p")):
+            ins[slot], outs[slot + "Out"] = [n], [n]
+        attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                 "lazy_mode": lazy}
+    else:
+        t["m"] = (rng.rand(vocab, dim) + 0.1).astype(np.float32)
+        ins["Moment"], outs["MomentOut"] = ["m"], ["m"]
+        attrs = {"epsilon": 1e-6}
+    import paddle_tpu_torch.framework.core as tcore
+    import paddle_tpu_torch.ops.registry as treg
+
+    env = {k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+    env["g"] = grad
+    blk = tcore.Program().global_block()
+    for n in env:
+        blk.create_var(name=n)
+    op = blk.append_op(op_type, inputs=ins, outputs=outs, attrs=attrs)
+    treg.run_op(op, env, blk, None, dev)
+    return {n: env[n].cpu().numpy() for ns in outs.values() for n in ns}
+
+
+@pytest.mark.parametrize("op_type,lazy", [("adam", True), ("adam", False),
+                                          ("adagrad", False)])
+def test_sparse_update_on_the_card_equals_the_cpu(cuda, op_type, lazy):
+    """A SelectedRows step (duplicate ids merged in a fixed order) on the
+    card against the CPU port: rtol 1e-6 / atol 1e-7, the elementwise
+    update's tolerance (``torch_optimizer_cases.ELEMENTWISE``)."""
+    card = _sr_update(cuda, op_type, lazy)
+    cpu = _sr_update(torch.device("cpu"), op_type, lazy)
+    for n in cpu:
+        np.testing.assert_allclose(card[n], cpu[n], rtol=1e-6, atol=1e-7,
+                                   err_msg=n)
+
+
+def test_merge_rows_gives_the_same_bits_on_two_runs(cuda):
+    """``merge_rows`` and ``to_dense`` over 200,000 rows of 2,000 ids
+    (about 100 copies of each): the same bits on two runs."""
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    rows = torch.randint(0, 2000, (200000,), device=cuda, generator=gen)
+    vals = torch.randn(200000, 64, device=cuda, generator=gen)
+    sr = SelectedRows(rows, vals, 2000)
+    a, b = sr.merge_rows(), sr.merge_rows()
+    assert torch.equal(a.rows, b.rows) and torch.equal(a.values, b.values)
+    assert torch.equal(sr.to_dense(), sr.to_dense())
+    want = torch.zeros(2000, 64, dtype=torch.float64, device=cuda)
+    want.index_add_(0, rows, vals.double())
+    torch.testing.assert_close(a.to_dense().double(), want, rtol=1e-5,
+                               atol=1e-4)

@@ -811,14 +811,15 @@ def test_op_matches_jax(case):
 
 def test_every_registered_op_has_a_parity_case():
     """The port's op-coverage meter: no forward op lands in the registry
-    without a case above or in ``test_torch_static_ops_math_nn.py``'s
-    table (a case's name is its op type, then an optional
-    ``-variant``)."""
+    without a case above or in ``test_torch_static_ops_math_nn.py``'s or
+    ``test_torch_sequence_ops.py``'s table (a case's name is its op type,
+    then an optional ``-variant``)."""
+    from test_torch_sequence_ops import CASES as SEQUENCE_CASES
     from test_torch_static_ops_math_nn import CASES as MATH_NN_CASES
     forward = {t for t, d in treg.OPS.items()
                if d.lower is not None and not t.endswith("_grad")}
     covered = {case.split("-")[0] for case in list(CASES)
-               + list(MATH_NN_CASES)}
+               + list(MATH_NN_CASES) + list(SEQUENCE_CASES)}
     assert sorted(forward - covered) == []
     assert sorted(covered - forward) == []
 
